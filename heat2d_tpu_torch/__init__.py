@@ -1,0 +1,8 @@
+"""heat2d-tpu on PyTorch and CUDA: the port of the JAX package
+``heat2d_tpu`` to an NVIDIA H100.
+
+This package imports ``torch`` and ``numpy``, never ``jax`` or anything
+of ``heat2d_tpu``. Its entry points (``models.solver.Heat2DSolver``,
+``cli.main``, ``ops.cuda_stencil.make_single_chip_runner``) run on the
+card unless the caller asks for the CPU with ``device="cpu"``.
+"""

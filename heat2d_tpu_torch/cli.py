@@ -1,0 +1,165 @@
+"""Command-line driver of the port: ``python -m heat2d_tpu_torch.cli``
+(installed as ``heat2d-tpu-torch``).
+
+The flags this slice implements keep the JAX CLI's names and defaults
+(``heat2d_tpu/cli.py``); ``--device {cuda,cpu}`` takes the place of
+``--platform``. The output matches the JAX CLI's: the startup banner,
+``initial.dat``/``final.dat`` in either layout, optional binary dumps and
+checkpoint, ``Exiting after N iterations`` and ``Elapsed time: %e sec``.
+
+    python -m heat2d_tpu_torch.cli --mode pallas --nxprob 640 \\
+        --nyprob 1024 --steps 10000
+    python -m heat2d_tpu_torch.cli --device cpu --accum-dtype float64
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+from heat2d_tpu_torch.config import MODES, ConfigError, HeatConfig
+from heat2d_tpu_torch.utils.device import DeviceUnavailableError
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="heat2d-tpu-torch",
+        description="2D heat-equation solver on PyTorch and CUDA (the "
+                    "port of heat2d-tpu; capabilities of patschris/Heat2D)")
+    p.add_argument("--mode", default="serial", choices=list(MODES),
+                   help="serial = plain PyTorch golden model; pallas = "
+                        "the hand-written CUDA kernels (the other modes "
+                        "are not ported yet)")
+    g = p.add_argument_group("problem (reference #define names)")
+    g.add_argument("--nxprob", type=int, default=10)
+    g.add_argument("--nyprob", type=int, default=10)
+    g.add_argument("--steps", type=int, default=100)
+    g.add_argument("--cx", type=float, default=0.1)
+    g.add_argument("--cy", type=float, default=0.1)
+    c = p.add_argument_group("convergence")
+    c.add_argument("--convergence", action="store_true")
+    c.add_argument("--interval", type=int, default=20)
+    c.add_argument("--sensitivity", type=float, default=0.1)
+    o = p.add_argument_group("output")
+    o.add_argument("--outdir", default=".")
+    o.add_argument("--dat-layout", default="rowmajor",
+                   choices=["rowmajor", "baseline", "none"],
+                   help="text dump layout; 'baseline' matches "
+                        "mpi_heat2Dn.c prtdat orientation")
+    o.add_argument("--binary-dumps", action="store_true",
+                   help="also write initial_binary.dat/final_binary.dat "
+                        "(MPI-IO byte format)")
+    o.add_argument("--checkpoint", default=None,
+                   help="path to write a loadable checkpoint of the final "
+                        "state (the JAX package's format)")
+    o.add_argument("--resume", default=None,
+                   help="checkpoint file to resume from (the remaining "
+                        "steps run); either stack's checkpoints load")
+    o.add_argument("--run-record", default=None,
+                   help="path for the JSON run record")
+    p.add_argument("--accum-dtype", default="float32",
+                   choices=["float32", "float64"],
+                   help="float64 mirrors the C reference's double promotion")
+    p.add_argument("--bitwise-parity", action="store_true",
+                   help="pallas mode: use the literal reference stencil "
+                        "expression instead of the FMA factoring, making "
+                        "results bitwise identical to --mode serial")
+    p.add_argument("--debug", action="store_true")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="run on the CUDA card (default) or, with the "
+                        "plain PyTorch versions of the kernels, the CPU")
+    return p
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    try:
+        cfg = HeatConfig(
+            nxprob=args.nxprob, nyprob=args.nyprob, steps=args.steps,
+            cx=args.cx, cy=args.cy, convergence=args.convergence,
+            interval=args.interval, sensitivity=args.sensitivity,
+            mode=args.mode, accum_dtype=args.accum_dtype, debug=args.debug,
+            bitwise_parity=args.bitwise_parity)
+        from heat2d_tpu_torch.models.solver import Heat2DSolver
+        solver = Heat2DSolver(cfg, device=args.device)
+    except (ConfigError, DeviceUnavailableError) as e:
+        print(f"{e}\nQuitting...", file=sys.stderr)
+        return 1
+
+    from heat2d_tpu_torch.io.binary import (CheckpointCorruptError,
+                                            load_checkpoint, save_checkpoint,
+                                            write_binary, write_json_atomic)
+    from heat2d_tpu_torch.io.writers import (write_grid_baseline,
+                                             write_grid_rowmajor)
+
+    # Startup banner (grad1612_mpi_heat.c:66-69).
+    print(f"Starting with {cfg.n_shards} shards")
+    print(f"Problem size:{cfg.nxprob}x{cfg.nyprob}")
+    print(f"Amount of iterations: {cfg.steps}")
+    if cfg.convergence:
+        print(f"Check for convergence every {cfg.interval} iterations")
+
+    start_step = 0
+    if args.resume:
+        try:
+            grid, start_step, _ = load_checkpoint(args.resume,
+                                                  shape=cfg.shape)
+        except CheckpointCorruptError as e:
+            print(f"ERROR: checkpoint failed integrity verification "
+                  f"({e})\nQuitting...", file=sys.stderr)
+            return 1
+        print(f"Resuming from step {start_step}")
+        if tuple(grid.shape) != cfg.shape:
+            print(f"ERROR: checkpoint grid is {grid.shape[0]}x"
+                  f"{grid.shape[1]} but config is {cfg.nxprob}x"
+                  f"{cfg.nyprob}\nQuitting...", file=sys.stderr)
+            return 1
+        solver = Heat2DSolver(
+            cfg.replace(steps=max(cfg.steps - start_step, 0)),
+            device=args.device)
+        u0 = solver.place(grid)
+    else:
+        u0 = solver.init_state()
+
+    def write_dat(u_host, name):
+        if args.dat_layout == "none":
+            return
+        path = os.path.join(args.outdir, name)
+        if args.dat_layout == "baseline":
+            write_grid_baseline(u_host, path)
+        else:
+            write_grid_rowmajor(u_host, path)
+        print(f"Writing {name} ...")
+
+    os.makedirs(args.outdir, exist_ok=True)
+    u0_host = u0.cpu().numpy()
+    if args.binary_dumps:
+        write_binary(u0_host, os.path.join(args.outdir,
+                                           "initial_binary.dat"))
+    write_dat(u0_host, "initial.dat")
+
+    result = solver.run(u0=u0)
+    total_steps = start_step + result.steps_done
+    print(f"Exiting after {result.steps_done} iterations")
+    print(f"Elapsed time: {result.elapsed:e} sec")
+    if args.binary_dumps:
+        write_binary(result.u, os.path.join(args.outdir, "final_binary.dat"))
+    write_dat(result.u, "final.dat")
+    if args.checkpoint:
+        save_checkpoint(result.u, total_steps, cfg, args.checkpoint)
+
+    record = result.to_record()
+    record["total_steps_including_resume"] = total_steps
+    if args.resume:
+        record["resume_from_step"] = start_step
+    if args.run_record:
+        write_json_atomic(record, args.run_record)
+    if cfg.debug:
+        print(json.dumps(record, indent=2))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

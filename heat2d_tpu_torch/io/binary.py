@@ -1,0 +1,173 @@
+"""Binary state dumps and checkpoint/resume, byte-compatible with
+``heat2d_tpu/io/binary.py``.
+
+A dump is the grid as raw native-endian float32 in global row-major
+order (the reference's MPI-IO layout). A checkpoint is a dump plus a JSON
+sidecar (``<path>.meta.json``: step, shape, dtype, the binary's sha256,
+the config, and the format tag ``heat2d-tpu-checkpoint-v1``), so a
+checkpoint written by either stack loads in the other. Every write is
+staged to a ``.tmp`` file, fsync'd and promoted with ``os.replace``.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+
+import numpy as np
+
+CHECKPOINT_FORMAT = "heat2d-tpu-checkpoint-v1"
+
+
+class CheckpointCorruptError(ValueError):
+    """A checkpoint failed its integrity checks (digest mismatch,
+    truncated binary, unreadable sidecar)."""
+
+
+def _host_f32(u) -> np.ndarray:
+    """A host float32 array from a numpy array or a tensor on any device."""
+    if hasattr(u, "detach"):
+        u = u.detach().cpu().numpy()
+    return np.asarray(u, dtype=np.float32)
+
+
+def _sha256_file(path, chunk: int = 1 << 20) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        while True:
+            b = f.read(chunk)
+            if not b:
+                break
+            h.update(b)
+    return h.hexdigest()
+
+
+def _fsync_path(path) -> None:
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _write_bytes_atomic(data: bytes, path) -> None:
+    path = str(path)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+def write_binary(u, path) -> None:
+    """Raw f32 row-major dump, byte-identical to the MPI-IO file layout."""
+    _write_bytes_atomic(_host_f32(u).tobytes(), path)
+
+
+def read_binary(path, shape) -> np.ndarray:
+    a = np.fromfile(path, dtype=np.float32)
+    expected = int(np.prod(shape))
+    if a.size != expected:
+        raise ValueError(
+            f"{path}: expected {expected} float32 values for shape {shape}, "
+            f"found {a.size}")
+    return a.reshape(shape)
+
+
+def write_text_atomic(text: str, path) -> None:
+    """Commit a text artifact crash-consistently: staged to
+    ``path + '.tmp'``, fsync'd, promoted with ``os.replace``."""
+    _write_bytes_atomic(text.encode(), path)
+
+
+def write_json_atomic(obj, path, **dump_kwargs) -> None:
+    """``write_text_atomic`` for one JSON document."""
+    dump_kwargs.setdefault("indent", 2)
+    write_text_atomic(json.dumps(obj, **dump_kwargs) + "\n", path)
+
+
+def checkpoint_tmp_path(path) -> str:
+    """The staging file a checkpoint is written to before its commit."""
+    return str(path) + ".tmp"
+
+
+def commit_checkpoint_files(tmp_path, path, step: int, config,
+                            out_shape) -> None:
+    """Promote a fully written staging binary to a checkpoint: digest,
+    fsync, ``os.replace`` the binary, then the sidecar with the digest
+    the same way, then fsync the directory. A crash between the two
+    replaces leaves a pair whose digest does not match, which
+    ``load_checkpoint`` rejects."""
+    digest = _sha256_file(tmp_path)
+    _fsync_path(tmp_path)
+    os.replace(tmp_path, path)
+    meta = {
+        "step": int(step),
+        "shape": [int(s) for s in out_shape],
+        "dtype": "float32",
+        "sha256": digest,
+        "config": config.to_dict() if hasattr(config, "to_dict")
+                  else dict(config or {}),
+        "format": CHECKPOINT_FORMAT,
+    }
+    meta_path = str(path) + ".meta.json"
+    meta_tmp = meta_path + ".tmp"
+    with open(meta_tmp, "w") as f:
+        json.dump(meta, f, indent=2)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(meta_tmp, meta_path)
+    _fsync_path(os.path.dirname(os.path.abspath(str(path))))
+
+
+def save_checkpoint(u, step: int, config, path, shape=None) -> None:
+    """State dump + sidecar, committed crash-consistently. ``shape`` crops
+    a padded grid to the domain."""
+    a = _host_f32(u)
+    if shape is not None and tuple(a.shape) != tuple(shape):
+        a = a[:shape[0], :shape[1]]
+    tmp = checkpoint_tmp_path(path)
+    with open(tmp, "wb") as f:
+        f.write(np.ascontiguousarray(a).tobytes())
+    commit_checkpoint_files(tmp, path, step, config, a.shape)
+
+
+def load_checkpoint(path, shape=None, verify: bool = True):
+    """Returns (grid, step, config_dict). Without a sidecar (a raw
+    ``final_binary.dat``) ``shape`` is required and step is 0. A sidecar's
+    sha256 is verified unless ``verify`` is False; a mismatch, truncation
+    or unreadable sidecar raises ``CheckpointCorruptError``."""
+    meta_path = str(path) + ".meta.json"
+    if not os.path.exists(meta_path):
+        if shape is None:
+            raise ValueError(
+                f"no sidecar at {meta_path}; pass shape= explicitly")
+        return read_binary(path, shape), 0, {}
+    try:
+        with open(meta_path) as f:
+            meta = json.load(f)
+        meta_shape = tuple(meta["shape"])
+        step = int(meta["step"])
+        digest = meta.get("sha256")
+    except (json.JSONDecodeError, KeyError, ValueError, TypeError) as e:
+        raise CheckpointCorruptError(f"{path}: {e}") from e
+    try:
+        with open(path, "rb") as f:
+            buf = f.read()
+    except OSError as e:
+        raise CheckpointCorruptError(f"{path}: {e}") from e
+    if verify and digest is not None:
+        actual = hashlib.sha256(buf).hexdigest()
+        if actual != digest:
+            raise CheckpointCorruptError(
+                f"{path}: sha256 mismatch (sidecar {digest[:12]}..., "
+                f"file {actual[:12]}...) - torn or corrupt checkpoint")
+    a = np.frombuffer(buf, dtype=np.float32)
+    expected = int(np.prod(meta_shape))
+    if a.size != expected:
+        raise CheckpointCorruptError(
+            f"{path}: expected {expected} float32 values for shape "
+            f"{meta_shape}, found {a.size}")
+    return a.reshape(meta_shape).copy(), step, meta.get("config", {})

@@ -1,0 +1,53 @@
+"""Run records: the JAX package's schema (``heat2d_tpu/obs/record.py``)
+with the same payload keys, and an envelope that names the card.
+
+The envelope carries the schema tag, the record kind, a timestamp, the
+torch version, and the device: the card's name, count and power limit
+(from ``nvidia-smi``), since a number on a card set below its 700 W
+maximum is not comparable with one at full power.
+"""
+
+from __future__ import annotations
+
+import datetime
+
+import torch
+
+RECORD_SCHEMA = "heat2d-tpu/run-record/v1"
+
+
+def run_context(device=None) -> dict:
+    from heat2d_tpu_torch.utils.device import device_summary
+    return {
+        "schema": RECORD_SCHEMA,
+        "timestamp": datetime.datetime.now(
+            datetime.timezone.utc).isoformat(timespec="seconds"),
+        "torch_version": torch.__version__,
+        "device": device_summary(device),
+        "world": {"process_index": 0, "process_count": 1},
+    }
+
+
+def build_record(kind: str, config=None, steps_done=None, elapsed_s=None,
+                 mcells_per_s=None, warmup_s=None, extra=None,
+                 device=None) -> dict:
+    """Unified run record; ``extra`` merges payload keys, and keys the
+    record already has win over the envelope."""
+    rec: dict = {}
+    if config is not None:
+        rec["config"] = (config if isinstance(config, dict)
+                         else config.to_dict())
+    if steps_done is not None:
+        rec["steps_done"] = int(steps_done)
+    if elapsed_s is not None:
+        rec["elapsed_s"] = float(elapsed_s)
+    if mcells_per_s is not None:
+        rec["mcells_per_s"] = float(mcells_per_s)
+    if warmup_s is not None:
+        rec["warmup_s"] = float(warmup_s)
+    if extra:
+        rec.update(extra)
+    rec.setdefault("kind", kind)
+    for k, v in run_context(device).items():
+        rec.setdefault(k, v)
+    return rec

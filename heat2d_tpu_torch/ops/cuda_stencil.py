@@ -1,0 +1,435 @@
+"""The hand-written CUDA stencil kernels, their plain PyTorch versions,
+the tile planner, and the single-device kernel route
+(``make_single_chip_runner``): the port of ``heat2d_tpu/ops/
+pallas_stencil.py`` for mode ``pallas``.
+
+Four kernels (sources in ``csrc/stencil.cu``):
+
+====  ==================  ==================================================
+H1    ``step``            one clamped step, src -> dst; replaces kernel B
+                          (``pallas_stencil.py:_band_kernel`` via
+                          ``band_step``)
+H2    ``tile_multi``      ``nsub <= T`` steps per round trip to device
+                          memory on shared-memory tiles with a T-deep halo
+                          ring; replaces kernels C, C2 and C3
+                          (``_band_multi_kernel``, ``_band_window_kernel``)
+H3    ``tile_multi_resid``  H2 plus one partial sum of squared deltas of
+                          the last step pair per tile; replaces C2R/C3R
+                          (``_band_window_resid_kernel``)
+H4    ``resident``        every step in one cooperative launch, grid-wide
+                          barrier between steps, two ping-pong buffers the
+                          L2 holds; replaces kernel A (``_vmem_kernel``
+                          via ``multi_step_vmem``)
+====  ==================  ==================================================
+
+Every wrapper takes a float32 grid. On a CPU tensor it runs the kernel's
+plain PyTorch version (same step form, same mask); on a CUDA tensor it
+launches the kernel, or raises. It never falls back. Each launch adds one
+to the wrapper's entry in ``LAUNCHES``; the plain versions count nothing.
+
+The TPU kernels' row-band and VMEM geometry (``plan_bands``, the probed
+window tables, the column panels) has no counterpart here: those were
+ways around the TPU's VMEM, and the tiles are planned from the card's
+shared-memory limit instead (``plan_tiles``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple
+
+import torch
+
+from heat2d_tpu_torch.models import engine
+from heat2d_tpu_torch.ops import _build
+from heat2d_tpu_torch.ops.stencil import residual_sq
+from heat2d_tpu_torch.utils.device import resolve_device
+from heat2d_tpu_torch.utils.profiling import phase
+
+FORM_FMA = 0
+FORM_LITERAL = 1
+
+#: Default temporal depth of the tile sweeps (the JAX package's
+#: ``DEFAULT_TSTEPS``): device-memory bytes per step fall ~T-fold.
+DEFAULT_TSTEPS = 8
+
+#: Thread block of the tile and step kernels (csrc/stencil.cu).
+BLOCK = (32, 8)
+
+#: The H100's opt-in shared memory per block (232,448 bytes), the plan's
+#: limit for grids that live on the CPU, so that the CPU runs plan the
+#: tiles the card would.
+H100_SMEM_OPTIN = 232448
+#: The H100's L2 (50 MB), the resident gate's size for CPU grids.
+H100_L2_BYTES = 50 * 1024 * 1024
+#: Static shared memory of the tile kernel (H3's warp sums).
+_STATIC_SMEM = 4 * (BLOCK[0] * BLOCK[1] // 32)
+
+#: Launches per kernel wrapper since the last ``reset_launch_counts``.
+LAUNCHES = {"step": 0, "tile_multi": 0, "tile_multi_resid": 0,
+            "resident": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def _lib():
+    return _build.load("stencil")
+
+
+def _check(rc: int, what: str) -> None:
+    _build.check(_lib(), rc, what)
+
+
+def _stream(u) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(u.device).cuda_stream)
+
+
+def _ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _k0(cx: float, cy: float) -> float:
+    """The FMA form's centre weight, computed in double as the JAX kernel
+    computes it, then used in f32."""
+    return 1.0 - 2.0 * cx - 2.0 * cy
+
+
+def _validate(u, what: str) -> None:
+    if u.dim() != 2 or u.dtype != torch.float32:
+        raise ValueError(f"{what}: expected a 2D float32 grid, got "
+                         f"{tuple(u.shape)} {u.dtype}")
+    if min(u.shape) < 1:
+        raise ValueError(f"{what}: empty grid {tuple(u.shape)}")
+    if u.device.type == "cuda":
+        if not u.is_contiguous():
+            raise ValueError(f"{what}: the CUDA kernels take a contiguous "
+                             f"grid")
+        if u.numel() >= 2 ** 31:
+            raise ValueError(f"{what}: grid of {u.numel()} cells exceeds "
+                             f"the kernels' 32-bit row index range")
+    elif u.device.type != "cpu":
+        raise ValueError(f"{what}: unsupported device {u.device}")
+
+
+# --------------------------------------------------------------------- #
+# Device capabilities
+# --------------------------------------------------------------------- #
+
+class DeviceCaps(NamedTuple):
+    l2_bytes: int
+    smem_optin: int
+    sm_count: int
+    cooperative: bool
+    resident_blocks: int   # co-resident H4 blocks on the whole card
+
+
+_caps: dict[int, DeviceCaps] = {}
+
+
+def device_caps(device) -> DeviceCaps:
+    """The card's limits, read once per device through the kernels'
+    library (which builds at first use)."""
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _caps:
+        buf = (ctypes.c_int * 5)()
+        with torch.cuda.device(idx):
+            _check(_lib().heat_device_caps(ctypes.cast(buf, ctypes.c_void_p)),
+                   "heat_device_caps")
+        _caps[idx] = DeviceCaps(buf[0], buf[1], buf[2], bool(buf[3]),
+                                buf[4])
+    return _caps[idx]
+
+
+def smem_limit(device) -> int:
+    """Dynamic shared memory a tile may use on ``device``."""
+    dev = torch.device(device)
+    total = (device_caps(dev).smem_optin if dev.type == "cuda"
+             else H100_SMEM_OPTIN)
+    return total - _STATIC_SMEM
+
+
+def fits_resident(shape, device) -> bool:
+    """Gate of the resident route (H4): the two f32 ping-pong planes fit
+    in half the L2, and the card can launch a cooperative grid of at
+    least one H4 block. Grids on the CPU are gated against the H100's
+    L2 so that they take the route the card would."""
+    dev = torch.device(device)
+    plane = shape[0] * shape[1] * 4
+    if dev.type != "cuda":
+        return 2 * plane <= H100_L2_BYTES // 2
+    caps = device_caps(dev)
+    return (caps.cooperative and caps.resident_blocks >= 1
+            and 2 * plane <= caps.l2_bytes // 2)
+
+
+# --------------------------------------------------------------------- #
+# Tile planner
+# --------------------------------------------------------------------- #
+
+class TilePlan(NamedTuple):
+    ty: int        # centre rows per tile
+    tx: int        # centre columns per tile
+    tsteps: int    # halo depth T (steps a sweep may advance)
+    grid: tuple    # (tile rows, tile columns)
+
+    @property
+    def ntiles(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory of one block: two ext tiles."""
+        t = self.tsteps
+        return 2 * (self.ty + 2 * t) * (self.tx + 2 * t) * 4
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def plan_tiles(nx: int, ny: int, tsteps: int = DEFAULT_TSTEPS,
+               smem: int = H100_SMEM_OPTIN - _STATIC_SMEM) -> TilePlan:
+    """Tile geometry of the H2/H3 sweeps: a centre of at most 64 x 128
+    cells (rows of 512 bytes, coalesced; two blocks share an SM at
+    T = 8), shrunk to the grid, then halved until the two ext tiles fit
+    in ``smem`` bytes of shared memory."""
+    if tsteps < 1:
+        raise ValueError(f"tsteps must be >= 1, got {tsteps}")
+    ty = min(64, _round_up(nx, BLOCK[1]))
+    tx = min(128, _round_up(ny, BLOCK[0]))
+
+    def need(a, b):
+        return 2 * (a + 2 * tsteps) * (b + 2 * tsteps) * 4
+
+    while need(ty, tx) > smem and (ty > BLOCK[1] or tx > BLOCK[0]):
+        if ty >= tx // 2 and ty > BLOCK[1]:
+            ty //= 2
+        else:
+            tx //= 2
+    if need(ty, tx) > smem:
+        raise ValueError(
+            f"halo depth T={tsteps} leaves no tile that fits {smem} bytes "
+            f"of shared memory")
+    return TilePlan(ty, tx, tsteps, (-(-nx // ty), -(-ny // tx)))
+
+
+# --------------------------------------------------------------------- #
+# Plain PyTorch versions (whole-grid steps, same form and mask)
+# --------------------------------------------------------------------- #
+
+def step_plain(u, cx: float, cy: float, form: int = FORM_FMA):
+    """One clamped step of the whole grid in f32, FMA or literal form:
+    the JAX package's ``_step_value`` / ``_step_value_literal``."""
+    c = u[1:-1, 1:-1]
+    sx = u[2:, 1:-1] + u[:-2, 1:-1]
+    sy = u[1:-1, 2:] + u[1:-1, :-2]
+    cx, cy = float(cx), float(cy)
+    if form == FORM_LITERAL:
+        new = c + cx * (sx - 2.0 * c) + cy * (sy - 2.0 * c)
+    else:
+        new = _k0(cx, cy) * c + cx * sx + cy * sy
+    out = u.clone()
+    out[1:-1, 1:-1] = new
+    return out
+
+
+def multi_step_plain(u, n: int, cx: float, cy: float,
+                     form: int = FORM_FMA):
+    for _ in range(n):
+        u = step_plain(u, cx, cy, form)
+    return u
+
+
+def tile_multi_resid_plain(u, nsub: int, cx: float, cy: float,
+                           form: int = FORM_FMA):
+    """``nsub`` steps, and the residual of the last step pair."""
+    prev = multi_step_plain(u, nsub - 1, cx, cy, form)
+    last = step_plain(prev, cx, cy, form)
+    return last, residual_sq(last, prev)
+
+
+# --------------------------------------------------------------------- #
+# Kernel wrappers
+# --------------------------------------------------------------------- #
+
+def step(u, cx: float, cy: float, form: int = FORM_FMA):
+    """H1: one clamped step. Device memory bound (a read and a write of
+    the grid per step)."""
+    _validate(u, "step")
+    if u.device.type == "cpu":
+        return step_plain(u, cx, cy, form)
+    nx, ny = u.shape
+    if -(-nx // BLOCK[1]) > 65535:
+        raise ValueError(f"step: {nx} rows exceed the launch grid's y limit")
+    out = torch.empty_like(u)
+    LAUNCHES["step"] += 1
+    _check(_lib().heat_step(_ptr(u), _ptr(out), nx, ny, cx, cy, _k0(cx, cy),
+                            form, _stream(u)), "H1 step")
+    return out
+
+
+def _check_depth(nsub: int, tsteps: int) -> None:
+    if not 1 <= nsub <= tsteps:
+        raise ValueError(f"nsub must be in [1, T={tsteps}], got {nsub}")
+
+
+def _tile_launch(u, nsub, cx, cy, form, tsteps, resid):
+    nx, ny = u.shape
+    plan = plan_tiles(nx, ny, tsteps, smem_limit(u.device))
+    if plan.grid[0] > 65535:
+        raise ValueError(f"{nx} rows exceed the launch grid's y limit")
+    out = torch.empty_like(u)
+    parts = (torch.empty(plan.ntiles, dtype=torch.float32, device=u.device)
+             if resid else None)
+    rc = _lib().heat_tile_multi(
+        _ptr(u), _ptr(out), _ptr(parts) if resid else None, nx, ny, cx, cy,
+        _k0(cx, cy), form, plan.tsteps, nsub, plan.ty, plan.tx, _stream(u))
+    _check(rc, "H3 tile_multi_resid" if resid else "H2 tile_multi")
+    return out, parts
+
+
+def tile_multi(u, nsub: int, cx: float, cy: float, form: int = FORM_FMA,
+               tsteps: int = DEFAULT_TSTEPS):
+    """H2: ``nsub <= tsteps`` steps in one sweep of shared-memory tiles.
+    Device memory traffic is one read and one write of the grid per
+    sweep (plus the halo rings), so the bound moves towards FLOPs."""
+    _validate(u, "tile_multi")
+    _check_depth(nsub, tsteps)
+    if u.device.type == "cpu":
+        return multi_step_plain(u, nsub, cx, cy, form)
+    LAUNCHES["tile_multi"] += 1
+    out, _ = _tile_launch(u, nsub, cx, cy, form, tsteps, resid=False)
+    return out
+
+
+def tile_multi_resid(u, nsub: int, cx: float, cy: float,
+                     form: int = FORM_FMA, tsteps: int = DEFAULT_TSTEPS):
+    """H3: H2 plus the residual of the sweep's last step pair, summed on
+    the device from one partial per tile. Returns (u, residual)."""
+    _validate(u, "tile_multi_resid")
+    _check_depth(nsub, tsteps)
+    if u.device.type == "cpu":
+        return tile_multi_resid_plain(u, nsub, cx, cy, form)
+    LAUNCHES["tile_multi_resid"] += 1
+    out, parts = _tile_launch(u, nsub, cx, cy, form, tsteps, resid=True)
+    return out, torch.sum(parts)
+
+
+def resident_grid(u) -> int:
+    """Blocks of the H4 launch: enough for one cell per thread, at most
+    what the card holds co-resident (the cooperative launch's limit)."""
+    caps = device_caps(u.device)
+    return max(1, min(caps.resident_blocks, math.ceil(u.numel() / 256)))
+
+
+def resident(u, steps: int, cx: float, cy: float, form: int = FORM_FMA):
+    """H4: ``steps`` steps in one cooperative launch. On the grids it
+    serves, the per-step grid barrier and L2 latency bound it; the
+    FLOPs are the bound in the limit."""
+    _validate(u, "resident")
+    if steps < 0:
+        raise ValueError(f"steps must be >= 0, got {steps}")
+    if u.device.type == "cpu":
+        return multi_step_plain(u, steps, cx, cy, form)
+    if steps == 0:
+        return u
+    nx, ny = u.shape
+    p0, p1 = torch.empty_like(u), torch.empty_like(u)
+    LAUNCHES["resident"] += 1
+    _check(_lib().heat_resident(_ptr(u), _ptr(p0), _ptr(p1), nx, ny, cx, cy,
+                                _k0(cx, cy), form, steps, resident_grid(u),
+                                _stream(u)), "H4 resident")
+    return p0 if steps % 2 else p1
+
+
+# --------------------------------------------------------------------- #
+# The single-device kernel route (mode "pallas")
+# --------------------------------------------------------------------- #
+
+def tiled_chunk(u, n: int, cx: float, cy: float, form: int = FORM_FMA,
+                tsteps: int = DEFAULT_TSTEPS):
+    """``n`` steps as full T-deep H2 sweeps plus one partial sweep at
+    depth ``n % T`` (the JAX package's ``_window_multi_padded``)."""
+    nsweeps, rem = divmod(n, tsteps)
+    for _ in range(nsweeps):
+        u = tile_multi(u, tsteps, cx, cy, form, tsteps)
+    if rem:
+        u = tile_multi(u, rem, cx, cy, form, tsteps)
+    return u
+
+
+def make_single_chip_runner(config, device=None) -> engine.Runner:
+    """The kernel route of mode ``pallas`` (``pallas_stencil.py:1402``),
+    re-derived for the card:
+
+    - resident (``fits_resident``): H4 runs ``chunk(u, n)`` and the
+      single ``step``;
+    - streamed: ``chunk`` is T-deep H2 sweeps plus a partial sweep, and
+      ``step`` is H1;
+    - fused convergence on the streamed route with the FMA form: each
+      INTERVAL chunk runs ``n - d`` steps through H2, then one H3 sweep
+      of depth ``d = n % T or T`` that also yields the residual;
+    - the literal form (``bitwise_parity``) and resident grids run
+      convergence through ``run_convergence_chunked``.
+
+    ``device`` defaults to ``cuda`` and raises without a card; pass
+    ``"cpu"`` to run the plain versions."""
+    dev = resolve_device(device)
+    cx, cy = config.cx, config.cy
+    nx, ny = config.nxprob, config.nyprob
+    form = FORM_LITERAL if config.bitwise_parity else FORM_FMA
+    is_resident = fits_resident((nx, ny), dev)
+    tw = DEFAULT_TSTEPS
+
+    if is_resident:
+        def step_fn(u):
+            return resident(u, 1, cx, cy, form)
+
+        def chunk(u, n):
+            with phase("stencil_chunk"):
+                return resident(u, n, cx, cy, form)
+    else:
+        def step_fn(u):
+            return step(u, cx, cy, form)
+
+        def chunk(u, n):
+            with phase("stencil_chunk"):
+                return tiled_chunk(u, n, cx, cy, form, tw)
+
+    fused = (config.convergence and not is_resident
+             and form == FORM_FMA)
+
+    def chunk_resid(u, n):
+        d = n % tw or tw
+        u = tiled_chunk(u, n - d, cx, cy, form, tw)
+        with phase("residual_reduction"):
+            return tile_multi_resid(u, d, cx, cy, form, tw)
+
+    def residual(a, b):
+        with phase("residual_reduction"):
+            return residual_sq(a, b)
+
+    def run(u):
+        if config.convergence:
+            if fused:
+                return engine.run_convergence_fused(
+                    chunk_resid, chunk, u, config.steps, config.interval,
+                    config.sensitivity, tap=runner.tap)
+            return engine.run_convergence_chunked(
+                chunk, step_fn, residual, u, config.steps, config.interval,
+                config.sensitivity, tap=runner.tap)
+        return chunk(u, config.steps), config.steps
+
+    route = ("resident" if is_resident
+             else "streamed-fused" if fused else "streamed")
+    runner = engine.Runner(run, route)
+    return runner

@@ -1,0 +1,49 @@
+"""5-point Jacobi stencil: the golden model of the port, in plain
+PyTorch (the counterpart of ``heat2d_tpu/ops/stencil.py``).
+
+Precision follows the C reference: storage is float32; the neighbour sums
+``uE + uW`` and ``uN + uS`` are taken in the storage dtype, and every
+operation with the coefficients in ``accum_dtype``. ``accum_dtype=
+torch.float64`` reproduces the C promotion bitwise (tests/c_oracle.c), on
+the CPU and on CUDA alike.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _laplacian_update(v, cx, cy, accum_dtype=None):
+    """Updated values of ``v[1:-1, 1:-1]`` in ``accum_dtype`` (default:
+    v's dtype), from the halo-inclusive array ``v``."""
+    accum = v.dtype if accum_dtype is None else accum_dtype
+    c = v[1:-1, 1:-1].to(accum)
+    # sx pairs with cx (the ix neighbours), sy with cy, as in the
+    # reference (grad1612_cuda_heat.cu:59-61).
+    sx = (v[2:, 1:-1] + v[:-2, 1:-1]).to(accum)
+    sy = (v[1:-1, 2:] + v[1:-1, :-2]).to(accum)
+    # A Python float meets a tensor in the tensor's dtype: f32(cx) for
+    # the f32 path, the double literal itself for the f64 path.
+    cx, cy = float(cx), float(cy)
+    return c + cx * (sx - 2.0 * c) + cy * (sy - 2.0 * c)
+
+
+def stencil_step(u, cx: float, cy: float, accum_dtype=torch.float32):
+    """One global time step. Interior updated, edges held (clamped BC)."""
+    out = u.clone()
+    out[1:-1, 1:-1] = _laplacian_update(u, cx, cy, accum_dtype).to(u.dtype)
+    return out
+
+
+def stencil_step_padded(padded, cx: float, cy: float,
+                        accum_dtype=torch.float32):
+    """The updated (bm, bn) interior of a (bm+2, bn+2) halo-padded block;
+    global-boundary masking is the caller's job."""
+    return _laplacian_update(padded, cx, cy, accum_dtype).to(padded.dtype)
+
+
+def residual_sq(u_new, u_old, accum_dtype=torch.float32):
+    """Convergence residual: the sum over cells of (u_new - u_old)^2, the
+    reference's locdiff (grad1612_mpi_heat.c:264-267)."""
+    d = u_new.to(accum_dtype) - u_old.to(accum_dtype)
+    return torch.sum(d * d)

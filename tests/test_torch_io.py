@@ -1,0 +1,156 @@
+"""The port's I/O against the JAX package's: .dat bytes in both layouts,
+checkpoints that load across the stacks, and the CLI's output files."""
+
+import json
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from heat2d_tpu import cli as jcli
+from heat2d_tpu.config import HeatConfig as JConfig
+from heat2d_tpu.io import binary as jbin
+from heat2d_tpu.io import writers as jw
+from heat2d_tpu_torch import cli as tcli
+from heat2d_tpu_torch.config import HeatConfig
+from heat2d_tpu_torch.interop import config_from_dict, state_from_numpy
+from heat2d_tpu_torch.io import binary as tbin
+from heat2d_tpu_torch.io import writers as tw
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _grid(rng, shape=(13, 7)):
+    """Values that exercise %6.1f: wide magnitudes, negative zero, exact
+    ties of the decimal rounding."""
+    a = rng.standard_normal(shape) * 10.0 ** rng.integers(-2, 6, shape)
+    a = a.astype(np.float32)
+    a.flat[:4] = [-0.0, 0.05, 0.25, -1234567.0]
+    return a
+
+
+@pytest.mark.parametrize("layout", ["baseline", "rowmajor"])
+def test_dat_bytes_equal(rng, layout):
+    a = _grid(rng)
+    tfmt = getattr(tw, f"format_grid_{layout}")
+    jfmt = getattr(jw, f"format_grid_{layout}")
+    assert tfmt(a) == jfmt(a)
+    assert tfmt(torch.from_numpy(a)) == jfmt(a)
+
+
+@pytest.mark.parametrize("layout", ["baseline", "rowmajor"])
+def test_dat_files_round_trip(tmp_path, rng, layout):
+    a = _grid(rng)
+    getattr(tw, f"write_grid_{layout}")(a, tmp_path / "t.dat")
+    getattr(jw, f"write_grid_{layout}")(a, tmp_path / "j.dat")
+    assert (tmp_path / "t.dat").read_bytes() == \
+        (tmp_path / "j.dat").read_bytes()
+    np.testing.assert_array_equal(
+        tw.read_grid_text(tmp_path / "t.dat", layout),
+        jw.read_grid_text(tmp_path / "j.dat", layout))
+
+
+def test_binary_dump_bytes_equal(tmp_path, rng):
+    a = _grid(rng)
+    tbin.write_binary(torch.from_numpy(a), tmp_path / "t.bin")
+    jbin.write_binary(a, tmp_path / "j.bin")
+    assert (tmp_path / "t.bin").read_bytes() == \
+        (tmp_path / "j.bin").read_bytes()
+    np.testing.assert_array_equal(tbin.read_binary(tmp_path / "t.bin",
+                                                   a.shape), a)
+
+
+def test_jax_checkpoint_loads_in_port(tmp_path, rng):
+    a = _grid(rng)
+    cfg = JConfig(nxprob=13, nyprob=7, steps=60, accum_dtype="float64")
+    jbin.save_checkpoint(a, 60, cfg, tmp_path / "ck.bin")
+    grid, step, d = tbin.load_checkpoint(tmp_path / "ck.bin")
+    np.testing.assert_array_equal(grid, a)
+    assert step == 60
+    assert config_from_dict(d).to_dict() == cfg.to_dict()
+
+
+def test_port_checkpoint_loads_in_jax(tmp_path, rng):
+    a = _grid(rng)
+    cfg = HeatConfig(nxprob=13, nyprob=7, steps=60)
+    tbin.save_checkpoint(state_from_numpy(a, "cpu"), 60, cfg,
+                         tmp_path / "ck.bin")
+    grid, step, d = jbin.load_checkpoint(tmp_path / "ck.bin")
+    np.testing.assert_array_equal(grid, a)
+    assert step == 60 and JConfig.from_dict(d) == JConfig(**cfg.to_dict())
+    meta = json.loads((tmp_path / "ck.bin.meta.json").read_text())
+    assert meta["format"] == "heat2d-tpu-checkpoint-v1"
+
+
+def test_torn_checkpoint_rejected(tmp_path, rng):
+    a = _grid(rng)
+    tbin.save_checkpoint(a, 3, HeatConfig(), tmp_path / "ck.bin")
+    raw = bytearray((tmp_path / "ck.bin").read_bytes())
+    raw[0] ^= 0xFF
+    (tmp_path / "ck.bin").write_bytes(bytes(raw))
+    with pytest.raises(tbin.CheckpointCorruptError):
+        tbin.load_checkpoint(tmp_path / "ck.bin")
+    with pytest.raises(jbin.CheckpointCorruptError):
+        jbin.load_checkpoint(tmp_path / "ck.bin")
+
+
+def _jax_cli(argv):
+    # conftest already runs JAX on the CPU with x64 enabled, which is
+    # what --platform cpu --accum-dtype float64 set up in a fresh process
+    # (--platform is left out: it would re-initialise the backend here).
+    assert jax.default_backend() == "cpu" and jax.config.jax_enable_x64
+    return jcli.main(argv)
+
+
+@pytest.mark.parametrize("layout", ["rowmajor", "baseline"])
+def test_cli_dat_files_byte_identical(tmp_path, layout):
+    common = ["--accum-dtype", "float64", "--dat-layout", layout,
+              "--binary-dumps"]
+    assert tcli.main(common + ["--device", "cpu", "--outdir",
+                               str(tmp_path / "t")]) == 0
+    assert _jax_cli(common + ["--outdir", str(tmp_path / "j")]) == 0
+    for name in ("initial.dat", "final.dat", "initial_binary.dat",
+                 "final_binary.dat"):
+        assert (tmp_path / "t" / name).read_bytes() == \
+            (tmp_path / "j" / name).read_bytes(), name
+
+
+def test_jax_checkpoint_resumes_in_port_cli(tmp_path):
+    """60 JAX steps, checkpoint, 40 more in the port CLI: final.dat equals
+    an uninterrupted 100-step JAX run's, byte for byte (f64 accumulation,
+    10x10)."""
+    f64 = ["--accum-dtype", "float64"]
+    ck = str(tmp_path / "ck.bin")
+    assert _jax_cli(f64 + ["--steps", "60", "--checkpoint", ck,
+                           "--outdir", str(tmp_path / "a")]) == 0
+    assert tcli.main(f64 + ["--device", "cpu", "--steps", "100",
+                            "--resume", ck,
+                            "--run-record", str(tmp_path / "rec.json"),
+                            "--outdir", str(tmp_path / "b")]) == 0
+    assert _jax_cli(f64 + ["--steps", "100",
+                           "--outdir", str(tmp_path / "c")]) == 0
+    assert (tmp_path / "b" / "final.dat").read_bytes() == \
+        (tmp_path / "c" / "final.dat").read_bytes()
+    rec = json.loads((tmp_path / "rec.json").read_text())
+    assert rec["steps_done"] == 40
+    assert rec["total_steps_including_resume"] == 100
+
+
+def test_cli_prints_the_reference_lines(tmp_path, capsys):
+    assert tcli.main(["--device", "cpu", "--mode", "pallas",
+                      "--convergence", "--outdir", str(tmp_path)]) == 0
+    out = capsys.readouterr().out
+    for line in ("Starting with 1 shards", "Problem size:10x10",
+                 "Amount of iterations: 100",
+                 "Check for convergence every 20 iterations",
+                 "Writing initial.dat ...", "Exiting after 100 iterations",
+                 "Writing final.dat ..."):
+        assert line in out.splitlines()
+    assert "Elapsed time: " in out and " sec" in out

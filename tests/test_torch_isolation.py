@@ -1,0 +1,140 @@
+"""The port stands alone: no module of heat2d_tpu_torch (and not
+chip_smoke.py) imports jax or heat2d_tpu; its entry points refuse to run
+without a card unless asked for the CPU; its tile plans fit the H100's
+shared memory; chip_smoke.py refuses to run without a card or without
+the package beside it."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from heat2d_tpu_torch import cli
+from heat2d_tpu_torch.config import HeatConfig
+from heat2d_tpu_torch.interop import state_from_numpy
+from heat2d_tpu_torch.models.solver import Heat2DSolver
+from heat2d_tpu_torch.ops import _build
+from heat2d_tpu_torch.ops import cuda_stencil as cs
+from heat2d_tpu_torch.utils.device import DeviceUnavailableError
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "heat2d_tpu_torch")
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _port_sources():
+    for d, _, files in os.walk(PKG):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def _imported(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "heat2d_tpu")
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    sources = list(_port_sources())
+    assert len(sources) >= 20
+    bad = [(os.path.relpath(p, REPO), m) for p in sources
+           for m in _imported(p) if _forbidden(m)]
+    assert bad == []
+
+
+def test_importing_the_solver_loads_no_jax():
+    code = ("import sys; import heat2d_tpu_torch.models.solver, "
+            "heat2d_tpu_torch.cli, heat2d_tpu_torch.ops.cuda_stencil; "
+            "print('jax' in sys.modules, 'heat2d_tpu' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "False"]
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_raise_without_a_card(no_card, capsys):
+    cfg = HeatConfig(mode="pallas")
+    with pytest.raises(DeviceUnavailableError, match="CUDA"):
+        Heat2DSolver(cfg)
+    with pytest.raises(DeviceUnavailableError, match="CUDA"):
+        cs.make_single_chip_runner(cfg)
+    with pytest.raises(DeviceUnavailableError, match="CUDA"):
+        state_from_numpy(np.zeros((4, 4)))
+    assert cli.main(["--mode", "pallas"]) == 1
+    assert "CUDA" in capsys.readouterr().err
+    # ... and run when asked for the CPU.
+    assert Heat2DSolver(cfg, device="cpu").run(timed=False).steps_done == 100
+
+
+@pytest.mark.parametrize("shape", [(4096, 4096), (640, 1024), (4099, 4097),
+                                   (10, 10)])
+@pytest.mark.parametrize("tsteps", [1, 3, 8])
+def test_tile_plan_fits_shared_memory(shape, tsteps):
+    plan = cs.plan_tiles(*shape, tsteps)
+    # 227 KB: the H100's opt-in shared memory per block.
+    assert plan.smem_bytes + cs._STATIC_SMEM <= 227 * 1024
+    assert plan.grid[0] * plan.ty >= shape[0]
+    assert plan.grid[1] * plan.tx >= shape[1]
+    assert plan.ty % cs.BLOCK[1] == 0 and plan.tx % cs.BLOCK[0] == 0
+
+
+def test_tile_plan_shrinks_under_a_small_limit():
+    plan = cs.plan_tiles(4096, 4096, 8, smem=48 * 1024)
+    assert plan.smem_bytes <= 48 * 1024
+    with pytest.raises(ValueError):
+        cs.plan_tiles(4096, 4096, 64, smem=48 * 1024)
+
+
+def test_resident_gate_on_the_cpu():
+    assert cs.fits_resident((640, 1024), "cpu")
+    assert cs.fits_resident((10, 10), "cpu")
+    assert not cs.fits_resident((4096, 4096), "cpu")
+
+
+def test_build_is_keyed_by_content_and_needs_nvcc(monkeypatch):
+    p = _build.library_path("stencil")
+    assert p.parent == _build.BUILD_DIR and p.name.startswith("libstencil_")
+    assert p == _build.library_path("stencil")
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-G",))
+    assert _build.library_path("stencil") != p
+    monkeypatch.setattr(shutil, "which", lambda name: None)
+    monkeypatch.setattr(os.path, "exists", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.nvcc_path()
+
+
+def test_chip_smoke_refuses_without_card_or_package(tmp_path):
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO,
+                       capture_output=True, text=True, timeout=120)
+    if not torch.cuda.is_available():
+        assert r.returncode != 0 and '"ok"' not in r.stdout
+    shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and '"ok"' not in r.stdout
