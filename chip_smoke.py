@@ -10,14 +10,27 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 2. build: every ``heat2d_tpu_torch/csrc/*.cu`` with nvcc, in parallel;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at ragged and full sizes (literal form bitwise, FMA form
-   within ``n * 2**-21 * max|plain|`` after n steps);
+   within ``n * 2**-21 * max|plain|`` after n steps): H1-H4 on single
+   grids, H5-H7 on batches of B in {1, 3, 8} members with heterogeneous
+   (cx, cy), H7 with a mixed ``active`` vector (frozen members bitwise
+   unchanged, their residual exactly 0);
 4. main path: ``Heat2DSolver`` in mode ``pallas`` against mode ``serial``
    on the card: 4096^2 x 240 steps fixed, the same with convergence
    (interval 20) in both step forms, and 640x1024x10000 on the resident
-   route; launch counters, zeroed just before, show every kernel ran;
-5. the ``kernels`` line: time, bound, plain and library times of each
-   kernel at the main path's shapes;
-6. headline: Mcells/s at 4096^2 by the two-point protocol of bench.py.
+   route; launch counters, zeroed just before, show H1-H4 ran;
+5. serving path: an in-process ``SolveServer`` on the card (max_batch 8)
+   answers (a) 8 requests of 640x1024 x 10000 steps (one launch of
+   capacity 8 through H5), (b) 4 of 4096^2 x 240 steps (one launch
+   through H6), (c) 4 convergence requests at 4096^2, interval 20, with a
+   sensitivity picked from the members' chunk-1 residuals so that they
+   exit at different chunks (H7), (d) a cache-hit repeat and two
+   coalesced duplicates; each result against the port's ``jnp`` route on
+   the card (equal ``steps_done``, grids within tolerance), fewer
+   launches than requests, and the launch counters, zeroed just before,
+   show H5-H7 ran;
+6. the ``kernels`` line: time, bound, plain and library times of each
+   kernel at its path's shapes;
+7. headline: Mcells/s at 4096^2 by the two-point protocol of bench.py.
 
 The last line of standard output is ``{"ok": true, "device": ...}``. The
 full results also go to ``chiprun_out/chip_smoke.json``.
@@ -41,12 +54,16 @@ PEAK_F32_FLOPS = 67e12
 #: FLOPs of one FMA-form cell update: a multiply, two adds, two FMAs.
 FLOPS_PER_CELL_STEP = 7
 
-SOURCE = "heat2d_tpu_torch/csrc/stencil.cu"
+STENCIL_SOURCE = "heat2d_tpu_torch/csrc/stencil.cu"
+ENSEMBLE_SOURCE = "heat2d_tpu_torch/csrc/ensemble.cu"
 REPLACES = {
     "step": "heat2d_tpu/ops/pallas_stencil.py:509",
     "tile_multi": "heat2d_tpu/ops/pallas_stencil.py:993",
     "tile_multi_resid": "heat2d_tpu/ops/pallas_stencil.py:1064",
     "resident": "heat2d_tpu/ops/pallas_stencil.py:275",
+    "ens_resident": "heat2d_tpu/models/ensemble.py:106",
+    "ens_tile_multi": "heat2d_tpu/models/ensemble.py:243",
+    "ens_tile_multi_conv": "heat2d_tpu/models/ensemble.py:357",
 }
 
 
@@ -128,13 +145,15 @@ def phase_toolchain(torch) -> dict:
 
 
 def phase_build() -> dict:
-    from heat2d_tpu_torch.ops import _build, cuda_stencil as cs
+    from heat2d_tpu_torch.ops import _build, cuda_ensemble as ce
+    from heat2d_tpu_torch.ops import cuda_stencil as cs
     t0 = time.perf_counter()
     libs = _build.build_all()
     caps = cs.device_caps("cuda")
     info = {"phase": "build", "seconds": time.perf_counter() - t0,
             "libraries": [str(p.name) for p in libs],
-            "caps": caps._asdict()}
+            "caps": caps._asdict(),
+            "ens_resident_blocks": ce.resident_blocks("cuda")}
     emit(info)
     return info
 
@@ -194,6 +213,204 @@ def phase_kernels(torch) -> dict:
     return info
 
 
+def phase_ensemble_kernels(torch) -> dict:
+    """H5-H7 against their plain versions on the same batches: ragged
+    members, B in {1, 3, 8}, heterogeneous (cx, cy) inside the stability
+    box, nsub in {1, 5, 8}; H7 with every other member frozen."""
+    from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1613)
+    worst = {k: 0.0 for k in ce.LAUNCHES}
+    checks = 0
+
+    def judge(name, got, ref, n, what):
+        nonlocal checks
+        err = max_err(got, ref)
+        worst[name] = max(worst[name], err)
+        tol = fma_tol(n, ref)
+        fail_unless(err <= tol, f"{name} {what}: max_abs_err {err} > {tol}")
+        checks += 1
+
+    for shape in [(37, 53), (4099, 4097)]:
+        for b in (1, 3, 8):
+            u = torch.rand((b,) + shape, generator=g, device="cuda")
+            cxs = torch.rand(b, generator=g, device="cuda") * 0.24 + 0.01
+            cys = torch.rand(b, generator=g, device="cuda") * 0.24 + 0.01
+            active = torch.tensor([i % 2 for i in range(b)],
+                                  dtype=torch.int32, device="cuda")
+            frozen = active == 0
+            for nsub in (1, 5, 8):
+                what = f"B={b} {shape} nsub={nsub}"
+                ref = ce.ens_multi_step_plain(u, nsub, cxs, cys)
+                judge("ens_resident", ce.ens_resident(u, nsub, cxs, cys),
+                      ref, nsub, what)
+                judge("ens_tile_multi", ce.ens_tile_multi(u, nsub, cxs, cys),
+                      ref, nsub, what)
+                got, r = ce.ens_tile_multi_conv(u, nsub, cxs, cys, active,
+                                                resid=True)
+                ref, r_ref = ce.ens_conv_sweep_plain(u, nsub, cxs, cys,
+                                                     active, True)
+                judge("ens_tile_multi_conv", got, ref, nsub, what)
+                fail_unless(torch.equal(got[frozen], u[frozen]),
+                            f"H7 {what}: a frozen member changed")
+                fail_unless(bool((r[frozen] == 0).all()),
+                            f"H7 {what}: a frozen member's residual != 0")
+                # per-tile partials summed in another order than
+                # torch.sum: a relative tolerance
+                on = ~frozen
+                rerr = float(((r - r_ref).abs() / r_ref.abs())[on].max()) \
+                    if bool(on.any()) else 0.0
+                fail_unless(rerr <= 1e-4,
+                            f"H7 residual {what}: relative error {rerr}")
+                got = ce.ens_tile_multi_conv(u, nsub, cxs, cys, active)
+                judge("ens_tile_multi_conv", got, ref, nsub, what)
+    torch.cuda.synchronize()
+    info = {"phase": "ensemble_kernels", "checks": checks,
+            "max_abs_err": worst}
+    emit(info)
+    return info
+
+
+def pick_sensitivity(torch, nx, ny, cxs, cys, interval):
+    """A sensitivity between the members' chunk-1 residuals, read from
+    the plain versions on the card: the FMA form the H7 route steps and
+    the literal form of the jnp route it is checked against. The split
+    with the widest gap is taken, at its geometric middle, so that every
+    member lies a factor >= 2 away from it in both forms."""
+    from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    from heat2d_tpu_torch.ops import cuda_stencil as cs
+    from heat2d_tpu_torch.ops.init import inidat
+    from heat2d_tpu_torch.ops.stencil import stencil_step
+    cx = torch.tensor(cxs, dtype=torch.float32, device="cuda")
+    cy = torch.tensor(cys, dtype=torch.float32, device="cuda")
+    cx, cy = cx.reshape(-1, 1, 1), cy.reshape(-1, 1, 1)
+    u0 = inidat(nx, ny, device="cuda").expand(len(cxs), nx, ny).contiguous()
+    res = []
+    for step in (cs.step_plain, stencil_step):
+        prev = u0
+        for _ in range(interval - 1):
+            prev = step(prev, cx, cy)
+        res.append(ce.member_residuals(step(prev, cx, cy), prev).tolist())
+    lo = [min(a, b) for a, b in zip(*res)]
+    hi = [max(a, b) for a, b in zip(*res)]
+    order = sorted(range(len(cxs)), key=lambda i: hi[i])
+    best = None
+    for k in range(1, len(order)):
+        below = max(hi[i] for i in order[:k])
+        above = min(lo[i] for i in order[k:])
+        if above > below and (best is None
+                              or above / below > best[1] / best[0]):
+            best = (below, above)
+    fail_unless(best is not None and best[1] >= 4 * best[0],
+                f"no sensitivity separates the members' chunk-1 "
+                f"residuals {res}")
+    return math.sqrt(best[0] * best[1]), res
+
+
+def phase_serve(torch) -> dict:
+    """The serving path at full width, through ``SolveServer`` and its
+    ``Client`` on the card, each result checked against the port's jnp
+    route on the card."""
+    from heat2d_tpu_torch.models import ensemble
+    from heat2d_tpu_torch.obs.metrics import MetricsRegistry
+    from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    from heat2d_tpu_torch.serve.schema import SolveRequest
+    from heat2d_tpu_torch.serve.server import Client, SolveServer
+
+    big = 4096
+    conv_c = [0.03125, 0.0625, 0.125, 0.2]
+    sens, chunk1 = pick_sensitivity(torch, big, big, conv_c, conv_c, 20)
+    legs = {
+        "a": [SolveRequest(nx=640, ny=1024, steps=10000,
+                           cx=0.02 + 0.02 * i, cy=0.2 - 0.02 * i)
+              for i in range(8)],
+        "b": [SolveRequest(nx=big, ny=big, steps=240, cx=0.05 * (i + 1),
+                           cy=0.2 - 0.04 * i) for i in range(4)],
+        "c": [SolveRequest(nx=big, ny=big, steps=240, cx=c, cy=c,
+                           convergence=True, interval=20,
+                           sensitivity=sens) for c in conv_c],
+    }
+    registry = MetricsRegistry()
+    server = SolveServer(max_batch=8, max_delay=0.5, registry=registry,
+                         default_timeout=600.0)
+    client = Client(server)
+    answers, seconds = {}, {}
+    ce.reset_launch_counts()
+    with server:
+        for name, reqs in legs.items():
+            t0 = time.perf_counter()
+            futs = [client.submit(r) for r in reqs]
+            answers[name] = [f.result(timeout=900) for f in futs]
+            seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hit = client.solve(legs["a"][0])
+        dup = SolveRequest(nx=640, ny=1024, steps=10000, cx=0.11, cy=0.13)
+        pair = [client.submit(dup), client.submit(dup)]
+        pair = [f.result(timeout=900) for f in pair]
+        seconds["d"] = time.perf_counter() - t0
+    counts = ce.launch_counts()
+    requests = sum(len(r) for r in legs.values()) + 3
+    launches = server.engine.launches
+
+    fail_unless(hit.cache_hit and hit.u.tobytes()
+                == answers["a"][0].u.tobytes(),
+                "leg d: the repeat was not a bitwise cache hit")
+    fail_unless(pair[1].coalesced and pair[0].u.tobytes()
+                == pair[1].u.tobytes(),
+                "leg d: the duplicates were not coalesced bitwise")
+    answers["d"] = pair[:1]
+    legs["d"] = [dup]
+    checked = {}
+    for name, reqs in legs.items():
+        r0 = reqs[0]
+        cxs, cys = [r.cx for r in reqs], [r.cy for r in reqs]
+        if r0.convergence:
+            ref, k = ensemble.run_ensemble_convergence(
+                r0.nx, r0.ny, r0.steps, r0.interval, r0.sensitivity, cxs,
+                cys, method="jnp")
+            k = k.tolist()
+        else:
+            ref = ensemble.run_ensemble(r0.nx, r0.ny, r0.steps, cxs, cys,
+                                        method="jnp")
+            k = [r0.steps] * len(reqs)
+        got = [a.steps_done for a in answers[name]]
+        fail_unless(got == k, f"leg {name}: steps_done {got} vs jnp {k}")
+        errs = []
+        for m, a in enumerate(answers[name]):
+            u = torch.from_numpy(a.u)
+            fail_unless(bool(torch.isfinite(u).all()),
+                        f"leg {name}: non-finite values")
+            want = ref[m].cpu()
+            err, tol = max_err(u, want), fma_tol(k[m], want)
+            fail_unless(err <= tol, f"leg {name} member {m}: max_abs_err "
+                        f"{err} > {tol}")
+            errs.append(err)
+        checked[name] = {"steps_done": got, "max_abs_err": max(errs)}
+    fail_unless(len(set(checked["c"]["steps_done"])) >= 2,
+                f"leg c: members did not exit at different chunks "
+                f"{checked['c']['steps_done']}")
+    fail_unless(launches < requests,
+                f"{launches} launches for {requests} requests")
+    for name, n in counts.items():
+        fail_unless(n > 0, f"kernel {name} never launched on the serving "
+                    f"path")
+    methods = [row["method"] for row in server.engine.launch_log]
+    fail_unless(methods == ["pallas", "band", "band", "pallas"],
+                f"serving routes {methods}")
+    snap = registry.snapshot()
+    info = {"phase": "serve", "requests": requests, "launches": launches,
+            "launch_counts": counts, "sensitivity": sens,
+            "chunk1_residuals": {"fma": chunk1[0], "literal": chunk1[1]},
+            "legs": checked, "leg_seconds": seconds,
+            "launch_log": [dict(row, signature=str(row["signature"]))
+                           for row in server.engine.launch_log],
+            "queue_wait_s": snap["histograms"].get("serve_queue_wait_s"),
+            "e2e_latency_s": snap["histograms"].get("serve_e2e_latency_s")}
+    emit({k: info[k] for k in ("phase", "requests", "launches",
+                               "launch_counts", "sensitivity", "legs")})
+    return info
+
+
 def phase_main_path(torch) -> dict:
     """The port's main path through its entry points, against the serial
     golden model on the card."""
@@ -247,7 +464,7 @@ def phase_main_path(torch) -> dict:
 
 
 def phase_kernel_times(torch, launches: dict, worst: dict) -> list:
-    """Each kernel timed at the main path's shapes, beside its bound, its
+    """Each kernel timed at its path's shapes, beside its bound, its
     plain version and, where one PyTorch call computes the same function,
     that call (timed only here; the port never calls it)."""
     import torch.nn.functional as F
@@ -301,10 +518,64 @@ def phase_kernel_times(torch, launches: dict, worst: dict) -> list:
         plain_ms=time_ms(lambda: cs.multi_step_plain(small, n, cx, cy), 1),
         bound_ms=b, bound_by=by, library_ms=None))
 
+    rows += ensemble_kernel_rows(torch)
     for r in rows:
-        r.update(route="cuda", source=SOURCE, replaces=REPLACES[r["name"]],
+        r.update(route="cuda",
+                 source=(ENSEMBLE_SOURCE if r["name"].startswith("ens_")
+                         else STENCIL_SOURCE),
+                 replaces=REPLACES[r["name"]],
                  launches=launches[r["name"]],
                  max_abs_err=worst[r["name"]])
+    return rows
+
+
+def ensemble_kernel_rows(torch) -> list:
+    """H5-H7 timed at the serving path's shapes (bounds times the B
+    members; no single PyTorch call advances T steps, so no library
+    time)."""
+    from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    from heat2d_tpu_torch.ops import cuda_stencil as cs
+    from heat2d_tpu_torch.ops.init import inidat
+
+    rows = []
+    # H5: leg (a), 8 members of 640x1024 x 10000 steps in one launch.
+    b, n = 8, 10000
+    u = inidat(640, 1024, device="cuda").expand(b, 640, 1024).contiguous()
+    cxs = torch.linspace(0.02, 0.16, b, device="cuda")
+    cys = torch.linspace(0.2, 0.06, b, device="cuda")
+    bnd, by = bound_ms(2 * u.numel() * 4, FLOPS_PER_CELL_STEP * u.numel() * n)
+    rows.append(dict(
+        name="ens_resident",
+        ms=time_ms(lambda: ce.ens_resident(u, n, cxs, cys), 3),
+        plain_ms=time_ms(lambda: ce.ens_multi_step_plain(u, n, cxs, cys),
+                         1),
+        bound_ms=bnd, bound_by=by, library_ms=None))
+
+    # H6 / H7: legs (b) and (c), 4 members of 4096^2, one T = 8 sweep
+    # (H7 with every member active and its residual).
+    b, t = 4, cs.DEFAULT_TSTEPS
+    u = inidat(4096, 4096, device="cuda").expand(b, 4096, 4096).contiguous()
+    cxs = torch.tensor([0.05, 0.1, 0.15, 0.2], device="cuda")
+    cys = torch.tensor([0.2, 0.16, 0.12, 0.08], device="cuda")
+    act = torch.ones(b, dtype=torch.int32, device="cuda")
+    cells = u.numel()
+    bnd, by = bound_ms(2 * cells * 4, FLOPS_PER_CELL_STEP * cells * t)
+    rows.append(dict(
+        name="ens_tile_multi",
+        ms=time_ms(lambda: ce.ens_tile_multi(u, t, cxs, cys), 20),
+        plain_ms=time_ms(lambda: ce.ens_multi_step_plain(u, t, cxs, cys),
+                         5),
+        bound_ms=bnd, bound_by=by, library_ms=None))
+    ntiles = cs.plan_tiles(4096, 4096, t, cs.smem_limit("cuda")).ntiles
+    bnd, by = bound_ms(2 * cells * 4 + 4 * b * ntiles,
+                       FLOPS_PER_CELL_STEP * cells * t + 3 * cells)
+    rows.append(dict(
+        name="ens_tile_multi_conv",
+        ms=time_ms(lambda: ce.ens_tile_multi_conv(u, t, cxs, cys, act,
+                                                  resid=True), 20),
+        plain_ms=time_ms(lambda: ce.ens_conv_sweep_plain(
+            u, t, cxs, cys, act, True), 5),
+        bound_ms=bnd, bound_by=by, library_ms=None))
     return rows
 
 
@@ -364,9 +635,12 @@ def main() -> int:
         tool = phase_toolchain(torch)
         build = phase_build()
         kern = phase_kernels(torch)
+        ens_kern = phase_ensemble_kernels(torch)
         main_path = phase_main_path(torch)
-        rows = phase_kernel_times(torch, main_path["launches"],
-                                  kern["max_abs_err"])
+        serve = phase_serve(torch)
+        rows = phase_kernel_times(
+            torch, {**main_path["launches"], **serve["launch_counts"]},
+            {**kern["max_abs_err"], **ens_kern["max_abs_err"]})
         head = phase_headline(torch, tool["name"], tool["power_limit"])
         for r in rows:
             fail_unless(all(math.isfinite(r[k]) for k in
@@ -376,7 +650,8 @@ def main() -> int:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
     write_results({"toolchain": tool, "build": build, "kernels_check": kern,
-                   "main_path": main_path, "kernels": rows,
+                   "ensemble_kernels_check": ens_kern,
+                   "main_path": main_path, "serve": serve, "kernels": rows,
                    "headline": head,
                    "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})

@@ -10,6 +10,10 @@ checkpoint, ``Exiting after N iterations`` and ``Elapsed time: %e sec``.
     python -m heat2d_tpu_torch.cli --mode pallas --nxprob 640 \\
         --nyprob 1024 --steps 10000
     python -m heat2d_tpu_torch.cli --device cpu --accum-dtype float64
+
+``--ensemble-cx/--ensemble-cy`` run a batch of (cx, cy) members in one
+launch instead (``models/ensemble.py``), writing ``final_m<i>.dat`` per
+member and, on convergence runs, the ``Members exited after ...`` line.
 """
 
 from __future__ import annotations
@@ -38,6 +42,16 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--steps", type=int, default=100)
     g.add_argument("--cx", type=float, default=0.1)
     g.add_argument("--cy", type=float, default=0.1)
+    e = p.add_argument_group(
+        "ensemble (batched parameter sweep: one launch advances every "
+        "(cx, cy) member; members that fit the card's L2 run the resident "
+        "ensemble kernel, bigger ones the tile sweeps)")
+    e.add_argument("--ensemble-cx", default=None, metavar="LIST",
+                   help="comma-separated cx values; with --ensemble-cy "
+                        "runs the whole batch in one launch")
+    e.add_argument("--ensemble-cy", default=None, metavar="LIST",
+                   help="comma-separated cy values (same length as "
+                        "--ensemble-cx)")
     c = p.add_argument_group("convergence")
     c.add_argument("--convergence", action="store_true")
     c.add_argument("--interval", type=int, default=20)
@@ -73,6 +87,86 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _run_ensemble_cli(args, cfg) -> int:
+    """A batched (cx, cy) parameter sweep in one launch on one device:
+    the JAX CLI's ensemble route (``heat2d_tpu/cli.py``) for modes serial
+    and pallas. Flags the route would silently ignore are refused."""
+    from heat2d_tpu_torch.io.binary import write_json_atomic
+    from heat2d_tpu_torch.io.writers import (write_grid_baseline,
+                                             write_grid_rowmajor)
+    from heat2d_tpu_torch.models.ensemble import (ensemble_summary,
+                                                  timed_ensemble)
+    from heat2d_tpu_torch.models.solver import check_ported
+    from heat2d_tpu_torch.obs.record import build_record
+
+    try:
+        cxs = [float(s) for s in (args.ensemble_cx or "").split(",") if s]
+        cys = [float(s) for s in (args.ensemble_cy or "").split(",") if s]
+    except ValueError as e:
+        print(f"bad ensemble list: {e}\nQuitting...", file=sys.stderr)
+        return 1
+    if not cxs or len(cxs) != len(cys):
+        print("--ensemble-cx and --ensemble-cy must be non-empty, "
+              "equal-length comma-separated lists\nQuitting...",
+              file=sys.stderr)
+        return 1
+    unsupported = [flag for flag, on in [
+        ("--binary-dumps", args.binary_dumps),
+        ("--checkpoint", args.checkpoint is not None),
+        ("--resume", args.resume is not None),
+        # the batched routes evaluate steps and residuals in f32, and the
+        # ensemble kernels take the FMA form only
+        ("--accum-dtype float64", cfg.accum_dtype == "float64"),
+        ("--bitwise-parity", cfg.bitwise_parity)] if on]
+    if unsupported:
+        print(f"ensemble runs do not support {', '.join(unsupported)} "
+              f"(members are dumped as final_m<i>.dat only)\nQuitting...",
+              file=sys.stderr)
+        return 1
+
+    print(f"Starting ensemble of {len(cxs)} members")
+    print(f"Problem size:{cfg.nxprob}x{cfg.nyprob}")
+    print(f"Amount of iterations: {cfg.steps}")
+    if cfg.convergence:
+        print(f"Check for convergence every {cfg.interval} iterations")
+    try:
+        check_ported(cfg)
+        run = timed_ensemble(
+            cfg.nxprob, cfg.nyprob, cfg.steps, cxs, cys,
+            convergence=cfg.convergence, interval=cfg.interval,
+            sensitivity=cfg.sensitivity, device=args.device)
+    except (ConfigError, ValueError, DeviceUnavailableError) as e:
+        print(f"{e}\nQuitting...", file=sys.stderr)
+        return 1
+    steps_done = (None if run.steps_done is None
+                  else [int(k) for k in run.steps_done.cpu()])
+    if steps_done is not None:
+        print(f"Members exited after {steps_done} iterations")
+    print(f"Elapsed time: {run.elapsed:e} sec")
+    batch = run.batch.cpu().numpy()
+    os.makedirs(args.outdir, exist_ok=True)
+    if args.dat_layout != "none":
+        writer = (write_grid_baseline if args.dat_layout == "baseline"
+                  else write_grid_rowmajor)
+        for i, member in enumerate(batch):
+            name = f"final_m{i}.dat"
+            writer(member, os.path.join(args.outdir, name))
+            print(f"Writing {name} ...")
+    record = build_record(
+        "ensemble", config=cfg, elapsed_s=run.elapsed,
+        warmup_s=run.warmup_s, device=args.device,
+        extra={"members": [{"cx": cx, "cy": cy}
+                           for cx, cy in zip(cxs, cys)],
+               "summary": ensemble_summary(batch, steps_done=steps_done),
+               "route": run.method,
+               "residual_reads": run.residual_reads})
+    if args.run_record:
+        write_json_atomic(record, args.run_record)
+    if cfg.debug:
+        print(json.dumps(record, indent=2))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     try:
@@ -82,6 +176,12 @@ def main(argv=None) -> int:
             interval=args.interval, sensitivity=args.sensitivity,
             mode=args.mode, accum_dtype=args.accum_dtype, debug=args.debug,
             bitwise_parity=args.bitwise_parity)
+    except ConfigError as e:
+        print(f"{e}\nQuitting...", file=sys.stderr)
+        return 1
+    if args.ensemble_cx or args.ensemble_cy:
+        return _run_ensemble_cli(args, cfg)
+    try:
         from heat2d_tpu_torch.models.solver import Heat2DSolver
         solver = Heat2DSolver(cfg, device=args.device)
     except (ConfigError, DeviceUnavailableError) as e:

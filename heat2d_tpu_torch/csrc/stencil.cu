@@ -27,12 +27,8 @@
 //
 // Semantics shared by all four: compute in f32; global rows 0 / nx-1 and
 // columns 0 / ny-1 are held, and so is every cell outside the domain.
-// Two step forms:
-//   FORM_FMA     (1-2cx-2cy)*c + cx*(S+N) + cy*(E+W), contracted into FMAs
-//   FORM_LITERAL c + cx*((S+N) - 2c) + cy*((E+W) - 2c), every operation
-//                rounded on its own (__f*_rn), the operation order of
-//                ops/stencil._laplacian_update, so that it is bitwise
-//                equal to the plain PyTorch step.
+// Two step forms, FORM_FMA and FORM_LITERAL (csrc/tile.cuh, which also
+// holds the tile sweep H2/H3 share with the ensemble kernels).
 // No kernel writes the buffer it reads: GPU blocks run in no order.
 //
 // Every entry point returns a cudaError_t (0 on success); the Python
@@ -41,31 +37,20 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "tile.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int FORM_FMA = 0;
-constexpr int FORM_LITERAL = 1;
-constexpr int BLOCK_X = 32;  // threads along a row (coalesced)
-constexpr int BLOCK_Y = 8;   // threads along a column
+using heat::BLOCK_X;
+using heat::BLOCK_Y;
+using heat::Coef;
+using heat::FORM_FMA;
+using heat::FORM_LITERAL;
+using heat::update;
+
 constexpr int RESIDENT_THREADS = 256;
-
-struct Coef {
-  float cx, cy, k0;
-};
-
-template <int FORM>
-__device__ __forceinline__ float update(float c, float n, float s, float w,
-                                        float e, Coef k) {
-  if (FORM == FORM_LITERAL) {
-    const float two_c = __fmul_rn(2.0f, c);
-    const float x = __fmul_rn(k.cx, __fsub_rn(__fadd_rn(s, n), two_c));
-    const float y = __fmul_rn(k.cy, __fsub_rn(__fadd_rn(e, w), two_c));
-    return __fadd_rn(__fadd_rn(c, x), y);
-  }
-  return fmaf(k.cy, e + w, fmaf(k.cx, s + n, k.k0 * c));
-}
 
 // ---------------------------------------------------------------- H1 --
 template <int FORM>
@@ -87,80 +72,10 @@ __global__ void k_tile(const float* __restrict__ src, float* __restrict__ dst,
                        float* __restrict__ parts, int nx, int ny, Coef k,
                        int T, int nsub, int TY, int TX) {
   extern __shared__ float smem[];
-  const int EY = TY + 2 * T, EX = TX + 2 * T;
-  float* cur = smem;
-  float* nxt = smem + EY * EX;
-  const int i0 = blockIdx.y * TY - T;
-  const int j0 = blockIdx.x * TX - T;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-
-  // Load the tile and its T-deep ring; cells outside the domain read 0
-  // and are held, like the domain's own boundary.
-  for (int r = ty; r < EY; r += BLOCK_Y) {
-    const int gi = i0 + r;
-    const bool row_in = gi >= 0 && gi < nx;
-    for (int c = tx; c < EX; c += BLOCK_X) {
-      const int gj = j0 + c;
-      cur[r * EX + c] = (row_in && gj >= 0 && gj < ny)
-                            ? src[(size_t)gi * ny + gj] : 0.0f;
-    }
-  }
-  __syncthreads();
-
-  // Step s rewrites the ring-s interior [s, E-1-s]: its neighbours lie in
-  // the region step s-1 wrote, so no cell is read before it is written,
-  // and the centre (T cells in) is exact for every s <= nsub <= T.
-  for (int s = 1; s <= nsub; ++s) {
-    for (int r = s + ty; r < EY - s; r += BLOCK_Y) {
-      const int gi = i0 + r;
-      const bool row_upd = gi > 0 && gi < nx - 1;
-      for (int c = s + tx; c < EX - s; c += BLOCK_X) {
-        const int gj = j0 + c;
-        const int p = r * EX + c;
-        float v = cur[p];
-        if (row_upd && gj > 0 && gj < ny - 1)
-          v = update<FORM>(v, cur[p - EX], cur[p + EX], cur[p - 1],
-                           cur[p + 1], k);
-        nxt[p] = v;
-      }
-    }
-    __syncthreads();
-    float* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-
-  // cur holds the last step, nxt the one before it.
-  float acc = 0.0f;
-  for (int r = T + ty; r < T + TY; r += BLOCK_Y) {
-    const int gi = i0 + r;
-    if (gi >= nx) break;
-    for (int c = T + tx; c < T + TX; c += BLOCK_X) {
-      const int gj = j0 + c;
-      if (gj >= ny) break;
-      const float v = cur[r * EX + c];
-      dst[(size_t)gi * ny + gj] = v;
-      if (RESID) {
-        const float d = v - nxt[r * EX + c];
-        acc += d * d;
-      }
-    }
-  }
-  if (RESID) {
-    __shared__ float warp_sums[BLOCK_X * BLOCK_Y / 32];
-    const int lane = (ty * BLOCK_X + tx) & 31;
-    const int warp = (ty * BLOCK_X + tx) >> 5;
-    for (int o = 16; o > 0; o >>= 1)
-      acc += __shfl_down_sync(0xffffffffu, acc, o);
-    if (lane == 0) warp_sums[warp] = acc;
-    __syncthreads();
-    if (warp == 0) {
-      acc = lane < BLOCK_X * BLOCK_Y / 32 ? warp_sums[lane] : 0.0f;
-      for (int o = 16; o > 0; o >>= 1)
-        acc += __shfl_down_sync(0xffffffffu, acc, o);
-      if (lane == 0) parts[blockIdx.y * gridDim.x + blockIdx.x] = acc;
-    }
-  }
+  const float acc = heat::tile_sweep<FORM, RESID>(src, dst, nx, ny, k, T,
+                                                  nsub, TY, TX, smem);
+  if (RESID && threadIdx.x == 0 && threadIdx.y == 0)
+    parts[blockIdx.y * gridDim.x + blockIdx.x] = acc;
 }
 
 // ---------------------------------------------------------------- H4 --
@@ -198,7 +113,7 @@ template <int FORM, bool RESID>
 cudaError_t launch_tile(const float* src, float* dst, float* parts, int nx,
                         int ny, Coef k, int T, int nsub, int TY, int TX,
                         cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)(TY + 2 * T) * (TX + 2 * T) * sizeof(float);
+  const size_t smem = heat::tile_smem_bytes(T, TY, TX);
   cudaError_t e = cudaFuncSetAttribute(
       k_tile<FORM, RESID>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);

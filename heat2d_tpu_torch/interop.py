@@ -7,6 +7,8 @@ The system has no weights; what crosses is the config and the grid:
   ``HeatConfig``;
 - ``state_from_numpy`` turns a host grid (``np.asarray`` of a JAX array,
   or a loaded checkpoint) into the port's tensor on ``device``;
+- ``batch_from_numpy`` does the same for an ensemble: a (B, nx, ny) batch
+  of states and its float32 (cx, cy) vectors;
 - checkpoints cross as files: ``io.binary`` writes and reads the JAX
   package's format byte for byte.
 """
@@ -30,3 +32,20 @@ def state_from_numpy(u, device=None):
     if a.ndim != 2:
         raise ValueError(f"expected a 2D grid, got shape {a.shape}")
     return torch.from_numpy(a.copy()).to(resolve_device(device))
+
+
+def batch_from_numpy(u, cxs, cys, device=None):
+    """(u, cxs, cys) as the ensemble kernels take them on ``device``
+    (``cuda`` by default): a contiguous (B, nx, ny) float32 batch and two
+    float32 vectors of length B. Accepts numpy arrays, sequences and
+    tensors."""
+    dev = resolve_device(device)
+    cxs = torch.as_tensor(cxs, dtype=torch.float32, device=dev).contiguous()
+    cys = torch.as_tensor(cys, dtype=torch.float32, device=dev).contiguous()
+    if cxs.shape != cys.shape or cxs.dim() != 1:
+        raise ValueError("cxs and cys must be equal-length 1D arrays")
+    u = torch.as_tensor(u, dtype=torch.float32, device=dev).contiguous()
+    if u.dim() != 3 or u.shape[0] != cxs.shape[0]:
+        raise ValueError(f"the batch must be ({cxs.shape[0]}, nx, ny), "
+                         f"got {tuple(u.shape)}")
+    return u, cxs, cys

@@ -110,14 +110,15 @@ def run_convergence_chunked(multi_step_fn, step_fn, residual_fn, u0,
 class Runner:
     """``u0 -> (u_final, steps_done)`` for one config: the route it takes,
     and the host reads of the residual its last call made (its ``tap``
-    counts them; pass it to the convergence loops)."""
+    counts them, whatever they report; pass it to the convergence
+    loops)."""
 
     def __init__(self, fn, route: str):
         self._fn = fn
         self.route = route
         self.residual_reads = 0
 
-    def tap(self, k, res) -> None:
+    def tap(self, *_) -> None:
         self.residual_reads += 1
 
     def __call__(self, u):

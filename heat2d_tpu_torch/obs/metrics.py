@@ -1,0 +1,162 @@
+"""Process-local metrics registry: counters, gauges and timing histograms
+(labeled series), with a JSONL export. The port's copy of the part of
+``heat2d_tpu/obs/metrics.py`` the serve modules use; the metric names are
+the JAX package's (``docs/SERVING.md``, ``docs/RESILIENCE.md``).
+
+Pure host-side Python: recording a metric never touches a tensor.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import datetime
+import json
+import math
+import random
+import threading
+import time
+
+#: histogram sample cap: below it quantiles are exact; above it the
+#: reservoir keeps a uniform sample (Algorithm R) while count/sum/min/
+#: max/mean stay exact.
+HIST_RESERVOIR_CAP = 4096
+
+
+def _utc_now_iso() -> str:
+    return datetime.datetime.now(datetime.timezone.utc).isoformat(
+        timespec="seconds")
+
+
+def _label_key(labels: dict) -> tuple:
+    return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+def quantile(sorted_samples: list, q: float) -> float:
+    """Nearest-rank quantile of an already-sorted sample list."""
+    if not sorted_samples:
+        return float("nan")
+    i = max(0, math.ceil(q * len(sorted_samples)) - 1)
+    return float(sorted_samples[i])
+
+
+class Reservoir:
+    """Bounded histogram storage: exact count/sum/min/max; the samples
+    exactly up to ``cap``, then a uniform reservoir (deterministically
+    seeded, so two registries fed one stream summarize alike)."""
+
+    __slots__ = ("cap", "count", "sum", "min", "max", "samples", "_rng")
+
+    def __init__(self, cap: int = HIST_RESERVOIR_CAP):
+        self.cap = cap
+        self.count = 0
+        self.sum = 0.0
+        self.min = math.inf
+        self.max = -math.inf
+        self.samples: list = []
+        self._rng = random.Random(0x1612)
+
+    def add(self, v: float) -> None:
+        self.count += 1
+        self.sum += v
+        self.min = min(self.min, v)
+        self.max = max(self.max, v)
+        if len(self.samples) < self.cap:
+            self.samples.append(v)
+        else:
+            i = self._rng.randrange(self.count)
+            if i < self.cap:
+                self.samples[i] = v
+
+    def summary(self) -> dict:
+        s = sorted(self.samples)
+        return {
+            "count": self.count,
+            "sum": float(self.sum),
+            "min": float(self.min),
+            "max": float(self.max),
+            "mean": (float(self.sum / self.count) if self.count
+                     else float("nan")),
+            "p50": quantile(s, 0.50),
+            "p90": quantile(s, 0.90),
+            "p99": quantile(s, 0.99),
+        }
+
+
+class MetricsRegistry:
+    """Counters, gauges and timing histograms, each identified by (name,
+    labels) as in Prometheus. Thread-safe: the serve scheduler and
+    submitting threads record concurrently."""
+
+    def __init__(self, hist_cap: int = HIST_RESERVOIR_CAP):
+        self._lock = threading.Lock()
+        self._hist_cap = hist_cap
+        self._counters: dict = {}
+        self._gauges: dict = {}
+        self._histograms: dict = {}
+
+    def counter(self, name: str, value: float = 1.0, **labels) -> None:
+        """Monotonically add ``value`` to the counter."""
+        k = (name, _label_key(labels))
+        with self._lock:
+            self._counters[k] = self._counters.get(k, 0.0) + float(value)
+
+    def gauge(self, name: str, value: float, **labels) -> None:
+        """Set the gauge to the latest ``value``."""
+        with self._lock:
+            self._gauges[(name, _label_key(labels))] = float(value)
+
+    def observe(self, name: str, value: float, **labels) -> None:
+        """Add one sample to the (timing) histogram."""
+        k = (name, _label_key(labels))
+        with self._lock:
+            r = self._histograms.get(k)
+            if r is None:
+                r = self._histograms[k] = Reservoir(self._hist_cap)
+            r.add(float(value))
+
+    @contextlib.contextmanager
+    def timer(self, name: str, **labels):
+        """Time the enclosed block into the ``name`` histogram (seconds)."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.observe(name, time.perf_counter() - t0, **labels)
+
+    @staticmethod
+    def _fmt(key: tuple) -> str:
+        name, labels = key
+        if not labels:
+            return name
+        return name + "{" + ",".join(f"{k}={v}" for k, v in labels) + "}"
+
+    def snapshot(self) -> dict:
+        """Point-in-time view: counters and gauges flat, histograms
+        summarized."""
+        with self._lock:
+            return {
+                "counters": {self._fmt(k): v
+                             for k, v in self._counters.items()},
+                "gauges": {self._fmt(k): v
+                           for k, v in self._gauges.items()},
+                "histograms": {self._fmt(k): v.summary()
+                               for k, v in self._histograms.items()},
+            }
+
+    def write_jsonl(self, path: str, extra_records=()) -> None:
+        """A ``snapshot`` line, then any caller-supplied records (e.g. the
+        run record), committed atomically (tmp + fsync + ``os.replace``)."""
+        from heat2d_tpu_torch.io.binary import write_text_atomic
+
+        lines = [json.dumps({"event": "snapshot", "ts": _utc_now_iso(),
+                             **self.snapshot()})]
+        lines.extend(json.dumps(rec) for rec in extra_records)
+        write_text_atomic("\n".join(lines) + "\n", path)
+
+
+_default_registry = MetricsRegistry()
+
+
+def get_registry() -> MetricsRegistry:
+    """The process-default registry."""
+    return _default_registry

@@ -41,6 +41,14 @@ SIGNATURES = {
         "heat_resident": (_I, [_P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _I,
                                _P]),
     },
+    "ensemble": {
+        "heat_error_string": (ctypes.c_char_p, [_I]),
+        "heat_ens_resident_blocks": (_I, [_P]),
+        "heat_ens_resident": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _P]),
+        "heat_ens_tile": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                               _I, _I, _P]),
+    },
 }
 
 _lock = threading.Lock()

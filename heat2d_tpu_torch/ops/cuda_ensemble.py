@@ -1,0 +1,249 @@
+"""The hand-written CUDA ensemble kernels and their plain PyTorch versions:
+the port of the Pallas kernels of ``heat2d_tpu/models/ensemble.py``.
+
+A batch is one contiguous (B, nx, ny) float32 tensor; member b steps with
+its own (cxs[b], cys[b]), two float32 vectors on the batch's device.
+Three kernels (sources in ``csrc/ensemble.cu``):
+
+====  =======================  ==============================================
+H5    ``ens_resident``         every member ``steps`` steps in one
+                               cooperative launch; replaces B5
+                               (``_ensemble_kernel``, ensemble.py:106)
+H6    ``ens_tile_multi``       ``nsub <= T`` steps per sweep of
+                               shared-memory tiles over a (member, tile)
+                               grid; replaces B6 and B7
+                               (``_ensemble_band_kernel``,
+                               ``_ens_window_kernel``, ensemble.py:157/:243)
+H7    ``ens_tile_multi_conv``  H6 gated by a per-member ``active`` flag
+                               (frozen members pass through), optionally
+                               with each member's residual of the last step
+                               pair; replaces B8 (``_ens_conv_kernel``,
+                               ensemble.py:357)
+====  =======================  ==============================================
+
+Every kernel takes the FMA step form with ``k0 = (1 - 2cx) - 2cy``
+computed in float32 from the float32 coefficients, as the TPU kernels
+compute it from their SMEM scalars (``ops/cuda_stencil`` computes its k0
+in double on the host instead; the two differ by an ulp of k0 for
+coefficients that are not binary-exact).
+
+On a CPU tensor a wrapper runs its kernel's plain version; on a CUDA
+tensor it launches the kernel or raises. Each launch adds one to the
+wrapper's entry in ``LAUNCHES``; the plain versions count nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from heat2d_tpu_torch.ops import _build
+from heat2d_tpu_torch.ops.cuda_stencil import (DEFAULT_TSTEPS,
+                                               multi_step_plain, plan_tiles,
+                                               smem_limit, step_plain)
+
+#: Launches per kernel wrapper since the last ``reset_launch_counts``.
+LAUNCHES = {"ens_resident": 0, "ens_tile_multi": 0,
+            "ens_tile_multi_conv": 0}
+
+#: The tile kernels put the member on blockIdx.z.
+MAX_MEMBERS = 65535
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def _lib():
+    return _build.load("ensemble")
+
+
+def _check(rc: int, what: str) -> None:
+    _build.check(_lib(), rc, what)
+
+
+def _stream(u) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(u.device).cuda_stream)
+
+
+def _ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
+
+
+def _validate(u, cxs, cys, what: str, active=None) -> None:
+    if u.dim() != 3 or u.dtype != torch.float32:
+        raise ValueError(f"{what}: expected a (B, nx, ny) float32 batch, "
+                         f"got {tuple(u.shape)} {u.dtype}")
+    if min(u.shape) < 1:
+        raise ValueError(f"{what}: empty batch {tuple(u.shape)}")
+    vecs = [("cxs", cxs, torch.float32), ("cys", cys, torch.float32)]
+    if active is not None:
+        vecs.append(("active", active, torch.int32))
+    for name, v, dtype in vecs:
+        if (v.dim() != 1 or v.shape[0] != u.shape[0] or v.dtype != dtype
+                or v.device != u.device):
+            raise ValueError(
+                f"{what}: {name} must be a ({u.shape[0]},) {dtype} vector "
+                f"on {u.device}, got {tuple(v.shape)} {v.dtype} on "
+                f"{v.device}")
+    if u.device.type == "cuda":
+        if not (u.is_contiguous() and all(v.is_contiguous()
+                                          for _, v, _ in vecs)):
+            raise ValueError(f"{what}: the CUDA kernels take contiguous "
+                             f"tensors")
+        if u.numel() >= 2 ** 31:
+            raise ValueError(f"{what}: batch of {u.numel()} cells exceeds "
+                             f"the kernels' 32-bit index range")
+        if u.shape[0] > MAX_MEMBERS:
+            raise ValueError(f"{what}: {u.shape[0]} members exceed the "
+                             f"launch grid's z limit of {MAX_MEMBERS}")
+    elif u.device.type != "cpu":
+        raise ValueError(f"{what}: unsupported device {u.device}")
+
+
+def _check_depth(nsub: int) -> None:
+    if not 1 <= nsub <= DEFAULT_TSTEPS:
+        raise ValueError(f"nsub must be in [1, T={DEFAULT_TSTEPS}], got "
+                         f"{nsub}")
+
+
+# --------------------------------------------------------------------- #
+# Plain PyTorch versions (whole-batch steps, same form and mask)
+# --------------------------------------------------------------------- #
+
+def member_coefs(cxs, cys):
+    """(cxs, cys) as (B, 1, 1) float32 tensors: the plain steps of
+    ``ops.cuda_stencil`` then give each member its own coefficients and
+    compute k0 = (1-2cx)-2cy in f32 (the TPU kernels' ``_step_value`` on
+    f32 scalars)."""
+    return cxs.reshape(-1, 1, 1), cys.reshape(-1, 1, 1)
+
+
+def ens_multi_step_plain(u, n: int, cxs, cys):
+    """``n`` clamped FMA-form steps of every member."""
+    return multi_step_plain(u, n, *member_coefs(cxs, cys))
+
+
+def member_residuals(a, b):
+    """Each member's sum over cells of (a - b)^2, float32: (B,)."""
+    d = a - b
+    return torch.sum(d * d, dim=(1, 2))
+
+
+def ens_conv_sweep_plain(u, nsub: int, cxs, cys, active, resid: bool):
+    """``nsub`` steps of the active members (frozen ones unchanged) and,
+    with ``resid``, each member's residual of the last step pair (0 for a
+    frozen member). Returns u, or (u, residuals)."""
+    prev = ens_multi_step_plain(u, nsub - 1, cxs, cys)
+    last = step_plain(prev, *member_coefs(cxs, cys))
+    on = active != 0
+    out = torch.where(on.reshape(-1, 1, 1), last, u)
+    if not resid:
+        return out
+    zero = torch.zeros((), dtype=torch.float32, device=u.device)
+    return out, torch.where(on, member_residuals(last, prev), zero)
+
+
+# --------------------------------------------------------------------- #
+# Kernel wrappers
+# --------------------------------------------------------------------- #
+
+_resident_blocks: dict[int, int] = {}
+
+
+def resident_blocks(device) -> int:
+    """H5 blocks the card holds co-resident (the cooperative launch's
+    limit), read once per device."""
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _resident_blocks:
+        buf = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            _check(_lib().heat_ens_resident_blocks(ctypes.byref(buf)),
+                   "heat_ens_resident_blocks")
+        _resident_blocks[idx] = buf.value
+    return _resident_blocks[idx]
+
+
+def resident_grid(u) -> int:
+    """Blocks of the H5 launch: enough for one cell per thread, at most
+    what the card holds co-resident."""
+    return max(1, min(resident_blocks(u.device), math.ceil(u.numel() / 256)))
+
+
+def ens_resident(u, steps: int, cxs, cys):
+    """H5: ``steps`` steps of every member in one cooperative launch."""
+    _validate(u, cxs, cys, "ens_resident")
+    if steps < 0:
+        raise ValueError(f"steps must be >= 0, got {steps}")
+    if u.device.type == "cpu":
+        return ens_multi_step_plain(u, steps, cxs, cys)
+    if steps == 0:
+        return u
+    nb, nx, ny = u.shape
+    p0, p1 = torch.empty_like(u), torch.empty_like(u)
+    LAUNCHES["ens_resident"] += 1
+    _check(_lib().heat_ens_resident(
+        _ptr(u), _ptr(p0), _ptr(p1), _ptr(cxs), _ptr(cys), nb, nx, ny,
+        steps, resident_grid(u), _stream(u)), "H5 ens_resident")
+    return p0 if steps % 2 else p1
+
+
+def _tile_launch(u, nsub, cxs, cys, active, resid, name):
+    nb, nx, ny = u.shape
+    plan = plan_tiles(nx, ny, DEFAULT_TSTEPS, smem_limit(u.device))
+    if plan.grid[0] > 65535:
+        raise ValueError(f"{name}: {nx} rows exceed the launch grid's y "
+                         f"limit")
+    out = torch.empty_like(u)
+    parts = (torch.empty((nb, plan.ntiles), dtype=torch.float32,
+                         device=u.device) if resid else None)
+    LAUNCHES[name] += 1
+    _check(_lib().heat_ens_tile(
+        _ptr(u), _ptr(out), _ptr(parts), _ptr(cxs), _ptr(cys),
+        _ptr(active), nb, nx, ny, plan.tsteps, nsub, plan.ty, plan.tx,
+        _stream(u)), name)
+    return out, parts
+
+
+def ens_tile_multi(u, nsub: int, cxs, cys):
+    """H6: ``nsub <= T`` steps of every member in one sweep of
+    shared-memory tiles: one read and one write of the batch."""
+    _validate(u, cxs, cys, "ens_tile_multi")
+    _check_depth(nsub)
+    if u.device.type == "cpu":
+        return ens_multi_step_plain(u, nsub, cxs, cys)
+    out, _ = _tile_launch(u, nsub, cxs, cys, None, False, "ens_tile_multi")
+    return out
+
+
+def ens_tile_multi_conv(u, nsub: int, cxs, cys, active, resid: bool = False):
+    """H7: H6 for the members whose int32 ``active`` flag is set, the
+    others passed through unchanged; with ``resid`` also each member's
+    residual of the last step pair (0 for a frozen member), summed on the
+    device from one partial per tile. Returns u, or (u, residuals)."""
+    _validate(u, cxs, cys, "ens_tile_multi_conv", active)
+    _check_depth(nsub)
+    if u.device.type == "cpu":
+        return ens_conv_sweep_plain(u, nsub, cxs, cys, active, resid)
+    out, parts = _tile_launch(u, nsub, cxs, cys, active, resid,
+                              "ens_tile_multi_conv")
+    return (out, torch.sum(parts, dim=1)) if resid else out
+
+
+def ens_tiled_chunk(u, n: int, cxs, cys, active=None):
+    """``n`` steps of every member as full T-deep sweeps plus one partial
+    sweep at depth ``n % T``: H6 sweeps, or with an int32 ``active``
+    vector H7 sweeps in which the frozen members pass through."""
+    nsweeps, rem = divmod(n, DEFAULT_TSTEPS)
+    for d in [DEFAULT_TSTEPS] * nsweeps + ([rem] if rem else []):
+        u = (ens_tile_multi(u, d, cxs, cys) if active is None
+             else ens_tile_multi_conv(u, d, cxs, cys, active))
+    return u

@@ -96,9 +96,9 @@ def _ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _k0(cx: float, cy: float) -> float:
-    """The FMA form's centre weight, computed in double as the JAX kernel
-    computes it, then used in f32."""
+def _k0(cx, cy):
+    """The FMA form's centre weight: for Python floats computed in double
+    as the JAX kernel computes it, then used in f32."""
     return 1.0 - 2.0 * cx - 2.0 * cy
 
 
@@ -226,24 +226,27 @@ def plan_tiles(nx: int, ny: int, tsteps: int = DEFAULT_TSTEPS,
 # Plain PyTorch versions (whole-grid steps, same form and mask)
 # --------------------------------------------------------------------- #
 
-def step_plain(u, cx: float, cy: float, form: int = FORM_FMA):
+def step_plain(u, cx, cy, form: int = FORM_FMA):
     """One clamped step of the whole grid in f32, FMA or literal form:
-    the JAX package's ``_step_value`` / ``_step_value_literal``."""
-    c = u[1:-1, 1:-1]
-    sx = u[2:, 1:-1] + u[:-2, 1:-1]
-    sy = u[1:-1, 2:] + u[1:-1, :-2]
-    cx, cy = float(cx), float(cy)
+    the JAX package's ``_step_value`` / ``_step_value_literal``. On a
+    (B, nx, ny) batch the coefficients may be (B, 1, 1) float32 tensors,
+    one per member; ``_k0`` of those is then f32 arithmetic, as the
+    batched TPU kernels compute it from their f32 scalars."""
+    c = u[..., 1:-1, 1:-1]
+    sx = u[..., 2:, 1:-1] + u[..., :-2, 1:-1]
+    sy = u[..., 1:-1, 2:] + u[..., 1:-1, :-2]
+    if not isinstance(cx, torch.Tensor):
+        cx, cy = float(cx), float(cy)
     if form == FORM_LITERAL:
         new = c + cx * (sx - 2.0 * c) + cy * (sy - 2.0 * c)
     else:
         new = _k0(cx, cy) * c + cx * sx + cy * sy
     out = u.clone()
-    out[1:-1, 1:-1] = new
+    out[..., 1:-1, 1:-1] = new
     return out
 
 
-def multi_step_plain(u, n: int, cx: float, cy: float,
-                     form: int = FORM_FMA):
+def multi_step_plain(u, n: int, cx, cy, form: int = FORM_FMA):
     for _ in range(n):
         u = step_plain(u, cx, cy, form)
     return u

@@ -14,24 +14,31 @@ import torch
 
 
 def _laplacian_update(v, cx, cy, accum_dtype=None):
-    """Updated values of ``v[1:-1, 1:-1]`` in ``accum_dtype`` (default:
-    v's dtype), from the halo-inclusive array ``v``."""
+    """Updated values of ``v[..., 1:-1, 1:-1]`` in ``accum_dtype``
+    (default: v's dtype), from the halo-inclusive array ``v``. The
+    coefficients are scalars, or (B, 1, 1) float32 tensors that give each
+    member of a (B, nx, ny) batch its own."""
     accum = v.dtype if accum_dtype is None else accum_dtype
-    c = v[1:-1, 1:-1].to(accum)
+    c = v[..., 1:-1, 1:-1].to(accum)
     # sx pairs with cx (the ix neighbours), sy with cy, as in the
     # reference (grad1612_cuda_heat.cu:59-61).
-    sx = (v[2:, 1:-1] + v[:-2, 1:-1]).to(accum)
-    sy = (v[1:-1, 2:] + v[1:-1, :-2]).to(accum)
+    sx = (v[..., 2:, 1:-1] + v[..., :-2, 1:-1]).to(accum)
+    sy = (v[..., 1:-1, 2:] + v[..., 1:-1, :-2]).to(accum)
     # A Python float meets a tensor in the tensor's dtype: f32(cx) for
     # the f32 path, the double literal itself for the f64 path.
-    cx, cy = float(cx), float(cy)
+    if not isinstance(cx, torch.Tensor):
+        cx, cy = float(cx), float(cy)
     return c + cx * (sx - 2.0 * c) + cy * (sy - 2.0 * c)
 
 
-def stencil_step(u, cx: float, cy: float, accum_dtype=torch.float32):
-    """One global time step. Interior updated, edges held (clamped BC)."""
+def stencil_step(u, cx, cy, accum_dtype=torch.float32):
+    """One global time step. Interior updated, edges held (clamped BC).
+    On a (B, nx, ny) batch with (B, 1, 1) float32 coefficients, per member
+    the operations of the single-grid step (the JAX package's ``vmap``
+    of it)."""
     out = u.clone()
-    out[1:-1, 1:-1] = _laplacian_update(u, cx, cy, accum_dtype).to(u.dtype)
+    out[..., 1:-1, 1:-1] = _laplacian_update(u, cx, cy,
+                                             accum_dtype).to(u.dtype)
     return out
 
 

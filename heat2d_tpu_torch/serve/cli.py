@@ -1,0 +1,249 @@
+"""``heat2d-tpu-torch-serve``: the serving command of the port (the
+counterpart of ``heat2d-tpu-serve``).
+
+- ``--selftest``: start an in-process server, fire a small mixed workload
+  through the synchronous client (same-shape batching, mixed-shape
+  buckets, duplicate single-flight, a cache-hit repeat, and requests this
+  port rejects as ``unsupported_combination``), then check the serving
+  invariants: fewer launches than requests, a launch that held more than
+  one member, a cache hit, bitwise-identical cached and coalesced
+  results, the structured rejections. Exit 0 iff every check holds.
+- ``--requests FILE.jsonl``: serve a file of request dicts (one JSON
+  object per line) and print one result or rejection summary per line.
+
+``--metrics-out PATH`` writes the metrics snapshot and a ``kind="serve"``
+run record as JSONL. ``--device cpu`` runs the plain PyTorch versions of
+the kernels on the CPU; without it the server runs on the card and
+refuses to start where there is none.
+
+    heat2d-tpu-torch-serve --selftest --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+
+from heat2d_tpu_torch.utils.device import DeviceUnavailableError
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="heat2d-tpu-torch-serve",
+        description="solve serving on PyTorch/CUDA: async queue, shape-"
+                    "bucketed micro-batching onto the ensemble kernels, "
+                    "content-addressed result cache")
+    p.add_argument("--selftest", action="store_true",
+                   help="run the in-process mixed-workload smoke test and "
+                        "exit nonzero on any serving-invariant failure")
+    p.add_argument("--requests", default=None, metavar="JSONL",
+                   help="serve a file of request dicts, one JSON object "
+                        "per line")
+    s = p.add_argument_group("scheduler tuning")
+    s.add_argument("--max-batch", type=int, default=8,
+                   help="members per ensemble launch (a bucket dispatches "
+                        "when full)")
+    s.add_argument("--max-delay", type=float, default=0.005, metavar="S",
+                   help="longest a bucket's oldest request waits before "
+                        "a partial batch dispatches")
+    s.add_argument("--queue-depth", type=int, default=256,
+                   help="admission limit across all buckets; excess load "
+                        "is shed with a structured rejection")
+    s.add_argument("--cache-size", type=int, default=256,
+                   help="result-cache entries (content-addressed LRU)")
+    s.add_argument("--timeout", type=float, default=30.0,
+                   help="per-request queue timeout in seconds")
+    p.add_argument("--metrics-out", default=None, metavar="PATH",
+                   help="write the metrics snapshot and the kind='serve' "
+                        "run record as JSONL")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="serve on the CUDA card (default) or, with the "
+                        "plain PyTorch versions of the kernels, the CPU")
+    return p
+
+
+def _server(args, registry, max_delay):
+    from heat2d_tpu_torch.serve.server import SolveServer
+    return SolveServer(
+        max_batch=args.max_batch, max_delay=max_delay,
+        max_queue=args.queue_depth, cache_size=args.cache_size,
+        default_timeout=args.timeout, registry=registry,
+        device=args.device)
+
+
+def _selftest_workload(client):
+    """The mixed workload: returns (requests fired, failures)."""
+    from heat2d_tpu_torch.serve.schema import SolveRequest
+
+    a = [SolveRequest(nx=24, ny=32, steps=6, cx=0.05 + 0.01 * i, cy=0.1,
+                      method="jnp") for i in range(6)]
+    b = [SolveRequest(nx=16, ny=48, steps=6, cx=0.1, cy=0.05 + 0.01 * i,
+                      method="jnp") for i in range(3)]
+    dup = SolveRequest(nx=24, ny=32, steps=6, cx=0.2, cy=0.2, method="jnp")
+
+    failures = []
+    # Same-shape batching + mixed shapes in separate buckets + two
+    # identical in-flight duplicates, all submitted before the batcher's
+    # max_delay elapses.
+    futs = [client.submit(r) for r in a + b] + [client.submit(dup),
+                                                client.submit(dup)]
+    results = []
+    for i, f in enumerate(futs):
+        try:
+            results.append(f.result(timeout=120))
+        except Exception as e:  # noqa: BLE001 — report, don't crash
+            failures.append(f"request {i} failed: {e!r}")
+            results.append(None)
+    fired = len(futs)
+
+    if results[0] is not None:
+        again = client.solve(a[0], timeout=60)
+        fired += 1
+        if not again.cache_hit:
+            failures.append("repeat request was not a cache hit")
+        if np.asarray(again.u).tobytes() != \
+                np.asarray(results[0].u).tobytes():
+            failures.append("cache hit result not bitwise-identical")
+    if results[-1] is not None and results[-2] is not None:
+        if np.asarray(results[-1].u).tobytes() != \
+                np.asarray(results[-2].u).tobytes():
+            failures.append("coalesced duplicates returned different "
+                            "grids")
+    f2, fail2 = _unsupported_workload(client)
+    return fired + f2, failures + fail2
+
+
+def _unsupported_workload(client):
+    """Requests this port does not serve yet must come back as
+    ``Rejected("unsupported_combination")`` naming the method or the
+    problem, never as a crash: an implicit method on heat5, and another
+    problem family."""
+    from heat2d_tpu_torch.serve.schema import Rejected, SolveRequest
+
+    failures = []
+    cases = [(SolveRequest(nx=24, ny=32, steps=4, cx=8.0, cy=6.0,
+                           method="adi"), "adi"),
+             (SolveRequest(nx=16, ny=16, steps=5, method="jnp",
+                           problem="heat9"), "heat9")]
+    for req, name in cases:
+        try:
+            client.solve(req, timeout=60)
+            failures.append(f"{name} request was served (expected the "
+                            f"unsupported_combination rejection)")
+        except Rejected as e:
+            if e.code != "unsupported_combination":
+                failures.append(f"{name} rejected with {e.code!r}, "
+                                f"expected 'unsupported_combination'")
+            elif name not in e.message:
+                failures.append(f"the {name} rejection does not name it")
+        except Exception as e:  # noqa: BLE001 — report, don't crash
+            failures.append(f"{name} raised {e!r} instead of a "
+                            f"structured rejection")
+    return len(cases), failures
+
+
+def run_selftest(args, registry) -> int:
+    from heat2d_tpu_torch.serve.server import Client
+
+    server = _server(args, registry, max(args.max_delay, 0.05))
+    with server:
+        fired, failures = _selftest_workload(Client(server))
+
+    snap = registry.snapshot()
+    occ = snap["histograms"].get("serve_batch_occupancy")
+    launches = server.engine.launches
+    if launches >= fired:
+        failures.append(f"no batching: {launches} launches for {fired} "
+                        f"requests")
+    if not occ or occ["count"] < 1 or occ["sum"] < 1:
+        failures.append("batch-occupancy metric is empty")
+    elif occ["max"] < 2:
+        failures.append("no launch held more than one member")
+    hits = snap["counters"].get("serve_cache_hits_total", 0)
+    if hits < 1:
+        failures.append("no cache hit recorded")
+    if "serve_e2e_latency_s" not in snap["histograms"]:
+        failures.append("no end-to-end latency recorded")
+
+    print(f"selftest: {fired} requests -> {launches} launches, occupancy "
+          f"max {occ['max'] if occ else 0:.0f}, cache hits {hits:.0f}")
+    for f in failures:
+        print(f"FAIL: {f}", file=sys.stderr)
+    _write_metrics(args, registry, server,
+                   extra={"selftest_requests": fired,
+                          "selftest_failures": failures})
+    print("selftest " + ("FAILED" if failures else "passed"))
+    return 1 if failures else 0
+
+
+def run_requests(args, registry) -> int:
+    from heat2d_tpu_torch.serve.schema import Rejected, SolveRequest
+
+    try:
+        with open(args.requests) as f:
+            dicts = [json.loads(line) for line in f if line.strip()]
+    except (OSError, json.JSONDecodeError) as e:
+        print(f"bad --requests file: {e}\nQuitting...", file=sys.stderr)
+        return 1
+
+    rc = 0
+    server = _server(args, registry, args.max_delay)
+    with server:
+        futs = []
+        for d in dicts:
+            try:
+                futs.append(server.submit(SolveRequest.from_dict(d)))
+            except Rejected as e:   # from_dict validation
+                futs.append(e)
+        for fut in futs:
+            if isinstance(fut, Rejected):
+                row = fut.to_record()
+            else:
+                try:
+                    row = fut.result(timeout=args.timeout + 60).summary()
+                except Rejected as e:
+                    rc, row = 1, e.to_record()
+                except Exception as e:  # noqa: BLE001
+                    rc, row = 1, {"rejected": "error", "message": repr(e)}
+            print(json.dumps(row), flush=True)
+    _write_metrics(args, registry, server, extra={"requests": len(dicts)})
+    return rc
+
+
+def _write_metrics(args, registry, server, extra) -> None:
+    if not args.metrics_out:
+        return
+    from heat2d_tpu_torch.obs.record import build_record
+
+    record = build_record("serve", device=args.device, extra={
+        "launches": server.engine.launches,
+        "launch_log": [dict(row, signature=list(map(str, row["signature"])))
+                       for row in server.engine.launch_log],
+        **extra})
+    registry.write_jsonl(args.metrics_out,
+                         extra_records=[{"event": "run_record", **record}])
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    from heat2d_tpu_torch.obs import MetricsRegistry
+    registry = MetricsRegistry()
+    try:
+        if args.selftest:
+            return run_selftest(args, registry)
+        if args.requests:
+            return run_requests(args, registry)
+    except DeviceUnavailableError as e:
+        print(f"{e}\nQuitting...", file=sys.stderr)
+        return 1
+    print("nothing to do: pass --selftest or --requests FILE.jsonl "
+          "(embed SolveServer in your process for anything else)",
+          file=sys.stderr)
+    return 2
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,122 @@
+"""Serve-side ensemble engine: one bucket -> one ensemble launch. The
+port's copy of ``heat2d_tpu/serve/engine.py``.
+
+A dispatched bucket is a list of same-signature requests whose (cx, cy)
+differ, the heterogeneous batch the ensemble runners take:
+
+- **One runner per signature.** The runner comes from
+  ``models.ensemble.batch_runner``, memoized per signature.
+- **Padded batch shapes.** Launches pad the member axis to the next power
+  of two (capped at ``max_batch``), replicating the last member's (cx,
+  cy): a pad member's trajectory is its twin's, so it cannot hold a
+  convergence loop open longer than the batch would, and the results are
+  cropped on return. The JAX package pads so that a signature compiles
+  O(log max_batch) programs; here the ladder keeps the launch shapes
+  (and the per-member work) the same on both stacks.
+
+Each launch appends a row to ``launch_log`` with its occupancy and
+capacity, the route it ran, and where its host time went: ``setup_s``
+(padding, the initial batch, the coefficient vectors on the device),
+``run_s`` (the runner until the device is done) and ``readback_s`` (the
+copy of the batch to the host). Metrics: ``serve_launches_total``,
+``serve_launch_s`` (run + readback) and ``serve_compile_cache_size`` (the
+runner cache's size).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import time
+from typing import List, Tuple
+
+import torch
+
+from heat2d_tpu_torch.models import ensemble
+from heat2d_tpu_torch.resil import chaos
+from heat2d_tpu_torch.utils.device import resolve_device
+
+log = logging.getLogger("heat2d_tpu_torch.serve")
+
+
+def _pad_capacity(n: int, cap: int) -> int:
+    """Next power of two >= n, capped at ``cap`` (cap wins even when it
+    is not itself a power of two: a bucket never exceeds max_batch)."""
+    p = 1
+    while p < n:
+        p *= 2
+    return min(p, cap)
+
+
+class EnsembleEngine:
+    """Executes buckets through the batched ensemble runners on one
+    device (``cuda`` unless given ``device="cpu"``). Holds no queue
+    state: the batcher schedules, this owns the numerics and the launch
+    accounting."""
+
+    def __init__(self, registry=None, max_batch: int = 8, device=None):
+        self.registry = registry
+        self.max_batch = max_batch
+        self.device = resolve_device(device)
+        self.launches = 0
+        self.launch_log: List[dict] = []
+
+    def solve_batch(self, requests) -> List[Tuple["object", int]]:
+        """Solve same-signature ``requests`` in one ensemble launch.
+        Returns one (u, steps_done) pair per request, in order, with u
+        the member's grid on the host.
+
+        May raise transients (including an injected ``ChaosError``); the
+        server's retry policy absorbs them."""
+        chaos.launch_point()
+        t0 = time.perf_counter()
+        req0 = requests[0]
+        n = len(requests)
+        capacity = _pad_capacity(n, self.max_batch)
+        cxs = [r.cx for r in requests]
+        cys = [r.cy for r in requests]
+        cxs += [cxs[-1]] * (capacity - n)
+        cys += [cys[-1]] * (capacity - n)
+        cxs, cys, u0 = ensemble._validated_batch(
+            req0.nx, req0.ny, cxs, cys, None, self.device)
+        # Fixed-step requests hand the runner cache (0, 0.0), never their
+        # unused interval/sensitivity: one signature, one runner.
+        interval, sensitivity = req0.schedule()
+        runner = ensemble.batch_runner(
+            req0.nx, req0.ny, req0.steps, req0.method,
+            convergence=req0.convergence, interval=interval,
+            sensitivity=sensitivity, problem=req0.problem,
+            device=str(self.device))
+        t1 = time.perf_counter()
+
+        timer = (self.registry.timer("serve_launch_s")
+                 if self.registry is not None else contextlib.nullcontext())
+        with timer:
+            out = runner(u0, cxs, cys)
+            u = out[0] if req0.convergence else out
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            t2 = time.perf_counter()
+            # Only the real members go to the host: the pads' copies
+            # would be readback time for results nobody asked for.
+            if req0.convergence:
+                steps_done = [int(k) for k in out[1][:n].cpu()]
+            else:
+                steps_done = [req0.steps] * n
+            u = u[:n].cpu().numpy()
+        t3 = time.perf_counter()
+
+        self.launches += 1
+        self.launch_log.append({
+            "signature": req0.signature(), "occupancy": n,
+            "capacity": capacity, "method": runner.method,
+            "tuned_config": None,
+            "setup_s": t1 - t0, "run_s": t2 - t1, "readback_s": t3 - t2})
+        if self.registry is not None:
+            self.registry.counter("serve_launches_total")
+            self.registry.gauge("serve_compile_cache_size",
+                                ensemble.batch_runner.cache_info().currsize)
+        log.debug("launch %d: %dx%d steps=%d occupancy=%d/%d route=%s",
+                  self.launches, req0.nx, req0.ny, req0.steps, n, capacity,
+                  runner.method)
+        return [(u[i], steps_done[i]) for i in range(n)]

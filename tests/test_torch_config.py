@@ -35,6 +35,9 @@ def test_vocabularies_equal():
     assert tcfg.MODES == jcfg.MODES
     assert tcfg.HALO_ROUTES == jcfg.HALO_ROUTES
     assert tvocab.TIME_METHODS == jvocab.TIME_METHODS
+    assert tvocab.IMPLICIT_METHODS == jvocab.IMPLICIT_METHODS
+    assert tvocab.EXPLICIT_ROUTES == jvocab.EXPLICIT_ROUTES
+    assert tvocab.SERVE_METHODS == jvocab.SERVE_METHODS
     assert tvocab.PROBLEMS == jvocab.PROBLEMS
     assert tvocab.DEFAULT_PROBLEM == jvocab.DEFAULT_PROBLEM
     assert tcfg.CUDA_DEFAULTS == jcfg.CUDA_DEFAULTS

@@ -2,7 +2,7 @@
 the same card. Marked ``cuda``: they skip where no card is present, and
 run on the H100 with
 
-    python -m pytest tests/test_torch_cuda.py -m cuda
+    python -m pytest tests/test_torch_cuda.py -m cuda --noconftest
 
 Literal form: bitwise. FMA form: within ``n * 2**-21 * max|plain|``
 after n steps (the kernel contracts each update into FMAs, the plain
@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from heat2d_tpu_torch.config import HeatConfig
+from heat2d_tpu_torch.models import ensemble
 from heat2d_tpu_torch.models.solver import Heat2DSolver
+from heat2d_tpu_torch.ops import cuda_ensemble as ce
 from heat2d_tpu_torch.ops import cuda_stencil as cs
 
 pytestmark = pytest.mark.cuda
@@ -68,3 +70,83 @@ def test_pallas_solver_on_the_card(card, monkeypatch, streamed):
     want = Heat2DSolver(cfg.replace(mode="serial")).run(timed=False)
     assert got.steps_done == want.steps_done
     assert (got.u == want.u).all()
+
+
+def _batch(card, b, shape, seed=11):
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    u = torch.rand((b,) + shape, generator=g, device=card)
+    cxs = torch.rand(b, generator=g, device=card) * 0.24 + 0.01
+    cys = torch.rand(b, generator=g, device=card) * 0.24 + 0.01
+    return u, cxs, cys
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("shape", [(37, 53), (130, 257)])
+def test_ens_resident_matches_plain(card, shape, b):
+    u, cxs, cys = _batch(card, b, shape)
+    ce.reset_launch_counts()
+    for n in (1, 2, 9):
+        _close(ce.ens_resident(u, n, cxs, cys),
+               ce.ens_multi_step_plain(u, n, cxs, cys), n, cs.FORM_FMA)
+    assert ce.launch_counts()["ens_resident"] == 3
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+@pytest.mark.parametrize("shape", [(37, 53), (130, 257)])
+def test_ens_tile_multi_matches_plain(card, shape, b):
+    u, cxs, cys = _batch(card, b, shape)
+    for nsub in (1, 2, 5, 8):
+        _close(ce.ens_tile_multi(u, nsub, cxs, cys),
+               ce.ens_multi_step_plain(u, nsub, cxs, cys), nsub,
+               cs.FORM_FMA)
+
+
+@pytest.mark.parametrize("b", [1, 3, 8])
+def test_ens_tile_multi_conv_matches_plain(card, b):
+    u, cxs, cys = _batch(card, b, (130, 257))
+    active = torch.tensor([i % 2 for i in range(b)], dtype=torch.int32,
+                          device=card)
+    frozen = active == 0
+    for nsub in (1, 5, 8):
+        got, r = ce.ens_tile_multi_conv(u, nsub, cxs, cys, active,
+                                        resid=True)
+        ref, r_ref = ce.ens_conv_sweep_plain(u, nsub, cxs, cys, active,
+                                             True)
+        _close(got, ref, nsub, cs.FORM_FMA)
+        assert torch.equal(got[frozen], u[frozen])
+        assert bool((r[frozen] == 0).all())
+        on = ~frozen
+        assert torch.allclose(r[on], r_ref[on], rtol=1e-4, atol=0)
+
+
+def test_ensemble_convergence_on_the_card(card):
+    """The H7 route against the pair-tracked loop over H5 on the card:
+    the same steps_done, grids within tolerance."""
+    args = (36, 128, 200, 10, 2e8, [0.03125, 0.25], [0.03125, 0.25])
+    ce.reset_launch_counts()
+    a, ka = ensemble.run_ensemble_convergence(*args, method="band")
+    b, kb = ensemble.run_ensemble_convergence(*args, method="pallas")
+    assert ka.tolist() == kb.tolist() and len(set(ka.tolist())) == 2
+    _close(a, b, 200, cs.FORM_FMA)
+    counts = ce.launch_counts()
+    assert counts["ens_tile_multi_conv"] > 0 and counts["ens_resident"] > 0
+
+
+def test_serving_on_the_card(card):
+    from heat2d_tpu_torch.obs.metrics import MetricsRegistry
+    from heat2d_tpu_torch.serve.schema import SolveRequest
+    from heat2d_tpu_torch.serve.server import SolveServer
+
+    reqs = [SolveRequest(nx=64, ny=96, steps=19, cx=0.05 * (i + 1),
+                         cy=0.1) for i in range(3)]
+    ce.reset_launch_counts()
+    with SolveServer(registry=MetricsRegistry(), max_delay=0.2) as srv:
+        futs = [srv.submit(r) for r in reqs]
+        got = [f.result(timeout=120) for f in futs]
+    assert srv.engine.launches == 1
+    assert ce.launch_counts()["ens_resident"] == 1
+    want = ensemble.run_ensemble(64, 96, 19, [r.cx for r in reqs],
+                                 [r.cy for r in reqs], method="jnp")
+    for m, r in enumerate(got):
+        _close(torch.from_numpy(r.u), want[m].cpu(), 19, cs.FORM_FMA)

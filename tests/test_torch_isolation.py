@@ -1,8 +1,8 @@
 """The port stands alone: no module of heat2d_tpu_torch (and not
-chip_smoke.py) imports jax or heat2d_tpu; its entry points refuse to run
-without a card unless asked for the CPU; its tile plans fit the H100's
-shared memory; chip_smoke.py refuses to run without a card or without
-the package beside it."""
+chip_smoke.py) imports jax or heat2d_tpu; its entry points (solver,
+ensembles, serving, both CLIs) refuse to run without a card unless asked
+for the CPU; its tile plans fit the H100's shared memory; chip_smoke.py
+refuses to run without a card or without the package beside it."""
 
 import ast
 import os
@@ -58,7 +58,7 @@ def _forbidden(name):
 
 def test_no_module_imports_jax_or_the_jax_package():
     sources = list(_port_sources())
-    assert len(sources) >= 20
+    assert len(sources) >= 36
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported(p) if _forbidden(m)]
     assert bad == []
@@ -67,6 +67,16 @@ def test_no_module_imports_jax_or_the_jax_package():
 def test_importing_the_solver_loads_no_jax():
     code = ("import sys; import heat2d_tpu_torch.models.solver, "
             "heat2d_tpu_torch.cli, heat2d_tpu_torch.ops.cuda_stencil; "
+            "print('jax' in sys.modules, 'heat2d_tpu' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "False"]
+
+
+def test_importing_ensembles_and_serving_loads_no_jax():
+    code = ("import sys; import heat2d_tpu_torch.models.ensemble, "
+            "heat2d_tpu_torch.serve.cli, heat2d_tpu_torch.serve.server, "
+            "heat2d_tpu_torch.resil.retry, heat2d_tpu_torch.obs.metrics; "
             "print('jax' in sys.modules, 'heat2d_tpu' in sys.modules)")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)
@@ -90,6 +100,34 @@ def test_entry_points_raise_without_a_card(no_card, capsys):
     assert "CUDA" in capsys.readouterr().err
     # ... and run when asked for the CPU.
     assert Heat2DSolver(cfg, device="cpu").run(timed=False).steps_done == 100
+
+
+def test_ensemble_and_serve_entry_points_raise_without_a_card(no_card,
+                                                              capsys):
+    from heat2d_tpu_torch.interop import batch_from_numpy
+    from heat2d_tpu_torch.models import ensemble
+    from heat2d_tpu_torch.serve import cli as serve_cli
+    from heat2d_tpu_torch.serve.server import SolveServer
+
+    calls = [
+        lambda: ensemble.run_ensemble(8, 8, 1, [0.1], [0.1]),
+        lambda: ensemble.run_ensemble_convergence(8, 8, 4, 2, 0.1, [0.1],
+                                                  [0.1]),
+        lambda: ensemble.timed_ensemble(8, 8, 1, [0.1], [0.1]),
+        lambda: ensemble.batch_runner(8, 8, 1, "auto"),
+        lambda: batch_from_numpy(np.zeros((1, 4, 4)), [0.1], [0.1]),
+        lambda: SolveServer(),
+    ]
+    for call in calls:
+        with pytest.raises(DeviceUnavailableError, match="CUDA"):
+            call()
+    assert cli.main(["--ensemble-cx", "0.1", "--ensemble-cy", "0.1"]) == 1
+    assert serve_cli.main(["--selftest"]) == 1
+    assert capsys.readouterr().err.count("CUDA") == 2
+    # ... and run when asked for the CPU.
+    assert ensemble.run_ensemble(8, 8, 1, [0.1], [0.1],
+                                 device="cpu").shape == (1, 8, 8)
+    assert serve_cli.main(["--selftest", "--device", "cpu"]) == 0
 
 
 @pytest.mark.parametrize("shape", [(4096, 4096), (640, 1024), (4099, 4097),
@@ -118,6 +156,9 @@ def test_resident_gate_on_the_cpu():
 
 
 def test_build_is_keyed_by_content_and_needs_nvcc(monkeypatch):
+    assert set(_build.SIGNATURES) == {"stencil", "ensemble"}
+    assert {p.name for p in _build.CSRC.glob("*.cu")} == {
+        "stencil.cu", "ensemble.cu"}
     p = _build.library_path("stencil")
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libstencil_")
     assert p == _build.library_path("stencil")
