@@ -13,7 +13,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    within ``n * 2**-21 * max|plain|`` after n steps): H1-H4 on single
    grids, H5-H7 on batches of B in {1, 3, 8} members with heterogeneous
    (cx, cy), H7 with a mixed ``active`` vector (frozen members bitwise
-   unchanged, their residual exactly 0);
+   unchanged, their residual exactly 0); H8/H9 for heat9, advdiff and
+   reactdiff (B in {1, 3, 8}, 37x53 and 4099x4097, nsub in {1, 5, 8},
+   within a per-family bound, ``family_tol``); H10/H11 at B in {1, 3} on
+   ragged shapes with diffusion numbers up to 51.2 (``td_tol``);
 4. main path: ``Heat2DSolver`` in mode ``pallas`` against mode ``serial``
    on the card: 4096^2 x 240 steps fixed, the same with convergence
    (interval 20) in both step forms, and 640x1024x10000 on the resident
@@ -28,9 +31,25 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    the card (equal ``steps_done``, grids within tolerance), fewer
    launches than requests, and the launch counters, zeroed just before,
    show H5-H7 ran;
-6. the ``kernels`` line: time, bound, plain and library times of each
-   kernel at its path's shapes;
-7. headline: Mcells/s at 4096^2 by the two-point protocol of bench.py.
+6. implicit path: ``Heat2DSolver --mode pallas --method adi`` at 4096^2,
+   cx = cy = 51.2, 20 fixed steps, and a convergence run at 1024^2 whose
+   sensitivity is read from both routes' residuals so that they exit at
+   the fifth check; each against ``--mode serial --method adi`` (equal
+   ``steps_done``, ``adi_tol``); ``--method mg`` at 4097^2 x 4 steps,
+   and on the separable mode against the exact Crank-Nicolson factor;
+   H10 and H11 launched;
+7. serving path of the families and the implicit methods: (e) per
+   family 8 requests of 640x1024 x 10000 (H8) and 4 of 4096^2 x 240
+   (H9), (f) 4 adi requests of 4096^2 x 20 (H10) and a bitwise cache
+   hit, (g) 2 mg requests of 4097^2 x 4, (h) reactdiff x adi rejected as
+   ``unsupported_combination``; each result against the jnp, scan or
+   plain route on the card (the families bit for bit), and the mg
+   results also against the exact Crank-Nicolson evolution;
+8. time to solution at 513^2: explicit through H6 against ADI through
+   H10/H11, matched accuracy against the analytic mode;
+9. the ``kernels`` line: the shape timed, time, bound, plain and library
+   times of each kernel H1-H11 at its path's shapes;
+10. headline: Mcells/s at 4096^2 by the two-point protocol of bench.py.
 
 The last line of standard output is ``{"ok": true, "device": ...}``. The
 full results also go to ``chiprun_out/chip_smoke.json``.
@@ -54,8 +73,19 @@ PEAK_F32_FLOPS = 67e12
 #: FLOPs of one FMA-form cell update: a multiply, two adds, two FMAs.
 FLOPS_PER_CELL_STEP = 7
 
-STENCIL_SOURCE = "heat2d_tpu_torch/csrc/stencil.cu"
-ENSEMBLE_SOURCE = "heat2d_tpu_torch/csrc/ensemble.cu"
+SOURCES = {
+    "step": "heat2d_tpu_torch/csrc/stencil.cu",
+    "tile_multi": "heat2d_tpu_torch/csrc/stencil.cu",
+    "tile_multi_resid": "heat2d_tpu_torch/csrc/stencil.cu",
+    "resident": "heat2d_tpu_torch/csrc/stencil.cu",
+    "ens_resident": "heat2d_tpu_torch/csrc/ensemble.cu",
+    "ens_tile_multi": "heat2d_tpu_torch/csrc/ensemble.cu",
+    "ens_tile_multi_conv": "heat2d_tpu_torch/csrc/ensemble.cu",
+    "fam_resident": "heat2d_tpu_torch/csrc/family.cu",
+    "fam_tile_multi": "heat2d_tpu_torch/csrc/family.cu",
+    "td_rows": "heat2d_tpu_torch/csrc/tridiag.cu",
+    "td_lanes": "heat2d_tpu_torch/csrc/tridiag.cu",
+}
 REPLACES = {
     "step": "heat2d_tpu/ops/pallas_stencil.py:509",
     "tile_multi": "heat2d_tpu/ops/pallas_stencil.py:993",
@@ -64,7 +94,17 @@ REPLACES = {
     "ens_resident": "heat2d_tpu/models/ensemble.py:106",
     "ens_tile_multi": "heat2d_tpu/models/ensemble.py:243",
     "ens_tile_multi_conv": "heat2d_tpu/models/ensemble.py:357",
+    "fam_resident": "heat2d_tpu/problems/runners.py:124",
+    "fam_tile_multi": "heat2d_tpu/problems/runners.py:181",
+    "td_rows": "heat2d_tpu/ops/tridiag.py:324",
+    "td_lanes": "heat2d_tpu/ops/tridiag.py:349",
 }
+#: FLOPs of one cell update per family (each rounded operation of the
+#: update counted once): heat9 22, advdiff 14, reactdiff 12 (the division
+#: counted as one).
+FAMILY_FLOPS = {"heat9": 22, "advdiff": 14, "reactdiff": 12}
+#: FLOPs per unknown of a tridiagonal solve: 3 forward, 2 back.
+TD_FLOPS = 5
 
 
 class SmokeFailure(RuntimeError):
@@ -266,6 +306,105 @@ def phase_ensemble_kernels(torch) -> dict:
                 judge("ens_tile_multi_conv", got, ref, nsub, what)
     torch.cuda.synchronize()
     info = {"phase": "ensemble_kernels", "checks": checks,
+            "max_abs_err": worst}
+    emit(info)
+    return info
+
+
+#: Per-family ranges of the random (cx, cy) of the kernel checks: inside
+#: each family's explicit stability bound (heat9: cx + cy <= 3/8;
+#: advdiff: vx^2 <= 2 cx besides the 5-point box).
+FAMILY_COEFS = {"heat9": (0.01, 0.17), "advdiff": (0.01, 0.24),
+                "reactdiff": (0.01, 0.24)}
+
+
+def family_tol(problem, n, ref) -> float:
+    """H8/H9 against their plain version after n steps: ``n * factor *
+    2**-24 * max|plain|``, the factor (rounded operations x largest
+    partial result, ``cuda_family.rounding_factor``) derived per family.
+    The kernels repeat the plain roundings, so 0 is expected."""
+    from heat2d_tpu_torch.ops import cuda_family as cf
+    return max(1, n) * cf.rounding_factor(problem) * 2.0 ** -24 * float(
+        ref.abs().max())
+
+
+def td_tol(c_max, ref) -> float:
+    """H10/H11 against their plain version: an ADI half step at diffusion
+    number c forms intermediates ~c times the state, so its roundoff is
+    ~c eps; the bound is ``(1 + c_max) * 2**-20 * max|plain|`` (16 ulp of
+    margin on c eps). The kernels repeat the plain roundings, so 0 is
+    expected."""
+    return (1.0 + c_max) * 2.0 ** -20 * float(ref.abs().max())
+
+
+def adi_tol(steps, cx, cy, ref) -> float:
+    """The H10 route against the plain scan: two arithmetics (the
+    kernel's (cp, mi) elimination against the scan's division form),
+    each ~(1 + cx + cy) eps per step: ``steps * (1 + cx + cy) * 2**-22 *
+    max|ref|``."""
+    return max(1, steps) * (1.0 + cx + cy) * 2.0 ** -22 * float(
+        ref.abs().max())
+
+
+def phase_family_kernels(torch) -> dict:
+    """H8 and H9 against their plain version for heat9, advdiff and
+    reactdiff: ragged 37x53 and 4099x4097 members, B in {1, 3, 8}, nsub
+    in {1, 5, T}, random per-member (cx, cy) inside each family's box."""
+    from heat2d_tpu_torch.ops import cuda_family as cf
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1614)
+    worst = {k: 0.0 for k in cf.LAUNCHES}
+    checks = 0
+    for problem, (lo, hi) in FAMILY_COEFS.items():
+        for shape in [(37, 53), (4099, 4097)]:
+            for b in (1, 3, 8):
+                u = torch.rand((b,) + shape, generator=g, device="cuda")
+                cxs, cys = (torch.rand(b, generator=g, device="cuda")
+                            * (hi - lo) + lo for _ in range(2))
+                scal = cf.scalar_block(problem, cxs, cys)
+                for nsub in (1, 5, 8):
+                    ref = cf.fam_multi_step_plain(u, nsub, scal, problem)
+                    tol = family_tol(problem, nsub, ref)
+                    for name, fn in (("fam_resident", cf.fam_resident),
+                                     ("fam_tile_multi", cf.fam_tile_multi)):
+                        err = max_err(fn(u, nsub, scal, problem), ref)
+                        worst[name] = max(worst[name], err)
+                        fail_unless(err <= tol, f"{name} {problem} B={b} "
+                                    f"{shape} nsub={nsub}: max_abs_err "
+                                    f"{err} > {tol}")
+                        checks += 1
+    torch.cuda.synchronize()
+    info = {"phase": "family_kernels", "checks": checks,
+            "max_abs_err": worst}
+    emit(info)
+    return info
+
+
+def phase_tridiag_kernels(torch) -> dict:
+    """H10 and H11 against their plain versions: B in {1, 3}, ragged
+    shapes, diffusion numbers up to 51.2."""
+    from heat2d_tpu_torch.ops import tridiag as td
+    g = torch.Generator(device="cuda")
+    g.manual_seed(1615)
+    worst = {k: 0.0 for k in td.LAUNCHES}
+    checks = 0
+    cs_ = [51.2, 0.3, 7.0]
+    for shape in [(37, 53), (1031, 2053), (4099, 4097)]:
+        for b in (1, 3):
+            rhs = torch.rand((b,) + shape, generator=g, device="cuda") * 1e3
+            c = torch.tensor(cs_[:b], dtype=torch.float32, device="cuda")
+            for name, fn, plain in (("td_rows", td.td_rows, td.td_rows_plain),
+                                    ("td_lanes", td.td_lanes,
+                                     td.td_lanes_plain)):
+                ref = plain(rhs, c)
+                err = max_err(fn(rhs, c), ref)
+                tol = td_tol(max(cs_[:b]), ref)
+                worst[name] = max(worst[name], err)
+                fail_unless(err <= tol, f"{name} B={b} {shape}: max_abs_err "
+                            f"{err} > {tol}")
+                checks += 1
+    torch.cuda.synchronize()
+    info = {"phase": "tridiag_kernels", "checks": checks,
             "max_abs_err": worst}
     emit(info)
     return info
@@ -485,7 +624,8 @@ def phase_kernel_times(torch, launches: dict, worst: dict) -> list:
     x4 = big.reshape(1, 1, *big.shape)
     b, by = bound_ms(2 * plane, FLOPS_PER_CELL_STEP * cells)
     rows.append(dict(
-        name="step", ms=time_ms(lambda: cs.step(big, cx, cy), 50),
+        name="step", shape="4096x4096, 1 step",
+        ms=time_ms(lambda: cs.step(big, cx, cy), 50),
         plain_ms=time_ms(lambda: cs.step_plain(big, cx, cy), 20),
         bound_ms=b, bound_by=by,
         library_ms=time_ms(lambda: F.conv2d(x4, w, padding=1), 50)))
@@ -494,7 +634,7 @@ def phase_kernel_times(torch, launches: dict, worst: dict) -> list:
     t = cs.DEFAULT_TSTEPS
     b, by = bound_ms(2 * plane, FLOPS_PER_CELL_STEP * cells * t)
     rows.append(dict(
-        name="tile_multi",
+        name="tile_multi", shape="4096x4096, one T=8 sweep",
         ms=time_ms(lambda: cs.tile_multi(big, t, cx, cy), 20),
         plain_ms=time_ms(lambda: cs.multi_step_plain(big, t, cx, cy), 5),
         bound_ms=b, bound_by=by, library_ms=None))
@@ -503,6 +643,7 @@ def phase_kernel_times(torch, launches: dict, worst: dict) -> list:
                      FLOPS_PER_CELL_STEP * cells * t + 3 * cells)
     rows.append(dict(
         name="tile_multi_resid",
+        shape="4096x4096, one T=8 sweep + residual",
         ms=time_ms(lambda: cs.tile_multi_resid(big, t, cx, cy), 20),
         plain_ms=time_ms(lambda: cs.tile_multi_resid_plain(big, t, cx, cy),
                          5),
@@ -514,15 +655,16 @@ def phase_kernel_times(torch, launches: dict, worst: dict) -> list:
     b, by = bound_ms(2 * small.numel() * 4,
                      FLOPS_PER_CELL_STEP * small.numel() * n)
     rows.append(dict(
-        name="resident", ms=time_ms(lambda: cs.resident(small, n, cx, cy), 3),
+        name="resident", shape="640x1024 x 10000 steps",
+        ms=time_ms(lambda: cs.resident(small, n, cx, cy), 3),
         plain_ms=time_ms(lambda: cs.multi_step_plain(small, n, cx, cy), 1),
         bound_ms=b, bound_by=by, library_ms=None))
 
     rows += ensemble_kernel_rows(torch)
+    rows += family_tridiag_kernel_rows(torch)
     for r in rows:
         r.update(route="cuda",
-                 source=(ENSEMBLE_SOURCE if r["name"].startswith("ens_")
-                         else STENCIL_SOURCE),
+                 source=SOURCES[r["name"]],
                  replaces=REPLACES[r["name"]],
                  launches=launches[r["name"]],
                  max_abs_err=worst[r["name"]])
@@ -545,7 +687,7 @@ def ensemble_kernel_rows(torch) -> list:
     cys = torch.linspace(0.2, 0.06, b, device="cuda")
     bnd, by = bound_ms(2 * u.numel() * 4, FLOPS_PER_CELL_STEP * u.numel() * n)
     rows.append(dict(
-        name="ens_resident",
+        name="ens_resident", shape="8 x 640x1024 x 10000 steps",
         ms=time_ms(lambda: ce.ens_resident(u, n, cxs, cys), 3),
         plain_ms=time_ms(lambda: ce.ens_multi_step_plain(u, n, cxs, cys),
                          1),
@@ -561,7 +703,7 @@ def ensemble_kernel_rows(torch) -> list:
     cells = u.numel()
     bnd, by = bound_ms(2 * cells * 4, FLOPS_PER_CELL_STEP * cells * t)
     rows.append(dict(
-        name="ens_tile_multi",
+        name="ens_tile_multi", shape="4 x 4096x4096, one T=8 sweep",
         ms=time_ms(lambda: ce.ens_tile_multi(u, t, cxs, cys), 20),
         plain_ms=time_ms(lambda: ce.ens_multi_step_plain(u, t, cxs, cys),
                          5),
@@ -571,12 +713,428 @@ def ensemble_kernel_rows(torch) -> list:
                        FLOPS_PER_CELL_STEP * cells * t + 3 * cells)
     rows.append(dict(
         name="ens_tile_multi_conv",
+        shape="4 x 4096x4096, one T=8 sweep + residuals, all active",
         ms=time_ms(lambda: ce.ens_tile_multi_conv(u, t, cxs, cys, act,
                                                   resid=True), 20),
         plain_ms=time_ms(lambda: ce.ens_conv_sweep_plain(
             u, t, cxs, cys, act, True), 5),
         bound_ms=bnd, bound_by=by, library_ms=None))
     return rows
+
+
+def family_tridiag_kernel_rows(torch) -> list:
+    """H8-H11 timed at their paths' shapes. H8/H9 for heat9, the widest
+    family (legs e); H10/H11 on one 4096^2 member at c = 51.2 (the ADI
+    path). No single PyTorch call runs T family steps or a batched
+    tridiagonal solve, so no library time."""
+    from heat2d_tpu_torch.ops import cuda_family as cf
+    from heat2d_tpu_torch.ops import tridiag as td
+    from heat2d_tpu_torch.ops.init import inidat
+
+    rows = []
+    fam = "heat9"
+    # H8: leg (e), 8 members of 640x1024 x 10000 steps in one launch.
+    b, n = 8, 10000
+    u = inidat(640, 1024, device="cuda").expand(b, 640, 1024).contiguous()
+    cxs = torch.linspace(0.02, 0.125, b, device="cuda")
+    scal = cf.scalar_block(fam, cxs, 0.17 - cxs)
+    bnd, by = bound_ms(2 * u.numel() * 4, FAMILY_FLOPS[fam] * u.numel() * n)
+    rows.append(dict(
+        name="fam_resident", shape="heat9, 8 x 640x1024 x 10000 steps",
+        ms=time_ms(lambda: cf.fam_resident(u, n, scal, fam), 3),
+        plain_ms=time_ms(lambda: cf.fam_multi_step_plain(u, n, scal, fam),
+                         1),
+        bound_ms=bnd, bound_by=by, library_ms=None))
+
+    # H9: leg (e), 4 members of 4096^2, one T = 8 sweep.
+    b, t = 4, cf.DEFAULT_TSTEPS
+    u = inidat(4096, 4096, device="cuda").expand(b, 4096, 4096).contiguous()
+    cxs = torch.tensor([0.03, 0.06, 0.09, 0.12], device="cuda")
+    scal = cf.scalar_block(fam, cxs, 0.17 - cxs)
+    bnd, by = bound_ms(2 * u.numel() * 4, FAMILY_FLOPS[fam] * u.numel() * t)
+    rows.append(dict(
+        name="fam_tile_multi",
+        shape="heat9, 4 x 4096x4096, one T=8 sweep",
+        ms=time_ms(lambda: cf.fam_tile_multi(u, t, scal, fam), 20),
+        plain_ms=time_ms(lambda: cf.fam_multi_step_plain(u, t, scal, fam),
+                         5),
+        bound_ms=bnd, bound_by=by, library_ms=None))
+
+    # H10 / H11: one member's 4096 systems of 4096 unknowns, c = 51.2.
+    rhs = inidat(4096, 4096, device="cuda")[None].contiguous()
+    c = torch.tensor([51.2], device="cuda")
+    bnd, by = bound_ms(2 * rhs.numel() * 4 + 4,
+                       TD_FLOPS * rhs.numel() + 4 * 4096)
+    for name, fn, plain in (("td_rows", td.td_rows, td.td_rows_plain),
+                            ("td_lanes", td.td_lanes, td.td_lanes_plain)):
+        rows.append(dict(
+            name=name, shape="1 x 4096 systems of 4096, c=51.2",
+            ms=time_ms(lambda: fn(rhs, c), 20),
+            plain_ms=time_ms(lambda: plain(rhs, c), 2),
+            bound_ms=bnd, bound_by=by, library_ms=None))
+    return rows
+
+
+def adi_step_breakdown(torch, n: int, c: float) -> dict:
+    """Where one ADI step of ``adi_sweep_kernel`` goes on an n x n
+    member: each of its operations timed alone by CUDA events, and the
+    whole step. Beside it, the y half solved as H11 does it and as a
+    transpose, H10 and a transpose back, on that member and on leg (f)'s
+    four members."""
+    from heat2d_tpu_torch.ops import tridiag as td
+    from heat2d_tpu_torch.ops.init import inidat
+
+    u = inidat(n, n, device="cuda")[None].contiguous()
+    cs_ = torch.tensor([c], device="cuda")
+    cb = cs_.reshape(-1, 1, 1)
+    rhs1 = td._rhs_half(u, cb, 1)
+    x = td.td_rows(rhs1, cs_)
+    ustar = td._hold_edges(x, u)
+    rhs2 = td._rhs_half(ustar, cb, 0)
+    y = td.td_lanes(rhs2, cs_)
+    u4 = u.expand(4, n, n).contiguous()
+    c4 = torch.tensor([51.2, 51.2, 12.8, 3.2], device="cuda")
+    rhs4 = td._rhs_half(u4, c4.reshape(-1, 1, 1), 0)
+
+    def xpose(r, cc):
+        return td.td_rows(r.transpose(1, 2).contiguous(), cc) \
+            .transpose(1, 2).contiguous()
+
+    parts = {
+        "rhs_half_y": lambda: td._rhs_half(u, cb, 1),
+        "td_rows_x": lambda: td.td_rows(rhs1, cs_),
+        "hold_edges_x": lambda: td._hold_edges(x, u),
+        "rhs_half_x": lambda: td._rhs_half(ustar, cb, 0),
+        "td_lanes_y": lambda: td.td_lanes(rhs2, cs_),
+        "hold_edges_y": lambda: td._hold_edges(y, u),
+        "step": lambda: td.adi_sweep_kernel(u, cs_, cs_),
+        "y_half_xpose": lambda: xpose(rhs2, cs_),
+        "b4_td_lanes_y": lambda: td.td_lanes(rhs4, c4),
+        "b4_y_half_xpose": lambda: xpose(rhs4, c4),
+        "b4_step": lambda: td.adi_sweep_kernel(u4, c4, c4),
+    }
+    return {k: time_ms(fn, 10) for k, fn in parts.items()}
+
+
+def pick_adi_sensitivity(torch, n: int, c: float, interval: int,
+                         exit_check: int):
+    """A sensitivity at which both ADI routes of ``Heat2DSolver`` (H10/H11
+    and the plain scan) exit at check ``exit_check`` of an n x n run:
+    each route's residual at every check up to it, read on the card by
+    the solver's own step and residual functions in the solver's order
+    (``interval - 1`` steps, one tracked step, the pair's residual). The
+    sensitivity lies at the geometric middle between the last check's
+    largest residual and the earlier checks' smallest, and that gap must
+    exceed four times the largest relative difference of the two routes
+    at one check."""
+    from heat2d_tpu_torch.ops import tridiag as td
+    from heat2d_tpu_torch.ops.init import inidat
+    from heat2d_tpu_torch.ops.stencil import residual_sq
+    ca = torch.full((1,), c, dtype=torch.float32, device="cuda")
+    steps = {"adi-kernel": lambda u: td.adi_sweep_kernel(u[None], ca, ca)[0],
+             "adi-scan": lambda u: td.adi_step(u, c, c)}
+    res = {}
+    for route, step in steps.items():
+        u, res[route] = inidat(n, n, device="cuda"), []
+        for _ in range(exit_check):
+            for _ in range(interval - 1):
+                u = step(u)
+            prev, u = u, step(u)
+            res[route].append(float(residual_sq(u, prev)))
+    pairs = list(zip(*res.values()))
+    gap = max(abs(a - b) / max(a, b) for a, b in pairs)
+    below = max(pairs[-1])
+    above = min(min(p) for p in pairs[:-1])
+    fail_unless(above > below * (1 + 4 * gap),
+                f"ADI residuals {res}: no sensitivity separates check "
+                f"{exit_check} from the earlier ones (route gap {gap})")
+    return math.sqrt(above * below), {"residuals": res, "route_gap": gap}
+
+
+def adi_check(torch, got, want, cfg) -> dict:
+    """An ADI/MG solver result against its reference on the card."""
+    u = torch.from_numpy(got.u)
+    fail_unless(bool(torch.isfinite(u).all()), f"{cfg}: non-finite")
+    fail_unless(tuple(u.shape) == cfg.shape, f"{cfg}: shape {u.shape}")
+    fail_unless(float(u[0].abs().max()) == 0.0
+                and float(u[:, -1].abs().max()) == 0.0,
+                f"{cfg}: boundary not held")
+    fail_unless(got.steps_done == want.steps_done,
+                f"{cfg}: steps_done {got.steps_done} vs "
+                f"{want.steps_done}")
+    ref = torch.from_numpy(want.u)
+    err = max_err(u, ref)
+    tol = adi_tol(got.steps_done, cfg.cx, cfg.cy, ref)
+    fail_unless(err <= tol, f"{cfg}: max_abs_err {err} > {tol}")
+    return {"shape": list(cfg.shape), "steps": cfg.steps,
+            "method": cfg.method, "convergence": cfg.convergence,
+            "route": got.route, "steps_done": got.steps_done,
+            "max_abs_err": err, "tol": tol, "elapsed_s": got.elapsed,
+            "warmup_s": got.warmup_s, "residual_reads": got.residual_reads}
+
+
+def phase_implicit_path(torch) -> dict:
+    """The implicit main path at full width through ``Heat2DSolver``:
+    ``--mode pallas --method adi`` at 4096^2 and cx = cy = 51.2 (0.2 x
+    bench_tts's step ratio of 256), 20 fixed steps, against ``--mode
+    serial --method adi`` on the card. Then a convergence run of both
+    routes at 1024^2, interval 10, which must exit at the fifth check: at
+    4096^2 a step pair's residual falls only ~0.1% per check of 10 steps
+    (the lowest mode's factor), less than the two routes' arithmetic
+    moves it, so no sensitivity between checks is safe there. Then
+    ``--method mg`` at 4097^2 (2^12 + 1, which the V-cycle coarsens), 4
+    steps, on the reference initial condition and on the separable mode
+    against the exact Crank-Nicolson factor. Launch counters, zeroed just
+    before the solver runs, show H10 and H11 ran."""
+    from heat2d_tpu_torch.config import HeatConfig
+    from heat2d_tpu_torch.models.solver import Heat2DSolver
+    from heat2d_tpu_torch.ops import analytic
+    from heat2d_tpu_torch.ops import tridiag as td
+
+    c, interval, exit_check = 51.2, 10, 5
+    fixed = HeatConfig(nxprob=4096, nyprob=4096, steps=20, cx=c, cy=c,
+                       method="adi", mode="pallas")
+    sens, readings = pick_adi_sensitivity(torch, 1024, c, interval,
+                                          exit_check)
+    conv = fixed.replace(nxprob=1024, nyprob=1024, steps=100,
+                         convergence=True, interval=interval,
+                         sensitivity=sens)
+    td.reset_launch_counts()
+    runs = []
+    for cfg in (fixed, conv):
+        got = Heat2DSolver(cfg).run()
+        want = Heat2DSolver(cfg.replace(mode="serial")).run(timed=False)
+        runs.append(adi_check(torch, got, want, cfg))
+        emit({"phase": "implicit_path_run", **runs[-1]})
+    counts = td.launch_counts()
+    for name in ("td_rows", "td_lanes"):
+        fail_unless(counts[name] > 0, f"{name} never launched on the ADI "
+                    f"path")
+    fail_unless([r["route"] for r in runs] == ["adi-kernel", "adi-kernel"],
+                f"ADI routes {[r['route'] for r in runs]}")
+    fail_unless(runs[1]["steps_done"] == exit_check * interval
+                and runs[1]["residual_reads"] == exit_check,
+                f"ADI convergence run: steps_done {runs[1]['steps_done']}, "
+                f"{runs[1]['residual_reads']} residual reads")
+
+    n = 4097
+    mg = HeatConfig(nxprob=n, nyprob=n, steps=4, cx=c, cy=c, method="mg",
+                    mode="pallas")
+    solver = Heat2DSolver(mg)
+    r = solver.run()
+    u = torch.from_numpy(r.u)
+    fail_unless(bool(torch.isfinite(u).all()) and r.steps_done == 4
+                and float(u[0].abs().max()) == 0.0, "mg: bad run")
+    mode = analytic.separable_mode(n, n)
+    rm = solver.run(u0=solver.place(mode), timed=False)
+    lx, ly = analytic.mode_eigenvalues(n, n)
+    a = c * lx / 2 + c * ly / 2
+    exact = mode.astype("float64") * ((1 - a) / (1 + a)) ** 4
+    mg_err = analytic.l2_error(rm.u, exact)
+    fail_unless(mg_err <= 1e-4, f"mg: relative L2 error {mg_err} against "
+                f"the exact CN factor")
+    info = {"phase": "implicit_path", "launches": counts,
+            "convergence": {"sensitivity": sens, **readings},
+            "mg": {"route": r.route, "elapsed_s": r.elapsed,
+                   "warmup_s": r.warmup_s, "mode_l2_error": mg_err},
+            "adi_step_ms": adi_step_breakdown(torch, 4096, c)}
+    emit(info)
+    return {**info, "runs": runs}
+
+
+def family_implicit_legs(SolveRequest) -> dict:
+    """The serving legs of the families and the implicit methods, name ->
+    requests. Coefficients sit inside each family's box (heat9: cx + cy
+    <= 0.17; advdiff: vx^2 <= 2 cx)."""
+    legs = {}
+    for fam in ("heat9", "advdiff", "reactdiff"):
+        if fam == "heat9":
+            small = [(0.02 + 0.015 * i, 0.15 - 0.015 * i) for i in range(8)]
+            big = [(0.03 * (i + 1), 0.17 - 0.03 * (i + 1)) for i in range(4)]
+        else:
+            small = [(0.02 + 0.02 * i, 0.2 - 0.02 * i) for i in range(8)]
+            big = [(0.05 * (i + 1), 0.2 - 0.04 * i) for i in range(4)]
+        legs[f"e_{fam}_pallas"] = [
+            SolveRequest(nx=640, ny=1024, steps=10000, cx=cx, cy=cy,
+                         problem=fam) for cx, cy in small]
+        legs[f"e_{fam}_band"] = [
+            SolveRequest(nx=4096, ny=4096, steps=240, cx=cx, cy=cy,
+                         problem=fam) for cx, cy in big]
+    legs["f"] = [SolveRequest(nx=4096, ny=4096, steps=20, cx=cx, cy=cy,
+                              method="adi")
+                 for cx, cy in [(51.2, 51.2), (25.6, 51.2), (51.2, 12.8),
+                                (6.4, 3.2)]]
+    legs["g"] = [SolveRequest(nx=4097, ny=4097, steps=4, cx=c, cy=c,
+                              method="mg") for c in (51.2, 12.8)]
+    return legs
+
+
+def cn_exact_inidat(torch, nx: int, ny: int, steps: int, cx: float,
+                    cy: float):
+    """The exact Crank-Nicolson evolution of the reference initial
+    condition, float64 on the card. ``inidat`` is i (nx-1-i) x j
+    (ny-1-j), zero on the edges, so it expands in the sine modes of the
+    held-edge Laplacian per axis; mode (k, l) is multiplied by (1 - a) /
+    (1 + a) per step, a = (cx lx_k + cy ly_l) / 2, lx_k = 4 sin^2(pi k /
+    (2 (nx - 1)))."""
+    def basis(n):
+        k = torch.arange(1, n - 1, dtype=torch.int64, device="cuda")
+        ki = (k[:, None] * k[None, :]) % (2 * (n - 1))
+        s = torch.sin(ki.to(torch.float64) * (math.pi / (n - 1)))
+        f = (k * (n - 1 - k)).to(torch.float64)
+        lam = 4.0 * torch.sin(k.to(torch.float64)
+                              * (math.pi / (2.0 * (n - 1)))) ** 2
+        return s, (2.0 / (n - 1)) * (s @ f), lam
+    sx, ax, lx = basis(nx)
+    sy, ay, ly = basis(ny)
+    a = (cx * lx[:, None] + cy * ly[None, :]) / 2.0
+    coef = ax[:, None] * ay[None, :] * ((1.0 - a) / (1.0 + a)) ** steps
+    u = torch.zeros((nx, ny), dtype=torch.float64, device="cuda")
+    u[1:-1, 1:-1] = sx @ coef @ sy
+    return u
+
+
+def mg_exact_check(torch, got, req, cx: float, cy: float) -> dict:
+    """One served mg result against the exact Crank-Nicolson evolution:
+    its relative L2 error must stay below a tenth of the relative L2
+    change the exact evolution makes over the run, so a member stepped at
+    another diffusion number, or not stepped, fails."""
+    exact = cn_exact_inidat(torch, req.nx, req.ny, req.steps, cx, cy)
+    start = cn_exact_inidat(torch, req.nx, req.ny, 0, cx, cy)
+    u = torch.from_numpy(got).to("cuda", torch.float64)
+    norm = float(torch.linalg.vector_norm(exact))
+    err = float(torch.linalg.vector_norm(u - exact)) / norm
+    change = float(torch.linalg.vector_norm(start - exact)) / norm
+    fail_unless(err <= 0.1 * change, f"mg at ({cx}, {cy}): relative L2 "
+                f"error {err} against the exact CN evolution, above a "
+                f"tenth of its change {change}")
+    return {"cx": cx, "cy": cy, "l2_error": err, "l2_change": change}
+
+
+def phase_serve_families(torch) -> dict:
+    """The serving path of the families and the implicit methods at full
+    width, through ``SolveServer`` on the card: (e) per family 8 requests
+    of 640x1024 x 10000 (H8) and 4 of 4096^2 x 240 (H9); (f) 4 adi
+    requests of 4096^2 x 20 at diffusion numbers up to 51.2 (H10) and a
+    repeat that must hit the cache bitwise; (g) 2 mg requests of 4097^2
+    x 4; (h) reactdiff x adi, rejected as unsupported_combination. Every
+    result against the port's jnp, scan or plain route on the card (the
+    family legs bit for bit), the mg results also against the exact
+    Crank-Nicolson evolution; launch counters, zeroed just before, show
+    H8-H11 ran."""
+    from heat2d_tpu_torch.models import ensemble
+    from heat2d_tpu_torch.obs.metrics import MetricsRegistry
+    from heat2d_tpu_torch.ops import cuda_family as cf
+    from heat2d_tpu_torch.ops import tridiag as td
+    from heat2d_tpu_torch.ops.init import inidat
+    from heat2d_tpu_torch.serve.schema import Rejected, SolveRequest
+    from heat2d_tpu_torch.serve.server import Client, SolveServer
+
+    legs = family_implicit_legs(SolveRequest)
+    registry = MetricsRegistry()
+    server = SolveServer(max_batch=8, max_delay=0.5, registry=registry,
+                         default_timeout=600.0)
+    client = Client(server)
+    answers, seconds = {}, {}
+    cf.reset_launch_counts()
+    td.reset_launch_counts()
+    with server:
+        for name, reqs in legs.items():
+            t0 = time.perf_counter()
+            futs = [client.submit(r) for r in reqs]
+            answers[name] = [f.result(timeout=900) for f in futs]
+            seconds[name] = time.perf_counter() - t0
+        hit = client.solve(legs["f"][0])
+        try:
+            client.solve(SolveRequest(nx=64, ny=64, steps=5, method="adi",
+                                      problem="reactdiff"))
+            rejected = None
+        except Rejected as e:
+            rejected = e
+    counts = {**cf.launch_counts(), **td.launch_counts()}
+    fail_unless(hit.cache_hit and hit.u.tobytes()
+                == answers["f"][0].u.tobytes(),
+                "leg f: the repeat was not a bitwise cache hit")
+    fail_unless(rejected is not None
+                and rejected.code == "unsupported_combination"
+                and "does not support method 'adi'" in rejected.message
+                and "nonlinear source term" in rejected.message,
+                f"leg h: reactdiff x adi answered {rejected!r}")
+    for name in ("fam_resident", "fam_tile_multi", "td_rows", "td_lanes"):
+        fail_unless(counts[name] > 0, f"kernel {name} never launched on "
+                    f"the serving path")
+
+    checked = {}
+    for name, reqs in legs.items():
+        r0 = reqs[0]
+        cxs, cys = [r.cx for r in reqs], [r.cy for r in reqs]
+        if r0.method == "adi":
+            u0 = inidat(r0.nx, r0.ny, device="cuda").expand(
+                len(reqs), r0.nx, r0.ny).contiguous()
+            ref = td.batched_adi_scan(
+                u0, torch.tensor(cxs, device="cuda"),
+                torch.tensor(cys, device="cuda"), steps=r0.steps)
+        else:
+            route = "jnp" if r0.method == "auto" else r0.method
+            ref = ensemble.run_ensemble(r0.nx, r0.ny, r0.steps, cxs, cys,
+                                        method=route, problem=r0.problem)
+        got = [a.steps_done for a in answers[name]]
+        fail_unless(got == [r0.steps] * len(reqs),
+                    f"leg {name}: steps_done {got}")
+        errs = []
+        for m, a in enumerate(answers[name]):
+            u = torch.from_numpy(a.u)
+            fail_unless(bool(torch.isfinite(u).all()),
+                        f"leg {name}: non-finite values")
+            want = ref[m].cpu()
+            err = max_err(u, want)
+            # The family kernels repeat their plain steps' roundings and
+            # mg serves the route it is checked against: both bit for bit.
+            tol = (adi_tol(r0.steps, cxs[m], cys[m], want)
+                   if r0.method == "adi" else 0.0)
+            fail_unless(err <= tol, f"leg {name} member {m}: max_abs_err "
+                        f"{err} > {tol}")
+            errs.append(err)
+        checked[name] = {"steps_done": got, "max_abs_err": max(errs)}
+        if r0.method == "mg":
+            checked[name]["exact_cn"] = [
+                mg_exact_check(torch, a.u, r0, r.cx, r.cy)
+                for a, r in zip(answers[name], reqs)]
+    log = server.engine.launch_log
+    routes = [(row["problem"], row["method"]) for row in log]
+    want_routes = [(f, r) for f in ("heat9", "advdiff", "reactdiff")
+                   for r in ("pallas", "band")] + [("heat5", "adi"),
+                                                   ("heat5", "mg")]
+    fail_unless(routes == want_routes, f"serving routes {routes}")
+    snap = registry.snapshot()
+    info = {"phase": "serve_families",
+            "requests": sum(len(r) for r in legs.values()) + 2,
+            "launches": server.engine.launches, "launch_counts": counts,
+            "legs": checked, "leg_seconds": seconds,
+            "rejection": rejected.message,
+            "problem_launches": {k: v for k, v in snap["counters"].items()
+                                 if k.startswith("problem_requests")},
+            "launch_log": [dict(row, signature=str(row["signature"]))
+                           for row in log]}
+    emit({k: info[k] for k in ("phase", "requests", "launches",
+                               "launch_counts", "legs")})
+    return info
+
+
+def phase_time_to_solution(torch) -> dict:
+    """One ``time_to_solution`` row at bench_tts's 513^2: explicit 2560
+    steps through H6 against ADI 10 steps at 256x the diffusion number
+    through H10, both against the analytic separable mode."""
+    from heat2d_tpu_torch.models.solution import bench_tts
+    out = bench_tts(use_kernels=True, device="cuda")
+    summ = out["summary"]
+    fail_unless(all(math.isfinite(r["accuracy"]) for r in out["rows"]),
+                f"time_to_solution: {out['rows']}")
+    fail_unless(summ["adi_matched_accuracy"],
+                f"time_to_solution: ADI not at matched accuracy {out}")
+    info = {"phase": "time_to_solution", **out}
+    emit(info)
+    return info
 
 
 def phase_headline(torch, name: str, power: str) -> dict:
@@ -636,11 +1194,21 @@ def main() -> int:
         build = phase_build()
         kern = phase_kernels(torch)
         ens_kern = phase_ensemble_kernels(torch)
+        fam_kern = phase_family_kernels(torch)
+        td_kern = phase_tridiag_kernels(torch)
         main_path = phase_main_path(torch)
         serve = phase_serve(torch)
+        implicit = phase_implicit_path(torch)
+        serve_fam = phase_serve_families(torch)
+        tts = phase_time_to_solution(torch)
+        launches = {**main_path["launches"], **serve["launch_counts"],
+                    **serve_fam["launch_counts"]}
+        launches["td_rows"] += implicit["launches"]["td_rows"]
+        launches["td_lanes"] += implicit["launches"]["td_lanes"]
         rows = phase_kernel_times(
-            torch, {**main_path["launches"], **serve["launch_counts"]},
-            {**kern["max_abs_err"], **ens_kern["max_abs_err"]})
+            torch, launches,
+            {**kern["max_abs_err"], **ens_kern["max_abs_err"],
+             **fam_kern["max_abs_err"], **td_kern["max_abs_err"]})
         head = phase_headline(torch, tool["name"], tool["power_limit"])
         for r in rows:
             fail_unless(all(math.isfinite(r[k]) for k in
@@ -651,7 +1219,11 @@ def main() -> int:
         return 1
     write_results({"toolchain": tool, "build": build, "kernels_check": kern,
                    "ensemble_kernels_check": ens_kern,
-                   "main_path": main_path, "serve": serve, "kernels": rows,
+                   "family_kernels_check": fam_kern,
+                   "tridiag_kernels_check": td_kern,
+                   "main_path": main_path, "serve": serve,
+                   "implicit_path": implicit, "serve_families": serve_fam,
+                   "time_to_solution": tts, "kernels": rows,
                    "headline": head,
                    "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})

@@ -4,7 +4,8 @@
 This package imports ``torch`` and ``numpy``, never ``jax`` or anything
 of ``heat2d_tpu``. Its entry points (``models.solver.Heat2DSolver``,
 ``cli.main``, ``ops.cuda_stencil.make_single_chip_runner``, the ensemble
-runs of ``models.ensemble``, ``serve.SolveServer`` and
+runs of ``models.ensemble`` for every problem family and the implicit
+methods, ``models.solution.time_to_solution``, ``serve.SolveServer`` and
 ``serve.cli.main``) run on the card unless the caller asks for the CPU
 with ``device="cpu"``.
 """

@@ -11,9 +11,16 @@ checkpoint, ``Exiting after N iterations`` and ``Elapsed time: %e sec``.
         --nyprob 1024 --steps 10000
     python -m heat2d_tpu_torch.cli --device cpu --accum-dtype float64
 
-``--ensemble-cx/--ensemble-cy`` run a batch of (cx, cy) members in one
-launch instead (``models/ensemble.py``), writing ``final_m<i>.dat`` per
-member and, on convergence runs, the ``Members exited after ...`` line.
+``--method adi|mg`` steps with Crank-Nicolson (ADI through the H10/H11
+tridiagonal kernels in mode pallas, multigrid V-cycles), ``--problem``
+picks a problem family (mode serial in the solver; every family's kernel
+routes on the ensemble path). ``--ensemble-cx/--ensemble-cy`` run a batch
+of (cx, cy) members in one launch instead (``models/ensemble.py``),
+writing ``final_m<i>.dat`` per member and, on convergence runs, the
+``Members exited after ...`` line.
+
+    python -m heat2d_tpu_torch.cli --mode pallas --method adi \\
+        --nxprob 4096 --nyprob 4096 --steps 20 --cx 51.2 --cy 51.2
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import sys
 
 from heat2d_tpu_torch.config import MODES, ConfigError, HeatConfig
 from heat2d_tpu_torch.utils.device import DeviceUnavailableError
+from heat2d_tpu_torch.vocab import PROBLEMS, TIME_METHODS
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -36,7 +44,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serial = plain PyTorch golden model; pallas = "
                         "the hand-written CUDA kernels (the other modes "
                         "are not ported yet)")
+    p.add_argument("--method", default="explicit",
+                   choices=list(TIME_METHODS),
+                   help="time-stepping scheme: explicit forward Euler "
+                        "(stability-limited cx+cy <= 1/2), Crank-Nicolson "
+                        "ADI on batched tridiagonal solves, or multigrid-"
+                        "solved CN; the implicit schemes are "
+                        "unconditionally stable, so --cx/--cy become "
+                        "dt-scaled diffusion numbers chosen by accuracy")
     g = p.add_argument_group("problem (reference #define names)")
+    g.add_argument("--problem", default="heat5", choices=list(PROBLEMS),
+                   help="spatial-operator family: heat5 is the reference "
+                        "5-point stencil; the others run their own "
+                        "updates with per-family stability bounds and "
+                        "capability gating")
     g.add_argument("--nxprob", type=int, default=10)
     g.add_argument("--nyprob", type=int, default=10)
     g.add_argument("--steps", type=int, default=100)
@@ -126,6 +147,8 @@ def _run_ensemble_cli(args, cfg) -> int:
 
     print(f"Starting ensemble of {len(cxs)} members")
     print(f"Problem size:{cfg.nxprob}x{cfg.nyprob}")
+    if cfg.problem != "heat5":
+        print(f"Problem family: {cfg.problem}")
     print(f"Amount of iterations: {cfg.steps}")
     if cfg.convergence:
         print(f"Check for convergence every {cfg.interval} iterations")
@@ -133,8 +156,10 @@ def _run_ensemble_cli(args, cfg) -> int:
         check_ported(cfg)
         run = timed_ensemble(
             cfg.nxprob, cfg.nyprob, cfg.steps, cxs, cys,
+            method="auto" if cfg.method == "explicit" else cfg.method,
             convergence=cfg.convergence, interval=cfg.interval,
-            sensitivity=cfg.sensitivity, device=args.device)
+            sensitivity=cfg.sensitivity, problem=cfg.problem,
+            device=args.device)
     except (ConfigError, ValueError, DeviceUnavailableError) as e:
         print(f"{e}\nQuitting...", file=sys.stderr)
         return 1
@@ -175,7 +200,8 @@ def main(argv=None) -> int:
             cx=args.cx, cy=args.cy, convergence=args.convergence,
             interval=args.interval, sensitivity=args.sensitivity,
             mode=args.mode, accum_dtype=args.accum_dtype, debug=args.debug,
-            bitwise_parity=args.bitwise_parity)
+            bitwise_parity=args.bitwise_parity, method=args.method,
+            problem=args.problem)
     except ConfigError as e:
         print(f"{e}\nQuitting...", file=sys.stderr)
         return 1
@@ -197,6 +223,8 @@ def main(argv=None) -> int:
     # Startup banner (grad1612_mpi_heat.c:66-69).
     print(f"Starting with {cfg.n_shards} shards")
     print(f"Problem size:{cfg.nxprob}x{cfg.nyprob}")
+    if cfg.problem != "heat5":
+        print(f"Problem family: {cfg.problem}")
     print(f"Amount of iterations: {cfg.steps}")
     if cfg.convergence:
         print(f"Check for convergence every {cfg.interval} iterations")

@@ -7,11 +7,10 @@ both. ``pallas`` keeps its name as the mode of the kernel route, so run
 records of the two stacks compare field by field; here it runs the
 hand-written CUDA kernels of ``ops/cuda_stencil.py``.
 
-Validation follows the JAX package's checks for the reference problem
-(heat5). The other problem families are validated only as far as their
-mode rule: their per-family bounds live in the families' registry, which
-this port has not reached yet (ROADMAP.md, slice 3), and the solver
-refuses them with a ``ConfigError`` that says so.
+Validation follows the JAX package's checks: for a family other than
+heat5, its capability matrix, minimum grid and stability bound
+(``problems/base.py``, ``ops/stability.py``); for heat5, the explicit
+stability box, or for the implicit methods the single-device modes.
 """
 
 from __future__ import annotations
@@ -118,6 +117,10 @@ class HeatConfig:
                 f"problem must be one of {PROBLEMS}, got "
                 f"{self.problem!r}")
         if self.problem != _vocab.DEFAULT_PROBLEM:
+            # The families: capability matrix, grid floor and stability
+            # bound (problems/base.py), as the JAX package checks them.
+            from heat2d_tpu_torch.problems.base import spec_for
+            spec = spec_for(self.problem)
             if self.mode != "serial":
                 raise ConfigError(
                     f"problem {self.problem!r} runs mode 'serial' "
@@ -125,6 +128,20 @@ class HeatConfig:
                     f"modes are built for the heat5 operator; use "
                     f"the ensemble/serve path for batched kernel "
                     f"routes) - got mode {self.mode!r}")
+            ok, reason = spec.supports_method(self.method)
+            if not ok:
+                raise ConfigError(reason)
+            if min(self.nxprob, self.nyprob) < spec.min_grid:
+                raise ConfigError(
+                    f"problem {self.problem!r} (halo width "
+                    f"{spec.halo_width}) needs a grid of at least "
+                    f"{spec.min_grid}x{spec.min_grid} for interior "
+                    f"cells, got {self.nxprob}x{self.nyprob}")
+            if self.method == "explicit":
+                from heat2d_tpu_torch.ops.stability import (
+                    check_problem_stability)
+                check_problem_stability(self.problem, self.cx, self.cy,
+                                        where="explicit scheme")
         elif self.method == "explicit":
             from heat2d_tpu_torch.ops.stability import (
                 check_explicit_stability)

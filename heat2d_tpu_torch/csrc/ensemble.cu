@@ -127,7 +127,7 @@ __global__ void k_ens_tile(const float* __restrict__ src,
       parts[(size_t)m * tiles + tile] = 0.0f;
     return;
   }
-  const float acc = heat::tile_sweep<FORM_FMA, RESID>(
+  const float acc = heat::tile_sweep<heat::Heat5<FORM_FMA>, RESID>(
       src + off, dst + off, nx, ny, member_coef(cxs, cys, m), T, nsub, TY,
       TX, smem);
   if (RESID && threadIdx.x == 0 && threadIdx.y == 0)

@@ -72,8 +72,8 @@ __global__ void k_tile(const float* __restrict__ src, float* __restrict__ dst,
                        float* __restrict__ parts, int nx, int ny, Coef k,
                        int T, int nsub, int TY, int TX) {
   extern __shared__ float smem[];
-  const float acc = heat::tile_sweep<FORM, RESID>(src, dst, nx, ny, k, T,
-                                                  nsub, TY, TX, smem);
+  const float acc = heat::tile_sweep<heat::Heat5<FORM>, RESID>(
+      src, dst, nx, ny, k, T, nsub, TY, TX, smem);
   if (RESID && threadIdx.x == 0 && threadIdx.y == 0)
     parts[blockIdx.y * gridDim.x + blockIdx.x] = acc;
 }

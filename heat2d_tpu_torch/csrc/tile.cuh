@@ -1,13 +1,20 @@
-// Device code shared by csrc/stencil.cu (H2/H3) and csrc/ensemble.cu
-// (H6/H7): the two step forms and the shared-memory tile sweep.
+// Device code shared by csrc/stencil.cu (H2/H3), csrc/ensemble.cu
+// (H6/H7) and csrc/family.cu (H9): the heat5 step forms, the operator
+// interface, and the shared-memory tile sweep generic over an operator.
 //
-// A tile sweep advances one (TY+2T) x (TX+2T) tile -- its TY x TX centre
-// plus a T-deep halo ring -- nsub <= T steps in shared memory and writes
-// only the centre, to a second buffer.  Device-memory traffic is one
-// read and one write of the grid per sweep (plus the rings), so bytes
-// per step fall ~T-fold; the bound moves towards shared-memory traffic
-// and FLOPs.  Cells outside the domain load as 0 and are held, like the
-// domain's own rows 0 / nx-1 and columns 0 / ny-1.
+// An operator Op has a spatial radius Op::W, a scalar set Op::Params,
+// and Op::apply(ld, row, k): the updated value of a cell from ld(o), the
+// value o cells away in memory (o = +-row for the x neighbours, +-1 for
+// the y neighbours).  It updates cells with W <= i < nx-W and
+// W <= j < ny-W; the W-deep ring and every cell outside the domain are
+// held.
+//
+// A tile sweep advances one (TY+2H) x (TX+2H) tile -- its TY x TX centre
+// plus an H-deep halo ring, H >= W * nsub -- nsub steps in shared memory
+// and writes only the centre, to a second buffer.  Device-memory traffic
+// is one read and one write of the grid per sweep (plus the rings), so
+// bytes per step fall ~nsub-fold; the bound moves towards shared-memory
+// traffic and FLOPs.  Cells outside the domain load as 0 and are held.
 
 #pragma once
 
@@ -41,6 +48,18 @@ __device__ __forceinline__ float update(float c, float n, float s, float w,
   return fmaf(k.cy, e + w, fmaf(k.cx, s + n, k.k0 * c));
 }
 
+// heat5 as an operator, in either step form.
+template <int FORM>
+struct Heat5 {
+  static constexpr int W = 1;
+  using Params = Coef;
+  template <class Ld>
+  __device__ __forceinline__ static float apply(Ld ld, int row,
+                                                const Coef& k) {
+    return update<FORM>(ld(0), ld(-row), ld(row), ld(-1), ld(1), k);
+  }
+};
+
 // The block's sum of `acc`, valid in thread (0, 0).
 __device__ __forceinline__ float block_sum(float acc) {
   __shared__ float warp_sums[BLOCK_X * BLOCK_Y / 32];
@@ -62,16 +81,19 @@ __device__ __forceinline__ float block_sum(float acc) {
 // One sweep of the tile (blockIdx.y, blockIdx.x) of an nx x ny grid.
 // `smem` holds two ext tiles.  With RESID, returns (in thread (0, 0)) the
 // tile's sum of squared deltas over the last step pair of its centre.
-template <int FORM, bool RESID>
+template <class Op, bool RESID>
 __device__ __forceinline__ float tile_sweep(const float* __restrict__ src,
                                             float* __restrict__ dst, int nx,
-                                            int ny, Coef k, int T, int nsub,
-                                            int TY, int TX, float* smem) {
-  const int EY = TY + 2 * T, EX = TX + 2 * T;
+                                            int ny,
+                                            const typename Op::Params& k,
+                                            int H, int nsub, int TY, int TX,
+                                            float* smem) {
+  constexpr int W = Op::W;
+  const int EY = TY + 2 * H, EX = TX + 2 * H;
   float* cur = smem;
   float* nxt = smem + EY * EX;
-  const int i0 = blockIdx.y * TY - T;
-  const int j0 = blockIdx.x * TX - T;
+  const int i0 = blockIdx.y * TY - H;
+  const int j0 = blockIdx.x * TX - H;
   const int tx = threadIdx.x, ty = threadIdx.y;
 
   for (int r = ty; r < EY; r += BLOCK_Y) {
@@ -85,20 +107,21 @@ __device__ __forceinline__ float tile_sweep(const float* __restrict__ src,
   }
   __syncthreads();
 
-  // Step s rewrites the ring-s interior [s, E-1-s]: its neighbours lie in
-  // the region step s-1 wrote, so no cell is read before it is written,
-  // and the centre (T cells in) is exact for every s <= nsub <= T.
+  // Step s rewrites the interior W*s cells in from the tile's edge: its
+  // neighbours lie in the region step s-1 wrote, so no cell is read
+  // before it is written, and the centre (H cells in) is exact for every
+  // s <= nsub with W * nsub <= H.
   for (int s = 1; s <= nsub; ++s) {
-    for (int r = s + ty; r < EY - s; r += BLOCK_Y) {
+    const int lo = W * s;
+    for (int r = lo + ty; r < EY - lo; r += BLOCK_Y) {
       const int gi = i0 + r;
-      const bool row_upd = gi > 0 && gi < nx - 1;
-      for (int c = s + tx; c < EX - s; c += BLOCK_X) {
+      const bool row_upd = gi >= W && gi < nx - W;
+      for (int c = lo + tx; c < EX - lo; c += BLOCK_X) {
         const int gj = j0 + c;
         const int p = r * EX + c;
         float v = cur[p];
-        if (row_upd && gj > 0 && gj < ny - 1)
-          v = update<FORM>(v, cur[p - EX], cur[p + EX], cur[p - 1],
-                           cur[p + 1], k);
+        if (row_upd && gj >= W && gj < ny - W)
+          v = Op::apply([&](int o) { return cur[p + o]; }, EX, k);
         nxt[p] = v;
       }
     }
@@ -110,10 +133,10 @@ __device__ __forceinline__ float tile_sweep(const float* __restrict__ src,
 
   // cur holds the last step, nxt the one before it.
   float acc = 0.0f;
-  for (int r = T + ty; r < T + TY; r += BLOCK_Y) {
+  for (int r = H + ty; r < H + TY; r += BLOCK_Y) {
     const int gi = i0 + r;
     if (gi >= nx) break;
-    for (int c = T + tx; c < T + TX; c += BLOCK_X) {
+    for (int c = H + tx; c < H + TX; c += BLOCK_X) {
       const int gj = j0 + c;
       if (gj >= ny) break;
       const float v = cur[r * EX + c];
@@ -127,9 +150,9 @@ __device__ __forceinline__ float tile_sweep(const float* __restrict__ src,
   return RESID ? block_sum(acc) : 0.0f;
 }
 
-// Dynamic shared memory of one tile block: two ext tiles.
-inline size_t tile_smem_bytes(int T, int TY, int TX) {
-  return 2 * (size_t)(TY + 2 * T) * (TX + 2 * T) * sizeof(float);
+// Dynamic shared memory of one tile block: two ext tiles, ring H.
+inline size_t tile_smem_bytes(int H, int TY, int TX) {
+  return 2 * (size_t)(TY + 2 * H) * (TX + 2 * H) * sizeof(float);
 }
 
 }  // namespace heat

@@ -2,7 +2,7 @@
 grid shape. The port of ``heat2d_tpu/models/ensemble.py`` for one device.
 
 A batch is a (B, nx, ny) float32 tensor; (cxs, cys) are float32 vectors
-on its device. Methods (``method``):
+on its device. Methods (``method``) of the reference problem heat5:
 
 =======  ==================================================================
 jnp      the golden step on the batch (``ops.stencil.stencil_step``):
@@ -11,19 +11,29 @@ pallas   H5 ``ens_resident``: all steps of every member in one
          cooperative launch (members that pass ``fits_resident``)
 band     H6 ``ens_tile_multi`` sweeps of shared-memory tiles; convergence
          runs H7 ``ens_tile_multi_conv``, the fused-residual schedule
+adi      Crank-Nicolson ADI (``ops.tridiag``), its tridiagonal solves
+         through H10 ``td_rows`` (x) and H11 ``td_lanes`` (y); (cx, cy)
+         are diffusion numbers, free of the explicit stability box
+mg       Crank-Nicolson stepped by multigrid V-cycles (``ops.multigrid``,
+         plain PyTorch: the JAX package runs no kernel of its own there)
 auto     pallas when one member passes ``fits_resident``, band otherwise
          (per member, as the JAX package gates on ``fits_vmem``)
 =======  ==================================================================
+
+The other problem families run the routes of ``problems/runners.py``
+(jnp, H8 for pallas, H9 for band), their route checked against the
+family's capability matrix (``pick_route``).
 
 Convergence freezes each member at its own exit: a member that converges
 in a chunk keeps that chunk's plane and stops from the next chunk on,
 ``done`` only grows, and the ``steps % interval`` remainder runs unchecked
 on the members still going. Each chunk reads one bool (all done?) to the
 host; ``tap(chunk, steps_done, residuals, done)`` reports every read.
+heat5's jnp and band routes have loops of their own; every other route,
+and every route of the other families, runs the pair-tracked loop
+(``_run_batch_conv_chunked``), as in the JAX package.
 
-Problem families other than heat5 and the implicit methods (adi, mg) wait
-for slice 3 of ROADMAP.md, sharded and spatial ensembles for slice 5; the
-entry points raise a ``ValueError`` naming the slice.
+Sharded and spatial ensembles wait for slice 5 of ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -38,31 +48,15 @@ from heat2d_tpu_torch import vocab
 from heat2d_tpu_torch.interop import batch_from_numpy
 from heat2d_tpu_torch.models import engine
 from heat2d_tpu_torch.ops import cuda_ensemble as ce
+from heat2d_tpu_torch.ops import multigrid as mgrid
+from heat2d_tpu_torch.ops import tridiag as td
 from heat2d_tpu_torch.ops.cuda_stencil import DEFAULT_TSTEPS, fits_resident
 from heat2d_tpu_torch.ops.init import inidat
 from heat2d_tpu_torch.ops.stencil import stencil_step
+from heat2d_tpu_torch.problems import runners as prunners
 from heat2d_tpu_torch.utils.device import resolve_device
 from heat2d_tpu_torch.utils.profiling import phase
 from heat2d_tpu_torch.utils.timing import timed_call
-
-_SLICE3 = "slice 3 (problem families and implicit solves)"
-
-
-def check_ported(method: str, problem: str = "heat5") -> None:
-    """Raise a ``ValueError`` for a method or problem this port does not
-    run yet, naming the ROADMAP.md slice it waits for."""
-    if problem != vocab.DEFAULT_PROBLEM:
-        raise ValueError(
-            f"problem {problem!r} is not ported to PyTorch/CUDA yet; it "
-            f"waits for {_SLICE3} of ROADMAP.md (ported: problem 'heat5')")
-    if method in vocab.IMPLICIT_METHODS:
-        raise ValueError(
-            f"method {method!r} is not ported to PyTorch/CUDA yet; it "
-            f"waits for {_SLICE3} of ROADMAP.md (ported: "
-            f"{', '.join(('auto',) + vocab.EXPLICIT_ROUTES)})")
-    if method not in ("auto",) + vocab.EXPLICIT_ROUTES:
-        raise ValueError(f"method {method!r} not in "
-                         f"{('auto',) + vocab.EXPLICIT_ROUTES}")
 
 
 def _validated_batch(nx, ny, cxs, cys, u0, device=None):
@@ -101,8 +95,27 @@ def _run_batch_band(u0, cxs, cys, *, steps):
         return ce.ens_tiled_chunk(u0, steps, cxs, cys)
 
 
+def _run_batch_adi(u0, cxs, cys, *, steps):
+    """Crank-Nicolson ADI (Peaceman-Rachford): each half step's
+    tridiagonal systems through H10 (x half) and H11 (y half). The (cx,
+    cy) are the step's diffusion numbers and may sit far past the
+    explicit box. The JAX package takes its TD kernel only where a member
+    fits VMEM; the card has no such envelope, so every batch takes
+    H10/H11 (a CPU batch their plain versions)."""
+    with phase("stencil_chunk"):
+        return td.batched_adi_kernel(u0, cxs, cys, steps=steps)
+
+
+def _run_batch_mg(u0, cxs, cys, *, steps):
+    """Unsplit Crank-Nicolson stepped by geometric multigrid V-cycles, the
+    whole batch at once (per member the operations of the single grid)."""
+    with phase("stencil_chunk"):
+        return mgrid.mg_multi_step(u0, steps, cxs, cys)
+
+
 _BATCH_RUNNERS = {"jnp": _run_batch_jnp, "pallas": _run_batch_pallas,
-                  "band": _run_batch_band}
+                  "band": _run_batch_band, "adi": _run_batch_adi,
+                  "mg": _run_batch_mg}
 
 
 # --------------------------------------------------------------------- #
@@ -225,7 +238,8 @@ def _run_batch_conv_window(u0, cxs, cys, *, steps, interval, sensitivity,
 
 
 def _conv_runner(method, steps, interval, sensitivity):
-    """``(u0, cxs, cys, tap=None) -> (u, steps_done)`` for a method."""
+    """``(u0, cxs, cys, tap=None) -> (u, steps_done)`` for a heat5
+    method."""
     kw = dict(steps=steps, interval=interval, sensitivity=sensitivity)
     if method == "jnp":
         return functools.partial(_run_batch_conv_jnp, **kw)
@@ -241,6 +255,36 @@ def _pick_method(method, nx, ny, device):
     return "pallas" if fits_resident((nx, ny), device) else "band"
 
 
+def _route(method, problem, nx, ny, device) -> str:
+    """The route a (method, problem) pair runs on ``device``: for heat5
+    the method (auto resolved by ``_pick_method``), for the other
+    families ``problems.runners.pick_route``, which raises a
+    ``ConfigError`` naming an unsupported combination."""
+    if problem != vocab.DEFAULT_PROBLEM:
+        return prunners.pick_route(problem, method, nx, ny, device)
+    if method not in vocab.SERVE_METHODS:
+        raise ValueError(f"method {method!r} not in {vocab.SERVE_METHODS}")
+    return _pick_method(method, nx, ny, device)
+
+
+def _fixed_fn(route, problem, steps):
+    """``(u0, cxs, cys) -> batch`` for a resolved route."""
+    return functools.partial(prunners.fixed_runner(problem, route),
+                             steps=steps)
+
+
+def _conv_fn(route, problem, steps, interval, sensitivity):
+    """``(u0, cxs, cys, tap=None) -> (u, steps_done)`` for a resolved
+    route: heat5's loops, or the pair-tracked loop over the family's
+    fixed-step runner."""
+    if problem == vocab.DEFAULT_PROBLEM:
+        return _conv_runner(route, steps, interval, sensitivity)
+    return functools.partial(
+        _run_batch_conv_chunked, steps=steps, interval=interval,
+        sensitivity=sensitivity,
+        runner=prunners.fixed_runner(problem, route))
+
+
 @functools.lru_cache(maxsize=128)
 def batch_runner(nx: int, ny: int, steps: int, method: str = "auto",
                  convergence: bool = False, interval: int = 20,
@@ -251,14 +295,13 @@ def batch_runner(nx: int, ny: int, steps: int, method: str = "auto",
     cys) -> batch`` (fixed-step) or ``-> (batch, steps_done)``
     (convergence). (cx, cy) are operands, so members with different
     diffusivities share it. ``run.method`` is the route it resolved."""
-    check_ported(method, problem)
     dev = resolve_device(device)
-    picked = _pick_method(method, nx, ny, dev)
+    route = _route(method, problem, nx, ny, dev)
     if convergence:
-        run = _conv_runner(picked, steps, interval, sensitivity)
+        run = _conv_fn(route, problem, steps, interval, sensitivity)
     else:
-        run = functools.partial(_BATCH_RUNNERS[picked], steps=steps)
-    run.method = picked
+        run = _fixed_fn(route, problem, steps)
+    run.method = route
     return run
 
 
@@ -281,10 +324,9 @@ def run_ensemble_convergence(nx: int, ny: int, steps: int, interval: int,
     """Ensemble with per-member convergence early exit. Returns (batch,
     steps_done): converged members froze at their exit plane, and
     ``steps_done[i]`` is member i's iteration count (int32 tensor)."""
-    check_ported(method, problem)
     cxs, cys, u0 = _validated_batch(nx, ny, cxs, cys, u0, device)
-    method = _pick_method(method, nx, ny, u0.device)
-    fn = _conv_runner(method, steps, interval, sensitivity)
+    route = _route(method, problem, nx, ny, u0.device)
+    fn = _conv_fn(route, problem, steps, interval, sensitivity)
     return fn(u0, cxs, cys, tap=tap)
 
 
@@ -303,19 +345,18 @@ def timed_ensemble(nx: int, ny: int, steps: int, cxs, cys, u0=None,
                    problem: str = "heat5", device=None) -> EnsembleResult:
     """One ensemble launch under the reference timing protocol (an
     untimed warmup run, then a fenced timed run): the CLI's entry."""
-    check_ported(method, problem)
     cxs, cys, u0 = _validated_batch(nx, ny, cxs, cys, u0, device)
-    method = _pick_method(method, nx, ny, u0.device)
+    method = _route(method, problem, nx, ny, u0.device)
     if convergence:
-        conv = _conv_runner(method, steps, interval, sensitivity)
+        conv = _conv_fn(method, problem, steps, interval, sensitivity)
 
         def run(u):
             return conv(u, cxs, cys, tap=runner.tap)
     else:
-        fixed = _BATCH_RUNNERS[method]
+        fixed = _fixed_fn(method, problem, steps)
 
         def run(u):
-            return fixed(u, cxs, cys, steps=steps), None
+            return fixed(u, cxs, cys), None
 
     runner = engine.Runner(run, method)
     tc = timed_call(runner, u0)

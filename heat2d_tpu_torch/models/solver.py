@@ -1,19 +1,27 @@
-"""Heat2DSolver: the port of ``heat2d_tpu/models/solver.py`` for the
-single-device explicit heat5 solve.
+"""Heat2DSolver: the port of ``heat2d_tpu/models/solver.py`` for one
+device.
 
 ====================  ====================================================
-mode                  what runs
+mode / method         what runs
 ====================  ====================================================
-serial                plain PyTorch golden model on the chosen device
-                      (no kernel): the reference's 1-task runs
-pallas                the hand-written CUDA kernels,
+serial, explicit      plain PyTorch golden model on the chosen device (no
+                      kernel): the reference's 1-task runs; a problem
+                      family other than heat5 steps with its plain update
+                      (``problems.get_family(problem).step``)
+pallas, explicit      the hand-written CUDA kernels,
                       ``ops.cuda_stencil.make_single_chip_runner`` (the
-                      grad1612_cuda_heat.cu counterpart)
+                      grad1612_cuda_heat.cu counterpart; heat5 only)
+pallas, adi           Crank-Nicolson ADI with its tridiagonal solves
+                      through H10/H11 (``ops.tridiag.batched_adi_kernel``)
+serial, adi           the same ADI through the plain solve
+                      (``ops.tridiag.adi_multi_step``)
+mg                    Crank-Nicolson stepped by multigrid V-cycles
+                      (``ops.multigrid``, plain PyTorch in both modes)
 ====================  ====================================================
 
-Every other mode, method or problem raises a ``ConfigError`` that names
-the slice of ROADMAP.md it waits for. The solver runs on ``cuda`` unless
-it is given ``device="cpu"``.
+The distributed modes raise a ``ConfigError`` that names the slice of
+ROADMAP.md they wait for. The solver runs on ``cuda`` unless it is given
+``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -38,29 +46,16 @@ _UNPORTED_MODES = {
     "dist2d": "slice 5 (multi-device)",
     "hybrid": "slice 5 (multi-device)",
 }
-_UNPORTED_METHODS = {"adi": "slice 3 (implicit solves)",
-                     "mg": "slice 3 (implicit solves)"}
-_UNPORTED_PROBLEM = "slice 3 (problem families)"
 
 
 def check_ported(config: HeatConfig) -> None:
-    """Raise a ``ConfigError`` for a combination this port does not run
-    yet, naming the ROADMAP.md slice it waits for."""
+    """Raise a ``ConfigError`` for a mode this port does not run yet,
+    naming the ROADMAP.md slice it waits for."""
     if config.mode in _UNPORTED_MODES:
         raise ConfigError(
             f"mode {config.mode!r} is not ported to PyTorch/CUDA yet; it "
             f"waits for {_UNPORTED_MODES[config.mode]} of ROADMAP.md "
             f"(ported: modes 'serial' and 'pallas')")
-    if config.method in _UNPORTED_METHODS:
-        raise ConfigError(
-            f"method {config.method!r} is not ported to PyTorch/CUDA yet; "
-            f"it waits for {_UNPORTED_METHODS[config.method]} of "
-            f"ROADMAP.md (ported: method 'explicit')")
-    if config.problem != "heat5":
-        raise ConfigError(
-            f"problem {config.problem!r} is not ported to PyTorch/CUDA "
-            f"yet; it waits for {_UNPORTED_PROBLEM} of ROADMAP.md "
-            f"(ported: problem 'heat5')")
 
 
 @dataclasses.dataclass
@@ -101,11 +96,18 @@ class RunResult:
 def _serial_runner(cfg: HeatConfig) -> engine.Runner:
     """The golden model's runner: plain PyTorch steps, convergence through
     the chunked loop (same plane sequence and steps_done as the JAX
-    serial mode)."""
+    serial mode). A family other than heat5 steps with its plain update,
+    which evaluates in the storage dtype as in the JAX package."""
     accum = getattr(torch, cfg.accum_dtype)
+    if cfg.problem != "heat5":
+        from heat2d_tpu_torch.problems import get_family
+        fam = get_family(cfg.problem)
 
-    def step(u):
-        return stencil_step(u, cfg.cx, cfg.cy, accum)
+        def step(u):
+            return fam.step(u, cfg.cx, cfg.cy)
+    else:
+        def step(u):
+            return stencil_step(u, cfg.cx, cfg.cy, accum)
 
     def multi(u, n):
         for _ in range(n):
@@ -120,6 +122,56 @@ def _serial_runner(cfg: HeatConfig) -> engine.Runner:
         return engine.run_fixed(step, u, cfg.steps)
 
     runner = engine.Runner(run, "serial")
+    return runner
+
+
+def _implicit_runner(cfg: HeatConfig, device) -> engine.Runner:
+    """The runner of the implicit methods (adi, mg): the engine loops
+    drive a Crank-Nicolson step instead of the explicit stencil, fixed
+    steps through one multi-step, convergence through the chunked loop
+    with the usual residual pair. ``(cx, cy)`` are diffusion numbers,
+    unconditionally stable. Mode pallas with adi runs H10/H11 (route
+    ``adi-kernel``); mode serial with adi the plain solve
+    (``adi-scan``); mg is plain PyTorch in both modes."""
+    from heat2d_tpu_torch.ops import multigrid as mgrid
+    from heat2d_tpu_torch.ops import tridiag as td
+    accum = getattr(torch, cfg.accum_dtype)
+
+    if cfg.method == "adi" and cfg.mode == "pallas":
+        cxa = torch.full((1,), cfg.cx, dtype=torch.float32, device=device)
+        cya = torch.full((1,), cfg.cy, dtype=torch.float32, device=device)
+        route = "adi-kernel"
+
+        def step(u):
+            return td.adi_sweep_kernel(u[None], cxa, cya)[0]
+
+        def multi(u, n):
+            return td.batched_adi_kernel(u[None], cxa, cya, steps=n)[0]
+    elif cfg.method == "adi":
+        route = "adi-scan"
+
+        def step(u):
+            return td.adi_step(u, cfg.cx, cfg.cy)
+
+        def multi(u, n):
+            return td.adi_multi_step(u, n, cfg.cx, cfg.cy)
+    else:
+        route = "mg"
+
+        def step(u):
+            return mgrid.mg_step(u, cfg.cx, cfg.cy)
+
+        def multi(u, n):
+            return mgrid.mg_multi_step(u, n, cfg.cx, cfg.cy)
+
+    def run(u):
+        if cfg.convergence:
+            return engine.run_convergence_chunked(
+                multi, step, lambda a, b: residual_sq(a, b, accum), u,
+                cfg.steps, cfg.interval, cfg.sensitivity, tap=runner.tap)
+        return multi(u, cfg.steps), cfg.steps
+
+    runner = engine.Runner(run, route)
     return runner
 
 
@@ -140,9 +192,12 @@ class Heat2DSolver:
 
     def make_runner(self):
         """``u0 -> (u_final, steps_done)``; serial is the plain PyTorch
-        golden model, pallas the kernel route."""
+        golden model, pallas the kernel route, adi/mg the implicit
+        runner."""
         if self._runner is None:
-            if self.config.mode == "pallas":
+            if self.config.method != "explicit":
+                self._runner = _implicit_runner(self.config, self.device)
+            elif self.config.mode == "pallas":
                 from heat2d_tpu_torch.ops.cuda_stencil import (
                     make_single_chip_runner)
                 self._runner = make_single_chip_runner(self.config,

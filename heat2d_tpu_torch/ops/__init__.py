@@ -1,2 +1,3 @@
-"""Numerics: initial condition, golden stencil, stability box, and the
+"""Numerics: initial condition, golden stencil, stability bounds, the
+tridiagonal (ADI) and multigrid solves, the analytic oracle, and the
 hand-written CUDA kernels with their plain PyTorch versions."""

@@ -49,6 +49,19 @@ SIGNATURES = {
         "heat_ens_tile": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _P]),
     },
+    "family": {
+        "heat_error_string": (ctypes.c_char_p, [_I]),
+        "heat_fam_resident_blocks": (_I, [_I, _P]),
+        "heat_fam_resident": (_I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _P]),
+        "heat_fam_tile": (_I, [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _P]),
+    },
+    "tridiag": {
+        "heat_error_string": (ctypes.c_char_p, [_I]),
+        "heat_td_rows": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
+        "heat_td_lanes": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
+    },
 }
 
 _lock = threading.Lock()

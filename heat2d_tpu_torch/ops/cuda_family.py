@@ -1,0 +1,227 @@
+"""The hand-written CUDA kernels of the problem families and their plain
+PyTorch versions: the port of the Pallas kernels of
+``heat2d_tpu/problems/runners.py``.
+
+A batch is one contiguous (B, nx, ny) float32 tensor of one family
+(heat9, advdiff or reactdiff); member b steps with the S scalar operands
+in row b of a (B, S) float32 block (``scalar_block``: the family's
+``scalars`` mapping of (cxs, cys)). Two kernels (sources in
+``csrc/family.cu``):
+
+====  ==================  ===============================================
+H8    ``fam_resident``    every member ``steps`` steps in one cooperative
+                          launch; replaces B9 (``_family_ensemble_kernel``,
+                          runners.py:124)
+H9    ``fam_tile_multi``  ``nsub <= T`` steps per sweep of shared-memory
+                          tiles with a ``W * T``-deep ring; replaces B10
+                          (``_family_band_kernel``, runners.py:181)
+====  ==================  ===============================================
+
+A kernel's plain version is the family's step on the whole batch, its
+constants read from the scalar block: the update of
+``problems/kernels.py`` with its W-deep ring held, operations in the JAX
+package's order. The kernels round every operation
+as the plain version does; ``rounding_factor`` bounds what remains.
+
+On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
+launches the kernel or raises. Each launch adds one to the wrapper's
+entry in ``LAUNCHES``; the plain versions count nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from heat2d_tpu_torch.ops import _build
+from heat2d_tpu_torch.ops.cuda_stencil import (DEFAULT_TSTEPS, plan_tiles,
+                                               smem_limit)
+from heat2d_tpu_torch.problems.registry import get_family
+
+#: Launches per kernel wrapper since the last ``reset_launch_counts``.
+LAUNCHES = {"fam_resident": 0, "fam_tile_multi": 0}
+
+#: The families the kernels are built for, and their codes in
+#: csrc/family.cu.
+FAMILY_CODES = {"heat9": 0, "advdiff": 1, "reactdiff": 2}
+
+#: The tile kernel puts the member on blockIdx.z.
+MAX_MEMBERS = 65535
+
+#: Per-step bound on |kernel - plain| in units of 2^-24 * max|u|, per
+#: family: (rounded operations of one update) x (largest partial result
+#: over max|u| at the stability limit). heat9: 22 operations, partial
+#: sums up to 64 max|u| scaled by (cx + cy) / 12 <= 1/32, so <= 3 max|u|;
+#: advdiff: 14 operations, <= 1 + 4 * 0.5 + 2 * 0.1 = 3.2; reactdiff: 12
+#: operations, <= 1 + 4 * 0.5 + 0.25 = 3.25. The kernels repeat the plain
+#: version's roundings, so on the card the two agree bit for bit unless
+#: a plain operation rounds another way; the bound holds either way.
+_ROUNDING = {"heat9": 22 * 3.0, "advdiff": 14 * 3.2, "reactdiff": 12 * 3.25}
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def launch_counts() -> dict:
+    return dict(LAUNCHES)
+
+
+def rounding_factor(problem: str) -> float:
+    """The per-step tolerance factor of ``problem`` (see ``_ROUNDING``):
+    after n steps kernel and plain version differ by at most ``n *
+    factor * 2**-24 * max|plain|``."""
+    return _ROUNDING[problem]
+
+
+def _lib():
+    return _build.load("family")
+
+
+def _check(rc: int, what: str) -> None:
+    _build.check(_lib(), rc, what)
+
+
+def _stream(u) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(u.device).cuda_stream)
+
+
+def _ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def scalar_block(problem: str, cxs, cys):
+    """The (B, S) float32 scalar block of ``problem``: row b holds member
+    b's operands, the family's ``scalars(cxs, cys)`` in order."""
+    fam = get_family(problem)
+    return torch.stack(fam.scalars(cxs, cys), dim=1).contiguous()
+
+
+def _validate(u, scal, problem: str, what: str) -> None:
+    if problem not in FAMILY_CODES:
+        raise ValueError(f"{what}: no kernel for problem {problem!r} "
+                         f"(built for {tuple(FAMILY_CODES)})")
+    spec = get_family(problem).spec
+    if u.dim() != 3 or u.dtype != torch.float32:
+        raise ValueError(f"{what}: expected a (B, nx, ny) float32 batch, "
+                         f"got {tuple(u.shape)} {u.dtype}")
+    if u.shape[0] < 1 or min(u.shape[1:]) < spec.min_grid:
+        raise ValueError(f"{what}: {problem} needs members of at least "
+                         f"{spec.min_grid}x{spec.min_grid}, got "
+                         f"{tuple(u.shape)}")
+    want = (u.shape[0], spec.n_scalars)
+    if (tuple(scal.shape) != want or scal.dtype != torch.float32
+            or scal.device != u.device):
+        raise ValueError(f"{what}: the scalar block must be {want} float32 "
+                         f"on {u.device}, got {tuple(scal.shape)} "
+                         f"{scal.dtype} on {scal.device}")
+    if u.device.type == "cuda":
+        if not (u.is_contiguous() and scal.is_contiguous()):
+            raise ValueError(f"{what}: the CUDA kernels take contiguous "
+                             f"tensors")
+        if u.numel() >= 2 ** 31:
+            raise ValueError(f"{what}: batch of {u.numel()} cells exceeds "
+                             f"the kernels' 32-bit index range")
+        if u.shape[0] > MAX_MEMBERS:
+            raise ValueError(f"{what}: {u.shape[0]} members exceed the "
+                             f"launch grid's z limit of {MAX_MEMBERS}")
+    elif u.device.type != "cpu":
+        raise ValueError(f"{what}: unsupported device {u.device}")
+
+
+# --------------------------------------------------------------------- #
+# Plain PyTorch version
+# --------------------------------------------------------------------- #
+
+def fam_multi_step_plain(u, n: int, scal, problem: str):
+    """``n`` steps of every member: the family's step with member b's
+    operands from row b of ``scal``."""
+    fam = get_family(problem)
+    ops = [scal[:, k].reshape(-1, 1, 1) for k in range(scal.shape[1])]
+    for _ in range(n):
+        u = fam.step(u, *ops)
+    return u
+
+
+# --------------------------------------------------------------------- #
+# Kernel wrappers
+# --------------------------------------------------------------------- #
+
+_resident_blocks: dict[tuple, int] = {}
+
+
+def resident_blocks(device, problem: str) -> int:
+    """H8 blocks of ``problem`` the card holds co-resident (the
+    cooperative launch's limit), read once per device and family."""
+    dev = torch.device(device)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    key = (idx, problem)
+    if key not in _resident_blocks:
+        buf = ctypes.c_int(0)
+        with torch.cuda.device(idx):
+            _check(_lib().heat_fam_resident_blocks(FAMILY_CODES[problem],
+                                                   ctypes.byref(buf)),
+                   "heat_fam_resident_blocks")
+        _resident_blocks[key] = buf.value
+    return _resident_blocks[key]
+
+
+def fam_resident(u, steps: int, scal, problem: str):
+    """H8: ``steps`` steps of every member in one cooperative launch."""
+    _validate(u, scal, problem, "fam_resident")
+    if steps < 0:
+        raise ValueError(f"steps must be >= 0, got {steps}")
+    if u.device.type == "cpu":
+        return fam_multi_step_plain(u, steps, scal, problem)
+    if steps == 0:
+        return u
+    nb, nx, ny = u.shape
+    blocks = max(1, min(resident_blocks(u.device, problem),
+                        math.ceil(u.numel() / 256)))
+    p0, p1 = torch.empty_like(u), torch.empty_like(u)
+    LAUNCHES["fam_resident"] += 1
+    _check(_lib().heat_fam_resident(
+        FAMILY_CODES[problem], _ptr(u), _ptr(p0), _ptr(p1), _ptr(scal), nb,
+        nx, ny, steps, blocks, _stream(u)), f"H8 fam_resident ({problem})")
+    return p0 if steps % 2 else p1
+
+
+def tile_plan(nx: int, ny: int, problem: str, device):
+    """The H9 tile geometry: ``plan_tiles`` with a ring of ``W * T``."""
+    ring = get_family(problem).spec.halo_width * DEFAULT_TSTEPS
+    return plan_tiles(nx, ny, ring, smem_limit(device))
+
+
+def fam_tile_multi(u, nsub: int, scal, problem: str):
+    """H9: ``nsub <= T`` steps of every member in one sweep of
+    shared-memory tiles with a ``W * T``-deep ring."""
+    _validate(u, scal, problem, "fam_tile_multi")
+    if not 1 <= nsub <= DEFAULT_TSTEPS:
+        raise ValueError(f"nsub must be in [1, T={DEFAULT_TSTEPS}], got "
+                         f"{nsub}")
+    if u.device.type == "cpu":
+        return fam_multi_step_plain(u, nsub, scal, problem)
+    nb, nx, ny = u.shape
+    plan = tile_plan(nx, ny, problem, u.device)
+    if plan.grid[0] > 65535:
+        raise ValueError(f"fam_tile_multi: {nx} rows exceed the launch "
+                         f"grid's y limit")
+    out = torch.empty_like(u)
+    LAUNCHES["fam_tile_multi"] += 1
+    _check(_lib().heat_fam_tile(
+        FAMILY_CODES[problem], _ptr(u), _ptr(out), _ptr(scal), nb, nx, ny,
+        plan.tsteps, nsub, plan.ty, plan.tx, _stream(u)),
+        f"H9 fam_tile_multi ({problem})")
+    return out
+
+
+def fam_tiled_chunk(u, n: int, scal, problem: str):
+    """``n`` steps of every member as full T-deep H9 sweeps plus one
+    partial sweep at depth ``n % T``."""
+    nsweeps, rem = divmod(n, DEFAULT_TSTEPS)
+    for d in [DEFAULT_TSTEPS] * nsweeps + ([rem] if rem else []):
+        u = fam_tile_multi(u, d, scal, problem)
+    return u

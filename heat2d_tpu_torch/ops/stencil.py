@@ -49,6 +49,25 @@ def stencil_step_padded(padded, cx: float, cy: float,
     return _laplacian_update(padded, cx, cy, accum_dtype).to(padded.dtype)
 
 
+def stencil_step_var(u, kx, ky, accum_dtype=None):
+    """One global step with per-cell diffusivities: ``kx``/``ky`` are
+    fields of u's shape, and cell (i, j) uses ``kx[i, j]``/``ky[i, j]``
+    where the constant step uses cx/cy, so ``stencil_step_var(u,
+    full(cx), full(cy))`` equals ``stencil_step(u, cx, cy, None)`` bit
+    for bit. Edges held; the fields' edge values are inert.
+    ``accum_dtype=None`` accumulates in u's dtype."""
+    accum = u.dtype if accum_dtype is None else accum_dtype
+    c = u[..., 1:-1, 1:-1].to(accum)
+    sx = (u[..., 2:, 1:-1] + u[..., :-2, 1:-1]).to(accum)
+    sy = (u[..., 1:-1, 2:] + u[..., 1:-1, :-2]).to(accum)
+    kxi = kx[..., 1:-1, 1:-1].to(accum)
+    kyi = ky[..., 1:-1, 1:-1].to(accum)
+    out = u.clone()
+    out[..., 1:-1, 1:-1] = (c + kxi * (sx - 2.0 * c)
+                            + kyi * (sy - 2.0 * c)).to(u.dtype)
+    return out
+
+
 def residual_sq(u_new, u_old, accum_dtype=torch.float32):
     """Convergence residual: the sum over cells of (u_new - u_old)^2, the
     reference's locdiff (grad1612_mpi_heat.c:264-267)."""

@@ -3,11 +3,14 @@ counterpart of ``heat2d-tpu-serve``).
 
 - ``--selftest``: start an in-process server, fire a small mixed workload
   through the synchronous client (same-shape batching, mixed-shape
-  buckets, duplicate single-flight, a cache-hit repeat, and requests this
-  port rejects as ``unsupported_combination``), then check the serving
+  buckets, duplicate single-flight, a cache-hit repeat, an ``adi``
+  request and its bitwise cache-hit repeat, one request of every problem
+  family, and ``reactdiff`` x ``adi``, which must come back as
+  ``Rejected("unsupported_combination")``), then check the serving
   invariants: fewer launches than requests, a launch that held more than
   one member, a cache hit, bitwise-identical cached and coalesced
-  results, the structured rejections. Exit 0 iff every check holds.
+  results, a launch counted for every family, the structured rejection.
+  Exit 0 iff every check holds.
 - ``--requests FILE.jsonl``: serve a file of request dicts (one JSON
   object per line) and print one result or rejection summary per line.
 
@@ -112,37 +115,66 @@ def _selftest_workload(client):
                 np.asarray(results[-2].u).tobytes():
             failures.append("coalesced duplicates returned different "
                             "grids")
-    f2, fail2 = _unsupported_workload(client)
+    # The implicit route: an adi request (diffusion numbers far past the
+    # explicit box) answers through the server, and its repeat is a
+    # bitwise cache hit.
+    adi = SolveRequest(nx=24, ny=32, steps=4, cx=8.0, cy=6.0, method="adi")
+    try:
+        first = client.solve(adi, timeout=120)
+        again = client.solve(adi, timeout=60)
+        fired += 2
+        if not again.cache_hit:
+            failures.append("adi repeat was not a cache hit")
+        if np.asarray(again.u).tobytes() != np.asarray(first.u).tobytes():
+            failures.append("adi repeat not bitwise-identical")
+    except Exception as e:  # noqa: BLE001 — report, don't crash
+        failures.append(f"adi request failed: {e!r}")
+
+    f2, fail2 = _problems_workload(client)
     return fired + f2, failures + fail2
 
 
-def _unsupported_workload(client):
-    """Requests this port does not serve yet must come back as
-    ``Rejected("unsupported_combination")`` naming the method or the
-    problem, never as a crash: an implicit method on heat5, and another
-    problem family."""
+def _problems_workload(client):
+    """Every problem family through the server (admission, bucketing,
+    launch), and the capability matrix's rejection: reactdiff (nonlinear)
+    x adi must come back as ``Rejected("unsupported_combination")`` naming
+    the problem, never as a crash."""
     from heat2d_tpu_torch.serve.schema import Rejected, SolveRequest
+    from heat2d_tpu_torch.vocab import PROBLEMS
 
+    fired = 0
     failures = []
-    cases = [(SolveRequest(nx=24, ny=32, steps=4, cx=8.0, cy=6.0,
-                           method="adi"), "adi"),
-             (SolveRequest(nx=16, ny=16, steps=5, method="jnp",
-                           problem="heat9"), "heat9")]
-    for req, name in cases:
+    for fam in PROBLEMS:
+        if fam == "heat5":
+            continue    # the rest of the selftest is heat5
+        req = SolveRequest(nx=16, ny=16, steps=5, cx=0.1, cy=0.1,
+                           method="jnp", problem=fam)
         try:
-            client.solve(req, timeout=60)
-            failures.append(f"{name} request was served (expected the "
-                            f"unsupported_combination rejection)")
-        except Rejected as e:
-            if e.code != "unsupported_combination":
-                failures.append(f"{name} rejected with {e.code!r}, "
-                                f"expected 'unsupported_combination'")
-            elif name not in e.message:
-                failures.append(f"the {name} rejection does not name it")
+            r = client.solve(req, timeout=120)
+            fired += 1
+            u = np.asarray(r.u)
+            if u.shape != (16, 16) or not np.isfinite(u).all():
+                failures.append(f"problem {fam}: bad result "
+                                f"(shape {u.shape})")
         except Exception as e:  # noqa: BLE001 — report, don't crash
-            failures.append(f"{name} raised {e!r} instead of a "
-                            f"structured rejection")
-    return len(cases), failures
+            failures.append(f"problem {fam} request failed: {e!r}")
+    bad = SolveRequest(nx=16, ny=16, steps=5, cx=0.1, cy=0.1,
+                       method="adi", problem="reactdiff")
+    try:
+        client.solve(bad, timeout=60)
+        failures.append("reactdiff x adi was served (expected the "
+                        "unsupported_combination rejection)")
+    except Rejected as e:
+        if e.code != "unsupported_combination":
+            failures.append(f"reactdiff x adi rejected with {e.code!r}, "
+                            f"expected 'unsupported_combination'")
+        elif "reactdiff" not in e.message:
+            failures.append("unsupported_combination rejection does not "
+                            "name the problem")
+    except Exception as e:  # noqa: BLE001 — report, don't crash
+        failures.append(f"reactdiff x adi raised {e!r} instead of a "
+                        f"structured rejection")
+    return fired, failures
 
 
 def run_selftest(args, registry) -> int:
@@ -167,6 +199,11 @@ def run_selftest(args, registry) -> int:
         failures.append("no cache hit recorded")
     if "serve_e2e_latency_s" not in snap["histograms"]:
         failures.append("no end-to-end latency recorded")
+    from heat2d_tpu_torch.vocab import DEFAULT_PROBLEM, PROBLEMS
+    for fam in (f for f in PROBLEMS if f != DEFAULT_PROBLEM):
+        if snap["counters"].get(
+                f"problem_requests_total{{problem={fam}}}", 0) < 1:
+            failures.append(f"no launch counted for problem {fam}")
 
     print(f"selftest: {fired} requests -> {launches} launches, occupancy "
           f"max {occ['max'] if occ else 0:.0f}, cache hits {hits:.0f}")

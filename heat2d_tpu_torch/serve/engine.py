@@ -15,12 +15,14 @@ differ, the heterogeneous batch the ensemble runners take:
   (and the per-member work) the same on both stacks.
 
 Each launch appends a row to ``launch_log`` with its occupancy and
-capacity, the route it ran, and where its host time went: ``setup_s``
+capacity, the route and problem family it ran, and where its host time
+went: ``setup_s``
 (padding, the initial batch, the coefficient vectors on the device),
 ``run_s`` (the runner until the device is done) and ``readback_s`` (the
 copy of the batch to the host). Metrics: ``serve_launches_total``,
-``serve_launch_s`` (run + readback) and ``serve_compile_cache_size`` (the
-runner cache's size).
+``serve_launch_s`` (run + readback), ``problem_requests_total{problem=}``
+(launches per family) and ``serve_compile_cache_size`` (the runner
+cache's size).
 """
 
 from __future__ import annotations
@@ -110,10 +112,12 @@ class EnsembleEngine:
         self.launch_log.append({
             "signature": req0.signature(), "occupancy": n,
             "capacity": capacity, "method": runner.method,
-            "tuned_config": None,
+            "problem": req0.problem, "tuned_config": None,
             "setup_s": t1 - t0, "run_s": t2 - t1, "readback_s": t3 - t2})
         if self.registry is not None:
             self.registry.counter("serve_launches_total")
+            self.registry.counter("problem_requests_total",
+                                  problem=req0.problem)
             self.registry.gauge("serve_compile_cache_size",
                                 ensemble.batch_runner.cache_info().currsize)
         log.debug("launch %d: %dx%d steps=%d occupancy=%d/%d route=%s",

@@ -12,11 +12,11 @@ hashes the same on both stacks:
   the same signature run through the same ensemble runner, so the
   micro-batcher buckets by it and launches each bucket once.
 
-Admission keeps the JAX package's rules for heat5. A request this port
-cannot serve yet (method ``adi``/``mg``, or a problem family other than
-heat5: slice 3 of ROADMAP.md) is answered with
-``Rejected("unsupported_combination")`` naming the method or problem.
-Everything here is plain data; nothing imports torch.
+Admission keeps the JAX package's rules: a problem family other than
+heat5 is held to its capability matrix (``problems/base.py``), and a
+combination it does not support (``reactdiff`` x ``adi``, ``varcoef`` x
+``band``, ...) is answered with ``Rejected("unsupported_combination")``
+carrying the family's reason, word for word the JAX package's.
 """
 
 from __future__ import annotations
@@ -25,16 +25,14 @@ import dataclasses
 import hashlib
 import json
 
-from heat2d_tpu_torch.vocab import (DEFAULT_PROBLEM, IMPLICIT_METHODS,
-                                    PROBLEMS, SERVE_METHODS)
+from heat2d_tpu_torch.problems.base import spec_for
+from heat2d_tpu_torch.vocab import DEFAULT_PROBLEM, PROBLEMS, SERVE_METHODS
 
 #: dtypes the batched ensemble runners take.
 SUPPORTED_DTYPES = ("float32",)
 
 SUPPORTED_METHODS = SERVE_METHODS
 SUPPORTED_PROBLEMS = PROBLEMS
-
-_SLICE3 = "slice 3 (problem families and implicit solves) of ROADMAP.md"
 
 
 class Rejected(Exception):
@@ -87,17 +85,18 @@ class SolveRequest:
             raise Rejected("invalid", f"problem {self.problem!r} not "
                            f"in {SUPPORTED_PROBLEMS}")
         if self.problem != DEFAULT_PROBLEM:
-            raise Rejected(
-                "unsupported_combination",
-                f"problem {self.problem!r} is not served by the "
-                f"PyTorch/CUDA port yet: it waits for {_SLICE3}",
-                problem=self.problem, method=self.method)
-        if self.method in IMPLICIT_METHODS:
-            raise Rejected(
-                "unsupported_combination",
-                f"method {self.method!r} is not served by the "
-                f"PyTorch/CUDA port yet: it waits for {_SLICE3}",
-                problem=self.problem, method=self.method)
+            spec = spec_for(self.problem)
+            ok, reason = spec.supports_method(self.method)
+            if not ok:
+                raise Rejected("unsupported_combination", reason,
+                               problem=self.problem, method=self.method)
+            if min(self.nx, self.ny) < spec.min_grid:
+                raise Rejected(
+                    "invalid",
+                    f"problem {self.problem!r} (halo width "
+                    f"{spec.halo_width}) needs a grid of at least "
+                    f"{spec.min_grid}x{spec.min_grid}, got "
+                    f"{self.nx}x{self.ny}")
         if self.convergence and self.interval < 1:
             raise Rejected("invalid", f"interval must be >= 1, got "
                            f"{self.interval}")

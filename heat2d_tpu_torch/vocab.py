@@ -1,7 +1,8 @@
 """The vocabularies the port's config validation needs.
 
 A copy of the atoms of ``heat2d_tpu/vocab.py`` (``TIME_METHODS``,
-``EXPLICIT_ROUTES``, ``SERVE_METHODS``, ``PROBLEMS``, ``DEFAULT_PROBLEM``):
+``EXPLICIT_ROUTES``, ``SERVE_METHODS``, ``PROBLEMS``, ``DEFAULT_PROBLEM``
+and the family constants ``ADVECTION_VELOCITY``, ``REACTION_RATE``):
 the port imports nothing of the JAX package, and
 ``tests/test_torch_config.py`` holds the two copies equal.
 """
@@ -30,3 +31,14 @@ PROBLEMS = ("heat5", "varcoef", "heat9", "advdiff", "reactdiff")
 
 #: The default family, the reference problem.
 DEFAULT_PROBLEM = "heat5"
+
+#: advdiff's dimensionless advection velocities (v * dt / dx): fixed
+#: family constants (a request's two knobs stay (cx, cy)), inside the
+#: advection bounds of ``ops.stability.check_advdiff_stability`` at the
+#: default diffusivities.
+ADVECTION_VELOCITY = (0.1, 0.1)
+
+#: reactdiff's dimensionless reaction rate (r * dt) for the saturating
+#: source ``r * u / (1 + u)``, inside the explicit reaction-rate bound of
+#: ``ops.stability.check_reactdiff_stability``.
+REACTION_RATE = 0.25

@@ -42,6 +42,30 @@ def test_vocabularies_equal():
     assert tvocab.DEFAULT_PROBLEM == jvocab.DEFAULT_PROBLEM
     assert tcfg.CUDA_DEFAULTS == jcfg.CUDA_DEFAULTS
     assert tcfg.BASELINE_DEFAULTS == jcfg.BASELINE_DEFAULTS
+    assert tvocab.ADVECTION_VELOCITY == jvocab.ADVECTION_VELOCITY
+    assert tvocab.REACTION_RATE == jvocab.REACTION_RATE
+
+
+@pytest.mark.parametrize("problem", jvocab.PROBLEMS)
+def test_family_specs_equal(problem):
+    """Every FamilySpec field, the derived grid floor, the capability
+    matrix and each method's (ok, reason) equal the JAX package's."""
+    from heat2d_tpu.problems import base as jbase
+    from heat2d_tpu_torch.problems import base as tbase
+    t, j = tbase.FAMILY_SPECS[problem], jbase.FAMILY_SPECS[problem]
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert t.min_grid == j.min_grid
+    assert tbase.capability_matrix()[problem] == \
+        jbase.capability_matrix()[problem]
+    assert tbase.state_arrays(problem) == jbase.state_arrays(problem)
+    for method in ("explicit", "auto") + jvocab.SERVE_METHODS + ("rk4",):
+        assert tbase.supports_method(problem, method) == \
+            jbase.supports_method(problem, method)
+    with pytest.raises(ValueError) as te:
+        tbase.spec_for("wave")
+    with pytest.raises(ValueError) as je:
+        jbase.spec_for("wave")
+    assert str(te.value) == str(je.value)
 
 
 @pytest.mark.parametrize("kw", [
@@ -73,6 +97,11 @@ def test_one_dict_builds_both_stacks(kw):
     dict(method="rk4"),
     dict(problem="wave"),
     dict(problem="heat9", mode="pallas"),
+    dict(problem="heat9", method="mg"),
+    dict(problem="reactdiff", method="adi"),
+    dict(problem="heat9", nxprob=4),
+    dict(problem="heat9", cx=0.2, cy=0.2),
+    dict(problem="advdiff", cx=0.001),
     dict(cx=0.3, cy=0.3),
     dict(cx=-0.1),
     dict(method="adi", mode="dist2d", gridx=2),

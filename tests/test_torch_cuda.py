@@ -150,3 +150,86 @@ def test_serving_on_the_card(card):
                                  [r.cy for r in reqs], method="jnp")
     for m, r in enumerate(got):
         _close(torch.from_numpy(r.u), want[m].cpu(), 19, cs.FORM_FMA)
+
+
+# ------------------------------------------------------------------ #
+# H8-H11: families and tridiagonal solves
+# ------------------------------------------------------------------ #
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("problem", ["heat9", "advdiff", "reactdiff"])
+def test_family_kernels_match_plain(card, problem, b):
+    """H8/H9 against their plain version, within n * factor * 2**-24 *
+    max|plain| (``cuda_family.rounding_factor``; 0 is expected: the
+    kernels repeat the plain roundings)."""
+    from heat2d_tpu_torch.ops import cuda_family as cf
+    u, cxs, cys = _batch(card, b, (37, 53))
+    scal = cf.scalar_block(problem, cxs * 0.6, cys * 0.6)
+    cf.reset_launch_counts()
+    for n in (1, 5, 8):
+        ref = cf.fam_multi_step_plain(u, n, scal, problem)
+        tol = n * cf.rounding_factor(problem) * 2.0 ** -24 * float(
+            ref.abs().max())
+        for fn in (cf.fam_resident, cf.fam_tile_multi):
+            err = float((fn(u, n, scal, problem).double()
+                         - ref.double()).abs().max())
+            assert err <= tol, (fn.__name__, n, err, tol)
+    assert cf.launch_counts() == {"fam_resident": 3, "fam_tile_multi": 3}
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (130, 257)])
+def test_tridiag_kernels_match_plain(card, shape):
+    """H10/H11 against their plain versions, within (1 + c) * 2**-20 *
+    max|plain| (0 expected)."""
+    from heat2d_tpu_torch.ops import tridiag as td
+    g = torch.Generator(device=card)
+    g.manual_seed(12)
+    rhs = torch.rand((3,) + shape, generator=g, device=card)
+    c = torch.tensor([51.2, 0.3, 7.0], device=card)
+    td.reset_launch_counts()
+    for fn, plain in ((td.td_rows, td.td_rows_plain),
+                      (td.td_lanes, td.td_lanes_plain)):
+        ref = plain(rhs, c)
+        err = float((fn(rhs, c).double() - ref.double()).abs().max())
+        assert err <= 52.2 * 2.0 ** -20 * float(ref.abs().max())
+    assert td.launch_counts() == {"td_rows": 1, "td_lanes": 1}
+
+
+def test_adi_solver_on_the_card(card):
+    """Mode pallas (H10/H11) against mode serial (the plain scan) on the card:
+    the same steps_done, within steps * (1 + cx + cy) * 2**-22 * max|u|."""
+    from heat2d_tpu_torch.ops import tridiag as td
+    cfg = HeatConfig(nxprob=96, nyprob=160, steps=40, cx=30.0, cy=20.0,
+                     method="adi", mode="pallas", convergence=True,
+                     interval=10, sensitivity=1e30)
+    td.reset_launch_counts()
+    got = Heat2DSolver(cfg).run(timed=False)
+    want = Heat2DSolver(cfg.replace(mode="serial")).run(timed=False)
+    assert got.steps_done == want.steps_done == 10
+    assert td.launch_counts() == {"td_rows": 10, "td_lanes": 10}
+    err = float(abs(got.u.astype("float64") - want.u).max())
+    assert err <= 10 * 51 * 2.0 ** -22 * float(abs(want.u).max())
+
+
+def test_served_family_on_the_card(card):
+    from heat2d_tpu_torch.obs.metrics import MetricsRegistry
+    from heat2d_tpu_torch.ops import cuda_family as cf
+    from heat2d_tpu_torch.serve.schema import SolveRequest
+    from heat2d_tpu_torch.serve.server import SolveServer
+
+    reqs = [SolveRequest(nx=64, ny=96, steps=19, cx=0.05 * (i + 1),
+                         cy=0.1, problem="heat9") for i in range(3)]
+    cf.reset_launch_counts()
+    with SolveServer(registry=MetricsRegistry(), max_delay=0.2) as srv:
+        futs = [srv.submit(r) for r in reqs]
+        got = [f.result(timeout=120) for f in futs]
+    assert srv.engine.launches == 1
+    assert cf.launch_counts()["fam_resident"] == 1
+    want = ensemble.run_ensemble(64, 96, 19, [r.cx for r in reqs],
+                                 [r.cy for r in reqs], method="jnp",
+                                 problem="heat9")
+    for m, r in enumerate(got):
+        ref = want[m].cpu()
+        err = float((torch.from_numpy(r.u).double() - ref.double())
+                    .abs().max())
+        assert err <= 19 * 66 * 2.0 ** -24 * float(ref.abs().max())

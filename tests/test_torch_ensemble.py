@@ -290,14 +290,31 @@ def test_batch_runner_is_memoized_per_signature():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(method="adi"), "slice 3"),
-    (dict(method="mg"), "slice 3"),
-    (dict(problem="heat9"), "slice 3"),
+    (dict(problem="reactdiff", method="adi"), "does not support method"),
+    (dict(problem="heat9", method="mg"), "does not support method"),
+    (dict(problem="varcoef", method="band"), "no 'band' kernel template"),
     (dict(method="rk4"), "not in"),
 ])
 def test_unported_methods_and_problems_raise(kw, match):
+    """What the ensembles still refuse: the combinations the capability
+    matrix rules out (``ConfigError``, a ``ValueError``) and unknown
+    methods."""
     with pytest.raises(ValueError, match=match):
         tens.run_ensemble(8, 8, 1, [0.1], [0.1], device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(method="adi"), dict(method="mg"),
+                                dict(problem="heat9")])
+def test_implicit_methods_and_families_run_like_jax(kw):
+    """The methods and the family this port once refused run, and agree
+    with the JAX package (tolerance of tests/test_torch_implicit.py and
+    tests/test_torch_problems.py: n * 66 * 2**-24 * max|u| covers both
+    at this size)."""
+    cxs, cys = [0.1, 0.2], [0.15, 0.1]
+    want = np.asarray(jens.run_ensemble(8, 8, 3, cxs, cys, **kw))
+    got = tens.run_ensemble(8, 8, 3, cxs, cys, device="cpu", **kw).numpy()
+    assert np.abs(got - want).max() <= 3 * 66 * 2.0 ** -24 * np.abs(
+        want).max()
 
 
 def test_validates_shapes_like_jax():

@@ -83,6 +83,17 @@ def test_importing_ensembles_and_serving_loads_no_jax():
     assert out.stdout.split() == ["False", "False"]
 
 
+def test_importing_families_and_implicit_loads_no_jax():
+    code = ("import sys; import heat2d_tpu_torch.problems.runners, "
+            "heat2d_tpu_torch.ops.tridiag, heat2d_tpu_torch.ops.multigrid, "
+            "heat2d_tpu_torch.ops.cuda_family, "
+            "heat2d_tpu_torch.models.solution; "
+            "print('jax' in sys.modules, 'heat2d_tpu' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "False"]
+
+
 @pytest.fixture
 def no_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -130,6 +141,29 @@ def test_ensemble_and_serve_entry_points_raise_without_a_card(no_card,
     assert serve_cli.main(["--selftest", "--device", "cpu"]) == 0
 
 
+def test_implicit_and_family_entry_points_raise_without_a_card(no_card,
+                                                              capsys):
+    from heat2d_tpu_torch.models import ensemble
+    from heat2d_tpu_torch.models.solution import bench_tts
+    calls = [
+        lambda: Heat2DSolver(HeatConfig(method="adi", mode="pallas")),
+        lambda: Heat2DSolver(HeatConfig(method="mg")),
+        lambda: Heat2DSolver(HeatConfig(problem="heat9")),
+        lambda: ensemble.run_ensemble(8, 8, 1, [8.0], [8.0], method="adi"),
+        lambda: ensemble.run_ensemble(8, 8, 1, [0.1], [0.1],
+                                      problem="advdiff"),
+        lambda: bench_tts(quick=True),
+    ]
+    for call in calls:
+        with pytest.raises(DeviceUnavailableError, match="CUDA"):
+            call()
+    assert cli.main(["--method", "adi", "--cx", "8", "--cy", "8"]) == 1
+    assert "CUDA" in capsys.readouterr().err
+    # ... and run when asked for the CPU.
+    assert Heat2DSolver(HeatConfig(method="adi", mode="pallas"),
+                        device="cpu").run(timed=False).route == "adi-kernel"
+
+
 @pytest.mark.parametrize("shape", [(4096, 4096), (640, 1024), (4099, 4097),
                                    (10, 10)])
 @pytest.mark.parametrize("tsteps", [1, 3, 8])
@@ -156,9 +190,10 @@ def test_resident_gate_on_the_cpu():
 
 
 def test_build_is_keyed_by_content_and_needs_nvcc(monkeypatch):
-    assert set(_build.SIGNATURES) == {"stencil", "ensemble"}
+    assert set(_build.SIGNATURES) == {"stencil", "ensemble", "family",
+                                      "tridiag"}
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "stencil.cu", "ensemble.cu"}
+        "stencil.cu", "ensemble.cu", "family.cu", "tridiag.cu"}
     p = _build.library_path("stencil")
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libstencil_")
     assert p == _build.library_path("stencil")

@@ -72,6 +72,11 @@ REQUESTS = [
     dict(nx=16, ny=16, steps=5, method="jnp", problem="heat9"),
     dict(nx=33, ny=17, steps=0, cx=0.25, cy=0.25, method="jnp",
          convergence=True),
+    dict(nx=4097, ny=4097, steps=4, cx=51.2, cy=12.8, method="mg"),
+    dict(nx=640, ny=1024, steps=10000, cx=0.02, cy=0.15, problem="heat9"),
+    dict(nx=4096, ny=4096, steps=240, method="band", problem="advdiff",
+         convergence=True, interval=20, sensitivity=3.5),
+    dict(nx=16, ny=16, steps=5, method="jnp", problem="varcoef"),
 ]
 
 
@@ -99,22 +104,68 @@ def test_pad_ladder_equals_jax(cap):
 
 
 @pytest.mark.parametrize("fields,name", [
-    (dict(method="adi"), "adi"),
-    (dict(method="mg"), "mg"),
-    (dict(problem="heat9"), "heat9"),
     (dict(problem="reactdiff", method="adi"), "reactdiff"),
+    (dict(problem="heat9", method="mg"), "heat9"),
+    (dict(problem="varcoef", method="band"), "varcoef"),
+    (dict(problem="advdiff", method="adi"), "advdiff"),
 ])
 def test_unsupported_combination_names_it(fields, name):
+    """The combinations the capability matrix rules out, rejected with
+    the JAX package's message word for word, before any launch."""
+    from heat2d_tpu.serve.schema import Rejected as JRejected
     req = SolveRequest(nx=16, ny=16, steps=5, **fields)
     with pytest.raises(Rejected) as e:
         req.validate()
-    assert e.value.code == "unsupported_combination"
-    assert name in e.value.message and "slice 3" in e.value.message
+    with pytest.raises(JRejected) as je:
+        JRequest(nx=16, ny=16, steps=5, **fields).validate()
+    assert e.value.code == je.value.code == "unsupported_combination"
+    assert name in e.value.message
+    assert e.value.message == je.value.message
     with _server() as srv:
         with pytest.raises(Rejected) as e2:
             Client(srv).solve(req)
     assert e2.value.code == "unsupported_combination"
     assert srv.engine.launches == 0
+
+
+@pytest.mark.parametrize("fields", [
+    dict(method="adi", cx=8.0, cy=6.0),
+    dict(method="mg", cx=8.0, cy=6.0),
+    dict(problem="heat9"),
+    dict(problem="advdiff", method="band"),
+    dict(problem="reactdiff", method="pallas"),
+    dict(problem="varcoef"),
+])
+def test_served_methods_and_families_vs_jax(fields):
+    """What this port once rejected is served: two same-signature
+    requests in one launch, each result bitwise the standalone ensemble
+    run and within tolerance of the JAX package's (steps * 66 * 2**-24
+    * max|u|, the widest family bound, covers ADI's roundoff here)."""
+    kw = dict(nx=20, ny=24, steps=6, **fields)
+    scale = [(1.0, 1.0), (0.5, 1.5)]
+    reqs = [SolveRequest(**dict(kw, cx=kw.get("cx", 0.1) * a,
+                                cy=kw.get("cy", 0.1) * b))
+            for a, b in scale]
+    with _server() as srv:
+        futs = [srv.submit(r) for r in reqs]
+        got = [f.result(timeout=60) for f in futs]
+    assert srv.engine.launches == 1
+    row = srv.engine.launch_log[0]
+    assert row["problem"] == kw.get("problem", "heat5")
+    cxs, cys = [r.cx for r in reqs], [r.cy for r in reqs]
+    method = kw.get("method", "auto")
+    problem = kw.get("problem", "heat5")
+    want = tens.run_ensemble(20, 24, 6, cxs, cys, method=method,
+                             problem=problem, device="cpu").numpy()
+    j = np.asarray(jens.run_ensemble(20, 24, 6, cxs, cys, method=method,
+                                     problem=problem))
+    for m, r in enumerate(got):
+        assert r.steps_done == 6
+        np.testing.assert_array_equal(r.u, want[m])
+        assert np.abs(r.u - j[m]).max() <= 6 * 66 * 2.0 ** -24 * np.abs(
+            j[m]).max()
+    snap = srv.registry.snapshot()["counters"]
+    assert snap[f"problem_requests_total{{problem={problem}}}"] == 1
 
 
 @pytest.mark.parametrize("fields", [dict(nx=2, ny=8, steps=1),
@@ -332,12 +383,14 @@ def test_requests_file_mode(tmp_path, capsys):
     rows = [dict(nx=12, ny=12, steps=3, cx=0.1), dict(nx=12, ny=12,
                                                      steps=3, cx=0.2),
             dict(nx=12, ny=12, steps=3, method="adi"),
-            dict(nx=12, ny=12, steps=3, bogus=1)]
+            dict(nx=12, ny=12, steps=3, bogus=1),
+            dict(nx=12, ny=12, steps=3, method="adi", problem="reactdiff")]
     path.write_text("\n".join(json.dumps(r) for r in rows) + "\n")
     scli.main(["--requests", str(path), "--device", "cpu"])
     out = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
     assert [o.get("rejected") for o in out] == [
-        None, None, "unsupported_combination", "invalid"]
+        None, None, None, "invalid", "unsupported_combination"]
+    assert out[2]["steps_done"] == 3
     assert out[0]["shape"] == [12, 12] and out[0]["steps_done"] == 3
 
 

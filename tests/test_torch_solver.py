@@ -94,11 +94,29 @@ def test_timed_run_and_record():
     assert rec["device"]["platform"] == "cpu"
 
 
-@pytest.mark.parametrize("kw,slice_", [
+@pytest.mark.parametrize("kw,match", [
     (dict(mode="dist2d", gridx=2, gridy=2), "slice 5"),
-    (dict(method="adi"), "slice 3"),
-    (dict(problem="heat9"), "slice 3"),
+    (dict(method="adi", problem="reactdiff"), "does not support method"),
+    (dict(problem="heat9", mode="pallas"), "runs mode 'serial'"),
 ])
-def test_unported_combinations_name_their_slice(kw, slice_):
-    with pytest.raises(ConfigError, match=slice_):
+def test_unported_combinations_name_their_slice(kw, match):
+    """What the solver still refuses: the multi-device modes (naming
+    their slice) and the combinations the JAX package refuses too."""
+    with pytest.raises(ConfigError, match=match):
         Heat2DSolver(HeatConfig(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(method="adi", cx=8.0, cy=6.0),
+    dict(method="adi", cx=8.0, cy=6.0, mode="pallas"),
+    dict(method="mg", cx=8.0, cy=6.0),
+    dict(problem="heat9"),
+    dict(problem="reactdiff", convergence=True, interval=7,
+         sensitivity=1e3),
+])
+def test_implicit_methods_and_families_vs_jax(kw):
+    """The combinations this port once refused run like the JAX solver
+    (within rtol 1e-5 at 24 steps: ADI's roundoff is ~c eps per step)."""
+    got, want = _both(nxprob=24, nyprob=40, steps=24, **kw)
+    assert got.steps_done == want.steps_done
+    np.testing.assert_allclose(got.u, want.u, rtol=1e-5, atol=1e-4)
