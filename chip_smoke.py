@@ -47,9 +47,23 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    results also against the exact Crank-Nicolson evolution;
 8. time to solution at 513^2: explicit through H6 against ADI through
    H10/H11, matched accuracy against the analytic mode;
-9. the ``kernels`` line: the shape timed, time, bound, plain and library
-   times of each kernel H1-H11 at its path's shapes;
-10. headline: Mcells/s at 4096^2 by the two-point protocol of bench.py.
+9. shard kernels: H12 and H13 on every shard of a 2x2 mesh of 4096^2
+   (T = 8, nsub 8, 3 and 1), of 4 row strips of 4099x4096 (pad rows) and
+   of a 2x2 mesh of 74x106, H14 on the same meshes, both step forms,
+   against their plain versions (literal bitwise, FMA within ``fma_tol``)
+   and H14 against H12 bit for bit;
+10. sharded path: ``Heat2DSolver`` on a 2x2 mesh of four 2048^2 shards on
+   the one card (``host_devices(4)``), 4096^2 x 240 steps: dist2d,
+   dist1d (4 strips) and hybrid ``bitwise_parity`` bitwise equal to
+   serial, hybrid (FMA) within ``fma_tol``, hybrid ``--halo fused``
+   bitwise equal to hybrid collective on the in-kernel tier (``ici``),
+   hybrid convergence (interval 20, a sensitivity read from both routes'
+   residuals) at serial's ``steps_done``; then the reference's largest
+   grid, 2560x2048, in hybrid with its convergence defaults against
+   serial; launch counters, zeroed just before, show H12-H14 ran;
+11. the ``kernels`` line: the shape timed, time, bound, plain and library
+   times of each kernel H1-H14 at its path's shapes;
+12. headline: Mcells/s at 4096^2 by the two-point protocol of bench.py.
 
 The last line of standard output is ``{"ok": true, "device": ...}``. The
 full results also go to ``chiprun_out/chip_smoke.json``.
@@ -85,6 +99,9 @@ SOURCES = {
     "fam_tile_multi": "heat2d_tpu_torch/csrc/family.cu",
     "td_rows": "heat2d_tpu_torch/csrc/tridiag.cu",
     "td_lanes": "heat2d_tpu_torch/csrc/tridiag.cu",
+    "shard_tile_multi": "heat2d_tpu_torch/csrc/shard.cu",
+    "shard_tile_multi_resid": "heat2d_tpu_torch/csrc/shard.cu",
+    "shard_fused": "heat2d_tpu_torch/csrc/shard.cu",
 }
 REPLACES = {
     "step": "heat2d_tpu/ops/pallas_stencil.py:509",
@@ -98,6 +115,9 @@ REPLACES = {
     "fam_tile_multi": "heat2d_tpu/problems/runners.py:181",
     "td_rows": "heat2d_tpu/ops/tridiag.py:324",
     "td_lanes": "heat2d_tpu/ops/tridiag.py:349",
+    "shard_tile_multi": "heat2d_tpu/ops/pallas_stencil.py:1618",
+    "shard_tile_multi_resid": "heat2d_tpu/ops/pallas_stencil.py:1924",
+    "shard_fused": "heat2d_tpu/ops/pallas_stencil.py:2217",
 }
 #: FLOPs of one cell update per family (each rounded operation of the
 #: update counted once): heat9 22, advdiff 14, reactdiff 12 (the division
@@ -662,6 +682,7 @@ def phase_kernel_times(torch, launches: dict, worst: dict) -> list:
 
     rows += ensemble_kernel_rows(torch)
     rows += family_tridiag_kernel_rows(torch)
+    rows += shard_kernel_rows(torch)
     for r in rows:
         r.update(route="cuda",
                  source=SOURCES[r["name"]],
@@ -1164,6 +1185,296 @@ def phase_headline(torch, name: str, power: str) -> dict:
     return info
 
 
+def _shard_grid(torch, nx, ny, gx, gy, gen):
+    """A random nx x ny domain on the card, zero-padded to equal shards,
+    as a (gx, gy) grid of blocks."""
+    bm, bn = -(-nx // gx), -(-ny // gy)
+    full = torch.zeros((gx * bm, gy * bn), device="cuda")
+    full[:nx, :ny] = torch.rand((nx, ny), generator=gen, device="cuda")
+    return [[full[i * bm:(i + 1) * bm, j * bn:(j + 1) * bn].contiguous()
+             for j in range(gy)] for i in range(gx)]
+
+
+def phase_shard_kernels(torch) -> dict:
+    """H12-H14 against their plain versions on the card: every shard of a
+    2x2 mesh of 4096^2, of 4 row strips of 4099x4096 (one pad row) and of
+    a 2x2 mesh of 74x106; T = 8 strips at nsub 8, 3 and 1; H14 at depth
+    nsub against its plain version and against H12 bit for bit."""
+    from heat2d_tpu_torch.ops import cuda_shard as csh
+    from heat2d_tpu_torch.parallel.halo import exchange_halo_strips
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1616)
+    cx, cy, t = 0.1, 0.1, 8
+    worst = {k: 0.0 for k in csh.LAUNCHES}
+    checks = 0
+
+    def judge(name, got, ref, n, form, what):
+        nonlocal checks
+        err = max_err(got, ref)
+        worst[name] = max(worst[name], err)
+        tol = 0.0 if form == csh.FORM_LITERAL else fma_tol(n, ref)
+        fail_unless(err <= tol, f"{name} {what}: max_abs_err {err} > {tol}")
+        checks += 1
+
+    cases = [(4096, 4096, 2, 2, (8, 3, 1)), (4099, 4096, 4, 1, (8, 3)),
+             (74, 106, 2, 2, (8, 3, 1))]
+    for nx, ny, gx, gy, nsubs in cases:
+        blocks = _shard_grid(torch, nx, ny, gx, gy, gen)
+        bm, bn = blocks[0][0].shape
+        strips = exchange_halo_strips(blocks, t)
+        for form in (csh.FORM_FMA, csh.FORM_LITERAL):
+            for nsub in nsubs:
+                what = f"{nx}x{ny} on {gx}x{gy} nsub={nsub} form {form}"
+                h12 = {}
+                for i in range(gx):
+                    for j in range(gy):
+                        args = (nsub, i * bm, j * bn, nx, ny, cx, cy, form)
+                        u, st = blocks[i][j], strips[i][j]
+                        h12[i, j] = csh.shard_tile_multi(u, st, *args)
+                        judge("shard_tile_multi", h12[i, j],
+                              csh.shard_tile_multi_plain(u, st, *args),
+                              nsub, form, f"{what} shard ({i},{j})")
+                        got, r = csh.shard_tile_multi_resid(u, st, *args)
+                        ref, r_ref = csh.shard_tile_multi_resid_plain(
+                            u, st, *args)
+                        judge("shard_tile_multi_resid", got, ref, nsub,
+                              form, f"{what} shard ({i},{j})")
+                        rtol = 1e-5 if form == csh.FORM_LITERAL else 1e-4
+                        fail_unless(abs(float(r) - float(r_ref))
+                                    <= rtol * abs(float(r_ref)),
+                                    f"H13 residual {what} shard ({i},{j}): "
+                                    f"{float(r)} vs {float(r_ref)}")
+                fused = csh.shard_fused(blocks, nsub, nx, ny, cx, cy, form)
+                plain = csh.shard_fused_plain(blocks, nsub, nx, ny, cx, cy,
+                                              form)
+                for i in range(gx):
+                    for j in range(gy):
+                        judge("shard_fused", fused[i][j], plain[i][j], nsub,
+                              form, f"{what} shard ({i},{j})")
+                        fail_unless(torch.equal(fused[i][j], h12[i, j]),
+                                    f"H14 {what} shard ({i},{j}) differs "
+                                    f"from H12")
+    torch.cuda.synchronize()
+    info = {"phase": "shard_kernels", "checks": checks, "max_abs_err": worst}
+    emit(info)
+    return info
+
+
+def noisy_inidat(nx, ny, seed=1617, amplitude=1e11):
+    """The reference initial condition plus seeded uniform noise of
+    ``amplitude`` on the interior (numpy, float32). From ``inidat`` alone
+    a 4096^2 run's residual falls ~0.002% per check of 20 steps, far less
+    than the two step forms' roundings move it, so no sensitivity could
+    make both routes exit at the same check. The noise's modes decay
+    fast: its residual falls ~t^-3, 8x from check 1 to 2, 2.4x from 3 to
+    4, and at 1e11 it dominates the smooth part (~3e12 per cell) and the
+    roundings to the last check of 240 steps."""
+    import numpy as np
+    ix = np.arange(nx, dtype=np.float64)[:, None]
+    iy = np.arange(ny, dtype=np.float64)[None, :]
+    u = ix * (nx - ix - 1) * iy * (ny - iy - 1)
+    rng = np.random.default_rng(seed)
+    u[1:-1, 1:-1] += amplitude * rng.random((nx - 2, ny - 2))
+    return u.astype(np.float32)
+
+
+def residual_trace(torch, cfg, devices, u0) -> list:
+    """The residual of every check of ``cfg``'s route on the card from the
+    host grid ``u0``, read through its runner's ``tap`` in a run that
+    never exits early."""
+    from heat2d_tpu_torch.models.solver import Heat2DSolver
+    solver = Heat2DSolver(cfg.replace(sensitivity=0.0), devices=devices)
+    runner = solver.make_runner()
+    seen, count = [], runner.tap
+    runner.tap = lambda k, r: (seen.append(r), count(k, r))
+    solver.run(u0=solver.place(u0), timed=False)
+    return seen
+
+
+def pick_check_sensitivity(traces: dict):
+    """A sensitivity at which every route of ``traces`` (route -> the
+    residual at each check) exits at the same check: the last check whose
+    largest residual lies at least 2x below the smallest residual of all
+    earlier checks, at the geometric middle of the gap. Returns the
+    sensitivity and the exit check (1-based)."""
+    rows = list(zip(*traces.values()))
+    best = None
+    for k in range(1, len(rows)):
+        below = max(rows[k])
+        above = min(min(r) for r in rows[:k])
+        if above > 2 * below:
+            best = (k, below, above)
+    fail_unless(best is not None, f"no sensitivity separates a check from "
+                f"the earlier ones in {traces}")
+    k, below, above = best
+    return math.sqrt(below * above), k + 1
+
+
+def phase_sharded_path(torch) -> dict:
+    """The sharded modes through ``Heat2DSolver`` on a 2x2 mesh (or 4 row
+    strips) of the one card, against mode serial on the card."""
+    from heat2d_tpu_torch.config import HeatConfig
+    from heat2d_tpu_torch.models.solver import Heat2DSolver
+    from heat2d_tpu_torch.ops import cuda_shard as csh
+    from heat2d_tpu_torch.parallel.mesh import host_devices
+    devs = host_devices(4)
+    big = HeatConfig(nxprob=4096, nyprob=4096, steps=240, gridx=2, gridy=2,
+                     numworkers=4)
+    conv = big.replace(mode="hybrid", convergence=True, interval=20)
+    noisy = noisy_inidat(4096, 4096)
+    traces = {"hybrid": residual_trace(torch, conv, devs, noisy),
+              "serial": residual_trace(torch, conv.replace(mode="serial"),
+                                       devs, noisy)}
+    sens, exit_check = pick_check_sensitivity(traces)
+    conv = conv.replace(sensitivity=sens)
+    ref2d = HeatConfig(nxprob=2560, nyprob=2048, steps=1000, mode="hybrid",
+                       gridx=2, gridy=2, convergence=True, interval=20,
+                       sensitivity=0.1)
+    serial = {}
+
+    def reference(cfg, u0):
+        key = cfg.replace(mode="serial", halo="collective",
+                          bitwise_parity=False)
+        if key not in serial:
+            solver = Heat2DSolver(key)
+            serial[key] = solver.run(
+                u0=None if u0 is None else solver.place(u0), timed=False)
+        return serial[key]
+
+    def run(cfg, want=None, u0=None):
+        before = csh.launch_counts()
+        solver = Heat2DSolver(cfg, devices=devs)
+        got = solver.run(u0=None if u0 is None else solver.place(u0))
+        u = torch.from_numpy(got.u)
+        fail_unless(bool(torch.isfinite(u).all()), f"{cfg}: non-finite")
+        fail_unless(tuple(u.shape) == cfg.shape, f"{cfg}: shape {u.shape}")
+        fail_unless(float(u[0].abs().max()) == 0.0
+                    and float(u[:, -1].abs().max()) == 0.0,
+                    f"{cfg}: boundary not held")
+        ref = reference(cfg, u0) if want is None else want
+        fail_unless(got.steps_done == ref.steps_done,
+                    f"{cfg}: steps_done {got.steps_done} vs "
+                    f"{ref.steps_done}")
+        exact = want is not None or cfg.mode != "hybrid" \
+            or cfg.bitwise_parity
+        ref_u = torch.from_numpy(ref.u)
+        err = max_err(u, ref_u)
+        tol = 0.0 if exact else fma_tol(got.steps_done, ref_u)
+        fail_unless(err <= tol, f"{cfg}: max_abs_err {err} > {tol}")
+        after = csh.launch_counts()
+        row = {"mode": cfg.mode, "shape": list(cfg.shape),
+               "steps": cfg.steps, "halo": cfg.halo,
+               "bitwise_parity": cfg.bitwise_parity,
+               "convergence": cfg.convergence,
+               "initial": "inidat" if u0 is None else "inidat + noise",
+               "route": got.route,
+               "halo_route": got.halo["route"], "tier": got.halo["tier"],
+               "depth": got.halo["depth"], "mesh": list(got.halo["mesh"]),
+               "steps_done": got.steps_done, "max_abs_err": err,
+               "tol": tol, "against": "hybrid collective" if want
+               else "serial", "elapsed_s": got.elapsed,
+               "warmup_s": got.warmup_s, "mcells_per_s": got.mcells_per_s,
+               "residual_reads": got.residual_reads,
+               "launches": {k: after[k] - before[k] for k in after}}
+        emit({"phase": "sharded_path_run", **row})
+        return got, row
+
+    csh.reset_launch_counts()
+    rows = []
+    for cfg in (big.replace(mode="dist2d"), big.replace(mode="dist1d"),
+                big.replace(mode="hybrid"),
+                big.replace(mode="hybrid", bitwise_parity=True)):
+        got, row = run(cfg)
+        rows.append(row)
+        if cfg.mode == "hybrid" and not cfg.bitwise_parity:
+            collective = got
+    _, row = run(big.replace(mode="hybrid", halo="fused"), want=collective)
+    fail_unless(row["tier"] == "ici", f"hybrid fused took tier "
+                f"{row['tier']}, not the in-kernel one")
+    rows.append(row)
+    rows.append(run(conv, u0=noisy)[1])
+    rows.append(run(ref2d)[1])
+    counts = csh.launch_counts()
+    for name, n in counts.items():
+        fail_unless(n > 0, f"kernel {name} never launched on the sharded "
+                    f"path")
+    fail_unless(rows[-2]["steps_done"] == exit_check * conv.interval,
+                f"hybrid convergence exited at {rows[-2]['steps_done']}, "
+                f"not at check {exit_check}")
+    info = {"phase": "sharded_path", "launches": counts,
+            "convergence": {"sensitivity": sens, "exit_check": exit_check,
+                            "residuals": traces},
+            "chunk_ms": shard_chunk_ms(torch, devs)}
+    emit(info)
+    return {**info, "runs": rows}
+
+
+def shard_chunk_ms(torch, devs) -> dict:
+    """One T = 8 chunk of the 2x2 mesh of 4096^2 on the card, by CUDA
+    events: the collective route (the exchange, then four H12 launches)
+    and the fused one (one H14 launch)."""
+    from heat2d_tpu_torch.config import HeatConfig
+    from heat2d_tpu_torch.parallel import mesh, sharded
+    cfg = HeatConfig(nxprob=4096, nyprob=4096, mode="hybrid", gridx=2,
+                     gridy=2)
+    m = mesh.make_mesh(2, 2, devs)
+    grid = sharded.sharded_inidat(cfg, m)
+    out = {}
+    for route in ("collective", "fused"):
+        chunk = sharded.make_local_chunk(cfg.replace(halo=route), m,
+                                         kernel=True)
+        out[route] = time_ms(lambda: chunk(grid, 8), 20)
+    return out
+
+
+def shard_kernel_rows(torch) -> list:
+    """H12-H14 at the sharded path's shapes: H12/H13 on one 2048^2 shard
+    of the 2x2 mesh of 4096^2, one T = 8 sweep; H14 as its one launch for
+    all four shards. No PyTorch call advances a shard T steps from its
+    strips, so no library time."""
+    from heat2d_tpu_torch.ops import cuda_shard as csh
+    from heat2d_tpu_torch.ops import cuda_stencil as cs
+    from heat2d_tpu_torch.ops.init import inidat
+    from heat2d_tpu_torch.parallel.halo import exchange_halo_strips
+    cx, cy, t, n, bm = 0.1, 0.1, 8, 4096, 2048
+    full = inidat(n, n, device="cuda")
+    blocks = [[full[i * bm:(i + 1) * bm, j * bm:(j + 1) * bm].contiguous()
+               for j in range(2)] for i in range(2)]
+    u, st = blocks[0][0], exchange_halo_strips(blocks, t)[0][0]
+    args = (t, 0, 0, n, n, cx, cy)
+    cells = bm * bm
+    moved = 4 * (2 * cells + 2 * t * bm + 2 * (bm + 2 * t) * t)
+    rows = []
+    b, by = bound_ms(moved, FLOPS_PER_CELL_STEP * cells * t)
+    rows.append(dict(
+        name="shard_tile_multi",
+        shape="one 2048^2 shard of a 2x2 mesh of 4096^2, one T=8 sweep",
+        ms=time_ms(lambda: csh.shard_tile_multi(u, st, *args), 20),
+        plain_ms=time_ms(lambda: csh.shard_tile_multi_plain(u, st, *args),
+                         5),
+        bound_ms=b, bound_by=by, library_ms=None))
+    ntiles = cs.plan_tiles(bm, bm, t, cs.smem_limit("cuda")).ntiles
+    b, by = bound_ms(moved + 4 * ntiles,
+                     FLOPS_PER_CELL_STEP * cells * t + 3 * cells)
+    rows.append(dict(
+        name="shard_tile_multi_resid",
+        shape="one 2048^2 shard, one T=8 sweep + residual",
+        ms=time_ms(lambda: csh.shard_tile_multi_resid(u, st, *args), 20),
+        plain_ms=time_ms(
+            lambda: csh.shard_tile_multi_resid_plain(u, st, *args), 5),
+        bound_ms=b, bound_by=by, library_ms=None))
+    b, by = bound_ms(2 * 4 * n * n, FLOPS_PER_CELL_STEP * n * n * t)
+    rows.append(dict(
+        name="shard_fused",
+        shape="four 2048^2 shards (2x2 mesh of 4096^2), one T=8 sweep, "
+              "one launch",
+        ms=time_ms(lambda: csh.shard_fused(blocks, t, n, n, cx, cy), 20),
+        plain_ms=time_ms(lambda: csh.shard_fused_plain(blocks, t, n, n, cx,
+                                                       cy), 3),
+        bound_ms=b, bound_by=by, library_ms=None))
+    return rows
+
+
 def write_results(results: dict) -> None:
     out = os.path.join(HERE, "chiprun_out")
     os.makedirs(out, exist_ok=True)
@@ -1201,14 +1512,18 @@ def main() -> int:
         implicit = phase_implicit_path(torch)
         serve_fam = phase_serve_families(torch)
         tts = phase_time_to_solution(torch)
+        shard_kern = phase_shard_kernels(torch)
+        sharded_path = phase_sharded_path(torch)
         launches = {**main_path["launches"], **serve["launch_counts"],
-                    **serve_fam["launch_counts"]}
+                    **serve_fam["launch_counts"],
+                    **sharded_path["launches"]}
         launches["td_rows"] += implicit["launches"]["td_rows"]
         launches["td_lanes"] += implicit["launches"]["td_lanes"]
         rows = phase_kernel_times(
             torch, launches,
             {**kern["max_abs_err"], **ens_kern["max_abs_err"],
-             **fam_kern["max_abs_err"], **td_kern["max_abs_err"]})
+             **fam_kern["max_abs_err"], **td_kern["max_abs_err"],
+             **shard_kern["max_abs_err"]})
         head = phase_headline(torch, tool["name"], tool["power_limit"])
         for r in rows:
             fail_unless(all(math.isfinite(r[k]) for k in
@@ -1223,7 +1538,9 @@ def main() -> int:
                    "tridiag_kernels_check": td_kern,
                    "main_path": main_path, "serve": serve,
                    "implicit_path": implicit, "serve_families": serve_fam,
-                   "time_to_solution": tts, "kernels": rows,
+                   "time_to_solution": tts,
+                   "shard_kernels_check": shard_kern,
+                   "sharded_path": sharded_path, "kernels": rows,
                    "headline": head,
                    "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})

@@ -6,7 +6,7 @@ copy of the part of ``heat2d_tpu/analysis/locks.py`` they use.
 factories return while no lock auditor is installed; ``@guarded_by``
 records which attributes of a class its named lock protects, in
 ``GUARDS``. The auditor that checks lock order and guarded writes at run
-time (``install``/``report``) is not ported yet (ROADMAP.md, slice 6);
+time (``install``/``report``) is not ported yet (ROADMAP.md, slice 7);
 until then the names and the declarations keep the serve code as the JAX
 package writes it, and the repo linter (rule R006) sees no bare lock in
 a threaded module.

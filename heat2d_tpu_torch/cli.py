@@ -21,6 +21,15 @@ writing ``final_m<i>.dat`` per member and, on convergence runs, the
 
     python -m heat2d_tpu_torch.cli --mode pallas --method adi \\
         --nxprob 4096 --nyprob 4096 --steps 20 --cx 51.2 --cy 51.2
+
+The distributed modes take the decomposition flags (``--gridx``,
+``--gridy``, ``--numworkers``, ``--halo-depth``, ``--halo``).
+``--host-device-count N`` gives the mesh N slots on the chosen device
+(the visible cards in turn, or the CPU), so shards can share a card, as
+the JAX CLI's virtual host devices share the host:
+
+    python -m heat2d_tpu_torch.cli --mode hybrid --gridx 2 --gridy 2 \\
+        --host-device-count 4 --nxprob 4096 --nyprob 4096 --steps 240
 """
 
 from __future__ import annotations
@@ -30,7 +39,8 @@ import json
 import os
 import sys
 
-from heat2d_tpu_torch.config import MODES, ConfigError, HeatConfig
+from heat2d_tpu_torch.config import (MODES, SHARDED_MODES, ConfigError,
+                                     HeatConfig)
 from heat2d_tpu_torch.utils.device import DeviceUnavailableError
 from heat2d_tpu_torch.vocab import PROBLEMS, TIME_METHODS
 
@@ -42,8 +52,10 @@ def build_parser() -> argparse.ArgumentParser:
                     "port of heat2d-tpu; capabilities of patschris/Heat2D)")
     p.add_argument("--mode", default="serial", choices=list(MODES),
                    help="serial = plain PyTorch golden model; pallas = "
-                        "the hand-written CUDA kernels (the other modes "
-                        "are not ported yet)")
+                        "the hand-written CUDA kernels; dist1d/dist2d = "
+                        "the golden model over a mesh of row strips or "
+                        "blocks; hybrid = the mesh with a hand kernel "
+                        "per shard")
     p.add_argument("--method", default="explicit",
                    choices=list(TIME_METHODS),
                    help="time-stepping scheme: explicit forward Euler "
@@ -63,6 +75,30 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--steps", type=int, default=100)
     g.add_argument("--cx", type=float, default=0.1)
     g.add_argument("--cy", type=float, default=0.1)
+    d = p.add_argument_group("decomposition")
+    d.add_argument("--gridx", type=int, default=1)
+    d.add_argument("--gridy", type=int, default=1)
+    d.add_argument("--numworkers", type=int, default=None,
+                   help="dist1d row-strip count (defaults to --gridx)")
+    d.add_argument("--strict-baseline", action="store_true",
+                   help="enforce mpi_heat2Dn.c's 3..8 worker range")
+    d.add_argument("--halo-depth", type=int, default=None,
+                   help="wide-halo depth T for distributed modes: one "
+                        "T-deep ghost exchange per T steps (default auto; "
+                        "1 = the reference's per-step exchange)")
+    d.add_argument("--halo", default="collective",
+                   choices=["collective", "fused"],
+                   help="halo-exchange route: 'collective' = exchange, "
+                        "then compute; 'fused' = the exchange inside the "
+                        "shard kernel (hybrid, H14) or the inner/boundary "
+                        "split (dist1d/dist2d); bitwise-identical "
+                        "results, degrades to collective where not viable")
+    d.add_argument("--host-device-count", type=int, default=None,
+                   metavar="N",
+                   help="give the mesh N device slots on --device (the "
+                        "visible cards in turn, or the CPU), so that "
+                        "several shards share a card; default: one slot "
+                        "per visible device")
     e = p.add_argument_group(
         "ensemble (batched parameter sweep: one launch advances every "
         "(cx, cy) member; members that fit the card's L2 run the resident "
@@ -117,7 +153,6 @@ def _run_ensemble_cli(args, cfg) -> int:
                                              write_grid_rowmajor)
     from heat2d_tpu_torch.models.ensemble import (ensemble_summary,
                                                   timed_ensemble)
-    from heat2d_tpu_torch.models.solver import check_ported
     from heat2d_tpu_torch.obs.record import build_record
 
     try:
@@ -153,7 +188,11 @@ def _run_ensemble_cli(args, cfg) -> int:
     if cfg.convergence:
         print(f"Check for convergence every {cfg.interval} iterations")
     try:
-        check_ported(cfg)
+        if cfg.mode in SHARDED_MODES:
+            raise ConfigError(
+                f"ensemble runs of mode {cfg.mode!r} (members sharded over "
+                f"a mesh) wait for slice 6 of ROADMAP.md; use mode "
+                f"'serial' or 'pallas'")
         run = timed_ensemble(
             cfg.nxprob, cfg.nyprob, cfg.steps, cxs, cys,
             method="auto" if cfg.method == "explicit" else cfg.method,
@@ -201,7 +240,10 @@ def main(argv=None) -> int:
             interval=args.interval, sensitivity=args.sensitivity,
             mode=args.mode, accum_dtype=args.accum_dtype, debug=args.debug,
             bitwise_parity=args.bitwise_parity, method=args.method,
-            problem=args.problem)
+            problem=args.problem, gridx=args.gridx, gridy=args.gridy,
+            numworkers=args.numworkers,
+            strict_baseline=args.strict_baseline,
+            halo_depth=args.halo_depth, halo=args.halo)
     except ConfigError as e:
         print(f"{e}\nQuitting...", file=sys.stderr)
         return 1
@@ -209,14 +251,21 @@ def main(argv=None) -> int:
         return _run_ensemble_cli(args, cfg)
     try:
         from heat2d_tpu_torch.models.solver import Heat2DSolver
-        solver = Heat2DSolver(cfg, device=args.device)
-    except (ConfigError, DeviceUnavailableError) as e:
+        devices = None
+        if args.host_device_count:
+            from heat2d_tpu_torch.parallel.mesh import host_devices
+            devices = host_devices(args.host_device_count, args.device)
+        solver = Heat2DSolver(cfg, device=args.device, devices=devices)
+    except (ConfigError, ValueError, DeviceUnavailableError) as e:
         print(f"{e}\nQuitting...", file=sys.stderr)
         return 1
 
     from heat2d_tpu_torch.io.binary import (CheckpointCorruptError,
                                             load_checkpoint, save_checkpoint,
-                                            write_binary, write_json_atomic)
+                                            write_binary,
+                                            write_binary_sharded,
+                                            write_json_atomic)
+    from heat2d_tpu_torch.parallel.multihost import gather_to_host
     from heat2d_tpu_torch.io.writers import (write_grid_baseline,
                                              write_grid_rowmajor)
 
@@ -225,9 +274,19 @@ def main(argv=None) -> int:
     print(f"Problem size:{cfg.nxprob}x{cfg.nyprob}")
     if cfg.problem != "heat5":
         print(f"Problem family: {cfg.problem}")
+    if cfg.mode in ("dist2d", "hybrid"):
+        print(f"Each shard will take: {cfg.xcell}x{cfg.ycell}")
     print(f"Amount of iterations: {cfg.steps}")
     if cfg.convergence:
         print(f"Check for convergence every {cfg.interval} iterations")
+    if cfg.debug and solver.mesh is not None:
+        # The DEBUG topology dump (grad1612_mpi_heat.c:170-175), -1 = no
+        # neighbour (MPI_PROC_NULL).
+        from heat2d_tpu_torch.parallel.mesh import neighbor_table
+        for row in neighbor_table(*solver.mesh.shape):
+            print(f"shard {row['shard']} at ({row['x']},{row['y']}): "
+                  f"N={row['north']} S={row['south']} "
+                  f"W={row['west']} E={row['east']}")
 
     start_step = 0
     if args.resume:
@@ -246,7 +305,7 @@ def main(argv=None) -> int:
             return 1
         solver = Heat2DSolver(
             cfg.replace(steps=max(cfg.steps - start_step, 0)),
-            device=args.device)
+            device=args.device, devices=devices)
         u0 = solver.place(grid)
     else:
         u0 = solver.init_state()
@@ -261,22 +320,33 @@ def main(argv=None) -> int:
             write_grid_rowmajor(u_host, path)
         print(f"Writing {name} ...")
 
-    os.makedirs(args.outdir, exist_ok=True)
-    u0_host = u0.cpu().numpy()
-    if args.binary_dumps:
-        write_binary(u0_host, os.path.join(args.outdir,
-                                           "initial_binary.dat"))
-    write_dat(u0_host, "initial.dat")
+    def dump_binary(u, name):
+        """A sharded state is written shard by shard (the MPI-IO
+        analogue), a single grid as it is."""
+        path = os.path.join(args.outdir, name)
+        if solver.mesh is not None:
+            write_binary_sharded(u, path, shape=cfg.shape)
+        else:
+            write_binary(u, path)
 
-    result = solver.run(u0=u0)
+    def to_host(u):
+        return gather_to_host(u)[:cfg.nxprob, :cfg.nyprob]
+
+    os.makedirs(args.outdir, exist_ok=True)
+    if args.binary_dumps:
+        dump_binary(u0, "initial_binary.dat")
+    write_dat(to_host(u0), "initial.dat")
+
+    result = solver.run(u0=u0, gather=False)
     total_steps = start_step + result.steps_done
     print(f"Exiting after {result.steps_done} iterations")
     print(f"Elapsed time: {result.elapsed:e} sec")
     if args.binary_dumps:
-        write_binary(result.u, os.path.join(args.outdir, "final_binary.dat"))
-    write_dat(result.u, "final.dat")
+        dump_binary(result.u, "final_binary.dat")
+    u_host = to_host(result.u)
+    write_dat(u_host, "final.dat")
     if args.checkpoint:
-        save_checkpoint(result.u, total_steps, cfg, args.checkpoint)
+        save_checkpoint(u_host, total_steps, cfg, args.checkpoint)
 
     record = result.to_record()
     record["total_steps_including_resume"] = total_steps

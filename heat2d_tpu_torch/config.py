@@ -28,8 +28,14 @@ class ConfigError(ValueError):
 #: Execution modes, the JAX package's names:
 #:   serial  - plain PyTorch golden model on one device
 #:   pallas  - the hand-written kernel route on one device
-#:   dist1d / dist2d / hybrid - multi-device modes (not ported yet)
+#:   dist1d  - row strips over a (numworkers, 1) mesh (mpi_heat2Dn.c)
+#:   dist2d  - 2D blocks over a (gridx, gridy) mesh (grad1612_mpi_heat.c)
+#:   hybrid  - dist2d's mesh with a hand kernel per shard
+#:             (grad1612_hybrid_heat.c)
 MODES = ("serial", "pallas", "dist1d", "dist2d", "hybrid")
+
+#: The distributed modes: a mesh of shards (``parallel/``).
+SHARDED_MODES = ("dist1d", "dist2d", "hybrid")
 
 #: Halo-exchange routes of the distributed modes.
 HALO_ROUTES = ("collective", "fused")

@@ -1,0 +1,234 @@
+// Hand-written Hopper (sm_90a) kernels for the sharded heat5 solve (mode
+// hybrid): one shard of a (gx, gy) mesh of (bm, bn) blocks advanced nsub
+// steps.  The Python wrappers, their plain PyTorch versions and the launch
+// counters live in heat2d_tpu_torch/ops/cuda_shard.py.
+//
+//   H12 k_shard_tile        <- kernel D (_shard_fused_vmem_kernel,
+//                              _shard_fused_band_kernel) and D2
+//                              (_shard_window_kernel) of
+//                              heat2d_tpu/ops/pallas_stencil.py: the block
+//                              plus its four T-deep halo strips (the layout
+//                              of parallel/halo.exchange_halo_strips: N/S
+//                              (T, bn), W/E (bm+2T, T) carrying the
+//                              corners) -> the block advanced nsub <= T
+//                              steps, written to a second buffer.
+//   H13 k_shard_tile<RESID> <- D2R: H12 plus one partial sum of squared
+//                              deltas of the last step pair per tile.
+//   H14 k_shard_fused       <- kernel F (_fused_ici_kernel): the halo
+//                              exchange moves into the kernel.  Tile loads
+//                              read ring cells straight from the neighbour
+//                              shards' blocks through the table of the
+//                              mesh's block pointers the launch carries;
+//                              cells past the mesh edge load 0 (the
+//                              MPI_PROC_NULL zeros).  One launch covers
+//                              every shard a device holds (blockIdx.z).
+//
+// All three are the tile sweep of csrc/tile.cuh (H2's design) with another
+// loader: the TPU kernels' VMEM/HBM split and band windows have no
+// counterpart.  Like H2 they are bound on the H100 by shared-memory
+// traffic and the ring recompute, not by device-memory bytes (one read and
+// one write of the block per sweep, plus the strips).  The held-cell rule
+// is in global coordinates from the shard's origin (x0, y0): the domain's
+// ring and every cell past it (pad cells of an uneven decomposition hold
+// their stored value, which the loader reads, never recomputes).
+//
+// No kernel writes a buffer it reads: H14's tiles read the input blocks of
+// every shard, so each shard's output is a separate buffer.  With several
+// cards, H14 reads the neighbours on other cards through peer access; the
+// wrapper orders the launches with events between the devices.
+//
+// Every entry point returns a cudaError_t (0 on success).
+
+#include <cuda_runtime.h>
+
+#include "tile.cuh"
+
+namespace {
+
+using heat::BLOCK_X;
+using heat::BLOCK_Y;
+using heat::Coef;
+using heat::FORM_FMA;
+using heat::FORM_LITERAL;
+using heat::Placement;
+
+// A shard's block and its halo strips, indexed by global cell.
+struct ShardLoad {
+  const float* __restrict__ u;
+  const float* __restrict__ n;
+  const float* __restrict__ s;
+  const float* __restrict__ w;
+  const float* __restrict__ e;
+  int x0, y0, bm, bn, t;
+  __device__ __forceinline__ float operator()(int gi, int gj) const {
+    const int li = gi - x0, lj = gj - y0;
+    if (li < -t || li >= bm + t || lj < -t || lj >= bn + t) return 0.0f;
+    if (lj < 0) return w[(size_t)(li + t) * t + (lj + t)];
+    if (lj >= bn) return e[(size_t)(li + t) * t + (lj - bn)];
+    if (li < 0) return n[(size_t)(li + t) * bn + lj];
+    if (li >= bm) return s[(size_t)(li - bm) * bn + lj];
+    return u[(size_t)li * bn + lj];
+  }
+};
+
+constexpr int MAX_SHARDS = 64;
+
+// The mesh as H14 sees it, passed by value (__grid_constant__, so no
+// copy to local memory): every shard's input block in row-major mesh
+// order, and the output and mesh position of each shard of the launch.
+struct MeshTable {
+  const float* blocks[MAX_SHARDS];
+  float* outs[MAX_SHARDS];
+  int pos[2 * MAX_SHARDS];
+  int gx, gy, bm, bn;
+};
+
+// Every shard's block of the mesh, indexed by global cell: the owner of
+// (gi, gj) is shard (gi / bm, gj / bn); past the mesh edge, 0.
+struct MeshLoad {
+  const MeshTable& m;
+  __device__ __forceinline__ float operator()(int gi, int gj) const {
+    if (gi < 0 || gj < 0 || gi >= m.gx * m.bm || gj >= m.gy * m.bn)
+      return 0.0f;
+    const int ox = gi / m.bm, oy = gj / m.bn;
+    return m.blocks[ox * m.gy + oy][(size_t)(gi - ox * m.bm) * m.bn +
+                                    (gj - oy * m.bn)];
+  }
+};
+
+// ------------------------------------------------------------ H12 / H13 --
+template <int FORM, bool RESID>
+__global__ void k_shard_tile(ShardLoad ld, float* __restrict__ dst,
+                             float* __restrict__ parts, int nx, int ny,
+                             Coef k, int T, int nsub, int TY, int TX) {
+  extern __shared__ float smem[];
+  const float acc = heat::tile_sweep_at<heat::Heat5<FORM>, RESID>(
+      ld, dst, Placement{ld.x0, ld.y0, ld.bm, ld.bn}, nx, ny, k, T, nsub, TY,
+      TX, smem);
+  if (RESID && threadIdx.x == 0 && threadIdx.y == 0)
+    parts[blockIdx.y * gridDim.x + blockIdx.x] = acc;
+}
+
+// ---------------------------------------------------------------- H14 --
+// Shard z = blockIdx.z of the launch sits at mesh position (m.pos[2z],
+// m.pos[2z+1]) and writes m.outs[z].
+template <int FORM>
+__global__ void k_shard_fused(const __grid_constant__ MeshTable m, int nx,
+                              int ny, Coef k, int H, int nsub, int TY,
+                              int TX) {
+  extern __shared__ float smem[];
+  const int z = blockIdx.z;
+  const Placement pl{m.pos[2 * z] * m.bm, m.pos[2 * z + 1] * m.bn, m.bm,
+                     m.bn};
+  heat::tile_sweep_at<heat::Heat5<FORM>, false>(MeshLoad{m}, m.outs[z], pl,
+                                                nx, ny, k, H, nsub, TY, TX,
+                                                smem);
+}
+
+template <class K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <int FORM, bool RESID>
+cudaError_t launch_shard_tile(const ShardLoad& ld, float* dst, float* parts,
+                              int nx, int ny, Coef k, int T, int nsub, int TY,
+                              int TX, cudaStream_t stream) {
+  const size_t smem = heat::tile_smem_bytes(T, TY, TX);
+  cudaError_t e = allow_smem(k_shard_tile<FORM, RESID>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((ld.bn + TX - 1) / TX, (ld.bm + TY - 1) / TY);
+  k_shard_tile<FORM, RESID><<<grid, dim3(BLOCK_X, BLOCK_Y), smem, stream>>>(
+      ld, dst, parts, nx, ny, k, T, nsub, TY, TX);
+  return cudaGetLastError();
+}
+
+template <int FORM>
+cudaError_t launch_shard_fused(const MeshTable& m, int nz, int nx, int ny,
+                               Coef k, int H, int nsub, int TY, int TX,
+                               cudaStream_t stream) {
+  const size_t smem = heat::tile_smem_bytes(H, TY, TX);
+  cudaError_t e = allow_smem(k_shard_fused<FORM>, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((m.bn + TX - 1) / TX, (m.bm + TY - 1) / TY, nz);
+  k_shard_fused<FORM><<<grid, dim3(BLOCK_X, BLOCK_Y), smem, stream>>>(
+      m, nx, ny, k, H, nsub, TY, TX);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* heat_error_string(int e) {
+  return cudaGetErrorString((cudaError_t)e);
+}
+
+// H12 (parts == NULL) or H13 (one partial per tile, row-major over the
+// (ceil(bm/TY), ceil(bn/TX)) tile grid) on one shard at global (x0, y0).
+int heat_shard_tile(const float* u, const float* n, const float* s,
+                    const float* w, const float* e, float* dst, float* parts,
+                    int x0, int y0, int bm, int bn, int nx, int ny, float cx,
+                    float cy, float k0, int form, int T, int nsub, int TY,
+                    int TX, void* stream) {
+  const ShardLoad ld{u, n, s, w, e, x0, y0, bm, bn, T};
+  const Coef k{cx, cy, k0};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (parts == nullptr) {
+    return form == FORM_LITERAL
+               ? launch_shard_tile<FORM_LITERAL, false>(ld, dst, parts, nx,
+                                                        ny, k, T, nsub, TY,
+                                                        TX, st)
+               : launch_shard_tile<FORM_FMA, false>(ld, dst, parts, nx, ny,
+                                                    k, T, nsub, TY, TX, st);
+  }
+  return form == FORM_LITERAL
+             ? launch_shard_tile<FORM_LITERAL, true>(ld, dst, parts, nx, ny,
+                                                     k, T, nsub, TY, TX, st)
+             : launch_shard_tile<FORM_FMA, true>(ld, dst, parts, nx, ny, k,
+                                                 T, nsub, TY, TX, st);
+}
+
+// H14: nz shards of one device.  Host arrays: `blocks` the gx * gy input
+// block pointers (row-major mesh order), `outs` the nz output pointers,
+// `pos` the nz shards' (ix, iy); at most MAX_SHARDS of each.
+int heat_shard_fused(const void* const* blocks, void* const* outs,
+                     const int* pos, int nz, int gx, int gy, int bm, int bn,
+                     int nx, int ny, float cx, float cy, float k0, int form,
+                     int H, int nsub, int TY, int TX, void* stream) {
+  if (gx * gy > MAX_SHARDS || nz > MAX_SHARDS || nz < 1)
+    return cudaErrorInvalidValue;
+  MeshTable m{};
+  for (int i = 0; i < gx * gy; ++i) m.blocks[i] = (const float*)blocks[i];
+  for (int z = 0; z < nz; ++z) {
+    m.outs[z] = (float*)outs[z];
+    m.pos[2 * z] = pos[2 * z];
+    m.pos[2 * z + 1] = pos[2 * z + 1];
+  }
+  m.gx = gx;
+  m.gy = gy;
+  m.bm = bm;
+  m.bn = bn;
+  const Coef k{cx, cy, k0};
+  cudaStream_t st = (cudaStream_t)stream;
+  return form == FORM_LITERAL
+             ? launch_shard_fused<FORM_LITERAL>(m, nz, nx, ny, k, H, nsub, TY,
+                                                TX, st)
+             : launch_shard_fused<FORM_FMA>(m, nz, nx, ny, k, H, nsub, TY, TX,
+                                            st);
+}
+
+// Lets the current device's kernels read memory of device `peer`
+// (idempotent: an already enabled peer is not an error).
+int heat_shard_enable_peer(int peer) {
+  cudaError_t e = cudaDeviceEnablePeerAccess(peer, 0);
+  if (e == cudaErrorPeerAccessAlreadyEnabled) {
+    cudaGetLastError();
+    return cudaSuccess;
+  }
+  return e;
+}
+
+}  // extern "C"

@@ -1,6 +1,7 @@
 // Device code shared by csrc/stencil.cu (H2/H3), csrc/ensemble.cu
-// (H6/H7) and csrc/family.cu (H9): the heat5 step forms, the operator
-// interface, and the shared-memory tile sweep generic over an operator.
+// (H6/H7), csrc/family.cu (H9) and csrc/shard.cu (H12-H14): the heat5
+// step forms, the operator interface, and the shared-memory tile sweep
+// generic over an operator and over where its cells are loaded from.
 //
 // An operator Op has a spatial radius Op::W, a scalar set Op::Params,
 // and Op::apply(ld, row, k): the updated value of a cell from ld(o), the
@@ -78,32 +79,51 @@ __device__ __forceinline__ float block_sum(float acc) {
   return acc;
 }
 
-// One sweep of the tile (blockIdx.y, blockIdx.x) of an nx x ny grid.
-// `smem` holds two ext tiles.  With RESID, returns (in thread (0, 0)) the
-// tile's sum of squared deltas over the last step pair of its centre.
-template <class Op, bool RESID>
-__device__ __forceinline__ float tile_sweep(const float* __restrict__ src,
-                                            float* __restrict__ dst, int nx,
-                                            int ny,
-                                            const typename Op::Params& k,
-                                            int H, int nsub, int TY, int TX,
-                                            float* smem) {
+// The loader of a whole nx x ny grid: the cell's value, 0 outside it.
+struct GridLoad {
+  const float* __restrict__ src;
+  int nx, ny;
+  __device__ __forceinline__ float operator()(int gi, int gj) const {
+    return (gi >= 0 && gi < nx && gj >= 0 && gj < ny)
+               ? src[(size_t)gi * ny + gj] : 0.0f;
+  }
+};
+
+// The block a sweep writes: `rows` x `cols` cells (dst's row stride is
+// `cols`) whose (0, 0) is global cell (x0, y0) of the nx x ny domain.  A
+// whole grid is {0, 0, nx, ny}; a shard of a mesh sits at its offset.
+struct Placement {
+  int x0, y0, rows, cols;
+};
+
+// One sweep of the tile (blockIdx.y, blockIdx.x) of the block `pl`.
+// `load(gi, gj)` gives the value of global cell (gi, gj) at the start of
+// the sweep, for every cell of the tile's ext (inside the block, in a
+// neighbour's halo, or outside the domain).  The held rule is in global
+// coordinates, so a shard holds the domain's ring and every cell past it
+// (the pad cells of an uneven decomposition among them).  `smem` holds
+// two ext tiles.  With RESID, returns (in thread (0, 0)) the tile's sum
+// of squared deltas over the last step pair of its written cells; held
+// cells (pad cells too) add 0, since they keep their value.
+template <class Op, bool RESID, class Load>
+__device__ __forceinline__ float tile_sweep_at(const Load& load,
+                                               float* __restrict__ dst,
+                                               Placement pl, int nx, int ny,
+                                               const typename Op::Params& k,
+                                               int H, int nsub, int TY,
+                                               int TX, float* smem) {
   constexpr int W = Op::W;
   const int EY = TY + 2 * H, EX = TX + 2 * H;
   float* cur = smem;
   float* nxt = smem + EY * EX;
-  const int i0 = blockIdx.y * TY - H;
-  const int j0 = blockIdx.x * TX - H;
+  const int i0 = pl.x0 + blockIdx.y * TY - H;
+  const int j0 = pl.y0 + blockIdx.x * TX - H;
   const int tx = threadIdx.x, ty = threadIdx.y;
 
   for (int r = ty; r < EY; r += BLOCK_Y) {
     const int gi = i0 + r;
-    const bool row_in = gi >= 0 && gi < nx;
-    for (int c = tx; c < EX; c += BLOCK_X) {
-      const int gj = j0 + c;
-      cur[r * EX + c] = (row_in && gj >= 0 && gj < ny)
-                            ? src[(size_t)gi * ny + gj] : 0.0f;
-    }
+    for (int c = tx; c < EX; c += BLOCK_X)
+      cur[r * EX + c] = load(gi, j0 + c);
   }
   __syncthreads();
 
@@ -134,13 +154,13 @@ __device__ __forceinline__ float tile_sweep(const float* __restrict__ src,
   // cur holds the last step, nxt the one before it.
   float acc = 0.0f;
   for (int r = H + ty; r < H + TY; r += BLOCK_Y) {
-    const int gi = i0 + r;
-    if (gi >= nx) break;
+    const int li = i0 + r - pl.x0;
+    if (li >= pl.rows) break;
     for (int c = H + tx; c < H + TX; c += BLOCK_X) {
-      const int gj = j0 + c;
-      if (gj >= ny) break;
+      const int lj = j0 + c - pl.y0;
+      if (lj >= pl.cols) break;
       const float v = cur[r * EX + c];
-      dst[(size_t)gi * ny + gj] = v;
+      dst[(size_t)li * pl.cols + lj] = v;
       if (RESID) {
         const float d = v - nxt[r * EX + c];
         acc += d * d;
@@ -148,6 +168,19 @@ __device__ __forceinline__ float tile_sweep(const float* __restrict__ src,
     }
   }
   return RESID ? block_sum(acc) : 0.0f;
+}
+
+// One sweep of the tile (blockIdx.y, blockIdx.x) of a whole nx x ny grid.
+template <class Op, bool RESID>
+__device__ __forceinline__ float tile_sweep(const float* __restrict__ src,
+                                            float* __restrict__ dst, int nx,
+                                            int ny,
+                                            const typename Op::Params& k,
+                                            int H, int nsub, int TY, int TX,
+                                            float* smem) {
+  return tile_sweep_at<Op, RESID>(GridLoad{src, nx, ny}, dst,
+                                  Placement{0, 0, nx, ny}, nx, ny, k, H, nsub,
+                                  TY, TX, smem);
 }
 
 // Dynamic shared memory of one tile block: two ext tiles, ring H.

@@ -7,6 +7,9 @@ The system has no weights; what crosses is the config and the grid:
   ``HeatConfig``;
 - ``state_from_numpy`` turns a host grid (``np.asarray`` of a JAX array,
   or a loaded checkpoint) into the port's tensor on ``device``;
+- ``sharded_from_numpy`` places a host grid as the ``ShardedGrid`` of a
+  mesh, padded to equal shards as ``Heat2DSolver.place`` pads it in the
+  JAX package (``heat2d_tpu/models/solver.py:112-126``);
 - ``batch_from_numpy`` does the same for an ensemble: a (B, nx, ny) batch
   of states and its float32 (cx, cy) vectors;
 - checkpoints cross as files: ``io.binary`` writes and reads the JAX
@@ -32,6 +35,25 @@ def state_from_numpy(u, device=None):
     if a.ndim != 2:
         raise ValueError(f"expected a 2D grid, got shape {a.shape}")
     return torch.from_numpy(a.copy()).to(resolve_device(device))
+
+
+def sharded_from_numpy(u, config, mesh):
+    """A host grid as the ``ShardedGrid`` of ``mesh``: padded with zeros
+    up to equal shards, block (i, j) on mesh device (i, j)."""
+    from heat2d_tpu_torch.parallel.sharded import (ShardedGrid,
+                                                   padded_global_shape)
+    a = np.asarray(u, dtype=np.float32)
+    if a.ndim != 2:
+        raise ValueError(f"expected a 2D grid, got shape {a.shape}")
+    pnx, pny = padded_global_shape(config, mesh)
+    if a.shape != (pnx, pny):
+        a = np.pad(a, ((0, pnx - a.shape[0]), (0, pny - a.shape[1])))
+    gx, gy = mesh.shape
+    bm, bn = pnx // gx, pny // gy
+    blocks = [[state_from_numpy(a[i * bm:(i + 1) * bm, j * bn:(j + 1) * bn],
+                                mesh.devices[i][j]) for j in range(gy)]
+              for i in range(gx)]
+    return ShardedGrid(blocks, config.nxprob, config.nyprob)
 
 
 def batch_from_numpy(u, cxs, cys, device=None):

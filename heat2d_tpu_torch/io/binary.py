@@ -66,6 +66,34 @@ def write_binary(u, path) -> None:
     _write_bytes_atomic(_host_f32(u).tobytes(), path)
 
 
+def write_binary_sharded(grid, path, shape=None) -> None:
+    """Per-shard write of a ``ShardedGrid`` (the MPI_File_write_all
+    analogue, grad1612_mpi_heat.c:182-189): each shard writes its block
+    into the one global row-major f32 file at its offset, cropped to the
+    true domain ``shape`` (default: the grid's (nx, ny)), so the bytes are
+    those of ``write_binary`` of the gathered, cropped grid. No full grid
+    is assembled; the file is staged and promoted like every write."""
+    nx, ny = shape if shape is not None else (grid.nx, grid.ny)
+    bm, bn = grid.block_shape
+    tmp = str(path) + ".tmp"
+    with open(tmp, "wb") as f:
+        f.truncate(nx * ny * 4)
+    mm = np.memmap(tmp, dtype=np.float32, mode="r+", shape=(nx, ny))
+    try:
+        for i, row in enumerate(grid.blocks):
+            for j, blk in enumerate(row):
+                r0, c0 = i * bm, j * bn
+                if r0 >= nx or c0 >= ny:
+                    continue          # the shard lies wholly in the padding
+                r1, c1 = min(r0 + bm, nx), min(c0 + bn, ny)
+                mm[r0:r1, c0:c1] = _host_f32(blk[:r1 - r0, :c1 - c0])
+        mm.flush()
+    finally:
+        del mm
+    _fsync_path(tmp)
+    os.replace(tmp, str(path))
+
+
 def read_binary(path, shape) -> np.ndarray:
     a = np.fromfile(path, dtype=np.float32)
     expected = int(np.prod(shape))

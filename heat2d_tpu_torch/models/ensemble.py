@@ -33,7 +33,7 @@ heat5's jnp and band routes have loops of their own; every other route,
 and every route of the other families, runs the pair-tracked loop
 (``_run_batch_conv_chunked``), as in the JAX package.
 
-Sharded and spatial ensembles wait for slice 5 of ROADMAP.md.
+Sharded and spatial ensembles wait for slice 6 of ROADMAP.md.
 """
 
 from __future__ import annotations

@@ -1,5 +1,4 @@
-"""Heat2DSolver: the port of ``heat2d_tpu/models/solver.py`` for one
-device.
+"""Heat2DSolver: the port of ``heat2d_tpu/models/solver.py``.
 
 ====================  ====================================================
 mode / method         what runs
@@ -17,11 +16,16 @@ serial, adi           the same ADI through the plain solve
                       (``ops.tridiag.adi_multi_step``)
 mg                    Crank-Nicolson stepped by multigrid V-cycles
                       (``ops.multigrid``, plain PyTorch in both modes)
+dist1d, dist2d        the golden loop over a mesh of shards
+                      (``parallel.sharded``): row strips of mpi_heat2Dn.c,
+                      blocks of grad1612_mpi_heat.c
+hybrid                the mesh with a hand kernel per shard (H12/H13, or
+                      H14 with ``halo='fused'``): grad1612_hybrid_heat.c
 ====================  ====================================================
 
-The distributed modes raise a ``ConfigError`` that names the slice of
-ROADMAP.md they wait for. The solver runs on ``cuda`` unless it is given
-``device="cpu"``.
+The solver runs on ``cuda`` unless it is given ``device="cpu"``. A mesh
+takes its slots from ``devices`` (default: the visible devices of that
+type); ``parallel.mesh.host_devices(n)`` lets n shards share fewer cards.
 """
 
 from __future__ import annotations
@@ -32,30 +36,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from heat2d_tpu_torch.config import ConfigError, HeatConfig
-from heat2d_tpu_torch.interop import state_from_numpy
+from heat2d_tpu_torch.config import SHARDED_MODES, ConfigError, HeatConfig
+from heat2d_tpu_torch.interop import sharded_from_numpy, state_from_numpy
 from heat2d_tpu_torch.models import engine
 from heat2d_tpu_torch.ops.init import inidat
 from heat2d_tpu_torch.ops.stencil import residual_sq, stencil_step
 from heat2d_tpu_torch.utils.device import resolve_device
 from heat2d_tpu_torch.utils.timing import _fence, timed_call
-
-#: (what the config asks for) -> the ROADMAP.md slice that ports it.
-_UNPORTED_MODES = {
-    "dist1d": "slice 5 (multi-device)",
-    "dist2d": "slice 5 (multi-device)",
-    "hybrid": "slice 5 (multi-device)",
-}
-
-
-def check_ported(config: HeatConfig) -> None:
-    """Raise a ``ConfigError`` for a mode this port does not run yet,
-    naming the ROADMAP.md slice it waits for."""
-    if config.mode in _UNPORTED_MODES:
-        raise ConfigError(
-            f"mode {config.mode!r} is not ported to PyTorch/CUDA yet; it "
-            f"waits for {_UNPORTED_MODES[config.mode]} of ROADMAP.md "
-            f"(ported: modes 'serial' and 'pallas')")
 
 
 @dataclasses.dataclass
@@ -71,6 +58,10 @@ class RunResult:
     # Host reads of the residual (one per convergence check).
     residual_reads: int = 0
     device: str = "cuda"
+    # Sharded runs: resolve_halo_route's dict (route, tier, depth, mesh,
+    # shard) and the mesh the run used; None on one device.
+    halo: Optional[dict] = None
+    mesh: object = None
 
     @property
     def mcells_per_s(self) -> float:
@@ -83,14 +74,16 @@ class RunResult:
     def to_record(self) -> dict:
         """The run record: the JAX package's payload keys, plus the route
         and the residual reads, under the envelope that names the card."""
-        from heat2d_tpu_torch.obs.record import build_record
+        from heat2d_tpu_torch.obs.record import build_record, halo_record
+        extra = {"route": self.route, "residual_reads": self.residual_reads}
+        if self.halo is not None:
+            from heat2d_tpu_torch.parallel.mesh import mesh_devices_summary
+            extra["halo"] = halo_record(self.halo, self.mesh)
+            extra["mesh"] = mesh_devices_summary(self.mesh)
         return build_record(
             "run", config=self.config, steps_done=self.steps_done,
             elapsed_s=self.elapsed, mcells_per_s=self.mcells_per_s,
-            warmup_s=self.warmup_s,
-            extra={"route": self.route,
-                   "residual_reads": self.residual_reads},
-            device=self.device)
+            warmup_s=self.warmup_s, extra=extra, device=self.device)
 
 
 def _serial_runner(cfg: HeatConfig) -> engine.Runner:
@@ -176,40 +169,74 @@ def _implicit_runner(cfg: HeatConfig, device) -> engine.Runner:
 
 
 class Heat2DSolver:
-    def __init__(self, config: HeatConfig, device=None):
-        check_ported(config)
+    def __init__(self, config: HeatConfig, device=None, devices=None):
+        """``devices``: the slots of a distributed mode's mesh (default:
+        every visible device of ``device``'s type)."""
         self.config = config
-        self.device = resolve_device(device)
+        self.mesh = None
+        if config.mode in SHARDED_MODES:
+            from heat2d_tpu_torch.parallel.mesh import (make_mesh,
+                                                        visible_devices)
+            if devices is None:
+                devices = visible_devices(device)
+            devices = [resolve_device(d) for d in devices]
+            if len({d.type for d in devices}) != 1:
+                raise ConfigError("a mesh's devices must all be cards or "
+                                  "all the CPU")
+            if config.mode == "dist1d":
+                self.mesh = make_mesh(config.numworkers or config.gridx, 1,
+                                      devices)
+            else:
+                self.mesh = make_mesh(config.gridx, config.gridy, devices)
+            self.device = self.mesh.flat()[0]
+        else:
+            self.device = resolve_device(device)
         self._runner = None
 
     def init_state(self):
+        """The initial condition, sharded over the mesh in the
+        distributed modes."""
         cfg = self.config
+        if self.mesh is not None:
+            from heat2d_tpu_torch.parallel.sharded import sharded_inidat
+            return sharded_inidat(cfg, self.mesh)
         return inidat(cfg.nxprob, cfg.nyprob, device=self.device)
 
     def place(self, u):
-        """A host grid as a float32 tensor on this solver's device."""
+        """A host grid as this solver's state: a float32 tensor on its
+        device, or a ``ShardedGrid`` padded to equal shards."""
+        if self.mesh is not None:
+            return sharded_from_numpy(u, self.config, self.mesh)
         return state_from_numpy(u, self.device)
 
     def make_runner(self):
         """``u0 -> (u_final, steps_done)``; serial is the plain PyTorch
         golden model, pallas the kernel route, adi/mg the implicit
-        runner."""
+        runner, the distributed modes the sharded runner."""
         if self._runner is None:
-            if self.config.method != "explicit":
-                self._runner = _implicit_runner(self.config, self.device)
-            elif self.config.mode == "pallas":
+            cfg = self.config
+            if self.mesh is not None:
+                from heat2d_tpu_torch.parallel.sharded import (
+                    make_sharded_runner)
+                self._runner = make_sharded_runner(
+                    cfg, self.mesh, kernel=cfg.mode == "hybrid")
+            elif cfg.method != "explicit":
+                self._runner = _implicit_runner(cfg, self.device)
+            elif cfg.mode == "pallas":
                 from heat2d_tpu_torch.ops.cuda_stencil import (
                     make_single_chip_runner)
-                self._runner = make_single_chip_runner(self.config,
-                                                       self.device)
+                self._runner = make_single_chip_runner(cfg, self.device)
             else:
-                self._runner = _serial_runner(self.config)
+                self._runner = _serial_runner(cfg)
         return self._runner
 
-    def run(self, u0=None, timed: bool = True,
-            warmup: bool = True) -> RunResult:
+    def run(self, u0=None, timed: bool = True, warmup: bool = True,
+            gather: bool = True) -> RunResult:
         """Init (unless given), step, copy back to the host. Timing follows
-        the reference protocol: warmup excluded, fenced."""
+        the reference protocol: warmup excluded, fenced on every device.
+        ``gather=False`` leaves a sharded result as its ``ShardedGrid``
+        (padded), for ``io.binary.write_binary_sharded``; otherwise the
+        result is the host grid, the padding cropped."""
         if u0 is None:
             u0 = self.init_state()
         runner = self.make_runner()
@@ -222,8 +249,12 @@ class Heat2DSolver:
             u, k = runner(u0)
             _fence(u)
             elapsed = float("nan")
-        return RunResult(u=u.cpu().numpy(), steps_done=int(k),
-                         elapsed=elapsed, config=self.config,
-                         warmup_s=warmup_s, route=runner.route,
+        if gather:
+            from heat2d_tpu_torch.parallel.multihost import gather_to_host
+            u = gather_to_host(u)[:self.config.nxprob, :self.config.nyprob]
+        return RunResult(u=u, steps_done=int(k), elapsed=elapsed,
+                         config=self.config, warmup_s=warmup_s,
+                         route=runner.route,
                          residual_reads=runner.residual_reads,
-                         device=str(self.device))
+                         device=str(self.device),
+                         halo=getattr(runner, "halo", None), mesh=self.mesh)

@@ -28,6 +28,15 @@ def run_context(device=None) -> dict:
     }
 
 
+def halo_record(halo: dict, mesh) -> dict:
+    """The sharded run's block of the record: the JAX package's
+    ``resolve_halo_route`` keys (requested, depth, shard, mesh, route,
+    tier) as JSON lists, and the device of every shard slot."""
+    return {**{k: list(v) if isinstance(v, tuple) else v
+               for k, v in halo.items()},
+            "devices": [str(d) for d in mesh.flat()]}
+
+
 def build_record(kind: str, config=None, steps_done=None, elapsed_s=None,
                  mcells_per_s=None, warmup_s=None, extra=None,
                  device=None) -> dict:

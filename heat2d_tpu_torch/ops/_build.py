@@ -62,6 +62,15 @@ SIGNATURES = {
         "heat_td_rows": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
         "heat_td_lanes": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
     },
+    "shard": {
+        "heat_error_string": (ctypes.c_char_p, [_I]),
+        "heat_shard_tile": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _F, _F, _F, _I, _I, _I, _I, _I,
+                                 _P]),
+        "heat_shard_fused": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                  _F, _F, _F, _I, _I, _I, _I, _I, _P]),
+        "heat_shard_enable_peer": (_I, [_I]),
+    },
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,294 @@
+"""The sharded solver path: the port of ``heat2d_tpu/parallel/sharded.py``.
+
+- dist1d: the row strips of ``mpi_heat2Dn.c`` as a (numworkers, 1) mesh,
+  padded to equal shards;
+- dist2d: the 2D blocks of ``grad1612_mpi_heat.c`` as a (gridx, gridy)
+  mesh with the two-phase wide-halo exchange;
+- hybrid: the mesh times a per-shard kernel (``grad1612_hybrid_heat.c``):
+  H12 after each exchange, H13 for the convergence residual, H14 when
+  the exchange moves into the kernel (``--halo fused``).
+
+The JAX package runs all of it in one ``shard_map`` program. Here every
+shard is a tensor on its mesh device, held by a ``ShardedGrid``, and the
+time loop is the engine's Python loop: each chunk of T steps exchanges
+T-deep strips once (``parallel/halo.py``) and advances every shard T
+steps. dist1d/dist2d advance with the golden loop (plain PyTorch, the
+literal step in ``accum_dtype``, as the JAX package's jnp path); hybrid
+with the kernels. The convergence residual is the sum of the shards'
+partials, read to the host once per INTERVAL chunk.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from heat2d_tpu_torch.models import engine
+from heat2d_tpu_torch.ops import cuda_shard as csh
+from heat2d_tpu_torch.ops.init import inidat_block
+from heat2d_tpu_torch.ops.stencil import residual_sq
+from heat2d_tpu_torch.parallel.halo import (exchange_halo_2d_wide,
+                                            exchange_halo_strips,
+                                            fused_halo_viable)
+from heat2d_tpu_torch.parallel.mesh import Mesh
+from heat2d_tpu_torch.utils.profiling import phase
+
+#: Default wide-halo depth (config.halo_depth=None): 8 steps per exchange,
+#: clamped to the shard size.
+DEFAULT_HALO_DEPTH = 8
+
+
+@dataclasses.dataclass
+class ShardedGrid:
+    """A (gx, gy) grid of (bm, bn) float32 blocks, ``blocks[i][j]`` on mesh
+    device (i, j) and at global (i bm, j bn), of a true nx x ny domain
+    (cells past it are the equal-shard padding, held at 0)."""
+    blocks: list
+    nx: int
+    ny: int
+
+    @property
+    def block_shape(self) -> tuple[int, int]:
+        return tuple(self.blocks[0][0].shape)
+
+    def tensors(self) -> list:
+        return [b for row in self.blocks for b in row]
+
+    def with_blocks(self, blocks) -> "ShardedGrid":
+        return ShardedGrid(blocks, self.nx, self.ny)
+
+
+def padded_global_shape(config, mesh: Mesh) -> tuple[int, int]:
+    """The global shape padded up so every shard is equal-sized (the
+    answer to the reference's averow/extra strips, mpi_heat2Dn.c:89-94):
+    the pad cells sit outside the keep mask's interior, stay 0 and add 0
+    to the residual."""
+    gx, gy = mesh.shape
+    return -(-config.nxprob // gx) * gx, -(-config.nyprob // gy) * gy
+
+
+def shard_shape(config, mesh: Mesh) -> tuple[int, int]:
+    pnx, pny = padded_global_shape(config, mesh)
+    gx, gy = mesh.shape
+    return pnx // gx, pny // gy
+
+
+def effective_halo_depth(config, mesh: Mesh) -> int:
+    """The exchange depth T: ``halo_depth`` or 8, clamped to the shard.
+    (The JAX package may take a tuned depth for the fused route from its
+    tuning db; without a db it takes this default, as here.)"""
+    bm, bn = shard_shape(config, mesh)
+    want = config.halo_depth or DEFAULT_HALO_DEPTH
+    return max(1, min(want, bm, bn))
+
+
+def _form(config) -> int:
+    return csh.FORM_LITERAL if config.bitwise_parity else csh.FORM_FMA
+
+
+def _fused_kernel_viable(config, mesh: Mesh, t: int) -> bool:
+    """H14 serves a chunk of depth t: a mesh of more than one shard, the
+    overlap geometry (its plain version's frames), at most the kernel's
+    table of shards, and every card able to read the others."""
+    bm, bn = shard_shape(config, mesh)
+    gx, gy = mesh.shape
+    devs = mesh.flat()
+    return (gx * gy > 1 and gx * gy <= csh.MAX_SHARDS
+            and fused_halo_viable(bm, bn, t)
+            and (devs[0].type == "cpu" or csh.fused_peer_ok(devs)))
+
+
+def resolve_halo_route(config, mesh: Mesh, kernel: bool = False) -> dict:
+    """The halo route a runner takes at the full chunk depth, under the
+    JAX package's tier names (``parallel/sharded.py:274``):
+
+    - ``collective``: exchange, then compute (also what a fused request
+      degrades to where its route is not viable);
+    - ``overlap``: fused through the inner/boundary split on the golden
+      path (dist1d/dist2d);
+    - ``ici``: fused with the exchange inside the kernel: on the card,
+      H14 reading the neighbours' blocks (hybrid);
+    - ``window``: the JAX package's D2 route on TPU shards; H12 covers
+      its work here, so the port never takes it.
+    """
+    gx, gy = mesh.shape
+    bm, bn = shard_shape(config, mesh)
+    t = effective_halo_depth(config, mesh)
+    out = dict(requested=config.halo, depth=t, shard=(bm, bn),
+               mesh=(gx, gy))
+    if config.halo != "fused":
+        out.update(route="collective", tier="collective")
+    elif kernel:
+        if _fused_kernel_viable(config, mesh, t):
+            out.update(route="fused", tier="ici")
+        else:
+            out.update(route="collective", tier="collective")
+    elif gx * gy > 1 and fused_halo_viable(bm, bn, t):
+        out.update(route="fused", tier="overlap")
+    else:
+        out.update(route="collective", tier="collective")
+    return out
+
+
+def make_local_chunk(config, mesh: Mesh, kernel: bool = False):
+    """``chunk(grid, t)``: one t-deep exchange, then t steps of every
+    shard, t in [1, min(bm, bn)]. Without ``kernel`` (dist1d/dist2d) the
+    golden loop, or with ``halo='fused'`` its overlap schedule; with
+    ``kernel`` (hybrid) H12 after the exchange, or H14 with the exchange
+    inside it."""
+    nx, ny = config.nxprob, config.nyprob
+    gx, gy = mesh.shape
+    bm, bn = shard_shape(config, mesh)
+    cx, cy = config.cx, config.cy
+    accum = getattr(torch, config.accum_dtype)
+    fused_req = config.halo == "fused"
+    form = _form(config)
+
+    def each(fn, *grids):
+        """``fn(x0, y0, *items)`` at every shard, as a new grid."""
+        return [[fn(i * bm, j * bn, *(g[i][j] for g in grids))
+                 for j in range(gy)] for i in range(gx)]
+
+    def chunk(grid: ShardedGrid, t: int) -> ShardedGrid:
+        blocks = grid.blocks
+        if kernel:
+            if fused_req and _fused_kernel_viable(config, mesh, t):
+                with phase("stencil_chunk"):
+                    return grid.with_blocks(
+                        csh.shard_fused(blocks, t, nx, ny, cx, cy, form))
+            with phase("halo_exchange"):
+                strips = exchange_halo_strips(blocks, t)
+            with phase("stencil_chunk"):
+                return grid.with_blocks(each(
+                    lambda x0, y0, u, s: csh.shard_tile_multi(
+                        u, s, t, x0, y0, nx, ny, cx, cy, form),
+                    blocks, strips))
+        if fused_req and gx * gy > 1 and fused_halo_viable(bm, bn, t):
+            with phase("halo_overlap"):
+                strips = exchange_halo_strips(blocks, t)
+                return grid.with_blocks(each(
+                    lambda x0, y0, u, s: csh.chunk_fused_plain(
+                        u, s, t, x0, y0, nx, ny, cx, cy, accum=accum),
+                    blocks, strips))
+        with phase("halo_exchange"):
+            ext = exchange_halo_2d_wide(blocks, t)
+        with phase("interior_stencil"):
+            return grid.with_blocks(each(
+                lambda x0, y0, e: csh.advance(
+                    e, x0 - t, y0 - t, t, nx, ny, cx, cy,
+                    accum=accum)[t:-t, t:-t],
+                ext))
+
+    return chunk
+
+
+def make_local_multi(config, mesh: Mesh, kernel: bool = False):
+    """``multi(grid, n)``: n steps as chunks of depth T plus a remainder
+    chunk."""
+    chunk = make_local_chunk(config, mesh, kernel)
+    t = effective_halo_depth(config, mesh)
+
+    def multi(grid, n):
+        full, rem = divmod(n, t)
+        for _ in range(full):
+            grid = chunk(grid, t)
+        if rem:
+            grid = chunk(grid, rem)
+        return grid
+
+    return multi
+
+
+def _total(parts):
+    """The sum of the shards' residual partials, on the first shard's
+    device (the MPI_Allreduce)."""
+    dev = parts[0].device
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(dev)
+    return total
+
+
+def make_sharded_runner(config, mesh: Mesh, kernel: bool = False):
+    """``runner(grid) -> (grid, steps_done)`` over the mesh, as an
+    ``engine.Runner`` whose ``halo`` is ``resolve_halo_route``'s dict.
+
+    Routes: ``sharded`` (the golden loop, dist1d/dist2d),
+    ``sharded-kernel`` (hybrid), ``sharded-kernel-resid`` (hybrid
+    convergence in float32 with the FMA form: each INTERVAL chunk ends in
+    an H13 sweep of depth ``n % T or T`` whose partials give the
+    residual, as the JAX package's D2R path does). Other convergence
+    runs track a step pair (``run_convergence_chunked``)."""
+    nx, ny = config.nxprob, config.nyprob
+    bm, bn = shard_shape(config, mesh)
+    gx, gy = mesh.shape
+    accum = getattr(torch, config.accum_dtype)
+    t = effective_halo_depth(config, mesh)
+    chunk = make_local_chunk(config, mesh, kernel)
+    multi = make_local_multi(config, mesh, kernel)
+    form = _form(config)
+    fused = (kernel and config.convergence and config.accum_dtype == "float32"
+             and form == csh.FORM_FMA)
+
+    def step(grid):
+        return chunk(grid, 1)
+
+    def residual(new, old):
+        with phase("residual_reduction"):
+            return _total([residual_sq(a, b, accum) for a, b in
+                           zip(new.tensors(), old.tensors())])
+
+    def chunk_resid(grid, n):
+        d = n % t or t
+        grid = multi(grid, n - d)
+        with phase("halo_exchange"):
+            strips = exchange_halo_strips(grid.blocks, d)
+        outs, parts = [], []
+        for i in range(gx):
+            row = []
+            for j in range(gy):
+                u, p = csh.shard_tile_multi_resid(
+                    grid.blocks[i][j], strips[i][j], d, i * bm, j * bn, nx,
+                    ny, config.cx, config.cy, form)
+                row.append(u)
+                parts.append(p)
+            outs.append(row)
+        with phase("residual_reduction"):
+            return grid.with_blocks(outs), _total(parts)
+
+    def run(grid):
+        if config.convergence:
+            if fused:
+                return engine.run_convergence_fused(
+                    chunk_resid, multi, grid, config.steps, config.interval,
+                    config.sensitivity, tap=runner.tap)
+            return engine.run_convergence_chunked(
+                multi, step, residual, grid, config.steps, config.interval,
+                config.sensitivity, tap=runner.tap)
+        return multi(grid, config.steps), config.steps
+
+    route = ("sharded-kernel-resid" if fused
+             else "sharded-kernel" if kernel else "sharded")
+    runner = engine.Runner(run, route)
+    runner.halo = resolve_halo_route(config, mesh, kernel)
+    return runner
+
+
+def sharded_inidat(config, mesh: Mesh) -> ShardedGrid:
+    """The initial condition, each shard computed on its device from its
+    global origin; pad cells of an uneven decomposition hold 0."""
+    nx, ny = config.nxprob, config.nyprob
+    bm, bn = shard_shape(config, mesh)
+    blocks = []
+    for i, row in enumerate(mesh.devices):
+        out = []
+        for j, dev in enumerate(row):
+            x0, y0 = i * bm, j * bn
+            val = inidat_block((bm, bn), nx, ny, x0, y0, device=dev)
+            gi = x0 + torch.arange(bm, device=dev)[:, None]
+            gj = y0 + torch.arange(bn, device=dev)[None, :]
+            out.append(torch.where((gi < nx) & (gj < ny), val,
+                                   torch.zeros_like(val)))
+        blocks.append(out)
+    return ShardedGrid(blocks, nx, ny)

@@ -28,8 +28,8 @@ a deadline ``Watchdog`` (a wedged launch fails its waiters with
 ``DegradedMode``: fresh work is shed with ``Rejected("degraded")`` while
 cache hits are still served.
 
-The JAX server's inverse-request lane (slice 4 of ROADMAP.md), its mesh
-admission (slice 5) and its tracing spans (slice 6) are not ported yet.
+The JAX server's inverse-request lane (slice 5 of ROADMAP.md), its mesh
+admission (slice 6) and its tracing spans (slice 7) are not ported yet.
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ package (``heat2d_tpu/utils/timing.py``).
 Barrier, clock, run, fence, clock: setup is excluded by warming up the
 runner by *executing* it once first (on the card that first run also
 builds the CUDA kernels and loads them), and its wall-clock is kept as
-``warmup_s``. The fence is ``torch.cuda.synchronize()`` plus a 4-byte
+``warmup_s``. The fence is ``torch.cuda.synchronize(d)`` on every card
+the outputs span (the shards of a mesh may lie on several) plus a 4-byte
 read back from every output tensor: the read cannot complete before the
 kernels that produce it have.
 """
@@ -34,13 +35,15 @@ def _leaves(tree):
             yield from _leaves(t)
     elif isinstance(tree, torch.Tensor):
         yield tree
+    elif hasattr(tree, "tensors"):          # a ShardedGrid
+        yield from tree.tensors()
 
 
 def _fence(tree) -> None:
     """Hard completion fence over every tensor in ``tree``."""
     leaves = list(_leaves(tree))
-    if any(t.is_cuda for t in leaves):
-        torch.cuda.synchronize()
+    for dev in {t.device for t in leaves if t.is_cuda}:
+        torch.cuda.synchronize(dev)
     for t in leaves:
         if t.numel():
             t.reshape(-1)[:1].cpu()

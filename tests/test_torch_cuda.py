@@ -233,3 +233,109 @@ def test_served_family_on_the_card(card):
         err = float((torch.from_numpy(r.u).double() - ref.double())
                     .abs().max())
         assert err <= 19 * 66 * 2.0 ** -24 * float(ref.abs().max())
+
+
+# ------------------------------------------------------------------ #
+# H12-H14: the shard kernels
+# ------------------------------------------------------------------ #
+
+def _shards(card, gx, gy, bm, bn, seed=13):
+    g = torch.Generator(device=card)
+    g.manual_seed(seed)
+    return [[torch.rand((bm, bn), generator=g, device=card)
+             for _ in range(gy)] for _ in range(gx)]
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("mesh", [(2, 2), (4, 1), (2, 3)])
+def test_shard_kernels_match_plain(card, mesh, form):
+    """Every shard position; T = 8 at nsub 8, 3 and 1 (H12, H13), and
+    H14 at depth 3 on the same mesh, against its plain version (the
+    overlap schedule) and against H12 bit for bit."""
+    from heat2d_tpu_torch.ops import cuda_shard as csh
+    from heat2d_tpu_torch.parallel.halo import exchange_halo_strips
+    gx, gy = mesh
+    bm, bn = 37, 53
+    nx, ny = gx * bm - 2, gy * bn - 1          # ragged: pad cells too
+    blocks = _shards(card, gx, gy, bm, bn)
+    csh.reset_launch_counts()
+    strips = exchange_halo_strips(blocks, 8)
+    for i in range(gx):
+        for j in range(gy):
+            u, s = blocks[i][j], strips[i][j]
+            args = (i * bm, j * bn, nx, ny, 0.1, 0.1, form)
+            s_cpu = [x.cpu() for x in s]
+            for nsub in (8, 3, 1):
+                ref = csh.shard_tile_multi(u.cpu(), s_cpu, nsub, *args)
+                _close(csh.shard_tile_multi(u, s, nsub, *args).cpu(), ref,
+                       nsub, form)
+                got, r = csh.shard_tile_multi_resid(u, s, nsub, *args)
+                ref, r_ref = csh.shard_tile_multi_resid(u.cpu(), s_cpu, nsub,
+                                                        *args)
+                _close(got.cpu(), ref, nsub, form)
+                assert float(r) == pytest.approx(float(r_ref), rel=1e-4)
+    fused = csh.shard_fused(blocks, 3, nx, ny, 0.1, 0.1, form)
+    cpu = [[b.cpu() for b in row] for row in blocks]
+    plain = csh.shard_fused(cpu, 3, nx, ny, 0.1, 0.1, form)
+    s3 = exchange_halo_strips(blocks, 3)
+    for i in range(gx):
+        for j in range(gy):
+            _close(fused[i][j].cpu(), plain[i][j], 3, form)
+            h12 = csh.shard_tile_multi(blocks[i][j], s3[i][j], 3, i * bm,
+                                       j * bn, nx, ny, 0.1, 0.1, form)
+            assert torch.equal(fused[i][j], h12)
+    counts = csh.launch_counts()
+    assert counts["shard_fused"] == 1
+    assert counts["shard_tile_multi"] == 3 * gx * gy + gx * gy
+
+
+@pytest.mark.parametrize("mode,halo", [("dist2d", "collective"),
+                                       ("dist1d", "collective"),
+                                       ("hybrid", "collective"),
+                                       ("hybrid", "fused")])
+def test_sharded_solver_on_the_card(card, mode, halo):
+    """A 2x2 (or 4-strip) mesh on the one card, literal form, convergence
+    on: bitwise equal to serial on the card, with equal steps_done."""
+    from heat2d_tpu_torch.parallel.mesh import host_devices
+    cfg = HeatConfig(nxprob=98, nyprob=162, steps=57, mode=mode, gridx=2,
+                     gridy=2, numworkers=4, halo=halo, convergence=True,
+                     interval=7, sensitivity=1e3, bitwise_parity=True)
+    got = Heat2DSolver(cfg, devices=host_devices(4)).run(timed=False)
+    want = Heat2DSolver(cfg.replace(mode="serial")).run(timed=False)
+    assert got.steps_done == want.steps_done
+    assert (got.u == want.u).all()
+    if mode == "hybrid":
+        assert got.halo["tier"] == ("ici" if halo == "fused"
+                                    else "collective")
+
+
+@pytest.mark.parametrize("parity", [False, True])
+def test_sharded_solver_across_cards(card, parity):
+    """A 2x2 mesh over every visible card (needs two or more): the
+    exchange copies between cards, H14 reads its neighbours through peer
+    access. Fused equals collective bit for bit; the literal form equals
+    serial bit for bit."""
+    from heat2d_tpu_torch.ops import cuda_shard as csh
+    from heat2d_tpu_torch.parallel.mesh import host_devices
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    devs = host_devices(4)
+    cfg = HeatConfig(nxprob=512, nyprob=384, steps=61, mode="hybrid",
+                     gridx=2, gridy=2, bitwise_parity=parity)
+    csh.reset_launch_counts()
+    col = Heat2DSolver(cfg, devices=devs).run(timed=False)
+    fused = Heat2DSolver(cfg.replace(halo="fused"),
+                         devices=devs).run(timed=False)
+    assert fused.halo["tier"] == "ici"
+    assert csh.launch_counts()["shard_fused"] > 0
+    assert (col.u == fused.u).all()
+    want = Heat2DSolver(cfg.replace(mode="serial")).run(timed=False)
+    if parity:
+        assert (col.u == want.u).all()
+    else:
+        _close(torch.from_numpy(col.u), torch.from_numpy(want.u), 61,
+               cs.FORM_FMA)
+    dist = Heat2DSolver(cfg.replace(mode="dist2d"),
+                        devices=devs).run(timed=False)
+    assert (dist.u == Heat2DSolver(cfg.replace(
+        mode="serial", bitwise_parity=False)).run(timed=False).u).all()

@@ -83,6 +83,38 @@ def test_importing_ensembles_and_serving_loads_no_jax():
     assert out.stdout.split() == ["False", "False"]
 
 
+def test_importing_the_sharded_modes_loads_no_jax():
+    code = ("import sys; import heat2d_tpu_torch.parallel.mesh, "
+            "heat2d_tpu_torch.parallel.halo, "
+            "heat2d_tpu_torch.parallel.sharded, "
+            "heat2d_tpu_torch.parallel.multihost, "
+            "heat2d_tpu_torch.ops.cuda_shard; "
+            "print('jax' in sys.modules, 'heat2d_tpu' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "False"]
+
+
+def test_sharded_entry_points_raise_without_a_card(no_card, capsys):
+    from heat2d_tpu_torch.parallel import mesh
+    cfgs = [HeatConfig(mode="hybrid", gridx=2, gridy=2),
+            HeatConfig(mode="dist2d", gridx=2, gridy=2, halo="fused"),
+            HeatConfig(mode="dist1d", numworkers=3)]
+    for cfg in cfgs:
+        with pytest.raises(DeviceUnavailableError, match="CUDA"):
+            Heat2DSolver(cfg)
+    with pytest.raises(DeviceUnavailableError, match="CUDA"):
+        mesh.host_devices(4)
+    for mode in ("hybrid", "dist2d"):
+        assert cli.main(["--mode", mode, "--gridx", "2", "--gridy", "2",
+                         "--host-device-count", "4"]) == 1
+    assert capsys.readouterr().err.count("CUDA") == 2
+    # ... and run when asked for the CPU.
+    assert Heat2DSolver(cfgs[0], device="cpu",
+                        devices=mesh.host_devices(4, "cpu")).run(
+        timed=False).route == "sharded-kernel"
+
+
 def test_importing_families_and_implicit_loads_no_jax():
     code = ("import sys; import heat2d_tpu_torch.problems.runners, "
             "heat2d_tpu_torch.ops.tridiag, heat2d_tpu_torch.ops.multigrid, "
@@ -191,9 +223,9 @@ def test_resident_gate_on_the_cpu():
 
 def test_build_is_keyed_by_content_and_needs_nvcc(monkeypatch):
     assert set(_build.SIGNATURES) == {"stencil", "ensemble", "family",
-                                      "tridiag"}
+                                      "tridiag", "shard"}
     assert {p.name for p in _build.CSRC.glob("*.cu")} == {
-        "stencil.cu", "ensemble.cu", "family.cu", "tridiag.cu"}
+        "stencil.cu", "ensemble.cu", "family.cu", "tridiag.cu", "shard.cu"}
     p = _build.library_path("stencil")
     assert p.parent == _build.BUILD_DIR and p.name.startswith("libstencil_")
     assert p == _build.library_path("stencil")

@@ -95,13 +95,15 @@ def test_timed_run_and_record():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(mode="dist2d", gridx=2, gridy=2), "slice 5"),
+    (dict(mode="dist2d", gridx=2, gridy=2, method="adi", cx=8.0, cy=8.0),
+     "single-device modes"),
     (dict(method="adi", problem="reactdiff"), "does not support method"),
     (dict(problem="heat9", mode="pallas"), "runs mode 'serial'"),
 ])
 def test_unported_combinations_name_their_slice(kw, match):
-    """What the solver still refuses: the multi-device modes (naming
-    their slice) and the combinations the JAX package refuses too."""
+    """What the solver refuses: the combinations the JAX package refuses
+    too (the distributed modes run since slice 4; an implicit method on a
+    mesh is still refused)."""
     with pytest.raises(ConfigError, match=match):
         Heat2DSolver(HeatConfig(**kw), device="cpu")
 
