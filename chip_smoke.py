@@ -71,6 +71,7 @@ full results also go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -205,15 +206,19 @@ def phase_toolchain(torch) -> dict:
 
 
 def phase_build() -> dict:
-    from heat2d_tpu_torch.ops import _build, cuda_ensemble as ce
+    from heat2d_tpu_torch.ops import _build
     from heat2d_tpu_torch.ops import cuda_stencil as cs
+    from heat2d_tpu_torch.ops.resident import plan_resident
     t0 = time.perf_counter()
     libs = _build.build_all()
     caps = cs.device_caps("cuda")
     info = {"phase": "build", "seconds": time.perf_counter() - t0,
             "libraries": [str(p.name) for p in libs],
             "caps": caps._asdict(),
-            "ens_resident_blocks": ce.resident_blocks("cuda")}
+            "resident_plans": {
+                name: plan_resident(8, 640, 1024, w, "cuda")._asdict()
+                for name, w in (("ens_resident", 1), ("fam_resident_heat9",
+                                                      2))}}
     emit(info)
     return info
 
@@ -273,11 +278,53 @@ def phase_kernels(torch) -> dict:
     return info
 
 
+#: The on-chip checks of H5/H8: members that fit the card's shared memory,
+#: in one tile (37x53), ragged (641x1023) and at the budget's edge
+#: (2048x1536: a single member fills every block).
+RESIDENT_SHAPES = [(37, 53), (641, 1023), (2048, 1536)]
+RESIDENT_STEPS = (1, 5, 8, 9, 27)
+
+
+def resident_cases():
+    """(shape, B) of the on-chip checks: B = 40 gives a wave of 40 one-tile
+    members and ten waves of 641x1023; the largest shape stops at 8."""
+    return [(shape, b) for shape in RESIDENT_SHAPES for b in (1, 3, 8, 40)
+            if not (b == 40 and shape[0] > 1000)]
+
+
+def check_resident(torch, name, resident, tiled, plain, counts, tile_name,
+                   tol_of, what) -> float:
+    """One on-chip case: ``resident()`` must be served by the resident
+    kernel (its counter, not the tile kernel's, moves), equal ``tiled()``
+    (the tile-sweep route) bit for bit and lie within ``tol_of(ref)`` of
+    ``plain()`` where one is given. Returns the error against plain."""
+    before = counts()
+    got = resident()
+    after = counts()
+    fail_unless(after[name] == before[name] + 1
+                and after[tile_name] == before[tile_name],
+                f"{name} {what}: served by {after} after {before}")
+    fail_unless(torch.equal(got, tiled()),
+                f"{name} {what}: differs from the tile-sweep route")
+    if plain is None:
+        return 0.0
+    ref = plain()
+    err = max_err(got, ref)
+    fail_unless(err <= tol_of(ref), f"{name} {what}: max_abs_err {err} > "
+                f"{tol_of(ref)}")
+    return err
+
+
 def phase_ensemble_kernels(torch) -> dict:
     """H5-H7 against their plain versions on the same batches: ragged
     members, B in {1, 3, 8}, heterogeneous (cx, cy) inside the stability
-    box, nsub in {1, 5, 8}; H7 with every other member frozen."""
+    box, nsub in {1, 5, 8}; H7 with every other member frozen. Then H5's
+    on-chip sweep (``resident_cases``) against the H6 route bit for bit,
+    and 4099x4097 members, which must be served by H6; the step loop H5
+    does not take, bit for bit too; and a wait that cannot end, which must
+    raise."""
     from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    from heat2d_tpu_torch.ops.resident import ResidentPlan, plan_resident
     g = torch.Generator(device="cuda")
     g.manual_seed(1613)
     worst = {k: 0.0 for k in ce.LAUNCHES}
@@ -324,6 +371,59 @@ def phase_ensemble_kernels(torch) -> dict:
                             f"H7 residual {what}: relative error {rerr}")
                 got = ce.ens_tile_multi_conv(u, nsub, cxs, cys, active)
                 judge("ens_tile_multi_conv", got, ref, nsub, what)
+        if shape == (4099, 4097):
+            before = ce.launch_counts()
+            ce.ens_resident(u, 9, cxs, cys)
+            after = ce.launch_counts()
+            fail_unless(after["ens_resident"] == before["ens_resident"]
+                        and after["ens_tile_multi"]
+                        == before["ens_tile_multi"] + 2,
+                        f"H5 B=8 {shape}: served by {after} after {before}, "
+                        f"not by two H6 sweeps")
+            checks += 1
+    for shape, b in resident_cases():
+        u = torch.rand((b,) + shape, generator=g, device="cuda")
+        cxs = torch.rand(b, generator=g, device="cuda") * 0.24 + 0.01
+        cys = torch.rand(b, generator=g, device="cuda") * 0.24 + 0.01
+        for n in RESIDENT_STEPS:
+            err = check_resident(
+                torch, "ens_resident",
+                lambda: ce.ens_resident(u, n, cxs, cys),
+                lambda: ce.ens_tiled_chunk(u, n, cxs, cys),
+                (lambda: ce.ens_multi_step_plain(u, n, cxs, cys))
+                if b <= 8 else None,
+                ce.launch_counts, "ens_tile_multi",
+                lambda ref: fma_tol(n, ref), f"B={b} {shape} steps={n}")
+            worst["ens_resident"] = max(worst["ens_resident"], err)
+            checks += 1
+        if b == 3:
+            # the step loop H5 does not take, on the same plan
+            n = RESIDENT_STEPS[-1]
+            plan = plan_resident(b, *shape, 1, "cuda")
+            fail_unless(
+                torch.equal(ce._resident_launch(u, n, cxs, cys, plan,
+                                                window=False),
+                            ce.ens_tiled_chunk(u, n, cxs, cys)),
+                f"H5 by tile_steps B={b} {shape} steps={n}: differs from "
+                f"the tile-sweep route")
+            checks += 1
+    # A plan whose one tile row stops short of the member: the ring below
+    # it is never published, its blocks give up after ~2 s and the wrapper
+    # must raise; the launches after it run as ever.
+    u = torch.rand((1, 64, 256), generator=g, device="cuda")
+    short = ResidentPlan(1, 64, 256, 1, 4, 32, 128, 1, 2, 1)
+    try:
+        ce._resident_launch(u, 9, cxs[:1], cys[:1], short)
+    except RuntimeError as e:
+        fail_unless("gave up" in str(e), f"H5 on a short plan raised {e}")
+    else:
+        raise SmokeFailure("H5 on a short plan: a wait that cannot end "
+                           "did not raise")
+    fail_unless(torch.equal(ce.ens_resident(u, 9, cxs[:1], cys[:1]),
+                            ce.ens_tiled_chunk(u, 9, cxs[:1], cys[:1])),
+                "H5 after a launch that gave up: differs from the "
+                "tile-sweep route")
+    checks += 1
     torch.cuda.synchronize()
     info = {"phase": "ensemble_kernels", "checks": checks,
             "max_abs_err": worst}
@@ -369,8 +469,13 @@ def adi_tol(steps, cx, cy, ref) -> float:
 def phase_family_kernels(torch) -> dict:
     """H8 and H9 against their plain version for heat9, advdiff and
     reactdiff: ragged 37x53 and 4099x4097 members, B in {1, 3, 8}, nsub
-    in {1, 5, T}, random per-member (cx, cy) inside each family's box."""
+    in {1, 5, T}, random per-member (cx, cy) inside each family's box.
+    Then H8's on-chip sweep (``resident_cases``) against the H9 route bit
+    for bit (the step loop H8 does not take too), and 4099x4097 members,
+    which must be served by H9."""
     from heat2d_tpu_torch.ops import cuda_family as cf
+    from heat2d_tpu_torch.ops.resident import plan_resident
+    from heat2d_tpu_torch.problems.registry import get_family
     g = torch.Generator(device="cuda")
     g.manual_seed(1614)
     worst = {k: 0.0 for k in cf.LAUNCHES}
@@ -393,6 +498,46 @@ def phase_family_kernels(torch) -> dict:
                                     f"{shape} nsub={nsub}: max_abs_err "
                                     f"{err} > {tol}")
                         checks += 1
+                if shape == (4099, 4097) and b == 8:
+                    before = cf.launch_counts()
+                    cf.fam_resident(u, 9, scal, problem)
+                    after = cf.launch_counts()
+                    fail_unless(
+                        after["fam_resident"] == before["fam_resident"]
+                        and after["fam_tile_multi"]
+                        == before["fam_tile_multi"] + 2,
+                        f"H8 {problem} B=8 {shape}: served by {after} "
+                        f"after {before}, not by two H9 sweeps")
+                    checks += 1
+        for shape, b in resident_cases():
+            u = torch.rand((b,) + shape, generator=g, device="cuda")
+            cxs, cys = (torch.rand(b, generator=g, device="cuda")
+                        * (hi - lo) + lo for _ in range(2))
+            scal = cf.scalar_block(problem, cxs, cys)
+            for n in RESIDENT_STEPS:
+                err = check_resident(
+                    torch, "fam_resident",
+                    lambda: cf.fam_resident(u, n, scal, problem),
+                    lambda: cf.fam_tiled_chunk(u, n, scal, problem),
+                    (lambda: cf.fam_multi_step_plain(u, n, scal, problem))
+                    if b <= 3 else None,
+                    cf.launch_counts, "fam_tile_multi",
+                    lambda ref: family_tol(problem, n, ref),
+                    f"{problem} B={b} {shape} steps={n}")
+                worst["fam_resident"] = max(worst["fam_resident"], err)
+                checks += 1
+            if b == 3:
+                # the step loop H8 does not take, on the same plan
+                n = RESIDENT_STEPS[-1]
+                plan = plan_resident(
+                    b, *shape, get_family(problem).spec.halo_width, "cuda")
+                fail_unless(
+                    torch.equal(cf._resident_launch(u, n, scal, problem,
+                                                    plan, window=True),
+                                cf.fam_tiled_chunk(u, n, scal, problem)),
+                    f"H8 by window_steps {problem} B={b} {shape} "
+                    f"steps={n}: differs from the tile-sweep route")
+                checks += 1
     torch.cuda.synchronize()
     info = {"phase": "family_kernels", "checks": checks,
             "max_abs_err": worst}
@@ -692,13 +837,58 @@ def phase_kernel_times(torch, launches: dict, worst: dict) -> list:
     return rows
 
 
+def resident_against_tiles(torch) -> list:
+    """H5 and the H6 route on the same work at other member counts and
+    sizes: one member of the reference CUDA program's grid (H4's shape),
+    a bucket that fills one wave, and a member at the on-chip budget's
+    edge. What `auto` should prefer is read from these."""
+    from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    from heat2d_tpu_torch.ops.init import inidat
+    from heat2d_tpu_torch.ops.resident import plan_resident
+    out = []
+    for b, nx, ny, n in [(1, 640, 1024, 10000), (4, 640, 1024, 10000),
+                         (1, 2048, 1536, 2000)]:
+        u = inidat(nx, ny, device="cuda").expand(b, nx, ny).contiguous()
+        cxs = torch.linspace(0.02, 0.16, b, device="cuda")
+        cys = torch.linspace(0.2, 0.06, b, device="cuda")
+        plan = plan_resident(b, nx, ny, 1, "cuda")
+        out.append({
+            "shape": f"{b} x {nx}x{ny} x {n} steps",
+            "plan": {"k": plan.k, "tile": [plan.ty, plan.tx],
+                     "tiles": plan.tiles, "waves": plan.waves},
+            "ms": time_ms(lambda: ce.ens_resident(u, n, cxs, cys), 2),
+            "tile_route_ms": time_ms(
+                lambda: ce.ens_tiled_chunk(u, n, cxs, cys), 1)})
+    return out
+
+
+def resident_k_sweep(torch, launch, ring_w: int, ks) -> dict:
+    """The resident sweep at 8 x 640x1024 x 10000 with the chunk depth K
+    forced (the planner's tiles for that K): K -> ms. ``launch(plan)``
+    runs the kernel on ``plan``. The planner's exchange cost is fitted to
+    these."""
+    from heat2d_tpu_torch.ops import cuda_stencil as cs
+    from heat2d_tpu_torch.ops.resident import plan_for_limits
+    caps = cs.device_caps("cuda")
+    out = {}
+    for k in ks:
+        plan = plan_for_limits(8, 640, 1024, ring_w, cs.smem_limit("cuda"),
+                               caps.sm_count, k)
+        out[str(k)] = time_ms(functools.partial(launch, plan), 1)
+    return out
+
+
 def ensemble_kernel_rows(torch) -> list:
     """H5-H7 timed at the serving path's shapes (bounds times the B
     members; no single PyTorch call advances T steps, so no library
-    time)."""
+    time). H5's row also carries the time of the H6 route for the same
+    work (``tile_route_ms``: 1250 sweeps), which the resident route has
+    to beat, and the time of the same launch stepped by ``tile_steps``
+    instead of H5's ``window_steps`` (``tile_steps_ms``)."""
     from heat2d_tpu_torch.ops import cuda_ensemble as ce
     from heat2d_tpu_torch.ops import cuda_stencil as cs
     from heat2d_tpu_torch.ops.init import inidat
+    from heat2d_tpu_torch.ops.resident import plan_resident
 
     rows = []
     # H5: leg (a), 8 members of 640x1024 x 10000 steps in one launch.
@@ -710,9 +900,18 @@ def ensemble_kernel_rows(torch) -> list:
     rows.append(dict(
         name="ens_resident", shape="8 x 640x1024 x 10000 steps",
         ms=time_ms(lambda: ce.ens_resident(u, n, cxs, cys), 3),
+        tile_steps_ms=time_ms(lambda: ce._resident_launch(
+            u, n, cxs, cys, plan_resident(*u.shape, 1, "cuda"),
+            window=False), 3),
+        tile_route_ms=time_ms(lambda: ce.ens_tiled_chunk(u, n, cxs, cys),
+                              1),
         plain_ms=time_ms(lambda: ce.ens_multi_step_plain(u, n, cxs, cys),
                          1),
-        bound_ms=bnd, bound_by=by, library_ms=None))
+        bound_ms=bnd, bound_by=by, library_ms=None,
+        k_sweep_ms=resident_k_sweep(
+            torch, lambda p: ce._resident_launch(u, n, cxs, cys, p), 1,
+            range(1, 9)),
+        other_shapes=resident_against_tiles(torch)))
 
     # H6 / H7: legs (b) and (c), 4 members of 4096^2, one T = 8 sweep
     # (H7 with every member active and its residual).
@@ -751,6 +950,7 @@ def family_tridiag_kernel_rows(torch) -> list:
     from heat2d_tpu_torch.ops import cuda_family as cf
     from heat2d_tpu_torch.ops import tridiag as td
     from heat2d_tpu_torch.ops.init import inidat
+    from heat2d_tpu_torch.ops.resident import plan_resident
 
     rows = []
     fam = "heat9"
@@ -763,6 +963,22 @@ def family_tridiag_kernel_rows(torch) -> list:
     rows.append(dict(
         name="fam_resident", shape="heat9, 8 x 640x1024 x 10000 steps",
         ms=time_ms(lambda: cf.fam_resident(u, n, scal, fam), 3),
+        tile_route_ms=time_ms(lambda: cf.fam_tiled_chunk(u, n, scal, fam),
+                              1),
+        other_families_ms={
+            f: time_ms(functools.partial(
+                cf.fam_resident, u, n,
+                cf.scalar_block(f, cxs, 0.17 - cxs), f), 2)
+            for f in ("advdiff", "reactdiff")},
+        window_steps_ms={
+            f: time_ms(functools.partial(
+                cf._resident_launch, u, n,
+                cf.scalar_block(f, cxs, 0.17 - cxs), f,
+                plan_resident(*u.shape, w, "cuda"), window=True), 2)
+            for f, w in (("heat9", 2), ("advdiff", 1), ("reactdiff", 1))},
+        k_sweep_ms=resident_k_sweep(
+            torch, lambda p: cf._resident_launch(u, n, scal, fam, p), 2,
+            range(1, 5)),
         plain_ms=time_ms(lambda: cf.fam_multi_step_plain(u, n, scal, fam),
                          1),
         bound_ms=bnd, bound_by=by, library_ms=None))

@@ -9,12 +9,19 @@
 //
 //   H5 k_ens_resident <- _ensemble_kernel (B5) via _run_batch_pallas:
 //                     every member advances `steps` steps in one
-//                     cooperative launch, grid.sync() between steps, two
-//                     ping-pong batch buffers of its own.  H4 with a
-//                     member axis: the grid strides over the whole batch.
-//                     Bound by the per-step grid barrier and L2 traffic
-//                     while the batch fits the 50 MB L2, by device-memory
-//                     bytes per step once it does not.
+//                     cooperative launch, as B5 keeps a member in VMEM
+//                     for all steps.  The on-chip resident sweep of
+//                     csrc/resident.cuh with the heat5 FMA operator: a
+//                     (member, tile) pair per SM, the tile's two ext
+//                     planes in shared memory from the first step to the
+//                     last, one ring exchange with its neighbours per K
+//                     steps.  Its step loop (window_steps: 4 columns a
+//                     thread, their neighbourhood in registers) moves 10
+//                     bytes of shared memory per cell-step and is bound
+//                     by instruction rate (tile_steps, 24 bytes, is built
+//                     beside it and timed by chip_smoke.py); device memory
+//                     is read and written once.  The wrapper sends members too large
+//                     to stay on the chip to H6 sweeps.
 //   H6 k_ens_tile     <- _ensemble_band_kernel (B6) and _ens_window_kernel
 //                     (B7): the shared-memory tile sweep of H2
 //                     (csrc/tile.cuh) with blockIdx.z = member.  The
@@ -37,12 +44,10 @@
 // Every entry point returns a cudaError_t (0 on success); the Python
 // wrapper raises on anything else.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "resident.cuh"
 #include "tile.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -50,8 +55,6 @@ using heat::BLOCK_X;
 using heat::BLOCK_Y;
 using heat::Coef;
 using heat::FORM_FMA;
-
-constexpr int RESIDENT_THREADS = 256;
 
 __device__ __forceinline__ Coef member_coef(const float* cxs,
                                             const float* cys, int m) {
@@ -62,41 +65,18 @@ __device__ __forceinline__ Coef member_coef(const float* cxs,
 }
 
 // ---------------------------------------------------------------- H5 --
-// Step s reads `cur` and writes `nxt`; src is read only by step 0, so the
-// caller's batch is never written.  Steps alternate p0, p1, p0, ...: the
-// result is in p0 when steps is odd, in p1 when it is even.  Loads go
-// through __ldcg (L2, not the SM's own L1) because other blocks wrote
-// them during the previous step.
-__global__ void k_ens_resident(const float* src, float* p0, float* p1,
-                               const float* __restrict__ cxs,
-                               const float* __restrict__ cys, int nb, int nx,
-                               int ny, int steps) {
-  cg::grid_group grid = cg::this_grid();
-  // Unsigned 32-bit: n < 2^31, so p + stride cannot wrap.
-  const unsigned plane = (unsigned)nx * ny;
-  const unsigned n = nb * plane;
-  const unsigned stride = gridDim.x * blockDim.x;
-  const float* cur = src;
-  float* nxt = p0;
-  for (int s = 0; s < steps; ++s) {
-    for (unsigned p = blockIdx.x * blockDim.x + threadIdx.x; p < n;
-         p += stride) {
-      const unsigned m = p / plane;
-      const unsigned q = p - m * plane;
-      const int i = (int)(q / ny);
-      const int j = (int)(q - i * ny);
-      float v = __ldcg(cur + p);
-      if (i > 0 && i < nx - 1 && j > 0 && j < ny - 1)
-        v = heat::update<FORM_FMA>(v, __ldcg(cur + p - ny),
-                                   __ldcg(cur + p + ny), __ldcg(cur + p - 1),
-                                   __ldcg(cur + p + 1),
-                                   member_coef(cxs, cys, m));
-      nxt[p] = v;
-    }
-    grid.sync();
-    cur = nxt;
-    nxt = (nxt == p0) ? p1 : p0;
-  }
+// scratch: ops/resident.launch_scratch, zeroed.  src is only read, dst
+// only written.  WINDOW picks the step loop (csrc/resident.cuh).
+template <bool WINDOW>
+__global__ void __launch_bounds__(BLOCK_X * heat::resident_warps(WINDOW), 1)
+    k_ens_resident(const float* __restrict__ src, float* __restrict__ dst,
+                   heat::Word* scratch, const float* __restrict__ cxs,
+                   const float* __restrict__ cys, heat::ResidentPlan P,
+                   int steps) {
+  extern __shared__ __align__(16) float smem[];
+  heat::resident_sweep<heat::Heat5<FORM_FMA>, WINDOW>(
+      src, dst, scratch, P, steps,
+      [=](int m) { return member_coef(cxs, cys, m); }, smem);
 }
 
 // ------------------------------------------------------------ H6 / H7 --
@@ -159,31 +139,20 @@ const char* heat_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// Co-resident H5 blocks on the whole card (the cooperative grid limit).
-int heat_ens_resident_blocks(int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, k_ens_resident, RESIDENT_THREADS, 0);
-  if (e != cudaSuccess) return e;
-  *blocks = per_sm * sms;
-  return cudaSuccess;
-}
-
-int heat_ens_resident(const float* src, float* p0, float* p1,
-                      const float* cxs, const float* cys, int nb, int nx,
-                      int ny, int steps, int blocks, void* stream) {
-  void* args[] = {(void*)&src, (void*)&p0, (void*)&p1, (void*)&cxs,
-                  (void*)&cys, (void*)&nb, (void*)&nx, (void*)&ny,
-                  (void*)&steps};
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)k_ens_resident, dim3(blocks), dim3(RESIDENT_THREADS), args,
-      0, (cudaStream_t)stream);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+// plan: the host int array of ops/resident.ResidentPlan.as_ctypes;
+// window != 0 steps by window_steps, 0 by tile_steps.
+int heat_ens_resident(const float* src, float* dst, heat::Word* scratch,
+                      const float* cxs, const float* cys, const int* plan,
+                      int steps, int window, void* stream) {
+  using Op = heat::Heat5<FORM_FMA>;
+  heat::ResidentPlan P = heat::resident_plan(plan);
+  void* args[] = {(void*)&src, (void*)&dst, (void*)&scratch, (void*)&cxs,
+                  (void*)&cys, (void*)&P,   (void*)&steps};
+  cudaStream_t s = (cudaStream_t)stream;
+  return window ? heat::launch_resident<Op, true>(k_ens_resident<true>, args,
+                                                  P, s)
+                : heat::launch_resident<Op, false>(k_ens_resident<false>,
+                                                   args, P, s);
 }
 
 // active == NULL selects H6, otherwise H7; parts == NULL skips the

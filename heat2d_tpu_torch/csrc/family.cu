@@ -11,10 +11,17 @@
 //
 //   H8 k_fam_resident <- _family_ensemble_kernel (B9, runners.py:124):
 //                     every member advances `steps` steps in one
-//                     cooperative launch, grid.sync() between steps, two
-//                     ping-pong batch buffers of its own (H5 with a family
-//                     operator).  Bound by the per-step grid barrier and
-//                     L2 traffic while the batch fits the L2.
+//                     cooperative launch, as B9 keeps a member in VMEM
+//                     for all steps.  The on-chip resident sweep of
+//                     csrc/resident.cuh (H5's) with a family operator:
+//                     tiles stay in shared memory, one ring exchange of
+//                     depth W * K per K steps.  Its step loop (tile_steps)
+//                     moves 4 * (2 + 4W) bytes of shared memory per
+//                     cell-step and is bound by the instructions of the
+//                     families' rounded update sequences (window_steps is
+//                     built beside it and timed by chip_smoke.py).  The wrapper
+//                     sends members too large to stay on the chip to
+//                     H9 sweeps.
 //   H9 k_fam_tile     <- _family_band_kernel (B10, runners.py:181): the
 //                     shared-memory tile sweep of csrc/tile.cuh with a
 //                     ring of depth H = W * T, blockIdx.z = member.  The
@@ -34,12 +41,10 @@
 // Every entry point returns a cudaError_t (0 on success); the Python
 // wrapper raises on anything else.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "resident.cuh"
 #include "tile.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -49,7 +54,6 @@ using heat::BLOCK_Y;
 constexpr int FAM_HEAT9 = 0;
 constexpr int FAM_ADVDIFF = 1;
 constexpr int FAM_REACTDIFF = 2;
-constexpr int RESIDENT_THREADS = 256;
 
 // (-a + 16 b - 30 c + 16 d - e) * (1/12): a 4th-order second difference
 // with a = u[+2], b = u[+1], c = u[0], d = u[-1], e = u[-2], in the order
@@ -134,67 +138,31 @@ struct ReactDiff {
 };
 
 // ---------------------------------------------------------------- H8 --
-// Step s reads `cur` and writes `nxt`; src is read only by step 0, so the
-// caller's batch is never written.  The result is in p0 when steps is
-// odd, in p1 when it is even.  Loads go through __ldcg (L2, not the SM's
-// L1) because other blocks wrote them during the previous step.
-template <class Op>
-__global__ void k_fam_resident(const float* src, float* p0, float* p1,
-                               const float* __restrict__ scal, int nb,
-                               int nx, int ny, int steps) {
-  constexpr int W = Op::W;
-  cg::grid_group grid = cg::this_grid();
-  // Unsigned 32-bit: n < 2^31, so p + stride cannot wrap.
-  const unsigned plane = (unsigned)nx * ny;
-  const unsigned n = nb * plane;
-  const unsigned stride = gridDim.x * blockDim.x;
-  const float* cur = src;
-  float* nxt = p0;
-  for (int s = 0; s < steps; ++s) {
-    for (unsigned p = blockIdx.x * blockDim.x + threadIdx.x; p < n;
-         p += stride) {
-      const unsigned m = p / plane;
-      const unsigned q = p - m * plane;
-      const int i = (int)(q / ny);
-      const int j = (int)(q - i * ny);
-      const float* at = cur + p;
-      float v = __ldcg(at);
-      if (i >= W && i < nx - W && j >= W && j < ny - W)
-        v = Op::apply([at](int o) { return __ldcg(at + o); }, ny,
-                      Op::load(scal + m * Op::S));
-      nxt[p] = v;
-    }
-    grid.sync();
-    cur = nxt;
-    nxt = (nxt == p0) ? p1 : p0;
-  }
+// scratch: ops/resident.launch_scratch, zeroed.  src is only read, dst
+// only written.  WINDOW picks the step loop (csrc/resident.cuh).
+template <class Op, bool WINDOW>
+__global__ void __launch_bounds__(BLOCK_X * heat::resident_warps(WINDOW), 1)
+    k_fam_resident(const float* __restrict__ src, float* __restrict__ dst,
+                   heat::Word* scratch, const float* __restrict__ scal,
+                   heat::ResidentPlan P, int steps) {
+  extern __shared__ __align__(16) float smem[];
+  heat::resident_sweep<Op, WINDOW>(
+      src, dst, scratch, P, steps,
+      [=](int m) { return Op::load(scal + m * Op::S); }, smem);
 }
 
 template <class Op>
-cudaError_t resident_blocks(int* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, k_fam_resident<Op>, RESIDENT_THREADS, 0);
-  if (e != cudaSuccess) return e;
-  *blocks = per_sm * sms;
-  return cudaSuccess;
-}
-
-template <class Op>
-cudaError_t launch_resident(const float* src, float* p0, float* p1,
-                            const float* scal, int nb, int nx, int ny,
-                            int steps, int blocks, cudaStream_t stream) {
-  void* args[] = {(void*)&src, (void*)&p0, (void*)&p1, (void*)&scal,
-                  (void*)&nb,  (void*)&nx, (void*)&ny, (void*)&steps};
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      (const void*)k_fam_resident<Op>, dim3(blocks), dim3(RESIDENT_THREADS),
-      args, 0, stream);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+cudaError_t launch_fam_resident(const float* src, float* dst,
+                                heat::Word* scratch, const float* scal,
+                                const int* plan, int steps, int window,
+                                cudaStream_t stream) {
+  heat::ResidentPlan P = heat::resident_plan(plan);
+  void* args[] = {(void*)&src,  (void*)&dst, (void*)&scratch,
+                  (void*)&scal, (void*)&P,   (void*)&steps};
+  return window ? heat::launch_resident<Op, true>(k_fam_resident<Op, true>,
+                                                  args, P, stream)
+                : heat::launch_resident<Op, false>(k_fam_resident<Op, false>,
+                                                   args, P, stream);
 }
 
 // ---------------------------------------------------------------- H9 --
@@ -235,31 +203,22 @@ const char* heat_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// Co-resident H8 blocks of family `fam` on the whole card (the
-// cooperative grid limit).
-int heat_fam_resident_blocks(int fam, int* blocks) {
-  switch (fam) {
-    case FAM_HEAT9: return resident_blocks<Heat9>(blocks);
-    case FAM_ADVDIFF: return resident_blocks<AdvDiff>(blocks);
-    case FAM_REACTDIFF: return resident_blocks<ReactDiff>(blocks);
-  }
-  return cudaErrorInvalidValue;
-}
-
-int heat_fam_resident(int fam, const float* src, float* p0, float* p1,
-                      const float* scal, int nb, int nx, int ny, int steps,
-                      int blocks, void* stream) {
+// plan: the host int array of ops/resident.ResidentPlan.as_ctypes;
+// window != 0 steps by window_steps, 0 by tile_steps.
+int heat_fam_resident(int fam, const float* src, float* dst,
+                      heat::Word* scratch, const float* scal,
+                      const int* plan, int steps, int window, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   switch (fam) {
     case FAM_HEAT9:
-      return launch_resident<Heat9>(src, p0, p1, scal, nb, nx, ny, steps,
-                                    blocks, s);
+      return launch_fam_resident<Heat9>(src, dst, scratch, scal, plan, steps,
+                                        window, s);
     case FAM_ADVDIFF:
-      return launch_resident<AdvDiff>(src, p0, p1, scal, nb, nx, ny, steps,
-                                      blocks, s);
+      return launch_fam_resident<AdvDiff>(src, dst, scratch, scal, plan,
+                                          steps, window, s);
     case FAM_REACTDIFF:
-      return launch_resident<ReactDiff>(src, p0, p1, scal, nb, nx, ny,
-                                        steps, blocks, s);
+      return launch_fam_resident<ReactDiff>(src, dst, scratch, scal, plan,
+                                            steps, window, s);
   }
   return cudaErrorInvalidValue;
 }

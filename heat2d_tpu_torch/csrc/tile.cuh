@@ -1,7 +1,9 @@
 // Device code shared by csrc/stencil.cu (H2/H3), csrc/ensemble.cu
-// (H6/H7), csrc/family.cu (H9) and csrc/shard.cu (H12-H14): the heat5
-// step forms, the operator interface, and the shared-memory tile sweep
-// generic over an operator and over where its cells are loaded from.
+// (H5-H7), csrc/family.cu (H8/H9) and csrc/shard.cu (H12-H14): the heat5
+// step forms, the operator interface, the step loop of a tile in shared
+// memory (also the resident sweep's, csrc/resident.cuh), and the tile
+// sweep generic over an operator and over where its cells are loaded
+// from.
 //
 // An operator Op has a spatial radius Op::W, a scalar set Op::Params,
 // and Op::apply(ld, row, k): the updated value of a cell from ld(o), the
@@ -96,44 +98,24 @@ struct Placement {
   int x0, y0, rows, cols;
 };
 
-// One sweep of the tile (blockIdx.y, blockIdx.x) of the block `pl`.
-// `load(gi, gj)` gives the value of global cell (gi, gj) at the start of
-// the sweep, for every cell of the tile's ext (inside the block, in a
-// neighbour's halo, or outside the domain).  The held rule is in global
-// coordinates, so a shard holds the domain's ring and every cell past it
-// (the pad cells of an uneven decomposition among them).  `smem` holds
-// two ext tiles.  With RESID, returns (in thread (0, 0)) the tile's sum
-// of squared deltas over the last step pair of its written cells; held
-// cells (pad cells too) add 0, since they keep their value.
-template <class Op, bool RESID, class Load>
-__device__ __forceinline__ float tile_sweep_at(const Load& load,
-                                               float* __restrict__ dst,
-                                               Placement pl, int nx, int ny,
-                                               const typename Op::Params& k,
-                                               int H, int nsub, int TY,
-                                               int TX, float* smem) {
+// nsub steps of the EY x EX ext tile in `cur`, whose cell (0, 0) is global
+// cell (i0, j0), by a block of BLOCK_X x BY threads; `nxt` is a second
+// ext tile.  Step s rewrites the interior W*s cells in from the tile's
+// edge: its neighbours lie in the region step s-1 wrote, so no cell is
+// read before it is written, and a cell W*nsub or more cells in is exact.
+// The held rule is in global coordinates.  On return `cur` holds the last
+// step and `nxt` the one before it (where both were written).
+template <class Op, int BY>
+__device__ __forceinline__ void tile_steps(float*& cur, float*& nxt, int i0,
+                                           int j0, int EY, int EX, int nx,
+                                           int ny,
+                                           const typename Op::Params& k,
+                                           int nsub) {
   constexpr int W = Op::W;
-  const int EY = TY + 2 * H, EX = TX + 2 * H;
-  float* cur = smem;
-  float* nxt = smem + EY * EX;
-  const int i0 = pl.x0 + blockIdx.y * TY - H;
-  const int j0 = pl.y0 + blockIdx.x * TX - H;
   const int tx = threadIdx.x, ty = threadIdx.y;
-
-  for (int r = ty; r < EY; r += BLOCK_Y) {
-    const int gi = i0 + r;
-    for (int c = tx; c < EX; c += BLOCK_X)
-      cur[r * EX + c] = load(gi, j0 + c);
-  }
-  __syncthreads();
-
-  // Step s rewrites the interior W*s cells in from the tile's edge: its
-  // neighbours lie in the region step s-1 wrote, so no cell is read
-  // before it is written, and the centre (H cells in) is exact for every
-  // s <= nsub with W * nsub <= H.
   for (int s = 1; s <= nsub; ++s) {
     const int lo = W * s;
-    for (int r = lo + ty; r < EY - lo; r += BLOCK_Y) {
+    for (int r = lo + ty; r < EY - lo; r += BY) {
       const int gi = i0 + r;
       const bool row_upd = gi >= W && gi < nx - W;
       for (int c = lo + tx; c < EX - lo; c += BLOCK_X) {
@@ -150,6 +132,40 @@ __device__ __forceinline__ float tile_sweep_at(const Load& load,
     cur = nxt;
     nxt = t;
   }
+}
+
+// One sweep of the tile (blockIdx.y, blockIdx.x) of the block `pl`.
+// `load(gi, gj)` gives the value of global cell (gi, gj) at the start of
+// the sweep, for every cell of the tile's ext (inside the block, in a
+// neighbour's halo, or outside the domain).  The held rule is in global
+// coordinates, so a shard holds the domain's ring and every cell past it
+// (the pad cells of an uneven decomposition among them).  `smem` holds
+// two ext tiles.  With RESID, returns (in thread (0, 0)) the tile's sum
+// of squared deltas over the last step pair of its written cells; held
+// cells (pad cells too) add 0, since they keep their value.
+template <class Op, bool RESID, class Load>
+__device__ __forceinline__ float tile_sweep_at(const Load& load,
+                                               float* __restrict__ dst,
+                                               Placement pl, int nx, int ny,
+                                               const typename Op::Params& k,
+                                               int H, int nsub, int TY,
+                                               int TX, float* smem) {
+  const int EY = TY + 2 * H, EX = TX + 2 * H;
+  float* cur = smem;
+  float* nxt = smem + EY * EX;
+  const int i0 = pl.x0 + blockIdx.y * TY - H;
+  const int j0 = pl.y0 + blockIdx.x * TX - H;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+
+  for (int r = ty; r < EY; r += BLOCK_Y) {
+    const int gi = i0 + r;
+    for (int c = tx; c < EX; c += BLOCK_X)
+      cur[r * EX + c] = load(gi, j0 + c);
+  }
+  __syncthreads();
+
+  // The centre (H cells in) is exact for every nsub with W * nsub <= H.
+  tile_steps<Op, BLOCK_Y>(cur, nxt, i0, j0, EY, EX, nx, ny, k, nsub);
 
   // cur holds the last step, nxt the one before it.
   float acc = 0.0f;

@@ -43,17 +43,13 @@ SIGNATURES = {
     },
     "ensemble": {
         "heat_error_string": (ctypes.c_char_p, [_I]),
-        "heat_ens_resident_blocks": (_I, [_P]),
-        "heat_ens_resident": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _P]),
+        "heat_ens_resident": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
         "heat_ens_tile": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _I, _P]),
     },
     "family": {
         "heat_error_string": (ctypes.c_char_p, [_I]),
-        "heat_fam_resident_blocks": (_I, [_I, _P]),
-        "heat_fam_resident": (_I, [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                   _P]),
+        "heat_fam_resident": (_I, [_I, _P, _P, _P, _P, _P, _I, _I, _P]),
         "heat_fam_tile": (_I, [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _P]),
     },

@@ -7,7 +7,9 @@ Three kernels (sources in ``csrc/ensemble.cu``):
 
 ====  =======================  ==============================================
 H5    ``ens_resident``         every member ``steps`` steps in one
-                               cooperative launch; replaces B5
+                               cooperative launch, its tiles resident in
+                               shared memory (``ops/resident.py``,
+                               ``csrc/resident.cuh``); replaces B5
                                (``_ensemble_kernel``, ensemble.py:106)
 H6    ``ens_tile_multi``       ``nsub <= T`` steps per sweep of
                                shared-memory tiles over a (member, tile)
@@ -27,6 +29,12 @@ compute it from their SMEM scalars (``ops/cuda_stencil`` computes its k0
 in double on the host instead; the two differ by an ulp of k0 for
 coefficients that are not binary-exact).
 
+H5's state stays in shared memory, so it is bound by its step loop there
+(10 bytes of shared memory per cell-step against 128 bytes per clock and
+SM; on the H100 the instruction rate binds first), then by its ring
+exchange once per K steps; the batch crosses device memory once each way.
+H6/H7 are bound by one read and one write of the batch per sweep.
+
 On a CPU tensor a wrapper runs its kernel's plain version; on a CUDA
 tensor it launches the kernel or raises. Each launch adds one to the
 wrapper's entry in ``LAUNCHES``; the plain versions count nothing.
@@ -35,7 +43,6 @@ wrapper's entry in ``LAUNCHES``; the plain versions count nothing.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -43,6 +50,8 @@ from heat2d_tpu_torch.ops import _build
 from heat2d_tpu_torch.ops.cuda_stencil import (DEFAULT_TSTEPS,
                                                multi_step_plain, plan_tiles,
                                                smem_limit, step_plain)
+from heat2d_tpu_torch.ops.resident import (launch_scratch, plan_resident,
+                                            raise_if_gave_up)
 
 #: Launches per kernel wrapper since the last ``reset_launch_counts``.
 LAUNCHES = {"ens_resident": 0, "ens_tile_multi": 0,
@@ -155,31 +164,34 @@ def ens_conv_sweep_plain(u, nsub: int, cxs, cys, active, resid: bool):
 # Kernel wrappers
 # --------------------------------------------------------------------- #
 
-_resident_blocks: dict[int, int] = {}
-
-
-def resident_blocks(device) -> int:
-    """H5 blocks the card holds co-resident (the cooperative launch's
-    limit), read once per device."""
-    dev = torch.device(device)
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _resident_blocks:
-        buf = ctypes.c_int(0)
-        with torch.cuda.device(idx):
-            _check(_lib().heat_ens_resident_blocks(ctypes.byref(buf)),
-                   "heat_ens_resident_blocks")
-        _resident_blocks[idx] = buf.value
-    return _resident_blocks[idx]
-
-
-def resident_grid(u) -> int:
-    """Blocks of the H5 launch: enough for one cell per thread, at most
-    what the card holds co-resident."""
-    return max(1, min(resident_blocks(u.device), math.ceil(u.numel() / 256)))
+def _resident_launch(u, steps: int, cxs, cys, plan, window: bool = True):
+    """One H5 launch of ``plan`` (``ops.resident``), its step loop
+    ``window_steps`` (heat5's choice: the faster of the two on the H100)
+    or ``tile_steps``. Raises when the launch is refused (the plan's
+    blocks must all be co-resident) or a block gave up waiting."""
+    what = (f"H5 ens_resident ({plan.blocks} blocks of {plan.smem_bytes} "
+            f"bytes of shared memory)")
+    out = torch.empty_like(u)
+    scratch = launch_scratch(plan, steps, u.device)
+    LAUNCHES["ens_resident"] += 1
+    _check(_lib().heat_ens_resident(
+        _ptr(u), _ptr(out), _ptr(scratch), _ptr(cxs), _ptr(cys),
+        plan.as_ctypes(), steps, int(window), _stream(u)), what)
+    raise_if_gave_up(scratch, what, plan)
+    return out
 
 
 def ens_resident(u, steps: int, cxs, cys):
-    """H5: ``steps`` steps of every member in one cooperative launch."""
+    """H5: ``steps`` steps of every member in one cooperative launch, the
+    members' tiles resident in shared memory for all of them
+    (``ops.resident.plan_resident``). A member too large to stay on the
+    chip (no plan: beyond the co-resident blocks' shared memory, ~3.6 M
+    cells on the H100) advances by H6 sweeps instead, ``ens_tiled_chunk``:
+    the same per-cell arithmetic, bitwise the same result, counted under
+    ``ens_tile_multi``. That is a gate on shape: a launch that fails
+    raises, and so does one in which a block gave up waiting for a
+    neighbour's ring (``ops.resident.raise_if_gave_up``; reading that
+    waits for the launch)."""
     _validate(u, cxs, cys, "ens_resident")
     if steps < 0:
         raise ValueError(f"steps must be >= 0, got {steps}")
@@ -187,13 +199,10 @@ def ens_resident(u, steps: int, cxs, cys):
         return ens_multi_step_plain(u, steps, cxs, cys)
     if steps == 0:
         return u
-    nb, nx, ny = u.shape
-    p0, p1 = torch.empty_like(u), torch.empty_like(u)
-    LAUNCHES["ens_resident"] += 1
-    _check(_lib().heat_ens_resident(
-        _ptr(u), _ptr(p0), _ptr(p1), _ptr(cxs), _ptr(cys), nb, nx, ny,
-        steps, resident_grid(u), _stream(u)), "H5 ens_resident")
-    return p0 if steps % 2 else p1
+    plan = plan_resident(*u.shape, 1, u.device)
+    if plan is None:
+        return ens_tiled_chunk(u, steps, cxs, cys)
+    return _resident_launch(u, steps, cxs, cys, plan)
 
 
 def _tile_launch(u, nsub, cxs, cys, active, resid, name):

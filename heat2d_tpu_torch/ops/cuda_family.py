@@ -10,7 +10,9 @@ in row b of a (B, S) float32 block (``scalar_block``: the family's
 
 ====  ==================  ===============================================
 H8    ``fam_resident``    every member ``steps`` steps in one cooperative
-                          launch; replaces B9 (``_family_ensemble_kernel``,
+                          launch, its tiles resident in shared memory
+                          (``ops/resident.py``, ``csrc/resident.cuh``);
+                          replaces B9 (``_family_ensemble_kernel``,
                           runners.py:124)
 H9    ``fam_tile_multi``  ``nsub <= T`` steps per sweep of shared-memory
                           tiles with a ``W * T``-deep ring; replaces B10
@@ -23,6 +25,13 @@ constants read from the scalar block: the update of
 package's order. The kernels round every operation
 as the plain version does; ``rounding_factor`` bounds what remains.
 
+H8's state stays in shared memory, so it is bound by its step loop there
+(heat9: 10 accesses of 4 bytes per cell-step, the W = 1 families 6,
+against 128 bytes per clock and SM; on the H100 the instructions of the
+rounded update sequences bind first), then by its ring exchange of depth
+``W * K`` once per K steps; the batch crosses device memory once each
+way. H9 is bound by one read and one write of the batch per sweep.
+
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises. Each launch adds one to the wrapper's
 entry in ``LAUNCHES``; the plain versions count nothing.
@@ -31,13 +40,14 @@ entry in ``LAUNCHES``; the plain versions count nothing.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
 from heat2d_tpu_torch.ops import _build
 from heat2d_tpu_torch.ops.cuda_stencil import (DEFAULT_TSTEPS, plan_tiles,
                                                smem_limit)
+from heat2d_tpu_torch.ops.resident import (launch_scratch, plan_resident,
+                                            raise_if_gave_up)
 from heat2d_tpu_torch.problems.registry import get_family
 
 #: Launches per kernel wrapper since the last ``reset_launch_counts``.
@@ -150,27 +160,35 @@ def fam_multi_step_plain(u, n: int, scal, problem: str):
 # Kernel wrappers
 # --------------------------------------------------------------------- #
 
-_resident_blocks: dict[tuple, int] = {}
-
-
-def resident_blocks(device, problem: str) -> int:
-    """H8 blocks of ``problem`` the card holds co-resident (the
-    cooperative launch's limit), read once per device and family."""
-    dev = torch.device(device)
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    key = (idx, problem)
-    if key not in _resident_blocks:
-        buf = ctypes.c_int(0)
-        with torch.cuda.device(idx):
-            _check(_lib().heat_fam_resident_blocks(FAMILY_CODES[problem],
-                                                   ctypes.byref(buf)),
-                   "heat_fam_resident_blocks")
-        _resident_blocks[key] = buf.value
-    return _resident_blocks[key]
+def _resident_launch(u, steps: int, scal, problem: str, plan,
+                     window: bool = False):
+    """One H8 launch of ``plan`` (``ops.resident``), its step loop
+    ``tile_steps`` (the families' choice: the faster of the two on the
+    H100) or ``window_steps``. Raises when the launch is refused (the
+    plan's blocks must all be co-resident) or a block gave up waiting."""
+    what = (f"H8 fam_resident ({problem}, {plan.blocks} blocks of "
+            f"{plan.smem_bytes} bytes of shared memory)")
+    out = torch.empty_like(u)
+    scratch = launch_scratch(plan, steps, u.device)
+    LAUNCHES["fam_resident"] += 1
+    _check(_lib().heat_fam_resident(
+        FAMILY_CODES[problem], _ptr(u), _ptr(out), _ptr(scratch),
+        _ptr(scal), plan.as_ctypes(), steps, int(window), _stream(u)), what)
+    raise_if_gave_up(scratch, what, plan)
+    return out
 
 
 def fam_resident(u, steps: int, scal, problem: str):
-    """H8: ``steps`` steps of every member in one cooperative launch."""
+    """H8: ``steps`` steps of every member in one cooperative launch, the
+    members' tiles resident in shared memory for all of them
+    (``ops.resident.plan_resident`` with the family's ring width). A
+    member too large to stay on the chip (no plan) advances by H9 sweeps
+    instead, ``fam_tiled_chunk``: the same per-cell arithmetic, bitwise
+    the same result, counted under ``fam_tile_multi``. That is a gate on
+    shape: a launch that fails raises, and so does one in which a block
+    gave up waiting for a neighbour's ring
+    (``ops.resident.raise_if_gave_up``; reading that waits for the
+    launch)."""
     _validate(u, scal, problem, "fam_resident")
     if steps < 0:
         raise ValueError(f"steps must be >= 0, got {steps}")
@@ -178,15 +196,11 @@ def fam_resident(u, steps: int, scal, problem: str):
         return fam_multi_step_plain(u, steps, scal, problem)
     if steps == 0:
         return u
-    nb, nx, ny = u.shape
-    blocks = max(1, min(resident_blocks(u.device, problem),
-                        math.ceil(u.numel() / 256)))
-    p0, p1 = torch.empty_like(u), torch.empty_like(u)
-    LAUNCHES["fam_resident"] += 1
-    _check(_lib().heat_fam_resident(
-        FAMILY_CODES[problem], _ptr(u), _ptr(p0), _ptr(p1), _ptr(scal), nb,
-        nx, ny, steps, blocks, _stream(u)), f"H8 fam_resident ({problem})")
-    return p0 if steps % 2 else p1
+    plan = plan_resident(*u.shape, get_family(problem).spec.halo_width,
+                         u.device)
+    if plan is None:
+        return fam_tiled_chunk(u, steps, scal, problem)
+    return _resident_launch(u, steps, scal, problem, plan)
 
 
 def tile_plan(nx: int, ny: int, problem: str, device):

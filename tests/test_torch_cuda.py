@@ -92,6 +92,72 @@ def test_ens_resident_matches_plain(card, shape, b):
     assert ce.launch_counts()["ens_resident"] == 3
 
 
+@pytest.mark.parametrize("b", [1, 3, 40])
+@pytest.mark.parametrize("shape", [(37, 53), (641, 1023)])
+def test_ens_resident_equals_the_tile_sweeps_bitwise(card, shape, b):
+    """H5's on-chip sweep (one tile or many, one wave or ten, steps below,
+    at and past a chunk) against the H6 route: the same per-cell
+    arithmetic, so the same bits."""
+    u, cxs, cys = _batch(card, b, shape)
+    for n in (1, 8, 9, 27):
+        ce.reset_launch_counts()
+        got = ce.ens_resident(u, n, cxs, cys)
+        assert ce.launch_counts() == {"ens_resident": 1, "ens_tile_multi": 0,
+                                      "ens_tile_multi_conv": 0}
+        assert torch.equal(got, ce.ens_tiled_chunk(u, n, cxs, cys))
+
+
+def test_oversize_members_take_the_tile_sweeps(card):
+    """A member beyond the on-chip budget (``plan_resident`` gives no
+    plan) is advanced by H6 / H9 sweeps and counted there."""
+    from heat2d_tpu_torch.ops import cuda_family as cf
+    from heat2d_tpu_torch.ops.resident import plan_resident
+    u, cxs, cys = _batch(card, 2, (2100, 2050))
+    assert plan_resident(2, 2100, 2050, 1, card) is None
+    ce.reset_launch_counts()
+    got = ce.ens_resident(u, 11, cxs, cys)
+    assert ce.launch_counts() == {"ens_resident": 0, "ens_tile_multi": 2,
+                                  "ens_tile_multi_conv": 0}
+    _close(got, ce.ens_multi_step_plain(u, 11, cxs, cys), 11, cs.FORM_FMA)
+    scal = cf.scalar_block("heat9", cxs * 0.6, cys * 0.6)
+    cf.reset_launch_counts()
+    got = cf.fam_resident(u, 11, scal, "heat9")
+    assert cf.launch_counts() == {"fam_resident": 0, "fam_tile_multi": 2}
+    assert torch.equal(got, cf.fam_tiled_chunk(u, 11, scal, "heat9"))
+
+
+def test_resident_sweep_gives_up_and_raises(card):
+    """A plan whose one tile row stops short of the member: the ring below
+    it is never published, so its blocks wait ~2 s, set the error word and
+    the wrapper raises; the next launch runs as ever."""
+    from heat2d_tpu_torch.ops.resident import ResidentPlan
+    u, cxs, cys = _batch(card, 1, (64, 256))
+    short = ResidentPlan(1, 64, 256, 1, 4, 32, 128, 1, 2, 1)
+    with pytest.raises(RuntimeError, match="gave up"):
+        ce._resident_launch(u, 9, cxs, cys, short)
+    assert torch.equal(ce.ens_resident(u, 9, cxs, cys),
+                       ce.ens_tiled_chunk(u, 9, cxs, cys))
+
+
+@pytest.mark.parametrize("window", [False, True])
+def test_resident_step_loops_agree_bitwise(card, window):
+    """Either step loop (``tile_steps``, ``window_steps``) under H5 and
+    H8: the same per-cell arithmetic, so the tile route's bits."""
+    from heat2d_tpu_torch.ops import cuda_family as cf
+    from heat2d_tpu_torch.ops.resident import plan_resident
+    u, cxs, cys = _batch(card, 3, (641, 1023))
+    plan = plan_resident(3, 641, 1023, 1, card)
+    assert torch.equal(ce._resident_launch(u, 27, cxs, cys, plan, window),
+                       ce.ens_tiled_chunk(u, 27, cxs, cys))
+    for problem in ("heat9", "advdiff", "reactdiff"):
+        scal = cf.scalar_block(problem, cxs * 0.6, cys * 0.6)
+        plan = plan_resident(3, 641, 1023,
+                             2 if problem == "heat9" else 1, card)
+        assert torch.equal(
+            cf._resident_launch(u, 27, scal, problem, plan, window),
+            cf.fam_tiled_chunk(u, 27, scal, problem))
+
+
 @pytest.mark.parametrize("b", [1, 3, 8])
 @pytest.mark.parametrize("shape", [(37, 53), (130, 257)])
 def test_ens_tile_multi_matches_plain(card, shape, b):
@@ -175,6 +241,20 @@ def test_family_kernels_match_plain(card, problem, b):
                          - ref.double()).abs().max())
             assert err <= tol, (fn.__name__, n, err, tol)
     assert cf.launch_counts() == {"fam_resident": 3, "fam_tile_multi": 3}
+
+
+@pytest.mark.parametrize("b", [1, 8])
+@pytest.mark.parametrize("problem", ["heat9", "advdiff", "reactdiff"])
+def test_fam_resident_equals_the_tile_sweeps_bitwise(card, problem, b):
+    """H8's on-chip sweep against the H9 route, bit for bit."""
+    from heat2d_tpu_torch.ops import cuda_family as cf
+    u, cxs, cys = _batch(card, b, (641, 1023))
+    scal = cf.scalar_block(problem, cxs * 0.6, cys * 0.6)
+    for n in (1, 9, 27):
+        cf.reset_launch_counts()
+        got = cf.fam_resident(u, n, scal, problem)
+        assert cf.launch_counts() == {"fam_resident": 1, "fam_tile_multi": 0}
+        assert torch.equal(got, cf.fam_tiled_chunk(u, n, scal, problem))
 
 
 @pytest.mark.parametrize("shape", [(37, 53), (130, 257)])
