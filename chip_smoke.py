@@ -15,8 +15,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    (cx, cy), H7 with a mixed ``active`` vector (frozen members bitwise
    unchanged, their residual exactly 0); H8/H9 for heat9, advdiff and
    reactdiff (B in {1, 3, 8}, 37x53 and 4099x4097, nsub in {1, 5, 8},
-   within a per-family bound, ``family_tol``); H10/H11 at B in {1, 3} on
-   ragged shapes with diffusion numbers up to 51.2 (``td_tol``);
+   within a per-family bound, ``family_tol``), and H9 bit for bit at the
+   serving path's 4 x 4096^2 at the plan's depth; H10/H11 at B in {1, 3}
+   on ragged shapes with diffusion numbers up to 51.2 (``td_tol``), and
+   bit for bit on the hoisted coefficients (``td_coeffs``, itself bitwise
+   against its plain version) at 1 and 4 members of 4096^2;
 4. main path: ``Heat2DSolver`` in mode ``pallas`` against mode ``serial``
    on the card: 4096^2 x 240 steps fixed, the same with convergence
    (interval 20) in both step forms, and 640x1024x10000 on the resident
@@ -62,7 +65,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    grid, 2560x2048, in hybrid with its convergence defaults against
    serial; launch counters, zeroed just before, show H12-H14 ran;
 11. the ``kernels`` line: the shape timed, time, bound, plain and library
-   times of each kernel H1-H14 at its path's shapes;
+   times of each kernel H1-H14 and the coefficient pass at its path's
+   shapes (H9 with its plan, its build on the card and the plan sweep
+   over depths that chose it; H10/H11 solve only, beside
+   the call with its coefficient pass; H10's two builds, coefficients in
+   shared memory or through the read-only cache);
 12. headline: Mcells/s at 4096^2 by the two-point protocol of bench.py.
 
 The last line of standard output is ``{"ok": true, "device": ...}``. The
@@ -98,6 +105,7 @@ SOURCES = {
     "ens_tile_multi_conv": "heat2d_tpu_torch/csrc/ensemble.cu",
     "fam_resident": "heat2d_tpu_torch/csrc/family.cu",
     "fam_tile_multi": "heat2d_tpu_torch/csrc/family.cu",
+    "td_coeffs": "heat2d_tpu_torch/csrc/tridiag.cu",
     "td_rows": "heat2d_tpu_torch/csrc/tridiag.cu",
     "td_lanes": "heat2d_tpu_torch/csrc/tridiag.cu",
     "shard_tile_multi": "heat2d_tpu_torch/csrc/shard.cu",
@@ -114,6 +122,7 @@ REPLACES = {
     "ens_tile_multi_conv": "heat2d_tpu/models/ensemble.py:357",
     "fam_resident": "heat2d_tpu/problems/runners.py:124",
     "fam_tile_multi": "heat2d_tpu/problems/runners.py:181",
+    "td_coeffs": "heat2d_tpu/ops/tridiag.py:219",
     "td_rows": "heat2d_tpu/ops/tridiag.py:324",
     "td_lanes": "heat2d_tpu/ops/tridiag.py:349",
     "shard_tile_multi": "heat2d_tpu/ops/pallas_stencil.py:1618",
@@ -206,19 +215,34 @@ def phase_toolchain(torch) -> dict:
 
 
 def phase_build() -> dict:
+    """Every library built; the card's limits; the plans of the resident
+    sweeps at leg (a)/(e)'s shape and of H9 at each family's depth on
+    4096^2 (registers and local bytes a thread as the build reports them,
+    blocks per SM by the occupancy query and as the planner states them)."""
     from heat2d_tpu_torch.ops import _build
+    from heat2d_tpu_torch.ops import cuda_family as cf
     from heat2d_tpu_torch.ops import cuda_stencil as cs
     from heat2d_tpu_torch.ops.resident import plan_resident
     t0 = time.perf_counter()
     libs = _build.build_all()
     caps = cs.device_caps("cuda")
+    h9 = {}
+    for fam in FAMILY_FLOPS:
+        plan = cf.tile_plan(4096, 4096, fam, "cuda", cf.SWEEP_TSTEPS[fam])
+        h9[fam] = {"tsteps": cf.SWEEP_TSTEPS[fam], "ring": plan.tsteps,
+                   "tile": [plan.ty, plan.tx],
+                   "planned_blocks_per_sm": cf.blocks_per_sm(plan),
+                   **cf.tile_info(fam, plan)}
+        fail_unless(h9[fam]["blocks_per_sm"] >= 1,
+                    f"H9 {fam}: no block of its plan fits an SM: {h9[fam]}")
     info = {"phase": "build", "seconds": time.perf_counter() - t0,
             "libraries": [str(p.name) for p in libs],
             "caps": caps._asdict(),
             "resident_plans": {
                 name: plan_resident(8, 640, 1024, w, "cuda")._asdict()
                 for name, w in (("ens_resident", 1), ("fam_resident_heat9",
-                                                      2))}}
+                                                      2))},
+            "fam_tile_plans": h9}
     emit(info)
     return info
 
@@ -502,12 +526,13 @@ def phase_family_kernels(torch) -> dict:
                     before = cf.launch_counts()
                     cf.fam_resident(u, 9, scal, problem)
                     after = cf.launch_counts()
+                    sweeps = len(cf.sweep_schedule(9, problem))
                     fail_unless(
                         after["fam_resident"] == before["fam_resident"]
                         and after["fam_tile_multi"]
-                        == before["fam_tile_multi"] + 2,
+                        == before["fam_tile_multi"] + sweeps,
                         f"H8 {problem} B=8 {shape}: served by {after} "
-                        f"after {before}, not by two H9 sweeps")
+                        f"after {before}, not by {sweeps} H9 sweeps")
                     checks += 1
         for shape, b in resident_cases():
             u = torch.rand((b,) + shape, generator=g, device="cuda")
@@ -538,6 +563,21 @@ def phase_family_kernels(torch) -> dict:
                     f"H8 by window_steps {problem} B={b} {shape} "
                     f"steps={n}: differs from the tile-sweep route")
                 checks += 1
+    # H9 at the serving path's shape (legs e band), bit for bit: one sweep
+    # at the plan's depth, and 8 steps as the path sweeps them.
+    for problem, (lo, hi) in FAMILY_COEFS.items():
+        u = torch.rand((4, 4096, 4096), generator=g, device="cuda")
+        cxs, cys = (torch.rand(4, generator=g, device="cuda") * (hi - lo)
+                    + lo for _ in range(2))
+        scal = cf.scalar_block(problem, cxs, cys)
+        for n, fn in ((cf.SWEEP_TSTEPS[problem], cf.fam_tile_multi),
+                      (8, cf.fam_tiled_chunk)):
+            fail_unless(torch.equal(fn(u, n, scal, problem),
+                                    cf.fam_multi_step_plain(u, n, scal,
+                                                            problem)),
+                        f"fam_tile_multi {problem} 4 x 4096^2, {n} steps "
+                        f"({fn.__name__}): not bitwise equal to plain")
+            checks += 1
     torch.cuda.synchronize()
     info = {"phase": "family_kernels", "checks": checks,
             "max_abs_err": worst}
@@ -547,7 +587,10 @@ def phase_family_kernels(torch) -> dict:
 
 def phase_tridiag_kernels(torch) -> dict:
     """H10 and H11 against their plain versions: B in {1, 3}, ragged
-    shapes, diffusion numbers up to 51.2."""
+    shapes, diffusion numbers up to 51.2. Then the paths' shapes bit for
+    bit, on the hoisted coefficients: one member of 4096^2 at c = 51.2
+    (the ADI path) and leg (f)'s four; and the coefficient pass
+    (``td_coeffs``) against its plain version."""
     from heat2d_tpu_torch.ops import tridiag as td
     g = torch.Generator(device="cuda")
     g.manual_seed(1615)
@@ -568,6 +611,21 @@ def phase_tridiag_kernels(torch) -> dict:
                 fail_unless(err <= tol, f"{name} B={b} {shape}: max_abs_err "
                             f"{err} > {tol}")
                 checks += 1
+    for c in ([51.2], [51.2, 25.6, 12.8, 3.2]):
+        c = torch.tensor(c, device="cuda")
+        rhs = torch.rand((len(c), 4096, 4096), generator=g,
+                         device="cuda") * 1e3
+        coef = td.td_coeffs(c, 4096)
+        fail_unless(torch.equal(coef, td.td_coeffs_plain(c, 4096)),
+                    f"td_coeffs B={len(c)} n=4096: not bitwise equal to "
+                    f"plain")
+        for name, fn, plain in (("td_rows", td.td_rows, td.td_rows_plain),
+                                ("td_lanes", td.td_lanes,
+                                 td.td_lanes_plain)):
+            fail_unless(torch.equal(fn(rhs, c, coef), plain(rhs, c)),
+                        f"{name} B={len(c)} 4096^2 on the hoisted "
+                        f"coefficients: not bitwise equal to plain")
+        checks += 3
     torch.cuda.synchronize()
     info = {"phase": "tridiag_kernels", "checks": checks,
             "max_abs_err": worst}
@@ -983,72 +1041,164 @@ def family_tridiag_kernel_rows(torch) -> list:
                          1),
         bound_ms=bnd, bound_by=by, library_ms=None))
 
-    # H9: leg (e), 4 members of 4096^2, one T = 8 sweep.
-    b, t = 4, cf.DEFAULT_TSTEPS
-    u = inidat(4096, 4096, device="cuda").expand(b, 4096, 4096).contiguous()
-    cxs = torch.tensor([0.03, 0.06, 0.09, 0.12], device="cuda")
-    scal = cf.scalar_block(fam, cxs, 0.17 - cxs)
-    bnd, by = bound_ms(2 * u.numel() * 4, FAMILY_FLOPS[fam] * u.numel() * t)
-    rows.append(dict(
-        name="fam_tile_multi",
-        shape="heat9, 4 x 4096x4096, one T=8 sweep",
-        ms=time_ms(lambda: cf.fam_tile_multi(u, t, scal, fam), 20),
-        plain_ms=time_ms(lambda: cf.fam_multi_step_plain(u, t, scal, fam),
-                         5),
-        bound_ms=bnd, bound_by=by, library_ms=None))
+    rows.append(family_tile_row(torch))
 
-    # H10 / H11: one member's 4096 systems of 4096 unknowns, c = 51.2.
+    # H10 / H11: one member's 4096 systems of 4096 unknowns, c = 51.2,
+    # on the hoisted coefficients (``ms``, solve only); ``with_coeffs_ms``
+    # is the call that computes its own (cp, mi) first. The coefficient
+    # pass is a row of its own: n dependent steps, two IEEE divisions
+    # each, no bound worth the name.
     rhs = inidat(4096, 4096, device="cuda")[None].contiguous()
     c = torch.tensor([51.2], device="cuda")
-    bnd, by = bound_ms(2 * rhs.numel() * 4 + 4,
-                       TD_FLOPS * rhs.numel() + 4 * 4096)
+    coef = td.td_coeffs(c, 4096)
+    coeffs_ms = time_ms(lambda: td.td_coeffs(c, 4096), 20)
+    bnd, by = bound_ms(4 + 2 * 4096 * 4, 4 * 4096)
+    rows.append(dict(
+        name="td_coeffs", shape="1 member, n = 4096, c=51.2",
+        ms=coeffs_ms,
+        plain_ms=time_ms(lambda: td.td_coeffs_plain(c, 4096), 2),
+        bound_ms=bnd, bound_by=by, library_ms=None))
+    bnd, by = bound_ms(2 * rhs.numel() * 4 + 4 + 2 * 4096 * 4,
+                       TD_FLOPS * rhs.numel())
     for name, fn, plain in (("td_rows", td.td_rows, td.td_rows_plain),
                             ("td_lanes", td.td_lanes, td.td_lanes_plain)):
         rows.append(dict(
-            name=name, shape="1 x 4096 systems of 4096, c=51.2",
-            ms=time_ms(lambda: fn(rhs, c), 20),
+            name=name, shape="1 x 4096 systems of 4096, c=51.2, solve only",
+            ms=time_ms(lambda: fn(rhs, c, coef), 20),
+            with_coeffs_ms=time_ms(lambda: fn(rhs, c), 20),
+            coeffs_ms=coeffs_ms,
             plain_ms=time_ms(lambda: plain(rhs, c), 2),
             bound_ms=bnd, bound_by=by, library_ms=None))
+    plan = td.plan_td_rows(1, 4096, 4096, *caps_of(torch))
+    rows[-2]["plan"] = plan._asdict()
+    rows[-2]["variants_ms"] = td_rows_variants(torch, rhs, c, coef, plan)
     return rows
+
+
+def td_rows_variants(torch, rhs, c, coef, plan) -> dict:
+    """H10's two builds (coefficients in shared memory, as the plan has
+    them here, or through the read-only cache, as above ~24k rows) at the
+    plan's warps, each timed and checked bitwise against the plain
+    version."""
+    from heat2d_tpu_torch.ops import tridiag as td
+    nb, n, m = rhs.shape
+    want = td.td_rows_plain(rhs, c, coef)
+    out = {}
+    for coef_smem in (1, 0):
+        got = torch.empty_like(rhs)
+
+        def run():
+            td._check(td._lib().heat_td_rows(
+                td._ptr(rhs), td._ptr(got), td._ptr(c), td._ptr(coef), nb,
+                n, m, plan.warps, coef_smem, td._stream(rhs)),
+                "td_rows variant")
+        key = f"coef_smem={coef_smem}"
+        out[key] = time_ms(run, 20)
+        fail_unless(torch.equal(got, want),
+                    f"H10 {key} differs from td_rows_plain")
+    return out
+
+
+def caps_of(torch) -> tuple:
+    """(SMs, opt-in shared memory per block) of the card."""
+    from heat2d_tpu_torch.ops import cuda_stencil as cs
+    caps = cs.device_caps("cuda")
+    return caps.sm_count, caps.smem_optin
+
+
+#: H9's plan sweep: the depths T tried per family.
+PLAN_SWEEP_T = (3, 4, 6, 8)
+
+
+def family_tile_row(torch) -> dict:
+    """H9 at the serving path's shape (legs e band: 4 members of 4096^2)
+    for heat9, the widest family: ``ms`` one sweep at the plan's depth T,
+    ``per_8_steps_ms`` 8 steps as the path sweeps them; the plan
+    (``cuda_family.SWEEP_TSTEPS``, ``FAM_WARPS``) and its build on the
+    card (registers, local bytes, blocks per SM); ``plan_sweep_ms``: per
+    8 steps at every depth in ``PLAN_SWEEP_T``, per family, from which
+    the plan is chosen. The bound is per sweep at the plan's depth."""
+    from heat2d_tpu_torch.ops import cuda_family as cf
+    from heat2d_tpu_torch.ops.init import inidat
+    b = 4
+    u = inidat(4096, 4096, device="cuda").expand(b, 4096, 4096).contiguous()
+    cxs = torch.tensor([0.03, 0.06, 0.09, 0.12], device="cuda")
+    fams = {}
+    for fam in FAMILY_FLOPS:
+        scal = cf.scalar_block(fam, cxs, 0.17 - cxs)
+        t = cf.SWEEP_TSTEPS[fam]
+        plan = cf.tile_plan(4096, 4096, fam, "cuda", t)
+        sweep = {}
+        for depth in PLAN_SWEEP_T:
+            p = cf.tile_plan(4096, 4096, fam, "cuda", depth)
+            sweep[f"T={depth}"] = time_ms(
+                functools.partial(cf._tile_launch, u, depth, scal, fam, p),
+                10) * 8 / depth
+        fams[fam] = dict(
+            ms=time_ms(lambda: cf.fam_tile_multi(u, t, scal, fam), 20),
+            per_8_steps_ms=time_ms(
+                lambda: cf.fam_tiled_chunk(u, 8, scal, fam), 10),
+            plan={"tsteps": t, "ring": plan.tsteps, "tile": [plan.ty,
+                                                             plan.tx],
+                  **cf.tile_info(fam, plan)},
+            plan_sweep_ms=sweep)
+    fam = "heat9"
+    scal = cf.scalar_block(fam, cxs, 0.17 - cxs)
+    t = cf.SWEEP_TSTEPS[fam]
+    bnd, by = bound_ms(2 * u.numel() * 4, FAMILY_FLOPS[fam] * u.numel() * t)
+    return dict(
+        name="fam_tile_multi",
+        shape=f"heat9, 4 x 4096x4096, one T={t} sweep",
+        **fams.pop(fam),
+        plain_ms=time_ms(lambda: cf.fam_multi_step_plain(u, t, scal, fam),
+                         5),
+        bound_ms=bnd, bound_by=by, library_ms=None,
+        other_families=fams)
 
 
 def adi_step_breakdown(torch, n: int, c: float) -> dict:
     """Where one ADI step of ``adi_sweep_kernel`` goes on an n x n
     member: each of its operations timed alone by CUDA events, and the
-    whole step. Beside it, the y half solved as H11 does it and as a
-    transpose, H10 and a transpose back, on that member and on leg (f)'s
-    four members."""
+    whole step as a run takes it (``step``: on the run's hoisted
+    coefficients) and alone (``step_with_coeffs``: the two coefficient
+    passes first; ``coeffs``: those passes). Beside it, the y half solved
+    as H11 does it and as a transpose, H10 and a transpose back, on that
+    member and on leg (f)'s four members."""
     from heat2d_tpu_torch.ops import tridiag as td
     from heat2d_tpu_torch.ops.init import inidat
 
     u = inidat(n, n, device="cuda")[None].contiguous()
     cs_ = torch.tensor([c], device="cuda")
     cb = cs_.reshape(-1, 1, 1)
+    kx, ky = coefs = td.adi_coeffs(u, cs_, cs_)
     rhs1 = td._rhs_half(u, cb, 1)
-    x = td.td_rows(rhs1, cs_)
+    x = td.td_rows(rhs1, cs_, kx)
     ustar = td._hold_edges(x, u)
     rhs2 = td._rhs_half(ustar, cb, 0)
-    y = td.td_lanes(rhs2, cs_)
+    y = td.td_lanes(rhs2, cs_, ky)
     u4 = u.expand(4, n, n).contiguous()
     c4 = torch.tensor([51.2, 51.2, 12.8, 3.2], device="cuda")
+    coefs4 = td.adi_coeffs(u4, c4, c4)
     rhs4 = td._rhs_half(u4, c4.reshape(-1, 1, 1), 0)
 
-    def xpose(r, cc):
-        return td.td_rows(r.transpose(1, 2).contiguous(), cc) \
+    def xpose(r, cc, k):
+        return td.td_rows(r.transpose(1, 2).contiguous(), cc, k) \
             .transpose(1, 2).contiguous()
 
     parts = {
+        "coeffs": lambda: td.adi_coeffs(u, cs_, cs_),
         "rhs_half_y": lambda: td._rhs_half(u, cb, 1),
-        "td_rows_x": lambda: td.td_rows(rhs1, cs_),
+        "td_rows_x": lambda: td.td_rows(rhs1, cs_, kx),
         "hold_edges_x": lambda: td._hold_edges(x, u),
         "rhs_half_x": lambda: td._rhs_half(ustar, cb, 0),
-        "td_lanes_y": lambda: td.td_lanes(rhs2, cs_),
+        "td_lanes_y": lambda: td.td_lanes(rhs2, cs_, ky),
         "hold_edges_y": lambda: td._hold_edges(y, u),
-        "step": lambda: td.adi_sweep_kernel(u, cs_, cs_),
-        "y_half_xpose": lambda: xpose(rhs2, cs_),
-        "b4_td_lanes_y": lambda: td.td_lanes(rhs4, c4),
-        "b4_y_half_xpose": lambda: xpose(rhs4, c4),
-        "b4_step": lambda: td.adi_sweep_kernel(u4, c4, c4),
+        "step": lambda: td.adi_sweep_kernel(u, cs_, cs_, coefs),
+        "step_with_coeffs": lambda: td.adi_sweep_kernel(u, cs_, cs_),
+        "y_half_xpose": lambda: xpose(rhs2, cs_, ky),
+        "b4_td_lanes_y": lambda: td.td_lanes(rhs4, c4, coefs4[1]),
+        "b4_y_half_xpose": lambda: xpose(rhs4, c4, coefs4[1]),
+        "b4_step": lambda: td.adi_sweep_kernel(u4, c4, c4, coefs4),
     }
     return {k: time_ms(fn, 10) for k, fn in parts.items()}
 
@@ -1144,7 +1294,7 @@ def phase_implicit_path(torch) -> dict:
         runs.append(adi_check(torch, got, want, cfg))
         emit({"phase": "implicit_path_run", **runs[-1]})
     counts = td.launch_counts()
-    for name in ("td_rows", "td_lanes"):
+    for name in ("td_coeffs", "td_rows", "td_lanes"):
         fail_unless(counts[name] > 0, f"{name} never launched on the ADI "
                     f"path")
     fail_unless([r["route"] for r in runs] == ["adi-kernel", "adi-kernel"],
@@ -1297,7 +1447,8 @@ def phase_serve_families(torch) -> dict:
                 and "does not support method 'adi'" in rejected.message
                 and "nonlinear source term" in rejected.message,
                 f"leg h: reactdiff x adi answered {rejected!r}")
-    for name in ("fam_resident", "fam_tile_multi", "td_rows", "td_lanes"):
+    for name in ("fam_resident", "fam_tile_multi", "td_coeffs", "td_rows",
+                 "td_lanes"):
         fail_unless(counts[name] > 0, f"kernel {name} never launched on "
                     f"the serving path")
 
@@ -1733,8 +1884,8 @@ def main() -> int:
         launches = {**main_path["launches"], **serve["launch_counts"],
                     **serve_fam["launch_counts"],
                     **sharded_path["launches"]}
-        launches["td_rows"] += implicit["launches"]["td_rows"]
-        launches["td_lanes"] += implicit["launches"]["td_lanes"]
+        for name in ("td_coeffs", "td_rows", "td_lanes"):
+            launches[name] += implicit["launches"][name]
         rows = phase_kernel_times(
             torch, launches,
             {**kern["max_abs_err"], **ens_kern["max_abs_err"],

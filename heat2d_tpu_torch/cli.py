@@ -30,6 +30,9 @@ the JAX CLI's virtual host devices share the host:
 
     python -m heat2d_tpu_torch.cli --mode hybrid --gridx 2 --gridy 2 \\
         --host-device-count 4 --nxprob 4096 --nyprob 4096 --steps 240
+
+``--device-info`` prints the device summary (name, count, power limit)
+and exits without running a kernel.
 """
 
 from __future__ import annotations
@@ -138,6 +141,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "expression instead of the FMA factoring, making "
                         "results bitwise identical to --mode serial")
     p.add_argument("--debug", action="store_true")
+    p.add_argument("--device-info", action="store_true",
+                   help="print device summary (detailsGPU analogue) and exit")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="run on the CUDA card (default) or, with the "
                         "plain PyTorch versions of the kernels, the CPU")
@@ -233,6 +238,10 @@ def _run_ensemble_cli(args, cfg) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.device_info:
+        from heat2d_tpu_torch.utils.device import print_device_summary
+        print_device_summary(args.device)
+        return 0
     try:
         cfg = HeatConfig(
             nxprob=args.nxprob, nyprob=args.nyprob, steps=args.steps,

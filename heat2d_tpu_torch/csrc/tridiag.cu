@@ -3,35 +3,64 @@
 // method, (I - (c/2) d2) x = rhs with identity rows 0 and n-1, one
 // diffusion number c per member.
 //
-// Two kernels, the port of kernel TD of heat2d_tpu/ops/tridiag.py; the
-// Python wrappers, their plain PyTorch versions and the launch counters
-// live in heat2d_tpu_torch/ops/tridiag.py.
+// The port of kernel TD of heat2d_tpu/ops/tridiag.py; the Python
+// wrappers, their plain PyTorch versions and the launch counters live in
+// heat2d_tpu_torch/ops/tridiag.py.
 //
+//   k_td_coeffs    <- _coeff_loops (TD, tridiag.py:219): the elimination
+//                     scalars of each member's matrix, one warp per
+//                     member, in the JAX package's order: m = b -
+//                     a*cp[i-1], mi = 1/m, cp = a/m, with a = -c/2 and
+//                     b = 1 + c on interior rows, (0, 1) on rows 0 and
+//                     n-1.  (cp, mi) depend on (c, n) only, so a run
+//                     computes them once and hands them to every solve
+//                     (the TPU kernel recomputes them per program; XLA
+//                     hoists them out of the jnp route's loop).  The
+//                     recurrence reaches a float fixed point within a few
+//                     dozen rows (38 at c = 51.2); the warp fills the rows
+//                     after it.
 //   H10 k_td_rows  <- _tridiag_rows_kernel (TD, tridiag.py:324): solve
-//                     along axis 1 of a (B, n, m) batch: one thread per
-//                     system, that is one column j of member b.  The
-//                     forward sweep and the back substitution walk the
-//                     rows, and neighbouring threads read neighbouring
-//                     addresses (coalesced).
+//                     along axis 1 of a (B, n, m) batch.  One warp takes
+//                     a panel of 32 adjacent columns of one member (one
+//                     system a lane, 128-byte coalesced rows).
 //   H11 k_td_lanes <- _tridiag_lanes_kernel (TD, tridiag.py:349): solve
 //                     along axis 2 of a (B, rows, n) batch: one thread per
 //                     row, eliminating along the columns.  Neighbouring
 //                     threads read addresses a whole row apart (strided,
 //                     uncoalesced): the simple first version.
 //
-// Both first run k_td_coeffs, one thread per member: the elimination
-// scalars of the member's matrix, in the order of the JAX package's
-// _coeff_loops (tridiag.py:219): m = b - a*cp[i-1], mi = 1/m, cp = a/m,
-// with a = -c/2 and b = 1 + c on interior rows, (0, 1) on rows 0 and
-// n-1.  The solve is then out[i] = (rhs[i] - a*out[i-1]) * mi[i] forward
-// and out[i] -= cp[i] * out[i+1] back.  Every operation rounds on its
-// own (__f*_rn), as the plain version does.
+// The solve is out[i] = (rhs[i] - a_i*out[i-1]) * mi[i] forward (a_i = a
+// on rows 1..n-2, 0 on rows 0 and n-1; row 0 is then rhs[0] exactly) and
+// out[i] -= cp[i] * out[i+1] back.  Every operation rounds on its own
+// (__f*_rn), as the plain version does, so kernel and plain version
+// agree bit for bit.
 //
-// A system is a sequential recurrence: each thread does O(n) dependent
-// steps, and with one thread per system a 4096 x 4096 member gives only
-// 4096 threads (about one warp per SM).  The kernels are bound by that
-// latency, far below the card's byte bound; the forward loop is unrolled
-// so that each thread keeps several independent rhs loads in flight.
+// What bounds H10, and what its design does about it.  By bytes: the
+// batch is read once and written once, 8 bytes an unknown, 0.040 ms for
+// 4096 x 4096 at 3.35 TB/s; the two sweeps as written read and write it
+// twice (0.080 ms) less what the back sweep finds in the 50 MB L2 (it
+// starts on the rows the forward sweep wrote last).  By the dependent
+// chain: 3 rounded operations a row forward and 2 back, ~20 clocks a row,
+// ~8192 x 10 clocks ~ 45 us for a 4096-row system when all systems run at
+// once (4096 columns are 128 warps: one per SM).  The recurrence must
+// never wait on memory (on the card a warp's sweep still runs at a
+// fraction of its chain's rate, whatever the staging tried: PERF.md):
+//   - the member's (cp, mi) sit in shared memory (8n bytes, 32 KB at
+//     n = 4096), copied once per block; where 8n does not fit beside the
+//     rings (n above ~24k rows) they are read through the read-only cache;
+//   - each warp stages its panel through a ring of STAGES slots of
+//     STAGE_ROWS rows in shared memory with cp.async copies issued
+//     STAGES-1 stages ahead of the rows being eliminated: ~28 KB in
+//     flight per warp, what one SM's share of the bandwidth needs at
+//     ~1 us of latency.  Each lane copies its own column 4 bytes at a
+//     time, so a lane reads only what it copied and the warp needs no
+//     barrier (16-byte copies, which need one, timed no faster:
+//     PERF.md).  A stage gathers its rows into registers before its
+//     chain runs;
+//   - the forward sweep writes out (the normalised dp) coalesced as it
+//     goes; the back sweep stages out the same way, from the last row up.
+// A panel's last lanes past m are masked (no copy, no store); a last
+// stage of fewer rows runs the same loop with a shorter count.
 //
 // Every entry point returns a cudaError_t (0 on success); the Python
 // wrapper raises on anything else.
@@ -40,29 +69,227 @@
 
 namespace {
 
-constexpr int COEF_THREADS = 32;
-constexpr int SOLVE_THREADS = 32;
+constexpr int LANES_THREADS = 32;
+constexpr int PANEL = 32;        // lanes of a warp, floats of a ring row
+constexpr int STAGE_ROWS = 32;   // rows a ring slot holds
+constexpr int STAGES = 8;        // ring slots per warp (a power of two)
+constexpr int RING = STAGES * STAGE_ROWS * PANEL;   // floats per warp
 
-// coef: (nb, 2, n) -- cp then mi of each member.
+// Shared memory of one member's (cp, mi), rounded up to 16 bytes.
+__host__ __device__ constexpr int coef_floats(int n) {
+  return (2 * n + 3) / 4 * 4;
+}
+
+// coef: (nb, 2, n) -- cp then mi of each member; one warp per member.
+// The recurrence is sequential, and lane 0 runs it; but each row's (cp,
+// mi) is a function of the previous row's cp alone (rows 1..n-2 share
+// a and d), so once a row repeats its predecessor's cp bit for bit every
+// later interior row repeats it too.  From that row on the warp fills the
+// rest in parallel: the same values the sequential loop would compute,
+// without its ~100 clocks of division a row.
 __global__ void k_td_coeffs(const float* __restrict__ c,
                             float* __restrict__ coef, int nb, int n) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= nb) return;
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x;
   const float a = __fmul_rn(-0.5f, c[b]);
   const float d = __fadd_rn(1.0f, c[b]);
   float* cp = coef + (size_t)b * 2 * n;
   float* mi = cp + n;
-  cp[0] = 0.0f;
-  mi[0] = 1.0f;
-  float cprev = 0.0f;
-  for (int i = 1; i < n; ++i) {
-    const bool interior = i <= n - 2;
-    const float ai = interior ? a : 0.0f;
-    const float m = __fsub_rn(interior ? d : 1.0f, __fmul_rn(ai, cprev));
-    mi[i] = __fdiv_rn(1.0f, m);
-    cprev = __fdiv_rn(ai, m);
-    cp[i] = cprev;
+  // Interior rows [fixed, n-2] all hold (cprev, mprev); lane 0's cprev is
+  // cp[n-2] (cp[0] = 0 for n < 3) when the loop ends.
+  int fixed = n - 1;
+  float cprev = 0.0f, mprev = 1.0f;
+  if (lane == 0) {
+    cp[0] = 0.0f;
+    mi[0] = 1.0f;
+    for (int i = 1; i <= n - 2; ++i) {
+      const float m = __fsub_rn(d, __fmul_rn(a, cprev));
+      const float inv = __fdiv_rn(1.0f, m);
+      const float next = __fdiv_rn(a, m);
+      const bool repeats = __float_as_uint(next) == __float_as_uint(cprev);
+      cprev = next;
+      mprev = inv;
+      if (repeats) {
+        // row i+1 sees the cp row i saw: the same m, the same (cp, mi)
+        fixed = i;
+        break;
+      }
+      mi[i] = inv;
+      cp[i] = next;
+    }
   }
+  fixed = __shfl_sync(0xffffffffu, fixed, 0);
+  const float cfix = __shfl_sync(0xffffffffu, cprev, 0);
+  const float mfix = __shfl_sync(0xffffffffu, mprev, 0);
+  for (int i = fixed + lane; i <= n - 2; i += 32) {
+    cp[i] = cfix;
+    mi[i] = mfix;
+  }
+  if (lane == 0 && n >= 2) {
+    // row n-1: a = 0, b = 1
+    const float m = __fsub_rn(1.0f, __fmul_rn(0.0f, cprev));
+    mi[n - 1] = __fdiv_rn(1.0f, m);
+    cp[n - 1] = __fdiv_rn(0.0f, m);
+  }
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One stage of a warp's panel into a ring slot: rows row0 + dir*k, k <
+// cnt, of the panel whose column 0 is `col0` (row stride m), row k to
+// slot[k * PANEL + lane], each lane its own column.  The group is
+// committed in every lane, empty or not, so the group count stays the
+// same in all of them.
+__device__ __forceinline__ void stage_in(float* slot, const float* col0,
+                                         int row0, int dir, int cnt,
+                                         size_t m, int lane, int cols) {
+  if (lane < cols) {
+    for (int k = 0; k < cnt; ++k)
+      cp_async4(slot + k * PANEL + lane,
+                col0 + lane + (size_t)(row0 + dir * k) * m);
+  }
+  cp_async_commit();
+}
+
+// H10: warp w of block (blockIdx.x, blockIdx.y) solves the panel of
+// columns [(blockIdx.x * warps + w) * 32, +32) of member blockIdx.y of a
+// (nb, n, m) batch.
+// COEF_SMEM: (cp, mi) copied into shared memory (8n bytes in front of the
+// rings), else read from coef through the read-only cache.  Each stage
+// first gathers its rows' values and coefficients into registers, then
+// runs the chain on them, so that no row's operations wait on a load; a
+// stage of interior rows (a_i = a throughout) runs without the per-row
+// edge test.
+template <bool COEF_SMEM>
+__global__ void __launch_bounds__(128) k_td_rows(
+    const float* __restrict__ rhs, float* __restrict__ out,
+    const float* __restrict__ c, const float* __restrict__ coef, int n,
+    int m) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.y;
+  const int warp = threadIdx.x / PANEL, lane = threadIdx.x % PANEL;
+  const int warps = blockDim.x / PANEL;
+  const float* gcp = coef + (size_t)b * 2 * n;
+  const float* gmi = gcp + n;
+  float* scp = smem;
+  float* smi = smem + n;
+  // the warp's ring: slot s, row k, column l at [(s*R + k)*32 + l], 16-byte
+  // aligned after the coefficients
+  float* ring = smem + (COEF_SMEM ? coef_floats(n) : 0) + warp * RING;
+  auto slot_of = [&](int s) {
+    return ring + (s % STAGES) * STAGE_ROWS * PANEL;
+  };
+
+  if (COEF_SMEM) {
+    for (int i = threadIdx.x; i < 2 * n; i += blockDim.x)
+      cp_async4(scp + i, gcp + i);
+    cp_async_commit();
+  }
+  const int j0 = (blockIdx.x * warps + warp) * PANEL;
+  const int cols = min(PANEL, m - j0);  // the panel's columns in the batch
+  const bool valid = lane < cols;
+  const size_t mm = (size_t)m;
+  const float* src = rhs + (size_t)b * n * m + j0;
+  float* dst = out + (size_t)b * n * m + j0;
+  const float a = __fmul_rn(-0.5f, c[b]);
+  auto cp_at = [&](int i) { return COEF_SMEM ? scp[i] : __ldg(gcp + i); };
+  auto mi_at = [&](int i) { return COEF_SMEM ? smi[i] : __ldg(gmi + i); };
+  float x[STAGE_ROWS], y[STAGE_ROWS];
+
+  // Forward sweep: stage s holds rows [s*R, s*R + R).
+  const int nf = (n + STAGE_ROWS - 1) / STAGE_ROWS;
+  auto fwd_cnt = [&](int s) {
+    return s < nf ? min(STAGE_ROWS, n - s * STAGE_ROWS) : 0;
+  };
+  for (int s = 0; s < STAGES - 1; ++s)
+    stage_in(slot_of(s), src, s * STAGE_ROWS, 1, fwd_cnt(s), mm, lane,
+                  cols);
+  if (COEF_SMEM) {
+    // The coefficient group is older than the STAGES-1 stage groups.
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+  }
+  float prev = 0.0f;
+  for (int s = 0; s < nf; ++s) {
+    const int t = s + STAGES - 1;
+    stage_in(slot_of(t), src, t * STAGE_ROWS, 1, fwd_cnt(t), mm, lane,
+                  cols);
+    cp_async_wait<STAGES - 1>();
+    const float* slot = slot_of(s) + lane;
+    const int row0 = s * STAGE_ROWS, cnt = fwd_cnt(s);
+#pragma unroll
+    for (int k = 0; k < STAGE_ROWS; ++k)
+      if (k < cnt) {
+        x[k] = slot[k * PANEL];
+        y[k] = mi_at(row0 + k);
+      }
+    float* o = dst + lane + row0 * mm;
+    if (row0 >= 1 && row0 + STAGE_ROWS <= n - 1) {
+#pragma unroll
+      for (int k = 0; k < STAGE_ROWS; ++k) {
+        prev = __fmul_rn(__fsub_rn(x[k], __fmul_rn(a, prev)), y[k]);
+        if (valid) o[k * mm] = prev;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < STAGE_ROWS; ++k)
+        if (k < cnt) {
+          const int i = row0 + k;
+          const float ai = (unsigned)(i - 1) < (unsigned)(n - 2) ? a : 0.0f;
+          prev = __fmul_rn(__fsub_rn(x[k], __fmul_rn(ai, prev)), y[k]);
+          if (valid) o[k * mm] = prev;
+        }
+    }
+  }
+
+  // Back substitution: stage s holds rows n-2 - s*R down to n-1 - (s+1)*R.
+  // It reads what the warp stored above: order those stores first.
+  __threadfence();
+  const int nbk = (n - 1 + STAGE_ROWS - 1) / STAGE_ROWS;
+  auto back_cnt = [&](int s) {
+    return s < nbk ? min(STAGE_ROWS, n - 1 - s * STAGE_ROWS) : 0;
+  };
+  for (int s = 0; s < STAGES - 1; ++s)
+    stage_in(slot_of(s), dst, n - 2 - s * STAGE_ROWS, -1, back_cnt(s),
+                  mm, lane, cols);
+  float next = prev;
+  for (int s = 0; s < nbk; ++s) {
+    const int t = s + STAGES - 1;
+    stage_in(slot_of(t), dst, n - 2 - t * STAGE_ROWS, -1, back_cnt(t),
+                  mm, lane, cols);
+    cp_async_wait<STAGES - 1>();
+    const float* slot = slot_of(s) + lane;
+    const int hi = n - 2 - s * STAGE_ROWS, cnt = back_cnt(s);
+#pragma unroll
+    for (int k = 0; k < STAGE_ROWS; ++k)
+      if (k < cnt) {
+        x[k] = slot[k * PANEL];
+        y[k] = cp_at(hi - k);
+      }
+    float* o = dst + lane + hi * mm;
+#pragma unroll
+    for (int k = 0; k < STAGE_ROWS; ++k)
+      if (k < cnt) {
+        next = __fsub_rn(x[k], __fmul_rn(y[k], next));
+        if (valid) o[-(ptrdiff_t)(k * mm)] = next;
+      }
+  }
+  cp_async_wait<0>();
 }
 
 // One system of n unknowns at `x + k*stride`, k = 0..n-1.
@@ -87,21 +314,6 @@ __device__ __forceinline__ void solve_system(const float* __restrict__ rhs,
   }
 }
 
-// H10: thread (blockIdx.x * 32 + threadIdx.x) solves column j of member
-// blockIdx.y of a (nb, n, m) batch.
-__global__ void k_td_rows(const float* __restrict__ rhs,
-                          float* __restrict__ out,
-                          const float* __restrict__ c,
-                          const float* __restrict__ coef, int n, int m) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  const int b = blockIdx.y;
-  if (j >= m) return;
-  const size_t base = (size_t)b * n * m + j;
-  const float* cp = coef + (size_t)b * 2 * n;
-  solve_system(rhs + base, out + base, (size_t)m, n,
-               __fmul_rn(-0.5f, c[b]), cp, cp + n);
-}
-
 // H11: thread (blockIdx.x * 32 + threadIdx.x) solves row i of member
 // blockIdx.y of a (nb, rows, n) batch.
 __global__ void k_td_lanes(const float* __restrict__ rhs,
@@ -117,10 +329,21 @@ __global__ void k_td_lanes(const float* __restrict__ rhs,
                cp + n);
 }
 
-cudaError_t coeffs(const float* c, float* coef, int nb, int n,
-                   cudaStream_t s) {
-  k_td_coeffs<<<(nb + COEF_THREADS - 1) / COEF_THREADS, COEF_THREADS, 0,
-                s>>>(c, coef, nb, n);
+template <bool COEF_SMEM>
+cudaError_t launch_rows(const float* rhs, float* out, const float* c,
+                        const float* coef, int nb, int n, int m, int warps,
+                        cudaStream_t s) {
+  const size_t smem =
+      ((COEF_SMEM ? coef_floats(n) : 0) + (size_t)warps * RING) *
+      sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      k_td_rows<COEF_SMEM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  const int panels = (m + PANEL - 1) / PANEL;
+  const dim3 grid((panels + warps - 1) / warps, nb);
+  k_td_rows<COEF_SMEM><<<grid, warps * PANEL, smem, s>>>(rhs, out, c, coef,
+                                                         n, m);
   return cudaGetLastError();
 }
 
@@ -132,25 +355,33 @@ const char* heat_error_string(int e) {
   return cudaGetErrorString((cudaError_t)e);
 }
 
-// Solve along axis 1 of the (nb, n, m) batch; coef is (nb, 2, n) scratch.
-int heat_td_rows(const float* rhs, float* out, const float* c, float* coef,
-                 int nb, int n, int m, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = coeffs(c, coef, nb, n, s);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((m + SOLVE_THREADS - 1) / SOLVE_THREADS, nb);
-  k_td_rows<<<grid, SOLVE_THREADS, 0, s>>>(rhs, out, c, coef, n, m);
+// (cp, mi) of every member: coef is (nb, 2, n).
+int heat_td_coeffs(const float* c, float* coef, int nb, int n,
+                   void* stream) {
+  k_td_coeffs<<<nb, 32, 0, (cudaStream_t)stream>>>(c, coef, nb, n);
   return cudaGetLastError();
 }
 
-// Solve along axis 2 of the (nb, rows, n) batch; coef is (nb, 2, n).
-int heat_td_lanes(const float* rhs, float* out, const float* c, float* coef,
-                  int nb, int rows, int n, void* stream) {
+// Solve along axis 1 of the (nb, n, m) batch with the (nb, 2, n)
+// coefficients of heat_td_coeffs: blocks of `warps` panels (1..4), the
+// coefficients in shared memory when coef_smem != 0.
+int heat_td_rows(const float* rhs, float* out, const float* c,
+                 const float* coef, int nb, int n, int m, int warps,
+                 int coef_smem, void* stream) {
+  if (warps < 1 || warps > 4) return cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e = coeffs(c, coef, nb, n, s);
-  if (e != cudaSuccess) return e;
-  const dim3 grid((rows + SOLVE_THREADS - 1) / SOLVE_THREADS, nb);
-  k_td_lanes<<<grid, SOLVE_THREADS, 0, s>>>(rhs, out, c, coef, rows, n);
+  return coef_smem
+             ? launch_rows<true>(rhs, out, c, coef, nb, n, m, warps, s)
+             : launch_rows<false>(rhs, out, c, coef, nb, n, m, warps, s);
+}
+
+// Solve along axis 2 of the (nb, rows, n) batch with the (nb, 2, n)
+// coefficients of heat_td_coeffs.
+int heat_td_lanes(const float* rhs, float* out, const float* c,
+                  const float* coef, int nb, int rows, int n, void* stream) {
+  const dim3 grid((rows + LANES_THREADS - 1) / LANES_THREADS, nb);
+  k_td_lanes<<<grid, LANES_THREADS, 0, (cudaStream_t)stream>>>(
+      rhs, out, c, coef, rows, n);
   return cudaGetLastError();
 }
 

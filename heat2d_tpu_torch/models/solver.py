@@ -134,12 +134,20 @@ def _implicit_runner(cfg: HeatConfig, device) -> engine.Runner:
         cxa = torch.full((1,), cfg.cx, dtype=torch.float32, device=device)
         cya = torch.full((1,), cfg.cy, dtype=torch.float32, device=device)
         route = "adi-kernel"
+        coefs = {}
+
+        def axes(u):
+            # (cp, mi) of both axes, computed once per grid shape
+            if u.shape not in coefs:
+                coefs[u.shape] = td.adi_coeffs(u[None], cxa, cya)
+            return coefs[u.shape]
 
         def step(u):
-            return td.adi_sweep_kernel(u[None], cxa, cya)[0]
+            return td.adi_sweep_kernel(u[None], cxa, cya, axes(u))[0]
 
         def multi(u, n):
-            return td.batched_adi_kernel(u[None], cxa, cya, steps=n)[0]
+            return td.batched_adi_kernel(u[None], cxa, cya, steps=n,
+                                         coefs=axes(u))[0]
     elif cfg.method == "adi":
         route = "adi-scan"
 

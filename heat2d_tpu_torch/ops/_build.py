@@ -52,10 +52,12 @@ SIGNATURES = {
         "heat_fam_resident": (_I, [_I, _P, _P, _P, _P, _P, _I, _I, _P]),
         "heat_fam_tile": (_I, [_I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _P]),
+        "heat_fam_tile_info": (_I, [_I, _I, _P]),
     },
     "tridiag": {
         "heat_error_string": (ctypes.c_char_p, [_I]),
-        "heat_td_rows": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
+        "heat_td_coeffs": (_I, [_P, _P, _I, _I, _P]),
+        "heat_td_rows": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
         "heat_td_lanes": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
     },
     "shard": {

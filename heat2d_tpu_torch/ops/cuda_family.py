@@ -15,7 +15,8 @@ H8    ``fam_resident``    every member ``steps`` steps in one cooperative
                           replaces B9 (``_family_ensemble_kernel``,
                           runners.py:124)
 H9    ``fam_tile_multi``  ``nsub <= T`` steps per sweep of shared-memory
-                          tiles with a ``W * T``-deep ring; replaces B10
+                          tiles with a ``W * nsub``-deep ring, strips of
+                          4 cells a thread; replaces B10
                           (``_family_band_kernel``, runners.py:181)
 ====  ==================  ===============================================
 
@@ -30,7 +31,9 @@ H8's state stays in shared memory, so it is bound by its step loop there
 against 128 bytes per clock and SM; on the H100 the instructions of the
 rounded update sequences bind first), then by its ring exchange of depth
 ``W * K`` once per K steps; the batch crosses device memory once each
-way. H9 is bound by one read and one write of the batch per sweep.
+way. H9 reads and writes the batch once per sweep, and is bound by its
+rounded update sequences on the recomputed ring; its paths sweep
+``SWEEP_TSTEPS[problem]`` steps at a time, a depth measured on the card.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises. Each launch adds one to the wrapper's
@@ -203,23 +206,44 @@ def fam_resident(u, steps: int, scal, problem: str):
     return _resident_launch(u, steps, scal, problem, plan)
 
 
-def tile_plan(nx: int, ny: int, problem: str, device):
-    """The H9 tile geometry: ``plan_tiles`` with a ring of ``W * T``."""
-    ring = get_family(problem).spec.halo_width * DEFAULT_TSTEPS
+#: Steps per H9 sweep on the families' paths (``fam_tiled_chunk``), from
+#: ``chip_smoke.py``'s plan sweep (``plan_sweep_ms``) on the H100: a
+#: shallower sweep recomputes less of its ring (heat9's W = 2 ring of 8
+#: at T = 4: 1.15 updates per centre cell-step, against 1.36 at T = 8)
+#: and keeps two blocks on an SM, at one more read and write of the
+#: batch per 8 steps. The W = 1 families ran as fast at T = 6 as at 8,
+#: and T = 8 takes one sweep per 8 steps.
+SWEEP_TSTEPS = {"heat9": 4, "advdiff": 8, "reactdiff": 8}
+
+#: Warps per H9 block (``FAM_BY`` of csrc/family.cu): 32 x FAM_WARPS
+#: threads, each updating strips of 4 cells of one column.
+FAM_WARPS = 16
+
+#: Shared memory of one SM (228 KB), of which each resident block also
+#: takes 1 KB for the system: what bounds blocks per SM besides threads.
+SM_SMEM_BYTES = 233472
+_BLOCK_RESERVED_SMEM = 1024
+
+
+def tile_plan(nx: int, ny: int, problem: str, device,
+              tsteps: int = DEFAULT_TSTEPS):
+    """The H9 tile geometry of sweeps of ``tsteps`` steps: ``plan_tiles``
+    with a ring of ``W * tsteps``."""
+    ring = get_family(problem).spec.halo_width * tsteps
     return plan_tiles(nx, ny, ring, smem_limit(device))
 
 
-def fam_tile_multi(u, nsub: int, scal, problem: str):
-    """H9: ``nsub <= T`` steps of every member in one sweep of
-    shared-memory tiles with a ``W * T``-deep ring."""
-    _validate(u, scal, problem, "fam_tile_multi")
-    if not 1 <= nsub <= DEFAULT_TSTEPS:
-        raise ValueError(f"nsub must be in [1, T={DEFAULT_TSTEPS}], got "
-                         f"{nsub}")
-    if u.device.type == "cpu":
-        return fam_multi_step_plain(u, nsub, scal, problem)
+def blocks_per_sm(plan) -> int:
+    """H9 blocks one SM holds at ``plan``'s shared memory and
+    ``FAM_WARPS`` warps a block (2048 threads an SM); the card's own
+    count, with registers, is ``tile_info``'s."""
+    by_smem = SM_SMEM_BYTES // (plan.smem_bytes + _BLOCK_RESERVED_SMEM)
+    return min(by_smem, 2048 // (32 * FAM_WARPS))
+
+
+def _tile_launch(u, nsub: int, scal, problem: str, plan):
+    """One H9 launch of ``plan`` (ring ``plan.tsteps >= W * nsub``)."""
     nb, nx, ny = u.shape
-    plan = tile_plan(nx, ny, problem, u.device)
     if plan.grid[0] > 65535:
         raise ValueError(f"fam_tile_multi: {nx} rows exceed the launch "
                          f"grid's y limit")
@@ -232,10 +256,45 @@ def fam_tile_multi(u, nsub: int, scal, problem: str):
     return out
 
 
+def fam_tile_multi(u, nsub: int, scal, problem: str):
+    """H9: ``nsub <= T`` steps of every member in one sweep of
+    shared-memory tiles with a ``W * nsub``-deep ring (the shallowest
+    that leaves the centre exact)."""
+    _validate(u, scal, problem, "fam_tile_multi")
+    if not 1 <= nsub <= DEFAULT_TSTEPS:
+        raise ValueError(f"nsub must be in [1, T={DEFAULT_TSTEPS}], got "
+                         f"{nsub}")
+    if u.device.type == "cpu":
+        return fam_multi_step_plain(u, nsub, scal, problem)
+    plan = tile_plan(*u.shape[1:], problem, u.device, nsub)
+    return _tile_launch(u, nsub, scal, problem, plan)
+
+
+def tile_info(problem: str, plan) -> dict:
+    """H9's build on the card at ``plan``: registers and local (spill)
+    bytes a thread (what ``nvcc -Xptxas -v`` reports), and the blocks an
+    SM holds by ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    buf = (ctypes.c_int * 4)()
+    _check(_lib().heat_fam_tile_info(FAMILY_CODES[problem],
+                                     plan.smem_bytes,
+                                     ctypes.cast(buf, ctypes.c_void_p)),
+           f"H9 tile_info ({problem})")
+    return {"registers": buf[0], "local_bytes": buf[1],
+            "blocks_per_sm": buf[2], "max_threads": buf[3],
+            "warps": FAM_WARPS, "smem_bytes": plan.smem_bytes}
+
+
+def sweep_schedule(n: int, problem: str) -> list:
+    """The sweep depths of ``n`` steps on ``problem``'s path: full
+    sweeps of ``SWEEP_TSTEPS[problem]`` and one partial sweep of the
+    rest."""
+    t = SWEEP_TSTEPS[problem]
+    nsweeps, rem = divmod(n, t)
+    return [t] * nsweeps + ([rem] if rem else [])
+
+
 def fam_tiled_chunk(u, n: int, scal, problem: str):
-    """``n`` steps of every member as full T-deep H9 sweeps plus one
-    partial sweep at depth ``n % T``."""
-    nsweeps, rem = divmod(n, DEFAULT_TSTEPS)
-    for d in [DEFAULT_TSTEPS] * nsweeps + ([rem] if rem else []):
+    """``n`` steps of every member as H9 sweeps (``sweep_schedule``)."""
+    for d in sweep_schedule(n, problem):
         u = fam_tile_multi(u, d, scal, problem)
     return u

@@ -16,16 +16,23 @@ accuracy, far past the explicit box.
   backward solves the transpose system instead of storing the sweep.
   ``adi_step``/``adi_multi_step``/``batched_adi_scan`` build on it: the
   plain ADI route (mode serial).
-- Two CUDA kernels (``csrc/tridiag.cu``) solve a batch of the CN systems
-  with the elimination scalars (cp, mi) of the JAX kernel TD:
+- Three CUDA kernels (``csrc/tridiag.cu``) solve a batch of the CN
+  systems with the elimination scalars (cp, mi) of the JAX kernel TD:
 
-  ====  ============  ======================================================
-  H10   ``td_rows``   along axis 1 of (B, n, m): one thread per column;
-                      replaces ``_tridiag_rows_kernel`` (tridiag.py:324)
-  H11   ``td_lanes``  along axis 2 of (B, rows, n): one thread per row,
-                      strided; replaces ``_tridiag_lanes_kernel`` (:349)
-  ====  ============  ======================================================
+  ====  =============  =====================================================
+  --    ``td_coeffs``  (cp, mi) of every member, once per run; replaces
+                       TD's ``_coeff_loops`` (tridiag.py:219), which runs
+                       in every program of the TPU kernel
+  H10   ``td_rows``    along axis 1 of (B, n, m): a warp per panel of 32
+                       columns, coefficients and rhs staged in shared
+                       memory; replaces ``_tridiag_rows_kernel`` (:324)
+  H11   ``td_lanes``   along axis 2 of (B, rows, n): one thread per row,
+                       strided; replaces ``_tridiag_lanes_kernel`` (:349)
+  ====  =============  =====================================================
 
+  (cp, mi) depend on (c, n) only: ``adi_coeffs`` computes both axes'
+  once, and ``batched_adi_kernel`` hands them to every step (the solves
+  take them as ``coef=``; without it a solve computes its own).
   ``adi_sweep_kernel`` runs one batched step through them: the x half
   through H10, the y half through H11, with no transpose between them.
   The half-RHS stencils and the held edges are torch ops, as they are
@@ -33,8 +40,8 @@ accuracy, far past the explicit box.
   The TPU route is gated on VMEM (``adi_kernel_viable``); the card has no
   such envelope, so every float32 CUDA batch takes the kernels and a CPU
   batch their plain versions, which repeat the kernels' arithmetic.
-  JAX's lane-panel planner (``plan_adi_panel``) has no counterpart: a
-  thread solves one system, whatever the width.
+  JAX's lane-panel planner (``plan_adi_panel``) has no counterpart: H10's
+  panels are planned from the card's SMs (``plan_td_rows``).
 
 On a CPU tensor a kernel wrapper runs its plain version; on a CUDA tensor
 it launches the kernel or raises. Each launch adds one to the wrapper's
@@ -44,15 +51,19 @@ entry in ``LAUNCHES``; the plain versions count nothing.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from heat2d_tpu_torch.ops import _build
+from heat2d_tpu_torch.ops import cuda_stencil as cs
+from heat2d_tpu_torch.ops.cuda_stencil import H100_SMEM_OPTIN
+from heat2d_tpu_torch.ops.resident import H100_SM_COUNT
 
 #: Launches per kernel wrapper since the last ``reset_launch_counts``.
-LAUNCHES = {"td_rows": 0, "td_lanes": 0}
+LAUNCHES = {"td_coeffs": 0, "td_rows": 0, "td_lanes": 0}
 
-#: The kernels put the member on blockIdx.y.
+#: The solve kernels put the member on blockIdx.y.
 MAX_MEMBERS = 65535
 
 
@@ -292,11 +303,30 @@ def cn_coeffs(c, n: int):
     return tuple(torch.stack(t).to(c.device) for t in (rows_a, cps, mis))
 
 
-def td_rows_plain(rhs, c):
+def td_coeffs_plain(c, n: int):
+    """``td_coeffs``' plain version: ``cn_coeffs``' (cp, mi) in the
+    kernels' (B, 2, n) layout."""
+    _, cp, mi = cn_coeffs(c, n)
+    return torch.stack([cp[:, :, 0].T, mi[:, :, 0].T], dim=1).contiguous()
+
+
+def _unpack(c, n: int, coef):
+    """(a_rows, cp, mi) of ``cn_coeffs`` for the plain solves: computed
+    from c, or the a rows from c and (cp, mi) from a (B, 2, n) ``coef``."""
+    if coef is None:
+        return cn_coeffs(c, n)
+    i = torch.arange(n, device=c.device).reshape(n, 1, 1)
+    a = torch.where((i >= 1) & (i <= n - 2), (-0.5 * c).reshape(1, -1, 1),
+                    torch.zeros((), dtype=c.dtype, device=c.device))
+    return a, coef[:, 0].T.unsqueeze(-1), coef[:, 1].T.unsqueeze(-1)
+
+
+def td_rows_plain(rhs, c, coef=None):
     """H10's plain version: each member's CN systems along axis 1 of the
-    (B, n, m) batch, in the kernel's operations."""
+    (B, n, m) batch, in the kernel's operations; (cp, mi) from ``coef``
+    where it is given."""
     n = rhs.shape[1]
-    a, cp, mi = cn_coeffs(c, n)
+    a, cp, mi = _unpack(c, n, coef)
     prev = rhs[:, 0]
     rows = [prev]
     for i in range(1, n):
@@ -309,56 +339,151 @@ def td_rows_plain(rhs, c):
     return torch.stack(rows, dim=1)
 
 
-def td_lanes_plain(rhs, c):
+def td_lanes_plain(rhs, c, coef=None):
     """H11's plain version: the CN systems along axis 2 of (B, rows, n)."""
-    return td_rows_plain(rhs.transpose(1, 2), c).transpose(1, 2) \
+    return td_rows_plain(rhs.transpose(1, 2), c, coef).transpose(1, 2) \
         .contiguous()
 
 
-def _launch(fn, rhs, c, n, what):
-    nb = rhs.shape[0]
+def _stream(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def td_coeffs(c, n: int):
+    """The (B, 2, n) float32 elimination scalars (cp then mi) of every
+    member's CN matrix of n rows at diffusion number ``c[b]``: what the
+    solves take as ``coef=``. One warp per member on the card: the
+    recurrence runs until a row repeats its predecessor's cp bit for bit
+    (a float fixed point, after which every interior row is the same) and
+    the warp fills the rest; ``td_coeffs_plain`` on the CPU."""
+    if (c.dim() != 1 or c.shape[0] < 1 or c.dtype != torch.float32
+            or c.device.type not in ("cpu", "cuda")):
+        raise ValueError(f"td_coeffs: c must be a (B,) float32 vector on "
+                         f"the CPU or a card, got {tuple(c.shape)} "
+                         f"{c.dtype} on {c.device}")
+    if n < 1:
+        raise ValueError(f"td_coeffs: n must be >= 1, got {n}")
+    if c.device.type == "cpu":
+        return td_coeffs_plain(c, n)
+    if not c.is_contiguous():
+        raise ValueError("td_coeffs: the CUDA kernel takes a contiguous c")
+    coef = torch.empty((c.shape[0], 2, n), dtype=torch.float32,
+                       device=c.device)
+    LAUNCHES["td_coeffs"] += 1
+    _check(_lib().heat_td_coeffs(_ptr(c), _ptr(coef), c.shape[0], n,
+                                 _stream(c)), "td_coeffs")
+    return coef
+
+
+def _checked_coef(coef, c, n: int, what: str):
+    """``coef`` validated against (c, n), or computed when None."""
+    if coef is None:
+        return td_coeffs(c, n)
+    want = (c.shape[0], 2, n)
+    if (tuple(coef.shape) != want or coef.dtype != torch.float32
+            or coef.device != c.device or not coef.is_contiguous()):
+        raise ValueError(f"{what}: coef must be a contiguous {want} "
+                         f"float32 tensor on {c.device} (td_coeffs), got "
+                         f"{tuple(coef.shape)} {coef.dtype} on "
+                         f"{coef.device}")
+    return coef
+
+
+class RowsPlan(NamedTuple):
+    warps: int        # panels of 32 columns per block (1..4)
+    coef_smem: bool   # (cp, mi) staged in shared memory
+    smem_bytes: int   # dynamic shared memory of a block
+    blocks: int
+
+
+#: H10's ring per warp (csrc/tridiag.cu: STAGES x STAGE_ROWS x 32 floats).
+TD_RING_BYTES = 8 * 32 * 32 * 4
+
+
+def plan_td_rows(nb: int, n: int, m: int, sms: int = H100_SM_COUNT,
+                 smem: int = H100_SMEM_OPTIN) -> RowsPlan:
+    """H10's launch: one warp per panel of 32 columns, as many panels a
+    block (up to 4, all of one member) as it takes to put every panel in
+    one wave of ``sms`` blocks; (cp, mi) in shared memory beside the
+    rings when their 8n bytes (rounded up to 16) fit, else read through
+    the read-only cache."""
+    panels = -(-m // 32)
+    warps = max(1, min(4, panels, -(-nb * panels // sms)))
+    coef_bytes = -(-8 * n // 16) * 16
+    coef_smem = coef_bytes + warps * TD_RING_BYTES <= smem
+    need = (coef_bytes if coef_smem else 0) + warps * TD_RING_BYTES
+    return RowsPlan(warps, coef_smem, need, nb * -(-panels // warps))
+
+
+def td_rows(rhs, c, coef=None):
+    """H10: solve every member's CN systems (diffusion number ``c[b]``)
+    along axis 1 of the (B, n, m) batch: a warp per panel of 32 columns
+    (``plan_td_rows``). ``coef``: the (B, 2, n) ``td_coeffs(c, n)``,
+    computed here when absent."""
+    _validate(rhs, c, "td_rows")
+    n = rhs.shape[1]
+    coef = _checked_coef(coef, c, n, "td_rows")
+    if rhs.device.type == "cpu":
+        return td_rows_plain(rhs, c, coef)
+    nb, _, m = rhs.shape
+    caps = cs.device_caps(rhs.device)
+    plan = plan_td_rows(nb, n, m, caps.sm_count, caps.smem_optin)
     out = torch.empty_like(rhs)
-    coef = torch.empty((nb, 2, n), dtype=torch.float32, device=rhs.device)
-    LAUNCHES[what] += 1
-    stream = ctypes.c_void_p(torch.cuda.current_stream(rhs.device)
-                             .cuda_stream)
-    _check(fn(_ptr(rhs), _ptr(out), _ptr(c), _ptr(coef), nb, rhs.shape[1],
-              rhs.shape[2], stream), what)
+    LAUNCHES["td_rows"] += 1
+    _check(_lib().heat_td_rows(_ptr(rhs), _ptr(out), _ptr(c), _ptr(coef),
+                               nb, n, m, plan.warps, int(plan.coef_smem),
+                               _stream(rhs)), "td_rows")
     return out
 
 
-def td_rows(rhs, c):
-    """H10: solve every member's CN systems (diffusion number ``c[b]``)
-    along axis 1 of the (B, n, m) batch: one thread per column."""
-    _validate(rhs, c, "td_rows")
-    if rhs.device.type == "cpu":
-        return td_rows_plain(rhs, c)
-    return _launch(_lib().heat_td_rows, rhs, c, rhs.shape[1], "td_rows")
-
-
-def td_lanes(rhs, c):
+def td_lanes(rhs, c, coef=None):
     """H11: the same along axis 2 of the (B, rows, n) batch: one thread
-    per row, no transpose."""
+    per row, no transpose. ``coef``: the (B, 2, n) ``td_coeffs(c, n)``,
+    computed here when absent."""
     _validate(rhs, c, "td_lanes")
+    n = rhs.shape[2]
+    coef = _checked_coef(coef, c, n, "td_lanes")
     if rhs.device.type == "cpu":
-        return td_lanes_plain(rhs, c)
-    return _launch(_lib().heat_td_lanes, rhs, c, rhs.shape[2], "td_lanes")
+        return td_lanes_plain(rhs, c, coef)
+    nb, rows, _ = rhs.shape
+    out = torch.empty_like(rhs)
+    LAUNCHES["td_lanes"] += 1
+    _check(_lib().heat_td_lanes(_ptr(rhs), _ptr(out), _ptr(c), _ptr(coef),
+                                nb, rows, n, _stream(rhs)), "td_lanes")
+    return out
 
 
-def adi_sweep_kernel(u, cxs, cys):
+def adi_coeffs(u, cxs, cys):
+    """The two axes' ``td_coeffs`` of a (B, nx, ny) batch: (cx over nx
+    rows, cy over ny columns), what every step of a run shares."""
+    return td_coeffs(cxs, u.shape[-2]), td_coeffs(cys, u.shape[-1])
+
+
+def adi_sweep_kernel(u, cxs, cys, coefs=None):
     """One batched ADI step of the (B, nx, ny) batch: the x half through
     H10, the y half through H11; ``cxs``/``cys`` are (B,) float32 vectors
-    on u's device."""
+    on u's device, ``coefs`` their ``adi_coeffs`` (computed when
+    absent)."""
     cb, db = cxs.reshape(-1, 1, 1), cys.reshape(-1, 1, 1)
-    ustar = _hold_edges(td_rows(_rhs_half(u, db, 1), cxs), u)
-    return _hold_edges(td_lanes(_rhs_half(ustar, cb, 0), cys), u)
+    _validate(u, cxs, "adi_sweep_kernel")
+    _validate(u, cys, "adi_sweep_kernel")
+    kx, ky = adi_coeffs(u, cxs, cys) if coefs is None else coefs
+    ustar = _hold_edges(td_rows(_rhs_half(u, db, 1), cxs, kx), u)
+    return _hold_edges(td_lanes(_rhs_half(ustar, cb, 0), cys, ky), u)
 
 
-def batched_adi_kernel(u0, cxs, cys, *, steps: int):
+def batched_adi_kernel(u0, cxs, cys, *, steps: int, coefs=None):
     """``steps`` batched ADI steps through the kernels, the time loop on
     the host (two solver launches and the torch ops around them per
-    step)."""
+    step); each axis's (cp, mi) computed once (``adi_coeffs``) unless
+    ``coefs`` brings them."""
+    if steps <= 0:
+        return u0
+    if coefs is None:
+        _validate(u0, cxs, "batched_adi_kernel")
+        _validate(u0, cys, "batched_adi_kernel")
+        coefs = adi_coeffs(u0, cxs, cys)
     u = u0
     for _ in range(steps):
-        u = adi_sweep_kernel(u, cxs, cys)
+        u = adi_sweep_kernel(u, cxs, cys, coefs)
     return u

@@ -12,7 +12,8 @@ counterpart of ``heat2d-tpu-serve``).
   results, a launch counted for every family, the structured rejection.
   Exit 0 iff every check holds.
 - ``--requests FILE.jsonl``: serve a file of request dicts (one JSON
-  object per line) and print one result or rejection summary per line.
+  object per line), writing one result or rejection summary per line to
+  stdout or ``--results-out``.
 
 ``--metrics-out PATH`` writes the metrics snapshot and a ``kind="serve"``
 run record as JSONL. ``--device cpu`` runs the plain PyTorch versions of
@@ -45,6 +46,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--requests", default=None, metavar="JSONL",
                    help="serve a file of request dicts, one JSON object "
                         "per line")
+    p.add_argument("--results-out", default=None, metavar="PATH",
+                   help="with --requests: write result summaries here "
+                        "instead of stdout")
     s = p.add_argument_group("scheduler tuning")
     s.add_argument("--max-batch", type=int, default=8,
                    help="members per ensemble launch (a bucket dispatches "
@@ -227,6 +231,7 @@ def run_requests(args, registry) -> int:
         return 1
 
     rc = 0
+    lines = []
     server = _server(args, registry, args.max_delay)
     with server:
         futs = []
@@ -245,7 +250,13 @@ def run_requests(args, registry) -> int:
                     rc, row = 1, e.to_record()
                 except Exception as e:  # noqa: BLE001
                     rc, row = 1, {"rejected": "error", "message": repr(e)}
-            print(json.dumps(row), flush=True)
+            lines.append(json.dumps(row))
+            if not args.results_out:
+                print(lines[-1], flush=True)
+    if args.results_out:
+        from heat2d_tpu_torch.io.binary import write_text_atomic
+        write_text_atomic("".join(f"{x}\n" for x in lines),
+                          args.results_out)
     _write_metrics(args, registry, server, extra={"requests": len(dicts)})
     return rc
 

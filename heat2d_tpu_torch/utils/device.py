@@ -67,3 +67,10 @@ def device_summary(device=None) -> dict:
         info.update({"platform": "cpu", "device_kind": "cpu",
                      "n_devices": 1, "power_limit": None})
     return info
+
+
+def print_device_summary(device=None) -> None:
+    """``device_summary`` as ``key: value`` lines (the CLI's
+    ``--device-info``)."""
+    for k, v in device_summary(device).items():
+        print(f"{k}: {v}")

@@ -122,7 +122,9 @@ def test_oversize_members_take_the_tile_sweeps(card):
     scal = cf.scalar_block("heat9", cxs * 0.6, cys * 0.6)
     cf.reset_launch_counts()
     got = cf.fam_resident(u, 11, scal, "heat9")
-    assert cf.launch_counts() == {"fam_resident": 0, "fam_tile_multi": 2}
+    assert cf.launch_counts() == {
+        "fam_resident": 0,
+        "fam_tile_multi": len(cf.sweep_schedule(11, "heat9"))}
     assert torch.equal(got, cf.fam_tiled_chunk(u, 11, scal, "heat9"))
 
 
@@ -272,7 +274,79 @@ def test_tridiag_kernels_match_plain(card, shape):
         ref = plain(rhs, c)
         err = float((fn(rhs, c).double() - ref.double()).abs().max())
         assert err <= 52.2 * 2.0 ** -20 * float(ref.abs().max())
-    assert td.launch_counts() == {"td_rows": 1, "td_lanes": 1}
+    assert td.launch_counts() == {"td_coeffs": 2, "td_rows": 1,
+                                  "td_lanes": 1}
+
+
+@pytest.mark.parametrize("c", [0.1, 3.2, 51.2])
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("m", [1, 31, 33, 1000])
+@pytest.mark.parametrize("n", [3, 5, 31, 33, 4097])
+def test_td_rows_bitwise_on_ragged_shapes(card, n, m, b, c):
+    """H10 (a warp per 32-column panel, rhs staged 32 rows a slot) against
+    its plain version, bit for bit: panels cut short by m, systems that
+    end inside a stage (n = 31, 33 around the slot's 32 rows), and with
+    the hoisted ``td_coeffs``, which equal their plain version."""
+    from heat2d_tpu_torch.ops import tridiag as td
+    g = torch.Generator(device=card)
+    g.manual_seed(n * 7919 + m * 31 + b)
+    rhs = torch.rand((b, n, m), generator=g, device=card) * 1e3 - 500
+    cc = torch.tensor([c, c / 2, c * 2, 0.3][:b], device=card)
+    coef = td.td_coeffs(cc, n)
+    assert torch.equal(coef, td.td_coeffs_plain(cc, n))
+    ref = td.td_rows_plain(rhs, cc)
+    assert torch.equal(td.td_rows(rhs, cc, coef), ref)
+    assert torch.equal(td.td_rows(rhs, cc), ref)
+    if n * m <= 33 * 1000:
+        lanes = rhs.transpose(1, 2).contiguous()
+        assert torch.equal(td.td_lanes(lanes, cc, coef),
+                           td.td_lanes_plain(lanes, cc))
+
+
+def test_td_rows_reads_large_systems_through_the_cache(card):
+    """Systems too long for (cp, mi) in shared memory (8n bytes beside
+    the rings) read them through the read-only cache: still bitwise."""
+    from heat2d_tpu_torch.ops import tridiag as td
+    n, m = 30000, 40
+    assert not td.plan_td_rows(1, n, m).coef_smem
+    g = torch.Generator(device=card)
+    g.manual_seed(3)
+    rhs = torch.rand((1, n, m), generator=g, device=card)
+    c = torch.tensor([51.2], device=card)
+    assert torch.equal(td.td_rows(rhs, c), td.td_rows_plain(rhs, c))
+
+
+@pytest.mark.parametrize("shape, b", [((37, 53), 3), ((641, 1023), 2),
+                                      ((4099, 4097), 1)])
+@pytest.mark.parametrize("problem", ["heat9", "advdiff", "reactdiff"])
+def test_fam_tile_multi_bitwise_every_depth(card, problem, shape, b):
+    """H9's family sweep against its plain version, bit for bit, for every
+    depth 1..8 (the ring W * nsub), on ragged members and on one past the
+    on-chip budget; and the path's sweeps (``fam_tiled_chunk``) at the
+    plan's depth."""
+    from heat2d_tpu_torch.ops import cuda_family as cf
+    u, cxs, cys = _batch(card, b, shape)
+    scal = cf.scalar_block(problem, cxs * 0.6, cys * 0.6)
+    ref = u
+    for nsub in range(1, 9):
+        ref = cf.fam_multi_step_plain(ref, 1, scal, problem)
+        assert torch.equal(cf.fam_tile_multi(u, nsub, scal, problem), ref), \
+            nsub
+    n = 2 * cf.SWEEP_TSTEPS[problem] + 1
+    assert torch.equal(cf.fam_tiled_chunk(u, n, scal, problem),
+                       cf.fam_multi_step_plain(u, n, scal, problem))
+
+
+def test_fam_tile_build_and_occupancy(card):
+    """The plan's depth holds the blocks per SM the planner states, with
+    no local memory (no spills) in the family sweep."""
+    from heat2d_tpu_torch.ops import cuda_family as cf
+    for problem in ("heat9", "advdiff", "reactdiff"):
+        plan = cf.tile_plan(4096, 4096, problem, card,
+                            cf.SWEEP_TSTEPS[problem])
+        info = cf.tile_info(problem, plan)
+        assert info["local_bytes"] == 0, info
+        assert info["blocks_per_sm"] == cf.blocks_per_sm(plan), info
 
 
 def test_adi_solver_on_the_card(card):
@@ -286,7 +360,9 @@ def test_adi_solver_on_the_card(card):
     got = Heat2DSolver(cfg).run(timed=False)
     want = Heat2DSolver(cfg.replace(mode="serial")).run(timed=False)
     assert got.steps_done == want.steps_done == 10
-    assert td.launch_counts() == {"td_rows": 10, "td_lanes": 10}
+    # (cp, mi) of each axis once for the run, then two solves a step
+    assert td.launch_counts() == {"td_coeffs": 2, "td_rows": 10,
+                                  "td_lanes": 10}
     err = float(abs(got.u.astype("float64") - want.u).max())
     assert err <= 10 * 51 * 2.0 ** -22 * float(abs(want.u).max())
 

@@ -254,7 +254,8 @@ def test_td_coefficients_and_validation(rng):
     assert float(mi[-1, 0]) == 1.0 and float(a[-1, 0]) == 0.0
     ttd.reset_launch_counts()
     ttd.td_rows(torch.zeros(2, 6, 5), c)
-    assert ttd.launch_counts() == {"td_rows": 0, "td_lanes": 0}
+    assert ttd.launch_counts() == {"td_coeffs": 0, "td_rows": 0,
+                                   "td_lanes": 0}
     for bad in (torch.zeros(2, 6, 5, dtype=torch.float64),
                 torch.zeros(6, 5)):
         with pytest.raises(ValueError):
@@ -263,6 +264,114 @@ def test_td_coefficients_and_validation(rng):
         ttd.td_lanes(torch.zeros(3, 6, 5), c)
     with pytest.raises(ValueError, match="c must be"):
         ttd.adi_sweep_kernel(torch.zeros(2, 6, 5), c[:1], c)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("shape", [(1, 5), (2, 7), (3, 4), (37, 19)])
+def test_td_solves_take_hoisted_coefficients_bitwise(shape, b, rng):
+    """``td_coeffs`` is ``cn_coeffs``' (cp, mi) in the kernels' (B, 2, n)
+    layout, and H10/H11 (plain versions here) with ``coef=`` equal the
+    same calls without it, bit for bit, on both axes."""
+    rhs = torch.from_numpy(rng.normal(size=(b,) + shape).astype(np.float32))
+    c = torch.from_numpy(CS[:b])
+    n = shape[0]
+    coef = ttd.td_coeffs(c, n)
+    _, cp, mi = ttd.cn_coeffs(c, n)
+    assert coef.shape == (b, 2, n) and coef.is_contiguous()
+    assert torch.equal(coef[:, 0], cp[:, :, 0].T)
+    assert torch.equal(coef[:, 1], mi[:, :, 0].T)
+    assert torch.equal(ttd.td_rows(rhs, c, coef), ttd.td_rows(rhs, c))
+    lanes = rhs.transpose(1, 2).contiguous()
+    assert torch.equal(ttd.td_lanes(lanes, c, coef), ttd.td_lanes(lanes, c))
+
+
+def test_td_coefficient_validation():
+    c = torch.tensor([51.2, 3.0])
+    rhs = torch.zeros(2, 6, 5)
+    for bad in (torch.zeros(2, 2, 5), torch.zeros(1, 2, 6),
+                torch.zeros(2, 2, 6, dtype=torch.float64),
+                torch.zeros(2, 6, 2).transpose(1, 2)):
+        with pytest.raises(ValueError, match="coef must be"):
+            ttd.td_rows(rhs, c, bad)
+    with pytest.raises(ValueError, match="td_coeffs"):
+        ttd.td_coeffs(c.double(), 6)
+    with pytest.raises(ValueError, match="td_coeffs"):
+        ttd.td_coeffs(c, 0)
+
+
+class _CountCoeffs:
+    """``td_coeffs`` wrapped to count its calls (``n`` per call)."""
+
+    def __init__(self, monkeypatch):
+        self.calls = []
+        real = ttd.td_coeffs
+
+        def counted(c, n):
+            self.calls.append(n)
+            return real(c, n)
+        monkeypatch.setattr(ttd, "td_coeffs", counted)
+
+
+def test_batched_adi_kernel_computes_each_axis_once(rng, monkeypatch):
+    """The run hoists (cp, mi): one ``td_coeffs`` per axis for all steps
+    (cx over nx rows, cy over ny columns), and the result still matches
+    JAX's scan at the JAX package's kernel tolerance."""
+    count = _CountCoeffs(monkeypatch)
+    ub = rng.normal(size=(3, 16, 24)).astype(np.float32)
+    cxs = np.asarray([0.5, 2.0, 10.0], np.float32)
+    cys = np.asarray([1.0, 3.0, 0.3], np.float32)
+    got = ttd.batched_adi_kernel(torch.from_numpy(ub), torch.from_numpy(cxs),
+                                 torch.from_numpy(cys), steps=4).numpy()
+    assert count.calls == [16, 24]
+    want = jtd.batched_adi_scan(jnp.asarray(ub), cxs, cys, steps=4)
+    np.testing.assert_allclose(got, np.asarray(want), atol=5e-6)
+    count.calls.clear()
+    coefs = ttd.adi_coeffs(torch.from_numpy(ub), torch.from_numpy(cxs),
+                           torch.from_numpy(cys))
+    again = ttd.batched_adi_kernel(torch.from_numpy(ub),
+                                   torch.from_numpy(cxs),
+                                   torch.from_numpy(cys), steps=4,
+                                   coefs=coefs).numpy()
+    assert count.calls == [16, 24]          # adi_coeffs' two, none more
+    assert np.array_equal(again, got)
+
+
+def test_solver_adi_kernel_route_hoists_coefficients(monkeypatch):
+    """Mode pallas with adi: a convergence run (a multi-step per chunk and
+    a tracked step per check) computes each axis's (cp, mi) once, and
+    ends where mode serial (the plain scan) does."""
+    count = _CountCoeffs(monkeypatch)
+    cfg = HeatConfig(nxprob=12, nyprob=20, steps=30, cx=6.0, cy=4.0,
+                     method="adi", mode="pallas", convergence=True,
+                     interval=10, sensitivity=1e-30)
+    got = Heat2DSolver(cfg, device="cpu").run(timed=False)
+    assert count.calls == [12, 20]
+    want = Heat2DSolver(cfg.replace(mode="serial"),
+                        device="cpu").run(timed=False)
+    assert got.steps_done == want.steps_done == 30
+    from heat2d_tpu_torch.ops.init import inidat
+    _adi_close(got.u, want.u, 30, 6.0, 4.0,
+               scale=float(inidat(12, 20).abs().max()))
+
+
+@pytest.mark.parametrize("nb, n, m, warps, coef_smem, blocks", [
+    (1, 4096, 4096, 1, True, 128),   # the ADI path: one wave
+    (4, 4096, 4096, 4, True, 128),   # leg (f): 4 warps a block
+    (3, 4099, 4097, 3, True, 129),
+    (1, 37, 1, 1, True, 1),
+    (1, 30000, 36, 1, False, 2),     # 8n too large: cached reads
+])
+def test_plan_td_rows(nb, n, m, warps, coef_smem, blocks):
+    """H10's launch on the H100's 132 SMs and 232,448 bytes: panels of 32
+    columns, up to 4 a block so that every panel runs in one wave, (cp,
+    mi) in shared memory where their 8n bytes (rounded up to 16) fit
+    beside the rings."""
+    plan = ttd.plan_td_rows(nb, n, m)
+    assert (plan.warps, plan.coef_smem, plan.blocks) == (
+        warps, coef_smem, blocks)
+    assert plan.smem_bytes <= 232448
+    assert plan.smem_bytes == (-(-8 * n // 16) * 16 if coef_smem else 0) \
+        + warps * ttd.TD_RING_BYTES
 
 
 # ------------------------------------------------------------------ #

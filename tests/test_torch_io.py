@@ -154,3 +154,41 @@ def test_cli_prints_the_reference_lines(tmp_path, capsys):
                  "Writing final.dat ..."):
         assert line in out.splitlines()
     assert "Elapsed time: " in out and " sec" in out
+
+
+def test_cli_device_info_prints_the_summary_and_runs_nothing(tmp_path,
+                                                              capsys,
+                                                              monkeypatch):
+    """``--device-info`` (the JAX CLI's flag, ``print_device_summary``):
+    the summary as ``key: value`` lines, the keys the JAX CLI prints for
+    the platform, the device kind and the count, exit 0, no kernel
+    launched and no file written."""
+    from heat2d_tpu_torch.ops import cuda_stencil as cs
+    monkeypatch.chdir(tmp_path)
+    cs.reset_launch_counts()
+    assert tcli.main(["--device-info", "--device", "cpu"]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    got = dict(line.split(": ", 1) for line in lines)
+    assert got["platform"] == "cpu" and got["device_kind"] == "cpu"
+    assert got["n_devices"] == "1"
+    assert set(cs.launch_counts().values()) == {0}
+    assert list(tmp_path.iterdir()) == []
+    from heat2d_tpu.utils.device import device_summary
+    assert {"platform", "device_kind", "n_devices"} <= set(device_summary())
+
+
+def test_cli_ensemble_refuses_bitwise_parity(tmp_path, capsys):
+    """An ensemble run with ``--bitwise-parity`` is refused by the port
+    (its ensemble kernels take the FMA form only, so the flag could not be
+    honoured) where the JAX CLI runs it: a stated difference of the
+    contract, not a silent one."""
+    argv = ["--ensemble-cx", "0.1,0.2", "--ensemble-cy", "0.1,0.05",
+            "--bitwise-parity", "--mode", "pallas"]
+    assert tcli.main(argv + ["--device", "cpu", "--outdir",
+                             str(tmp_path / "t")]) == 1
+    err = capsys.readouterr().err
+    assert "do not support --bitwise-parity" in err
+    assert not (tmp_path / "t" / "final_m0.dat").exists()
+    assert _jax_cli(argv + ["--outdir", str(tmp_path / "j")]) == 0
+    assert (tmp_path / "j" / "final_m0.dat").exists()
+

@@ -255,6 +255,49 @@ def test_tile_plan_rings_scale_with_the_halo_width():
     assert p9.smem_bytes <= 227 * 1024
 
 
+@pytest.mark.parametrize("fam", KERNEL_FAMILIES)
+@pytest.mark.parametrize("tsteps", [1, 3, 4, 6, 8])
+def test_family_plan_fits_the_card(fam, tsteps):
+    """H9's plan for sweeps of T steps: a ring of W * T (at least what T
+    steps consume), two ext tiles within one block's 232,448 bytes, and
+    the blocks per SM it states within the SM's 228 KB (1 KB reserved a
+    block) and 2048 threads. The paths' depth keeps two blocks an SM."""
+    w = get_family(fam).spec.halo_width
+    plan = cf.tile_plan(4096, 4096, fam, "cpu", tsteps)
+    assert plan.tsteps == w * tsteps
+    assert plan.smem_bytes == 2 * (plan.ty + 2 * plan.tsteps) * (
+        plan.tx + 2 * plan.tsteps) * 4 <= 232448
+    k = cf.blocks_per_sm(plan)
+    assert k >= 1 and k * (plan.smem_bytes + 1024) <= 228 * 1024
+    assert k * 32 * cf.FAM_WARPS <= 2048
+    if tsteps == cf.SWEEP_TSTEPS[fam]:
+        assert k >= 2
+
+
+@pytest.mark.parametrize("fam", KERNEL_FAMILIES)
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 19])
+def test_fam_tiled_chunk_sweeps_at_the_plan_depth(fam, n, rng, monkeypatch):
+    """``fam_tiled_chunk`` splits n steps into sweeps of the family's
+    depth and one partial sweep (``sweep_schedule``), each within the
+    wrapper's range, and still equals n plain steps."""
+    t = cf.SWEEP_TSTEPS[fam]
+    want = [t] * (n // t) + ([n % t] if n % t else [])
+    assert cf.sweep_schedule(n, fam) == want
+    depths = []
+    real = cf.fam_tile_multi
+
+    def spy(u, nsub, scal, problem):
+        depths.append(nsub)
+        return real(u, nsub, scal, problem)
+    monkeypatch.setattr(cf, "fam_tile_multi", spy)
+    u = torch.from_numpy(np.stack([_state(rng, (14, 18)) for _ in range(2)]))
+    cxs, cys = _coefs(rng, fam, 2)
+    scal = cf.scalar_block(fam, torch.from_numpy(cxs), torch.from_numpy(cys))
+    got = cf.fam_tiled_chunk(u, n, scal, fam)
+    assert depths == want and all(1 <= d <= 8 for d in depths)
+    assert torch.equal(got, cf.fam_multi_step_plain(u, n, scal, fam))
+
+
 # ------------------------------------------------------------------ #
 # Routes, config, stability and admission: JAX's rules and texts
 # ------------------------------------------------------------------ #

@@ -394,6 +394,29 @@ def test_requests_file_mode(tmp_path, capsys):
     assert out[0]["shape"] == [12, 12] and out[0]["steps_done"] == 3
 
 
+def test_requests_results_out_writes_the_stdout_rows(tmp_path, capsys):
+    """``--results-out PATH`` (the JAX serve CLI's flag): the summaries
+    ``--requests`` prints, one JSON line per request in order, go to the
+    file instead, and stdout stays empty of them."""
+    path = tmp_path / "req.jsonl"
+    rows = [dict(nx=12, ny=12, steps=3, cx=0.1),
+            dict(nx=12, ny=12, steps=3, bogus=1),
+            dict(nx=12, ny=12, steps=3, method="adi")]
+    path.write_text("\n".join(json.dumps(r) for r in rows) + "\n")
+    assert scli.main(["--requests", str(path), "--device", "cpu"]) == 0
+    printed = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
+    out = tmp_path / "results.jsonl"
+    assert scli.main(["--requests", str(path), "--device", "cpu",
+                      "--results-out", str(out)]) == 0
+    assert capsys.readouterr().out == ""
+    written = [json.loads(x) for x in out.read_text().splitlines()]
+    keep = ("rejected", "content_hash", "steps_done", "shape",
+            "max_temperature", "total_heat")
+    assert [{k: r.get(k) for k in keep} for r in written] == \
+        [{k: r.get(k) for k in keep} for r in printed]
+    assert [r.get("rejected") for r in written] == [None, "invalid", None]
+
+
 # ------------------------------------------------------------------ #
 # resil, metrics, locks
 # ------------------------------------------------------------------ #
