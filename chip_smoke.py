@@ -17,9 +17,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    reactdiff (B in {1, 3, 8}, 37x53 and 4099x4097, nsub in {1, 5, 8},
    within a per-family bound, ``family_tol``), and H9 bit for bit at the
    serving path's 4 x 4096^2 at the plan's depth; H10/H11 at B in {1, 3}
-   on ragged shapes with diffusion numbers up to 51.2 (``td_tol``), and
-   bit for bit on the hoisted coefficients (``td_coeffs``, itself bitwise
-   against its plain version) at 1 and 4 members of 4096^2;
+   on ragged shapes with diffusion numbers up to 51.2 (``td_tol``), H11
+   bit for bit where it masks (rows and n not multiples of 32, n < 32),
+   and both bit for bit on the hoisted coefficients (``td_coeffs``,
+   itself bitwise against its plain version) at 1 and 4 members of
+   4096^2;
 4. main path: ``Heat2DSolver`` in mode ``pallas`` against mode ``serial``
    on the card: 4096^2 x 240 steps fixed, the same with convergence
    (interval 20) in both step forms, and 640x1024x10000 on the resident
@@ -51,8 +53,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 8. time to solution at 513^2: explicit through H6 against ADI through
    H10/H11, matched accuracy against the analytic mode;
 9. shard kernels: H12 and H13 on every shard of a 2x2 mesh of 4096^2
-   (T = 8, nsub 8, 3 and 1), of 4 row strips of 4099x4096 (pad rows) and
-   of a 2x2 mesh of 74x106, H14 on the same meshes, both step forms,
+   (T = 8, nsub 8, 3 and 1), of 4 row strips of 4099x4096 and of 543x300
+   (pad rows) and of a 2x2 mesh of 74x106, so that the strip sweep's
+   fast and edge tiles both run, H14 on the same meshes, both step forms,
    against their plain versions (literal bitwise, FMA within ``fma_tol``)
    and H14 against H12 bit for bit;
 10. sharded path: ``Heat2DSolver`` on a 2x2 mesh of four 2048^2 shards on
@@ -181,6 +184,26 @@ def time_ms(fn, reps: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def time_device_ms(fn, reps: int) -> float:
+    """``time_ms`` with the host's enqueue hidden: the stream sleeps
+    ~10 ms before the first event, so that all ``reps`` calls are queued
+    before the card reaches them and no host gap falls between the
+    events (for kernels whose launch costs the host about as long as
+    they run)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -611,6 +634,18 @@ def phase_tridiag_kernels(torch) -> dict:
                 fail_unless(err <= tol, f"{name} B={b} {shape}: max_abs_err "
                             f"{err} > {tol}")
                 checks += 1
+    # H11 where it masks: rows not a multiple of its 32-row panels, n not
+    # a multiple of its 32-column stages or below one, bitwise
+    for b, rows, n in ((1, 1, 2), (3, 31, 3), (1, 33, 33), (3, 70, 31),
+                       (1, 1000, 70), (3, 37, 4097)):
+        c = torch.tensor(cs_[:b], device="cuda")
+        rhs = torch.rand((b, rows, n), generator=g, device="cuda") * 1e3
+        coef = td.td_coeffs(c, n)
+        fail_unless(torch.equal(td.td_lanes(rhs, c, coef),
+                                td.td_lanes_plain(rhs, c, coef)),
+                    f"td_lanes B={b} {rows}x{n} on the hoisted "
+                    f"coefficients: not bitwise equal to plain")
+        checks += 1
     for c in ([51.2], [51.2, 25.6, 12.8, 3.2]):
         c = torch.tensor(c, device="cuda")
         rhs = torch.rand((len(c), 4096, 4096), generator=g,
@@ -1071,6 +1106,8 @@ def family_tridiag_kernel_rows(torch) -> list:
             bound_ms=bnd, bound_by=by, library_ms=None))
     plan = td.plan_td_rows(1, 4096, 4096, *caps_of(torch))
     rows[-2]["plan"] = plan._asdict()
+    rows[-1]["plan"] = td.plan_td_lanes(1, 4096, 4096,
+                                        *caps_of(torch))._asdict()
     rows[-2]["variants_ms"] = td_rows_variants(torch, rhs, c, coef, plan)
     return rows
 
@@ -1564,9 +1601,13 @@ def _shard_grid(torch, nx, ny, gx, gy, gen):
 
 def phase_shard_kernels(torch) -> dict:
     """H12-H14 against their plain versions on the card: every shard of a
-    2x2 mesh of 4096^2, of 4 row strips of 4099x4096 (one pad row) and of
-    a 2x2 mesh of 74x106; T = 8 strips at nsub 8, 3 and 1; H14 at depth
-    nsub against its plain version and against H12 bit for bit."""
+    2x2 mesh of 4096^2, of 4 row strips of 4099x4096 and of 543x300 (one
+    pad row each) and of a 2x2 mesh of 74x106; T = 8 strips at nsub 8, 3
+    and 1; H14 at depth nsub against its plain version and against H12
+    bit for bit. ``tile_paths``: the strip sweep's tiles of each mesh's
+    shards by path in one sweep, as H12/H13 counted them (``paths``); they
+    must equal the planner's count (``cuda_shard.tile_paths``), and every
+    path must be taken."""
     from heat2d_tpu_torch.ops import cuda_shard as csh
     from heat2d_tpu_torch.parallel.halo import exchange_halo_strips
     gen = torch.Generator(device="cuda")
@@ -1583,12 +1624,20 @@ def phase_shard_kernels(torch) -> dict:
         fail_unless(err <= tol, f"{name} {what}: max_abs_err {err} > {tol}")
         checks += 1
 
+    # 4096^2: mostly fast tiles of the strip sweep; 74x106: edge tiles
+    # only; 543x300 on 4x1: a tile inside its block that holds a pad row
     cases = [(4096, 4096, 2, 2, (8, 3, 1)), (4099, 4096, 4, 1, (8, 3)),
-             (74, 106, 2, 2, (8, 3, 1))]
+             (543, 300, 4, 1, (8, 3)), (74, 106, 2, 2, (8, 3, 1))]
+    paths = {}
     for nx, ny, gx, gy, nsubs in cases:
         blocks = _shard_grid(torch, nx, ny, gx, gy, gen)
         bm, bn = blocks[0][0].shape
         strips = exchange_halo_strips(blocks, t)
+        plan = csh.plan_shard_sweep(bm, bn, t)
+        kinds = [csh.tile_paths(plan, i * bm, j * bn, bm, bn, nx, ny)
+                 for i in range(gx) for j in range(gy)]
+        planned = {k: sum(d[k] for d in kinds) for k in csh.TILE_PATHS}
+        counted = csh.path_counter("cuda")
         for form in (csh.FORM_FMA, csh.FORM_LITERAL):
             for nsub in nsubs:
                 what = f"{nx}x{ny} on {gx}x{gy} nsub={nsub} form {form}"
@@ -1597,11 +1646,13 @@ def phase_shard_kernels(torch) -> dict:
                     for j in range(gy):
                         args = (nsub, i * bm, j * bn, nx, ny, cx, cy, form)
                         u, st = blocks[i][j], strips[i][j]
-                        h12[i, j] = csh.shard_tile_multi(u, st, *args)
+                        h12[i, j] = csh.shard_tile_multi(u, st, *args,
+                                                         paths=counted)
                         judge("shard_tile_multi", h12[i, j],
                               csh.shard_tile_multi_plain(u, st, *args),
                               nsub, form, f"{what} shard ({i},{j})")
-                        got, r = csh.shard_tile_multi_resid(u, st, *args)
+                        got, r = csh.shard_tile_multi_resid(
+                            u, st, *args, paths=counted)
                         ref, r_ref = csh.shard_tile_multi_resid_plain(
                             u, st, *args)
                         judge("shard_tile_multi_resid", got, ref, nsub,
@@ -1621,8 +1672,20 @@ def phase_shard_kernels(torch) -> dict:
                         fail_unless(torch.equal(fused[i][j], h12[i, j]),
                                     f"H14 {what} shard ({i},{j}) differs "
                                     f"from H12")
+        # two counted sweeps (H12, H13) of the mesh per form and depth
+        sweeps = 2 * 2 * len(nsubs)
+        got = dict(zip(csh.TILE_PATHS, counted.tolist()))
+        fail_unless(got == {k: v * sweeps for k, v in planned.items()},
+                    f"{nx}x{ny}: the kernel's tiles by path {got} over "
+                    f"{sweeps} sweeps, the planner's {planned} a sweep")
+        paths[f"{nx}x{ny}"] = {k: v // sweeps for k, v in got.items()}
+    fail_unless(paths["4096x4096"]["fast"] > 0
+                and paths["74x106"]["fast"] == 0
+                and paths["543x300"]["in_block_held"] > 0,
+                f"the shard cases miss a path of the strip sweep: {paths}")
     torch.cuda.synchronize()
-    info = {"phase": "shard_kernels", "checks": checks, "max_abs_err": worst}
+    info = {"phase": "shard_kernels", "checks": checks, "max_abs_err": worst,
+            "tile_paths": paths}
     emit(info)
     return info
 
@@ -1798,7 +1861,9 @@ def shard_kernel_rows(torch) -> list:
     """H12-H14 at the sharded path's shapes: H12/H13 on one 2048^2 shard
     of the 2x2 mesh of 4096^2, one T = 8 sweep; H14 as its one launch for
     all four shards. No PyTorch call advances a shard T steps from its
-    strips, so no library time."""
+    strips, so no library time. H12's ``plan``: its tiles, and its tiles by
+    path as one launch counted them. H12/H13's ``device_ms``: the same
+    calls with the host's enqueue hidden (``time_device_ms``)."""
     from heat2d_tpu_torch.ops import cuda_shard as csh
     from heat2d_tpu_torch.ops import cuda_stencil as cs
     from heat2d_tpu_torch.ops.init import inidat
@@ -1819,8 +1884,16 @@ def shard_kernel_rows(torch) -> list:
         ms=time_ms(lambda: csh.shard_tile_multi(u, st, *args), 20),
         plain_ms=time_ms(lambda: csh.shard_tile_multi_plain(u, st, *args),
                          5),
-        bound_ms=b, bound_by=by, library_ms=None))
-    ntiles = cs.plan_tiles(bm, bm, t, cs.smem_limit("cuda")).ntiles
+        bound_ms=b, bound_by=by, library_ms=None,
+        device_ms=time_device_ms(
+            lambda: csh.shard_tile_multi(u, st, *args), 20)))
+    plan = csh.plan_shard_sweep(bm, bm, t, caps_of(torch)[1])
+    counted = csh.path_counter("cuda")
+    csh.shard_tile_multi(u, st, *args, paths=counted)
+    rows[-1]["plan"] = {"tile": [plan.ty, plan.tx], "ring": plan.tsteps,
+                        "warps": cs.STRIP_WARPS,
+                        **dict(zip(csh.TILE_PATHS, counted.tolist()))}
+    ntiles = plan.ntiles
     b, by = bound_ms(moved + 4 * ntiles,
                      FLOPS_PER_CELL_STEP * cells * t + 3 * cells)
     rows.append(dict(
@@ -1829,7 +1902,9 @@ def shard_kernel_rows(torch) -> list:
         ms=time_ms(lambda: csh.shard_tile_multi_resid(u, st, *args), 20),
         plain_ms=time_ms(
             lambda: csh.shard_tile_multi_resid_plain(u, st, *args), 5),
-        bound_ms=b, bound_by=by, library_ms=None))
+        bound_ms=b, bound_by=by, library_ms=None,
+        device_ms=time_device_ms(
+            lambda: csh.shard_tile_multi_resid(u, st, *args), 20)))
     b, by = bound_ms(2 * 4 * n * n, FLOPS_PER_CELL_STEP * n * n * t)
     rows.append(dict(
         name="shard_fused",

@@ -25,7 +25,7 @@
 //   H9 k_fam_tile     <- _family_band_kernel (B10, runners.py:181): nsub
 //                     steps per sweep of shared-memory tiles with a ring
 //                     of depth H = W * nsub, blockIdx.z = member (the
-//                     family sweep below, fam_sweep).  The TPU kernel
+//                     strip sweep of csrc/tile.cuh).  The TPU kernel
 //                     holds only global rows, because its band spans the
 //                     whole width and its value form holds the column
 //                     ring; a tile splits both axes, so the sweep holds
@@ -41,13 +41,13 @@
 // one 122,880-byte block of 8 warps per SM at heat9's T = 8, one cell a
 // thread, 9 shared-memory loads and the held rule per update: latency-
 // bound at ~1 of the 4 instructions an SM can issue per clock.  The
-// family sweep keeps two blocks per SM (the plan's depth, ops/
-// cuda_family.py), so one block's global load overlaps the other's
-// steps; gives each thread a strip of 4 independent updates with its x
-// neighbours in registers (6 shared-memory loads an update for heat9, 3.5
-// for W = 1); tests the held rule once per block for tiles inside the
-// domain; shrinks each step's region to what the centre needs; and writes
-// the centre from registers.
+// strip sweep (csrc/tile.cuh, shared with H12/H13) keeps two blocks per
+// SM (the plan's depth, ops/cuda_family.py), so one block's global load
+// overlaps the other's steps; gives each thread a strip of 4 independent
+// updates with its x neighbours in registers (6 shared-memory loads an
+// update for heat9, 3.5 for W = 1); tests the held rule once per block
+// for tiles inside the domain; shrinks each step's region to what the
+// centre needs; and writes the centre from registers.
 //
 // Each operator repeats its plain update's operations in the JAX
 // package's order, one rounding per operation (__f*_rn: no contraction
@@ -182,124 +182,11 @@ cudaError_t launch_fam_resident(const float* src, float* dst,
 }
 
 // ---------------------------------------------------------------- H9 --
-// The family tile sweep.  The tile's ext (its TY x TX centre and an H-deep
-// ring) is read into shared memory once; step s = 1..nsub rewrites the
-// region H - W*(nsub - s) cells in from the ext's edge into the second
-// buffer, and the last step (the centre) goes from registers straight to
-// dst.  Unlike tile_steps (H2, H6, H7, H12-H14 and H8's families), a
-// thread updates a strip of FAM_STRIP cells down one column: the column's
-// FAM_STRIP + 2W values are loaded once into registers and serve as the
-// strip's x neighbours, and the strip's cells are independent update
-// chains.  Op::apply is called unchanged -- its ld(o) maps the x offsets
-// (multiples of STRIP_ROW) to those registers and the y offsets (+-1,
-// +-2) to shared memory -- so each cell's rounded operations are the
-// plain version's, in its order.  A block whose ext lies inside the
-// domain (EDGE = false; a uniform test per block) skips the held rule and
-// the bounds of its loads; the others hold the W-deep global ring and
-// every cell outside the domain, which loads as 0.
-constexpr int FAM_STRIP = 4;
-// The row stride Op::apply is given: ld(o) reads x offset
-// (o + STRIP_ROW/2) >> 16 (in rows) and y offset o - x * STRIP_ROW.
-constexpr int STRIP_ROW = 1 << 16;
+// The strip sweep of csrc/tile.cuh on member blockIdx.z, the whole grid
+// its placement; (blockIdx.y, blockIdx.x) = the tile.  A tile whose ext
+// lies inside the grid takes the fast path.
+constexpr int FAM_BY = heat::STRIP_BY;
 
-// Step (strip, cc) on by BY items of `ncc` column chunks a strip, without
-// a division.
-template <int BY>
-__device__ __forceinline__ void next_item(int& strip, int& cc, int ncc) {
-  cc += BY;
-  while (cc >= ncc) {
-    cc -= ncc;
-    ++strip;
-  }
-}
-
-template <class Op, int BY, bool EDGE>
-__device__ __forceinline__ void fam_sweep(const float* __restrict__ src,
-                                          float* __restrict__ dst, int nx,
-                                          int ny, const typename Op::Params& k,
-                                          int H, int nsub, int TY, int TX,
-                                          int i0, int j0, float* smem) {
-  constexpr int W = Op::W;
-  constexpr int LOADS = 8;  // global loads in flight per thread
-  const int EY = TY + 2 * H, EX = TX + 2 * H;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  float* cur = smem;
-  float* nxt = smem + EY * EX;
-
-  for (int r = ty; r < EY; r += BY) {
-    const int gi = i0 + r;
-    const bool row_in = !EDGE || (gi >= 0 && gi < nx);
-    const float* srow = src + (ptrdiff_t)gi * ny + j0;
-    for (int c0 = tx; c0 < EX; c0 += 32 * LOADS) {
-      float v[LOADS];
-#pragma unroll
-      for (int q = 0; q < LOADS; ++q) {
-        const int c = c0 + 32 * q;
-        const bool in = c < EX && row_in &&
-                        (!EDGE || (j0 + c >= 0 && j0 + c < ny));
-        v[q] = in ? srow[c] : 0.0f;
-      }
-#pragma unroll
-      for (int q = 0; q < LOADS; ++q)
-        if (c0 + 32 * q < EX) cur[r * EX + c0 + 32 * q] = v[q];
-    }
-  }
-  __syncthreads();
-
-  for (int s = 1; s <= nsub; ++s) {
-    const bool last = s == nsub;
-    const int lo = H - W * (nsub - s);
-    const int rows = EY - 2 * lo, cols = EX - 2 * lo;
-    // Work items (strip, chunk of 32 columns), dealt to the warps in
-    // turn: warp ty takes items ty, ty + BY, ...
-    const int ncc = (cols + 31) / 32;
-    const int strips = (rows + FAM_STRIP - 1) / FAM_STRIP;
-    int strip = ty / ncc, cc = ty - strip * ncc;
-    for (; strip < strips; next_item<BY>(strip, cc, ncc)) {
-      const int r0 = lo + strip * FAM_STRIP;
-      const int c = lo + cc * 32 + tx;
-      const int nr = min(FAM_STRIP, rows + lo - r0);  // uniform in a warp
-      if (c >= lo + cols) continue;
-      float col[FAM_STRIP + 2 * W];
-#pragma unroll
-      for (int q = 0; q < FAM_STRIP + 2 * W; ++q)
-        col[q] = cur[min(r0 - W + q, EY - 1) * EX + c];
-      const int gj = j0 + c;
-      const bool col_upd = !EDGE || (gj >= W && gj < ny - W);
-#pragma unroll
-      for (int q = 0; q < FAM_STRIP; ++q) {
-        if (q >= nr) break;
-        const int p = (r0 + q) * EX + c;
-        float v = Op::apply(
-            [&](int o) {
-              const int dx = (o + STRIP_ROW / 2) >> 16;
-              const int dy = o - dx * STRIP_ROW;
-              return dy == 0 ? col[W + q + dx] : cur[p + dy];
-            },
-            STRIP_ROW, k);
-        const int gi = i0 + r0 + q;
-        if (EDGE && !(col_upd && gi >= W && gi < nx - W)) v = col[W + q];
-        if (!last) {
-          nxt[p] = v;
-        } else if (!EDGE || (gi < nx && gj < ny)) {
-          dst[(size_t)gi * ny + gj] = v;
-        }
-      }
-    }
-    if (!last) {
-      __syncthreads();
-      float* t = cur;
-      cur = nxt;
-      nxt = t;
-    }
-  }
-}
-
-// Thread rows a block: 16 warps, two blocks an SM at the family plans
-// (ops/cuda_family.py; 8 warps timed slower at every depth).
-constexpr int FAM_BY = 16;
-
-// blockIdx.z = member; (blockIdx.y, blockIdx.x) = the tile.
 template <class Op>
 __global__ void __launch_bounds__(32 * FAM_BY, 2)
     k_fam_tile(const float* __restrict__ src, float* __restrict__ dst,
@@ -309,13 +196,14 @@ __global__ void __launch_bounds__(32 * FAM_BY, 2)
   const int m = blockIdx.z;
   const size_t off = (size_t)m * nx * ny;
   const typename Op::Params k = Op::load(scal + m * Op::S);
-  const int i0 = blockIdx.y * TY - H, j0 = blockIdx.x * TX - H;
-  if (i0 >= 0 && j0 >= 0 && i0 + TY + 2 * H <= nx && j0 + TX + 2 * H <= ny)
-    fam_sweep<Op, FAM_BY, false>(src + off, dst + off, nx, ny, k, H, nsub,
-                                 TY, TX, i0, j0, smem);
+  const heat::GridLoad ld{src + off, nx, ny};
+  const heat::Placement pl{0, 0, nx, ny};
+  if (heat::ext_inside(pl, H, TY, TX, pl))
+    heat::strip_sweep_at<Op, FAM_BY, false, false>(ld, dst + off, pl, nx, ny,
+                                                   k, H, nsub, TY, TX, smem);
   else
-    fam_sweep<Op, FAM_BY, true>(src + off, dst + off, nx, ny, k, H, nsub,
-                                TY, TX, i0, j0, smem);
+    heat::strip_sweep_at<Op, FAM_BY, true, false>(ld, dst + off, pl, nx, ny,
+                                                  k, H, nsub, TY, TX, smem);
 }
 
 template <class Op>

@@ -13,7 +13,8 @@
 //                              corners) -> the block advanced nsub <= T
 //                              steps, written to a second buffer.
 //   H13 k_shard_tile<RESID> <- D2R: H12 plus one partial sum of squared
-//                              deltas of the last step pair per tile.
+//                              deltas of the last step pair per tile (the
+//                              same template, RESID = true).
 //   H14 k_shard_fused       <- kernel F (_fused_ici_kernel): the halo
 //                              exchange moves into the kernel.  Tile loads
 //                              read ring cells straight from the neighbour
@@ -23,15 +24,25 @@
 //                              MPI_PROC_NULL zeros).  One launch covers
 //                              every shard a device holds (blockIdx.z).
 //
-// All three are the tile sweep of csrc/tile.cuh (H2's design) with another
-// loader: the TPU kernels' VMEM/HBM split and band windows have no
-// counterpart.  Like H2 they are bound on the H100 by shared-memory
-// traffic and the ring recompute, not by device-memory bytes (one read and
-// one write of the block per sweep, plus the strips).  The held-cell rule
-// is in global coordinates from the shard's origin (x0, y0): the domain's
-// ring and every cell past it (pad cells of an uneven decomposition hold
-// their stored value, which the loader reads, never recomputes).
-//
+// H12/H13 are the strip sweep of csrc/tile.cuh (H9's design: a strip of
+// 4 cells a thread with its x neighbours in registers, 16 warps, two
+// blocks an SM), H14 the tile sweep (H2's design) with another loader:
+// the TPU kernels' VMEM/HBM split and band windows have no counterpart.
+// Neither is bound on the H100 by device-memory bytes (one read and one
+// write of the block per sweep, plus the strips) but by the instructions
+// of the step loop and the ring recompute.  The tile sweep pays, on every
+// update, five shared-memory loads, the held-rule test and, on every ext
+// cell, ShardLoad's five-way branch.  The strip sweep tests two things
+// once per block, uniformly: (a) the tile's ext lies inside the shard's
+// own block u, so its rows are copied straight from u (cp.async), and
+// (b) it lies inside the domain, so no cell is held.  A block
+// that passes both (at a 2048^2 shard, T = 8, 420 of 512 tiles) runs
+// without either; the others load through ShardLoad and hold cells.  The
+// held-cell rule is in global coordinates from the shard's origin (x0,
+// y0): the domain's ring and every cell past it (pad cells of an uneven
+// decomposition hold their stored value, which the loader reads, never
+// recomputes; a tile can pass (a) and fail (b) on pad rows).
+
 // No kernel writes a buffer it reads: H14's tiles read the input blocks of
 // every shard, so each shard's output is a separate buffer.  With several
 // cards, H14 reads the neighbours on other cards through peer access; the
@@ -52,7 +63,8 @@ using heat::FORM_FMA;
 using heat::FORM_LITERAL;
 using heat::Placement;
 
-// A shard's block and its halo strips, indexed by global cell.
+// A shard's block and its halo strips, indexed by global cell; row(gi,
+// gj) points at a cell of the block u, for tiles whose ext lies inside it.
 struct ShardLoad {
   const float* __restrict__ u;
   const float* __restrict__ n;
@@ -68,6 +80,9 @@ struct ShardLoad {
     if (li < 0) return n[(size_t)(li + t) * bn + lj];
     if (li >= bm) return s[(size_t)(li - bm) * bn + lj];
     return u[(size_t)li * bn + lj];
+  }
+  __device__ __forceinline__ const float* row(int gi, int gj) const {
+    return u + (ptrdiff_t)(gi - x0) * bn + (gj - y0);
   }
 };
 
@@ -97,16 +112,34 @@ struct MeshLoad {
 };
 
 // ------------------------------------------------------------ H12 / H13 --
+constexpr int SHARD_BY = heat::STRIP_BY;
+
+// `paths` (NULL, or three words that the caller zeroed): thread (0, 0)
+// of each block adds its tile to the word of the path it takes -- fast,
+// edge, and of the edge tiles those inside u (ops/cuda_shard.py
+// TILE_PATHS).  With RESID, each block writes its tile's partial sum.
 template <int FORM, bool RESID>
-__global__ void k_shard_tile(ShardLoad ld, float* __restrict__ dst,
-                             float* __restrict__ parts, int nx, int ny,
-                             Coef k, int T, int nsub, int TY, int TX) {
+__global__ void __launch_bounds__(32 * SHARD_BY, 2)
+    k_shard_tile(ShardLoad ld, float* __restrict__ dst,
+                 float* __restrict__ parts, unsigned* paths, int nx, int ny,
+                 Coef k, int T, int nsub, int TY, int TX) {
   extern __shared__ float smem[];
-  const float acc = heat::tile_sweep_at<heat::Heat5<FORM>, RESID>(
-      ld, dst, Placement{ld.x0, ld.y0, ld.bm, ld.bn}, nx, ny, k, T, nsub, TY,
-      TX, smem);
-  if (RESID && threadIdx.x == 0 && threadIdx.y == 0)
-    parts[blockIdx.y * gridDim.x + blockIdx.x] = acc;
+  using Op = heat::Heat5<FORM>;
+  const Placement pl{ld.x0, ld.y0, ld.bm, ld.bn};
+  const bool in_block = heat::ext_inside(pl, T, TY, TX, pl);
+  const bool fast =
+      in_block && heat::ext_inside(pl, T, TY, TX, Placement{0, 0, nx, ny});
+  const bool first = threadIdx.x == 0 && threadIdx.y == 0;
+  if (paths != nullptr && first) {
+    atomicAdd(paths + (fast ? 0 : 1), 1u);
+    if (in_block && !fast) atomicAdd(paths + 2, 1u);
+  }
+  const float acc =
+      fast ? heat::strip_sweep_at<Op, SHARD_BY, false, RESID>(
+                 ld, dst, pl, nx, ny, k, T, nsub, TY, TX, smem)
+           : heat::strip_sweep_at<Op, SHARD_BY, true, RESID>(
+                 ld, dst, pl, nx, ny, k, T, nsub, TY, TX, smem);
+  if (RESID && first) parts[blockIdx.y * gridDim.x + blockIdx.x] = acc;
 }
 
 // ---------------------------------------------------------------- H14 --
@@ -134,14 +167,14 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 
 template <int FORM, bool RESID>
 cudaError_t launch_shard_tile(const ShardLoad& ld, float* dst, float* parts,
-                              int nx, int ny, Coef k, int T, int nsub, int TY,
-                              int TX, cudaStream_t stream) {
+                              unsigned* paths, int nx, int ny, Coef k, int T,
+                              int nsub, int TY, int TX, cudaStream_t stream) {
   const size_t smem = heat::tile_smem_bytes(T, TY, TX);
   cudaError_t e = allow_smem(k_shard_tile<FORM, RESID>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((ld.bn + TX - 1) / TX, (ld.bm + TY - 1) / TY);
-  k_shard_tile<FORM, RESID><<<grid, dim3(BLOCK_X, BLOCK_Y), smem, stream>>>(
-      ld, dst, parts, nx, ny, k, T, nsub, TY, TX);
+  k_shard_tile<FORM, RESID><<<grid, dim3(32, SHARD_BY), smem, stream>>>(
+      ld, dst, parts, paths, nx, ny, k, T, nsub, TY, TX);
   return cudaGetLastError();
 }
 
@@ -168,27 +201,23 @@ const char* heat_error_string(int e) {
 
 // H12 (parts == NULL) or H13 (one partial per tile, row-major over the
 // (ceil(bm/TY), ceil(bn/TX)) tile grid) on one shard at global (x0, y0).
+// `paths`: NULL, or k_shard_tile's three path counts.
 int heat_shard_tile(const float* u, const float* n, const float* s,
                     const float* w, const float* e, float* dst, float* parts,
-                    int x0, int y0, int bm, int bn, int nx, int ny, float cx,
-                    float cy, float k0, int form, int T, int nsub, int TY,
-                    int TX, void* stream) {
+                    unsigned* paths, int x0, int y0, int bm, int bn, int nx,
+                    int ny, float cx, float cy, float k0, int form, int T,
+                    int nsub, int TY, int TX, void* stream) {
   const ShardLoad ld{u, n, s, w, e, x0, y0, bm, bn, T};
   const Coef k{cx, cy, k0};
   cudaStream_t st = (cudaStream_t)stream;
-  if (parts == nullptr) {
-    return form == FORM_LITERAL
-               ? launch_shard_tile<FORM_LITERAL, false>(ld, dst, parts, nx,
-                                                        ny, k, T, nsub, TY,
-                                                        TX, st)
-               : launch_shard_tile<FORM_FMA, false>(ld, dst, parts, nx, ny,
-                                                    k, T, nsub, TY, TX, st);
-  }
-  return form == FORM_LITERAL
-             ? launch_shard_tile<FORM_LITERAL, true>(ld, dst, parts, nx, ny,
-                                                     k, T, nsub, TY, TX, st)
-             : launch_shard_tile<FORM_FMA, true>(ld, dst, parts, nx, ny, k,
-                                                 T, nsub, TY, TX, st);
+  auto launch = parts == nullptr
+                    ? (form == FORM_LITERAL
+                           ? launch_shard_tile<FORM_LITERAL, false>
+                           : launch_shard_tile<FORM_FMA, false>)
+                    : (form == FORM_LITERAL
+                           ? launch_shard_tile<FORM_LITERAL, true>
+                           : launch_shard_tile<FORM_FMA, true>);
+  return launch(ld, dst, parts, paths, nx, ny, k, T, nsub, TY, TX, st);
 }
 
 // H14: nz shards of one device.  Host arrays: `blocks` the gx * gy input

@@ -1,9 +1,14 @@
 // Device code shared by csrc/stencil.cu (H2/H3), csrc/ensemble.cu
 // (H5-H7), csrc/family.cu (H8/H9) and csrc/shard.cu (H12-H14): the heat5
-// step forms, the operator interface, the step loop of a tile in shared
-// memory (also the resident sweep's, csrc/resident.cuh), and the tile
-// sweep generic over an operator and over where its cells are loaded
-// from.
+// step forms, the operator interface, and two sweeps of a tile in shared
+// memory, each generic over an operator and over where its cells are
+// loaded from:
+//   - the tile sweep (tile_sweep_at, its step loop tile_steps): one cell
+//     a thread, 8 warps; H2, H3, H6, H7, H14, and the step loop of H5/H8's
+//     resident sweep (csrc/resident.cuh);
+//   - the strip sweep (strip_sweep_at): a strip of 4 cells a thread with
+//     its x neighbours in registers, 16 warps, two blocks an SM, the held
+//     rule tested once per block; H9 and H12/H13.
 //
 // An operator Op has a spatial radius Op::W, a scalar set Op::Params,
 // and Op::apply(ld, row, k): the updated value of a cell from ld(o), the
@@ -12,7 +17,7 @@
 // W <= j < ny-W; the W-deep ring and every cell outside the domain are
 // held.
 //
-// A tile sweep advances one (TY+2H) x (TX+2H) tile -- its TY x TX centre
+// A sweep advances one (TY+2H) x (TX+2H) tile -- its TY x TX centre
 // plus an H-deep halo ring, H >= W * nsub -- nsub steps in shared memory
 // and writes only the centre, to a second buffer.  Device-memory traffic
 // is one read and one write of the grid per sweep (plus the rings), so
@@ -63,9 +68,12 @@ struct Heat5 {
   }
 };
 
-// The block's sum of `acc`, valid in thread (0, 0).
+// The sum of `acc` over a block of WARPS warps of 32 x WARPS threads (x
+// fastest), valid in thread (0, 0).
+template <int WARPS = BLOCK_X * BLOCK_Y / 32>
 __device__ __forceinline__ float block_sum(float acc) {
-  __shared__ float warp_sums[BLOCK_X * BLOCK_Y / 32];
+  static_assert(WARPS <= 32, "one warp sums the warps' partials");
+  __shared__ float warp_sums[WARPS];
   const int t = threadIdx.y * BLOCK_X + threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
   for (int o = 16; o > 0; o >>= 1)
@@ -74,20 +82,44 @@ __device__ __forceinline__ float block_sum(float acc) {
   __syncthreads();
   acc = 0.0f;
   if (warp == 0) {
-    acc = lane < BLOCK_X * BLOCK_Y / 32 ? warp_sums[lane] : 0.0f;
+    acc = lane < WARPS ? warp_sums[lane] : 0.0f;
     for (int o = 16; o > 0; o >>= 1)
       acc += __shfl_down_sync(0xffffffffu, acc, o);
   }
   return acc;
 }
 
+// Asynchronous 4-byte copies from device to shared memory (cp.async: no
+// register staging, so a thread keeps all its copies in flight).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // The loader of a whole nx x ny grid: the cell's value, 0 outside it.
+// row(gi, gj) points at cell (gi, gj) of the grid, for the strip sweep's
+// tiles whose ext lies inside it.
 struct GridLoad {
   const float* __restrict__ src;
   int nx, ny;
   __device__ __forceinline__ float operator()(int gi, int gj) const {
     return (gi >= 0 && gi < nx && gj >= 0 && gj < ny)
                ? src[(size_t)gi * ny + gj] : 0.0f;
+  }
+  __device__ __forceinline__ const float* row(int gi, int gj) const {
+    return src + (ptrdiff_t)gi * ny + gj;
   }
 };
 
@@ -197,6 +229,160 @@ __device__ __forceinline__ float tile_sweep(const float* __restrict__ src,
   return tile_sweep_at<Op, RESID>(GridLoad{src, nx, ny}, dst,
                                   Placement{0, 0, nx, ny}, nx, ny, k, H, nsub,
                                   TY, TX, smem);
+}
+
+// ------------------------------------------------------ the strip sweep --
+// The tile's ext is read into shared memory once; step s = 1..nsub
+// rewrites the region H - W*(nsub - s) cells in from the ext's edge (what
+// the centre needs) into the second buffer, and the last step (the
+// centre) goes from registers straight to dst.  Unlike tile_steps, a
+// thread updates a strip of STRIP cells down one column: the column's
+// STRIP + 2W values are loaded once into registers and serve as the
+// strip's x neighbours, and the strip's cells are independent update
+// chains.  Op::apply is called unchanged -- its ld(o) maps the x offsets
+// (multiples of STRIP_ROW) to those registers and the y offsets (+-1,
+// +-2) to shared memory -- so each cell's rounded operations are those
+// of tile_steps and of the plain version, in their order.
+constexpr int STRIP = 4;
+// The row stride Op::apply is given: ld(o) reads x offset
+// (o + STRIP_ROW/2) >> 16 (in rows) and y offset o - x * STRIP_ROW.
+constexpr int STRIP_ROW = 1 << 16;
+// Thread rows (warps) of a strip-sweep block: 16, two blocks an SM at the
+// plans of ops/cuda_family.py and ops/cuda_shard.py (8 timed slower).
+constexpr int STRIP_BY = 16;
+
+// Step (strip, cc) on by BY items of `ncc` column chunks a strip, without
+// a division.
+template <int BY>
+__device__ __forceinline__ void next_item(int& strip, int& cc, int ncc) {
+  cc += BY;
+  while (cc >= ncc) {
+    cc -= ncc;
+    ++strip;
+  }
+}
+
+// Whether the ext (ring H) of this block's tile of `pl` lies inside `box`
+// (both in global cells): the strip sweep's uniform fast-path tests.
+__device__ __forceinline__ bool ext_inside(Placement pl, int H, int TY,
+                                           int TX, Placement box) {
+  const int i0 = pl.x0 + (int)blockIdx.y * TY - H - box.x0;
+  const int j0 = pl.y0 + (int)blockIdx.x * TX - H - box.y0;
+  return i0 >= 0 && j0 >= 0 && i0 + TY + 2 * H <= box.rows &&
+         j0 + TX + 2 * H <= box.cols;
+}
+
+// One strip sweep of the tile (blockIdx.y, blockIdx.x) of the block `pl`,
+// by a block of 32 x BY threads; the arguments are tile_sweep_at's.
+// EDGE = false is the fast path, for a block whose ext lies inside the
+// domain and inside the one array that load.row addresses (a uniform test
+// per block, ext_inside): its rows are copied straight from that array by
+// cp.async, and the held rule and the write mask are skipped.  EDGE =
+// true loads every cell through load(gi, gj), 8 loads in flight a thread,
+// holds the W-deep global ring and every cell outside the domain, and
+// writes only cells inside `pl`.  With RESID, returns (in thread (0, 0))
+// the tile's sum of squared deltas over the last step pair of its written
+// cells, the previous step's value being the strip's register (held
+// cells add 0).
+template <class Op, int BY, bool EDGE, bool RESID, class Load>
+__device__ __forceinline__ float strip_sweep_at(const Load& load,
+                                                float* __restrict__ dst,
+                                                Placement pl, int nx, int ny,
+                                                const typename Op::Params& k,
+                                                int H, int nsub, int TY,
+                                                int TX, float* smem) {
+  constexpr int W = Op::W;
+  constexpr int LOADS = 8;  // global loads in flight per thread
+  const int EY = TY + 2 * H, EX = TX + 2 * H;
+  const int i0 = pl.x0 + (int)blockIdx.y * TY - H;
+  const int j0 = pl.y0 + (int)blockIdx.x * TX - H;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  float* cur = smem;
+  float* nxt = smem + EY * EX;
+
+  if (EDGE) {
+    for (int r = ty; r < EY; r += BY) {
+      const int gi = i0 + r;
+      for (int c0 = tx; c0 < EX; c0 += 32 * LOADS) {
+        float v[LOADS];
+#pragma unroll
+        for (int q = 0; q < LOADS; ++q) {
+          const int c = c0 + 32 * q;
+          v[q] = c < EX ? load(gi, j0 + c) : 0.0f;
+        }
+#pragma unroll
+        for (int q = 0; q < LOADS; ++q)
+          if (c0 + 32 * q < EX) cur[r * EX + c0 + 32 * q] = v[q];
+      }
+    }
+  } else {
+    // Every copy of the thread in flight at once, one wait.
+    for (int r = ty; r < EY; r += BY) {
+      const float* srow = load.row(i0 + r, j0);
+      for (int c = tx; c < EX; c += 32)
+        cp_async4(cur + r * EX + c, srow + c);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+
+  float acc = 0.0f;
+  for (int s = 1; s <= nsub; ++s) {
+    const bool last = s == nsub;
+    const int lo = H - W * (nsub - s);
+    const int rows = EY - 2 * lo, cols = EX - 2 * lo;
+    // Work items (strip, chunk of 32 columns), dealt to the warps in
+    // turn: warp ty takes items ty, ty + BY, ...
+    const int ncc = (cols + 31) / 32;
+    const int strips = (rows + STRIP - 1) / STRIP;
+    int strip = ty / ncc, cc = ty - strip * ncc;
+    for (; strip < strips; next_item<BY>(strip, cc, ncc)) {
+      const int r0 = lo + strip * STRIP;
+      const int c = lo + cc * 32 + tx;
+      const int nr = min(STRIP, rows + lo - r0);  // uniform in a warp
+      if (c >= lo + cols) continue;
+      float col[STRIP + 2 * W];
+#pragma unroll
+      for (int q = 0; q < STRIP + 2 * W; ++q)
+        col[q] = cur[min(r0 - W + q, EY - 1) * EX + c];
+      const int gj = j0 + c;
+      const bool col_upd = !EDGE || (gj >= W && gj < ny - W);
+#pragma unroll
+      for (int q = 0; q < STRIP; ++q) {
+        if (q >= nr) break;
+        const int p = (r0 + q) * EX + c;
+        float v = Op::apply(
+            [&](int o) {
+              const int dx = (o + STRIP_ROW / 2) >> 16;
+              const int dy = o - dx * STRIP_ROW;
+              return dy == 0 ? col[W + q + dx] : cur[p + dy];
+            },
+            STRIP_ROW, k);
+        const int gi = i0 + r0 + q;
+        if (EDGE && !(col_upd && gi >= W && gi < nx - W)) v = col[W + q];
+        if (!last) {
+          nxt[p] = v;
+          continue;
+        }
+        const int li = gi - pl.x0, lj = gj - pl.y0;
+        if (!EDGE || (li < pl.rows && lj < pl.cols)) {
+          dst[(size_t)li * pl.cols + lj] = v;
+          if (RESID) {
+            const float d = v - col[W + q];
+            acc += d * d;
+          }
+        }
+      }
+    }
+    if (!last) {
+      __syncthreads();
+      float* t = cur;
+      cur = nxt;
+      nxt = t;
+    }
+  }
+  return RESID ? block_sum<BY>(acc) : 0.0f;
 }
 
 // Dynamic shared memory of one tile block: two ext tiles, ring H.

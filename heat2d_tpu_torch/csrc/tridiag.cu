@@ -24,10 +24,10 @@
 //                     a panel of 32 adjacent columns of one member (one
 //                     system a lane, 128-byte coalesced rows).
 //   H11 k_td_lanes <- _tridiag_lanes_kernel (TD, tridiag.py:349): solve
-//                     along axis 2 of a (B, rows, n) batch: one thread per
-//                     row, eliminating along the columns.  Neighbouring
-//                     threads read addresses a whole row apart (strided,
-//                     uncoalesced): the simple first version.
+//                     along axis 2 of a (B, rows, n) batch.  One warp takes
+//                     a panel of 32 adjacent rows of one member (one system
+//                     a lane): H10's design with the tile transposed in
+//                     shared memory (below).
 //
 // The solve is out[i] = (rhs[i] - a_i*out[i-1]) * mi[i] forward (a_i = a
 // on rows 1..n-2, 0 on rows 0 and n-1; row 0 is then rhs[0] exactly) and
@@ -62,18 +62,43 @@
 // A panel's last lanes past m are masked (no copy, no store); a last
 // stage of fewer rows runs the same loop with a shorter count.
 //
+// H11 solves along the contiguous axis, so a lane's system is a row of
+// the batch and the 32 lanes' systems lie a row apart: read or written
+// by its own lane, every access of a warp would touch 32 rows (the first
+// version did so, 3x H10's time).  So the ring's stages are tiles of the
+// panel's 32 rows x 32 columns, copied by rows: lane l copies column l of
+// each row, one 128-byte segment an instruction, into a slot of row
+// stride 33 floats (no bank conflict either way).  A lane then reads its
+// own row across the tile, which other lanes copied: each stage waits
+// for its copies and then __syncwarp()s, and the slot is refilled only
+// after the next __syncwarp.  The chain writes its results back into the
+// lane's row of the slot, and the warp stores the tile by rows, coalesced
+// again.  The back sweep stages `out` the same way from the aligned
+// 32-column group that holds column n-2 down to column 0, after a fence:
+// it reads values that other lanes of the warp stored.  Past-the-end rows
+// of a panel are neither copied nor stored; their lanes run the chain on
+// whatever the slot holds, and nothing reads it.
+//
 // Every entry point returns a cudaError_t (0 on success); the Python
 // wrapper raises on anything else.
 
 #include <cuda_runtime.h>
 
+#include "tile.cuh"
+
 namespace {
 
-constexpr int LANES_THREADS = 32;
+using heat::cp_async4;
+using heat::cp_async_commit;
+using heat::cp_async_wait;
+
 constexpr int PANEL = 32;        // lanes of a warp, floats of a ring row
 constexpr int STAGE_ROWS = 32;   // rows a ring slot holds
 constexpr int STAGES = 8;        // ring slots per warp (a power of two)
 constexpr int RING = STAGES * STAGE_ROWS * PANEL;   // floats per warp
+constexpr int SLOT_STRIDE = PANEL + 1;  // H11: a slot's row stride, floats
+constexpr int SLOT = PANEL * SLOT_STRIDE;            // H11: floats a slot
+constexpr int LANES_RING = STAGES * SLOT;            // H11: floats per warp
 
 // Shared memory of one member's (cp, mi), rounded up to 16 bytes.
 __host__ __device__ constexpr int coef_floats(int n) {
@@ -131,23 +156,6 @@ __global__ void k_td_coeffs(const float* __restrict__ c,
     mi[n - 1] = __fdiv_rn(1.0f, m);
     cp[n - 1] = __fdiv_rn(0.0f, m);
   }
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until at most N of this thread's committed groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // One stage of a warp's panel into a ring slot: rows row0 + dir*k, k <
@@ -292,41 +300,165 @@ __global__ void __launch_bounds__(128) k_td_rows(
   cp_async_wait<0>();
 }
 
-// One system of n unknowns at `x + k*stride`, k = 0..n-1.
-__device__ __forceinline__ void solve_system(const float* __restrict__ rhs,
-                                             float* __restrict__ out,
-                                             size_t stride, int n, float a,
-                                             const float* __restrict__ cp,
-                                             const float* __restrict__ mi) {
-  float prev = rhs[0];
-  out[0] = prev;
-#pragma unroll 8
-  for (int i = 1; i < n; ++i) {
-    const float ai = i <= n - 2 ? a : 0.0f;
-    prev = __fmul_rn(__fsub_rn(rhs[i * stride], __fmul_rn(ai, prev)),
-                     mi[i]);
-    out[i * stride] = prev;
+// One H11 stage: columns [col0, col0 + cnt) of the panel's `nrows` rows
+// (row stride n, row 0 at `rows`) into `slot`, lane l copying column
+// col0 + l of every row to slot[k * SLOT_STRIDE + l]: one 128-byte row
+// segment a warp instruction.  Committed in every lane, as stage_in.
+__device__ __forceinline__ void stage_cols(float* slot, const float* rows,
+                                           int col0, int cnt, int nrows,
+                                           size_t n, int lane) {
+  if (lane < cnt) {
+    for (int k = 0; k < nrows; ++k)
+      cp_async4(slot + k * SLOT_STRIDE + lane, rows + k * n + col0 + lane);
   }
-  float next = prev;
-  for (int i = n - 2; i >= 0; --i) {
-    next = __fsub_rn(out[i * stride], __fmul_rn(cp[i], next));
-    out[i * stride] = next;
+  cp_async_commit();
+}
+
+// The slot's tile back to the panel's rows, the same way round.
+__device__ __forceinline__ void store_cols(const float* slot, float* rows,
+                                           int col0, int cnt, int nrows,
+                                           size_t n, int lane) {
+  if (lane < cnt) {
+    for (int k = 0; k < nrows; ++k)
+      rows[k * n + col0 + lane] = slot[k * SLOT_STRIDE + lane];
   }
 }
 
-// H11: thread (blockIdx.x * 32 + threadIdx.x) solves row i of member
-// blockIdx.y of a (nb, rows, n) batch.
-__global__ void k_td_lanes(const float* __restrict__ rhs,
-                           float* __restrict__ out,
-                           const float* __restrict__ c,
-                           const float* __restrict__ coef, int rows, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+// H11: warp w of block (blockIdx.x, blockIdx.y) solves the panel of rows
+// [(blockIdx.x * warps + w) * 32, +32) of member blockIdx.y of a (nb,
+// rows, n) batch, lane l row l of the panel.  COEF_SMEM as in H10; each
+// stage gathers its values and coefficients into registers first, and a
+// stage of interior columns runs without the per-column edge test.
+template <bool COEF_SMEM>
+__global__ void __launch_bounds__(128) k_td_lanes(
+    const float* __restrict__ rhs, float* __restrict__ out,
+    const float* __restrict__ c, const float* __restrict__ coef, int rows,
+    int n) {
+  extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.y;
-  if (i >= rows) return;
-  const size_t base = ((size_t)b * rows + i) * n;
-  const float* cp = coef + (size_t)b * 2 * n;
-  solve_system(rhs + base, out + base, 1, n, __fmul_rn(-0.5f, c[b]), cp,
-               cp + n);
+  const int warp = threadIdx.x / PANEL, lane = threadIdx.x % PANEL;
+  const int warps = blockDim.x / PANEL;
+  const float* gcp = coef + (size_t)b * 2 * n;
+  const float* gmi = gcp + n;
+  float* scp = smem;
+  float* smi = smem + n;
+  float* ring = smem + (COEF_SMEM ? coef_floats(n) : 0) + warp * LANES_RING;
+  auto slot_of = [&](int s) { return ring + (s % STAGES) * SLOT; };
+
+  if (COEF_SMEM) {
+    for (int i = threadIdx.x; i < 2 * n; i += blockDim.x)
+      cp_async4(scp + i, gcp + i);
+    cp_async_commit();
+  }
+  const int r0 = (blockIdx.x * warps + warp) * PANEL;
+  const int nrows = min(PANEL, rows - r0);  // the panel's rows in the batch
+  const size_t nn = (size_t)n;
+  const float* src = rhs + ((size_t)b * rows + r0) * nn;
+  float* dst = out + ((size_t)b * rows + r0) * nn;
+  const float a = __fmul_rn(-0.5f, c[b]);
+  auto cp_at = [&](int i) { return COEF_SMEM ? scp[i] : __ldg(gcp + i); };
+  auto mi_at = [&](int i) { return COEF_SMEM ? smi[i] : __ldg(gmi + i); };
+  float x[PANEL], y[PANEL];
+
+  // Forward sweep: stage s holds columns [s*32, s*32 + 32).
+  const int nf = (n + PANEL - 1) / PANEL;
+  auto fwd_cnt = [&](int s) { return s < nf ? min(PANEL, n - s * PANEL) : 0; };
+  for (int s = 0; s < STAGES - 1; ++s)
+    stage_cols(slot_of(s), src, s * PANEL, fwd_cnt(s), nrows, nn, lane);
+  if (COEF_SMEM) {
+    // The coefficient group is older than the STAGES-1 stage groups.
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+  }
+  float prev = 0.0f;
+  for (int s = 0; s < nf; ++s) {
+    const int t = s + STAGES - 1;
+    __syncwarp();  // every lane has stored stage s-1, whose slot t refills
+    stage_cols(slot_of(t), src, t * PANEL, fwd_cnt(t), nrows, nn, lane);
+    cp_async_wait<STAGES - 1>();
+    __syncwarp();  // every lane's copies of stage s have landed
+    float* slot = slot_of(s);
+    float* mine = slot + lane * SLOT_STRIDE;
+    const int col0 = s * PANEL, cnt = fwd_cnt(s);
+#pragma unroll
+    for (int k = 0; k < PANEL; ++k)
+      if (k < cnt) {
+        x[k] = mine[k];
+        y[k] = mi_at(col0 + k);
+      }
+    if (col0 >= 1 && col0 + PANEL <= n - 1) {
+#pragma unroll
+      for (int k = 0; k < PANEL; ++k) {
+        prev = __fmul_rn(__fsub_rn(x[k], __fmul_rn(a, prev)), y[k]);
+        mine[k] = prev;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < PANEL; ++k)
+        if (k < cnt) {
+          const int i = col0 + k;
+          const float ai = (unsigned)(i - 1) < (unsigned)(n - 2) ? a : 0.0f;
+          prev = __fmul_rn(__fsub_rn(x[k], __fmul_rn(ai, prev)), y[k]);
+          mine[k] = prev;
+        }
+    }
+    __syncwarp();
+    store_cols(slot, dst, col0, cnt, nrows, nn, lane);
+  }
+
+  // Back substitution over columns n-2 .. 0: stage s holds the aligned
+  // group [lo, lo + cnt), lo = (G - s) * 32, G the group of column n-2.
+  // It reads what other lanes stored above: order those stores first.
+  __threadfence();
+  __syncwarp();
+  const int G = n >= 2 ? (n - 2) / PANEL : -1;
+  const int nbk = G + 1;
+  auto back_lo = [&](int s) { return (G - s) * PANEL; };
+  auto back_cnt = [&](int s) {
+    return s < nbk ? min(PANEL, n - 1 - back_lo(s)) : 0;
+  };
+  for (int s = 0; s < STAGES - 1; ++s)
+    stage_cols(slot_of(s), dst, back_lo(s), back_cnt(s), nrows, nn, lane);
+  float next = prev;
+  for (int s = 0; s < nbk; ++s) {
+    const int t = s + STAGES - 1;
+    __syncwarp();
+    stage_cols(slot_of(t), dst, back_lo(t), back_cnt(t), nrows, nn, lane);
+    cp_async_wait<STAGES - 1>();
+    __syncwarp();
+    float* slot = slot_of(s);
+    float* mine = slot + lane * SLOT_STRIDE;
+    const int lo = back_lo(s), cnt = back_cnt(s);
+    // register k holds column lo + cnt-1 - k: the chain runs downwards
+    if (cnt == PANEL) {
+#pragma unroll
+      for (int k = 0; k < PANEL; ++k) {
+        x[k] = mine[PANEL - 1 - k];
+        y[k] = cp_at(lo + PANEL - 1 - k);
+      }
+#pragma unroll
+      for (int k = 0; k < PANEL; ++k) {
+        next = __fsub_rn(x[k], __fmul_rn(y[k], next));
+        mine[PANEL - 1 - k] = next;
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < PANEL; ++k)
+        if (k < cnt) {
+          x[k] = mine[cnt - 1 - k];
+          y[k] = cp_at(lo + cnt - 1 - k);
+        }
+#pragma unroll
+      for (int k = 0; k < PANEL; ++k)
+        if (k < cnt) {
+          next = __fsub_rn(x[k], __fmul_rn(y[k], next));
+          mine[cnt - 1 - k] = next;
+        }
+    }
+    __syncwarp();
+    store_cols(slot, dst, lo, cnt, nrows, nn, lane);
+  }
+  cp_async_wait<0>();
 }
 
 template <bool COEF_SMEM>
@@ -344,6 +476,24 @@ cudaError_t launch_rows(const float* rhs, float* out, const float* c,
   const dim3 grid((panels + warps - 1) / warps, nb);
   k_td_rows<COEF_SMEM><<<grid, warps * PANEL, smem, s>>>(rhs, out, c, coef,
                                                          n, m);
+  return cudaGetLastError();
+}
+
+template <bool COEF_SMEM>
+cudaError_t launch_lanes(const float* rhs, float* out, const float* c,
+                         const float* coef, int nb, int rows, int n,
+                         int warps, cudaStream_t s) {
+  const size_t smem =
+      ((COEF_SMEM ? coef_floats(n) : 0) + (size_t)warps * LANES_RING) *
+      sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      k_td_lanes<COEF_SMEM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  const int panels = (rows + PANEL - 1) / PANEL;
+  const dim3 grid((panels + warps - 1) / warps, nb);
+  k_td_lanes<COEF_SMEM><<<grid, warps * PANEL, smem, s>>>(rhs, out, c, coef,
+                                                          rows, n);
   return cudaGetLastError();
 }
 
@@ -376,13 +526,16 @@ int heat_td_rows(const float* rhs, float* out, const float* c,
 }
 
 // Solve along axis 2 of the (nb, rows, n) batch with the (nb, 2, n)
-// coefficients of heat_td_coeffs.
+// coefficients of heat_td_coeffs: blocks of `warps` panels of 32 rows
+// (1..4), the coefficients in shared memory when coef_smem != 0.
 int heat_td_lanes(const float* rhs, float* out, const float* c,
-                  const float* coef, int nb, int rows, int n, void* stream) {
-  const dim3 grid((rows + LANES_THREADS - 1) / LANES_THREADS, nb);
-  k_td_lanes<<<grid, LANES_THREADS, 0, (cudaStream_t)stream>>>(
-      rhs, out, c, coef, rows, n);
-  return cudaGetLastError();
+                  const float* coef, int nb, int rows, int n, int warps,
+                  int coef_smem, void* stream) {
+  if (warps < 1 || warps > 4) return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return coef_smem
+             ? launch_lanes<true>(rhs, out, c, coef, nb, rows, n, warps, s)
+             : launch_lanes<false>(rhs, out, c, coef, nb, rows, n, warps, s);
 }
 
 }  // extern "C"

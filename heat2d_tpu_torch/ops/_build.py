@@ -58,12 +58,12 @@ SIGNATURES = {
         "heat_error_string": (ctypes.c_char_p, [_I]),
         "heat_td_coeffs": (_I, [_P, _P, _I, _I, _P]),
         "heat_td_rows": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-        "heat_td_lanes": (_I, [_P, _P, _P, _P, _I, _I, _I, _P]),
+        "heat_td_lanes": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     },
     "shard": {
         "heat_error_string": (ctypes.c_char_p, [_I]),
-        "heat_shard_tile": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                                 _I, _I, _F, _F, _F, _I, _I, _I, _I, _I,
+        "heat_shard_tile": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                 _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I,
                                  _P]),
         "heat_shard_fused": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _F, _F, _F, _I, _I, _I, _I, _I, _P]),

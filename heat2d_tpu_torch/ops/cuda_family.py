@@ -47,7 +47,9 @@ import ctypes
 import torch
 
 from heat2d_tpu_torch.ops import _build
-from heat2d_tpu_torch.ops.cuda_stencil import (DEFAULT_TSTEPS, plan_tiles,
+from heat2d_tpu_torch.ops.cuda_stencil import (BLOCK_RESERVED_SMEM,
+                                               DEFAULT_TSTEPS, SM_SMEM_BYTES,
+                                               STRIP_WARPS, plan_tiles,
                                                smem_limit)
 from heat2d_tpu_torch.ops.resident import (launch_scratch, plan_resident,
                                             raise_if_gave_up)
@@ -215,14 +217,8 @@ def fam_resident(u, steps: int, scal, problem: str):
 #: and T = 8 takes one sweep per 8 steps.
 SWEEP_TSTEPS = {"heat9": 4, "advdiff": 8, "reactdiff": 8}
 
-#: Warps per H9 block (``FAM_BY`` of csrc/family.cu): 32 x FAM_WARPS
-#: threads, each updating strips of 4 cells of one column.
-FAM_WARPS = 16
-
-#: Shared memory of one SM (228 KB), of which each resident block also
-#: takes 1 KB for the system: what bounds blocks per SM besides threads.
-SM_SMEM_BYTES = 233472
-_BLOCK_RESERVED_SMEM = 1024
+#: Warps per H9 block (``FAM_BY`` of csrc/family.cu): the strip sweep's.
+FAM_WARPS = STRIP_WARPS
 
 
 def tile_plan(nx: int, ny: int, problem: str, device,
@@ -237,7 +233,7 @@ def blocks_per_sm(plan) -> int:
     """H9 blocks one SM holds at ``plan``'s shared memory and
     ``FAM_WARPS`` warps a block (2048 threads an SM); the card's own
     count, with registers, is ``tile_info``'s."""
-    by_smem = SM_SMEM_BYTES // (plan.smem_bytes + _BLOCK_RESERVED_SMEM)
+    by_smem = SM_SMEM_BYTES // (plan.smem_bytes + BLOCK_RESERVED_SMEM)
     return min(by_smem, 2048 // (32 * FAM_WARPS))
 
 

@@ -5,7 +5,9 @@ mode ``hybrid`` (sources in ``csrc/shard.cu``).
 =====  ==========================  =========================================
 H12    ``shard_tile_multi``        one (bm, bn) shard and its four T-deep
                                    halo strips -> the shard advanced nsub <=
-                                   T steps; replaces kernel D
+                                   T steps by the strip sweep of
+                                   ``csrc/tile.cuh`` (H9's, planned by
+                                   ``plan_shard_sweep``); replaces kernel D
                                    (``_shard_fused_vmem_kernel``,
                                    ``_shard_fused_band_kernel``) and D2
                                    (``_shard_window_kernel``)
@@ -188,13 +190,69 @@ def _validate(u, strips, nsub, what):
             raise ValueError(f"{what}: strips must be float32 on {u.device}")
 
 
-def _shard_launch(u, strips, nsub, x0, y0, nx, ny, cx, cy, form, resid):
+def plan_shard_sweep(bm: int, bn: int, t: int,
+                     smem: int = cs.H100_SMEM_OPTIN) -> cs.TilePlan:
+    """H12/H13's tiles on a (bm, bn) shard with T = ``t`` deep strips:
+    ``plan_tiles`` (centres of at most 64 x 128, ring t) within ``smem``
+    bytes a block and within half an SM's shared memory, so that two
+    blocks of ``cs.STRIP_WARPS`` warps share an SM, as H9's plans do.
+    Each block also takes 1 KB for the system and 4 bytes a warp for
+    H13's partial sums."""
+    sums = 4 * cs.STRIP_WARPS
+    half = cs.SM_SMEM_BYTES // 2 - cs.BLOCK_RESERVED_SMEM - sums
+    return cs.plan_tiles(bm, bn, t, min(smem - sums, half))
+
+
+#: The strip sweep's paths, in the order of the words of a ``paths``
+#: count (csrc/shard.cu): ``fast``, tiles whose ext lies inside the
+#: shard's block and inside the domain; ``edge``, the rest;
+#: ``in_block_held``, the edge tiles whose ext lies inside the block but
+#: not the domain (pad rows of an uneven decomposition).
+TILE_PATHS = ("fast", "edge", "in_block_held")
+
+
+def tile_paths(plan: cs.TilePlan, x0: int, y0: int, bm: int, bn: int,
+               nx: int, ny: int) -> dict:
+    """The planner's count of the tiles of ``plan`` on the (bm, bn) shard
+    at global (x0, y0) of the nx x ny domain by path (``TILE_PATHS``),
+    by the kernel's two uniform tests (``ext_inside`` of csrc/tile.cuh).
+    What the kernel took, it counts itself into ``paths``."""
+    h = plan.tsteps
+    ey, ex = plan.ty + 2 * h, plan.tx + 2 * h
+    counts = dict.fromkeys(TILE_PATHS, 0)
+    for a in range(plan.grid[0]):
+        for b in range(plan.grid[1]):
+            li, lj = a * plan.ty - h, b * plan.tx - h
+            in_block = li >= 0 and lj >= 0 and li + ey <= bm \
+                and lj + ex <= bn
+            gi, gj = x0 + li, y0 + lj
+            in_domain = gi >= 0 and gj >= 0 and gi + ey <= nx \
+                and gj + ex <= ny
+            counts["fast" if in_block and in_domain else "edge"] += 1
+            counts["in_block_held"] += in_block and not in_domain
+    return counts
+
+
+def path_counter(device):
+    """A zeroed ``paths`` count for ``device``: one int32 word per entry
+    of ``TILE_PATHS``, to which each H12/H13 launch given it adds its
+    tiles; ``dict(zip(TILE_PATHS, buf.tolist()))`` reads it."""
+    return torch.zeros(len(TILE_PATHS), dtype=torch.int32, device=device)
+
+
+def _shard_launch(u, strips, nsub, x0, y0, nx, ny, cx, cy, form, resid,
+                  paths=None):
     bm, bn = u.shape
     strips = [s.contiguous() for s in strips]
     t = strips[0].shape[0]
-    plan = cs.plan_tiles(bm, bn, t, cs.smem_limit(u.device))
+    plan = plan_shard_sweep(bm, bn, t, cs.device_caps(u.device).smem_optin)
     if plan.grid[0] > 65535:
         raise ValueError(f"{bm} rows exceed the launch grid's y limit")
+    if paths is not None and (paths.dtype != torch.int32
+                              or paths.shape != (len(TILE_PATHS),)
+                              or paths.device != u.device):
+        raise ValueError(f"paths: an int32 tensor of {len(TILE_PATHS)} "
+                         f"words on {u.device} (path_counter)")
     out = torch.empty_like(u)
     parts = (torch.empty(plan.ntiles, dtype=torch.float32, device=u.device)
              if resid else None)
@@ -202,41 +260,47 @@ def _shard_launch(u, strips, nsub, x0, y0, nx, ny, cx, cy, form, resid):
     with torch.cuda.device(u.device):
         rc = _lib().heat_shard_tile(
             p(u), *(p(s) for s in strips), p(out),
-            p(parts) if resid else None, x0, y0, bm, bn, nx, ny, cx, cy,
-            cs._k0(cx, cy), form, t, nsub, plan.ty, plan.tx, cs._stream(u))
+            p(parts) if resid else None,
+            None if paths is None else p(paths), x0, y0, bm, bn, nx, ny,
+            cx, cy, cs._k0(cx, cy), form, t, nsub, plan.ty, plan.tx,
+            cs._stream(u))
     _check(rc, "H13 shard_tile_multi_resid" if resid
            else "H12 shard_tile_multi")
     return out, parts
 
 
 def shard_tile_multi(u, strips, nsub: int, x0: int, y0: int, nx: int,
-                     ny: int, cx: float, cy: float, form: int = FORM_FMA):
+                     ny: int, cx: float, cy: float, form: int = FORM_FMA,
+                     paths=None):
     """H12: the shard ``u`` at global (x0, y0) of the nx x ny domain,
     advanced ``nsub`` steps from its halo strips ``(north, south, west,
     east)`` of depth T >= nsub. One read and one write of the block per
-    sweep; the tiles' rings are recomputed in shared memory."""
+    sweep; the tiles' rings are recomputed in shared memory
+    (``plan_shard_sweep``). ``paths`` (``path_counter``): the kernel adds
+    its tiles by path to it; the plain version, on the CPU, counts none."""
     _validate(u, strips, nsub, "shard_tile_multi")
     if u.device.type == "cpu":
         return shard_tile_multi_plain(u, strips, nsub, x0, y0, nx, ny, cx,
                                       cy, form)
     LAUNCHES["shard_tile_multi"] += 1
     out, _ = _shard_launch(u, strips, nsub, x0, y0, nx, ny, cx, cy, form,
-                           resid=False)
+                           resid=False, paths=paths)
     return out
 
 
 def shard_tile_multi_resid(u, strips, nsub: int, x0: int, y0: int, nx: int,
                            ny: int, cx: float, cy: float,
-                           form: int = FORM_FMA):
+                           form: int = FORM_FMA, paths=None):
     """H13: H12 plus the shard's residual of its last step pair, summed
-    on the device from one partial per tile. Returns (u, residual)."""
+    on the device from one partial per tile. Returns (u, residual).
+    ``paths`` as H12's."""
     _validate(u, strips, nsub, "shard_tile_multi_resid")
     if u.device.type == "cpu":
         return shard_tile_multi_resid_plain(u, strips, nsub, x0, y0, nx, ny,
                                             cx, cy, form)
     LAUNCHES["shard_tile_multi_resid"] += 1
     out, parts = _shard_launch(u, strips, nsub, x0, y0, nx, ny, cx, cy,
-                               form, resid=True)
+                               form, resid=True, paths=paths)
     return out, torch.sum(parts)
 
 

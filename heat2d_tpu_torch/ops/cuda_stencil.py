@@ -61,6 +61,14 @@ BLOCK = (32, 8)
 #: limit for grids that live on the CPU, so that the CPU runs plan the
 #: tiles the card would.
 H100_SMEM_OPTIN = 232448
+#: Shared memory of one SM (228 KB), of which each resident block also
+#: takes 1 KB for the system: what bounds blocks per SM besides threads.
+SM_SMEM_BYTES = 233472
+BLOCK_RESERVED_SMEM = 1024
+#: Warps of a strip-sweep block (``STRIP_BY`` of csrc/tile.cuh; H9 and
+#: H12/H13): 32 x STRIP_WARPS threads, each updating strips of 4 cells of
+#: one column.
+STRIP_WARPS = 16
 #: The H100's L2 (50 MB), the resident gate's size for CPU grids.
 H100_L2_BYTES = 50 * 1024 * 1024
 #: Static shared memory of the tile kernel (H3's warp sums).

@@ -26,8 +26,10 @@ accuracy, far past the explicit box.
   H10   ``td_rows``    along axis 1 of (B, n, m): a warp per panel of 32
                        columns, coefficients and rhs staged in shared
                        memory; replaces ``_tridiag_rows_kernel`` (:324)
-  H11   ``td_lanes``   along axis 2 of (B, rows, n): one thread per row,
-                       strided; replaces ``_tridiag_lanes_kernel`` (:349)
+  H11   ``td_lanes``   along axis 2 of (B, rows, n): a warp per panel of 32
+                       rows, 32 x 32 tiles staged and transposed in shared
+                       memory so that every access is a coalesced row
+                       segment; replaces ``_tridiag_lanes_kernel`` (:349)
   ====  =============  =====================================================
 
   (cp, mi) depend on (c, n) only: ``adi_coeffs`` computes both axes'
@@ -40,8 +42,9 @@ accuracy, far past the explicit box.
   The TPU route is gated on VMEM (``adi_kernel_viable``); the card has no
   such envelope, so every float32 CUDA batch takes the kernels and a CPU
   batch their plain versions, which repeat the kernels' arithmetic.
-  JAX's lane-panel planner (``plan_adi_panel``) has no counterpart: H10's
-  panels are planned from the card's SMs (``plan_td_rows``).
+  JAX's lane-panel planner (``plan_adi_panel``) has no counterpart: the
+  panels of H10 and H11 are planned from the card's SMs (``plan_td_rows``,
+  ``plan_td_lanes``).
 
 On a CPU tensor a kernel wrapper runs its plain version; on a CUDA tensor
 it launches the kernel or raises. Each launch adds one to the wrapper's
@@ -390,7 +393,7 @@ def _checked_coef(coef, c, n: int, what: str):
 
 
 class RowsPlan(NamedTuple):
-    warps: int        # panels of 32 columns per block (1..4)
+    warps: int        # panels of 32 systems per block (1..4)
     coef_smem: bool   # (cp, mi) staged in shared memory
     smem_bytes: int   # dynamic shared memory of a block
     blocks: int
@@ -398,21 +401,38 @@ class RowsPlan(NamedTuple):
 
 #: H10's ring per warp (csrc/tridiag.cu: STAGES x STAGE_ROWS x 32 floats).
 TD_RING_BYTES = 8 * 32 * 32 * 4
+#: H11's ring per warp: STAGES slots of 32 rows x 32 columns at a row
+#: stride of 33 floats (``SLOT_STRIDE``, no bank conflicts).
+TD_LANES_RING_BYTES = 8 * 32 * 33 * 4
+
+
+def _plan_panels(nb: int, n: int, systems: int, ring: int, sms: int,
+                 smem: int) -> RowsPlan:
+    """One warp per panel of 32 of a member's ``systems`` systems of n
+    unknowns, as many panels a block (up to 4, all of one member) as it
+    takes to put every panel in one wave of ``sms`` blocks; (cp, mi) in
+    shared memory beside the ``ring``-byte rings when their 8n bytes
+    (rounded up to 16) fit, else read through the read-only cache."""
+    panels = -(-systems // 32)
+    warps = max(1, min(4, panels, -(-nb * panels // sms)))
+    coef_bytes = -(-8 * n // 16) * 16
+    coef_smem = coef_bytes + warps * ring <= smem
+    need = (coef_bytes if coef_smem else 0) + warps * ring
+    return RowsPlan(warps, coef_smem, need, nb * -(-panels // warps))
 
 
 def plan_td_rows(nb: int, n: int, m: int, sms: int = H100_SM_COUNT,
                  smem: int = H100_SMEM_OPTIN) -> RowsPlan:
-    """H10's launch: one warp per panel of 32 columns, as many panels a
-    block (up to 4, all of one member) as it takes to put every panel in
-    one wave of ``sms`` blocks; (cp, mi) in shared memory beside the
-    rings when their 8n bytes (rounded up to 16) fit, else read through
-    the read-only cache."""
-    panels = -(-m // 32)
-    warps = max(1, min(4, panels, -(-nb * panels // sms)))
-    coef_bytes = -(-8 * n // 16) * 16
-    coef_smem = coef_bytes + warps * TD_RING_BYTES <= smem
-    need = (coef_bytes if coef_smem else 0) + warps * TD_RING_BYTES
-    return RowsPlan(warps, coef_smem, need, nb * -(-panels // warps))
+    """H10's launch on a (nb, n, m) batch: panels of 32 columns
+    (``_plan_panels``)."""
+    return _plan_panels(nb, n, m, TD_RING_BYTES, sms, smem)
+
+
+def plan_td_lanes(nb: int, rows: int, n: int, sms: int = H100_SM_COUNT,
+                  smem: int = H100_SMEM_OPTIN) -> RowsPlan:
+    """H11's launch on a (nb, rows, n) batch: panels of 32 rows, H10's
+    rule with H11's padded rings (``_plan_panels``)."""
+    return _plan_panels(nb, n, rows, TD_LANES_RING_BYTES, sms, smem)
 
 
 def td_rows(rhs, c, coef=None):
@@ -437,19 +457,24 @@ def td_rows(rhs, c, coef=None):
 
 
 def td_lanes(rhs, c, coef=None):
-    """H11: the same along axis 2 of the (B, rows, n) batch: one thread
-    per row, no transpose. ``coef``: the (B, 2, n) ``td_coeffs(c, n)``,
-    computed here when absent."""
+    """H11: the same along axis 2 of the (B, rows, n) batch, no transpose
+    of the batch: a warp per panel of 32 rows (``plan_td_lanes``), whose
+    tiles are transposed in shared memory. ``coef``: the (B, 2, n)
+    ``td_coeffs(c, n)``, computed here when absent."""
     _validate(rhs, c, "td_lanes")
     n = rhs.shape[2]
     coef = _checked_coef(coef, c, n, "td_lanes")
     if rhs.device.type == "cpu":
         return td_lanes_plain(rhs, c, coef)
     nb, rows, _ = rhs.shape
+    caps = cs.device_caps(rhs.device)
+    plan = plan_td_lanes(nb, rows, n, caps.sm_count, caps.smem_optin)
     out = torch.empty_like(rhs)
     LAUNCHES["td_lanes"] += 1
     _check(_lib().heat_td_lanes(_ptr(rhs), _ptr(out), _ptr(c), _ptr(coef),
-                                nb, rows, n, _stream(rhs)), "td_lanes")
+                                nb, rows, n, plan.warps,
+                                int(plan.coef_smem), _stream(rhs)),
+           "td_lanes")
     return out
 
 

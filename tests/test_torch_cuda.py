@@ -303,6 +303,38 @@ def test_td_rows_bitwise_on_ragged_shapes(card, n, m, b, c):
                            td.td_lanes_plain(lanes, cc))
 
 
+@pytest.mark.parametrize("c", [0.3, 51.2])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("rows", [1, 31, 33, 100])
+@pytest.mark.parametrize("n", [1, 2, 3, 31, 33, 70, 4097])
+def test_td_lanes_bitwise_on_ragged_shapes(card, n, rows, b, c):
+    """H11 (a warp per panel of 32 rows, 32 x 32 tiles transposed in
+    shared memory) against its plain version, bit for bit: panels cut
+    short by rows, systems shorter than a stage or ending inside one, the
+    back sweep's first group cut short, identity rows at n < 3."""
+    from heat2d_tpu_torch.ops import tridiag as td
+    g = torch.Generator(device=card)
+    g.manual_seed(n * 7919 + rows * 31 + b)
+    rhs = torch.rand((b, rows, n), generator=g, device=card) * 1e3 - 500
+    cc = torch.tensor([c, c / 2, c * 2][:b], device=card)
+    coef = td.td_coeffs(cc, n)
+    ref = td.td_lanes_plain(rhs, cc, coef)
+    assert torch.equal(td.td_lanes(rhs, cc, coef), ref)
+    assert torch.equal(td.td_lanes(rhs, cc), ref)
+
+
+def test_td_lanes_reads_large_systems_through_the_cache(card):
+    """H11 on systems too long for (cp, mi) in shared memory: bitwise."""
+    from heat2d_tpu_torch.ops import tridiag as td
+    rows, n = 40, 30000
+    assert not td.plan_td_lanes(1, rows, n).coef_smem
+    g = torch.Generator(device=card)
+    g.manual_seed(4)
+    rhs = torch.rand((1, rows, n), generator=g, device=card)
+    c = torch.tensor([51.2], device=card)
+    assert torch.equal(td.td_lanes(rhs, c), td.td_lanes_plain(rhs, c))
+
+
 def test_td_rows_reads_large_systems_through_the_cache(card):
     """Systems too long for (cp, mi) in shared memory (8n bytes beside
     the rings) read them through the read-only cache: still bitwise."""
@@ -443,6 +475,57 @@ def test_shard_kernels_match_plain(card, mesh, form):
     counts = csh.launch_counts()
     assert counts["shard_fused"] == 1
     assert counts["shard_tile_multi"] == 3 * gx * gy + gx * gy
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("nx, ny, gx, gy", [(1300, 1500, 3, 3),
+                                            (543, 300, 4, 1),
+                                            (74, 106, 2, 2)])
+def test_shard_sweep_fast_and_edge_tiles(card, nx, ny, gx, gy, form):
+    """H12/H13 on meshes whose shards take both paths of the strip sweep:
+    inner shards have fast tiles; the last shard of 543x300 on 4x1 has a
+    tile inside its block that holds a pad row; every tile of 74x106 on
+    2x2 is an edge tile. The kernels' own count of their tiles by path
+    (``paths``) equals the planner's (``tile_paths``). T = 8 strips at
+    nsub 8 and 5, against the plain versions; H14 equal to H12 at depth 8,
+    and H13's shard equal to H12's."""
+    from heat2d_tpu_torch.ops import cuda_shard as csh
+    from heat2d_tpu_torch.parallel.halo import exchange_halo_strips
+    bm, bn = -(-nx // gx), -(-ny // gy)
+    full = torch.zeros((gx * bm, gy * bn), device=card)
+    g = torch.Generator(device=card)
+    g.manual_seed(nx + ny)
+    full[:nx, :ny] = torch.rand((nx, ny), generator=g, device=card)
+    blocks = [[full[i * bm:(i + 1) * bm, j * bn:(j + 1) * bn].contiguous()
+               for j in range(gy)] for i in range(gx)]
+    strips = exchange_halo_strips(blocks, 8)
+    plan = csh.plan_shard_sweep(bm, bn, 8)
+    kinds = [csh.tile_paths(plan, i * bm, j * bn, bm, bn, nx, ny)
+             for i in range(gx) for j in range(gy)]
+    assert any(k["fast"] for k in kinds) == (nx != 74)
+    assert any(k["in_block_held"] for k in kinds) == (nx == 543)
+    fused = csh.shard_fused(blocks, 8, nx, ny, 0.1, 0.1, form)
+    for i in range(gx):
+        for j in range(gy):
+            u, s = blocks[i][j], strips[i][j]
+            for nsub in (8, 5):
+                args = (nsub, i * bm, j * bn, nx, ny, 0.1, 0.1, form)
+                counted = csh.path_counter(card)
+                got = csh.shard_tile_multi(u, s, *args, paths=counted)
+                _close(got, csh.shard_tile_multi_plain(u, s, *args), nsub,
+                       form)
+                if nsub == 8:
+                    assert torch.equal(fused[i][j], got)
+                got_r, r = csh.shard_tile_multi_resid(u, s, *args,
+                                                      paths=counted)
+                planned = kinds[i * gy + j]
+                assert dict(zip(csh.TILE_PATHS, counted.tolist())) == {
+                    k: 2 * v for k, v in planned.items()}
+                ref_r, r_ref = csh.shard_tile_multi_resid_plain(u, s, *args)
+                _close(got_r, ref_r, nsub, form)
+                assert torch.equal(got_r, got)
+                rel = 1e-5 if form == cs.FORM_LITERAL else 1e-4
+                assert float(r) == pytest.approx(float(r_ref), rel=rel)
 
 
 @pytest.mark.parametrize("mode,halo", [("dist2d", "collective"),

@@ -227,6 +227,29 @@ def test_td_lanes_plain_vs_lanes_kernel(shape, b, rng):
     assert np.abs(got.numpy() - np.asarray(want)).max() <= tol
 
 
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n", [2, 3, 33, 70])
+@pytest.mark.parametrize("rows", [1, 31, 33])
+def test_td_lanes_plain_on_ragged_shapes(rows, n, b, rng):
+    """H11's plain version at the shapes its kernel masks (rows not a
+    multiple of the 32-row panel, n not a multiple of the 32-column stage
+    or below it, identity rows only at n < 3): against the JAX TD route
+    (``_tridiag_lanes_kernel`` in interpret mode) within its tolerance,
+    and bit for bit with and without the hoisted ``td_coeffs``."""
+    rhs = rng.normal(size=(b, rows, n)).astype(np.float32)
+    c = CS[:b]
+    want = jtd._solve_lanes(jnp.asarray(c).reshape(b, 1, 1),
+                            jnp.asarray(rhs), rows)
+    t_rhs, t_c = torch.from_numpy(rhs), torch.from_numpy(c)
+    got = ttd.td_lanes(t_rhs, t_c)
+    tol = (1 + c.max()) * 2.0 ** -22 * np.abs(np.asarray(want)).max()
+    assert np.abs(got.numpy() - np.asarray(want)).max() <= tol
+    assert torch.equal(ttd.td_lanes(t_rhs, t_c, ttd.td_coeffs(t_c, n)), got)
+    if n < 3:
+        # identity rows only: the solve returns rhs
+        assert torch.equal(got, t_rhs)
+
+
 @pytest.mark.parametrize("variant", ["xpose", "strided"])
 def test_adi_kernel_route_matches_jax_scan(variant, rng):
     """ADI through the H10/H11 plain versions (x half along the rows, y
@@ -372,6 +395,30 @@ def test_plan_td_rows(nb, n, m, warps, coef_smem, blocks):
     assert plan.smem_bytes <= 232448
     assert plan.smem_bytes == (-(-8 * n // 16) * 16 if coef_smem else 0) \
         + warps * ttd.TD_RING_BYTES
+
+
+@pytest.mark.parametrize("nb, rows, n, warps, coef_smem, blocks", [
+    (1, 4096, 4096, 1, True, 128),   # the ADI path's y half: one wave
+    (4, 4096, 4096, 4, True, 128),   # leg (f): 4 warps a block
+    (3, 4097, 4099, 3, True, 129),
+    (1, 1, 37, 1, True, 1),
+    (3, 33, 70, 1, True, 6),
+    (1, 40, 30000, 1, False, 2),     # 8n too large: cached reads
+])
+def test_plan_td_lanes(nb, rows, n, warps, coef_smem, blocks):
+    """H11's launch on the H100's 132 SMs and 232,448 bytes: panels of 32
+    rows, up to 4 a block so that every panel of the nb members runs in
+    one wave, (cp, mi) in shared memory where their 8n bytes fit beside
+    the rings of 32 x 33-float slots."""
+    plan = ttd.plan_td_lanes(nb, rows, n)
+    assert (plan.warps, plan.coef_smem, plan.blocks) == (
+        warps, coef_smem, blocks)
+    assert plan.smem_bytes <= 232448
+    assert plan.smem_bytes == (-(-8 * n // 16) * 16 if coef_smem else 0) \
+        + warps * ttd.TD_LANES_RING_BYTES
+    assert ttd.TD_LANES_RING_BYTES == 8 * 32 * 33 * 4
+    if rows == 4096:
+        assert plan.blocks <= 132 and plan.blocks * plan.warps == nb * 128
 
 
 # ------------------------------------------------------------------ #

@@ -28,6 +28,7 @@ from heat2d_tpu.ops.stencil import residual_sq as jresidual_sq
 from heat2d_tpu.ops.stencil import stencil_step_padded
 from heat2d_tpu.parallel.sharded import _keep_mask
 from heat2d_tpu_torch.ops import cuda_shard as csh
+from heat2d_tpu_torch.ops import cuda_stencil as cs
 from heat2d_tpu_torch.parallel import halo
 from heat2d_tpu_torch.parallel.sharded import ShardedGrid
 
@@ -225,6 +226,70 @@ def test_plain_versions_count_no_launches(rng):
                                0.1, 0.1)
     csh.shard_fused(blocks, 2, 12, 12, 0.1, 0.1)
     assert set(csh.launch_counts().values()) == {0}
+
+
+SWEEP_SHARDS = {"74x106 on 2x2": (74, 106, 2, 2),
+                "4099x4096 on 4x1": (4099, 4096, 4, 1),
+                "2048^2 of 4096^2 on 2x2": (4096, 4096, 2, 2)}
+
+
+@pytest.mark.parametrize("t", [1, 3, 8])
+@pytest.mark.parametrize("case", list(SWEEP_SHARDS))
+def test_plan_shard_sweep(case, t):
+    """H12/H13's tiles (the strip sweep, 16 warps a block): the ext tiles
+    of a block fit the opt-in limit and two blocks share an SM (228 KB,
+    1 KB a block for the system, H13's warp sums); the tiles cover every
+    shard of the mesh, none of them wholly past its block."""
+    nx, ny, gx, gy = SWEEP_SHARDS[case]
+    bm, bn = -(-nx // gx), -(-ny // gy)
+    plan = csh.plan_shard_sweep(bm, bn, t)
+    assert plan.tsteps == t and cs.STRIP_WARPS == 16
+    assert plan.smem_bytes + 4 * cs.STRIP_WARPS <= 232448
+    assert 2 * (plan.smem_bytes + 1024 + 4 * cs.STRIP_WARPS) <= 233472
+    assert plan.grid[0] * plan.ty >= bm > (plan.grid[0] - 1) * plan.ty
+    assert plan.grid[1] * plan.tx >= bn > (plan.grid[1] - 1) * plan.tx
+    assert (plan.ty, plan.tx) == (min(64, -(-bm // 8) * 8),
+                                  min(128, -(-bn // 32) * 32))
+    for i in range(gx):
+        for j in range(gy):
+            kinds = csh.tile_paths(plan, i * bm, j * bn, bm, bn, nx, ny)
+            assert kinds["fast"] + kinds["edge"] == plan.ntiles
+
+
+@pytest.mark.parametrize("nx, ny, gx, gy, t, shard, fast, edge, held", [
+    (4096, 4096, 2, 2, 8, (0, 0), 420, 92, 0),   # the sharded path's shard
+    (4096, 4096, 2, 2, 8, (1, 1), 420, 92, 0),
+    (74, 106, 2, 2, 8, (1, 0), 0, 1, 0),         # all edge tiles
+    (4099, 4096, 4, 1, 1, (3, 0), 420, 124, 30),  # the pad row at T = 1
+    (4099, 4096, 4, 1, 8, (3, 0), 420, 124, 0),
+    (543, 300, 4, 1, 8, (3, 0), 0, 9, 1),        # the pad row at T = 8
+])
+def test_shard_sweep_tile_paths(nx, ny, gx, gy, t, shard, fast, edge, held):
+    """Which tiles of a shard take the strip sweep's fast path: those
+    whose ext lies inside the shard's block (no strip loads) and inside
+    the domain (no held cell). A tile inside the block can still cross
+    the domain's edge on pad rows, and is swept with the held rule."""
+    bm, bn = -(-nx // gx), -(-ny // gy)
+    plan = csh.plan_shard_sweep(bm, bn, t)
+    got = csh.tile_paths(plan, shard[0] * bm, shard[1] * bn, bm, bn, nx, ny)
+    assert got == {"fast": fast, "edge": edge, "in_block_held": held}
+
+
+def test_path_counter_on_the_cpu():
+    """A ``paths`` count is one zeroed int32 word per path; the plain
+    versions, which CPU tensors take, count no tile."""
+    counted = csh.path_counter("cpu")
+    assert counted.dtype == torch.int32 and counted.tolist() == [0, 0, 0]
+    assert csh.TILE_PATHS == ("fast", "edge", "in_block_held")
+    u = torch.rand(12, 12)
+    strips = halo.exchange_halo_strips([[u]], 2)[0][0]
+    got = csh.shard_tile_multi(u, strips, 2, 0, 0, 12, 12, 0.1, 0.1,
+                               paths=counted)
+    _, r = csh.shard_tile_multi_resid(u, strips, 2, 0, 0, 12, 12, 0.1, 0.1,
+                                      paths=counted)
+    assert torch.equal(got, csh.shard_tile_multi_plain(
+        u, strips, 2, 0, 0, 12, 12, 0.1, 0.1))
+    assert counted.tolist() == [0, 0, 0]
 
 
 def test_sharded_grid_views():
