@@ -10,8 +10,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 2. build: every ``heat2d_tpu_torch/csrc/*.cu`` with nvcc, in parallel;
 3. kernels: each hand-written kernel against its plain PyTorch version on
    the card, at ragged and full sizes (literal form bitwise, FMA form
-   within ``n * 2**-21 * max|plain|`` after n steps): H1-H4 on single
-   grids, H5-H7 on batches of B in {1, 3, 8} members with heterogeneous
+   within ``n * 2**-21 * max|plain|`` after n steps): H1-H3 on single
+   grids (H2/H3 counting their tiles by path, which must equal the
+   planner's), H4 up to the on-chip budget's edge (1900x1900) in both
+   forms bit for bit against the H2 route and a wait that cannot end,
+   H5-H7 on batches of B in {1, 3, 8} members with heterogeneous
    (cx, cy), H7 with a mixed ``active`` vector (frozen members bitwise
    unchanged, their residual exactly 0); H8/H9 for heat9, advdiff and
    reactdiff (B in {1, 3, 8}, 37x53 and 4099x4097, nsub in {1, 5, 8},
@@ -69,8 +72,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    serial; launch counters, zeroed just before, show H12-H14 ran;
 11. the ``kernels`` line: the shape timed, time, bound, plain and library
    times of each kernel H1-H14 and the coefficient pass at its path's
-   shapes (H9 with its plan, its build on the card and the plan sweep
-   over depths that chose it; H10/H11 solve only, beside
+   shapes (H2 per 8 steps with its plan sweep over depths and its tiles
+   by path; H4 in both forms with the chunk depth swept in each, and
+   the resident routes against the streamed ones about the resident
+   gate's edge; H9 with its plan, its build on the card and the
+   plan sweep over depths that chose it; H10/H11 solve only, beside
    the call with its coefficient pass; H10's two builds, coefficients in
    shared memory or through the read-only cache);
 12. headline: Mcells/s at 4096^2 by the two-point protocol of bench.py.
@@ -239,9 +245,11 @@ def phase_toolchain(torch) -> dict:
 
 def phase_build() -> dict:
     """Every library built; the card's limits; the plans of the resident
-    sweeps at leg (a)/(e)'s shape and of H9 at each family's depth on
-    4096^2 (registers and local bytes a thread as the build reports them,
-    blocks per SM by the occupancy query and as the planner states them)."""
+    sweeps at leg (a)/(e)'s shape and of H4 at the main path's 640x1024,
+    of H9 at each family's depth on 4096^2 and of H2 at the main path's
+    depth on 4096^2 (registers and local bytes a thread as the build
+    reports them, blocks per SM by the occupancy query and, for H9, as
+    the planner states them)."""
     from heat2d_tpu_torch.ops import _build
     from heat2d_tpu_torch.ops import cuda_family as cf
     from heat2d_tpu_torch.ops import cuda_stencil as cs
@@ -249,6 +257,7 @@ def phase_build() -> dict:
     t0 = time.perf_counter()
     libs = _build.build_all()
     caps = cs.device_caps("cuda")
+    h2 = cs.tile_plan(4096, 4096, cs.DEFAULT_TSTEPS, "cuda")
     h9 = {}
     for fam in FAMILY_FLOPS:
         plan = cf.tile_plan(4096, 4096, fam, "cuda", cf.SWEEP_TSTEPS[fam])
@@ -265,21 +274,38 @@ def phase_build() -> dict:
                 name: plan_resident(8, 640, 1024, w, "cuda")._asdict()
                 for name, w in (("ens_resident", 1), ("fam_resident_heat9",
                                                       2))},
-            "fam_tile_plans": h9}
+            "h4_plan": cs.resident_plan(640, 1024, "cuda")._asdict(),
+            "fam_tile_plans": h9,
+            "h2_build": cs.tile_info(h2)}
     emit(info)
     return info
 
 
+#: The H4 checks: a one-tile grid, the main path's 640x1024, a ragged
+#: grid, 2048x1536 (every block) and one at the on-chip budget's edge
+#: (1900x1900: past the old L2 gate, the plan's K down to 1).
+H4_SHAPES = [(10, 10), (37, 53), (640, 1024), (641, 1023), (2048, 1536),
+             (1900, 1900)]
+H4_STEPS = (1, 5, 8, 9, 27, 100)
+
+
 def phase_kernels(torch) -> dict:
-    """Every kernel against its plain version on the same inputs."""
+    """Every kernel against its plain version on the same inputs. H2/H3
+    on grids whose tiles take both paths of the strip sweep (the kernel's
+    own count of its tiles by path must equal the planner's). H4 in both
+    forms bit for bit against the H2 route, and a wait that cannot end,
+    which must raise."""
     from heat2d_tpu_torch.ops import cuda_stencil as cs
+    from heat2d_tpu_torch.ops.resident import ResidentPlan
     g = torch.Generator(device="cuda")
     g.manual_seed(1612)
-    shapes = [(4099, 4097), (4096, 4096), (640, 1024), (37, 53), (10, 10)]
+    shapes = [(4099, 4097), (4096, 4096), (640, 1024), (300, 520), (37, 53),
+              (10, 10)]
     forms = (cs.FORM_FMA, cs.FORM_LITERAL)
     cx, cy = 0.1, 0.1
     worst = {k: 0.0 for k in cs.LAUNCHES}
     checks = 0
+    paths = {}
 
     def judge(name, got, ref, n, form, what):
         nonlocal checks
@@ -291,16 +317,26 @@ def phase_kernels(torch) -> dict:
 
     for shape in shapes:
         u = torch.rand(shape, generator=g, device="cuda")
+        counted = cs.path_counter("cuda")
+        planned = dict.fromkeys(cs.TILE_PATHS, 0)
         for form in forms:
             judge("step", cs.step(u, cx, cy, form),
                   cs.step_plain(u, cx, cy, form), 1, form,
                   f"{shape} form {form}")
             for t, nsub in [(1, 1), (3, 3), (3, 2), (8, 8), (8, 5), (8, 1)]:
-                judge("tile_multi", cs.tile_multi(u, nsub, cx, cy, form, t),
+                got = cs.tile_multi(u, nsub, cx, cy, form, t, paths=counted)
+                judge("tile_multi", got,
                       cs.multi_step_plain(u, nsub, cx, cy, form), nsub, form,
                       f"{shape} T={t} nsub={nsub} form {form}")
+                for k, v in cs.tile_paths(cs.tile_plan(*shape, t, "cuda"),
+                                          *shape).items():
+                    planned[k] += v
             for t, nsub in [(1, 1), (3, 2), (8, 8), (8, 3)]:
-                got, r = cs.tile_multi_resid(u, nsub, cx, cy, form, t)
+                got, r = cs.tile_multi_resid(u, nsub, cx, cy, form, t,
+                                             paths=counted)
+                for k, v in cs.tile_paths(cs.tile_plan(*shape, t, "cuda"),
+                                          *shape).items():
+                    planned[k] += v
                 ref, r_ref = cs.tile_multi_resid_plain(u, nsub, cx, cy, form)
                 what = f"{shape} T={t} nsub={nsub} form {form}"
                 judge("tile_multi_resid", got, ref, nsub, form, what)
@@ -312,23 +348,57 @@ def phase_kernels(torch) -> dict:
                 fail_unless(rerr <= rtol * abs(float(r_ref)),
                             f"tile_multi_resid residual {what}: "
                             f"{float(r)} vs {float(r_ref)}")
-    for shape in [(10, 10), (37, 53), (256, 256), (640, 1024)]:
+        got = dict(zip(cs.TILE_PATHS, counted.tolist()))
+        fail_unless(got == planned, f"H2/H3 {shape}: the kernel's tiles by "
+                    f"path {got}, the planner's {planned}")
+        paths[f"{shape[0]}x{shape[1]}"] = got
+    fail_unless(paths["4096x4096"]["fast"] > 0 and paths["300x520"]["fast"]
+                and paths["37x53"]["fast"] == 0,
+                f"the H2/H3 cases miss a path of the strip sweep: {paths}")
+
+    for shape in H4_SHAPES:
         u = torch.rand(shape, generator=g, device="cuda")
         for form in forms:
-            for n in (1, 2, 7, 100):
-                judge("resident", cs.resident(u, n, cx, cy, form),
-                      cs.multi_step_plain(u, n, cx, cy, form), n, form,
-                      f"{shape} n={n} form {form}")
+            for n in H4_STEPS:
+                err = check_resident(
+                    torch, "resident",
+                    lambda: cs.resident(u, n, cx, cy, form),
+                    lambda: cs.tiled_chunk(u, n, cx, cy, form,
+                                           cs.DEFAULT_TSTEPS),
+                    lambda: cs.multi_step_plain(u, n, cx, cy, form),
+                    cs.launch_counts, "tile_multi",
+                    lambda ref: (0.0 if form == cs.FORM_LITERAL
+                                 else fma_tol(n, ref)),
+                    f"{shape} steps={n} form {form}")
+                worst["resident"] = max(worst["resident"], err)
+                checks += 1
+    # A plan whose one tile row stops short of the grid: the ring below it
+    # is never published, its blocks give up after ~2 s and the wrapper
+    # must raise; the launches after it run as ever.
+    u = torch.rand((64, 256), generator=g, device="cuda")
+    short = ResidentPlan(1, 64, 256, 1, 4, 32, 128, 1, 2, 1)
+    try:
+        cs._resident_launch(u, 9, cx, cy, cs.FORM_FMA, short)
+    except RuntimeError as e:
+        fail_unless("gave up" in str(e), f"H4 on a short plan raised {e}")
+    else:
+        raise SmokeFailure("H4 on a short plan: a wait that cannot end "
+                           "did not raise")
+    fail_unless(torch.equal(cs.resident(u, 9, cx, cy),
+                            cs.tiled_chunk(u, 9, cx, cy)),
+                "H4 after a launch that gave up: differs from the H2 route")
+    checks += 1
     torch.cuda.synchronize()
-    info = {"phase": "kernels", "checks": checks, "max_abs_err": worst}
+    info = {"phase": "kernels", "checks": checks, "max_abs_err": worst,
+            "tile_paths": paths}
     emit(info)
     return info
 
 
 #: The on-chip checks of H5/H8: members that fit the card's shared memory,
-#: in one tile (37x53), ragged (641x1023) and at the budget's edge
-#: (2048x1536: a single member fills every block).
-RESIDENT_SHAPES = [(37, 53), (641, 1023), (2048, 1536)]
+#: in one tile (37x53), ragged (641x1023), a member that fills every
+#: block (2048x1536) and one at the budget's edge (1900x1900, K = 1).
+RESIDENT_SHAPES = [(37, 53), (641, 1023), (2048, 1536), (1900, 1900)]
 RESIDENT_STEPS = (1, 5, 8, 9, 27)
 
 
@@ -864,6 +934,32 @@ def phase_kernel_times(torch, launches: dict, worst: dict) -> list:
     """Each kernel timed at its path's shapes, beside its bound, its
     plain version and, where one PyTorch call computes the same function,
     that call (timed only here; the port never calls it)."""
+    rows = stencil_kernel_rows(torch)
+    rows += ensemble_kernel_rows(torch)
+    rows += family_tridiag_kernel_rows(torch)
+    rows += shard_kernel_rows(torch)
+    for r in rows:
+        r.update(route="cuda",
+                 source=SOURCES[r["name"]],
+                 replaces=REPLACES[r["name"]],
+                 launches=launches[r["name"]],
+                 max_abs_err=worst[r["name"]])
+    return rows
+
+
+#: H2's plan sweep: the depths T tried, per 8 steps.
+H2_SWEEP_T = (4, 6, 8)
+
+
+def stencil_kernel_rows(torch) -> list:
+    """H1-H4 at the main path's shapes. H2 as the streamed route sweeps
+    (T = 8: one sweep is 8 steps), beside the same 8 steps at other depths
+    (``plan_sweep_ms``) and the tiles by path as one launch counted them.
+    H4 at the reference CUDA program's 640x1024 x 10000 in both forms,
+    its chunk depth K swept in each (``k_sweep_ms``), a launch of
+    the convergence chunk's 20 steps (``chunk_20_ms``), and the resident
+    routes against the streamed ones about the gate's edge
+    (``gate_sweep``)."""
     import torch.nn.functional as F
     from heat2d_tpu_torch.ops import cuda_stencil as cs
     from heat2d_tpu_torch.ops.init import inidat
@@ -888,21 +984,31 @@ def phase_kernel_times(torch, launches: dict, worst: dict) -> list:
         bound_ms=b, bound_by=by,
         library_ms=time_ms(lambda: F.conv2d(x4, w, padding=1), 50)))
 
-    # H2 / H3: one T = 8 sweep at 4096^2 (8 steps).
+    # H2: one T = 8 sweep at 4096^2; H3: the same and its residual.
     t = cs.DEFAULT_TSTEPS
+    plan = cs.tile_plan(4096, 4096, t, "cuda")
+    counted = cs.path_counter("cuda")
+    cs.tile_multi(big, t, cx, cy, tsteps=t, paths=counted)
     b, by = bound_ms(2 * plane, FLOPS_PER_CELL_STEP * cells * t)
     rows.append(dict(
-        name="tile_multi", shape="4096x4096, one T=8 sweep",
-        ms=time_ms(lambda: cs.tile_multi(big, t, cx, cy), 20),
+        name="tile_multi", shape=f"4096x4096, one T={t} sweep",
+        ms=time_ms(lambda: cs.tile_multi(big, t, cx, cy, tsteps=t), 20),
+        plan_sweep_ms={
+            f"T={d}": time_ms(functools.partial(
+                cs.tile_multi, big, d, cx, cy, tsteps=d), 10) * 8 / d
+            for d in H2_SWEEP_T},
+        plan={"tile": [plan.ty, plan.tx], "ring": plan.tsteps,
+              "warps": cs.STRIP_WARPS, "strip": cs.TILE_STRIP,
+              **dict(zip(cs.TILE_PATHS, counted.tolist()))},
         plain_ms=time_ms(lambda: cs.multi_step_plain(big, t, cx, cy), 5),
         bound_ms=b, bound_by=by, library_ms=None))
-    ntiles = cs.plan_tiles(4096, 4096, t, cs.smem_limit("cuda")).ntiles
-    b, by = bound_ms(2 * plane + 4 * ntiles,
+    b, by = bound_ms(2 * plane + 4 * plan.ntiles,
                      FLOPS_PER_CELL_STEP * cells * t + 3 * cells)
     rows.append(dict(
         name="tile_multi_resid",
-        shape="4096x4096, one T=8 sweep + residual",
-        ms=time_ms(lambda: cs.tile_multi_resid(big, t, cx, cy), 20),
+        shape=f"4096x4096, one T={t} sweep + residual",
+        ms=time_ms(lambda: cs.tile_multi_resid(big, t, cx, cy, tsteps=t),
+                   20),
         plain_ms=time_ms(lambda: cs.tile_multi_resid_plain(big, t, cx, cy),
                          5),
         bound_ms=b, bound_by=by, library_ms=None))
@@ -910,24 +1016,77 @@ def phase_kernel_times(torch, launches: dict, worst: dict) -> list:
     # H4: 640x1024 x 10000 steps in one launch.
     small = inidat(640, 1024, device="cuda")
     n = 10000
+    plan = cs.resident_plan(640, 1024, "cuda")
     b, by = bound_ms(2 * small.numel() * 4,
                      FLOPS_PER_CELL_STEP * small.numel() * n)
+
+    def launcher(form):
+        return lambda p: cs._resident_launch(small, n, cx, cy, form, p)
     rows.append(dict(
         name="resident", shape="640x1024 x 10000 steps",
         ms=time_ms(lambda: cs.resident(small, n, cx, cy), 3),
+        literal_ms=time_ms(
+            lambda: cs.resident(small, n, cx, cy, cs.FORM_LITERAL), 3),
+        k_sweep_ms={fname: resident_k_sweep(torch, launcher(form), 1,
+                                            range(1, 9), nb=1)
+                    for form, fname in ((cs.FORM_FMA, "fma"),
+                                        (cs.FORM_LITERAL, "literal"))},
+        chunk_20_ms=time_ms(lambda: cs.resident(small, 20, cx, cy), 20),
+        plan={"k": plan.k, "tile": [plan.ty, plan.tx], "tiles": plan.tiles},
+        tile_route_ms=time_ms(lambda: cs.tiled_chunk(
+            small, n, cx, cy, tsteps=cs.DEFAULT_TSTEPS), 1),
+        gate_sweep=gate_sweep(torch),
         plain_ms=time_ms(lambda: cs.multi_step_plain(small, n, cx, cy), 1),
         bound_ms=b, bound_by=by, library_ms=None))
-
-    rows += ensemble_kernel_rows(torch)
-    rows += family_tridiag_kernel_rows(torch)
-    rows += shard_kernel_rows(torch)
-    for r in rows:
-        r.update(route="cuda",
-                 source=SOURCES[r["name"]],
-                 replaces=REPLACES[r["name"]],
-                 launches=launches[r["name"]],
-                 max_abs_err=worst[r["name"]])
     return rows
+
+
+#: Grids about the resident gate's edge (``fits_resident``): from well
+#: inside it to the last square the plan admits (1920^2, K = 1); 1810^2
+#: is the last square the L2 gate of the old H4 admitted.
+GATE_SHAPES = [(1024, 1024), (1448, 1448), (2048, 1536), (1810, 1810),
+               (1850, 1850), (1900, 1900), (1920, 1920)]
+GATE_STEPS = 1000
+
+
+def gate_sweep(torch) -> list:
+    """The resident routes against the streamed ones at ``GATE_SHAPES`` x
+    ``GATE_STEPS`` steps, the three `auto` routes that ``fits_resident``
+    gates: H4 against the H2 route (``tiled_chunk``) on one grid, H5
+    against the H6 route and H8 (heat9) against the H9 route on 8
+    members. Each with the plans the resident routes take (None: past
+    the gate; H8 then runs the H9 route itself)."""
+    from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    from heat2d_tpu_torch.ops import cuda_family as cf
+    from heat2d_tpu_torch.ops import cuda_stencil as cs
+    from heat2d_tpu_torch.ops.resident import plan_resident
+    n, b, cx, cy = GATE_STEPS, 8, 0.1, 0.1
+    cxs = torch.linspace(0.02, 0.125, b, device="cuda")
+    scal = cf.scalar_block("heat9", cxs, 0.17 - cxs)
+
+    def plan_of(p):
+        return None if p is None else {"k": p.k, "tile": [p.ty, p.tx],
+                                       "tiles": p.tiles, "waves": p.waves}
+    out = []
+    for nx, ny in GATE_SHAPES:
+        u = torch.rand((nx, ny), device="cuda")
+        ub = u.expand(b, nx, ny).contiguous()
+        out.append({
+            "shape": f"{nx}x{ny}", "steps": n,
+            "fits_resident": cs.fits_resident((nx, ny), "cuda"),
+            "h4_plan": plan_of(cs.resident_plan(nx, ny, "cuda")),
+            "h4_ms": time_ms(lambda: cs.resident(u, n, cx, cy), 1),
+            "h2_route_ms": time_ms(lambda: cs.tiled_chunk(u, n, cx, cy), 1),
+            "h5_ms": time_ms(lambda: ce.ens_resident(ub, n, cxs, cxs), 1),
+            "h6_route_ms": time_ms(
+                lambda: ce.ens_tiled_chunk(ub, n, cxs, cxs), 1),
+            "h8_heat9_plan": plan_of(plan_resident(b, nx, ny, 2, "cuda")),
+            "h8_heat9_ms": time_ms(
+                lambda: cf.fam_resident(ub, n, scal, "heat9"), 1),
+            "h9_route_ms": time_ms(
+                lambda: cf.fam_tiled_chunk(ub, n, scal, "heat9"), 1)})
+        del u, ub
+    return out
 
 
 def resident_against_tiles(torch) -> list:
@@ -955,8 +1114,8 @@ def resident_against_tiles(torch) -> list:
     return out
 
 
-def resident_k_sweep(torch, launch, ring_w: int, ks) -> dict:
-    """The resident sweep at 8 x 640x1024 x 10000 with the chunk depth K
+def resident_k_sweep(torch, launch, ring_w: int, ks, nb: int = 8) -> dict:
+    """The resident sweep at nb x 640x1024 x 10000 with the chunk depth K
     forced (the planner's tiles for that K): K -> ms. ``launch(plan)``
     runs the kernel on ``plan``. The planner's exchange cost is fitted to
     these."""
@@ -965,7 +1124,7 @@ def resident_k_sweep(torch, launch, ring_w: int, ks) -> dict:
     caps = cs.device_caps("cuda")
     out = {}
     for k in ks:
-        plan = plan_for_limits(8, 640, 1024, ring_w, cs.smem_limit("cuda"),
+        plan = plan_for_limits(nb, 640, 1024, ring_w, cs.smem_limit("cuda"),
                                caps.sm_count, k)
         out[str(k)] = time_ms(functools.partial(launch, plan), 1)
     return out
@@ -1609,6 +1768,7 @@ def phase_shard_kernels(torch) -> dict:
     must equal the planner's count (``cuda_shard.tile_paths``), and every
     path must be taken."""
     from heat2d_tpu_torch.ops import cuda_shard as csh
+    from heat2d_tpu_torch.ops import cuda_stencil as cs
     from heat2d_tpu_torch.parallel.halo import exchange_halo_strips
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1616)
@@ -1633,7 +1793,7 @@ def phase_shard_kernels(torch) -> dict:
         blocks = _shard_grid(torch, nx, ny, gx, gy, gen)
         bm, bn = blocks[0][0].shape
         strips = exchange_halo_strips(blocks, t)
-        plan = csh.plan_shard_sweep(bm, bn, t)
+        plan = cs.plan_strip_sweep(bm, bn, t)
         kinds = [csh.tile_paths(plan, i * bm, j * bn, bm, bn, nx, ny)
                  for i in range(gx) for j in range(gy)]
         planned = {k: sum(d[k] for d in kinds) for k in csh.TILE_PATHS}
@@ -1887,7 +2047,7 @@ def shard_kernel_rows(torch) -> list:
         bound_ms=b, bound_by=by, library_ms=None,
         device_ms=time_device_ms(
             lambda: csh.shard_tile_multi(u, st, *args), 20)))
-    plan = csh.plan_shard_sweep(bm, bm, t, caps_of(torch)[1])
+    plan = cs.plan_strip_sweep(bm, bm, t, caps_of(torch)[1])
     counted = csh.path_counter("cuda")
     csh.shard_tile_multi(u, st, *args, paths=counted)
     rows[-1]["plan"] = {"tile": [plan.ty, plan.tx], "ring": plan.tsteps,

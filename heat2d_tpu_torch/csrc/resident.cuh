@@ -1,9 +1,10 @@
-// The on-chip resident sweep shared by H5 k_ens_resident (csrc/ensemble.cu)
-// and H8 k_fam_resident (csrc/family.cu): every member of a (B, nx, ny)
-// batch advances `steps` steps of an operator Op in one cooperative
-// launch, its state kept in shared memory from the first step to the
-// last.  The schedule is planned on the host and stated in plain PyTorch
-// in heat2d_tpu_torch/ops/resident.py (plan_resident, emulate_resident).
+// The on-chip resident sweep shared by H4 k_resident (csrc/stencil.cu, a
+// one-member batch), H5 k_ens_resident (csrc/ensemble.cu) and H8
+// k_fam_resident (csrc/family.cu): every member of a (B, nx, ny) batch
+// advances `steps` steps of an operator Op in one cooperative launch, its
+// state kept in shared memory from the first step to the last.  The
+// schedule is planned on the host and stated in plain PyTorch in
+// heat2d_tpu_torch/ops/resident.py (plan_resident, emulate_resident).
 //
 // What bounds it.  The TPU kernels it replaces keep a member in VMEM for
 // all steps; the card's counterpart is the SMs' shared memory (132 x

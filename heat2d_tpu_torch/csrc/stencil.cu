@@ -11,35 +11,45 @@
 //                     one thread per cell, coalesced along rows.
 //   H2 k_tile      <- _band_multi_kernel (C) and _band_window_kernel
 //                     (C2/C3): nsub <= T steps per round trip to device
-//                     memory.  A (TY+2T) x (TX+2T) tile (its centre plus
-//                     a T-deep halo ring) is stepped in shared memory and
-//                     only the TY x TX centre is written, to a second
-//                     buffer.  Cuts bytes per step by ~T; the bound moves
-//                     towards shared-memory traffic and FLOPs.
+//                     memory.  The strip sweep of csrc/tile.cuh (H9's and
+//                     H12's): a (TY+2T) x (TX+2T) tile (its centre plus a
+//                     T-deep halo ring) is stepped in shared memory by 16
+//                     warps, two blocks an SM, each thread a strip of 8
+//                     cells of one column with its x neighbours in
+//                     registers; a tile whose ring lies inside the grid is
+//                     copied in by cp.async and skips the held rule.  Only
+//                     the TY x TX centre is written, to a second buffer.
+//                     Device memory moves once per sweep; the step loop's
+//                     instructions bound it.
 //   H3 k_tile<RESID> <- _band_window_resid_kernel (C2R/C3R): H2 plus each
 //                     tile's sum of squared deltas over the last step pair
-//                     of its centre, one float per tile.
+//                     of its centre, one float per tile (the previous
+//                     step's value is the strip's register).
 //   H4 k_resident  <- _vmem_kernel (A) via multi_step_vmem: all steps in
-//                     one cooperative launch; grid.sync() between steps,
-//                     two ping-pong buffers small enough for the 50 MB L2.
-//                     Bound by the per-step grid barrier and L2 latency on
-//                     small grids, by FLOPs in the limit.
+//                     one cooperative launch, the grid held in shared
+//                     memory from the first step to the last, as A holds
+//                     it in VMEM: the on-chip resident sweep of
+//                     csrc/resident.cuh (H5's and H8's) on a one-member
+//                     batch, with the host's scalars (k0 computed in
+//                     double).  A block per SM steps its tile K steps,
+//                     then trades rings with its neighbours through
+//                     stamped words in the L2; no barrier spans the grid.
 //
 // Semantics shared by all four: compute in f32; global rows 0 / nx-1 and
 // columns 0 / ny-1 are held, and so is every cell outside the domain.
-// Two step forms, FORM_FMA and FORM_LITERAL (csrc/tile.cuh, which also
-// holds the tile sweep H2/H3 share with the ensemble kernels).
-// No kernel writes the buffer it reads: GPU blocks run in no order.
+// Two step forms, FORM_FMA and FORM_LITERAL (csrc/tile.cuh).  Each cell
+// takes the rounded sequence of update<FORM> in every kernel, so H2, H3
+// and H4 agree bit for bit with each other, and in the literal form with
+// the plain step.  No kernel writes the buffer it reads: GPU blocks run
+// in no order.
 //
 // Every entry point returns a cudaError_t (0 on success); the Python
 // wrapper raises on anything else.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "resident.cuh"
 #include "tile.cuh"
-
-namespace cg = cooperative_groups;
 
 namespace {
 
@@ -48,9 +58,8 @@ using heat::BLOCK_Y;
 using heat::Coef;
 using heat::FORM_FMA;
 using heat::FORM_LITERAL;
+using heat::Placement;
 using heat::update;
-
-constexpr int RESIDENT_THREADS = 256;
 
 // ---------------------------------------------------------------- H1 --
 template <int FORM>
@@ -67,62 +76,74 @@ __global__ void k_step(const float* __restrict__ src, float* __restrict__ dst,
 }
 
 // ------------------------------------------------------------ H2 / H3 --
+constexpr int TILE_BY = heat::STRIP_BY;
+// Cells a strip: 8, the heat5 build of the strip sweep (the other strip
+// sweeps take heat::STRIP = 4); a strip's column loads serve 8 updates.
+constexpr int TILE_STRIP = 8;
+
+// Tile (blockIdx.y, blockIdx.x) of the grid.  `paths` (NULL, or two words
+// the caller zeroed): thread (0, 0) adds its tile to the word of the path
+// it takes, fast or edge (ops/cuda_stencil.py TILE_PATHS).  With RESID,
+// each block writes its tile's partial sum.
 template <int FORM, bool RESID>
-__global__ void k_tile(const float* __restrict__ src, float* __restrict__ dst,
-                       float* __restrict__ parts, int nx, int ny, Coef k,
-                       int T, int nsub, int TY, int TX) {
+__global__ void __launch_bounds__(32 * TILE_BY, 2)
+    k_tile(const float* __restrict__ src, float* __restrict__ dst,
+           float* __restrict__ parts, unsigned* paths, int nx, int ny,
+           Coef k, int T, int nsub, int TY, int TX) {
   extern __shared__ float smem[];
-  const float acc = heat::tile_sweep<heat::Heat5<FORM>, RESID>(
-      src, dst, nx, ny, k, T, nsub, TY, TX, smem);
-  if (RESID && threadIdx.x == 0 && threadIdx.y == 0)
-    parts[blockIdx.y * gridDim.x + blockIdx.x] = acc;
-}
-
-// ---------------------------------------------------------------- H4 --
-// Step s reads `cur` and writes `nxt`; src is read only by step 0, so the
-// caller's grid is never written.  Steps alternate p0, p1, p0, ...: the
-// result is in p0 when steps is odd, in p1 when it is even.  Loads go
-// through __ldcg (L2, not the SM's own L1) because other blocks wrote
-// them during the previous step.
-template <int FORM>
-__global__ void k_resident(const float* src, float* p0, float* p1, int nx,
-                           int ny, Coef k, int steps) {
-  cg::grid_group grid = cg::this_grid();
-  const size_t n = (size_t)nx * ny;
-  const size_t stride = (size_t)gridDim.x * blockDim.x;
-  const float* cur = src;
-  float* nxt = p0;
-  for (int s = 0; s < steps; ++s) {
-    for (size_t p = (size_t)blockIdx.x * blockDim.x + threadIdx.x; p < n;
-         p += stride) {
-      const int i = (int)(p / ny);
-      const int j = (int)(p - (size_t)i * ny);
-      float v = __ldcg(cur + p);
-      if (i > 0 && i < nx - 1 && j > 0 && j < ny - 1)
-        v = update<FORM>(v, __ldcg(cur + p - ny), __ldcg(cur + p + ny),
-                         __ldcg(cur + p - 1), __ldcg(cur + p + 1), k);
-      nxt[p] = v;
-    }
-    grid.sync();
-    cur = nxt;
-    nxt = (nxt == p0) ? p1 : p0;
-  }
+  using Op = heat::Heat5<FORM>;
+  const heat::GridLoad ld{src, nx, ny};
+  const Placement pl{0, 0, nx, ny};
+  const bool fast = heat::ext_inside(pl, T, TY, TX, pl);
+  const bool first = threadIdx.x == 0 && threadIdx.y == 0;
+  if (paths != nullptr && first) atomicAdd(paths + (fast ? 0 : 1), 1u);
+  const float acc =
+      fast ? heat::strip_sweep_at<Op, TILE_BY, false, RESID, TILE_STRIP>(
+                 ld, dst, pl, nx, ny, k, T, nsub, TY, TX, smem)
+           : heat::strip_sweep_at<Op, TILE_BY, true, RESID, TILE_STRIP>(
+                 ld, dst, pl, nx, ny, k, T, nsub, TY, TX, smem);
+  if (RESID && first) parts[blockIdx.y * gridDim.x + blockIdx.x] = acc;
 }
 
 template <int FORM, bool RESID>
-cudaError_t launch_tile(const float* src, float* dst, float* parts, int nx,
-                        int ny, Coef k, int T, int nsub, int TY, int TX,
-                        cudaStream_t stream) {
+cudaError_t launch_tile(const float* src, float* dst, float* parts,
+                        unsigned* paths, int nx, int ny, Coef k, int T,
+                        int nsub, int TY, int TX, cudaStream_t stream) {
   const size_t smem = heat::tile_smem_bytes(T, TY, TX);
   cudaError_t e = cudaFuncSetAttribute(
       k_tile<FORM, RESID>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 block(BLOCK_X, BLOCK_Y);
   const dim3 grid((ny + TX - 1) / TX, (nx + TY - 1) / TY);
-  k_tile<FORM, RESID><<<grid, block, smem, stream>>>(src, dst, parts, nx, ny,
-                                                      k, T, nsub, TY, TX);
+  k_tile<FORM, RESID><<<grid, dim3(32, TILE_BY), smem, stream>>>(
+      src, dst, parts, paths, nx, ny, k, T, nsub, TY, TX);
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- H4 --
+// scratch: ops/resident.launch_scratch, zeroed.  src is only read, dst
+// only written.  Stepped by window_steps (csrc/resident.cuh), on the H100
+// ~30% faster than tile_steps for heat5 in both forms; every member's
+// scalars are the host's `k`.
+template <int FORM>
+__global__ void __launch_bounds__(BLOCK_X * heat::resident_warps(true), 1)
+    k_resident(const float* __restrict__ src, float* __restrict__ dst,
+               heat::Word* scratch, heat::ResidentPlan P, int steps,
+               Coef k) {
+  extern __shared__ __align__(16) float smem[];
+  heat::resident_sweep<heat::Heat5<FORM>, true>(
+      src, dst, scratch, P, steps, [=](int) { return k; }, smem);
+}
+
+template <int FORM>
+cudaError_t launch_h4(const float* src, float* dst, heat::Word* scratch,
+                      const int* plan, int steps, Coef k,
+                      cudaStream_t stream) {
+  heat::ResidentPlan P = heat::resident_plan(plan);
+  void* args[] = {(void*)&src, (void*)&dst,   (void*)&scratch,
+                  (void*)&P,   (void*)&steps, (void*)&k};
+  return heat::launch_resident<heat::Heat5<FORM>, true>(k_resident<FORM>,
+                                                        args, P, stream);
 }
 
 }  // namespace
@@ -134,8 +155,7 @@ const char* heat_error_string(int e) {
 }
 
 // caps[0] L2 bytes, caps[1] opt-in shared memory per block, caps[2] SM
-// count, caps[3] cooperative launch supported, caps[4] co-resident H4
-// blocks on the whole card (the cooperative grid limit).
+// count, caps[3] cooperative launch supported.
 int heat_device_caps(int* caps) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -147,15 +167,6 @@ int heat_device_caps(int* caps) {
     e = cudaDeviceGetAttribute(&caps[a], attrs[a], dev);
     if (e != cudaSuccess) return e;
   }
-  int per_sm_fma = 0, per_sm_lit = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm_fma, k_resident<FORM_FMA>, RESIDENT_THREADS, 0);
-  if (e != cudaSuccess) return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm_lit, k_resident<FORM_LITERAL>, RESIDENT_THREADS, 0);
-  if (e != cudaSuccess) return e;
-  const int per_sm = per_sm_fma < per_sm_lit ? per_sm_fma : per_sm_lit;
-  caps[4] = per_sm * caps[2];
   return cudaSuccess;
 }
 
@@ -173,38 +184,52 @@ int heat_step(const float* src, float* dst, int nx, int ny, float cx,
 }
 
 // parts == NULL selects H2, otherwise H3 (one partial per tile, tiles in
-// row-major order of the (ceil(nx/TY), ceil(ny/TX)) tile grid).
-int heat_tile_multi(const float* src, float* dst, float* parts, int nx,
-                    int ny, float cx, float cy, float k0, int form, int T,
-                    int nsub, int TY, int TX, void* stream) {
+// row-major order of the (ceil(nx/TY), ceil(ny/TX)) tile grid).  `paths`:
+// NULL, or k_tile's two path counts.
+int heat_tile_multi(const float* src, float* dst, float* parts,
+                    unsigned* paths, int nx, int ny, float cx, float cy,
+                    float k0, int form, int T, int nsub, int TY, int TX,
+                    void* stream) {
   const Coef k{cx, cy, k0};
   cudaStream_t s = (cudaStream_t)stream;
-  if (parts == nullptr) {
-    return form == FORM_LITERAL
-               ? launch_tile<FORM_LITERAL, false>(src, dst, parts, nx, ny, k,
-                                                  T, nsub, TY, TX, s)
-               : launch_tile<FORM_FMA, false>(src, dst, parts, nx, ny, k, T,
-                                              nsub, TY, TX, s);
-  }
-  return form == FORM_LITERAL
-             ? launch_tile<FORM_LITERAL, true>(src, dst, parts, nx, ny, k, T,
-                                               nsub, TY, TX, s)
-             : launch_tile<FORM_FMA, true>(src, dst, parts, nx, ny, k, T,
-                                           nsub, TY, TX, s);
+  auto launch = parts == nullptr
+                    ? (form == FORM_LITERAL ? launch_tile<FORM_LITERAL, false>
+                                            : launch_tile<FORM_FMA, false>)
+                    : (form == FORM_LITERAL ? launch_tile<FORM_LITERAL, true>
+                                            : launch_tile<FORM_FMA, true>);
+  return launch(src, dst, parts, paths, nx, ny, k, T, nsub, TY, TX, s);
 }
 
-int heat_resident(const float* src, float* p0, float* p1, int nx, int ny,
-                  float cx, float cy, float k0, int form, int steps,
-                  int blocks, void* stream) {
-  Coef k{cx, cy, k0};
-  void* args[] = {(void*)&src, (void*)&p0, (void*)&p1, (void*)&nx,
-                  (void*)&ny,  (void*)&k,  (void*)&steps};
-  const void* fn = form == FORM_LITERAL ? (const void*)k_resident<FORM_LITERAL>
-                                        : (const void*)k_resident<FORM_FMA>;
-  cudaError_t e = cudaLaunchCooperativeKernel(
-      fn, dim3(blocks), dim3(RESIDENT_THREADS), args, 0, (cudaStream_t)stream);
+// H2's FMA build at `smem` bytes a block: out[0..2] = registers a thread,
+// local (spill) bytes a thread, blocks an SM.
+int heat_tile_info(int smem, int* out) {
+  const void* fn = (const void*)k_tile<FORM_FMA, false>;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fn);
   if (e != cudaSuccess) return e;
-  return cudaGetLastError();
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, 32 * TILE_BY,
+                                                    (size_t)smem);
+  if (e != cudaSuccess) return e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = blocks;
+  return cudaSuccess;
+}
+
+// plan: the host int array of ops/resident.ResidentPlan.as_ctypes (one
+// member).
+int heat_resident(const float* src, float* dst, heat::Word* scratch,
+                  const int* plan, float cx, float cy, float k0, int form,
+                  int steps, void* stream) {
+  const Coef k{cx, cy, k0};
+  cudaStream_t s = (cudaStream_t)stream;
+  return form == FORM_LITERAL
+             ? launch_h4<FORM_LITERAL>(src, dst, scratch, plan, steps, k, s)
+             : launch_h4<FORM_FMA>(src, dst, scratch, plan, steps, k, s);
 }
 
 }  // extern "C"

@@ -1,14 +1,14 @@
-// Device code shared by csrc/stencil.cu (H2/H3), csrc/ensemble.cu
+// Device code shared by csrc/stencil.cu (H2-H4), csrc/ensemble.cu
 // (H5-H7), csrc/family.cu (H8/H9) and csrc/shard.cu (H12-H14): the heat5
 // step forms, the operator interface, and two sweeps of a tile in shared
 // memory, each generic over an operator and over where its cells are
 // loaded from:
 //   - the tile sweep (tile_sweep_at, its step loop tile_steps): one cell
-//     a thread, 8 warps; H2, H3, H6, H7, H14, and the step loop of H5/H8's
+//     a thread, 8 warps; H6, H7, H14, and the step loop of H5/H8's
 //     resident sweep (csrc/resident.cuh);
-//   - the strip sweep (strip_sweep_at): a strip of 4 cells a thread with
-//     its x neighbours in registers, 16 warps, two blocks an SM, the held
-//     rule tested once per block; H9 and H12/H13.
+//   - the strip sweep (strip_sweep_at): a strip of 4 cells a thread (8 in
+//     H2/H3) with its x neighbours in registers, 16 warps, two blocks an
+//     SM, the held rule tested once per block; H2/H3, H9 and H12/H13.
 //
 // An operator Op has a spatial radius Op::W, a scalar set Op::Params,
 // and Op::apply(ld, row, k): the updated value of a cell from ld(o), the
@@ -283,8 +283,10 @@ __device__ __forceinline__ bool ext_inside(Placement pl, int H, int TY,
 // writes only cells inside `pl`.  With RESID, returns (in thread (0, 0))
 // the tile's sum of squared deltas over the last step pair of its written
 // cells, the previous step's value being the strip's register (held
-// cells add 0).
-template <class Op, int BY, bool EDGE, bool RESID, class Load>
+// cells add 0).  S is the strip's length (STRIP but for H2/H3's heat5
+// build of 8: csrc/stencil.cu).
+template <class Op, int BY, bool EDGE, bool RESID, int S = STRIP,
+          class Load>
 __device__ __forceinline__ float strip_sweep_at(const Load& load,
                                                 float* __restrict__ dst,
                                                 Placement pl, int nx, int ny,
@@ -335,21 +337,21 @@ __device__ __forceinline__ float strip_sweep_at(const Load& load,
     // Work items (strip, chunk of 32 columns), dealt to the warps in
     // turn: warp ty takes items ty, ty + BY, ...
     const int ncc = (cols + 31) / 32;
-    const int strips = (rows + STRIP - 1) / STRIP;
+    const int strips = (rows + S - 1) / S;
     int strip = ty / ncc, cc = ty - strip * ncc;
     for (; strip < strips; next_item<BY>(strip, cc, ncc)) {
-      const int r0 = lo + strip * STRIP;
+      const int r0 = lo + strip * S;
       const int c = lo + cc * 32 + tx;
-      const int nr = min(STRIP, rows + lo - r0);  // uniform in a warp
+      const int nr = min(S, rows + lo - r0);  // uniform in a warp
       if (c >= lo + cols) continue;
-      float col[STRIP + 2 * W];
+      float col[S + 2 * W];
 #pragma unroll
-      for (int q = 0; q < STRIP + 2 * W; ++q)
+      for (int q = 0; q < S + 2 * W; ++q)
         col[q] = cur[min(r0 - W + q, EY - 1) * EX + c];
       const int gj = j0 + c;
       const bool col_upd = !EDGE || (gj >= W && gj < ny - W);
 #pragma unroll
-      for (int q = 0; q < STRIP; ++q) {
+      for (int q = 0; q < S; ++q) {
         if (q >= nr) break;
         const int p = (r0 + q) * EX + c;
         float v = Op::apply(

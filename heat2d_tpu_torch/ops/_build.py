@@ -36,10 +36,10 @@ SIGNATURES = {
         "heat_error_string": (ctypes.c_char_p, [_I]),
         "heat_device_caps": (_I, [_P]),
         "heat_step": (_I, [_P, _P, _I, _I, _F, _F, _F, _I, _P]),
-        "heat_tile_multi": (_I, [_P, _P, _P, _I, _I, _F, _F, _F, _I, _I,
-                                 _I, _I, _I, _P]),
-        "heat_resident": (_I, [_P, _P, _P, _I, _I, _F, _F, _F, _I, _I, _I,
-                               _P]),
+        "heat_tile_multi": (_I, [_P, _P, _P, _P, _I, _I, _F, _F, _F, _I,
+                                 _I, _I, _I, _I, _P]),
+        "heat_tile_info": (_I, [_I, _P]),
+        "heat_resident": (_I, [_P, _P, _P, _P, _F, _F, _F, _I, _I, _P]),
     },
     "ensemble": {
         "heat_error_string": (ctypes.c_char_p, [_I]),

@@ -7,7 +7,7 @@ H12    ``shard_tile_multi``        one (bm, bn) shard and its four T-deep
                                    halo strips -> the shard advanced nsub <=
                                    T steps by the strip sweep of
                                    ``csrc/tile.cuh`` (H9's, planned by
-                                   ``plan_shard_sweep``); replaces kernel D
+                                   ``cs.plan_strip_sweep``); replaces kernel D
                                    (``_shard_fused_vmem_kernel``,
                                    ``_shard_fused_band_kernel``) and D2
                                    (``_shard_window_kernel``)
@@ -190,19 +190,6 @@ def _validate(u, strips, nsub, what):
             raise ValueError(f"{what}: strips must be float32 on {u.device}")
 
 
-def plan_shard_sweep(bm: int, bn: int, t: int,
-                     smem: int = cs.H100_SMEM_OPTIN) -> cs.TilePlan:
-    """H12/H13's tiles on a (bm, bn) shard with T = ``t`` deep strips:
-    ``plan_tiles`` (centres of at most 64 x 128, ring t) within ``smem``
-    bytes a block and within half an SM's shared memory, so that two
-    blocks of ``cs.STRIP_WARPS`` warps share an SM, as H9's plans do.
-    Each block also takes 1 KB for the system and 4 bytes a warp for
-    H13's partial sums."""
-    sums = 4 * cs.STRIP_WARPS
-    half = cs.SM_SMEM_BYTES // 2 - cs.BLOCK_RESERVED_SMEM - sums
-    return cs.plan_tiles(bm, bn, t, min(smem - sums, half))
-
-
 #: The strip sweep's paths, in the order of the words of a ``paths``
 #: count (csrc/shard.cu): ``fast``, tiles whose ext lies inside the
 #: shard's block and inside the domain; ``edge``, the rest;
@@ -245,14 +232,11 @@ def _shard_launch(u, strips, nsub, x0, y0, nx, ny, cx, cy, form, resid,
     bm, bn = u.shape
     strips = [s.contiguous() for s in strips]
     t = strips[0].shape[0]
-    plan = plan_shard_sweep(bm, bn, t, cs.device_caps(u.device).smem_optin)
+    plan = cs.plan_strip_sweep(bm, bn, t,
+                              cs.device_caps(u.device).smem_optin)
     if plan.grid[0] > 65535:
         raise ValueError(f"{bm} rows exceed the launch grid's y limit")
-    if paths is not None and (paths.dtype != torch.int32
-                              or paths.shape != (len(TILE_PATHS),)
-                              or paths.device != u.device):
-        raise ValueError(f"paths: an int32 tensor of {len(TILE_PATHS)} "
-                         f"words on {u.device} (path_counter)")
+    cs._check_paths(paths, len(TILE_PATHS), u.device)
     out = torch.empty_like(u)
     parts = (torch.empty(plan.ntiles, dtype=torch.float32, device=u.device)
              if resid else None)
@@ -276,7 +260,7 @@ def shard_tile_multi(u, strips, nsub: int, x0: int, y0: int, nx: int,
     advanced ``nsub`` steps from its halo strips ``(north, south, west,
     east)`` of depth T >= nsub. One read and one write of the block per
     sweep; the tiles' rings are recomputed in shared memory
-    (``plan_shard_sweep``). ``paths`` (``path_counter``): the kernel adds
+    (``cs.plan_strip_sweep``). ``paths`` (``path_counter``): the kernel adds
     its tiles by path to it; the plain version, on the CPU, counts none."""
     _validate(u, strips, nsub, "shard_tile_multi")
     if u.device.type == "cpu":

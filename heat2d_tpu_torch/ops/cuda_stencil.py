@@ -11,16 +11,22 @@ H1    ``step``            one clamped step, src -> dst; replaces kernel B
                           ``band_step``)
 H2    ``tile_multi``      ``nsub <= T`` steps per round trip to device
                           memory on shared-memory tiles with a T-deep halo
-                          ring; replaces kernels C, C2 and C3
+                          ring, by the strip sweep of ``csrc/tile.cuh``
+                          (``tile_plan``); replaces kernels C, C2 and C3
                           (``_band_multi_kernel``, ``_band_window_kernel``)
 H3    ``tile_multi_resid``  H2 plus one partial sum of squared deltas of
                           the last step pair per tile; replaces C2R/C3R
                           (``_band_window_resid_kernel``)
-H4    ``resident``        every step in one cooperative launch, grid-wide
-                          barrier between steps, two ping-pong buffers the
-                          L2 holds; replaces kernel A (``_vmem_kernel``
-                          via ``multi_step_vmem``)
+H4    ``resident``        every step in one cooperative launch, the grid
+                          held in shared memory throughout: the on-chip
+                          resident sweep of ``csrc/resident.cuh`` on one
+                          member (``resident_plan``); replaces kernel A
+                          (``_vmem_kernel`` via ``multi_step_vmem``)
 ====  ==================  ==================================================
+
+H2, H3 and H4 give every cell the same rounded sequence of updates, so
+they agree bit for bit with each other whatever their tiles, and in the
+literal form with the plain step.
 
 Every wrapper takes a float32 grid. On a CPU tensor it runs the kernel's
 plain PyTorch version (same step form, same mask); on a CUDA tensor it
@@ -30,13 +36,13 @@ to the wrapper's entry in ``LAUNCHES``; the plain versions count nothing.
 The TPU kernels' row-band and VMEM geometry (``plan_bands``, the probed
 window tables, the column panels) has no counterpart here: those were
 ways around the TPU's VMEM, and the tiles are planned from the card's
-shared-memory limit instead (``plan_tiles``).
+shared-memory limit instead (``plan_tiles``, ``tile_plan``,
+``resident_plan``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import math
 from typing import NamedTuple
 
 import torch
@@ -51,8 +57,15 @@ FORM_FMA = 0
 FORM_LITERAL = 1
 
 #: Default temporal depth of the tile sweeps (the JAX package's
-#: ``DEFAULT_TSTEPS``): device-memory bytes per step fall ~T-fold.
+#: ``DEFAULT_TSTEPS``): device-memory bytes per step fall ~T-fold. H2's
+#: results do not depend on it (every cell takes the same sequence at any
+#: depth); on the H100 T = 8 timed fastest per 8 steps (PERF.md).
 DEFAULT_TSTEPS = 8
+#: Cells a strip of H2/H3's strip sweep (``TILE_STRIP`` of
+#: csrc/stencil.cu): 8, a heat5 build that reloads fewer column values
+#: per update (on the H100 16% faster than the 4 of the other strip
+#: sweeps, PERF.md).
+TILE_STRIP = 8
 
 #: Thread block of the tile and step kernels (csrc/stencil.cu).
 BLOCK = (32, 8)
@@ -65,12 +78,10 @@ H100_SMEM_OPTIN = 232448
 #: takes 1 KB for the system: what bounds blocks per SM besides threads.
 SM_SMEM_BYTES = 233472
 BLOCK_RESERVED_SMEM = 1024
-#: Warps of a strip-sweep block (``STRIP_BY`` of csrc/tile.cuh; H9 and
-#: H12/H13): 32 x STRIP_WARPS threads, each updating strips of 4 cells of
-#: one column.
+#: Warps of a strip-sweep block (``STRIP_BY`` of csrc/tile.cuh; H2/H3,
+#: H9 and H12/H13): 32 x STRIP_WARPS threads, each updating strips of 4
+#: cells of one column.
 STRIP_WARPS = 16
-#: The H100's L2 (50 MB), the resident gate's size for CPU grids.
-H100_L2_BYTES = 50 * 1024 * 1024
 #: Static shared memory of the tile kernel (H3's warp sums).
 _STATIC_SMEM = 4 * (BLOCK[0] * BLOCK[1] // 32)
 
@@ -136,7 +147,6 @@ class DeviceCaps(NamedTuple):
     smem_optin: int
     sm_count: int
     cooperative: bool
-    resident_blocks: int   # co-resident H4 blocks on the whole card
 
 
 _caps: dict[int, DeviceCaps] = {}
@@ -148,12 +158,11 @@ def device_caps(device) -> DeviceCaps:
     dev = torch.device(device)
     idx = dev.index if dev.index is not None else torch.cuda.current_device()
     if idx not in _caps:
-        buf = (ctypes.c_int * 5)()
+        buf = (ctypes.c_int * 4)()
         with torch.cuda.device(idx):
             _check(_lib().heat_device_caps(ctypes.cast(buf, ctypes.c_void_p)),
                    "heat_device_caps")
-        _caps[idx] = DeviceCaps(buf[0], buf[1], buf[2], bool(buf[3]),
-                                buf[4])
+        _caps[idx] = DeviceCaps(buf[0], buf[1], buf[2], bool(buf[3]))
     return _caps[idx]
 
 
@@ -165,18 +174,28 @@ def smem_limit(device) -> int:
     return total - _STATIC_SMEM
 
 
+def resident_plan(nx: int, ny: int, device):
+    """H4's plan (``ops/resident.plan_resident`` for one member of radius
+    1; its chunk depth K is the planner's, which timed fastest on the
+    H100), or None when the grid is too large to stay in the card's
+    shared memory."""
+    from heat2d_tpu_torch.ops.resident import plan_resident
+    return plan_resident(1, nx, ny, 1, device)
+
+
 def fits_resident(shape, device) -> bool:
-    """Gate of the resident route (H4): the two f32 ping-pong planes fit
-    in half the L2, and the card can launch a cooperative grid of at
-    least one H4 block. Grids on the CPU are gated against the H100's
-    L2 so that they take the route the card would."""
+    """Gate of the resident route (H4): the card launches cooperative
+    grids and ``resident_plan`` has a plan for the grid (on the H100 up
+    to about 3.7 M cells; up to its edge H4 timed faster than the H2
+    route, ``chip_smoke.py``'s ``gate_sweep``). Grids on the CPU are gated
+    against the H100's 132 SMs and 232,448 bytes a block, so that they
+    take the route the card would. A grid that fails it takes the
+    streamed route. The ensembles' and families' ``auto`` routes share
+    it."""
     dev = torch.device(device)
-    plane = shape[0] * shape[1] * 4
-    if dev.type != "cuda":
-        return 2 * plane <= H100_L2_BYTES // 2
-    caps = device_caps(dev)
-    return (caps.cooperative and caps.resident_blocks >= 1
-            and 2 * plane <= caps.l2_bytes // 2)
+    if dev.type == "cuda" and not device_caps(dev).cooperative:
+        return False
+    return resident_plan(shape[0], shape[1], dev) is not None
 
 
 # --------------------------------------------------------------------- #
@@ -228,6 +247,56 @@ def plan_tiles(nx: int, ny: int, tsteps: int = DEFAULT_TSTEPS,
             f"halo depth T={tsteps} leaves no tile that fits {smem} bytes "
             f"of shared memory")
     return TilePlan(ty, tx, tsteps, (-(-nx // ty), -(-ny // tx)))
+
+
+def plan_strip_sweep(nx: int, ny: int, t: int,
+                     smem: int = H100_SMEM_OPTIN) -> TilePlan:
+    """The strip sweep's tiles on an (nx, ny) block with a t-deep ring
+    (H2/H3 on a grid, H12/H13 on a shard): ``plan_tiles`` (centres of at
+    most 64 x 128) within ``smem`` bytes a block and within half an SM's
+    shared memory, so that two blocks of ``STRIP_WARPS`` warps share an
+    SM, as H9's plans do. Each block also takes 1 KB for the system and 4
+    bytes a warp for the residual's partial sums."""
+    sums = 4 * STRIP_WARPS
+    half = SM_SMEM_BYTES // 2 - BLOCK_RESERVED_SMEM - sums
+    return plan_tiles(nx, ny, t, min(smem - sums, half))
+
+
+def tile_plan(nx: int, ny: int, tsteps: int, device) -> TilePlan:
+    """H2/H3's tiles for sweeps of depth ``tsteps`` on ``device`` (a grid
+    on the CPU plans what the H100 would)."""
+    dev = torch.device(device)
+    smem = (device_caps(dev).smem_optin if dev.type == "cuda"
+            else H100_SMEM_OPTIN)
+    return plan_strip_sweep(nx, ny, tsteps, smem)
+
+
+#: H2/H3's paths, in the order of the words of a ``paths`` count
+#: (csrc/stencil.cu): ``fast``, tiles whose ext (centre and ring) lies
+#: inside the grid, copied by cp.async with no cell held; ``edge``, the
+#: rest.
+TILE_PATHS = ("fast", "edge")
+
+
+def tile_paths(plan: TilePlan, nx: int, ny: int) -> dict:
+    """The planner's count of the tiles of ``plan`` on an nx x ny grid by
+    path (``TILE_PATHS``), by the kernel's uniform test (``ext_inside``
+    of csrc/tile.cuh). What the kernel took, it counts itself into
+    ``paths``."""
+    h = plan.tsteps
+    ey, ex = plan.ty + 2 * h, plan.tx + 2 * h
+    rows = sum(0 <= a * plan.ty - h and a * plan.ty - h + ey <= nx
+               for a in range(plan.grid[0]))
+    cols = sum(0 <= b * plan.tx - h and b * plan.tx - h + ex <= ny
+               for b in range(plan.grid[1]))
+    return {"fast": rows * cols, "edge": plan.ntiles - rows * cols}
+
+
+def path_counter(device):
+    """A zeroed ``paths`` count for ``device``: one int32 word per entry
+    of ``TILE_PATHS``, to which each H2/H3 launch given it adds its
+    tiles; ``dict(zip(TILE_PATHS, buf.tolist()))`` reads it."""
+    return torch.zeros(len(TILE_PATHS), dtype=torch.int32, device=device)
 
 
 # --------------------------------------------------------------------- #
@@ -293,59 +362,101 @@ def _check_depth(nsub: int, tsteps: int) -> None:
         raise ValueError(f"nsub must be in [1, T={tsteps}], got {nsub}")
 
 
-def _tile_launch(u, nsub, cx, cy, form, tsteps, resid):
+def _check_paths(paths, words: int, device) -> None:
+    """A ``paths`` count is None or ``words`` int32 words on ``device``."""
+    if paths is not None and (paths.dtype != torch.int32
+                              or paths.shape != (words,)
+                              or paths.device != device):
+        raise ValueError(f"paths: an int32 tensor of {words} words on "
+                         f"{device} (path_counter)")
+
+
+def _tile_launch(u, nsub, cx, cy, form, tsteps, resid, paths=None):
+    """One H2 (H3 with ``resid``) launch of ``tile_plan``'s tiles."""
     nx, ny = u.shape
-    plan = plan_tiles(nx, ny, tsteps, smem_limit(u.device))
+    plan = tile_plan(nx, ny, tsteps, u.device)
     if plan.grid[0] > 65535:
         raise ValueError(f"{nx} rows exceed the launch grid's y limit")
+    _check_paths(paths, len(TILE_PATHS), u.device)
     out = torch.empty_like(u)
     parts = (torch.empty(plan.ntiles, dtype=torch.float32, device=u.device)
              if resid else None)
     rc = _lib().heat_tile_multi(
-        _ptr(u), _ptr(out), _ptr(parts) if resid else None, nx, ny, cx, cy,
-        _k0(cx, cy), form, plan.tsteps, nsub, plan.ty, plan.tx, _stream(u))
+        _ptr(u), _ptr(out), _ptr(parts) if resid else None,
+        None if paths is None else _ptr(paths), nx, ny, cx, cy, _k0(cx, cy),
+        form, plan.tsteps, nsub, plan.ty, plan.tx, _stream(u))
     _check(rc, "H3 tile_multi_resid" if resid else "H2 tile_multi")
     return out, parts
 
 
 def tile_multi(u, nsub: int, cx: float, cy: float, form: int = FORM_FMA,
-               tsteps: int = DEFAULT_TSTEPS):
-    """H2: ``nsub <= tsteps`` steps in one sweep of shared-memory tiles.
-    Device memory traffic is one read and one write of the grid per
-    sweep (plus the halo rings), so the bound moves towards FLOPs."""
+               tsteps: int = DEFAULT_TSTEPS, paths=None):
+    """H2: ``nsub <= tsteps`` steps in one strip sweep of shared-memory
+    tiles. Device memory traffic is one read and one write of the grid
+    per sweep (plus the halo rings); the step loop's instructions bound
+    it. ``paths`` (``path_counter``): the kernel adds its tiles by path
+    to it; the plain version, on the CPU, counts none."""
     _validate(u, "tile_multi")
     _check_depth(nsub, tsteps)
     if u.device.type == "cpu":
         return multi_step_plain(u, nsub, cx, cy, form)
     LAUNCHES["tile_multi"] += 1
-    out, _ = _tile_launch(u, nsub, cx, cy, form, tsteps, resid=False)
+    out, _ = _tile_launch(u, nsub, cx, cy, form, tsteps, False, paths)
     return out
 
 
 def tile_multi_resid(u, nsub: int, cx: float, cy: float,
-                     form: int = FORM_FMA, tsteps: int = DEFAULT_TSTEPS):
+                     form: int = FORM_FMA, tsteps: int = DEFAULT_TSTEPS,
+                     paths=None):
     """H3: H2 plus the residual of the sweep's last step pair, summed on
-    the device from one partial per tile. Returns (u, residual)."""
+    the device from one partial per tile. Returns (u, residual).
+    ``paths`` as H2's."""
     _validate(u, "tile_multi_resid")
     _check_depth(nsub, tsteps)
     if u.device.type == "cpu":
         return tile_multi_resid_plain(u, nsub, cx, cy, form)
     LAUNCHES["tile_multi_resid"] += 1
-    out, parts = _tile_launch(u, nsub, cx, cy, form, tsteps, resid=True)
+    out, parts = _tile_launch(u, nsub, cx, cy, form, tsteps, True, paths)
     return out, torch.sum(parts)
 
 
-def resident_grid(u) -> int:
-    """Blocks of the H4 launch: enough for one cell per thread, at most
-    what the card holds co-resident (the cooperative launch's limit)."""
-    caps = device_caps(u.device)
-    return max(1, min(caps.resident_blocks, math.ceil(u.numel() / 256)))
+def tile_info(plan: TilePlan) -> dict:
+    """H2's FMA build on the card at ``plan``: registers and local (spill)
+    bytes a thread, and the blocks an SM holds
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    buf = (ctypes.c_int * 3)()
+    _check(_lib().heat_tile_info(plan.smem_bytes,
+                                 ctypes.cast(buf, ctypes.c_void_p)),
+           "H2 tile_info")
+    return {"strip": TILE_STRIP, "registers": buf[0], "local_bytes": buf[1],
+            "blocks_per_sm": buf[2], "smem_bytes": plan.smem_bytes}
+
+
+def _resident_launch(u, steps: int, cx, cy, form, plan):
+    """One H4 launch of ``plan`` (a one-member ``ops.resident`` plan).
+    Raises when the launch is refused (the plan's blocks must all be
+    co-resident) or a block gave up waiting for a neighbour's ring."""
+    from heat2d_tpu_torch.ops.resident import (launch_scratch,
+                                                raise_if_gave_up)
+    what = (f"H4 resident ({plan.blocks} blocks of {plan.smem_bytes} bytes "
+            f"of shared memory)")
+    out = torch.empty_like(u)
+    scratch = launch_scratch(plan, steps, u.device)
+    LAUNCHES["resident"] += 1
+    _check(_lib().heat_resident(
+        _ptr(u), _ptr(out), _ptr(scratch), plan.as_ctypes(), cx, cy,
+        _k0(cx, cy), form, steps, _stream(u)), what)
+    raise_if_gave_up(scratch, what, plan)
+    return out
 
 
 def resident(u, steps: int, cx: float, cy: float, form: int = FORM_FMA):
-    """H4: ``steps`` steps in one cooperative launch. On the grids it
-    serves, the per-step grid barrier and L2 latency bound it; the
-    FLOPs are the bound in the limit."""
+    """H4: ``steps`` steps in one cooperative launch, the grid resident in
+    shared memory for all of them (``resident_plan``): a block per SM
+    steps its tile, trading rings with its neighbours every K steps. The
+    step loop's instructions and the exchanges bound it. A grid without
+    a plan raises: the route gate ``fits_resident`` sends it to the
+    streamed route before any launch."""
     _validate(u, "resident")
     if steps < 0:
         raise ValueError(f"steps must be >= 0, got {steps}")
@@ -353,13 +464,12 @@ def resident(u, steps: int, cx: float, cy: float, form: int = FORM_FMA):
         return multi_step_plain(u, steps, cx, cy, form)
     if steps == 0:
         return u
-    nx, ny = u.shape
-    p0, p1 = torch.empty_like(u), torch.empty_like(u)
-    LAUNCHES["resident"] += 1
-    _check(_lib().heat_resident(_ptr(u), _ptr(p0), _ptr(p1), nx, ny, cx, cy,
-                                _k0(cx, cy), form, steps, resident_grid(u),
-                                _stream(u)), "H4 resident")
-    return p0 if steps % 2 else p1
+    plan = resident_plan(*u.shape, u.device)
+    if plan is None:
+        raise ValueError(f"resident: a {u.shape[0]}x{u.shape[1]} grid does "
+                         f"not fit the card's shared memory (fits_resident "
+                         f"routes it to the tile sweeps)")
+    return _resident_launch(u, steps, cx, cy, form, plan)
 
 
 # --------------------------------------------------------------------- #

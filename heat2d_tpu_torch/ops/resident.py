@@ -1,6 +1,7 @@
-"""The planner of the on-chip resident sweep (H5 ``ens_resident``, H8
-``fam_resident``; device code in ``csrc/resident.cuh``) and a plain
-PyTorch emulation of the schedule the kernel runs.
+"""The planner of the on-chip resident sweep (H4 ``resident`` on one
+member, H5 ``ens_resident``, H8 ``fam_resident``; device code in
+``csrc/resident.cuh``) and a plain PyTorch emulation of the schedule the
+kernel runs.
 
 The sweep keeps every member of a wave in shared memory for all of its
 steps. A member is cut into ``gx x gy`` tiles of ``ty x tx`` centre cells;

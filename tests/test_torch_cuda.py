@@ -59,6 +59,72 @@ def test_kernels_match_plain(card, shape, form):
     assert min(cs.launch_counts().values()) > 0
 
 
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("shape", [(37, 53), (641, 1023), (1900, 1900)])
+def test_resident_equals_the_h2_route_bitwise(card, shape, form):
+    """H4 (the on-chip resident sweep on one member) against the H2 route:
+    the same per-cell arithmetic, so the same bits in both forms, and in
+    the literal form the plain step's bits; 1900x1900 is near the on-chip
+    budget's edge (K = 1)."""
+    g = torch.Generator(device=card)
+    g.manual_seed(8)
+    u = torch.rand(shape, generator=g, device=card)
+    for n in (1, 8, 9, 27):
+        cs.reset_launch_counts()
+        got = cs.resident(u, n, 0.1, 0.1, form)
+        assert cs.launch_counts()["resident"] == 1
+        assert cs.launch_counts()["tile_multi"] == 0
+        assert torch.equal(got, cs.tiled_chunk(u, n, 0.1, 0.1, form))
+        _close(got, cs.multi_step_plain(u, n, 0.1, 0.1, form), n, form)
+
+
+def test_resident_refuses_a_grid_without_a_plan(card):
+    """4096^2 does not stay in the card's shared memory: the gate sends
+    it to the streamed route, and the wrapper raises before a launch."""
+    u = torch.zeros((4096, 4096), device=card)
+    assert cs.resident_plan(4096, 4096, card) is None
+    assert not cs.fits_resident((4096, 4096), card)
+    cs.reset_launch_counts()
+    with pytest.raises(ValueError, match="shared memory"):
+        cs.resident(u, 3, 0.1, 0.1)
+    assert cs.launch_counts()["resident"] == 0
+
+
+def test_resident_gives_up_and_raises(card):
+    """H4 on a plan whose one tile row stops short of the grid: the ring
+    below it is never published, the blocks give up after ~2 s and the
+    wrapper raises; the next launch runs as ever."""
+    from heat2d_tpu_torch.ops.resident import ResidentPlan
+    u = torch.rand((64, 256), device=card)
+    short = ResidentPlan(1, 64, 256, 1, 4, 32, 128, 1, 2, 1)
+    with pytest.raises(RuntimeError, match="gave up"):
+        cs._resident_launch(u, 9, 0.1, 0.1, cs.FORM_FMA, short)
+    assert torch.equal(cs.resident(u, 9, 0.1, 0.1),
+                       cs.tiled_chunk(u, 9, 0.1, 0.1))
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("shape", [(37, 53), (300, 520), (640, 1024)])
+def test_tile_sweep_paths(card, shape, form):
+    """H2/H3 on grids with edge tiles only (37x53) and with both paths:
+    the kernels count their tiles by path as the planner does
+    (``tile_paths``), and H3's grid is H2's."""
+    g = torch.Generator(device=card)
+    g.manual_seed(shape[0])
+    u = torch.rand(shape, generator=g, device=card)
+    counted = cs.path_counter(card)
+    got = cs.tile_multi(u, 8, 0.1, 0.1, form, paths=counted)
+    _close(got, cs.multi_step_plain(u, 8, 0.1, 0.1, form), 8, form)
+    got_r, r = cs.tile_multi_resid(u, 8, 0.1, 0.1, form, paths=counted)
+    assert torch.equal(got_r, got)
+    _, r_ref = cs.tile_multi_resid_plain(u, 8, 0.1, 0.1, form)
+    assert float(r) == pytest.approx(float(r_ref), rel=1e-4)
+    planned = cs.tile_paths(cs.tile_plan(*shape, 8, card), *shape)
+    assert dict(zip(cs.TILE_PATHS, counted.tolist())) == {
+        k: 2 * v for k, v in planned.items()}
+    assert (planned["fast"] > 0) == (shape != (37, 53))
+
+
 @pytest.mark.parametrize("streamed", [False, True])
 def test_pallas_solver_on_the_card(card, monkeypatch, streamed):
     if streamed:
@@ -499,7 +565,7 @@ def test_shard_sweep_fast_and_edge_tiles(card, nx, ny, gx, gy, form):
     blocks = [[full[i * bm:(i + 1) * bm, j * bn:(j + 1) * bn].contiguous()
                for j in range(gy)] for i in range(gx)]
     strips = exchange_halo_strips(blocks, 8)
-    plan = csh.plan_shard_sweep(bm, bn, 8)
+    plan = cs.plan_strip_sweep(bm, bn, 8)
     kinds = [csh.tile_paths(plan, i * bm, j * bn, bm, bn, nx, ny)
              for i in range(gx) for j in range(gy)]
     assert any(k["fast"] for k in kinds) == (nx != 74)

@@ -242,7 +242,7 @@ def test_plan_shard_sweep(case, t):
     shard of the mesh, none of them wholly past its block."""
     nx, ny, gx, gy = SWEEP_SHARDS[case]
     bm, bn = -(-nx // gx), -(-ny // gy)
-    plan = csh.plan_shard_sweep(bm, bn, t)
+    plan = cs.plan_strip_sweep(bm, bn, t)
     assert plan.tsteps == t and cs.STRIP_WARPS == 16
     assert plan.smem_bytes + 4 * cs.STRIP_WARPS <= 232448
     assert 2 * (plan.smem_bytes + 1024 + 4 * cs.STRIP_WARPS) <= 233472
@@ -270,7 +270,7 @@ def test_shard_sweep_tile_paths(nx, ny, gx, gy, t, shard, fast, edge, held):
     the domain (no held cell). A tile inside the block can still cross
     the domain's edge on pad rows, and is swept with the held rule."""
     bm, bn = -(-nx // gx), -(-ny // gy)
-    plan = csh.plan_shard_sweep(bm, bn, t)
+    plan = cs.plan_strip_sweep(bm, bn, t)
     got = csh.tile_paths(plan, shard[0] * bm, shard[1] * bn, bm, bn, nx, ny)
     assert got == {"fast": fast, "edge": edge, "in_block_held": held}
 
