@@ -16,7 +16,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    forms bit for bit against the H2 route and a wait that cannot end,
    H5-H7 on batches of B in {1, 3, 8} members with heterogeneous
    (cx, cy), H7 with a mixed ``active`` vector (frozen members bitwise
-   unchanged, their residual exactly 0); H8/H9 for heat9, advdiff and
+   unchanged, their residual exactly 0), H6/H7 counting their tiles by
+   path (which must equal the planner's, both paths taken), H5's
+   on-chip sweep bit for bit against the H6 route; H8/H9 for heat9, advdiff and
    reactdiff (B in {1, 3, 8}, 37x53 and 4099x4097, nsub in {1, 5, 8},
    within a per-family bound, ``family_tol``), and H9 bit for bit at the
    serving path's 4 x 4096^2 at the plan's depth; H10/H11 at B in {1, 3}
@@ -60,7 +62,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    (pad rows) and of a 2x2 mesh of 74x106, so that the strip sweep's
    fast and edge tiles both run, H14 on the same meshes, both step forms,
    against their plain versions (literal bitwise, FMA within ``fma_tol``)
-   and H14 against H12 bit for bit;
+   and H14 against H12 bit for bit; H12/H13 and H14 count their tiles by
+   path, which must equal the planner's;
 10. sharded path: ``Heat2DSolver`` on a 2x2 mesh of four 2048^2 shards on
    the one card (``host_devices(4)``), 4096^2 x 240 steps: dist2d,
    dist1d (4 strips) and hybrid ``bitwise_parity`` bitwise equal to
@@ -73,7 +76,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 11. the ``kernels`` line: the shape timed, time, bound, plain and library
    times of each kernel H1-H14 and the coefficient pass at its path's
    shapes (H2 per 8 steps with its plan sweep over depths and its tiles
-   by path; H4 in both forms with the chunk depth swept in each, and
+   by path; H6/H7 timed in turns, with their plan and tiles by path; H14
+   with its plan and tiles by path; H4 in both forms with the chunk depth swept in each, and
    the resident routes against the streamed ones about the resident
    gate's edge; H9 with its plan, its build on the card and the
    plan sweep over depths that chose it; H10/H11 solve only, beside
@@ -441,11 +445,13 @@ def phase_ensemble_kernels(torch) -> dict:
     does not take, bit for bit too; and a wait that cannot end, which must
     raise."""
     from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    from heat2d_tpu_torch.ops import cuda_stencil as cs
     from heat2d_tpu_torch.ops.resident import ResidentPlan, plan_resident
     g = torch.Generator(device="cuda")
     g.manual_seed(1613)
     worst = {k: 0.0 for k in ce.LAUNCHES}
     checks = 0
+    paths = {}
 
     def judge(name, got, ref, n, what):
         nonlocal checks
@@ -456,6 +462,9 @@ def phase_ensemble_kernels(torch) -> dict:
         checks += 1
 
     for shape in [(37, 53), (4099, 4097)]:
+        counted = cs.path_counter("cuda")
+        planned = dict.fromkeys(cs.TILE_PATHS, 0)
+        plan = ce.tile_plan(*shape, "cuda")
         for b in (1, 3, 8):
             u = torch.rand((b,) + shape, generator=g, device="cuda")
             cxs = torch.rand(b, generator=g, device="cuda") * 0.24 + 0.01
@@ -468,10 +477,13 @@ def phase_ensemble_kernels(torch) -> dict:
                 ref = ce.ens_multi_step_plain(u, nsub, cxs, cys)
                 judge("ens_resident", ce.ens_resident(u, nsub, cxs, cys),
                       ref, nsub, what)
-                judge("ens_tile_multi", ce.ens_tile_multi(u, nsub, cxs, cys),
+                judge("ens_tile_multi",
+                      ce.ens_tile_multi(u, nsub, cxs, cys, paths=counted),
                       ref, nsub, what)
                 got, r = ce.ens_tile_multi_conv(u, nsub, cxs, cys, active,
-                                                resid=True)
+                                                resid=True, paths=counted)
+                for k, v in ce.tile_paths(plan, b, *shape).items():
+                    planned[k] += 2 * v
                 ref, r_ref = ce.ens_conv_sweep_plain(u, nsub, cxs, cys,
                                                      active, True)
                 judge("ens_tile_multi_conv", got, ref, nsub, what)
@@ -488,6 +500,10 @@ def phase_ensemble_kernels(torch) -> dict:
                             f"H7 residual {what}: relative error {rerr}")
                 got = ce.ens_tile_multi_conv(u, nsub, cxs, cys, active)
                 judge("ens_tile_multi_conv", got, ref, nsub, what)
+        got = dict(zip(cs.TILE_PATHS, counted.tolist()))
+        fail_unless(got == planned, f"H6/H7 {shape}: the kernels' tiles by "
+                    f"path {got}, the planner's {planned}")
+        paths[f"{shape[0]}x{shape[1]}"] = got
         if shape == (4099, 4097):
             before = ce.launch_counts()
             ce.ens_resident(u, 9, cxs, cys)
@@ -541,9 +557,12 @@ def phase_ensemble_kernels(torch) -> dict:
                 "H5 after a launch that gave up: differs from the "
                 "tile-sweep route")
     checks += 1
+    fail_unless(paths["4099x4097"]["fast"] > 0 and paths["4099x4097"]["edge"]
+                and paths["37x53"]["fast"] == 0,
+                f"the H6/H7 cases miss a path of the strip sweep: {paths}")
     torch.cuda.synchronize()
     info = {"phase": "ensemble_kernels", "checks": checks,
-            "max_abs_err": worst}
+            "max_abs_err": worst, "tile_paths": paths}
     emit(info)
     return info
 
@@ -1136,7 +1155,10 @@ def ensemble_kernel_rows(torch) -> list:
     time). H5's row also carries the time of the H6 route for the same
     work (``tile_route_ms``: 1250 sweeps), which the resident route has
     to beat, and the time of the same launch stepped by ``tile_steps``
-    instead of H5's ``window_steps`` (``tile_steps_ms``)."""
+    instead of H5's ``window_steps`` (``tile_steps_ms``). H6 and H7 are
+    timed in turns, H6 first then H7 first (``turns_ms``; ``ms`` is the
+    mean of a kernel's two), beside their plan and its tiles by path as
+    one H6 launch counted them."""
     from heat2d_tpu_torch.ops import cuda_ensemble as ce
     from heat2d_tpu_torch.ops import cuda_stencil as cs
     from heat2d_tpu_torch.ops.init import inidat
@@ -1166,31 +1188,42 @@ def ensemble_kernel_rows(torch) -> list:
         other_shapes=resident_against_tiles(torch)))
 
     # H6 / H7: legs (b) and (c), 4 members of 4096^2, one T = 8 sweep
-    # (H7 with every member active and its residual).
+    # (H7 with every member active and its residual), timed in turns.
     b, t = 4, cs.DEFAULT_TSTEPS
     u = inidat(4096, 4096, device="cuda").expand(b, 4096, 4096).contiguous()
     cxs = torch.tensor([0.05, 0.1, 0.15, 0.2], device="cuda")
     cys = torch.tensor([0.2, 0.16, 0.12, 0.08], device="cuda")
     act = torch.ones(b, dtype=torch.int32, device="cuda")
     cells = u.numel()
-    bnd, by = bound_ms(2 * cells * 4, FLOPS_PER_CELL_STEP * cells * t)
-    rows.append(dict(
-        name="ens_tile_multi", shape="4 x 4096x4096, one T=8 sweep",
-        ms=time_ms(lambda: ce.ens_tile_multi(u, t, cxs, cys), 20),
-        plain_ms=time_ms(lambda: ce.ens_multi_step_plain(u, t, cxs, cys),
-                         5),
-        bound_ms=bnd, bound_by=by, library_ms=None))
-    ntiles = cs.plan_tiles(4096, 4096, t, cs.smem_limit("cuda")).ntiles
-    bnd, by = bound_ms(2 * cells * 4 + 4 * b * ntiles,
-                       FLOPS_PER_CELL_STEP * cells * t + 3 * cells)
-    rows.append(dict(
-        name="ens_tile_multi_conv",
-        shape="4 x 4096x4096, one T=8 sweep + residuals, all active",
-        ms=time_ms(lambda: ce.ens_tile_multi_conv(u, t, cxs, cys, act,
-                                                  resid=True), 20),
-        plain_ms=time_ms(lambda: ce.ens_conv_sweep_plain(
-            u, t, cxs, cys, act, True), 5),
-        bound_ms=bnd, bound_by=by, library_ms=None))
+    plan = ce.tile_plan(4096, 4096, "cuda")
+    # name -> (shape, kernel, plain version, (bound, by))
+    kernels = {
+        "ens_tile_multi": (
+            "4 x 4096x4096, one T=8 sweep",
+            lambda: ce.ens_tile_multi(u, t, cxs, cys),
+            lambda: ce.ens_multi_step_plain(u, t, cxs, cys),
+            bound_ms(2 * cells * 4, FLOPS_PER_CELL_STEP * cells * t)),
+        "ens_tile_multi_conv": (
+            "4 x 4096x4096, one T=8 sweep + residuals, all active",
+            lambda: ce.ens_tile_multi_conv(u, t, cxs, cys, act, resid=True),
+            lambda: ce.ens_conv_sweep_plain(u, t, cxs, cys, act, True),
+            bound_ms(2 * cells * 4 + 4 * b * plan.ntiles,
+                     FLOPS_PER_CELL_STEP * cells * t + 3 * cells))}
+    turns = [[name, time_ms(kernels[name][1], 20)]
+             for order in (list(kernels), list(kernels)[::-1])
+             for name in order]
+    counted = cs.path_counter("cuda")
+    ce.ens_tile_multi(u, t, cxs, cys, paths=counted)
+    plan_info = {"tile": [plan.ty, plan.tx], "ring": plan.tsteps,
+                 "warps": cs.STRIP_WARPS, "strip": ce.STRIP,
+                 **dict(zip(cs.TILE_PATHS, counted.tolist()))}
+    for name, (shape, _, plain, (bnd, by)) in kernels.items():
+        mine = [ms for n, ms in turns if n == name]
+        rows.append(dict(
+            name=name, shape=shape, ms=sum(mine) / len(mine),
+            turns_ms=turns, plan=plan_info,
+            plain_ms=time_ms(plain, 5),
+            bound_ms=bnd, bound_by=by, library_ms=None))
     return rows
 
 
@@ -1789,6 +1822,7 @@ def phase_shard_kernels(torch) -> dict:
     cases = [(4096, 4096, 2, 2, (8, 3, 1)), (4099, 4096, 4, 1, (8, 3)),
              (543, 300, 4, 1, (8, 3)), (74, 106, 2, 2, (8, 3, 1))]
     paths = {}
+    fused_paths = {}
     for nx, ny, gx, gy, nsubs in cases:
         blocks = _shard_grid(torch, nx, ny, gx, gy, gen)
         bm, bn = blocks[0][0].shape
@@ -1798,6 +1832,8 @@ def phase_shard_kernels(torch) -> dict:
                  for i in range(gx) for j in range(gy)]
         planned = {k: sum(d[k] for d in kinds) for k in csh.TILE_PATHS}
         counted = csh.path_counter("cuda")
+        counted_f = csh.path_counter("cuda")
+        planned_f = dict.fromkeys(csh.TILE_PATHS, 0)
         for form in (csh.FORM_FMA, csh.FORM_LITERAL):
             for nsub in nsubs:
                 what = f"{nx}x{ny} on {gx}x{gy} nsub={nsub} form {form}"
@@ -1822,7 +1858,12 @@ def phase_shard_kernels(torch) -> dict:
                                     <= rtol * abs(float(r_ref)),
                                     f"H13 residual {what} shard ({i},{j}): "
                                     f"{float(r)} vs {float(r_ref)}")
-                fused = csh.shard_fused(blocks, nsub, nx, ny, cx, cy, form)
+                fused = csh.shard_fused(blocks, nsub, nx, ny, cx, cy, form,
+                                        paths=counted_f)
+                for k, v in csh.fused_tile_paths(
+                        cs.tile_plan(bm, bn, nsub, "cuda"), gx, gy, bm, bn,
+                        nx, ny).items():
+                    planned_f[k] += v
                 plain = csh.shard_fused_plain(blocks, nsub, nx, ny, cx, cy,
                                               form)
                 for i in range(gx):
@@ -1839,13 +1880,22 @@ def phase_shard_kernels(torch) -> dict:
                     f"{nx}x{ny}: the kernel's tiles by path {got} over "
                     f"{sweeps} sweeps, the planner's {planned} a sweep")
         paths[f"{nx}x{ny}"] = {k: v // sweeps for k, v in got.items()}
+        got = dict(zip(csh.TILE_PATHS, counted_f.tolist()))
+        fail_unless(got == planned_f, f"H14 {nx}x{ny}: the kernel's tiles by "
+                    f"path {got}, the planner's {planned_f}")
+        fused_paths[f"{nx}x{ny}"] = got
     fail_unless(paths["4096x4096"]["fast"] > 0
                 and paths["74x106"]["fast"] == 0
                 and paths["543x300"]["in_block_held"] > 0,
                 f"the shard cases miss a path of the strip sweep: {paths}")
+    fail_unless(fused_paths["4096x4096"]["fast"] > 0
+                and fused_paths["4096x4096"]["edge"] > 0
+                and fused_paths["74x106"]["fast"] == 0,
+                f"the H14 cases miss a path of the strip sweep: "
+                f"{fused_paths}")
     torch.cuda.synchronize()
     info = {"phase": "shard_kernels", "checks": checks, "max_abs_err": worst,
-            "tile_paths": paths}
+            "tile_paths": paths, "fused_tile_paths": fused_paths}
     emit(info)
     return info
 
@@ -2021,8 +2071,8 @@ def shard_kernel_rows(torch) -> list:
     """H12-H14 at the sharded path's shapes: H12/H13 on one 2048^2 shard
     of the 2x2 mesh of 4096^2, one T = 8 sweep; H14 as its one launch for
     all four shards. No PyTorch call advances a shard T steps from its
-    strips, so no library time. H12's ``plan``: its tiles, and its tiles by
-    path as one launch counted them. H12/H13's ``device_ms``: the same
+    strips, so no library time. H12's and H14's ``plan``: the tiles, and
+    the tiles by path as one launch counted them. H12/H13's ``device_ms``: the same
     calls with the host's enqueue hidden (``time_device_ms``)."""
     from heat2d_tpu_torch.ops import cuda_shard as csh
     from heat2d_tpu_torch.ops import cuda_stencil as cs
@@ -2066,11 +2116,17 @@ def shard_kernel_rows(torch) -> list:
         device_ms=time_device_ms(
             lambda: csh.shard_tile_multi_resid(u, st, *args), 20)))
     b, by = bound_ms(2 * 4 * n * n, FLOPS_PER_CELL_STEP * n * n * t)
+    fplan = cs.tile_plan(bm, bm, t, "cuda")
+    counted = csh.path_counter("cuda")
+    csh.shard_fused(blocks, t, n, n, cx, cy, paths=counted)
     rows.append(dict(
         name="shard_fused",
         shape="four 2048^2 shards (2x2 mesh of 4096^2), one T=8 sweep, "
               "one launch",
         ms=time_ms(lambda: csh.shard_fused(blocks, t, n, n, cx, cy), 20),
+        plan={"tile": [fplan.ty, fplan.tx], "ring": fplan.tsteps,
+              "warps": cs.STRIP_WARPS, "strip": csh.FUSED_STRIP,
+              **dict(zip(csh.TILE_PATHS, counted.tolist()))},
         plain_ms=time_ms(lambda: csh.shard_fused_plain(blocks, t, n, n, cx,
                                                        cy), 3),
         bound_ms=b, bound_by=by, library_ms=None))

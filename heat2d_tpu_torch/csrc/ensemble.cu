@@ -23,17 +23,24 @@
 //                     is read and written once.  The wrapper sends members too large
 //                     to stay on the chip to H6 sweeps.
 //   H6 k_ens_tile     <- _ensemble_band_kernel (B6) and _ens_window_kernel
-//                     (B7): the shared-memory tile sweep of H2
-//                     (csrc/tile.cuh) with blockIdx.z = member.  The
-//                     window relay and the band strips were VMEM
-//                     workarounds and have no counterpart.  Bound as H2:
-//                     one read and one write of the batch per sweep.
+//                     (B7): H2's strip sweep (csrc/tile.cuh; a strip of
+//                     8 cells a thread with its x neighbours in
+//                     registers, 16 warps, two blocks an SM) with
+//                     blockIdx.z = member and a member's slice as the
+//                     loader; a tile whose ext lies inside the member is
+//                     copied in by cp.async and skips the held rule (one
+//                     uniform test per block, H2's).  The window relay
+//                     and the band strips were VMEM workarounds and have
+//                     no counterpart.  Device memory moves once each way
+//                     per sweep; the step loop's instructions bound it.
 //   H7 k_ens_tile + active <- _ens_conv_kernel (B8): H6 gated by a
 //                     per-member int32 `active` flag -- a frozen member's
 //                     blocks copy their centre through unchanged (the
 //                     output is a second buffer) -- and, with RESID, one
 //                     f32 partial per (member, tile) of the last step
-//                     pair's squared deltas; a frozen member's are 0.
+//                     pair's squared deltas (H3's: the previous step's
+//                     value is the strip's register); a frozen member's
+//                     are 0.
 //
 // The step is the FMA form only (bitwise parity is not an ensemble
 // option).  k0 = (1 - 2cx) - 2cy is computed in f32 on the device from the
@@ -52,9 +59,9 @@
 namespace {
 
 using heat::BLOCK_X;
-using heat::BLOCK_Y;
 using heat::Coef;
 using heat::FORM_FMA;
+using heat::Placement;
 
 __device__ __forceinline__ Coef member_coef(const float* cxs,
                                             const float* cys, int m) {
@@ -80,54 +87,69 @@ __global__ void __launch_bounds__(BLOCK_X * heat::resident_warps(WINDOW), 1)
 }
 
 // ------------------------------------------------------------ H6 / H7 --
+constexpr int ENS_BY = heat::STRIP_BY;
+// Cells a strip: 8, H2's heat5 build (on the H100 17% faster than 4 for
+// H6 and H7).
+constexpr int ENS_STRIP = 8;
+
 // Tile (blockIdx.y, blockIdx.x) of member blockIdx.z.  active == NULL is
 // H6 (every member steps); otherwise H7.  parts: (B, tiles) row-major.
+// `paths` (NULL, or two words the caller zeroed): thread (0, 0) adds its
+// tile to the word of the path the member's sweep takes there, fast or
+// edge (ops/cuda_ensemble.py), a frozen member's tiles too.
 template <bool RESID>
-__global__ void k_ens_tile(const float* __restrict__ src,
-                           float* __restrict__ dst, float* __restrict__ parts,
-                           const float* __restrict__ cxs,
-                           const float* __restrict__ cys,
-                           const int* __restrict__ active, int nx, int ny,
-                           int T, int nsub, int TY, int TX) {
+__global__ void __launch_bounds__(32 * ENS_BY, 2)
+    k_ens_tile(const float* __restrict__ src, float* __restrict__ dst,
+               float* __restrict__ parts, unsigned* paths,
+               const float* __restrict__ cxs, const float* __restrict__ cys,
+               const int* __restrict__ active, int nx, int ny, int T,
+               int nsub, int TY, int TX) {
   extern __shared__ float smem[];
+  using Op = heat::Heat5<FORM_FMA>;
   const int m = blockIdx.z;
   const size_t off = (size_t)m * nx * ny;
   const int tile = blockIdx.y * gridDim.x + blockIdx.x;
   const int tiles = gridDim.x * gridDim.y;
+  const Placement pl{0, 0, nx, ny};
+  const bool fast = heat::ext_inside(pl, T, TY, TX, pl);
+  const bool first = threadIdx.x == 0 && threadIdx.y == 0;
+  if (paths != nullptr && first) atomicAdd(paths + (fast ? 0 : 1), 1u);
   if (active != nullptr && active[m] == 0) {
     // Frozen: the centre passes through unchanged (all threads of the
     // block take this branch, so no barrier is skipped by half of it).
     const int i0 = blockIdx.y * TY, j0 = blockIdx.x * TX;
-    for (int r = threadIdx.y; r < TY && i0 + r < nx; r += BLOCK_Y)
-      for (int c = threadIdx.x; c < TX && j0 + c < ny; c += BLOCK_X) {
+    for (int r = threadIdx.y; r < TY && i0 + r < nx; r += ENS_BY)
+      for (int c = threadIdx.x; c < TX && j0 + c < ny; c += 32) {
         const size_t p = off + (size_t)(i0 + r) * ny + (j0 + c);
         dst[p] = src[p];
       }
-    if (RESID && threadIdx.x == 0 && threadIdx.y == 0)
-      parts[(size_t)m * tiles + tile] = 0.0f;
+    if (RESID && first) parts[(size_t)m * tiles + tile] = 0.0f;
     return;
   }
-  const float acc = heat::tile_sweep<heat::Heat5<FORM_FMA>, RESID>(
-      src + off, dst + off, nx, ny, member_coef(cxs, cys, m), T, nsub, TY,
-      TX, smem);
-  if (RESID && threadIdx.x == 0 && threadIdx.y == 0)
-    parts[(size_t)m * tiles + tile] = acc;
+  const heat::GridLoad ld{src + off, nx, ny};
+  const Coef k = member_coef(cxs, cys, m);
+  const float acc =
+      fast ? heat::strip_sweep_at<Op, ENS_BY, false, RESID, ENS_STRIP>(
+                 ld, dst + off, pl, nx, ny, k, T, nsub, TY, TX, smem)
+           : heat::strip_sweep_at<Op, ENS_BY, true, RESID, ENS_STRIP>(
+                 ld, dst + off, pl, nx, ny, k, T, nsub, TY, TX, smem);
+  if (RESID && first) parts[(size_t)m * tiles + tile] = acc;
 }
 
 template <bool RESID>
 cudaError_t launch_ens_tile(const float* src, float* dst, float* parts,
-                            const float* cxs, const float* cys,
-                            const int* active, int nb, int nx, int ny, int T,
-                            int nsub, int TY, int TX, cudaStream_t stream) {
+                            unsigned* paths, const float* cxs,
+                            const float* cys, const int* active, int nb,
+                            int nx, int ny, int T, int nsub, int TY, int TX,
+                            cudaStream_t stream) {
   const size_t smem = heat::tile_smem_bytes(T, TY, TX);
   cudaError_t e = cudaFuncSetAttribute(
       k_ens_tile<RESID>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  const dim3 block(BLOCK_X, BLOCK_Y);
   const dim3 grid((ny + TX - 1) / TX, (nx + TY - 1) / TY, nb);
-  k_ens_tile<RESID><<<grid, block, smem, stream>>>(
-      src, dst, parts, cxs, cys, active, nx, ny, T, nsub, TY, TX);
+  k_ens_tile<RESID><<<grid, dim3(32, ENS_BY), smem, stream>>>(
+      src, dst, parts, paths, cxs, cys, active, nx, ny, T, nsub, TY, TX);
   return cudaGetLastError();
 }
 
@@ -156,17 +178,16 @@ int heat_ens_resident(const float* src, float* dst, heat::Word* scratch,
 }
 
 // active == NULL selects H6, otherwise H7; parts == NULL skips the
-// residual partials (one per (member, tile) otherwise).
+// residual partials (one per (member, tile) otherwise).  `paths`: NULL,
+// or k_ens_tile's two path counts.
 int heat_ens_tile(const float* src, float* dst, float* parts,
-                  const float* cxs, const float* cys, const int* active,
-                  int nb, int nx, int ny, int T, int nsub, int TY, int TX,
-                  void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (parts == nullptr)
-    return launch_ens_tile<false>(src, dst, parts, cxs, cys, active, nb, nx,
-                                  ny, T, nsub, TY, TX, s);
-  return launch_ens_tile<true>(src, dst, parts, cxs, cys, active, nb, nx, ny,
-                               T, nsub, TY, TX, s);
+                  unsigned* paths, const float* cxs, const float* cys,
+                  const int* active, int nb, int nx, int ny, int T, int nsub,
+                  int TY, int TX, void* stream) {
+  auto launch =
+      parts == nullptr ? launch_ens_tile<false> : launch_ens_tile<true>;
+  return launch(src, dst, parts, paths, cxs, cys, active, nb, nx, ny, T,
+                nsub, TY, TX, (cudaStream_t)stream);
 }
 
 }  // extern "C"

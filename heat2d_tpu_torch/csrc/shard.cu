@@ -24,24 +24,23 @@
 //                              MPI_PROC_NULL zeros).  One launch covers
 //                              every shard a device holds (blockIdx.z).
 //
-// H12/H13 are the strip sweep of csrc/tile.cuh (H9's design: a strip of
-// 4 cells a thread with its x neighbours in registers, 16 warps, two
-// blocks an SM), H14 the tile sweep (H2's design) with another loader:
-// the TPU kernels' VMEM/HBM split and band windows have no counterpart.
-// Neither is bound on the H100 by device-memory bytes (one read and one
-// write of the block per sweep, plus the strips) but by the instructions
-// of the step loop and the ring recompute.  The tile sweep pays, on every
-// update, five shared-memory loads, the held-rule test and, on every ext
-// cell, ShardLoad's five-way branch.  The strip sweep tests two things
-// once per block, uniformly: (a) the tile's ext lies inside the shard's
-// own block u, so its rows are copied straight from u (cp.async), and
-// (b) it lies inside the domain, so no cell is held.  A block
-// that passes both (at a 2048^2 shard, T = 8, 420 of 512 tiles) runs
-// without either; the others load through ShardLoad and hold cells.  The
-// held-cell rule is in global coordinates from the shard's origin (x0,
-// y0): the domain's ring and every cell past it (pad cells of an uneven
-// decomposition hold their stored value, which the loader reads, never
-// recomputes; a tile can pass (a) and fail (b) on pad rows).
+// All three are the strip sweep of csrc/tile.cuh (a strip of S cells a
+// thread with its x neighbours in registers, 16 warps, two blocks an SM;
+// S = 4 in H12/H13, 8 in H14) with another loader: the TPU kernels'
+// VMEM/HBM split and band windows have no counterpart.  None is bound on
+// the H100 by device-memory bytes (one read and one write of the block
+// per sweep, plus the strips) but by the instructions of the step loop
+// and the ring recompute.  The strip sweep tests two things once per
+// block, uniformly: (a) the tile's ext lies inside the shard's own block
+// u, so its rows are copied straight from u (cp.async), and (b) it lies
+// inside the domain, so no cell is held.  A block that passes both (at a
+// 2048^2 shard, T = 8, 420 of 512 tiles) runs without either; the others
+// load through their loader (ShardLoad's five-way branch, or MeshLoad's
+// owner lookup) and hold cells.  The held-cell rule is in global
+// coordinates from the shard's origin (x0, y0): the domain's ring and
+// every cell past it (pad cells of an uneven decomposition hold their
+// stored value, which the loader reads, never recomputes; a tile can pass
+// (a) and fail (b) on pad rows).
 
 // No kernel writes a buffer it reads: H14's tiles read the input blocks of
 // every shard, so each shard's output is a separate buffer.  With several
@@ -56,8 +55,6 @@
 
 namespace {
 
-using heat::BLOCK_X;
-using heat::BLOCK_Y;
 using heat::Coef;
 using heat::FORM_FMA;
 using heat::FORM_LITERAL;
@@ -98,10 +95,16 @@ struct MeshTable {
   int gx, gy, bm, bn;
 };
 
-// Every shard's block of the mesh, indexed by global cell: the owner of
-// (gi, gj) is shard (gi / bm, gj / bn); past the mesh edge, 0.
+// Every shard's block of the mesh, indexed by global cell, as the shard
+// at mesh position (px, py) reads it: the owner of (gi, gj) is shard
+// (gi / bm, gj / bn); past the mesh edge, 0.  row(gi, gj) points at a
+// cell of the shard's own block, for tiles whose ext lies inside it.
+// (Finding the owner by comparing against the shard's bounds instead of
+// dividing timed 1.9% faster on the H100: below the 5% that would pay
+// for its branches.)
 struct MeshLoad {
   const MeshTable& m;
+  int px, py;
   __device__ __forceinline__ float operator()(int gi, int gj) const {
     if (gi < 0 || gj < 0 || gi >= m.gx * m.bm || gj >= m.gy * m.bn)
       return 0.0f;
@@ -109,10 +112,17 @@ struct MeshLoad {
     return m.blocks[ox * m.gy + oy][(size_t)(gi - ox * m.bm) * m.bn +
                                     (gj - oy * m.bn)];
   }
+  __device__ __forceinline__ const float* row(int gi, int gj) const {
+    return m.blocks[px * m.gy + py] + (ptrdiff_t)(gi - px * m.bm) * m.bn +
+           (gj - py * m.bn);
+  }
 };
 
 // ------------------------------------------------------------ H12 / H13 --
 constexpr int SHARD_BY = heat::STRIP_BY;
+// Cells a strip of H14: 8, H2's heat5 build (on the H100 15% faster than
+// the 4 of H12/H13).
+constexpr int FUSED_STRIP = 8;
 
 // `paths` (NULL, or three words that the caller zeroed): thread (0, 0)
 // of each block adds its tile to the word of the path it takes -- fast,
@@ -144,18 +154,32 @@ __global__ void __launch_bounds__(32 * SHARD_BY, 2)
 
 // ---------------------------------------------------------------- H14 --
 // Shard z = blockIdx.z of the launch sits at mesh position (m.pos[2z],
-// m.pos[2z+1]) and writes m.outs[z].
+// m.pos[2z+1]) and writes m.outs[z].  The fast path is H12's: the ext
+// lies inside the shard's own block and inside the domain.  `paths` as
+// k_shard_tile's, summed over the launch's shards.
 template <int FORM>
-__global__ void k_shard_fused(const __grid_constant__ MeshTable m, int nx,
-                              int ny, Coef k, int H, int nsub, int TY,
-                              int TX) {
+__global__ void __launch_bounds__(32 * SHARD_BY, 2)
+    k_shard_fused(const __grid_constant__ MeshTable m, unsigned* paths,
+                  int nx, int ny, Coef k, int H, int nsub, int TY, int TX) {
   extern __shared__ float smem[];
+  using Op = heat::Heat5<FORM>;
   const int z = blockIdx.z;
-  const Placement pl{m.pos[2 * z] * m.bm, m.pos[2 * z + 1] * m.bn, m.bm,
-                     m.bn};
-  heat::tile_sweep_at<heat::Heat5<FORM>, false>(MeshLoad{m}, m.outs[z], pl,
-                                                nx, ny, k, H, nsub, TY, TX,
-                                                smem);
+  const int px = m.pos[2 * z], py = m.pos[2 * z + 1];
+  const Placement pl{px * m.bm, py * m.bn, m.bm, m.bn};
+  const MeshLoad ld{m, px, py};
+  const bool in_block = heat::ext_inside(pl, H, TY, TX, pl);
+  const bool fast =
+      in_block && heat::ext_inside(pl, H, TY, TX, Placement{0, 0, nx, ny});
+  if (paths != nullptr && threadIdx.x == 0 && threadIdx.y == 0) {
+    atomicAdd(paths + (fast ? 0 : 1), 1u);
+    if (in_block && !fast) atomicAdd(paths + 2, 1u);
+  }
+  if (fast)
+    heat::strip_sweep_at<Op, SHARD_BY, false, false, FUSED_STRIP>(
+        ld, m.outs[z], pl, nx, ny, k, H, nsub, TY, TX, smem);
+  else
+    heat::strip_sweep_at<Op, SHARD_BY, true, false, FUSED_STRIP>(
+        ld, m.outs[z], pl, nx, ny, k, H, nsub, TY, TX, smem);
 }
 
 template <class K>
@@ -179,15 +203,15 @@ cudaError_t launch_shard_tile(const ShardLoad& ld, float* dst, float* parts,
 }
 
 template <int FORM>
-cudaError_t launch_shard_fused(const MeshTable& m, int nz, int nx, int ny,
-                               Coef k, int H, int nsub, int TY, int TX,
-                               cudaStream_t stream) {
+cudaError_t launch_shard_fused(const MeshTable& m, unsigned* paths, int nz,
+                               int nx, int ny, Coef k, int H, int nsub,
+                               int TY, int TX, cudaStream_t stream) {
   const size_t smem = heat::tile_smem_bytes(H, TY, TX);
   cudaError_t e = allow_smem(k_shard_fused<FORM>, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((m.bn + TX - 1) / TX, (m.bm + TY - 1) / TY, nz);
-  k_shard_fused<FORM><<<grid, dim3(BLOCK_X, BLOCK_Y), smem, stream>>>(
-      m, nx, ny, k, H, nsub, TY, TX);
+  k_shard_fused<FORM><<<grid, dim3(32, SHARD_BY), smem, stream>>>(
+      m, paths, nx, ny, k, H, nsub, TY, TX);
   return cudaGetLastError();
 }
 
@@ -222,11 +246,13 @@ int heat_shard_tile(const float* u, const float* n, const float* s,
 
 // H14: nz shards of one device.  Host arrays: `blocks` the gx * gy input
 // block pointers (row-major mesh order), `outs` the nz output pointers,
-// `pos` the nz shards' (ix, iy); at most MAX_SHARDS of each.
+// `pos` the nz shards' (ix, iy); at most MAX_SHARDS of each.  `paths`:
+// NULL, or k_shard_fused's three path counts.
 int heat_shard_fused(const void* const* blocks, void* const* outs,
-                     const int* pos, int nz, int gx, int gy, int bm, int bn,
-                     int nx, int ny, float cx, float cy, float k0, int form,
-                     int H, int nsub, int TY, int TX, void* stream) {
+                     const int* pos, unsigned* paths, int nz, int gx, int gy,
+                     int bm, int bn, int nx, int ny, float cx, float cy,
+                     float k0, int form, int H, int nsub, int TY, int TX,
+                     void* stream) {
   if (gx * gy > MAX_SHARDS || nz > MAX_SHARDS || nz < 1)
     return cudaErrorInvalidValue;
   MeshTable m{};
@@ -243,10 +269,10 @@ int heat_shard_fused(const void* const* blocks, void* const* outs,
   const Coef k{cx, cy, k0};
   cudaStream_t st = (cudaStream_t)stream;
   return form == FORM_LITERAL
-             ? launch_shard_fused<FORM_LITERAL>(m, nz, nx, ny, k, H, nsub, TY,
-                                                TX, st)
-             : launch_shard_fused<FORM_FMA>(m, nz, nx, ny, k, H, nsub, TY, TX,
-                                            st);
+             ? launch_shard_fused<FORM_LITERAL>(m, paths, nz, nx, ny, k, H,
+                                                nsub, TY, TX, st)
+             : launch_shard_fused<FORM_FMA>(m, paths, nz, nx, ny, k, H, nsub,
+                                            TY, TX, st);
 }
 
 // Lets the current device's kernels read memory of device `peer`

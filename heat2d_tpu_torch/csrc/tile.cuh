@@ -1,14 +1,14 @@
 // Device code shared by csrc/stencil.cu (H2-H4), csrc/ensemble.cu
 // (H5-H7), csrc/family.cu (H8/H9) and csrc/shard.cu (H12-H14): the heat5
-// step forms, the operator interface, and two sweeps of a tile in shared
-// memory, each generic over an operator and over where its cells are
-// loaded from:
-//   - the tile sweep (tile_sweep_at, its step loop tile_steps): one cell
-//     a thread, 8 warps; H6, H7, H14, and the step loop of H5/H8's
-//     resident sweep (csrc/resident.cuh);
-//   - the strip sweep (strip_sweep_at): a strip of 4 cells a thread (8 in
-//     H2/H3) with its x neighbours in registers, 16 warps, two blocks an
-//     SM, the held rule tested once per block; H2/H3, H9 and H12/H13.
+// step forms, the operator interface, and two pieces generic over an
+// operator:
+//   - tile_steps: steps of a tile in shared memory, one cell a thread;
+//     the step loop of H5/H8's resident sweep (csrc/resident.cuh);
+//   - the strip sweep (strip_sweep_at), generic also over where a tile's
+//     cells are loaded from: a strip of 4 cells a thread (8 in
+//     the heat5 sweeps H2/H3, H6/H7 and H14) with its x neighbours in
+//     registers, 16 warps, two blocks an SM, the held rule tested once
+//     per block; every streamed kernel: H2/H3, H6/H7, H9 and H12-H14.
 //
 // An operator Op has a spatial radius Op::W, a scalar set Op::Params,
 // and Op::apply(ld, row, k): the updated value of a cell from ld(o), the
@@ -166,71 +166,6 @@ __device__ __forceinline__ void tile_steps(float*& cur, float*& nxt, int i0,
   }
 }
 
-// One sweep of the tile (blockIdx.y, blockIdx.x) of the block `pl`.
-// `load(gi, gj)` gives the value of global cell (gi, gj) at the start of
-// the sweep, for every cell of the tile's ext (inside the block, in a
-// neighbour's halo, or outside the domain).  The held rule is in global
-// coordinates, so a shard holds the domain's ring and every cell past it
-// (the pad cells of an uneven decomposition among them).  `smem` holds
-// two ext tiles.  With RESID, returns (in thread (0, 0)) the tile's sum
-// of squared deltas over the last step pair of its written cells; held
-// cells (pad cells too) add 0, since they keep their value.
-template <class Op, bool RESID, class Load>
-__device__ __forceinline__ float tile_sweep_at(const Load& load,
-                                               float* __restrict__ dst,
-                                               Placement pl, int nx, int ny,
-                                               const typename Op::Params& k,
-                                               int H, int nsub, int TY,
-                                               int TX, float* smem) {
-  const int EY = TY + 2 * H, EX = TX + 2 * H;
-  float* cur = smem;
-  float* nxt = smem + EY * EX;
-  const int i0 = pl.x0 + blockIdx.y * TY - H;
-  const int j0 = pl.y0 + blockIdx.x * TX - H;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-
-  for (int r = ty; r < EY; r += BLOCK_Y) {
-    const int gi = i0 + r;
-    for (int c = tx; c < EX; c += BLOCK_X)
-      cur[r * EX + c] = load(gi, j0 + c);
-  }
-  __syncthreads();
-
-  // The centre (H cells in) is exact for every nsub with W * nsub <= H.
-  tile_steps<Op, BLOCK_Y>(cur, nxt, i0, j0, EY, EX, nx, ny, k, nsub);
-
-  // cur holds the last step, nxt the one before it.
-  float acc = 0.0f;
-  for (int r = H + ty; r < H + TY; r += BLOCK_Y) {
-    const int li = i0 + r - pl.x0;
-    if (li >= pl.rows) break;
-    for (int c = H + tx; c < H + TX; c += BLOCK_X) {
-      const int lj = j0 + c - pl.y0;
-      if (lj >= pl.cols) break;
-      const float v = cur[r * EX + c];
-      dst[(size_t)li * pl.cols + lj] = v;
-      if (RESID) {
-        const float d = v - nxt[r * EX + c];
-        acc += d * d;
-      }
-    }
-  }
-  return RESID ? block_sum(acc) : 0.0f;
-}
-
-// One sweep of the tile (blockIdx.y, blockIdx.x) of a whole nx x ny grid.
-template <class Op, bool RESID>
-__device__ __forceinline__ float tile_sweep(const float* __restrict__ src,
-                                            float* __restrict__ dst, int nx,
-                                            int ny,
-                                            const typename Op::Params& k,
-                                            int H, int nsub, int TY, int TX,
-                                            float* smem) {
-  return tile_sweep_at<Op, RESID>(GridLoad{src, nx, ny}, dst,
-                                  Placement{0, 0, nx, ny}, nx, ny, k, H, nsub,
-                                  TY, TX, smem);
-}
-
 // ------------------------------------------------------ the strip sweep --
 // The tile's ext is read into shared memory once; step s = 1..nsub
 // rewrites the region H - W*(nsub - s) cells in from the ext's edge (what
@@ -272,8 +207,14 @@ __device__ __forceinline__ bool ext_inside(Placement pl, int H, int TY,
          j0 + TX + 2 * H <= box.cols;
 }
 
-// One strip sweep of the tile (blockIdx.y, blockIdx.x) of the block `pl`,
-// by a block of 32 x BY threads; the arguments are tile_sweep_at's.
+// One strip sweep of the tile (blockIdx.y, blockIdx.x) of the block `pl`
+// (Placement), ring H, centre TY x TX, by a block of 32 x BY threads.
+// `load(gi, gj)` gives the value of global cell (gi, gj) at the start of
+// the sweep, for every cell of the tile's ext (inside the block, in a
+// neighbour's halo, or outside the domain).  The held rule is in global
+// coordinates, so a shard holds the domain's ring and every cell past it
+// (the pad cells of an uneven decomposition among them).  `smem` holds
+// two ext tiles.
 // EDGE = false is the fast path, for a block whose ext lies inside the
 // domain and inside the one array that load.row addresses (a uniform test
 // per block, ext_inside): its rows are copied straight from that array by
@@ -283,8 +224,8 @@ __device__ __forceinline__ bool ext_inside(Placement pl, int H, int TY,
 // writes only cells inside `pl`.  With RESID, returns (in thread (0, 0))
 // the tile's sum of squared deltas over the last step pair of its written
 // cells, the previous step's value being the strip's register (held
-// cells add 0).  S is the strip's length (STRIP but for H2/H3's heat5
-// build of 8: csrc/stencil.cu).
+// cells add 0).  S is the strip's length: STRIP in H9 and H12/H13, 8 in
+// the heat5 sweeps H2/H3, H6/H7 and H14.
 template <class Op, int BY, bool EDGE, bool RESID, int S = STRIP,
           class Load>
 __device__ __forceinline__ float strip_sweep_at(const Load& load,

@@ -44,8 +44,8 @@ SIGNATURES = {
     "ensemble": {
         "heat_error_string": (ctypes.c_char_p, [_I]),
         "heat_ens_resident": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
-        "heat_ens_tile": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _I, _P]),
+        "heat_ens_tile": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                               _I, _I, _I, _P]),
     },
     "family": {
         "heat_error_string": (ctypes.c_char_p, [_I]),
@@ -65,8 +65,8 @@ SIGNATURES = {
         "heat_shard_tile": (_I, [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                  _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I,
                                  _P]),
-        "heat_shard_fused": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                                  _F, _F, _F, _I, _I, _I, _I, _I, _P]),
+        "heat_shard_fused": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _F, _F, _F, _I, _I, _I, _I, _I, _P]),
         "heat_shard_enable_peer": (_I, [_I]),
     },
 }

@@ -11,9 +11,10 @@ H5    ``ens_resident``         every member ``steps`` steps in one
                                shared memory (``ops/resident.py``,
                                ``csrc/resident.cuh``); replaces B5
                                (``_ensemble_kernel``, ensemble.py:106)
-H6    ``ens_tile_multi``       ``nsub <= T`` steps per sweep of
+H6    ``ens_tile_multi``       ``nsub <= T`` steps per strip sweep of
                                shared-memory tiles over a (member, tile)
-                               grid; replaces B6 and B7
+                               grid (H2's, ``tile_plan``); replaces B6
+                               and B7
                                (``_ensemble_band_kernel``,
                                ``_ens_window_kernel``, ensemble.py:157/:243)
 H7    ``ens_tile_multi_conv``  H6 gated by a per-member ``active`` flag
@@ -33,7 +34,8 @@ H5's state stays in shared memory, so it is bound by its step loop there
 (10 bytes of shared memory per cell-step against 128 bytes per clock and
 SM; on the H100 the instruction rate binds first), then by its ring
 exchange once per K steps; the batch crosses device memory once each way.
-H6/H7 are bound by one read and one write of the batch per sweep.
+H6/H7 move the batch through device memory once each way per sweep;
+their step loop's instructions bound them, as H2's do.
 
 On a CPU tensor a wrapper runs its kernel's plain version; on a CUDA
 tensor it launches the kernel or raises. Each launch adds one to the
@@ -47,9 +49,9 @@ import ctypes
 import torch
 
 from heat2d_tpu_torch.ops import _build
+from heat2d_tpu_torch.ops import cuda_stencil as cs
 from heat2d_tpu_torch.ops.cuda_stencil import (DEFAULT_TSTEPS,
-                                               multi_step_plain, plan_tiles,
-                                               smem_limit, step_plain)
+                                               multi_step_plain, step_plain)
 from heat2d_tpu_torch.ops.resident import (launch_scratch, plan_resident,
                                             raise_if_gave_up)
 
@@ -59,6 +61,11 @@ LAUNCHES = {"ens_resident": 0, "ens_tile_multi": 0,
 
 #: The tile kernels put the member on blockIdx.z.
 MAX_MEMBERS = 65535
+
+#: Cells a strip of H6/H7's strip sweep (``ENS_STRIP`` of
+#: csrc/ensemble.cu): 8, H2's heat5 build (on the H100 17% faster than 4,
+#: PERF.md).
+STRIP = 8
 
 
 def reset_launch_counts() -> None:
@@ -121,6 +128,25 @@ def _check_depth(nsub: int) -> None:
     if not 1 <= nsub <= DEFAULT_TSTEPS:
         raise ValueError(f"nsub must be in [1, T={DEFAULT_TSTEPS}], got "
                          f"{nsub}")
+
+
+# --------------------------------------------------------------------- #
+# Tile planner
+# --------------------------------------------------------------------- #
+
+def tile_plan(nx: int, ny: int, device) -> cs.TilePlan:
+    """H6/H7's tiles for a member of nx x ny: H2's at depth T
+    (``cuda_stencil.tile_plan``; a batch on the CPU plans what the H100
+    would)."""
+    return cs.tile_plan(nx, ny, DEFAULT_TSTEPS, device)
+
+
+def tile_paths(plan: cs.TilePlan, nb: int, nx: int, ny: int) -> dict:
+    """The planner's count of the tiles of ``plan`` on nb members of nx x
+    ny by path (H2's ``cuda_stencil.TILE_PATHS``): H2's count on one
+    member, times nb. The kernel counts every member's tiles, a frozen
+    member's too, into a ``cuda_stencil.path_counter``."""
+    return {k: nb * v for k, v in cs.tile_paths(plan, nx, ny).items()}
 
 
 # --------------------------------------------------------------------- #
@@ -205,45 +231,52 @@ def ens_resident(u, steps: int, cxs, cys):
     return _resident_launch(u, steps, cxs, cys, plan)
 
 
-def _tile_launch(u, nsub, cxs, cys, active, resid, name):
+def _tile_launch(u, nsub, cxs, cys, active, resid, name, paths=None):
+    """One H6 (H7 with ``active``) launch of ``tile_plan``'s tiles."""
     nb, nx, ny = u.shape
-    plan = plan_tiles(nx, ny, DEFAULT_TSTEPS, smem_limit(u.device))
+    plan = tile_plan(nx, ny, u.device)
     if plan.grid[0] > 65535:
         raise ValueError(f"{name}: {nx} rows exceed the launch grid's y "
                          f"limit")
+    cs._check_paths(paths, len(cs.TILE_PATHS), u.device)
     out = torch.empty_like(u)
     parts = (torch.empty((nb, plan.ntiles), dtype=torch.float32,
                          device=u.device) if resid else None)
     LAUNCHES[name] += 1
     _check(_lib().heat_ens_tile(
-        _ptr(u), _ptr(out), _ptr(parts), _ptr(cxs), _ptr(cys),
+        _ptr(u), _ptr(out), _ptr(parts), _ptr(paths), _ptr(cxs), _ptr(cys),
         _ptr(active), nb, nx, ny, plan.tsteps, nsub, plan.ty, plan.tx,
         _stream(u)), name)
     return out, parts
 
 
-def ens_tile_multi(u, nsub: int, cxs, cys):
-    """H6: ``nsub <= T`` steps of every member in one sweep of
-    shared-memory tiles: one read and one write of the batch."""
+def ens_tile_multi(u, nsub: int, cxs, cys, paths=None):
+    """H6: ``nsub <= T`` steps of every member in one strip sweep of
+    shared-memory tiles: one read and one write of the batch. ``paths``
+    (``cuda_stencil.path_counter``): the kernel adds its tiles by path to
+    it; the plain version, on the CPU, counts none."""
     _validate(u, cxs, cys, "ens_tile_multi")
     _check_depth(nsub)
     if u.device.type == "cpu":
         return ens_multi_step_plain(u, nsub, cxs, cys)
-    out, _ = _tile_launch(u, nsub, cxs, cys, None, False, "ens_tile_multi")
+    out, _ = _tile_launch(u, nsub, cxs, cys, None, False, "ens_tile_multi",
+                          paths)
     return out
 
 
-def ens_tile_multi_conv(u, nsub: int, cxs, cys, active, resid: bool = False):
+def ens_tile_multi_conv(u, nsub: int, cxs, cys, active, resid: bool = False,
+                        paths=None):
     """H7: H6 for the members whose int32 ``active`` flag is set, the
     others passed through unchanged; with ``resid`` also each member's
     residual of the last step pair (0 for a frozen member), summed on the
-    device from one partial per tile. Returns u, or (u, residuals)."""
+    device from one partial per tile. Returns u, or (u, residuals).
+    ``paths`` as H6's."""
     _validate(u, cxs, cys, "ens_tile_multi_conv", active)
     _check_depth(nsub)
     if u.device.type == "cpu":
         return ens_conv_sweep_plain(u, nsub, cxs, cys, active, resid)
     out, parts = _tile_launch(u, nsub, cxs, cys, active, resid,
-                              "ens_tile_multi_conv")
+                              "ens_tile_multi_conv", paths)
     return (out, torch.sum(parts, dim=1)) if resid else out
 
 

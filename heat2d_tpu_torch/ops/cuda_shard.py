@@ -17,8 +17,9 @@ H13    ``shard_tile_multi_resid``  H12 plus the shard's sum of squared
 H14    ``shard_fused``             every shard of a mesh advanced nsub
                                    steps with the halo exchange inside the
                                    kernel (ring cells read from the
-                                   neighbours' blocks); replaces kernel F
-                                   (``_fused_ici_kernel``)
+                                   neighbours' blocks) by the strip sweep
+                                   (``cs.tile_plan``, ring nsub); replaces
+                                   kernel F (``_fused_ici_kernel``)
 =====  ==========================  =========================================
 
 The plain versions: H12's is the golden loop of the JAX sharded engine
@@ -50,6 +51,10 @@ FORM_LITERAL = cs.FORM_LITERAL
 
 #: Shards one H14 launch can address (``MAX_SHARDS`` of csrc/shard.cu).
 MAX_SHARDS = 64
+#: Cells a strip of H14's strip sweep (``FUSED_STRIP`` of csrc/shard.cu):
+#: 8, H2's heat5 build (on the H100 15% faster than the 4 of H12/H13,
+#: PERF.md).
+FUSED_STRIP = 8
 
 LAUNCHES = {"shard_tile_multi": 0, "shard_tile_multi_resid": 0,
             "shard_fused": 0}
@@ -220,10 +225,25 @@ def tile_paths(plan: cs.TilePlan, x0: int, y0: int, bm: int, bn: int,
     return counts
 
 
+def fused_tile_paths(plan: cs.TilePlan, gx: int, gy: int, bm: int, bn: int,
+                     nx: int, ny: int) -> dict:
+    """The planner's count of H14's tiles by path (``TILE_PATHS``) over
+    every shard of the (gx, gy) mesh of (bm, bn) blocks: the sum of
+    ``tile_paths`` (H12's test) per shard. H14's plan is
+    ``cs.tile_plan(bm, bn, nsub, device)``: its ring is its depth."""
+    counts = dict.fromkeys(TILE_PATHS, 0)
+    for i in range(gx):
+        for j in range(gy):
+            for k, v in tile_paths(plan, i * bm, j * bn, bm, bn, nx,
+                                   ny).items():
+                counts[k] += v
+    return counts
+
+
 def path_counter(device):
     """A zeroed ``paths`` count for ``device``: one int32 word per entry
-    of ``TILE_PATHS``, to which each H12/H13 launch given it adds its
-    tiles; ``dict(zip(TILE_PATHS, buf.tolist()))`` reads it."""
+    of ``TILE_PATHS``, to which each H12/H13 (or H14) launch given it adds
+    its tiles; ``dict(zip(TILE_PATHS, buf.tolist()))`` reads it."""
     return torch.zeros(len(TILE_PATHS), dtype=torch.int32, device=device)
 
 
@@ -313,13 +333,15 @@ def _sync_devices(cards) -> None:
 
 
 def shard_fused(blocks, nsub: int, nx: int, ny: int, cx: float, cy: float,
-                form: int = FORM_FMA):
+                form: int = FORM_FMA, paths=None):
     """H14: every shard of the mesh ``blocks`` (a (gx, gy) nested list of
     equal (bm, bn) blocks, shard (i, j) at global (i bm, j bn)) advanced
     ``nsub`` steps, the exchange inside the kernel: one launch per device
     covering the shards it holds, reading ring cells from the neighbours'
     blocks and writing new blocks. Returns the new (gx, gy) grid. On the
-    CPU: the exchange, then ``chunk_fused_plain`` per shard."""
+    CPU: the exchange, then ``chunk_fused_plain`` per shard. ``paths``
+    (``path_counter``, a mesh on one card): the kernel adds its tiles by
+    path to it (``fused_tile_paths``); the plain version counts none."""
     gx, gy = len(blocks), len(blocks[0])
     bm, bn = blocks[0][0].shape
     flat = [b for row in blocks for b in row]
@@ -338,6 +360,10 @@ def shard_fused(blocks, nsub: int, nx: int, ny: int, cx: float, cy: float,
                          f"kernel's table of {MAX_SHARDS}")
     devices = [b.device for b in flat]
     cards = sorted({d.index for d in devices})
+    if paths is not None and len(cards) > 1:
+        raise ValueError("shard_fused: a paths count needs a mesh on one "
+                         "card")
+    cs._check_paths(paths, len(TILE_PATHS), devices[0])
     if len(cards) > 1:
         if not fused_peer_ok(devices):
             raise ValueError("shard_fused: the mesh's cards cannot read "
@@ -349,7 +375,7 @@ def shard_fused(blocks, nsub: int, nx: int, ny: int, cx: float, cy: float,
                         _check(_lib().heat_shard_enable_peer(o),
                                "H14 peer access")
         _sync_devices(cards)
-    plan = cs.plan_tiles(bm, bn, nsub, cs.smem_limit(devices[0]))
+    plan = cs.tile_plan(bm, bn, nsub, devices[0])
     if plan.grid[0] > 65535:
         raise ValueError(f"{bm} rows exceed the launch grid's y limit")
     outs = [torch.empty_like(b) for b in flat]
@@ -363,8 +389,9 @@ def shard_fused(blocks, nsub: int, nx: int, ny: int, cx: float, cy: float,
         LAUNCHES["shard_fused"] += 1
         with torch.cuda.device(c):
             rc = _lib().heat_shard_fused(
-                table, optr, pos, len(mine), gx, gy, bm, bn, nx, ny, cx, cy,
-                cs._k0(cx, cy), form, nsub, nsub, plan.ty, plan.tx,
+                table, optr, pos, None if paths is None else cs._ptr(paths),
+                len(mine), gx, gy, bm, bn, nx, ny, cx, cy, cs._k0(cx, cy),
+                form, nsub, nsub, plan.ty, plan.tx,
                 cs._stream(flat[mine[0]]))
         _check(rc, "H14 shard_fused")
     if len(cards) > 1:

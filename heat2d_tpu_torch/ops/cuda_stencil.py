@@ -79,8 +79,8 @@ H100_SMEM_OPTIN = 232448
 SM_SMEM_BYTES = 233472
 BLOCK_RESERVED_SMEM = 1024
 #: Warps of a strip-sweep block (``STRIP_BY`` of csrc/tile.cuh; H2/H3,
-#: H9 and H12/H13): 32 x STRIP_WARPS threads, each updating strips of 4
-#: cells of one column.
+#: H6/H7, H9 and H12-H14): 32 x STRIP_WARPS threads, each updating strips
+#: of 4 or 8 cells of one column.
 STRIP_WARPS = 16
 #: Static shared memory of the tile kernel (H3's warp sums).
 _STATIC_SMEM = 4 * (BLOCK[0] * BLOCK[1] // 32)
@@ -252,11 +252,12 @@ def plan_tiles(nx: int, ny: int, tsteps: int = DEFAULT_TSTEPS,
 def plan_strip_sweep(nx: int, ny: int, t: int,
                      smem: int = H100_SMEM_OPTIN) -> TilePlan:
     """The strip sweep's tiles on an (nx, ny) block with a t-deep ring
-    (H2/H3 on a grid, H12/H13 on a shard): ``plan_tiles`` (centres of at
-    most 64 x 128) within ``smem`` bytes a block and within half an SM's
-    shared memory, so that two blocks of ``STRIP_WARPS`` warps share an
-    SM, as H9's plans do. Each block also takes 1 KB for the system and 4
-    bytes a warp for the residual's partial sums."""
+    (H2/H3 on a grid, H6/H7 on an ensemble's member, H12-H14 on a shard):
+    ``plan_tiles`` (centres of at most 64 x 128) within ``smem`` bytes a
+    block and within half an SM's shared memory, so that two blocks of
+    ``STRIP_WARPS`` warps share an SM, as H9's plans do. Each block also
+    takes 1 KB for the system and 4 bytes a warp for the residual's
+    partial sums."""
     sums = 4 * STRIP_WARPS
     half = SM_SMEM_BYTES // 2 - BLOCK_RESERVED_SMEM - sums
     return plan_tiles(nx, ny, t, min(smem - sums, half))

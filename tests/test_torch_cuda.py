@@ -254,6 +254,36 @@ def test_ens_tile_multi_conv_matches_plain(card, b):
         assert torch.allclose(r[on], r_ref[on], rtol=1e-4, atol=0)
 
 
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("shape", [(37, 53), (300, 520), (641, 1023)])
+def test_ens_tile_strip_sweep_paths(card, shape, b):
+    """H6/H7 on the strip sweep at ragged shapes with mixed ``active``:
+    H6 against plain, H7's active members bitwise H6's (the same sweep),
+    frozen members unchanged with a 0 residual; the kernels count their
+    tiles by path as the planner does (edge tiles only at 37x53, both
+    paths at the others)."""
+    u, cxs, cys = _batch(card, b, shape, seed=shape[0])
+    active = torch.tensor([(i + 1) % 2 for i in range(b)],
+                          dtype=torch.int32, device=card)
+    frozen = active == 0
+    counted = cs.path_counter(card)
+    for nsub in (1, 5, 8):
+        h6 = ce.ens_tile_multi(u, nsub, cxs, cys, paths=counted)
+        _close(h6, ce.ens_multi_step_plain(u, nsub, cxs, cys), nsub,
+               cs.FORM_FMA)
+        got, r = ce.ens_tile_multi_conv(u, nsub, cxs, cys, active,
+                                        resid=True, paths=counted)
+        assert torch.equal(got[~frozen], h6[~frozen])
+        assert torch.equal(got[frozen], u[frozen])
+        assert bool((r[frozen] == 0).all())
+        _, r_ref = ce.ens_conv_sweep_plain(u, nsub, cxs, cys, active, True)
+        assert torch.allclose(r[~frozen], r_ref[~frozen], rtol=1e-4, atol=0)
+    planned = ce.tile_paths(ce.tile_plan(*shape, card), b, *shape)
+    assert dict(zip(cs.TILE_PATHS, counted.tolist())) == {
+        k: 6 * v for k, v in planned.items()}
+    assert (planned["fast"] > 0) == (shape != (37, 53))
+
+
 def test_ensemble_convergence_on_the_card(card):
     """The H7 route against the pair-tracked loop over H5 on the card:
     the same steps_done, grids within tolerance."""
@@ -592,6 +622,41 @@ def test_shard_sweep_fast_and_edge_tiles(card, nx, ny, gx, gy, form):
                 assert torch.equal(got_r, got)
                 rel = 1e-5 if form == cs.FORM_LITERAL else 1e-4
                 assert float(r) == pytest.approx(float(r_ref), rel=rel)
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("nx, ny, gx, gy, nsub", [(8, 10, 2, 2, 2),
+                                                  (600, 1040, 2, 2, 8),
+                                                  (300, 520, 2, 2, 3),
+                                                  (1300, 1500, 3, 3, 8)])
+def test_shard_fused_equals_h12_bitwise(card, nx, ny, gx, gy, nsub, form):
+    """H14 on the strip sweep against H12 from the exchanged strips, bit
+    for bit on every shard in both forms: shards as small as the frames
+    allow (4x5 at depth 2: the last tile reaches past the neighbour),
+    inner shards with fast tiles, pad cells. Its tiles by path equal the
+    planner's (``fused_tile_paths``)."""
+    from heat2d_tpu_torch.ops import cuda_shard as csh
+    from heat2d_tpu_torch.parallel.halo import exchange_halo_strips
+    bm, bn = -(-nx // gx), -(-ny // gy)
+    full = torch.zeros((gx * bm, gy * bn), device=card)
+    g = torch.Generator(device=card)
+    g.manual_seed(nx * ny + nsub)
+    full[:nx, :ny] = torch.rand((nx, ny), generator=g, device=card)
+    blocks = [[full[i * bm:(i + 1) * bm, j * bn:(j + 1) * bn].contiguous()
+               for j in range(gy)] for i in range(gx)]
+    counted = csh.path_counter(card)
+    fused = csh.shard_fused(blocks, nsub, nx, ny, 0.1, 0.1, form,
+                            paths=counted)
+    strips = exchange_halo_strips(blocks, nsub)
+    for i in range(gx):
+        for j in range(gy):
+            h12 = csh.shard_tile_multi(blocks[i][j], strips[i][j], nsub,
+                                       i * bm, j * bn, nx, ny, 0.1, 0.1, form)
+            assert torch.equal(fused[i][j], h12), (i, j)
+    planned = csh.fused_tile_paths(cs.tile_plan(bm, bn, nsub, card), gx,
+                                   gy, bm, bn, nx, ny)
+    assert dict(zip(csh.TILE_PATHS, counted.tolist())) == planned
+    assert (planned["fast"] > 0) == (nx >= 300)
 
 
 @pytest.mark.parametrize("mode,halo", [("dist2d", "collective"),

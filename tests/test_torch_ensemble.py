@@ -15,6 +15,8 @@ rounds every operation, XLA's CPU backend may contract multiply-adds).
 ``steps_done`` must be equal.
 """
 
+import ctypes
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -174,6 +176,85 @@ def test_plain_versions_count_no_launches(rng):
     ce.ens_tile_multi_conv(u, 2, cxs, cys, torch.ones(2, dtype=torch.int32),
                            resid=True)
     assert set(ce.launch_counts().values()) == {0}
+
+
+# ------------------------------------------------------------------ #
+# H6/H7's plan: H2's strip sweep, one member at a time
+# ------------------------------------------------------------------ #
+
+@pytest.mark.parametrize("shape", [(36, 128), (24, 32), (4096, 4096),
+                                   (4099, 4097)])
+def test_tile_plan_is_the_strip_sweeps(shape):
+    """H6/H7 tile a member as H2 tiles a grid: ``plan_strip_sweep`` at
+    depth T within the H100's limits (two blocks of 16 warps an SM)."""
+    plan = ce.tile_plan(*shape, "cpu")
+    assert plan == cs.plan_strip_sweep(*shape, cs.DEFAULT_TSTEPS)
+    assert plan == cs.tile_plan(*shape, cs.DEFAULT_TSTEPS, "cpu")
+    assert plan.tsteps == cs.DEFAULT_TSTEPS and ce.STRIP == 8
+
+
+@pytest.mark.parametrize("b", MEMBERS)
+@pytest.mark.parametrize("shape, fast, edge", [
+    ((4096, 4096), 1860, 188),    # legs (b) and (c): 2048 tiles a member
+    ((4099, 4097), 1860, 285),    # a member too large for H5
+    ((37, 53), 0, 1),             # edge tiles only
+])
+def test_tile_paths_are_h2s_times_members(shape, fast, edge, b):
+    """The planner's count of H6/H7's tiles by path is H2's on one member
+    times the members (a frozen member's tiles count too)."""
+    plan = ce.tile_plan(*shape, "cpu")
+    assert cs.tile_paths(plan, *shape) == {"fast": fast, "edge": edge}
+    assert ce.tile_paths(plan, b, *shape) == {"fast": b * fast,
+                                              "edge": b * edge}
+    assert cs.TILE_PATHS == ("fast", "edge")
+
+
+@pytest.mark.parametrize("resid", [False, True])
+def test_tile_launch_passes_the_strip_plan(monkeypatch, resid):
+    """What one H6/H7 launch hands the kernel: the batch's shape, the
+    plan's ring, depth and tile, a (B, tiles) buffer of partials with
+    ``resid``, and the ``paths`` count (the kernel's C entry point stubbed
+    out: the CPU has no card)."""
+    calls = []
+
+    class Lib:
+        def heat_ens_tile(self, *args):
+            calls.append(args)
+            return 0
+    monkeypatch.setattr(ce, "_lib", Lib)
+    monkeypatch.setattr(ce, "_stream", lambda u: ctypes.c_void_p(0))
+    b, nx, ny = 3, 300, 520
+    u = torch.zeros(b, nx, ny)
+    cxs = cys = torch.full((b,), 0.1)
+    active = torch.ones(b, dtype=torch.int32)
+    counted = cs.path_counter("cpu")
+    ce.reset_launch_counts()
+    name = "ens_tile_multi_conv" if resid else "ens_tile_multi"
+    _, parts = ce._tile_launch(u, 5, cxs, cys, active if resid else None,
+                               resid, name, counted)
+    plan = ce.tile_plan(nx, ny, "cpu")
+    (args,) = calls
+    assert args[7:14] == (b, nx, ny, plan.tsteps, 5, plan.ty, plan.tx)
+    assert args[3].value == counted.data_ptr()
+    assert (args[6].value is not None) == resid
+    if resid:
+        assert tuple(parts.shape) == (b, plan.ntiles)
+        assert args[2].value == parts.data_ptr()
+    else:
+        assert parts is None and args[2].value is None
+    assert ce.launch_counts()[name] == 1
+
+
+def test_paths_count_nothing_on_the_cpu(rng):
+    """The plain versions, which CPU tensors take, add no tile to a
+    ``paths`` count."""
+    cxs, cys, u = (torch.from_numpy(a) for a in _inputs(rng, 2, (36, 128)))
+    counted = cs.path_counter("cpu")
+    got = ce.ens_tile_multi(u, 8, cxs, cys, paths=counted)
+    assert torch.equal(got, ce.ens_multi_step_plain(u, 8, cxs, cys))
+    ce.ens_tile_multi_conv(u, 8, cxs, cys, torch.ones(2, dtype=torch.int32),
+                           resid=True, paths=counted)
+    assert counted.dtype == torch.int32 and counted.tolist() == [0, 0]
 
 
 @pytest.mark.parametrize("bad", [

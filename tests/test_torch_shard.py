@@ -275,6 +275,26 @@ def test_shard_sweep_tile_paths(nx, ny, gx, gy, t, shard, fast, edge, held):
     assert got == {"fast": fast, "edge": edge, "in_block_held": held}
 
 
+@pytest.mark.parametrize("nx, ny, gx, gy, nsub, fast, edge, held", [
+    (4096, 4096, 2, 2, 8, 1680, 368, 0),  # the sharded path's launch
+    (4096, 4096, 2, 2, 1, 1680, 368, 0),  # border tiles read neighbours
+    (74, 106, 2, 2, 8, 0, 4, 0),          # no fast tile
+    (74, 106, 2, 2, 3, 0, 4, 0),
+    (543, 300, 4, 1, 8, 3, 33, 1),        # a pad row inside a block
+])
+def test_fused_tile_paths(nx, ny, gx, gy, nsub, fast, edge, held):
+    """The planner's count of H14's tiles by path over the mesh: H12's
+    test (``tile_paths``) on every shard, summed."""
+    bm, bn = -(-nx // gx), -(-ny // gy)
+    plan = cs.tile_plan(bm, bn, nsub, "cpu")
+    got = csh.fused_tile_paths(plan, gx, gy, bm, bn, nx, ny)
+    assert got == {"fast": fast, "edge": edge, "in_block_held": held}
+    per_shard = [csh.tile_paths(plan, i * bm, j * bn, bm, bn, nx, ny)
+                 for i in range(gx) for j in range(gy)]
+    assert got == {k: sum(d[k] for d in per_shard) for k in csh.TILE_PATHS}
+    assert got["fast"] + got["edge"] == gx * gy * plan.ntiles
+
+
 def test_path_counter_on_the_cpu():
     """A ``paths`` count is one zeroed int32 word per path; the plain
     versions, which CPU tensors take, count no tile."""
@@ -289,6 +309,10 @@ def test_path_counter_on_the_cpu():
                                       paths=counted)
     assert torch.equal(got, csh.shard_tile_multi_plain(
         u, strips, 2, 0, 0, 12, 12, 0.1, 0.1))
+    blocks = [[u[:6, :6], u[:6, 6:]], [u[6:, :6], u[6:, 6:]]]
+    fused = csh.shard_fused(blocks, 2, 12, 12, 0.1, 0.1, paths=counted)
+    assert torch.equal(fused[1][0], csh.shard_fused_plain(
+        blocks, 2, 12, 12, 0.1, 0.1)[1][0])
     assert counted.tolist() == [0, 0, 0]
 
 
