@@ -1,0 +1,95 @@
+"""The port's headline benchmark: prints bench.py's ONE JSON line for the
+PyTorch/CUDA package (``heat2d_tpu_torch``).
+
+    python bench_torch.py                    # on the card: 4096^2
+    BENCH_QUICK=1 python bench_torch.py --device cpu
+
+Metric: Mcell-updates/s on a 4096x4096 grid (1024x1024 with
+``BENCH_QUICK=1``), mode ``pallas`` (``BENCH_MODE`` picks another), by
+the two-point protocol: fixed-step runs at 480 and 4800 steps (20 and 100
+when quick), min of 3 timed runs at the low count and of 2 at the high
+one, each after a warmup, and the marginal step time between them, so
+that the fixed fence and launch costs cancel. The timing code is
+``models.solver.two_point_headline``, which ``chip_smoke.py``'s headline
+phase calls too. ``vs_baseline`` is the ratio against the reference's
+best published per-chip figure, its CUDA kernel at 2560x2048, 669
+Mcells/s (``bench.py``'s ``BASELINE_MCELLS``). ``time_to_solution`` is
+``models.solution.bench_tts``: explicit against ADI at 513^2 (257^2
+when quick) to matched accuracy.
+
+Left out until the port has ``obs/roofline.py``: bench.py's
+``pct_of_calibrated_bound`` and ``bytes_per_cell_step``, whose
+constants were calibrated on the TPU.
+
+Runs on the card unless ``--device cpu``; a number from the CPU is a
+smoke of the command, not a measurement of the card.
+"""
+
+import argparse
+import json
+import os
+import sys
+
+QUICK = os.environ.get("BENCH_QUICK") == "1"
+NX = NY = 1024 if QUICK else 4096
+STEPS_LO, STEPS_HI = (20, 100) if QUICK else (480, 4800)
+BASELINE_MCELLS = 669.0  # reference CUDA, 2560x2048 (BASELINE.md)
+
+
+def build_record(value: float, method: str, elapsed: float, tts: dict,
+                 mode: str, device) -> dict:
+    """The one JSON line: bench.py's keys, the port's record envelope
+    (schema, timestamp, the card's name and power limit)."""
+    from heat2d_tpu_torch.obs.record import build_record as envelope
+    rec = {
+        "metric": f"Mcells/s/chip {NX}x{NY}x{STEPS_HI} ({mode})",
+        "value": round(value, 1),
+        "unit": "Mcells/s",
+        "vs_baseline": round(value / BASELINE_MCELLS, 2),
+        "method": method,
+        "end_to_end_s": round(elapsed, 4),
+        "time_to_solution": tts,
+    }
+    return envelope("bench", extra=rec, device=device)
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="run on the CUDA card (default) or the CPU")
+    args = p.parse_args(argv)
+    from heat2d_tpu_torch.models.solution import bench_tts
+    from heat2d_tpu_torch.models.solver import two_point_headline
+    from heat2d_tpu_torch.utils.device import DeviceUnavailableError
+
+    mode = os.environ.get("BENCH_MODE", "pallas")
+    try:
+        tp = two_point_headline(NX, NY, STEPS_LO, STEPS_HI, mode=mode,
+                                device=args.device)
+        tts = bench_tts(quick=QUICK, device=args.device)
+    except DeviceUnavailableError as e:
+        print(f"{e}\nQuitting...", file=sys.stderr)
+        return 1
+    result = tp["result"]
+    # The physics must not be vacuous: the interior evolved, the
+    # boundary held at zero.
+    if not (float(result.u[1:-1, 1:-1].max()) > 0.0
+            and float(abs(result.u[0]).max()) == 0.0):
+        print("bench_torch.py: vacuous run (interior zero or boundary "
+              "not held)", file=sys.stderr)
+        return 1
+    if tp["step_s"] > 0:
+        value = NX * NY / tp["step_s"] / 1e6
+        method = "two-point"
+    else:
+        # The two points lie within noise: the end-to-end figure of the
+        # high run, said as such.
+        value = result.mcells_per_s
+        method = "single-run (two-point within noise)"
+    print(json.dumps(build_record(value, method, result.elapsed, tts, mode,
+                                  args.device)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -73,7 +73,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    residuals) at serial's ``steps_done``; then the reference's largest
    grid, 2560x2048, in hybrid with its convergence defaults against
    serial; launch counters, zeroed just before, show H12-H14 ran;
-11. the ``kernels`` line: the shape timed, time, bound, plain and library
+11. diff path (``heat2d_tpu_torch/diff``): the gradient at 4096^2 x 240
+   steps, method auto (band: H6 forward), checkpointed, against the jnp
+   route (primal within ``fma_tol``, du0 bit for bit, da and db against
+   the float64 gradient), checkpoint against full bit for bit on the jnp
+   route, forward and backward ms and peak memory of each; two inverse
+   requests through a ``SolveServer`` (16^2 diffusivity, 2048^2 init
+   through H6) and their cache-hit repeats; FD parity in float64 at
+   64^2; H6's launches, zeroed just before, equal the band sweeps;
+12. the ``kernels`` line: the shape timed, time, bound, plain and library
    times of each kernel H1-H14 and the coefficient pass at its path's
    shapes (H2 per 8 steps with its plan sweep over depths and its tiles
    by path; H6/H7 timed in turns, with their plan and tiles by path; H14
@@ -82,8 +90,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    gate's edge; H9 with its plan, its build on the card and the
    plan sweep over depths that chose it; H10/H11 solve only, beside
    the call with its coefficient pass; H10's two builds, coefficients in
-   shared memory or through the read-only cache);
-12. headline: Mcells/s at 4096^2 by the two-point protocol of bench.py.
+   shared memory or through the read-only cache; ``td_coeffs`` bound by
+   the latency of its chain of rows, ``td_chain_bound``);
+13. headline: Mcells/s at 4096^2 by the two-point protocol of bench.py
+   (``models.solver.two_point_headline``, as ``bench_torch.py`` times it).
 
 The last line of standard output is ``{"ok": true, "device": ...}``. The
 full results also go to ``chiprun_out/chip_smoke.json``.
@@ -148,6 +158,8 @@ REPLACES = {
 FAMILY_FLOPS = {"heat9": 22, "advdiff": 14, "reactdiff": 12}
 #: FLOPs per unknown of a tridiagonal solve: 3 forward, 2 back.
 TD_FLOPS = 5
+#: The headline's two step counts (bench_torch.py takes the same).
+HEADLINE_STEPS = (480, 4800)
 
 
 class SmokeFailure(RuntimeError):
@@ -1279,12 +1291,15 @@ def family_tridiag_kernel_rows(torch) -> list:
     c = torch.tensor([51.2], device="cuda")
     coef = td.td_coeffs(c, 4096)
     coeffs_ms = time_ms(lambda: td.td_coeffs(c, 4096), 20)
-    bnd, by = bound_ms(4 + 2 * 4096 * 4, 4 * 4096)
+    chain = td_chain_bound(51.2, 4096)
+    bnd, by = bound_ms(4 + 2 * 4096 * 4, 0)
+    if chain["ms"] > bnd:
+        bnd, by = chain["ms"], "operations"
     rows.append(dict(
         name="td_coeffs", shape="1 member, n = 4096, c=51.2",
         ms=coeffs_ms,
         plain_ms=time_ms(lambda: td.td_coeffs_plain(c, 4096), 2),
-        bound_ms=bnd, bound_by=by, library_ms=None))
+        bound_ms=bnd, bound_by=by, bound_chain=chain, library_ms=None))
     bnd, by = bound_ms(2 * rhs.numel() * 4 + 4 + 2 * 4096 * 4,
                        TD_FLOPS * rhs.numel())
     for name, fn, plain in (("td_rows", td.td_rows, td.td_rows_plain),
@@ -1302,6 +1317,34 @@ def family_tridiag_kernel_rows(torch) -> list:
                                         *caps_of(torch))._asdict()
     rows[-2]["variants_ms"] = td_rows_variants(torch, rhs, c, coef, plan)
     return rows
+
+
+#: Clocks a row of ``k_td_coeffs``' recurrence takes at the least: three
+#: dependent FP32 operations (the multiply, the subtract, and the division
+#: counted as one), each at the FP32 pipe's 4-clock dependent latency.
+TD_CHAIN_CLOCKS = 12
+
+
+def td_chain_bound(c: float, n: int) -> dict:
+    """``td_coeffs``' bound: a serial recurrence, so the latency of its
+    chain of rows up to the float fixed point, after which the warp fills
+    the rest in parallel (``csrc/tridiag.cu``, ``k_td_coeffs``). The rows
+    are counted by running the kernel's recurrence in numpy float32 (the
+    same correctly rounded operations) on this run's c; the clock is the
+    card's maximum SM clock."""
+    import numpy as np
+    f = np.float32
+    a, d = f(-0.5) * f(c), f(1.0) + f(c)
+    cprev, rows = f(0.0), n - 2
+    for i in range(1, n - 1):
+        nxt = f(a / f(d - f(a * cprev)))
+        if nxt == cprev:
+            rows = i
+            break
+        cprev = nxt
+    mhz = float(smi("clocks.max.sm").split()[0])
+    return {"rows": rows, "clocks_per_row": TD_CHAIN_CLOCKS, "sm_mhz": mhz,
+            "ms": rows * TD_CHAIN_CLOCKS / (mhz * 1e6) * 1e3}
 
 
 def td_rows_variants(torch, rhs, c, coef, plan) -> dict:
@@ -1754,28 +1797,260 @@ def phase_time_to_solution(torch) -> dict:
     return info
 
 
+#: The diff leg's gradient: bench.py's grid and the main path's steps.
+DIFF_GRID, DIFF_STEPS = 4096, 240
+
+
+def grad_run(torch, f, u0, w, a, b, reps: int = 2) -> dict:
+    """A differentiable solve and its gradient of ``sum(w * f(u0, a,
+    b))`` on the card, ``reps`` times (the first warms the allocator's
+    pools): the last run's output, (du0, da, db), forward and backward ms
+    (host clock to a synchronize) and the peak memory allocated above the
+    inputs; the first's times as ``cold_*``."""
+    runs = []
+    for _ in range(reps):
+        ins = [u0.clone().requires_grad_()] + [
+            torch.tensor(c, dtype=u0.dtype, device="cuda",
+                         requires_grad=True) for c in (a, b)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = f(*ins)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        grads = torch.autograd.grad(torch.sum(w * out), ins)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        runs.append({
+            "out": out.detach(), "grads": [g.detach() for g in grads],
+            "forward_ms": (t1 - t0) * 1e3, "backward_ms": (t2 - t1) * 1e3,
+            "peak_gib": (torch.cuda.max_memory_allocated() - base) / 2**30})
+        del ins, out, grads
+    return {**runs[-1], "cold_forward_ms": runs[0]["forward_ms"],
+            "cold_backward_ms": runs[0]["backward_ms"]}
+
+
+def diff_fd_check(torch) -> dict:
+    """Autograd against central differences at 64^2 x 20 steps in float64
+    on the card (jnp route, const and var), along random unit directions:
+    rtol 1e-6, as on the CPU. The step h = 1e-4: at 64^2 the loss is ~1e4
+    times a directional derivative, so h = 1e-6 (the CPU tests' h at 8^2)
+    would leave a rounding floor of eps |L| / h ~ 1e-6 relative in the
+    difference quotient; 1e-4 brings it to ~1e-8, and the h^2 truncation
+    of the degree-20 polynomial stays below that."""
+    from heat2d_tpu_torch.diff.adjoint import make_diff_solve
+    from heat2d_tpu_torch.ops.init import inidat
+    n, steps = 64, 20
+    gen = torch.Generator(device="cuda").manual_seed(1621)
+    u0 = inidat(n, n, torch.float64, "cuda")
+    u0 = u0 / u0.max()
+    w = torch.randn((n, n), generator=gen, device="cuda",
+                    dtype=torch.float64)
+    worst = 0.0
+    for coeff in ("const", "var"):
+        f = make_diff_solve(n, n, steps, coeff=coeff, device="cuda")
+        shape = () if coeff == "const" else (n, n)
+        args = [u0, torch.full(shape, 0.1, dtype=torch.float64,
+                               device="cuda"),
+                torch.full(shape, 0.12, dtype=torch.float64,
+                           device="cuda")]
+        ins = [x.clone().requires_grad_() for x in args]
+        grads = torch.autograd.grad(torch.sum(w * f(*ins)), ins)
+        for i, g in enumerate(grads):
+            d = torch.randn(args[i].shape, generator=gen, device="cuda",
+                            dtype=torch.float64)
+            d = d / torch.sqrt(torch.sum(d * d))
+            h = 1e-4
+            p, m = list(args), list(args)
+            p[i], m[i] = args[i] + h * d, args[i] - h * d
+            fd = float(torch.sum(w * f(*p)) - torch.sum(w * f(*m))) / (2 * h)
+            got = float(torch.sum(g * d))
+            rel = abs(got - fd) / max(abs(fd), 1e-300)
+            fail_unless(abs(got - fd) <= 1e-6 * abs(fd) + 1e-12,
+                        f"diff FD parity {coeff} arg {i}: autograd {got} "
+                        f"against finite differences {fd}")
+            worst = max(worst, rel)
+    return {"grid": n, "steps": steps, "dtype": "float64",
+            "worst_rel_err": worst}
+
+
+def diff_inverse_requests(torch) -> dict:
+    """Two inverse requests through a ``SolveServer`` on the card: the
+    selftest's diffusivity recovery (16^2, var, the plain step) and a
+    target="init" request at 2048^2 x 64 steps, 3 iterations (past the
+    resident gate: auto takes band, so H6 runs), each then resubmitted as
+    a cache hit."""
+    import numpy as np
+
+    from heat2d_tpu_torch.diff.adjoint import make_diff_solve, segment_schedule
+    from heat2d_tpu_torch.diff.inverse import (observation_mask,
+                                               synthetic_diffusivity,
+                                               unit_reference_init)
+    from heat2d_tpu_torch.diff.serving import InverseRequest
+    from heat2d_tpu_torch.obs.metrics import MetricsRegistry
+    from heat2d_tpu_torch.serve.server import SolveServer
+
+    n, steps = 16, 16
+    true_k = torch.from_numpy(synthetic_diffusivity(n, n)).cuda()
+    u0 = torch.from_numpy(unit_reference_init(n, n)).cuda()
+    obs = make_diff_solve(n, n, steps, coeff="var")(u0, true_k, true_k)
+    small = InverseRequest.from_fields(
+        n, n, steps, observation_mask(n, n, every=1), obs.cpu().numpy(),
+        target="diffusivity", iterations=300, lr=0.02, tol=1e-8)
+    big, bsteps = 2048, 64
+    f = make_diff_solve(big, big, bsteps, device="cuda")
+    fail_unless(f.spec.method == "band",
+                f"2048^2 auto resolved to {f.spec.method}, not band")
+    bu0 = torch.from_numpy(unit_reference_init(big, big)).cuda()
+    bobs = f(bu0, 0.1, 0.1).cpu().numpy()
+    large = InverseRequest.from_fields(
+        big, big, bsteps, observation_mask(big, big, every=16), bobs,
+        target="init", iterations=3, lr=0.05)
+    # H6 sweeps: the observations' primal, then each iteration's
+    # checkpointed forward (a sweep per started 8 steps of a segment)
+    from heat2d_tpu_torch.ops.cuda_stencil import DEFAULT_TSTEPS as t
+    h6 = -(-bsteps // t) + large.iterations * sum(
+        -(-k // t) for k in segment_schedule(bsteps))
+    registry = MetricsRegistry()
+    rows = {}
+    with SolveServer(registry=registry, max_delay=0.01,
+                     default_timeout=600.0) as server:
+        for name, req in (("selftest_16", small), ("init_2048", large)):
+            t0 = time.perf_counter()
+            res = server.solve(req, timeout=600)
+            t1 = time.perf_counter()
+            again = server.solve(req, timeout=60)
+            fail_unless(again.cache_hit and again.params.tobytes()
+                        == res.params.tobytes(),
+                        f"inverse {name}: the resubmission was not a "
+                        f"bitwise cache hit")
+            fail_unless(np.isfinite(res.params).all()
+                        and math.isfinite(res.final_loss),
+                        f"inverse {name}: non-finite result")
+            rows[name] = {"seconds": t1 - t0, "iterations": res.iterations,
+                          "final_loss": res.final_loss,
+                          "converged": res.converged,
+                          "first_loss": res.loss_history[0],
+                          "cache_hit_repeat": again.cache_hit}
+    r = rows["selftest_16"]
+    fail_unless(r["converged"] and r["final_loss"] <= 1e-8,
+                f"inverse selftest_16 did not converge: {r}")
+    err0 = float((0.1 - true_k).abs()[1:-1, 1:-1].mean())
+    r = rows["init_2048"]
+    fail_unless(r["iterations"] == 3 and r["final_loss"] < r["first_loss"],
+                f"inverse init_2048: the loss did not fall: {r}")
+    snap = registry.snapshot()
+    rows["selftest_16"]["initial_field_error"] = err0
+    rows["solves_total"] = {k: v for k, v in snap["counters"].items()
+                            if k.startswith("inverse_solves_total")}
+    rows["h6_sweeps"] = h6
+    return rows
+
+
+def phase_diff_path(torch, name: str, power: str) -> dict:
+    """The differentiable solves on the card (``heat2d_tpu_torch/diff``).
+    The gradient of ``sum(w * u_T)`` at 4096^2 x 240 steps, const, method
+    auto (which must resolve to band, H6), checkpointed, each gradient run
+    twice (``grad_run``). Its band primal against the plain per-step
+    primal (``fma_tol``); du0 bit for bit the jnp route's (the step is
+    linear in u, so its pullback does not depend on the states); da and db
+    against the float64 jnp gradient, within 4x the float32 jnp route's
+    own error against it (the larger of its two) plus 2^-20 relative: the
+    band route as accurate as the per-step route, whose float32 noise on
+    these sums of tiny Laplacians is ~1e-3 relative at this size. On the
+    jnp route the checkpointed adjoint against the full-storage one bit
+    for bit. Forward and backward ms and the peak memory of each. Then two
+    inverse requests through a server and FD parity in float64. H6's
+    launches are counted over the band gradients and the inverse requests,
+    and must equal their sweeps."""
+    from heat2d_tpu_torch.diff.adjoint import make_diff_solve
+    from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    from heat2d_tpu_torch.ops.init import inidat
+
+    n, steps = DIFF_GRID, DIFF_STEPS
+    u0 = inidat(n, n, device="cuda")
+    u0 = u0 / u0.max()
+    # a smooth weight (the initial mode): da and db then sum terms of
+    # one sign, which the routes' ulp differences cannot cancel
+    w = u0.clone()
+    band = make_diff_solve(n, n, steps, method="auto", device="cuda")
+    fail_unless(band.spec.method == "band",
+                f"{n}^2 auto resolved to {band.spec.method}, not band")
+    ce.reset_launch_counts()
+    runs = {"band_checkpoint": grad_run(torch, band, u0, w, 0.1, 0.1)}
+    inverse = diff_inverse_requests(torch)
+    launches = ce.launch_counts()
+    sweeps = sum(-(-k // ce.DEFAULT_TSTEPS) for k in band.spec.schedule)
+    want = 2 * sweeps + inverse["h6_sweeps"]
+    fail_unless(launches["ens_tile_multi"] == want,
+                f"H6 launched {launches['ens_tile_multi']} times on the "
+                f"diff path, not the {want} sweeps of its band solves")
+    for adjoint in ("checkpoint", "full"):
+        f = make_diff_solve(n, n, steps, method="jnp", adjoint=adjoint,
+                            device="cuda")
+        runs[f"jnp_{adjoint}"] = grad_run(torch, f, u0, w, 0.1, 0.1)
+    ref = grad_run(torch, make_diff_solve(n, n, steps, method="jnp",
+                                          device="cuda"),
+                   u0.double(), w.double(), 0.1, 0.1, reps=1)
+    ck, full, b = (runs["jnp_checkpoint"], runs["jnp_full"],
+                   runs["band_checkpoint"])
+    g64 = {k: float(ref["grads"][i]) for i, k in ((1, "da"), (2, "db"))}
+    errs = {route: {k: abs(float(r["grads"][i]) - g64[k])
+                    for i, k in ((1, "da"), (2, "db"))}
+            for route, r in (("band", b), ("jnp", ck))}
+    floor = max(errs["jnp"].values())
+    err, tol = max_err(b["out"], ck["out"]), fma_tol(steps, ck["out"])
+    info = {"phase": "diff_path", "grid": n, "steps": steps,
+            "schedule": list(band.spec.schedule),
+            "launches": launches, "band_sweeps": sweeps,
+            "band_primal_max_abs_err": err, "band_primal_tol": tol,
+            "gradient_f64": g64, "abs_err_vs_f64": errs,
+            "band_vs_jnp_rel": {k: abs(float(b["grads"][i])
+                                       - float(ck["grads"][i])) / abs(g64[k])
+                                for i, k in ((1, "da"), (2, "db"))},
+            "runs": {k: {m: r[m] for m in (
+                "forward_ms", "backward_ms", "peak_gib", "cold_forward_ms",
+                "cold_backward_ms")} for k, r in {**runs,
+                                                  "jnp_f64": ref}.items()},
+            "inverse": inverse, "device": name, "power_limit": power}
+    emit(info)
+    fail_unless(torch.equal(ck["out"], full["out"])
+                and all(torch.equal(x, y) for x, y in zip(ck["grads"],
+                                                          full["grads"])),
+                "jnp route: the checkpointed gradient is not bitwise the "
+                "full-storage one")
+    fail_unless(err <= tol, f"band primal: max_abs_err {err} > {tol}")
+    fail_unless(torch.equal(b["grads"][0], ck["grads"][0]),
+                f"band du0 not bitwise the jnp route's (max_abs_err "
+                f"{max_err(b['grads'][0], ck['grads'][0])})")
+    for k, g in g64.items():
+        bound = 4 * floor + 2.0 ** -20 * abs(g)
+        fail_unless(errs["band"][k] <= bound,
+                    f"band {k}: error {errs['band'][k]} against the f64 "
+                    f"gradient {g} exceeds {bound} (4x the f32 jnp "
+                    f"route's {floor})")
+    for r in runs.values():
+        fail_unless(all(bool(torch.isfinite(g).all()) for g in r["grads"]),
+                    "non-finite gradient")
+    info["fd"] = diff_fd_check(torch)
+    emit({"phase": "diff_path_fd", **info["fd"]})
+    return info
+
+
 def phase_headline(torch, name: str, power: str) -> dict:
-    """Mcells/s at 4096^2, pallas mode: the marginal step time between
-    two step counts (fixed fence and launch overheads cancel), min of 3
-    runs at the low count and of 2 at the high one, as in bench.py."""
-    from heat2d_tpu_torch.config import HeatConfig
-    from heat2d_tpu_torch.models.solver import Heat2DSolver
-    lo, hi = 480, 4800
-    solvers = {n: Heat2DSolver(HeatConfig(nxprob=4096, nyprob=4096, steps=n,
-                                          mode="pallas"))
-               for n in (lo, hi)}
-
-    def t(n, warm):
-        return solvers[n].run(warmup=warm).elapsed
-
-    t_lo = min([t(lo, True)] + [t(lo, False) for _ in range(2)])
-    t_hi = min([t(hi, True)] + [t(hi, False)])
-    step_s = (t_hi - t_lo) / (hi - lo)
+    """Mcells/s at 4096^2, pallas mode, by the two-point protocol of
+    bench.py (``models.solver.two_point_headline``, which bench_torch.py
+    also calls): min of 3 runs at 480 steps and of 2 at 4800."""
+    from heat2d_tpu_torch.models.solver import two_point_headline
+    lo, hi = HEADLINE_STEPS
+    tp = two_point_headline(4096, 4096, lo, hi, device="cuda")
+    step_s = tp["step_s"]
     fail_unless(step_s > 0, f"two-point step time {step_s} <= 0")
     info = {"phase": "headline",
             "metric": f"Mcells/s 4096x4096 (pallas, two-point {lo}/{hi})",
             "value": 4096 * 4096 / step_s / 1e6, "step_ms": step_s * 1e3,
-            "t_lo_s": t_lo, "t_hi_s": t_hi, "device": name,
+            "t_lo_s": tp["t_lo_s"], "t_hi_s": tp["t_hi_s"], "device": name,
             "power_limit": power}
     emit(info)
     return info
@@ -2172,9 +2447,12 @@ def main() -> int:
         tts = phase_time_to_solution(torch)
         shard_kern = phase_shard_kernels(torch)
         sharded_path = phase_sharded_path(torch)
+        diff_path = phase_diff_path(torch, tool["name"],
+                                    tool["power_limit"])
         launches = {**main_path["launches"], **serve["launch_counts"],
                     **serve_fam["launch_counts"],
                     **sharded_path["launches"]}
+        launches["ens_tile_multi"] += diff_path["launches"]["ens_tile_multi"]
         for name in ("td_coeffs", "td_rows", "td_lanes"):
             launches[name] += implicit["launches"][name]
         rows = phase_kernel_times(
@@ -2198,7 +2476,8 @@ def main() -> int:
                    "implicit_path": implicit, "serve_families": serve_fam,
                    "time_to_solution": tts,
                    "shard_kernels_check": shard_kern,
-                   "sharded_path": sharded_path, "kernels": rows,
+                   "sharded_path": sharded_path, "diff_path": diff_path,
+                   "kernels": rows,
                    "headline": head,
                    "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})

@@ -5,8 +5,12 @@ A dump is the grid as raw native-endian float32 in global row-major
 order (the reference's MPI-IO layout). A checkpoint is a dump plus a JSON
 sidecar (``<path>.meta.json``: step, shape, dtype, the binary's sha256,
 the config, and the format tag ``heat2d-tpu-checkpoint-v1``), so a
-checkpoint written by either stack loads in the other. Every write is
-staged to a ``.tmp`` file, fsync'd and promoted with ``os.replace``.
+checkpoint written by either stack loads in the other. An auxiliary
+field (a diffusivity grid, an observation mask, a recovered inverse
+solution: ``save_field``) is a raw dump of its own dtype plus a sidecar
+of the format ``heat2d-tpu-field-v1``, byte for byte the JAX package's.
+Every write is staged to a ``.tmp`` file, fsync'd and promoted with
+``os.replace``.
 """
 
 from __future__ import annotations
@@ -19,6 +23,13 @@ import numpy as np
 
 CHECKPOINT_FORMAT = "heat2d-tpu-checkpoint-v1"
 
+#: dtypes a field file may carry. A bool field (an observation mask) is
+#: stored as uint8 bytes with dtype "bool" in the sidecar, and loads back
+#: as bool.
+FIELD_DTYPES = ("float32", "float64", "int32", "uint8", "bool")
+
+FIELD_FORMAT = "heat2d-tpu-field-v1"
+
 
 class CheckpointCorruptError(ValueError):
     """A checkpoint failed its integrity checks (digest mismatch,
@@ -30,6 +41,14 @@ def _host_f32(u) -> np.ndarray:
     if hasattr(u, "detach"):
         u = u.detach().cpu().numpy()
     return np.asarray(u, dtype=np.float32)
+
+
+def _host(a) -> np.ndarray:
+    """A host array of a numpy array or a tensor on any device, its dtype
+    kept."""
+    if hasattr(a, "detach"):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 def _sha256_file(path, chunk: int = 1 << 20) -> str:
@@ -140,14 +159,7 @@ def commit_checkpoint_files(tmp_path, path, step: int, config,
                   else dict(config or {}),
         "format": CHECKPOINT_FORMAT,
     }
-    meta_path = str(path) + ".meta.json"
-    meta_tmp = meta_path + ".tmp"
-    with open(meta_tmp, "w") as f:
-        json.dump(meta, f, indent=2)
-        f.flush()
-        os.fsync(f.fileno())
-    os.replace(meta_tmp, meta_path)
-    _fsync_path(os.path.dirname(os.path.abspath(str(path))))
+    _write_sidecar(path, meta)
 
 
 def save_checkpoint(u, step: int, config, path, shape=None) -> None:
@@ -199,3 +211,85 @@ def load_checkpoint(path, shape=None, verify: bool = True):
             f"{path}: expected {expected} float32 values for shape "
             f"{meta_shape}, found {a.size}")
     return a.reshape(meta_shape).copy(), step, meta.get("config", {})
+
+
+def _write_sidecar(path, meta: dict) -> None:
+    """The ``.meta.json`` of ``path``, staged, fsync'd and promoted, then
+    the directory fsync'd."""
+    meta_path = str(path) + ".meta.json"
+    meta_tmp = meta_path + ".tmp"
+    with open(meta_tmp, "w") as f:
+        json.dump(meta, f, indent=2)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(meta_tmp, meta_path)
+    _fsync_path(os.path.dirname(os.path.abspath(str(path))))
+
+
+def save_field(a, path, name: str = "field", extra=None) -> None:
+    """An auxiliary field (numpy array or tensor) as a raw binary and a
+    digest sidecar (shape, dtype, sha256, ``name`` and any ``extra``
+    keys), committed as a checkpoint is: staged to ``path + '.tmp'``,
+    digested, promoted, then the sidecar the same way. ``load_field``
+    verifies the digest, so a torn copy never loads."""
+    a = _host(a)
+    dtype = "bool" if a.dtype == np.bool_ else str(a.dtype)
+    if dtype not in FIELD_DTYPES:
+        raise ValueError(
+            f"field dtype must be one of {FIELD_DTYPES}, got {a.dtype}")
+    raw = a.astype(np.uint8) if dtype == "bool" else a
+    tmp = checkpoint_tmp_path(path)
+    raw.tofile(tmp)
+    digest = _sha256_file(tmp)
+    _fsync_path(tmp)
+    os.replace(tmp, path)
+    _write_sidecar(path, {
+        "format": FIELD_FORMAT,
+        "name": str(name),
+        "shape": [int(s) for s in a.shape],
+        "dtype": dtype,
+        "sha256": digest,
+        **(dict(extra) if extra else {}),
+    })
+
+
+def load_field(path, verify: bool = True):
+    """A field saved by ``save_field`` (by either stack). Returns ``(array,
+    meta)``; a digest mismatch, a truncated binary or an unreadable
+    sidecar raises ``CheckpointCorruptError`` (``verify=False`` skips the
+    digest check)."""
+    meta_path = str(path) + ".meta.json"
+    try:
+        with open(meta_path) as f:
+            meta = json.load(f)
+        shape = tuple(int(s) for s in meta["shape"])
+        dtype = str(meta["dtype"])
+        digest = meta.get("sha256")
+    except (OSError, json.JSONDecodeError, KeyError, ValueError,
+            TypeError) as e:
+        raise CheckpointCorruptError(f"{path}: {e}") from e
+    if dtype not in FIELD_DTYPES:
+        raise CheckpointCorruptError(
+            f"{path}: sidecar dtype {dtype!r} not in {FIELD_DTYPES}")
+    try:
+        with open(path, "rb") as f:
+            buf = f.read()
+    except OSError as e:
+        raise CheckpointCorruptError(f"{path}: {e}") from e
+    if verify and digest is not None:
+        actual = hashlib.sha256(buf).hexdigest()
+        if actual != digest:
+            raise CheckpointCorruptError(
+                f"{path}: sha256 mismatch (sidecar {digest[:12]}..., file "
+                f"{actual[:12]}...) - torn or corrupt field file")
+    a = np.frombuffer(buf, dtype=np.uint8 if dtype == "bool"
+                      else np.dtype(dtype))
+    expected = int(np.prod(shape)) if shape else 1
+    if a.size != expected:
+        raise CheckpointCorruptError(
+            f"{path}: expected {expected} {dtype} values for shape "
+            f"{shape}, found {a.size}")
+    a = a.reshape(shape).copy()
+    if dtype == "bool":
+        a = a.astype(np.bool_)
+    return a, meta

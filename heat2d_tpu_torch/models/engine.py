@@ -49,6 +49,22 @@ def run_fixed(step_fn: Callable, u0, steps: int):
     return u, steps
 
 
+def run_fixed_stacked(step_fn: Callable, u0, steps: int):
+    """Run exactly ``steps`` steps of an (nx, ny) state, also returning the
+    state before each step: ``states[t]`` is the input of step t
+    (``states[0]`` equals u0), so a reverse sweep can linearize every step
+    where it was taken. The trajectory store of the full-storage adjoint
+    and the per-segment recompute of the checkpointed one
+    (``diff/adjoint.py``): O(steps) memory, one ``(steps, nx, ny)`` tensor
+    allocated up front and filled in place. Returns (u_final, states)."""
+    states = u0.new_empty((steps,) + tuple(u0.shape))
+    u = u0
+    for t in range(steps):
+        states[t] = u
+        u = step_fn(u)
+    return u, states
+
+
 def run_convergence(step_fn: Callable, residual_fn: Callable, u0,
                     steps: int, interval: int, sensitivity: float,
                     tap: Optional[Callable] = None):

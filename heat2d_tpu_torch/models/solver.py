@@ -266,3 +266,26 @@ class Heat2DSolver:
                          residual_reads=runner.residual_reads,
                          device=str(self.device),
                          halo=getattr(runner, "halo", None), mesh=self.mesh)
+
+
+def two_point_headline(nx: int, ny: int, lo: int, hi: int,
+                       mode: str = "pallas", device=None) -> dict:
+    """The headline's two-point protocol (``bench.py``): fixed-step runs
+    at ``lo`` and ``hi`` steps, the min of 3 timed runs at ``lo`` and of
+    2 at ``hi`` (the first of each after a warmup run), and the marginal
+    step time between them, in which the fixed fence and launch costs
+    cancel. Returns ``step_s`` (may be <= 0 when the two points lie
+    within noise), ``t_lo_s``, ``t_hi_s`` and the last ``hi`` run's
+    ``RunResult`` as ``result``. ``bench_torch.py`` and ``chip_smoke.py``
+    both time the headline with it."""
+    solvers = {n: Heat2DSolver(HeatConfig(nxprob=nx, nyprob=ny, steps=n,
+                                          mode=mode), device=device)
+               for n in (lo, hi)}
+    runs = {lo: [], hi: []}
+    for n, reps in ((lo, 3), (hi, 2)):
+        for i in range(reps):
+            runs[n].append(solvers[n].run(warmup=i == 0))
+    t_lo = min(r.elapsed for r in runs[lo])
+    t_hi = min(r.elapsed for r in runs[hi])
+    return {"step_s": (t_hi - t_lo) / (hi - lo), "t_lo_s": t_lo,
+            "t_hi_s": t_hi, "result": runs[hi][-1]}

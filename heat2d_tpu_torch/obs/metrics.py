@@ -1,7 +1,8 @@
-"""Process-local metrics registry: counters, gauges and timing histograms
-(labeled series), with a JSONL export. The port's copy of the part of
-``heat2d_tpu/obs/metrics.py`` the serve modules use; the metric names are
-the JAX package's (``docs/SERVING.md``, ``docs/RESILIENCE.md``).
+"""Process-local metrics registry: counters, gauges, timing histograms
+and (x, y) point series, each labeled, with a JSONL export. The port's
+copy of the part of ``heat2d_tpu/obs/metrics.py`` the serve and diff
+modules use; the metric names are the JAX package's
+(``docs/SERVING.md``, ``docs/RESILIENCE.md``).
 
 Pure host-side Python: recording a metric never touches a tensor.
 """
@@ -83,9 +84,9 @@ class Reservoir:
 
 
 class MetricsRegistry:
-    """Counters, gauges and timing histograms, each identified by (name,
-    labels) as in Prometheus. Thread-safe: the serve scheduler and
-    submitting threads record concurrently."""
+    """Counters, gauges, timing histograms and point series, each
+    identified by (name, labels) as in Prometheus. Thread-safe: the serve
+    scheduler and submitting threads record concurrently."""
 
     def __init__(self, hist_cap: int = HIST_RESERVOIR_CAP):
         self._lock = threading.Lock()
@@ -93,6 +94,7 @@ class MetricsRegistry:
         self._counters: dict = {}
         self._gauges: dict = {}
         self._histograms: dict = {}
+        self._series: dict = {}
 
     def counter(self, name: str, value: float = 1.0, **labels) -> None:
         """Monotonically add ``value`` to the counter."""
@@ -114,6 +116,13 @@ class MetricsRegistry:
                 r = self._histograms[k] = Reservoir(self._hist_cap)
             r.add(float(value))
 
+    def series(self, name: str, x, y, **labels) -> None:
+        """Append the point (x, y) to a labeled series, e.g. an inverse
+        solve's loss per iteration."""
+        k = (name, _label_key(labels))
+        with self._lock:
+            self._series.setdefault(k, []).append((x, y))
+
     @contextlib.contextmanager
     def timer(self, name: str, **labels):
         """Time the enclosed block into the ``name`` histogram (seconds)."""
@@ -132,7 +141,7 @@ class MetricsRegistry:
 
     def snapshot(self) -> dict:
         """Point-in-time view: counters and gauges flat, histograms
-        summarized."""
+        summarized, series as point lists."""
         with self._lock:
             return {
                 "counters": {self._fmt(k): v
@@ -141,6 +150,8 @@ class MetricsRegistry:
                            for k, v in self._gauges.items()},
                 "histograms": {self._fmt(k): v.summary()
                                for k, v in self._histograms.items()},
+                "series": {self._fmt(k): [[x, y] for x, y in v]
+                           for k, v in self._series.items()},
             }
 
     def write_jsonl(self, path: str, extra_records=()) -> None:

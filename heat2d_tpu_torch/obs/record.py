@@ -15,6 +15,13 @@ import torch
 
 RECORD_SCHEMA = "heat2d-tpu/run-record/v1"
 
+#: The record kinds the port emits (a subset of the JAX package's
+#: ``RECORD_KINDS``): "run" (the solver CLI), "ensemble" (its batched
+#: sweep), "bench" (``bench_torch.py``), "serve" (the serve CLI: launch
+#: log and serving metrics), "inverse" (the inverse CLI: iterations,
+#: final loss, convergence, beside the ``inverse_*`` metric series).
+RECORD_KINDS = ("run", "ensemble", "bench", "serve", "inverse")
+
 
 def run_context(device=None) -> dict:
     from heat2d_tpu_torch.utils.device import device_summary
@@ -42,6 +49,9 @@ def build_record(kind: str, config=None, steps_done=None, elapsed_s=None,
                  device=None) -> dict:
     """Unified run record; ``extra`` merges payload keys, and keys the
     record already has win over the envelope."""
+    if kind not in RECORD_KINDS:
+        raise ValueError(f"record kind must be one of {RECORD_KINDS}, got "
+                         f"{kind!r}")
     rec: dict = {}
     if config is not None:
         rec["config"] = (config if isinstance(config, dict)
@@ -60,3 +70,15 @@ def build_record(kind: str, config=None, steps_done=None, elapsed_s=None,
     for k, v in run_context(device).items():
         rec.setdefault(k, v)
     return rec
+
+
+def write_run_jsonl(registry, path, kind: str, extra: dict,
+                    device=None) -> None:
+    """The CLIs' telemetry export: the registry's snapshot line and a
+    ``kind`` run record carrying ``extra`` as its payload, as JSONL. No-op
+    without a registry or a path."""
+    if registry is None or not path:
+        return
+    rec = build_record(kind, extra=dict(extra), device=device)
+    registry.write_jsonl(path, extra_records=[{"event": "run_record",
+                                               **rec}])

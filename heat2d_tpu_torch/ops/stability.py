@@ -1,5 +1,6 @@
-"""Explicit-scheme stability: the cx + cy <= 1/2 box and the families'
-bounds.
+"""Explicit-scheme stability: the cx + cy <= 1/2 box, the families'
+bounds, and the box the inverse solves project their diffusivity
+iterates into.
 
 The port's copy of the checks of ``heat2d_tpu/ops/stability.py``, with
 the same limits and error text. The implicit methods (adi, mg) are
@@ -7,6 +8,8 @@ unconditionally stable and never call them (``is_implicit``).
 """
 
 from __future__ import annotations
+
+import torch
 
 from heat2d_tpu_torch.config import ConfigError
 from heat2d_tpu_torch.vocab import (ADVECTION_VELOCITY, IMPLICIT_METHODS,
@@ -18,6 +21,12 @@ EXPLICIT_COEFF_LIMIT = 0.5
 #: heat9's box: the 4th-order operator's worst von Neumann mode has the
 #: eigenvalue 16/3 per axis, so cx + cy <= 3/8.
 HEAT9_COEFF_LIMIT = 0.375
+
+#: The box of a projected isotropic diffusivity iterate (kx = ky = kappa,
+#: ``diff/inverse.py``): 2 kappa <= 1/2 with margin below the exact 0.25,
+#: and a floor that keeps the field physical and the solve sensitive to
+#: it.
+KAPPA_MIN, KAPPA_MAX = 1e-4, 0.24
 
 
 def stability_limit(dx: float = 1.0, dy: float = 1.0) -> float:
@@ -122,3 +131,10 @@ def check_problem_stability(problem: str, cx: float, cy: float,
             f"no stability bound registered for problem "
             f"{problem!r} (known: {tuple(_PROBLEM_CHECKS)})") from None
     check(cx, cy, where=where)
+
+
+def project_stable(kappa):
+    """Clamp an isotropic per-cell diffusivity field into
+    [KAPPA_MIN, KAPPA_MAX]: the inverse driver's projection of each
+    iterate."""
+    return torch.clamp(kappa, KAPPA_MIN, KAPPA_MAX)

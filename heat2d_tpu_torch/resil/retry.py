@@ -90,14 +90,24 @@ class Watchdog:
     """``with Watchdog(2.0, on_timeout): work()``: if ``work`` outlives
     the deadline, ``on_timeout()`` fires once from a timer thread (the
     block keeps running; its waiters get an answer instead of a hang).
-    ``fired`` says whether it did. ``deadline_s=None`` arms nothing."""
+    ``fired`` says whether it did. ``deadline_s=None`` arms nothing.
+
+    ``clock`` (a ``time.monotonic``-shaped callable) makes the deadline
+    controllable: a watcher thread polls it every 5 ms of real time in
+    place of a wall-clock timer, so a test can hold time still and
+    advance it past the deadline exactly when its scenario says."""
+
+    _POLL_S = 0.005
 
     def __init__(self, deadline_s: Optional[float],
-                 on_timeout: Callable[[], None]):
+                 on_timeout: Callable[[], None],
+                 clock: Optional[Callable[[], float]] = None):
         self.deadline_s = deadline_s
         self.on_timeout = on_timeout
+        self.clock = clock
         self.fired = False
         self._timer: Optional[threading.Timer] = None
+        self._stop: Optional[threading.Event] = None
 
     def _fire(self) -> None:
         self.fired = True
@@ -106,16 +116,30 @@ class Watchdog:
         except Exception:   # a broken callback must not kill the timer
             log.exception("watchdog on_timeout callback failed")
 
+    def _watch(self, t0: float) -> None:
+        while not self._stop.wait(self._POLL_S):
+            if self.clock() - t0 >= self.deadline_s:
+                self._fire()
+                return
+
     def __enter__(self) -> "Watchdog":
-        if self.deadline_s is not None:
+        if self.deadline_s is None:
+            return self
+        if self.clock is None:
             self._timer = threading.Timer(self.deadline_s, self._fire)
             self._timer.daemon = True
             self._timer.start()
+        else:
+            self._stop = threading.Event()
+            threading.Thread(target=self._watch, args=(self.clock(),),
+                             name="heat2d-watchdog", daemon=True).start()
         return self
 
     def __exit__(self, *exc) -> None:
         if self._timer is not None:
             self._timer.cancel()
+        if self._stop is not None:
+            self._stop.set()
 
 
 class DegradedMode:

@@ -2,7 +2,9 @@
 port's copy of ``heat2d_tpu/serve/batcher.py``.
 
 Admission puts each request into the bucket of its compiled signature
-(``SolveRequest.signature()`` — shape/dtype/steps-class/method). A
+(``SolveRequest.signature()`` — shape/dtype/steps-class/method — or
+``InverseRequest.signature()``, whose leading "inverse" keeps its
+buckets apart; the batcher reads nothing else of a request). A
 single scheduler thread dispatches a bucket as ONE downstream launch
 when it reaches ``max_batch`` members or its oldest member has waited
 ``max_delay`` seconds — the classic latency/occupancy trade of an
@@ -33,10 +35,17 @@ import collections
 import logging
 import threading
 import time
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Callable, Optional, Union
 
 from heat2d_tpu_torch.analysis.locks import AuditedCondition, guarded_by
 from heat2d_tpu_torch.serve.schema import Rejected, SolveRequest
+
+#: What the batcher queues: a solve or an inverse request
+#: (``heat2d_tpu_torch/diff/serving.py``), both with ``signature()``.
+Request = Union[SolveRequest, "InverseRequest"]
+
+if TYPE_CHECKING:
+    from heat2d_tpu_torch.diff.serving import InverseRequest
 
 log = logging.getLogger("heat2d_tpu_torch.serve")
 
@@ -48,7 +57,7 @@ class Pending:
 
     __slots__ = ("req", "key", "enqueued", "deadline", "fail")
 
-    def __init__(self, req: SolveRequest, key: str,
+    def __init__(self, req: Request, key: str,
                  fail: Callable[[BaseException], None],
                  timeout: Optional[float], now: float):
         self.req = req
@@ -151,7 +160,7 @@ class MicroBatcher:
 
     # -- admission ----------------------------------------------------- #
 
-    def submit(self, req: SolveRequest, key: str,
+    def submit(self, req: Request, key: str,
                fail: Callable[[BaseException], None],
                timeout: Optional[float] = None) -> None:
         """Admit one request, or raise ``Rejected("queue_full")`` /

@@ -1,7 +1,9 @@
 """Content-addressed result cache + single-flight deduplication: the
 port's copy of ``heat2d_tpu/serve/cache.py``.
 
-The cache is a bounded LRU keyed by ``SolveRequest.content_hash()``:
+The cache is a bounded LRU keyed by the request's ``content_hash()`` (a
+``SolveRequest``'s or an ``InverseRequest``'s; their results both
+implement ``as_cache_hit``):
 identical repeat requests return the stored result without touching the
 queue (bitwise-identical — the stored grid IS the cold solve's output,
 never recomputed). Single-flight covers the window BEFORE a result

@@ -16,9 +16,10 @@ counterpart of ``heat2d-tpu-serve``).
   stdout or ``--results-out``.
 
 ``--metrics-out PATH`` writes the metrics snapshot and a ``kind="serve"``
-run record as JSONL. ``--device cpu`` runs the plain PyTorch versions of
-the kernels on the CPU; without it the server runs on the card and
-refuses to start where there is none.
+run record as JSONL; ``--log-level`` sets the port's loggers' level.
+``--device cpu`` runs the plain PyTorch versions of the kernels on the
+CPU; without it the server runs on the card and refuses to start where
+there is none.
 
     heat2d-tpu-torch-serve --selftest --device cpu
 """
@@ -32,6 +33,7 @@ import sys
 import numpy as np
 
 from heat2d_tpu_torch.utils.device import DeviceUnavailableError
+from heat2d_tpu_torch.utils.logs import add_log_level_flag, configure_logging
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,6 +71,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="serve on the CUDA card (default) or, with the "
                         "plain PyTorch versions of the kernels, the CPU")
+    add_log_level_flag(p)
     return p
 
 
@@ -262,21 +265,18 @@ def run_requests(args, registry) -> int:
 
 
 def _write_metrics(args, registry, server, extra) -> None:
-    if not args.metrics_out:
-        return
-    from heat2d_tpu_torch.obs.record import build_record
+    from heat2d_tpu_torch.obs.record import write_run_jsonl
 
-    record = build_record("serve", device=args.device, extra={
+    write_run_jsonl(registry, args.metrics_out, "serve", {
         "launches": server.engine.launches,
         "launch_log": [dict(row, signature=list(map(str, row["signature"])))
                        for row in server.engine.launch_log],
-        **extra})
-    registry.write_jsonl(args.metrics_out,
-                         extra_records=[{"event": "run_record", **record}])
+        **extra}, device=args.device)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    configure_logging(args.log_level)
     from heat2d_tpu_torch.obs import MetricsRegistry
     registry = MetricsRegistry()
     try:

@@ -16,7 +16,10 @@ Request lifecycle (``SolveServer.submit``):
    can time out.
 5. **Launch**: the scheduler thread runs the bucket as one ensemble
    launch on the engine's device; results fill the cache and resolve the
-   futures.
+   futures. A bucket of ``InverseRequest`` s (``request_kind ==
+   "inverse"``, ``heat2d_tpu_torch/diff``) runs its optimization loops on
+   a dedicated single-worker lane instead, so that it never holds solve
+   launches up on the scheduler thread.
 
 ``submit`` returns a ``concurrent.futures.Future[SolveResult]`` and never
 raises: rejections arrive as the future's exception. ``Client`` is the
@@ -26,17 +29,19 @@ A launch runs under the retry policy (transients back off and retry) and
 a deadline ``Watchdog`` (a wedged launch fails its waiters with
 ``Rejected("watchdog_timeout")``). Repeated launch failures trip
 ``DegradedMode``: fresh work is shed with ``Rejected("degraded")`` while
-cache hits are still served.
+cache hits are still served. An inverse loop also checks the deadline
+and a non-drain stop once per iteration, and aborts.
 
-The JAX server's inverse-request lane (slice 5 of ROADMAP.md), its mesh
-admission (slice 6) and its tracing spans (slice 7) are not ported yet.
+The JAX server's mesh admission (slice 6 of ROADMAP.md) and its tracing
+spans (slice 7) are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
-from concurrent.futures import Future
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Optional
 
 from heat2d_tpu_torch.resil.retry import (DegradedMode, RetryPolicy,
@@ -57,7 +62,8 @@ class SolveServer:
                  default_timeout: Optional[float] = 30.0,
                  registry=None, retry_policy: Optional[RetryPolicy] = None,
                  launch_deadline: Optional[float] = None,
-                 breaker: Optional[DegradedMode] = None, device=None):
+                 breaker: Optional[DegradedMode] = None,
+                 deadline_clock=None, device=None):
         if registry is None:
             from heat2d_tpu_torch.obs import get_registry
             registry = get_registry()
@@ -69,10 +75,18 @@ class SolveServer:
                              else retry_policy)
         #: launch wall-clock deadline; None = no watchdog
         self.launch_deadline = launch_deadline
+        #: the clock the deadline is read on (None: the wall clock); a
+        #: test passes one it controls
+        self.deadline_clock = deadline_clock
         self.breaker = (DegradedMode(registry=registry) if breaker is None
                         else breaker)
         self.cache = ResultCache(cache_size, registry=registry)
         self.flight = SingleFlight(registry=registry)
+        #: the inverse engine and its lane, built on first use; the stop
+        #: event interrupts a running loop on a non-drain stop
+        self._inv_engine = None
+        self._inv_pool = None
+        self._inv_stop = threading.Event()
         self.batcher = MicroBatcher(self._dispatch, max_batch=max_batch,
                                     max_delay=max_delay,
                                     max_queue=max_queue, registry=registry)
@@ -80,15 +94,23 @@ class SolveServer:
     # -- lifecycle ----------------------------------------------------- #
 
     def start(self) -> "SolveServer":
+        self._inv_stop.clear()
         self.batcher.start()
         return self
 
     def stop(self, drain: bool = False) -> None:
         """Stop serving. ``drain=True``: admission closes, queued buckets
         flush, and every admitted request is resolved before this
-        returns. Default: whatever is still queued is rejected with
-        ``Rejected("shutdown")``."""
+        returns (an inverse loop runs to its end). Default: whatever is
+        still queued is rejected with ``Rejected("shutdown")``, and a
+        running inverse loop stops at its next iteration."""
+        if not drain:
+            self._inv_stop.set()
         self.batcher.stop(drain=drain)
+        pool, self._inv_pool = self._inv_pool, None
+        if pool is not None:
+            # every bucket handed to the lane is resolved when it joins
+            pool.shutdown(wait=True)
 
     def __enter__(self) -> "SolveServer":
         return self.start()
@@ -100,8 +122,11 @@ class SolveServer:
 
     def submit(self, req: SolveRequest,
                timeout: Optional[float] = None) -> Future:
-        """Admit one request; the future resolves to a ``SolveResult`` or
-        fails with a structured ``Rejected``."""
+        """Admit one request of the serving protocol (``validate``,
+        ``content_hash``, ``signature``): a ``SolveRequest``, or an
+        ``InverseRequest``; the future resolves to its result
+        (``SolveResult`` or ``InverseResult``) or fails with a structured
+        ``Rejected``."""
         t0 = time.monotonic()
         timeout = self.default_timeout if timeout is None else timeout
         try:
@@ -161,13 +186,39 @@ class SolveServer:
 
     # -- dispatch (scheduler thread) ----------------------------------- #
 
+    def _inverse_engine(self):
+        """The inverse engine, built on first inverse bucket: it aborts a
+        loop that outlives ``launch_deadline`` or a non-drain stop."""
+        if self._inv_engine is None:
+            from heat2d_tpu_torch.diff.serving import InverseEngine
+            self._inv_engine = InverseEngine(
+                registry=self.registry, deadline=self.launch_deadline,
+                stop_event=self._inv_stop, clock=self.deadline_clock,
+                device=self.engine.device)
+        return self._inv_engine
+
     def _dispatch(self, sig, batch) -> None:
+        """Scheduler thread: a solve bucket runs here, an inverse bucket
+        on the inverse lane (one worker), where ``_dispatch_batch`` still
+        resolves or fails every member."""
+        kind = getattr(batch[0].req, "request_kind", "solve")
+        if kind == "inverse":
+            if self._inv_pool is None:
+                self._inv_pool = ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="heat2d-inverse")
+            self._inv_pool.submit(self._dispatch_batch, sig, batch, kind)
+            return
+        self._dispatch_batch(sig, batch, kind)
+
+    def _dispatch_batch(self, sig, batch, kind: str) -> None:
         """Bucket -> one launch (retried, watchdogged) -> per-request
         results. A launch that outlives ``launch_deadline`` has its
         waiters failed with ``Rejected("watchdog_timeout")`` by the
         watchdog thread; if it returns later, its results still warm the
         cache. Terminal failures fail every member and feed the
-        breaker."""
+        breaker. An inverse bucket runs through the ``InverseEngine``
+        under the same plumbing, and its ``InverseResult`` s cache and
+        resolve as solve results do."""
         reqs = [p.req for p in batch]
         sig_str = str(sig)
 
@@ -187,11 +238,14 @@ class SolveServer:
             self.registry.counter("serve_retries_total")
             self.registry.counter("serve_launch_failures_total")
 
-        watchdog = Watchdog(self.launch_deadline, on_timeout)
+        engine = (self._inverse_engine() if kind == "inverse"
+                  else self.engine)
+        watchdog = Watchdog(self.launch_deadline, on_timeout,
+                            clock=self.deadline_clock)
         try:
             with watchdog:
                 results = call_with_retries(
-                    lambda: self.engine.solve_batch(reqs),
+                    lambda: engine.solve_batch(reqs),
                     self.retry_policy, on_retry=on_retry)
         except BaseException as e:  # noqa: BLE001 — routed, not dropped
             self.registry.counter("serve_launch_failures_total")
@@ -207,9 +261,14 @@ class SolveServer:
             # a launch that outlived its deadline is a failure even if it
             # returned: a too-slow backend must not reset the breaker
             self.breaker.record_success()
-        for p, (u, steps_done) in zip(batch, results):
-            res = SolveResult(u=u, steps_done=steps_done,
-                              content_hash=p.key, batch_size=len(batch))
+        for p, r in zip(batch, results):
+            if kind == "inverse":
+                res = dataclasses.replace(r, content_hash=p.key,
+                                          batch_size=len(batch))
+            else:
+                u, steps_done = r
+                res = SolveResult(u=u, steps_done=steps_done,
+                                  content_hash=p.key, batch_size=len(batch))
             self.cache.put(p.key, res)
             self.flight.resolve(p.key, res)
             self._count("completed_late" if watchdog.fired

@@ -1,8 +1,8 @@
 """The vocabularies the port's config validation needs.
 
 A copy of the atoms of ``heat2d_tpu/vocab.py`` (``TIME_METHODS``,
-``EXPLICIT_ROUTES``, ``SERVE_METHODS``, ``PROBLEMS``, ``DEFAULT_PROBLEM``
-and the family constants ``ADVECTION_VELOCITY``, ``REACTION_RATE``):
+``EXPLICIT_ROUTES``, ``SERVE_METHODS``, ``DIFF_METHODS``, ``PROBLEMS``,
+``DEFAULT_PROBLEM`` and the family constants ``ADVECTION_VELOCITY``, ``REACTION_RATE``):
 the port imports nothing of the JAX package, and
 ``tests/test_torch_config.py`` holds the two copies equal.
 """
@@ -24,6 +24,13 @@ EXPLICIT_ROUTES = ("jnp", "pallas", "band")
 #: shape, the explicit routes are kernel choices, the implicit methods
 #: are different math.
 SERVE_METHODS = ("auto",) + EXPLICIT_ROUTES + IMPLICIT_METHODS
+
+#: Routes the differentiable solves cover (``diff/adjoint.py``), derived by
+#: exclusion from the serve vocabulary: the resident kernel has no pullback
+#: and mg's V-cycle recursion is not differentiated.
+_NON_DIFFERENTIABLE = ("pallas", "mg")
+DIFF_METHODS = tuple(m for m in SERVE_METHODS
+                     if m not in _NON_DIFFERENTIABLE)
 
 #: Problem families (the spatial-operator axis); "heat5" is the
 #: reference's 5-point operator.

@@ -709,3 +709,86 @@ def test_sharded_solver_across_cards(card, parity):
                         devices=devs).run(timed=False)
     assert (dist.u == Heat2DSolver(cfg.replace(
         mode="serial", bitwise_parity=False)).run(timed=False).u).all()
+
+
+# --------------------------------------------------------------------- #
+# differentiable solves (heat2d_tpu_torch/diff)
+# --------------------------------------------------------------------- #
+
+def _diff_grads(f, u0, w):
+    ins = [u0.clone().requires_grad_(),
+           torch.tensor(0.1, device=u0.device, requires_grad=True),
+           torch.tensor(0.12, device=u0.device, requires_grad=True)]
+    out = f(*ins)
+    return out.detach(), torch.autograd.grad(torch.sum(w * out), ins)
+
+
+def test_diff_auto_takes_band_and_launches_h6(card):
+    """auto resolves to band at bench.py's 4096^2 x 240 and past the
+    resident gate; a band gradient launches one H6 sweep per started T
+    steps of each segment, its primal within the FMA bound of the plain
+    per-step route's, du0 bit for bit the jnp route's (the step is linear
+    in u) and (da, db) within rtol 1e-3; float64 is refused."""
+    from heat2d_tpu_torch.diff import make_diff_solve
+    from heat2d_tpu_torch.ops.init import inidat
+    assert make_diff_solve(4096, 4096, 240).spec.method == "band"
+    n, steps = 2048, 20
+    f = make_diff_solve(n, n, steps, segment=6)
+    assert f.spec.method == "band" and f.spec.schedule == (6, 6, 6, 2)
+    u0 = inidat(n, n, device=card)
+    u0 = u0 / u0.max()
+    ce.reset_launch_counts()
+    out, g = _diff_grads(f, u0, u0)
+    assert ce.launch_counts()["ens_tile_multi"] == 4
+    ref, g_ref = _diff_grads(make_diff_solve(n, n, steps, method="jnp",
+                                             segment=6), u0, u0)
+    _close(out, ref, steps, cs.FORM_FMA)
+    assert torch.equal(g[0], g_ref[0])
+    for x, y in zip(g[1:], g_ref[1:]):
+        assert float(x) == pytest.approx(float(y), rel=1e-3)
+    with pytest.raises(ValueError, match="float32"):
+        f(u0.double(), 0.1, 0.1)
+
+
+def test_diff_checkpoint_equals_full_on_the_card(card):
+    from heat2d_tpu_torch.diff import make_diff_solve
+    from heat2d_tpu_torch.ops.init import inidat
+    n, steps = 256, 13
+    u0 = inidat(n, n, device=card)
+    u0 = u0 / u0.max()
+    w = torch.rand((n, n), generator=torch.Generator(device=card)
+                   .manual_seed(3), device=card)
+    res = [_diff_grads(make_diff_solve(n, n, steps, adjoint=a, segment=5,
+                                       method="jnp"), u0, w)
+           for a in ("checkpoint", "full")]
+    assert torch.equal(res[0][0], res[1][0])
+    assert all(torch.equal(x, y) for x, y in zip(res[0][1], res[1][1]))
+
+
+def test_diff_leaves_the_forward_paths_unchanged(card):
+    """The solver's and the batch runner's results and launch counts are
+    the same before and after a band gradient ran."""
+    from heat2d_tpu_torch.diff import make_diff_solve
+
+    def forward():
+        cs.reset_launch_counts()
+        ce.reset_launch_counts()
+        u = Heat2DSolver(HeatConfig(nxprob=640, nyprob=1024, steps=24,
+                                    mode="pallas")).run(timed=False).u
+        run = ensemble.batch_runner(4099, 4097, 16, "band")
+        b = torch.ones((2, 4099, 4097), device=card)
+        ens = run(b, torch.tensor([0.1, 0.2], device=card),
+                  torch.tensor([0.1, 0.05], device=card))
+        return (u.tobytes(), ens.cpu().numpy().tobytes(),
+                cs.launch_counts(), ce.launch_counts())
+
+    before = forward()
+    f = make_diff_solve(2048, 2048, 8)
+    u = torch.ones((2048, 2048), device=card, requires_grad=True)
+    torch.sum(f(u, 0.1, 0.1)).backward()
+    assert forward() == before
+
+
+def test_inverse_selftest_on_the_card(card):
+    from heat2d_tpu_torch.diff.cli import main
+    assert main(["--selftest"]) == 0

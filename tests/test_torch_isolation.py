@@ -1,8 +1,9 @@
 """The port stands alone: no module of heat2d_tpu_torch (and not
-chip_smoke.py) imports jax or heat2d_tpu; its entry points (solver,
-ensembles, serving, both CLIs) refuse to run without a card unless asked
-for the CPU; its tile plans fit the H100's shared memory; chip_smoke.py
-refuses to run without a card or without the package beside it."""
+chip_smoke.py or bench_torch.py) imports jax or heat2d_tpu; its entry
+points (solver, ensembles, serving, differentiable solves, the CLIs)
+refuse to run without a card unless asked for the CPU; its tile plans
+fit the H100's shared memory; chip_smoke.py refuses to run without a card
+or without the package beside it."""
 
 import ast
 import os
@@ -40,6 +41,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "bench_torch.py")
 
 
 def _imported(path):
@@ -93,6 +95,46 @@ def test_importing_the_sharded_modes_loads_no_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)
     assert out.stdout.split() == ["False", "False"]
+
+
+def test_importing_diff_and_the_bench_loads_no_jax():
+    code = ("import sys; import heat2d_tpu_torch.diff, "
+            "heat2d_tpu_torch.diff.cli, heat2d_tpu_torch.resil.snapshot, "
+            "heat2d_tpu_torch.io.binary, bench_torch; "
+            "print('jax' in sys.modules, 'heat2d_tpu' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "False"]
+
+
+def test_serving_imports_diff_only_for_inverse_traffic():
+    code = ("import sys; import heat2d_tpu_torch.serve.server, "
+            "heat2d_tpu_torch.serve.cli; "
+            "print('heat2d_tpu_torch.diff' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False"]
+
+
+def test_diff_entry_points_raise_without_a_card(no_card):
+    from heat2d_tpu_torch.diff import InverseProblem, make_diff_solve
+    from heat2d_tpu_torch.diff.inverse import loss_grad_runner
+    mask = np.ones((8, 8), bool)
+    calls = [
+        lambda: make_diff_solve(8, 8, 4),
+        lambda: InverseProblem(nx=8, ny=8, steps=4, target="init",
+                               obs_mask=mask,
+                               obs_values=np.zeros((8, 8))).solve(),
+        lambda: loss_grad_runner(8, 8, 4, "init", "checkpoint", None,
+                                 "auto", False),
+    ]
+    for call in calls:
+        with pytest.raises(DeviceUnavailableError, match="CUDA"):
+            call()
+    # ... and run when asked for the CPU.
+    f = make_diff_solve(8, 8, 4, device="cpu")
+    assert f.spec.method == "jnp"
+    assert tuple(f(np.zeros((8, 8), np.float32), 0.1, 0.1).shape) == (8, 8)
 
 
 def test_sharded_entry_points_raise_without_a_card(no_card, capsys):
