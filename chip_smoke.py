@@ -73,7 +73,26 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    residuals) at serial's ``steps_done``; then the reference's largest
    grid, 2560x2048, in hybrid with its convergence defaults against
    serial; launch counters, zeroed just before, show H12-H14 ran;
-11. diff path (``heat2d_tpu_torch/diff``): the gradient at 4096^2 x 240
+11. sharded ensembles on 4 slots of the card (``host_devices(4)``): 8 x
+   640x1024 x 10000 (H5 per slot), 4 x 4096^2 x 240 (H6 per slot) and a
+   convergence run at 640x1024, interval 20, method band (H7 per slot),
+   each bitwise the one-slot run (steps_done equal);
+12. spatial ensembles: 2 x 4096^2 x 240 on a 2x2 submesh, collective and
+   fused, each member bitwise the port's dist2d run of its (cx, cy);
+13. mesh serving: ``SolveServer(engine=MeshEnsembleEngine(host_devices(4),
+   fault=FaultPolicy(abft=True)), admission=MeshAdmission(...))`` answers
+   8 requests of 640x1024 x 10000 (batch route, H5, ABFT verified), 2 of
+   4096^2 x 240 (spatial by the default threshold) and 4 heat9 requests
+   (H8), bitwise the one-card engine; the halo plan reads compiled; a
+   resubmission is a cache hit; the launch rows' setup, run and readback
+   seconds;
+14. the mesh fault tier: ``mesh.chaos_gate.run_gate`` on 4 slots (device
+   loss, a bit flip the ABFT tier detects, a hung launch), each
+   recovered bitwise;
+15. strong scaling: ``measure_strong_scaling(4, 4096, 4096, 240,
+   mode="hybrid")`` collective (H12) and fused (H14), each record printed
+   with the number of cards its slots span;
+16. diff path (``heat2d_tpu_torch/diff``): the gradient at 4096^2 x 240
    steps, method auto (band: H6 forward), checkpointed, against the jnp
    route (primal within ``fma_tol``, du0 bit for bit, da and db against
    the float64 gradient), checkpoint against full bit for bit on the jnp
@@ -81,7 +100,7 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    requests through a ``SolveServer`` (16^2 diffusivity, 2048^2 init
    through H6) and their cache-hit repeats; FD parity in float64 at
    64^2; H6's launches, zeroed just before, equal the band sweeps;
-12. the ``kernels`` line: the shape timed, time, bound, plain and library
+17. the ``kernels`` line: the shape timed, time, bound, plain and library
    times of each kernel H1-H14 and the coefficient pass at its path's
    shapes (H2 per 8 steps with its plan sweep over depths and its tiles
    by path; H6/H7 timed in turns, with their plan and tiles by path; H14
@@ -92,8 +111,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    the call with its coefficient pass; H10's two builds, coefficients in
    shared memory or through the read-only cache; ``td_coeffs`` bound by
    the latency of its chain of rows, ``td_chain_bound``);
-13. headline: Mcells/s at 4096^2 by the two-point protocol of bench.py
-   (``models.solver.two_point_headline``, as ``bench_torch.py`` times it).
+18. headline: Mcells/s at 4096^2 by bench.py's two-point protocol
+   (``models.solver.two_point_headline`` at 4800/24000 steps with the
+   noise rules of ``tune.measure``, as ``bench_torch.py`` times it), and
+   the protocol of earlier runs (480/4800) in the same call beside it.
 
 The last line of standard output is ``{"ok": true, "device": ...}``. The
 full results also go to ``chiprun_out/chip_smoke.json``.
@@ -158,8 +179,10 @@ REPLACES = {
 FAMILY_FLOPS = {"heat9": 22, "advdiff": 14, "reactdiff": 12}
 #: FLOPs per unknown of a tridiagonal solve: 3 forward, 2 back.
 TD_FLOPS = 5
-#: The headline's two step counts (bench_torch.py takes the same).
-HEADLINE_STEPS = (480, 4800)
+#: The headline's two step counts: bench.py's (bench_torch.py takes the
+#: same), and those of the protocol used up to PR 10, timed beside them.
+HEADLINE_STEPS = (4800, 24000)
+OLD_HEADLINE_STEPS = (480, 4800)
 
 
 class SmokeFailure(RuntimeError):
@@ -2038,19 +2061,44 @@ def phase_diff_path(torch, name: str, power: str) -> dict:
     return info
 
 
+def old_two_point(torch, lo: int, hi: int) -> dict:
+    """The headline protocol this script used up to PR 10, timed for
+    comparison: min of 3 runs at ``lo`` and of 2 at ``hi`` (each count's
+    first run after a warmup), any positive marginal believed."""
+    from heat2d_tpu_torch.config import HeatConfig
+    from heat2d_tpu_torch.models.solver import Heat2DSolver
+    best = {}
+    for n, reps in ((lo, 3), (hi, 2)):
+        solver = Heat2DSolver(HeatConfig(nxprob=4096, nyprob=4096, steps=n,
+                                         mode="pallas"))
+        best[n] = min(solver.run(warmup=i == 0).elapsed
+                      for i in range(reps))
+    step_s = (best[hi] - best[lo]) / (hi - lo)
+    return {"steps": [lo, hi], "t_lo_s": best[lo], "t_hi_s": best[hi],
+            "step_ms": step_s * 1e3,
+            "value": 4096 * 4096 / step_s / 1e6 if step_s > 0 else None}
+
+
 def phase_headline(torch, name: str, power: str) -> dict:
-    """Mcells/s at 4096^2, pallas mode, by the two-point protocol of
-    bench.py (``models.solver.two_point_headline``, which bench_torch.py
-    also calls): min of 3 runs at 480 steps and of 2 at 4800."""
+    """Mcells/s at 4096^2, pallas mode, by bench.py's two-point protocol
+    (``models.solver.two_point_headline``, which bench_torch.py also
+    calls): 4800 and 24000 steps, the marginal believed only past
+    ``tune.measure.two_point_estimate``'s noise rules. The protocol of
+    earlier runs (480/4800, any positive marginal) is timed in the same
+    call beside it."""
     from heat2d_tpu_torch.models.solver import two_point_headline
+    old = old_two_point(torch, *OLD_HEADLINE_STEPS)
     lo, hi = HEADLINE_STEPS
     tp = two_point_headline(4096, 4096, lo, hi, device="cuda")
     step_s = tp["step_s"]
-    fail_unless(step_s > 0, f"two-point step time {step_s} <= 0")
+    fail_unless(step_s is not None and step_s > 0,
+                f"two-point step time {step_s}: the window did not clear "
+                f"the noise rules ({tp['times']})")
     info = {"phase": "headline",
             "metric": f"Mcells/s 4096x4096 (pallas, two-point {lo}/{hi})",
             "value": 4096 * 4096 / step_s / 1e6, "step_ms": step_s * 1e3,
-            "t_lo_s": tp["t_lo_s"], "t_hi_s": tp["t_hi_s"], "device": name,
+            "t_lo_s": tp["t_lo_s"], "t_hi_s": tp["t_hi_s"],
+            "times": tp["times"], "old_protocol": old, "device": name,
             "power_limit": power}
     emit(info)
     return info
@@ -2324,6 +2372,293 @@ def phase_sharded_path(torch) -> dict:
     return {**info, "runs": rows}
 
 
+# ------------------------------------------------------------------ #
+# slice 6: members over slots, mesh serving, the fault tier, scaling
+# ------------------------------------------------------------------ #
+
+def _counters():
+    from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    from heat2d_tpu_torch.ops import cuda_family as cf
+    from heat2d_tpu_torch.ops import cuda_shard as csh
+    return ce, cf, csh
+
+
+def reset_counts() -> None:
+    for mod in _counters():
+        mod.reset_launch_counts()
+
+
+def read_counts() -> dict:
+    out = {}
+    for mod in _counters():
+        out.update(mod.launch_counts())
+    return out
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+
+
+def phase_sharded_ensembles(torch) -> dict:
+    """(a) Members over 4 slots of the card (``host_devices(4)``), each
+    slot running the one-slot route on its members: 8 x 640x1024 x 10000
+    (H5), 4 x 4096^2 x 240 (H6), and 4 x 640x1024 convergence, interval
+    20, method band (H7) with a sensitivity between the members' chunk-1
+    residuals; each bit for bit the one-slot run (steps_done equal)."""
+    from heat2d_tpu_torch.models import ensemble
+    from heat2d_tpu_torch.parallel.mesh import host_devices
+    devs = host_devices(4)
+    conv_c = [0.01, 0.05, 0.1, 0.2]
+    sens, _ = pick_sensitivity(torch, 640, 1024, conv_c, conv_c, 20)
+    legs = [
+        ("h5", dict(nx=640, ny=1024, steps=10000,
+                    cxs=[0.02 + 0.02 * i for i in range(8)],
+                    cys=[0.2 - 0.02 * i for i in range(8)],
+                    method="auto")),
+        ("h6", dict(nx=4096, ny=4096, steps=240,
+                    cxs=[0.05 * (i + 1) for i in range(4)],
+                    cys=[0.2 - 0.04 * i for i in range(4)],
+                    method="auto")),
+        ("h7", dict(nx=640, ny=1024, steps=200, cxs=conv_c, cys=conv_c,
+                    method="band", interval=20, sensitivity=sens)),
+    ]
+    total, rows = {}, []
+    for name, kw in legs:
+        args = (kw["nx"], kw["ny"], kw["steps"])
+        conv = "interval" in kw
+        reset_counts()
+        t0 = time.perf_counter()
+        if conv:
+            got, k = ensemble.run_ensemble_convergence_sharded(
+                *args, kw["interval"], kw["sensitivity"], kw["cxs"],
+                kw["cys"], method=kw["method"], devices=devs)
+        else:
+            got = ensemble.run_ensemble_sharded(
+                *args, kw["cxs"], kw["cys"], method=kw["method"],
+                devices=devs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+        add_counts(total, counts)
+        if conv:
+            want, kw_ = ensemble.run_ensemble_convergence(
+                *args, kw["interval"], kw["sensitivity"], kw["cxs"],
+                kw["cys"], method=kw["method"])
+            fail_unless(k.tolist() == kw_.tolist(),
+                        f"sharded {name}: steps_done {k.tolist()} vs "
+                        f"{kw_.tolist()}")
+            fail_unless(len(set(k.tolist())) >= 2,
+                        f"sharded {name}: members exited together")
+        else:
+            want = ensemble.run_ensemble(*args, kw["cxs"], kw["cys"],
+                                         method=kw["method"])
+        fail_unless(bool(torch.isfinite(got).all()),
+                    f"sharded {name}: non-finite values")
+        fail_unless(torch.equal(got, want),
+                    f"sharded {name}: not bitwise the one-slot run "
+                    f"(max_abs_err {max_err(got, want)})")
+        rows.append({"leg": name, "shape": [kw["nx"], kw["ny"]],
+                     "members": len(kw["cxs"]), "steps": kw["steps"],
+                     "method": kw["method"], "seconds": seconds,
+                     "launches": counts,
+                     "steps_done": k.tolist() if conv else None})
+    for name in ("ens_resident", "ens_tile_multi", "ens_tile_multi_conv"):
+        fail_unless(total.get(name, 0) > 0,
+                    f"kernel {name} never launched by the sharded "
+                    f"ensembles")
+    info = {"phase": "sharded_ensembles", "slots": len(devs),
+            "cards": len(set(devs)), "launches": total, "legs": rows,
+            "sensitivity": sens}
+    emit(info)
+    return info
+
+
+def phase_spatial_ensembles(torch) -> dict:
+    """(b) 2 members of 4096^2 x 240 on a 2x2 submesh of 4 slots of the
+    card, collective and fused; each member bit for bit the port's
+    dist2d run of the same (cx, cy)."""
+    from heat2d_tpu_torch.config import HeatConfig
+    from heat2d_tpu_torch.models import ensemble
+    from heat2d_tpu_torch.models.solver import Heat2DSolver
+    from heat2d_tpu_torch.parallel.mesh import host_devices
+    devs = host_devices(4)
+    cxs, cys = [0.1, 0.2], [0.15, 0.05]
+    refs = [Heat2DSolver(HeatConfig(nxprob=4096, nyprob=4096, steps=240,
+                                    mode="dist2d", gridx=2, gridy=2, cx=cx,
+                                    cy=cy), devices=devs).run(timed=False).u
+            for cx, cy in zip(cxs, cys)]
+    rows = []
+    for halo in ("collective", "fused"):
+        t0 = time.perf_counter()
+        batch, ks = ensemble.run_ensemble_spatial(
+            4096, 4096, 240, cxs, cys, gridx=2, gridy=2, halo=halo,
+            devices=devs)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        fail_unless(ks.tolist() == [240, 240],
+                    f"spatial {halo}: steps_done {ks.tolist()}")
+        for m, ref in enumerate(refs):
+            got = batch[m].cpu().numpy()
+            fail_unless(bool((got == ref).all()),
+                        f"spatial {halo} member {m}: not bitwise the "
+                        f"dist2d run")
+        rows.append({"halo": halo, "seconds": seconds})
+    info = {"phase": "spatial_ensembles", "slots": len(devs),
+            "cards": len(set(devs)), "members": len(cxs),
+            "shape": [4096, 4096], "steps": 240, "runs": rows}
+    emit(info)
+    return info
+
+
+def phase_mesh_serving(torch) -> dict:
+    """(c) A ``SolveServer`` over ``MeshEnsembleEngine(host_devices(4),
+    fault=FaultPolicy(abft=True))`` with ``MeshAdmission``: 8 requests of
+    640x1024 x 10000 (batch route, H5 per slot, ABFT verified), 2 of
+    4096^2 x 240 method jnp (spatial by the default threshold, the card's
+    on-chip total), 4 heat9 requests of 640x1024 x 2000 (batch route,
+    H8); each answer bit for bit the one-card engine's; the halo plan
+    stamped compiled; a resubmission is a cache hit."""
+    from heat2d_tpu_torch.mesh import (FaultPolicy, MeshAdmission,
+                                       MeshEnsembleEngine)
+    from heat2d_tpu_torch.obs.metrics import MetricsRegistry
+    from heat2d_tpu_torch.parallel.mesh import host_devices
+    from heat2d_tpu_torch.serve.engine import EnsembleEngine
+    from heat2d_tpu_torch.serve.schema import SolveRequest
+    from heat2d_tpu_torch.serve.server import SolveServer
+    devs = host_devices(4)
+    legs = {
+        "batch": [SolveRequest(nx=640, ny=1024, steps=10000,
+                               cx=0.03 + 0.02 * i, cy=0.19 - 0.02 * i)
+                  for i in range(8)],
+        "spatial": [SolveRequest(nx=4096, ny=4096, steps=240,
+                                 cx=0.05 * (i + 1), cy=0.1, method="jnp")
+                    for i in range(2)],
+        "heat9": [SolveRequest(nx=640, ny=1024, steps=2000,
+                               cx=0.01 + 0.01 * i, cy=0.1,
+                               problem="heat9") for i in range(4)],
+    }
+    registry = MetricsRegistry()
+    engine = MeshEnsembleEngine(registry=registry, devices=devs,
+                                fault=FaultPolicy(abft=True))
+    admission = MeshAdmission(registry=registry, devices=devs,
+                              per_chip_mcells_per_s=1e9)
+    server = SolveServer(registry=registry, engine=engine,
+                         admission=admission, max_delay=0.5,
+                         default_timeout=600.0)
+    answers, seconds = {}, {}
+    reset_counts()
+    with server:
+        for name, reqs in legs.items():
+            t0 = time.perf_counter()
+            answers[name] = [f.result(timeout=900)
+                             for f in [server.submit(r) for r in reqs]]
+            seconds[name] = time.perf_counter() - t0
+        hit = server.submit(legs["batch"][0]).result(timeout=60)
+    counts = read_counts()
+    fail_unless(hit.cache_hit and hit.u.tobytes()
+                == answers["batch"][0].u.tobytes(),
+                "mesh serving: the resubmission was not a bitwise cache "
+                "hit")
+    routes = {}
+    single = EnsembleEngine(max_batch=8)
+    for name, reqs in legs.items():
+        want = single.solve_batch(reqs)
+        got = answers[name]
+        fail_unless([a.steps_done for a in got] == [k for _, k in want],
+                    f"mesh serving {name}: steps_done differ")
+        for a, (w, _) in zip(got, want):
+            fail_unless(bool(torch.isfinite(torch.from_numpy(a.u)).all()),
+                        f"mesh serving {name}: non-finite values")
+            fail_unless(a.u.tobytes() == w.tobytes(),
+                        f"mesh serving {name}: not bitwise the one-card "
+                        f"engine")
+        routes[name] = engine.scheduler.decide(reqs[0])["route"]
+    fail_unless(routes == {"batch": "batch", "spatial": "spatial",
+                           "heat9": "batch"}, f"mesh routes {routes}")
+    plan = engine.halo_plans[legs["spatial"][0].signature()]
+    fail_unless(plan.get("compiled") is True and plan["mesh"] == (2, 2),
+                f"the spatial halo plan was not stamped compiled: {plan}")
+    for name in ("ens_resident", "fam_resident"):
+        fail_unless(counts.get(name, 0) > 0,
+                    f"kernel {name} never launched by mesh serving")
+    c = registry.snapshot()["counters"]
+    fail_unless(c.get("mesh_abft_checked_total", 0) >= 8
+                and not c.get("mesh_abft_mismatch_total"),
+                f"ABFT on the batch route: {c}")
+    fail_unless(not c.get("mesh_admission_shed_total"),
+                "the admission model shed a request")
+    rows = [{"signature": str(r["signature"]), "route": r["mesh"]["route"],
+             "occupancy": r["occupancy"], "capacity": r["capacity"],
+             "setup_s": r.get("setup_s"), "run_s": r.get("run_s"),
+             "readback_s": r.get("readback_s")}
+            for r in engine.launch_log]
+    info = {"phase": "mesh_serving", "slots": len(devs),
+            "cards": len(set(devs)), "launches": counts, "routes": routes,
+            "spatial_bytes_threshold":
+                engine.scheduler.spatial_bytes_threshold,
+            "halo_plan": {k: list(v) if isinstance(v, tuple) else v
+                          for k, v in plan.items()},
+            "leg_seconds": seconds, "launch_rows": rows,
+            "abft_checked": c.get("mesh_abft_checked_total")}
+    emit(info)
+    return info
+
+
+def phase_mesh_fault(torch) -> dict:
+    """(d) ``chaos_gate.run_gate`` on 4 slots of the card: device loss,
+    silent bit flip (detected by ABFT and recomputed), hung launch; each
+    recovered bit for bit with the serving invariant holding."""
+    from heat2d_tpu_torch.mesh import chaos_gate
+    from heat2d_tpu_torch.parallel.mesh import host_devices
+    t0 = time.perf_counter()
+    payload = chaos_gate.run_gate(host_devices(4))
+    seconds = time.perf_counter() - t0
+    rows = {s["scenario"]: s for s in payload["scenarios"]}
+    fail_unless(payload["passed"], f"mesh chaos gate failed: {rows}")
+    flips = rows["bit_flip"]["counters"].get("mesh_abft_mismatch_total", 0)
+    fail_unless(flips >= 1, "the ABFT tier did not detect the flip")
+    info = {"phase": "mesh_fault", "seconds": seconds,
+            "scenarios": {n: {k: s[k] for k in (
+                "bitwise", "recovery_s", "e2e_recovered_s", "requeues",
+                "quarantined")} for n, s in rows.items()},
+            "abft_mismatches": flips}
+    emit(info)
+    return info
+
+
+def phase_strong_scaling(torch) -> dict:
+    """(e) ``measure_strong_scaling(4, 4096, 4096, 240, mode="hybrid")``
+    on 4 slots of the card, collective (H12) and fused (H14): the
+    records, and how many cards the slots span (one card: the ratio is
+    what the decomposition costs there, not scaling)."""
+    from heat2d_tpu_torch.parallel.mesh import host_devices
+    from heat2d_tpu_torch.parallel.scaling import measure_strong_scaling
+    devs = host_devices(4)
+    total, records = {}, []
+    for halo in ("collective", "fused"):
+        reset_counts()
+        rec = measure_strong_scaling(4, 4096, 4096, 240, halo=halo,
+                                     mode="hybrid", devices=devs)
+        counts = read_counts()
+        add_counts(total, counts)
+        want = "ici" if halo == "fused" else "collective"
+        fail_unless(rec["halo_tier"] == want,
+                    f"scaling {halo}: tier {rec['halo_tier']}")
+        name = "shard_fused" if halo == "fused" else "shard_tile_multi"
+        fail_unless(counts[name] > 0, f"scaling {halo}: {name} never "
+                    f"launched")
+        fail_unless(math.isfinite(rec["strong_scaling_efficiency"]),
+                    f"scaling {halo}: {rec}")
+        records.append(rec)
+        emit({"phase": "strong_scaling_record", "cards": len(set(devs)),
+              **rec})
+    info = {"phase": "strong_scaling", "slots": len(devs),
+            "cards": len(set(devs)), "launches": total,
+            "records": records}
+    return info
+
+
 def shard_chunk_ms(torch, devs) -> dict:
     """One T = 8 chunk of the 2x2 mesh of 4096^2 on the card, by CUDA
     events: the collective route (the exchange, then four H12 launches)
@@ -2447,12 +2782,19 @@ def main() -> int:
         tts = phase_time_to_solution(torch)
         shard_kern = phase_shard_kernels(torch)
         sharded_path = phase_sharded_path(torch)
+        sharded_ens = phase_sharded_ensembles(torch)
+        spatial_ens = phase_spatial_ensembles(torch)
+        mesh_serve = phase_mesh_serving(torch)
+        mesh_fault = phase_mesh_fault(torch)
+        scaling = phase_strong_scaling(torch)
         diff_path = phase_diff_path(torch, tool["name"],
                                     tool["power_limit"])
         launches = {**main_path["launches"], **serve["launch_counts"],
                     **serve_fam["launch_counts"],
                     **sharded_path["launches"]}
         launches["ens_tile_multi"] += diff_path["launches"]["ens_tile_multi"]
+        for leg in (sharded_ens, mesh_serve, scaling):
+            add_counts(launches, leg["launches"])
         for name in ("td_coeffs", "td_rows", "td_lanes"):
             launches[name] += implicit["launches"][name]
         rows = phase_kernel_times(
@@ -2476,7 +2818,11 @@ def main() -> int:
                    "implicit_path": implicit, "serve_families": serve_fam,
                    "time_to_solution": tts,
                    "shard_kernels_check": shard_kern,
-                   "sharded_path": sharded_path, "diff_path": diff_path,
+                   "sharded_path": sharded_path,
+                   "sharded_ensembles": sharded_ens,
+                   "spatial_ensembles": spatial_ens,
+                   "mesh_serving": mesh_serve, "mesh_fault": mesh_fault,
+                   "strong_scaling": scaling, "diff_path": diff_path,
                    "kernels": rows,
                    "headline": head,
                    "seconds": time.perf_counter() - t0})

@@ -17,7 +17,12 @@ picks a problem family (mode serial in the solver; every family's kernel
 routes on the ensemble path). ``--ensemble-cx/--ensemble-cy`` run a batch
 of (cx, cy) members in one launch instead (``models/ensemble.py``),
 writing ``final_m<i>.dat`` per member and, on convergence runs, the
-``Members exited after ...`` line.
+``Members exited after ...`` line. With ``--mode dist1d|dist2d|hybrid``
+the members shard over the device slots (each slot running the
+single-device ensemble route on its members), and ``--mode dist2d
+--gridx/--gridy`` decomposes each member over a submesh of slots;
+``--numworkers`` is refused for ensembles, and ``--gridx/--gridy`` in any
+other mode, as the JAX CLI refuses them.
 
     python -m heat2d_tpu_torch.cli --mode pallas --method adi \\
         --nxprob 4096 --nyprob 4096 --steps 20 --cx 51.2 --cy 51.2
@@ -150,9 +155,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _run_ensemble_cli(args, cfg) -> int:
-    """A batched (cx, cy) parameter sweep in one launch on one device:
-    the JAX CLI's ensemble route (``heat2d_tpu/cli.py``) for modes serial
-    and pallas. Flags the route would silently ignore are refused."""
+    """A batched (cx, cy) parameter sweep in one launch: the JAX CLI's
+    ensemble route (``heat2d_tpu/cli.py``). Modes serial and pallas run
+    on one device; dist1d, dist2d and hybrid shard the members over the
+    slots of ``--host-device-count`` (or the visible cards); ``--mode
+    dist2d --gridx/--gridy`` decomposes each member over a submesh.
+    Flags the route would silently ignore are refused."""
     from heat2d_tpu_torch.io.binary import write_json_atomic
     from heat2d_tpu_torch.io.writers import (write_grid_baseline,
                                              write_grid_rowmajor)
@@ -171,6 +179,21 @@ def _run_ensemble_cli(args, cfg) -> int:
               "equal-length comma-separated lists\nQuitting...",
               file=sys.stderr)
         return 1
+    spatial_grid = None
+    if cfg.numworkers is not None:
+        print(f"ensemble runs do not take --numworkers "
+              f"{cfg.numworkers}: members shard over a batch mesh axis "
+              f"(use --mode dist2d --gridx/--gridy for members too big "
+              f"for one device)\nQuitting...", file=sys.stderr)
+        return 1
+    if cfg.gridx != 1 or cfg.gridy != 1:
+        if cfg.mode != "dist2d":
+            print(f"ensemble spatial decomposition (--gridx {cfg.gridx} "
+                  f"--gridy {cfg.gridy}) is only supported with --mode "
+                  f"dist2d (members run the 2D wide-halo scheme on a "
+                  f"batch x spatial mesh)\nQuitting...", file=sys.stderr)
+            return 1
+        spatial_grid = (cfg.gridx, cfg.gridy)
     unsupported = [flag for flag, on in [
         ("--binary-dumps", args.binary_dumps),
         ("--checkpoint", args.checkpoint is not None),
@@ -185,25 +208,34 @@ def _run_ensemble_cli(args, cfg) -> int:
               file=sys.stderr)
         return 1
 
-    print(f"Starting ensemble of {len(cxs)} members")
-    print(f"Problem size:{cfg.nxprob}x{cfg.nyprob}")
-    if cfg.problem != "heat5":
-        print(f"Problem family: {cfg.problem}")
-    print(f"Amount of iterations: {cfg.steps}")
-    if cfg.convergence:
-        print(f"Check for convergence every {cfg.interval} iterations")
+    sharded = cfg.mode in SHARDED_MODES
     try:
-        if cfg.mode in SHARDED_MODES:
-            raise ConfigError(
-                f"ensemble runs of mode {cfg.mode!r} (members sharded over "
-                f"a mesh) wait for slice 6 of ROADMAP.md; use mode "
-                f"'serial' or 'pallas'")
+        devices = None
+        if sharded:
+            from heat2d_tpu_torch.parallel.mesh import (host_devices,
+                                                        visible_devices)
+            devices = (host_devices(args.host_device_count, args.device)
+                       if args.host_device_count
+                       else visible_devices(args.device))
+        print(f"Starting ensemble of {len(cxs)} members"
+              + (f" over {len(devices)} devices" if sharded else ""))
+        print(f"Problem size:{cfg.nxprob}x{cfg.nyprob}")
+        if cfg.problem != "heat5":
+            print(f"Problem family: {cfg.problem}")
+        if spatial_grid:
+            print(f"Each member decomposed over a "
+                  f"{spatial_grid[0]}x{spatial_grid[1]} spatial submesh")
+        print(f"Amount of iterations: {cfg.steps}")
+        if cfg.convergence:
+            print(f"Check for convergence every {cfg.interval} iterations")
         run = timed_ensemble(
             cfg.nxprob, cfg.nyprob, cfg.steps, cxs, cys,
             method="auto" if cfg.method == "explicit" else cfg.method,
             convergence=cfg.convergence, interval=cfg.interval,
             sensitivity=cfg.sensitivity, problem=cfg.problem,
-            device=args.device)
+            device=args.device, sharded=sharded, devices=devices,
+            spatial_grid=spatial_grid, halo_depth=cfg.halo_depth,
+            halo=cfg.halo)
     except (ConfigError, ValueError, DeviceUnavailableError) as e:
         print(f"{e}\nQuitting...", file=sys.stderr)
         return 1

@@ -270,22 +270,30 @@ class Heat2DSolver:
 
 def two_point_headline(nx: int, ny: int, lo: int, hi: int,
                        mode: str = "pallas", device=None) -> dict:
-    """The headline's two-point protocol (``bench.py``): fixed-step runs
-    at ``lo`` and ``hi`` steps, the min of 3 timed runs at ``lo`` and of
-    2 at ``hi`` (the first of each after a warmup run), and the marginal
-    step time between them, in which the fixed fence and launch costs
-    cancel. Returns ``step_s`` (may be <= 0 when the two points lie
-    within noise), ``t_lo_s``, ``t_hi_s`` and the last ``hi`` run's
-    ``RunResult`` as ``result``. ``bench_torch.py`` and ``chip_smoke.py``
-    both time the headline with it."""
-    solvers = {n: Heat2DSolver(HeatConfig(nxprob=nx, nyprob=ny, steps=n,
-                                          mode=mode), device=device)
-               for n in (lo, hi)}
-    runs = {lo: [], hi: []}
-    for n, reps in ((lo, 3), (hi, 2)):
-        for i in range(reps):
-            runs[n].append(solvers[n].run(warmup=i == 0))
-    t_lo = min(r.elapsed for r in runs[lo])
-    t_hi = min(r.elapsed for r in runs[hi])
-    return {"step_s": (t_hi - t_lo) / (hi - lo), "t_lo_s": t_lo,
-            "t_hi_s": t_hi, "result": runs[hi][-1]}
+    """The headline's two-point protocol, ``bench.py``'s: fixed-step runs
+    of ``lo`` and ``hi`` steps through ``tune.measure.two_point_estimate``
+    (3 timed runs at ``lo``, 2 at ``hi``, the first run of each count
+    after a warmup run; the marginal step time believed only past the
+    estimator's noise floor and jitter rules). Returns ``step_s`` (None
+    when the two points lie within noise), ``t_lo_s`` and ``t_hi_s``
+    (the fastest run at each count), every run's seconds as ``times``,
+    and the faster ``hi`` run's ``RunResult`` as ``result``.
+    ``bench_torch.py`` and ``chip_smoke.py`` both time the headline with
+    it."""
+    from heat2d_tpu_torch.tune.measure import two_point_estimate
+
+    solvers, times = {}, {}
+
+    def timed_run(n):
+        fresh = n not in solvers
+        if fresh:
+            solvers[n] = Heat2DSolver(
+                HeatConfig(nxprob=nx, nyprob=ny, steps=n, mode=mode),
+                device=device)
+        r = solvers[n].run(warmup=fresh)
+        times.setdefault(n, []).append(r.elapsed)
+        return r
+
+    step_s, _hi, result = two_point_estimate(timed_run, lo, hi, hi)
+    return {"step_s": step_s, "t_lo_s": min(times[lo]),
+            "t_hi_s": min(times[hi]), "times": times, "result": result}

@@ -83,6 +83,26 @@ class Reservoir:
         }
 
 
+class CounterDeltas:
+    """Cumulative counters differentiated between calls:
+    ``tick(registry, name)`` returns {label-pairs tuple: delta since the
+    previous tick} per series (the first tick sees the whole value). A
+    negative delta means the registry was swapped, and that series
+    resets to its new total."""
+
+    def __init__(self):
+        self._last: dict = {}
+
+    def tick(self, registry, name: str) -> dict:
+        out = {}
+        for k, v in registry.find_counters(name).items():
+            key = (name, k)
+            d = v - self._last.get(key, 0.0)
+            self._last[key] = v
+            out[k] = d if d >= 0 else v
+        return out
+
+
 class MetricsRegistry:
     """Counters, gauges, timing histograms and point series, each
     identified by (name, labels) as in Prometheus. Thread-safe: the serve
@@ -138,6 +158,12 @@ class MetricsRegistry:
         if not labels:
             return name
         return name + "{" + ",".join(f"{k}={v}" for k, v in labels) + "}"
+
+    def find_counters(self, name: str) -> dict:
+        """{label-pairs tuple: value} for every series of ``name``."""
+        with self._lock:
+            return {k[1]: v for k, v in self._counters.items()
+                    if k[0] == name}
 
     def snapshot(self) -> dict:
         """Point-in-time view: counters and gauges flat, histograms

@@ -19,8 +19,12 @@ RECORD_SCHEMA = "heat2d-tpu/run-record/v1"
 #: ``RECORD_KINDS``): "run" (the solver CLI), "ensemble" (its batched
 #: sweep), "bench" (``bench_torch.py``), "serve" (the serve CLI: launch
 #: log and serving metrics), "inverse" (the inverse CLI: iterations,
-#: final loss, convergence, beside the ``inverse_*`` metric series).
-RECORD_KINDS = ("run", "ensemble", "bench", "serve", "inverse")
+#: final loss, convergence, beside the ``inverse_*`` metric series),
+#: "multichip" (strong scaling and mesh serving, ``parallel/scaling.py``
+#: and ``mesh/bench.py``), "mesh_chaos" (the mesh fault gate,
+#: ``mesh/chaos_gate.py``).
+RECORD_KINDS = ("run", "ensemble", "bench", "serve", "inverse",
+                "multichip", "mesh_chaos")
 
 
 def run_context(device=None) -> dict:

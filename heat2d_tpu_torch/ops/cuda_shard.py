@@ -84,9 +84,10 @@ def _check(rc: int, what: str) -> None:
 def keep_mask(shape, nx: int, ny: int, row0: int, col0: int, device):
     """True where a cell is held: the domain's boundary ring and every
     cell outside the domain, for a block whose (0, 0) is global cell
-    (row0, col0) (``parallel/sharded._keep_mask``)."""
-    gi = row0 + torch.arange(shape[0], device=device)[:, None]
-    gj = col0 + torch.arange(shape[1], device=device)[None, :]
+    (row0, col0) (``parallel/sharded._keep_mask``); ``shape``'s last two
+    axes are the block's."""
+    gi = row0 + torch.arange(shape[-2], device=device)[:, None]
+    gj = col0 + torch.arange(shape[-1], device=device)[None, :]
     return (gi <= 0) | (gi >= nx - 1) | (gj <= 0) | (gj >= ny - 1)
 
 
@@ -142,24 +143,27 @@ def chunk_fused_plain(u, strips, t: int, x0: int, y0: int, nx: int, ny: int,
     alone, then the four t-wide frames from strip-extended regions,
     stitched. Every kept cell sees the golden loop's operands, so the
     result equals the collective route bit for bit. Needs
-    ``fused_halo_viable(bm, bn, t)``; the strips are t deep."""
-    bm, bn = u.shape
+    ``fused_halo_viable(bm, bn, t)``; the strips are t deep. The block
+    may carry leading member axes (B, bm, bn), with (B, 1, 1)
+    coefficients."""
+    bm, bn = u.shape[-2:]
     north, south, west, east = strips
 
     def adv(v, r0, c0):
         return advance(v, r0, c0, t, nx, ny, cx, cy, form, accum)
 
-    core = adv(u, x0, y0)[t:bm - t, t:bn - t]
-    nfr = adv(torch.cat([north, u[:2 * t]]), x0 - t, y0)[t:2 * t, t:bn - t]
-    sfr = adv(torch.cat([u[bm - 2 * t:], south]),
-              x0 + bm - 2 * t, y0)[t:2 * t, t:bn - t]
-    vert = torch.cat([north, u, south])
-    wfr = adv(torch.cat([west, vert[:, :2 * t]], dim=1),
-              x0 - t, y0 - t)[t:bm + t, t:2 * t]
-    efr = adv(torch.cat([vert[:, bn - 2 * t:], east], dim=1),
-              x0 - t, y0 + bn - 2 * t)[t:bm + t, t:2 * t]
-    mid = torch.cat([nfr, core, sfr])
-    return torch.cat([wfr, mid, efr], dim=1)
+    core = adv(u, x0, y0)[..., t:bm - t, t:bn - t]
+    nfr = adv(torch.cat([north, u[..., :2 * t, :]], dim=-2), x0 - t,
+              y0)[..., t:2 * t, t:bn - t]
+    sfr = adv(torch.cat([u[..., bm - 2 * t:, :], south], dim=-2),
+              x0 + bm - 2 * t, y0)[..., t:2 * t, t:bn - t]
+    vert = torch.cat([north, u, south], dim=-2)
+    wfr = adv(torch.cat([west, vert[..., :2 * t]], dim=-1),
+              x0 - t, y0 - t)[..., t:bm + t, t:2 * t]
+    efr = adv(torch.cat([vert[..., bn - 2 * t:], east], dim=-1),
+              x0 - t, y0 + bn - 2 * t)[..., t:bm + t, t:2 * t]
+    mid = torch.cat([nfr, core, sfr], dim=-2)
+    return torch.cat([wfr, mid, efr], dim=-1)
 
 
 def shard_fused_plain(blocks, nsub: int, nx: int, ny: int, cx, cy,

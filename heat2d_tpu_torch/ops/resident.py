@@ -164,9 +164,21 @@ def plan_resident(nb: int, nx: int, ny: int, ring_w: int,
     memory): the wrappers then advance it by tile sweeps. A batch on the
     CPU is gated against the H100's 132 SMs and 232,448 bytes."""
     dev = torch.device(device)
-    blocks = (cs.device_caps(dev).sm_count if dev.type == "cuda"
-              else H100_SM_COUNT)
-    return plan_for_limits(nb, nx, ny, ring_w, cs.smem_limit(dev), blocks)
+    return plan_for_limits(nb, nx, ny, ring_w, cs.smem_limit(dev),
+                           _sm_count(dev))
+
+
+def _sm_count(dev) -> int:
+    return (cs.device_caps(dev).sm_count if dev.type == "cuda"
+            else H100_SM_COUNT)
+
+
+def on_chip_bytes(device) -> int:
+    """The shared memory the resident sweeps can hold on ``device``: one
+    block's share on every SM (SM count x ``cs.smem_limit``), the largest
+    member the card keeps on chip. A CPU device answers for the H100."""
+    dev = torch.device(device)
+    return _sm_count(dev) * cs.smem_limit(dev)
 
 
 def exchange_planes(plan: ResidentPlan, device):

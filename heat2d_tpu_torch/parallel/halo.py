@@ -8,7 +8,9 @@ another device). A shard with no neighbour on a side receives zeros:
 MPI_PROC_NULL on a non-periodic grid, the partial ppermute's semantics.
 
 ``blocks`` below is always a (gx, gy) nested list of (bm, bn) tensors,
-``blocks[i][j]`` the shard at mesh position (i, j).
+``blocks[i][j]`` the shard at mesh position (i, j); a block may carry
+leading (member) axes, (B, bm, bn), as the spatial ensembles' do, and
+every strip then carries them too.
 """
 
 from __future__ import annotations
@@ -43,15 +45,17 @@ def exchange_halo_strips(blocks, t: int):
     west/east are (bm+2t, t) ghost columns of the vertically-extended
     rows, so they carry the corners. Two phases, as in the JAX package:
     N/S first, then E/W from the neighbours' extended edge columns."""
-    north = _along_x([[b[-t:] for b in row] for row in blocks],
+    north = _along_x([[b[..., -t:, :] for b in row] for row in blocks],
                      shift_from_lower)
-    south = _along_x([[b[:t] for b in row] for row in blocks],
+    south = _along_x([[b[..., :t, :] for b in row] for row in blocks],
                      shift_from_upper)
     out = []
     for i, row in enumerate(blocks):
-        right = [torch.cat([north[i][j][:, -t:], b[:, -t:],
-                            south[i][j][:, -t:]]) for j, b in enumerate(row)]
-        left = [torch.cat([north[i][j][:, :t], b[:, :t], south[i][j][:, :t]])
+        right = [torch.cat([north[i][j][..., -t:], b[..., -t:],
+                            south[i][j][..., -t:]], dim=-2)
+                 for j, b in enumerate(row)]
+        left = [torch.cat([north[i][j][..., :t], b[..., :t],
+                           south[i][j][..., :t]], dim=-2)
                 for j, b in enumerate(row)]
         west, east = shift_from_lower(right), shift_from_upper(left)
         out.append([(north[i][j], south[i][j], west[j], east[j])
@@ -62,7 +66,8 @@ def exchange_halo_strips(blocks, t: int):
 def extend(u, strips):
     """The (bm+2t, bn+2t) extended block of one shard from its strips."""
     north, south, west, east = strips
-    return torch.cat([west, torch.cat([north, u, south]), east], dim=1)
+    return torch.cat([west, torch.cat([north, u, south], dim=-2), east],
+                     dim=-1)
 
 
 def exchange_halo_2d_wide(blocks, t: int):

@@ -59,18 +59,24 @@ class ShardedGrid:
         return ShardedGrid(blocks, self.nx, self.ny)
 
 
+def _grid_of(mesh) -> tuple[int, int]:
+    """(gx, gy) of a ``Mesh``, or of a bare (gx, gy) pair (the host-side
+    plans, ``models.ensemble.spatial_halo_plan``, name no devices)."""
+    return tuple(mesh) if isinstance(mesh, tuple) else mesh.shape
+
+
 def padded_global_shape(config, mesh: Mesh) -> tuple[int, int]:
     """The global shape padded up so every shard is equal-sized (the
     answer to the reference's averow/extra strips, mpi_heat2Dn.c:89-94):
     the pad cells sit outside the keep mask's interior, stay 0 and add 0
     to the residual."""
-    gx, gy = mesh.shape
+    gx, gy = _grid_of(mesh)
     return -(-config.nxprob // gx) * gx, -(-config.nyprob // gy) * gy
 
 
 def shard_shape(config, mesh: Mesh) -> tuple[int, int]:
     pnx, pny = padded_global_shape(config, mesh)
-    gx, gy = mesh.shape
+    gx, gy = _grid_of(mesh)
     return pnx // gx, pny // gy
 
 
@@ -111,8 +117,10 @@ def resolve_halo_route(config, mesh: Mesh, kernel: bool = False) -> dict:
       H14 reading the neighbours' blocks (hybrid);
     - ``window``: the JAX package's D2 route on TPU shards; H12 covers
       its work here, so the port never takes it.
+
+    ``mesh`` may be a bare (gx, gy) pair when ``kernel`` is False.
     """
-    gx, gy = mesh.shape
+    gx, gy = _grid_of(mesh)
     bm, bn = shard_shape(config, mesh)
     t = effective_halo_depth(config, mesh)
     out = dict(requested=config.halo, depth=t, shard=(bm, bn),
@@ -131,19 +139,38 @@ def resolve_halo_route(config, mesh: Mesh, kernel: bool = False) -> dict:
     return out
 
 
-def make_local_chunk(config, mesh: Mesh, kernel: bool = False):
+def make_local_chunk(config, mesh: Mesh, kernel: bool = False, cxy=None):
     """``chunk(grid, t)``: one t-deep exchange, then t steps of every
     shard, t in [1, min(bm, bn)]. Without ``kernel`` (dist1d/dist2d) the
     golden loop, or with ``halo='fused'`` its overlap schedule; with
     ``kernel`` (hybrid) H12 after the exchange, or H14 with the exchange
-    inside it."""
+    inside it.
+
+    ``cxy``: optional (cx, cy) overriding the config's diffusivities:
+    (B, 1, 1) float32 tensors giving each member of (B, bm, bn) blocks
+    its own (the spatial ensembles, ``models.ensemble``). The kernels
+    take scalar coefficients, so ``cxy`` with ``kernel`` raises, as in
+    the JAX package."""
     nx, ny = config.nxprob, config.nyprob
     gx, gy = mesh.shape
     bm, bn = shard_shape(config, mesh)
-    cx, cy = config.cx, config.cy
+    if cxy is not None and kernel:
+        raise ValueError("per-member cxy requires the jnp chunk path "
+                         "(chunk kernels bake their diffusivities)")
+    cx, cy = (config.cx, config.cy) if cxy is None else cxy
+    coefs = {}
     accum = getattr(torch, config.accum_dtype)
     fused_req = config.halo == "fused"
     form = _form(config)
+
+    def coef(dev):
+        """(cx, cy) on ``dev``: the per-member tensors copied to each
+        shard's device once."""
+        if cxy is None:
+            return cx, cy
+        if dev not in coefs:
+            coefs[dev] = (cx.to(dev), cy.to(dev))
+        return coefs[dev]
 
     def each(fn, *grids):
         """``fn(x0, y0, *items)`` at every shard, as a new grid."""
@@ -169,24 +196,32 @@ def make_local_chunk(config, mesh: Mesh, kernel: bool = False):
                 strips = exchange_halo_strips(blocks, t)
                 return grid.with_blocks(each(
                     lambda x0, y0, u, s: csh.chunk_fused_plain(
-                        u, s, t, x0, y0, nx, ny, cx, cy, accum=accum),
+                        u, s, t, x0, y0, nx, ny, *coef(u.device),
+                        accum=accum),
                     blocks, strips))
         with phase("halo_exchange"):
             ext = exchange_halo_2d_wide(blocks, t)
         with phase("interior_stencil"):
             return grid.with_blocks(each(
                 lambda x0, y0, e: csh.advance(
-                    e, x0 - t, y0 - t, t, nx, ny, cx, cy,
-                    accum=accum)[t:-t, t:-t],
+                    e, x0 - t, y0 - t, t, nx, ny, *coef(e.device),
+                    accum=accum)[..., t:-t, t:-t],
                 ext))
 
     return chunk
 
 
-def make_local_multi(config, mesh: Mesh, kernel: bool = False):
+def make_local_step(config, mesh: Mesh, kernel: bool = False, cxy=None):
+    """``step(grid)``: one step, the chunk at depth 1 (bitwise the same
+    as a step of a deeper chunk)."""
+    chunk = make_local_chunk(config, mesh, kernel, cxy)
+    return lambda grid: chunk(grid, 1)
+
+
+def make_local_multi(config, mesh: Mesh, kernel: bool = False, cxy=None):
     """``multi(grid, n)``: n steps as chunks of depth T plus a remainder
     chunk."""
-    chunk = make_local_chunk(config, mesh, kernel)
+    chunk = make_local_chunk(config, mesh, kernel, cxy)
     t = effective_halo_depth(config, mesh)
 
     def multi(grid, n):

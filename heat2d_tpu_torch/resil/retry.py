@@ -7,6 +7,8 @@ of ``heat2d_tpu/resil/retry.py``.
 - ``Watchdog``: a deadline on a block of work; on expiry it fires a
   callback (the server fails the waiting futures with
   ``Rejected("watchdog_timeout")``) instead of letting callers hang.
+- ``wait_for``: the bounded poll on a ``Watchdog`` (the mesh stall
+  guard's deadline).
 - ``DegradedMode``: a consecutive-failure circuit breaker (closed ->
   open -> half-open). While open, fresh work is shed at admission and
   cached answers are still served.
@@ -140,6 +142,26 @@ class Watchdog:
             self._timer.cancel()
         if self._stop is not None:
             self._stop.set()
+
+
+def wait_for(predicate: Callable[[], bool],
+             deadline_s: Optional[float], *,
+             clock: Optional[Callable[[], float]] = None,
+             poll: float = 0.01,
+             sleep: Callable[[float], None] = time.sleep) -> bool:
+    """Poll ``predicate`` until it is truthy (True) or ``deadline_s``
+    expires on ``clock`` (False), on a ``Watchdog`` so that an injected
+    clock controls the deadline. ``deadline_s=None`` waits forever."""
+    if predicate():
+        return True
+    wd = Watchdog(deadline_s, lambda: None, clock=clock)
+    with wd:
+        while not wd.fired:
+            if predicate():
+                return True
+            sleep(poll)
+    # completion wins a race with the deadline in the same poll window
+    return bool(predicate())
 
 
 class DegradedMode:

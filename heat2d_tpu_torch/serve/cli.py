@@ -15,6 +15,15 @@ counterpart of ``heat2d-tpu-serve``).
   object per line), writing one result or rejection summary per line to
   stdout or ``--results-out``.
 
+``--mesh`` serves through the mesh engine (``mesh.MeshEnsembleEngine``)
+over the visible cards of ``--device``, or over ``--host-device-count N``
+slots sharing them: buckets split their members over the slots, huge
+grids take the spatial route, and ``--max-batch`` bounds the members per
+slot. ``--mesh-admission-mcells R`` arms modeled-capacity admission at R
+Mcells/s a slot, ``--mesh-stall-deadline S`` the stall watchdog and
+``--mesh-abft`` the ABFT verify tier; each of them without ``--mesh``
+is a usage error (exit 2).
+
 ``--metrics-out PATH`` writes the metrics snapshot and a ``kind="serve"``
 run record as JSONL; ``--log-level`` sets the port's loggers' level.
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the
@@ -65,6 +74,33 @@ def build_parser() -> argparse.ArgumentParser:
                    help="result-cache entries (content-addressed LRU)")
     s.add_argument("--timeout", type=float, default=30.0,
                    help="per-request queue timeout in seconds")
+    m = p.add_argument_group("mesh serving")
+    m.add_argument("--mesh", action="store_true",
+                   help="serve through the mesh-aware engine "
+                        "(heat2d_tpu_torch/mesh): buckets split over the "
+                        "device slots on the batch axis, huge-grid "
+                        "signatures take the spatial route, the split is "
+                        "recorded per bucket; --max-batch then bounds "
+                        "members PER SLOT")
+    m.add_argument("--host-device-count", type=int, default=None,
+                   metavar="N",
+                   help="with --mesh: N slots on --device, sharing its "
+                        "cards in turn (default: one slot per visible "
+                        "card)")
+    m.add_argument("--mesh-admission-mcells", type=float, default=None,
+                   metavar="R",
+                   help="with --mesh: arm modeled-capacity admission "
+                        "control at R Mcells/s per slot (default: "
+                        "admission off)")
+    m.add_argument("--mesh-stall-deadline", type=float, default=None,
+                   metavar="S",
+                   help="with --mesh: arm the stall watchdog: a WARM mesh "
+                        "launch stalling past S seconds is quarantined "
+                        "and shrunk-and-requeued instead of hanging")
+    m.add_argument("--mesh-abft", action="store_true",
+                   help="with --mesh: arm the ABFT checksum verify tier "
+                        "(ops/abft.py): silent data corruption "
+                        "quarantines the slot and recomputes")
     p.add_argument("--metrics-out", default=None, metavar="PATH",
                    help="write the metrics snapshot and the kind='serve' "
                         "run record as JSONL")
@@ -75,13 +111,41 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _mesh_kwargs(args, registry) -> dict:
+    """``SolveServer``'s engine and admission for ``--mesh``: the mesh
+    engine over the slots, and modeled-capacity admission when a rate was
+    given."""
+    if not args.mesh:
+        return {}
+    from heat2d_tpu_torch.mesh import MeshAdmission, MeshEnsembleEngine
+    from heat2d_tpu_torch.parallel.mesh import host_devices, visible_devices
+    devices = (host_devices(args.host_device_count, args.device)
+               if args.host_device_count else visible_devices(args.device))
+    fault = None
+    if args.mesh_stall_deadline is not None or args.mesh_abft:
+        from heat2d_tpu_torch.mesh import FaultPolicy
+        fault = FaultPolicy(stall_deadline_s=args.mesh_stall_deadline,
+                            abft=bool(args.mesh_abft))
+    # --max-batch becomes the per-slot bound: the engine's launch bound
+    # scales with the mesh.
+    out = {"engine": MeshEnsembleEngine(
+        registry=registry, max_batch_per_chip=args.max_batch,
+        fault=fault, devices=devices)}
+    if args.mesh_admission_mcells is not None:
+        out["admission"] = MeshAdmission(
+            registry=registry,
+            per_chip_mcells_per_s=args.mesh_admission_mcells,
+            devices=devices)
+    return out
+
+
 def _server(args, registry, max_delay):
     from heat2d_tpu_torch.serve.server import SolveServer
     return SolveServer(
         max_batch=args.max_batch, max_delay=max_delay,
         max_queue=args.queue_depth, cache_size=args.cache_size,
         default_timeout=args.timeout, registry=registry,
-        device=args.device)
+        device=args.device, **_mesh_kwargs(args, registry))
 
 
 def _selftest_workload(client):
@@ -275,7 +339,22 @@ def _write_metrics(args, registry, server, extra) -> None:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if not args.mesh:
+        # mesh flags without --mesh would serve on the single-device
+        # engine while looking fault-armed or admission-priced: a usage
+        # error (exit 2)
+        for flag, armed in (
+                ("--mesh-stall-deadline",
+                 args.mesh_stall_deadline is not None),
+                ("--mesh-abft", args.mesh_abft),
+                ("--mesh-admission-mcells",
+                 args.mesh_admission_mcells is not None),
+                ("--host-device-count",
+                 args.host_device_count is not None)):
+            if armed:
+                parser.error(f"{flag} requires --mesh")
     configure_logging(args.log_level)
     from heat2d_tpu_torch.obs import MetricsRegistry
     registry = MetricsRegistry()

@@ -54,14 +54,50 @@ class EnsembleEngine:
     """Executes buckets through the batched ensemble runners on one
     device (``cuda`` unless given ``device="cpu"``). Holds no queue
     state: the batcher schedules, this owns the numerics and the launch
-    accounting."""
+    accounting.
 
-    def __init__(self, registry=None, max_batch: int = 8, device=None):
+    ``spatial_grid``/``halo``: a deployment-level decomposition; when set,
+    every signature's halo route (``ensemble.spatial_halo_plan``) is
+    resolved before its first launch and rides the launch rows as
+    ``halo_plan``, ``compiled: False`` until a mesh program runs it (the
+    mesh engine, ``mesh/engine.py``, flips it)."""
+
+    def __init__(self, registry=None, max_batch: int = 8, device=None,
+                 spatial_grid=None, halo: str = "collective"):
         self.registry = registry
         self.max_batch = max_batch
         self.device = resolve_device(device)
+        self.spatial_grid = spatial_grid
+        self.halo = halo
         self.launches = 0
         self.launch_log: List[dict] = []
+        #: launch keys that have run in this process (a row's
+        #: ``first_launch`` flag)
+        self._launched: set = set()
+        #: signature -> the tuning db's config (None until the port has
+        #: the db, ``tune/``)
+        self.tuned: dict = {}
+        #: signature -> pre-resolved halo plan (spatial engines only)
+        self.halo_plans: dict = {}
+
+    def _preresolve_tuned(self, req0):
+        """Resolve a signature's plans once, before its first launch: the
+        tuned config (None: no db yet) and, for spatial engines, the halo
+        plan."""
+        sig = req0.signature()
+        if sig in self.tuned:
+            return self.tuned[sig]
+        self.tuned[sig] = None
+        if self.spatial_grid is not None:
+            gx, gy = self.spatial_grid
+            self.halo_plans[sig] = dict(
+                ensemble.spatial_halo_plan(req0.nx, req0.ny, gx, gy,
+                                           halo=self.halo),
+                compiled=False)
+        if self.registry is not None:
+            self.registry.counter("tune_serve_signatures_total",
+                                  tuned="false")
+        return None
 
     def solve_batch(self, requests) -> List[Tuple["object", int]]:
         """Solve same-signature ``requests`` in one ensemble launch.
@@ -71,8 +107,13 @@ class EnsembleEngine:
         May raise transients (including an injected ``ChaosError``); the
         server's retry policy absorbs them."""
         chaos.launch_point()
+        return self._solve_on(requests, self.device)
+
+    def _solve_on(self, requests, device) -> List[Tuple["object", int]]:
+        """``solve_batch``'s launch on ``device``."""
         t0 = time.perf_counter()
         req0 = requests[0]
+        tuned = self._preresolve_tuned(req0)
         n = len(requests)
         capacity = _pad_capacity(n, self.max_batch)
         cxs = [r.cx for r in requests]
@@ -80,7 +121,7 @@ class EnsembleEngine:
         cxs += [cxs[-1]] * (capacity - n)
         cys += [cys[-1]] * (capacity - n)
         cxs, cys, u0 = ensemble._validated_batch(
-            req0.nx, req0.ny, cxs, cys, None, self.device)
+            req0.nx, req0.ny, cxs, cys, None, device)
         # Fixed-step requests hand the runner cache (0, 0.0), never their
         # unused interval/sensitivity: one signature, one runner.
         interval, sensitivity = req0.schedule()
@@ -88,7 +129,7 @@ class EnsembleEngine:
             req0.nx, req0.ny, req0.steps, req0.method,
             convergence=req0.convergence, interval=interval,
             sensitivity=sensitivity, problem=req0.problem,
-            device=str(self.device))
+            device=str(device))
         t1 = time.perf_counter()
 
         timer = (self.registry.timer("serve_launch_s")
@@ -96,8 +137,8 @@ class EnsembleEngine:
         with timer:
             out = runner(u0, cxs, cys)
             u = out[0] if req0.convergence else out
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
             t2 = time.perf_counter()
             # Only the real members go to the host: the pads' copies
             # would be readback time for results nobody asked for.
@@ -109,11 +150,17 @@ class EnsembleEngine:
         t3 = time.perf_counter()
 
         self.launches += 1
-        self.launch_log.append({
-            "signature": req0.signature(), "occupancy": n,
-            "capacity": capacity, "method": runner.method,
-            "problem": req0.problem, "tuned_config": None,
-            "setup_s": t1 - t0, "run_s": t2 - t1, "readback_s": t3 - t2})
+        compile_key = (req0.signature(), capacity)
+        first_launch = compile_key not in self._launched
+        self._launched.add(compile_key)
+        row = {"signature": req0.signature(), "occupancy": n,
+               "capacity": capacity, "method": runner.method,
+               "problem": req0.problem, "tuned_config": tuned,
+               "first_launch": first_launch,
+               "setup_s": t1 - t0, "run_s": t2 - t1, "readback_s": t3 - t2}
+        if self.spatial_grid is not None:
+            row["halo_plan"] = self.halo_plans.get(req0.signature())
+        self.launch_log.append(row)
         if self.registry is not None:
             self.registry.counter("serve_launches_total")
             self.registry.counter("problem_requests_total",

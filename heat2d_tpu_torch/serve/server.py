@@ -32,8 +32,11 @@ a deadline ``Watchdog`` (a wedged launch fails its waiters with
 cache hits are still served. An inverse loop also checks the deadline
 and a non-drain stop once per iteration, and aborts.
 
-The JAX server's mesh admission (slice 6 of ROADMAP.md) and its tracing
-spans (slice 7) are not ported yet.
+``engine=`` takes another solve executor, the mesh engine
+(``mesh.MeshEnsembleEngine``), whose ``max_batch`` then drives the
+batcher; ``admission=`` arms modeled-capacity admission
+(``mesh.MeshAdmission``), which sheds a leader before it queues. The JAX
+server's tracing spans are not ported yet (slice 8 of ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -63,13 +66,24 @@ class SolveServer:
                  registry=None, retry_policy: Optional[RetryPolicy] = None,
                  launch_deadline: Optional[float] = None,
                  breaker: Optional[DegradedMode] = None,
-                 deadline_clock=None, device=None):
+                 deadline_clock=None, device=None, engine=None,
+                 admission=None):
+        """``engine``: the solve executor, by default an
+        ``EnsembleEngine`` on ``device``; a ``mesh.MeshEnsembleEngine``
+        serves over its slots, and its ``max_batch`` (a slot multiple)
+        drives the batcher. ``admission``: optional modeled-capacity
+        admission (``mesh.MeshAdmission``): a leader it refuses is shed
+        with its structured rejection before it queues; cache hits and
+        coalesced followers never consult it."""
         if registry is None:
             from heat2d_tpu_torch.obs import get_registry
             registry = get_registry()
         self.registry = registry
-        self.engine = EnsembleEngine(registry=registry, max_batch=max_batch,
-                                     device=device)
+        self.engine = (EnsembleEngine(registry=registry, max_batch=max_batch,
+                                      device=device)
+                       if engine is None else engine)
+        max_batch = self.engine.max_batch
+        self.admission = admission
         self.default_timeout = default_timeout
         self.retry_policy = (RetryPolicy() if retry_policy is None
                              else retry_policy)
@@ -156,6 +170,12 @@ class SolveServer:
                 "backend recovers", content_hash=key,
                 breaker_state=self.breaker.state))
             return fut
+        if leader and self.admission is not None:
+            rej = self.admission.admit(req)
+            if rej is not None:
+                self._count("rejected_" + rej.code)
+                self.flight.fail(key, rej)
+                return fut
         if not leader:
             self._count("coalesced")
             out = coalesced_future(fut)

@@ -792,3 +792,107 @@ def test_diff_leaves_the_forward_paths_unchanged(card):
 def test_inverse_selftest_on_the_card(card):
     from heat2d_tpu_torch.diff.cli import main
     assert main(["--selftest"]) == 0
+
+
+# --------------------------------------------------------------------- #
+# members over device slots, mesh serving, strong scaling
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("method", ["pallas", "band"])
+@pytest.mark.parametrize("members", [3, 8])
+def test_sharded_ensemble_on_the_card(card, method, members):
+    """Members over 4 slots of the card (H5 or H6 per slot) equal the
+    one-slot batch bit for bit; the convergence route (H7 per slot) too,
+    steps_done included."""
+    from heat2d_tpu_torch.parallel.mesh import host_devices
+    cxs = [0.02 + 0.02 * i for i in range(members)]
+    cys = [0.2 - 0.015 * i for i in range(members)]
+    got = ensemble.run_ensemble_sharded(96, 130, 37, cxs, cys,
+                                        method=method,
+                                        devices=host_devices(4))
+    want = ensemble.run_ensemble(96, 130, 37, cxs, cys, method=method)
+    assert torch.equal(got, want)
+    got, kg = ensemble.run_ensemble_convergence_sharded(
+        96, 130, 400, 20, 50.0, cxs, cys, method=method,
+        devices=host_devices(4))
+    want, kw = ensemble.run_ensemble_convergence(
+        96, 130, 400, 20, 50.0, cxs, cys, method=method)
+    assert kg.tolist() == kw.tolist()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("halo", ["collective", "fused"])
+def test_spatial_ensemble_on_the_card(card, halo):
+    """Members on a 2x2 submesh of the card equal their dist2d runs bit
+    for bit."""
+    from heat2d_tpu_torch.parallel.mesh import host_devices
+    cxs, cys = [0.1, 0.2, 0.05], [0.1, 0.05, 0.2]
+    batch, ks = ensemble.run_ensemble_spatial(
+        128, 96, 30, cxs, cys, gridx=2, gridy=2, halo=halo,
+        devices=host_devices(8))
+    for i, (cx, cy) in enumerate(zip(cxs, cys)):
+        cfg = HeatConfig(nxprob=128, nyprob=96, steps=30, mode="dist2d",
+                         gridx=2, gridy=2, cx=cx, cy=cy, halo=halo)
+        want = Heat2DSolver(cfg, devices=host_devices(4)).run(timed=False)
+        assert (batch[i].cpu().numpy() == want.u).all()
+    assert ks.tolist() == [30] * 3
+
+
+def _mesh_parity(devices):
+    """The mesh engine over ``devices`` against the one-card engine, bit
+    for bit, at every occupancy rung (batch route through H5/H8, spatial
+    route against the jnp route)."""
+    import numpy as np
+
+    from heat2d_tpu_torch.mesh import MeshEnsembleEngine, MeshScheduler
+    from heat2d_tpu_torch.serve.engine import EnsembleEngine
+    from heat2d_tpu_torch.serve.schema import SolveRequest
+    meshed = MeshEnsembleEngine(devices=devices)
+    single = EnsembleEngine(max_batch=8)
+    for n in (1, 2, 3, 5, 8):
+        for problem in ("heat5", "heat9"):
+            rs = [SolveRequest(nx=96, ny=130, steps=37, cx=0.02 + 0.01 * i,
+                               cy=0.1, problem=problem) for i in range(n)]
+            a, b = meshed.solve_batch(rs), single.solve_batch(rs)
+            assert [np.asarray(u).tobytes() for u, _ in a] == \
+                [np.asarray(u).tobytes() for u, _ in b]
+    spatial = MeshEnsembleEngine(devices=devices, scheduler=MeshScheduler(
+        spatial_bytes_threshold=1, devices=devices))
+    rs = [SolveRequest(nx=128, ny=96, steps=30, cx=0.1 + 0.02 * i, cy=0.1,
+                       method="jnp") for i in range(3)]
+    a, b = spatial.solve_batch(rs), single.solve_batch(rs)
+    assert spatial.launch_log[-1]["mesh"]["route"] == "spatial"
+    assert [np.asarray(u).tobytes() for u, _ in a] == \
+        [np.asarray(u).tobytes() for u, _ in b]
+
+
+def test_mesh_serving_on_the_card(card):
+    from heat2d_tpu_torch.parallel.mesh import host_devices
+    _mesh_parity(host_devices(4))
+
+
+def test_mesh_serving_across_cards(card):
+    """Mesh serving over every visible card (needs two or more)."""
+    from heat2d_tpu_torch.parallel.mesh import visible_devices
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA cards")
+    _mesh_parity(visible_devices())
+
+
+@pytest.mark.parametrize("halo", ["collective", "fused"])
+def test_hybrid_scaling_across_cards(card, halo):
+    """Strong scaling in hybrid mode over every visible card (needs two
+    or more): H12 for collective, H14 for fused, both launched."""
+    from heat2d_tpu_torch.ops import cuda_shard as csh
+    from heat2d_tpu_torch.parallel.mesh import visible_devices
+    from heat2d_tpu_torch.parallel.scaling import measure_strong_scaling
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA cards")
+    csh.reset_launch_counts()
+    rec = measure_strong_scaling(n, 1024, 1024, 64, halo=halo,
+                                 mode="hybrid", devices=visible_devices())
+    assert rec["halo_tier"] == ("ici" if halo == "fused" else "collective")
+    assert rec["mcells_per_s_nchip"] > 0
+    name = "shard_fused" if halo == "fused" else "shard_tile_multi"
+    assert csh.launch_counts()[name] > 0

@@ -406,3 +406,177 @@ def test_validates_shapes_like_jax():
             jens.run_ensemble(*args, **kw)
         with pytest.raises(ValueError):
             tens.run_ensemble(*args, device="cpu", **kw)
+
+
+# --------------------------------------------------------------------- #
+# Members over several device slots: sharded and spatial ensembles
+# --------------------------------------------------------------------- #
+
+def _slots(n):
+    from heat2d_tpu_torch.parallel.mesh import host_devices
+    return host_devices(n, "cpu")
+
+
+@pytest.mark.parametrize("method", ["jnp", "pallas", "band"])
+@pytest.mark.parametrize("members", [3, 8, 9])
+def test_sharded_matches_single_and_jax(members, method):
+    """Members over 8 CPU slots (uneven counts padded with inert members)
+    equal the single-device batch bit for bit, and the JAX package's
+    sharded run within the bound."""
+    cxs = [0.02 * (i + 1) for i in range(members)]
+    cys = [0.1] * members
+    got = tens.run_ensemble_sharded(8, 16, 12, cxs, cys, method=method,
+                                    devices=_slots(8))
+    assert tuple(got.shape) == (members, 8, 16)
+    assert torch.equal(got, tens.run_ensemble(8, 16, 12, cxs, cys,
+                                              method=method,
+                                              device="cpu"))
+    want = np.asarray(jens.run_ensemble_sharded(8, 16, 12, cxs, cys,
+                                                method="jnp"))
+    _close(got.numpy(), want, 12)
+
+
+@pytest.mark.parametrize("method", ["jnp", "band", "pallas"])
+def test_convergence_sharded_matches_single_and_jax(method):
+    """Convergence over the slots (a loop per slot, driven a chunk at a
+    time in turn; inert pads converge at once): bitwise the single-device
+    run, steps_done equal to it and to the JAX package's."""
+    cxs = [0.02, 0.05, 0.1, 0.15, 0.2]
+    cys = list(cxs)
+    want, kw = tens.run_ensemble_convergence(12, 16, 400, 20, 5.0, cxs,
+                                             cys, method=method,
+                                             device="cpu")
+    got, kg = tens.run_ensemble_convergence_sharded(
+        12, 16, 400, 20, 5.0, cxs, cys, method=method, devices=_slots(8))
+    assert tuple(got.shape) == (5, 12, 16)
+    assert kg.tolist() == kw.tolist()
+    assert torch.equal(got, want)
+    jwant, jk = jens.run_ensemble_convergence_sharded(
+        12, 16, 400, 20, 5.0, cxs, cys, method="jnp")
+    assert kg.tolist() == [int(x) for x in jk]
+    assert len(set(kg.tolist())) > 1
+    _close(got.numpy(), np.asarray(jwant), int(kg.max()))
+
+
+def test_drive_all_launches_every_slot_before_a_read():
+    """The round-robin driver: each loop's chunk is issued before any
+    loop resumes to read its flag."""
+    log = []
+
+    def loop(name, chunks):
+        for i in range(chunks):
+            log.append((name, "launch", i))
+            yield
+            log.append((name, "read", i))
+        return name
+
+    assert tens._drive_all([loop("a", 2), loop("b", 3)]) == ["a", "b"]
+    assert log[:2] == [("a", "launch", 0), ("b", "launch", 0)]
+    assert log.index(("b", "launch", 0)) < log.index(("a", "read", 0))
+
+
+@pytest.mark.parametrize("halo", ["collective", "fused"])
+@pytest.mark.parametrize("grid,members", [((2, 1), 2), ((2, 2), 3)])
+def test_spatial_bitwise_vs_dist2d_runs(grid, members, halo):
+    """Each member on its own (gridx, gridy) submesh equals its own
+    dist2d run of the same (cx, cy) bit for bit (the uneven batch pads an
+    inert member), and the JAX package's spatial run within the bound."""
+    from heat2d_tpu_torch.config import HeatConfig
+    from heat2d_tpu_torch.models.solver import Heat2DSolver
+    gx, gy = grid
+    cxs, cys = [0.05, 0.1, 0.2][:members], [0.1, 0.05, 0.15][:members]
+    batch, ks = tens.run_ensemble_spatial(16, 12, 25, cxs, cys, gridx=gx,
+                                          gridy=gy, halo=halo,
+                                          halo_depth=2, devices=_slots(8))
+    assert tuple(batch.shape) == (members, 16, 12)
+    assert ks.tolist() == [25] * members
+    for i, (cx, cy) in enumerate(zip(cxs, cys)):
+        cfg = HeatConfig(nxprob=16, nyprob=12, steps=25, mode="dist2d",
+                         gridx=gx, gridy=gy, cx=cx, cy=cy, halo=halo,
+                         halo_depth=2)
+        want = Heat2DSolver(cfg, devices=_slots(gx * gy)).run(timed=False)
+        assert np.array_equal(batch[i].numpy(), want.u)
+    jb, jk = jens.run_ensemble_spatial(16, 12, 25, cxs, cys, gridx=gx,
+                                       gridy=gy, halo=halo, halo_depth=2)
+    assert [int(k) for k in jk] == ks.tolist()
+    _close(batch.numpy(), np.asarray(jb), 25)
+
+
+def test_spatial_convergence_matches_individual_and_jax():
+    """Per-member early exit on the batch x spatial mesh (masked
+    completion): steps_done and planes bit for bit the individual dist2d
+    convergence runs; steps_done equal to the JAX package's."""
+    from heat2d_tpu_torch.config import HeatConfig
+    from heat2d_tpu_torch.models.solver import Heat2DSolver
+    cxs, cys = [0.02, 0.2], [0.02, 0.2]
+    steps, interval, sens = 400, 20, 5.0
+    batch, ks = tens.run_ensemble_spatial(
+        12, 16, steps, cxs, cys, gridx=2, gridy=1, convergence=True,
+        interval=interval, sensitivity=sens, devices=_slots(4))
+    for i, (cx, cy) in enumerate(zip(cxs, cys)):
+        cfg = HeatConfig(nxprob=12, nyprob=16, steps=steps, mode="dist2d",
+                         gridx=2, gridy=1, cx=cx, cy=cy, convergence=True,
+                         interval=interval, sensitivity=sens)
+        r = Heat2DSolver(cfg, devices=_slots(2)).run(timed=False)
+        assert int(ks[i]) == r.steps_done
+        assert np.array_equal(batch[i].numpy(), r.u)
+    assert len(set(ks.tolist())) > 1
+    jb, jk = jens.run_ensemble_spatial(
+        12, 16, steps, cxs, cys, gridx=2, gridy=1, convergence=True,
+        interval=interval, sensitivity=sens)
+    assert [int(k) for k in jk] == ks.tolist()
+    _close(batch.numpy(), np.asarray(jb), int(ks.max()))
+
+
+def test_spatial_refuses_too_few_slots_like_jax():
+    with pytest.raises(ValueError) as t:
+        tens.run_ensemble_spatial(16, 16, 2, [0.1], [0.1], gridx=2,
+                                  gridy=2, devices=_slots(3))
+    with pytest.raises(ValueError) as j:
+        jens.run_ensemble_spatial(16, 16, 2, [0.1], [0.1], gridx=2,
+                                  gridy=2, devices=jax.devices()[:3])
+    assert str(t.value) == str(j.value)
+
+
+@pytest.mark.parametrize("args", [
+    (16, 16, 2, 2, "collective", None), (16, 16, 2, 2, "fused", 2),
+    (48, 64, 2, 4, "fused", None), (15, 18, 2, 4, "fused", None),
+    (64, 64, 1, 1, "fused", None), (24, 24, 4, 2, "fused", 20)])
+def test_spatial_halo_plan_equals_jax(args):
+    nx, ny, gx, gy, halo, depth = args
+    assert tens.spatial_halo_plan(nx, ny, gx, gy, halo=halo,
+                                  halo_depth=depth) == \
+        jens.spatial_halo_plan(nx, ny, gx, gy, halo=halo,
+                               halo_depth=depth)
+
+
+def test_timed_ensemble_sharded_and_spatial():
+    """``timed_ensemble`` over the slots: the sharded route reports the
+    slots' method, the spatial route ``spatial``; both match the
+    single-device run; a family other than heat5 is refused with the
+    JAX package's text."""
+    cxs, cys = [0.1, 0.2, 0.15], [0.1, 0.1, 0.05]
+    single = tens.timed_ensemble(8, 16, 5, cxs, cys, method="jnp",
+                                 device="cpu")
+    sharded = tens.timed_ensemble(8, 16, 5, cxs, cys, method="jnp",
+                                  sharded=True, devices=_slots(2))
+    spatial = tens.timed_ensemble(8, 16, 5, cxs, cys, spatial_grid=(2, 2),
+                                  devices=_slots(8))
+    assert sharded.method == "jnp" and spatial.method == "spatial"
+    assert single.steps_done is None and spatial.steps_done is None
+    assert torch.equal(sharded.batch, single.batch)
+    assert torch.equal(spatial.batch, single.batch)
+    assert sharded.elapsed > 0 and spatial.elapsed > 0
+    conv = tens.timed_ensemble(8, 16, 40, cxs, cys, method="band",
+                               sharded=True, devices=_slots(2),
+                               convergence=True, interval=10,
+                               sensitivity=1e3)
+    assert conv.residual_reads >= 2
+    from heat2d_tpu_torch.config import ConfigError
+    with pytest.raises(ConfigError) as t:
+        tens.timed_ensemble(8, 16, 5, cxs, cys, problem="heat9",
+                            sharded=True, devices=_slots(2))
+    with pytest.raises(Exception) as j:
+        jens.timed_ensemble(8, 16, 5, cxs, cys, problem="heat9",
+                            sharded=True)
+    assert str(t.value) == str(j.value)

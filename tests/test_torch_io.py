@@ -17,6 +17,7 @@ from heat2d_tpu_torch.config import HeatConfig
 from heat2d_tpu_torch.interop import config_from_dict, state_from_numpy
 from heat2d_tpu_torch.io import binary as tbin
 from heat2d_tpu_torch.io import writers as tw
+from heat2d_tpu_torch.models import ensemble as tens
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -192,3 +193,90 @@ def test_cli_ensemble_refuses_bitwise_parity(tmp_path, capsys):
     assert _jax_cli(argv + ["--outdir", str(tmp_path / "j")]) == 0
     assert (tmp_path / "j" / "final_m0.dat").exists()
 
+
+
+@pytest.mark.parametrize("flags,msg", [
+    (["--numworkers", "3"], "ensemble runs do not take --numworkers 3"),
+    (["--mode", "dist1d", "--numworkers", "3"],
+     "ensemble runs do not take --numworkers 3"),
+    (["--gridx", "2"], "ensemble spatial decomposition (--gridx 2 "
+                       "--gridy 1) is only supported with --mode dist2d"),
+    (["--mode", "hybrid", "--gridx", "2", "--gridy", "2"],
+     "ensemble spatial decomposition (--gridx 2 --gridy 2) is only "
+     "supported with --mode dist2d"),
+    (["--mode", "pallas", "--gridy", "2"],
+     "ensemble spatial decomposition (--gridx 1 --gridy 2) is only "
+     "supported with --mode dist2d")])
+def test_cli_ensemble_refuses_numworkers_and_gridx(tmp_path, capsys, flags,
+                                                   msg):
+    """``--numworkers`` is refused for every ensemble, ``--gridx/--gridy``
+    outside ``--mode dist2d``: the JAX CLI's two refusals, with its exit
+    code and its messages, on 10x10 grids; nothing is written."""
+    argv = ["--ensemble-cx", "0.1,0.05", "--ensemble-cy", "0.1,0.05",
+            "--nxprob", "10", "--nyprob", "10", "--steps", "5"] + flags
+    assert tcli.main(argv + ["--device", "cpu", "--outdir",
+                             str(tmp_path / "t")]) == 1
+    terr = capsys.readouterr().err
+    assert _jax_cli(argv + ["--outdir", str(tmp_path / "j")]) == 1
+    jerr = capsys.readouterr().err
+    assert msg in terr
+    assert terr.splitlines()[0] == jerr.splitlines()[0]
+    assert not (tmp_path / "t").exists()
+
+
+def _read_members(outdir, n):
+    return [tw.read_grid_text(outdir / f"final_m{i}.dat", "rowmajor")
+            for i in range(n)]
+
+
+@pytest.mark.parametrize("flags,banner", [
+    (["--mode", "dist1d"], "over 3 devices"),
+    (["--mode", "hybrid", "--convergence", "--interval", "5",
+      "--sensitivity", "50"], "over 3 devices"),
+    (["--mode", "dist2d", "--gridx", "2", "--gridy", "2"],
+     "2x2 spatial submesh"),
+    (["--mode", "dist2d", "--gridx", "2", "--gridy", "1",
+      "--halo", "fused", "--halo-depth", "2"], "2x1 spatial submesh")])
+def test_cli_ensemble_sharded_and_spatial_runs(tmp_path, capsys, flags,
+                                               banner):
+    """The ensemble routes over device slots through the CLI: members
+    shard over ``--host-device-count`` slots in dist1d/dist2d/hybrid, and
+    ``--mode dist2d --gridx/--gridy`` is the spatial route. The members'
+    dumps equal the single-device route's (mode serial, the jnp route)
+    and the JAX CLI's to the dump's 0.1 resolution; the record's
+    steps_done equal the JAX record's."""
+    argv = ["--nxprob", "16", "--nyprob", "12", "--steps", "20",
+            "--ensemble-cx", "0.1,0.2,0.05", "--ensemble-cy",
+            "0.1,0.1,0.2"]
+    slots = ["--host-device-count",
+             "4" if "--gridx" in flags else "3"]
+    rec = tmp_path / "t.json"
+    assert tcli.main(argv + flags + slots + [
+        "--device", "cpu", "--outdir", str(tmp_path / "t"),
+        "--run-record", str(rec)]) == 0
+    assert banner in capsys.readouterr().out
+    # The single-device reference: the route the slots run (auto for the
+    # sharded modes, the jnp route's golden step for the spatial one),
+    # dumped by the same writer.
+    cxs, cys = [0.1, 0.2, 0.05], [0.1, 0.1, 0.2]
+    method = "jnp" if "--gridx" in flags else "auto"
+    if "--convergence" in flags:
+        ref, _ = tens.run_ensemble_convergence(16, 12, 20, 5, 50.0, cxs,
+                                               cys, device="cpu")
+    else:
+        ref = tens.run_ensemble(16, 12, 20, cxs, cys, method=method,
+                                device="cpu")
+    (tmp_path / "s").mkdir()
+    for i, m in enumerate(ref.numpy()):
+        tw.write_grid_rowmajor(m, tmp_path / "s" / f"final_m{i}.dat")
+    jrec = tmp_path / "j.json"
+    assert _jax_cli(argv + flags + ["--outdir", str(tmp_path / "j"),
+                                    "--run-record", str(jrec)]) == 0
+    got = _read_members(tmp_path / "t", 3)
+    for a, b in zip(got, _read_members(tmp_path / "s", 3)):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(got, _read_members(tmp_path / "j", 3)):
+        assert np.abs(a - b).max() <= 0.1 + 1e-3
+    t, j = json.loads(rec.read_text()), json.loads(jrec.read_text())
+    assert t["summary"].get("steps_done") == j["summary"].get("steps_done")
+    assert t["summary"]["members"] == 3

@@ -288,3 +288,43 @@ def test_chip_smoke_refuses_without_card_or_package(tmp_path):
     r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and '"ok"' not in r.stdout
+
+
+def test_importing_mesh_scaling_and_tune_loads_no_jax():
+    code = ("import sys; import heat2d_tpu_torch.mesh, "
+            "heat2d_tpu_torch.mesh.bench, heat2d_tpu_torch.mesh.chaos_gate, "
+            "heat2d_tpu_torch.ops.abft, heat2d_tpu_torch.parallel.scaling, "
+            "heat2d_tpu_torch.tune.measure; "
+            "print('jax' in sys.modules, 'heat2d_tpu' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "False"]
+    mods = {os.path.relpath(p, PKG).split(os.sep)[0]
+            for p in _port_sources()}
+    assert {"mesh", "tune"} <= mods
+
+
+def test_mesh_entry_points_raise_without_a_card(no_card, capsys):
+    """The mesh engine, its scheduler and admission, the sharded and
+    spatial ensembles and strong scaling span the visible cards by
+    default and refuse to start without one; the mesh CLIs exit 1."""
+    from heat2d_tpu_torch.mesh import (MeshAdmission, MeshEnsembleEngine,
+                                       MeshScheduler, bench, chaos_gate)
+    from heat2d_tpu_torch.models import ensemble
+    from heat2d_tpu_torch.parallel.scaling import measure_strong_scaling
+    from heat2d_tpu_torch.serve import cli as scli
+    calls = [
+        MeshEnsembleEngine, MeshScheduler, MeshAdmission,
+        lambda: ensemble.run_ensemble_sharded(8, 8, 2, [0.1], [0.1]),
+        lambda: ensemble.run_ensemble_spatial(8, 8, 2, [0.1], [0.1], 1, 1),
+        lambda: measure_strong_scaling(1, 8, 8, 2),
+    ]
+    for call in calls:
+        with pytest.raises(DeviceUnavailableError, match="CUDA"):
+            call()
+    assert bench.main([]) == 1
+    assert chaos_gate.main([]) == 1
+    assert scli.main(["--selftest", "--mesh"]) == 1
+    assert cli.main(["--mode", "dist2d", "--ensemble-cx", "0.1",
+                     "--ensemble-cy", "0.1"]) == 1
+    assert capsys.readouterr().err.count("CUDA") >= 3

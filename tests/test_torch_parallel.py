@@ -414,6 +414,101 @@ def test_cli_hybrid_banner_and_refusals(tmp_path, capsys):
     assert tcli.main(["--mode", "hybrid", "--gridx", "2", "--gridy", "2",
                       "--device", "cpu", "--outdir", str(tmp_path)]) == 1
     assert "at least 4" in capsys.readouterr().err
+    # ensembles run over the mesh's slots now (one CPU slot here), and
+    # refuse --gridx/--gridy outside dist2d as the JAX CLI does
     assert tcli.main(["--mode", "dist2d", "--ensemble-cx", "0.1",
-                      "--ensemble-cy", "0.1", "--device", "cpu"]) == 1
-    assert "slice 6" in capsys.readouterr().err
+                      "--ensemble-cy", "0.1", "--device", "cpu",
+                      "--outdir", str(tmp_path / "e")]) == 0
+    assert "over 1 devices" in capsys.readouterr().out
+    assert tcli.main(["--mode", "hybrid", "--gridx", "2", "--gridy", "2",
+                      "--ensemble-cx", "0.1", "--ensemble-cy", "0.1",
+                      "--device", "cpu", "--host-device-count", "4",
+                      "--outdir", str(tmp_path / "f")]) == 1
+    assert "only supported with --mode dist2d" in capsys.readouterr().err
+
+
+# --------------------------------------------------------------------- #
+# per-member coefficients, and strong scaling (parallel/scaling.py)
+# --------------------------------------------------------------------- #
+
+def test_local_chunk_per_member_cxy_and_kernel_refusal():
+    """``cxy=`` (per-member (B, 1, 1) coefficients on (B, bm, bn) blocks)
+    advances each member as a scalar-coefficient run of its own (cx, cy)
+    does, bit for bit, in both halo routes; with the kernel it raises the
+    JAX package's error."""
+    ShardedGrid = sharded.ShardedGrid
+    grid_mesh = mesh.make_mesh(2, 2, _cpu(4))
+    rng = np.random.default_rng(3)
+    u = rng.random((3, 12, 16), dtype=np.float32) * 100
+    cxs = torch.tensor([0.05, 0.1, 0.2]).reshape(-1, 1, 1)
+    cys = torch.tensor([0.15, 0.1, 0.05]).reshape(-1, 1, 1)
+    for route in ("collective", "fused"):
+        cfg = HeatConfig(nxprob=12, nyprob=16, steps=5, mode="dist2d",
+                         gridx=2, gridy=2, halo=route, halo_depth=3)
+        blocks = [[torch.from_numpy(u[:, i * 6:(i + 1) * 6,
+                                      j * 8:(j + 1) * 8].copy())
+                   for j in range(2)] for i in range(2)]
+        multi = sharded.make_local_multi(cfg, grid_mesh, cxy=(cxs, cys))
+        step = sharded.make_local_step(cfg, grid_mesh, cxy=(cxs, cys))
+        got = step(multi(ShardedGrid(blocks, 12, 16), 5))
+        for m in range(3):
+            one = cfg.replace(cx=float(cxs[m]), cy=float(cys[m]))
+            grid = ShardedGrid([[b[m] for b in row] for row in blocks],
+                               12, 16)
+            ref = sharded.make_local_chunk(one, grid_mesh)(
+                sharded.make_local_multi(one, grid_mesh)(grid, 5), 1)
+            for a, b in zip(got.tensors(), ref.tensors()):
+                assert torch.equal(a[m], b)
+    with pytest.raises(ValueError) as t:
+        sharded.make_local_chunk(cfg, grid_mesh, kernel=True, cxy=(cxs, cys))
+    with pytest.raises(ValueError) as j:
+        jsharded.make_local_chunk(JConfig(nxprob=12, nyprob=16, mode="hybrid",
+                                     gridx=2, gridy=2),
+                             jmesh.make_mesh(2, 2), chunk_kernel=object(),
+                             cxy=(0.1, 0.1))
+    assert str(t.value) == str(j.value)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 6, 8, 9, 12])
+def test_square_mesh_equals_jax(n):
+    from heat2d_tpu.parallel.scaling import square_mesh as jsq
+    from heat2d_tpu_torch.parallel.scaling import square_mesh
+    assert square_mesh(n) == jsq(n)
+
+
+@pytest.mark.parametrize("mode,halo", [("dist2d", "collective"),
+                                       ("dist2d", "fused"),
+                                       ("hybrid", "collective"),
+                                       ("hybrid", "fused")])
+def test_strong_scaling_payload_equals_jax(mode, halo):
+    """The ``kind="multichip"`` payload: JAX's keys, mesh, depth and
+    (where the routes agree) route and tier; hybrid fused resolves
+    against the kernel route (H14's tier ``ici`` in the port, where the
+    JAX package's CPU build degrades to collective: a stated difference,
+    ROADMAP.md section C)."""
+    from heat2d_tpu.parallel.scaling import measure_strong_scaling as jm
+    from heat2d_tpu_torch.parallel.scaling import (measure_strong_scaling,
+                                                   scaling_record)
+    got = measure_strong_scaling(4, 32, 32, 16, halo=halo, mode=mode,
+                                 devices=_cpu(4))
+    want = jm(4, 32, 32, 16, halo=halo, mode=mode)
+    assert set(got) == set(want)
+    for k in ("n_devices", "mesh", "grid", "steps", "mode", "halo",
+              "halo_depth"):
+        assert got[k] == want[k], k
+    if (mode, halo) == ("hybrid", "fused"):
+        assert (got["halo_route"], got["halo_tier"]) == ("fused", "ici")
+    else:
+        assert (got["halo_route"], got["halo_tier"]) == \
+            (want["halo_route"], want["halo_tier"])
+    assert got["mcells_per_s_1chip"] > 0 and got["mcells_per_s_nchip"] > 0
+    assert got["strong_scaling_efficiency"] == pytest.approx(
+        got["mcells_per_s_nchip"] / (4 * got["mcells_per_s_1chip"]))
+    rec = scaling_record([got], device="cpu")
+    assert rec["kind"] == "multichip" and rec["scaling"] == [got]
+
+
+def test_strong_scaling_needs_the_slots():
+    from heat2d_tpu_torch.parallel.scaling import measure_strong_scaling
+    with pytest.raises(ValueError, match="needs 4 devices; have 2"):
+        measure_strong_scaling(4, devices=_cpu(2))
