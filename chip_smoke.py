@@ -114,7 +114,21 @@ Phases, each of which stops the run with a non-zero exit when it fails:
 18. headline: Mcells/s at 4096^2 by bench.py's two-point protocol
    (``models.solver.two_point_headline`` at 4800/24000 steps with the
    noise rules of ``tune.measure``, as ``bench_torch.py`` times it), and
-   the protocol of earlier runs (480/4800) in the same call beside it.
+   the protocol of earlier runs (480/4800) in the same call beside it;
+19. multi-process worlds (run after 15): 2-process worlds on the card,
+   spawned by ``dist.harness.spawn_world`` (gloo, the strips between
+   ranks staged through pinned host buffers): hybrid 4096^2 x 240 on a
+   2x2 mesh, two 2048^2 shards a process (H12 per rank), and hybrid
+   convergence at 1024^2 (H13 per rank, a sensitivity that stops the
+   one-process run at step 140 of 240), each ``final_binary.dat`` bit
+   for bit the one-process hybrid run's, steps_done equal; then
+   ``heat2d-tpu-torch-dist --selftest`` at 4096^2 x 64, segment 8 (the
+   store halo route), bitwise. It prints each rank's and the slowest
+   rank's elapsed, Mcells/s beside the one-process run's, the host-staged
+   exchange's ms and bytes per timed chunk, its share of each rank's
+   elapsed and its rate, and the store halo bytes; the
+   workers' H12/H13 launches, read from their run records, join the
+   kernels line.
 
 The last line of standard output is ``{"ok": true, "device": ...}``. The
 full results also go to ``chiprun_out/chip_smoke.json``.
@@ -2243,14 +2257,14 @@ def noisy_inidat(nx, ny, seed=1617, amplitude=1e11):
 
 def residual_trace(torch, cfg, devices, u0) -> list:
     """The residual of every check of ``cfg``'s route on the card from the
-    host grid ``u0``, read through its runner's ``tap`` in a run that
-    never exits early."""
+    host grid ``u0`` (None: the configuration's own initial grid), read
+    through its runner's ``tap`` in a run that never exits early."""
     from heat2d_tpu_torch.models.solver import Heat2DSolver
     solver = Heat2DSolver(cfg.replace(sensitivity=0.0), devices=devices)
     runner = solver.make_runner()
     seen, count = [], runner.tap
     runner.tap = lambda k, r: (seen.append(r), count(k, r))
-    solver.run(u0=solver.place(u0), timed=False)
+    solver.run(u0=None if u0 is None else solver.place(u0), timed=False)
     return seen
 
 
@@ -2659,6 +2673,161 @@ def phase_strong_scaling(torch) -> dict:
     return info
 
 
+# ------------------------------------------------------------------ #
+# slice 7: worlds of several processes on the card
+# ------------------------------------------------------------------ #
+
+def _world_run(torch, name: str, cfg, reference) -> dict:
+    """One 2-process world of the port's CLI on the card (rank r on
+    ``cuda:(r % count)``, two slots each, the 2x2 mesh spanning both),
+    spawned by ``dist.harness.spawn_world``, with per-shard binary dumps
+    and no gather; its ``final_binary.dat`` against ``reference`` (the
+    one-process run's ``RunResult``) bit for bit, steps_done equal."""
+    import shutil
+    import tempfile
+
+    from heat2d_tpu_torch.dist.harness import first_error_line, spawn_world
+    d = tempfile.mkdtemp(prefix=f"heat2d-{name}-")
+    rec_path = os.path.join(d, "rec.json")
+    args = ["--mode", cfg.mode, "--gridx", str(cfg.gridx), "--gridy",
+            str(cfg.gridy), "--nxprob", str(cfg.nxprob), "--nyprob",
+            str(cfg.nyprob), "--steps", str(cfg.steps), "--binary-dumps",
+            "--dat-layout", "none", "--run-record", rec_path,
+            "--outdir", d, "--host-device-count", "2"]
+    if cfg.convergence:
+        args += ["--convergence", "--interval", str(cfg.interval),
+                 "--sensitivity", str(cfg.sensitivity)]
+    t0 = time.perf_counter()
+    res = spawn_world(2, lambda i, coord: [
+        sys.executable, "-m", "heat2d_tpu_torch.cli", "--coordinator",
+        coord, "--num-processes", "2", "--process-id", str(i)] + args,
+        timeout=300)
+    wall = time.perf_counter() - t0
+    outs = [r.output for r in res]
+    fail_unless(all(r.ok for r in res),
+                f"{name}: world exited {[r.returncode for r in res]}: "
+                f"{first_error_line(outs)}\n" + "\n".join(
+                    o[-2000:] for o in outs))
+    with open(rec_path) as f:
+        rec = json.load(f)
+    import numpy as np
+    got = np.fromfile(os.path.join(d, "final_binary.dat"), np.float32)
+    shutil.rmtree(d)
+    want = np.ascontiguousarray(reference.u, np.float32).reshape(-1)
+    fail_unless(got.size == want.size and bool(np.isfinite(got).all()),
+                f"{name}: final_binary.dat has {got.size} values")
+    fail_unless(got.tobytes() == want.tobytes(),
+                f"{name}: final_binary.dat differs from the one-process "
+                f"run (max_abs_err {float(np.abs(got - want).max())})")
+    fail_unless(rec["steps_done"] == reference.steps_done,
+                f"{name}: steps_done {rec['steps_done']} vs "
+                f"{reference.steps_done}")
+    fail_unless(rec["halo"]["tier"] == "collective",
+                f"{name}: tier {rec['halo']['tier']}")
+    ex = rec["exchange_by_process"]
+    fail_unless(all(e["exchanges"] > 0 and e["seconds"] > 0 for e in ex),
+                f"{name}: no timed exchange across ranks: {ex}")
+    launches = {}
+    for row in rec["launches_by_process"]:
+        add_counts(launches, row)
+    row = {"leg": name, "shape": list(cfg.shape), "steps": cfg.steps,
+           "convergence": cfg.convergence, "route": rec["route"],
+           "steps_done": rec["steps_done"], "bitwise": True,
+           "elapsed_by_process_s": rec["elapsed_by_process"],
+           "max_over_processes_s": rec["elapsed_s"],
+           "mcells_per_s": rec["mcells_per_s"],
+           "one_process_elapsed_s": reference.elapsed,
+           "one_process_mcells_per_s": reference.mcells_per_s,
+           "world_wall_s": wall, "warmup_s": rec.get("warmup_s"),
+           "launches": launches,
+           "timed_chunks": [e["exchanges"] for e in ex],
+           "exchange_ms_per_chunk": [
+               1e3 * e["seconds"] / e["exchanges"] for e in ex],
+           "exchange_bytes_per_chunk": [e["bytes"] / e["exchanges"]
+                                        for e in ex],
+           "exchange_share_of_elapsed": [
+               e["seconds"] / s for e, s in zip(
+                   ex, rec["elapsed_by_process"])],
+           "host_staged_bytes_per_s": [e["bytes"] / e["seconds"]
+                                       for e in ex],
+           "exchange_by_process": ex}
+    emit({"phase": "multi_process_run", **row})
+    return row
+
+
+def phase_multi_process(torch, name: str, power: str) -> dict:
+    """Worlds of 2 processes on the one card (gloo, strips staged through
+    pinned host buffers): (a) hybrid 4096^2 x 240 on a 2x2 mesh, two
+    2048^2 shards a process (H12 per rank), (b) the same with
+    convergence at 1024^2 (H13 per rank), stopping at step 140 of 240,
+    each bit for bit the one-process hybrid run on ``host_devices(4)``;
+    (c) the dist worker's ``--selftest`` at 4096^2 x 64, segment 8 (the
+    store halo route), bitwise the one-process program and the plain
+    loop. Each rank's and
+    the slowest rank's elapsed, Mcells/s beside the one-process run's,
+    the host-staged exchange's ms and bytes per timed chunk, its share
+    and rate, the store halo bytes; the workers' H12/H13 launches, read
+    from their records."""
+    from heat2d_tpu_torch.config import HeatConfig
+    from heat2d_tpu_torch.dist import cli as dcli
+    from heat2d_tpu_torch.models.solver import Heat2DSolver
+    from heat2d_tpu_torch.parallel.mesh import host_devices
+    devs = host_devices(4)
+    fixed = HeatConfig(nxprob=4096, nyprob=4096, steps=240, mode="hybrid",
+                       gridx=2, gridy=2)
+    conv = fixed.replace(nxprob=1024, nyprob=1024, convergence=True,
+                         interval=20)
+    # a sensitivity between the one-process run's 6th and 7th residuals,
+    # so that it exits at step 140 of 240: the world must take that same
+    # early exit on every rank (its residuals are the one-process run's
+    # bit for bit, so no margin for rounding is needed)
+    trace = residual_trace(torch, conv, devs, None)
+    exit_step = 7 * conv.interval
+    conv = conv.replace(sensitivity=math.sqrt(trace[5] * trace[6]))
+    rows, launches = [], {}
+    for leg, cfg in (("a_hybrid_4096", fixed), ("b_convergence_1024",
+                                                  conv)):
+        ref = Heat2DSolver(cfg, devices=devs).run()
+        fail_unless(not cfg.convergence or ref.steps_done == exit_step,
+                    f"{leg}: the one-process run stopped at "
+                    f"{ref.steps_done}, not {exit_step} (residuals "
+                    f"{trace})")
+        row = _world_run(torch, leg, cfg, ref)
+        add_counts(launches, row["launches"])
+        rows.append(row)
+    fail_unless(launches.get("shard_tile_multi", 0) > 0
+                and launches.get("shard_tile_multi_resid", 0) > 0,
+                f"the workers did not launch H12 and H13: {launches}")
+    import shutil
+    import tempfile
+    d = tempfile.mkdtemp(prefix="heat2d-selftest-")
+    t0 = time.perf_counter()
+    rc = dcli.main(["--selftest", "--nx", "4096", "--ny", "4096",
+                    "--steps", "64", "--segment", "8", "--timeout", "300",
+                    "--outdir", d])
+    rec_path = os.path.join(d, "selftest_record.json")
+    st = None
+    if os.path.exists(rec_path):
+        with open(rec_path) as f:
+            st = json.load(f)
+    shutil.rmtree(d)
+    fail_unless(rc == 0 and st is not None,
+                f"heat2d-tpu-torch-dist --selftest exited {rc}")
+    fail_unless(st["bitwise_equal"] and st["bitwise_vs_plain_loop"],
+                f"dist selftest not bitwise: {st}")
+    selftest = {"leg": "c_selftest", "shape": [4096, 4096], "steps": 64,
+                "segment": 8, "bitwise": True,
+                "kv_halo_bytes_process0": st["halo_bytes"],
+                "worker_run_s": st["worker_run_s"],
+                "world_s": st["world_s"],
+                "wall_s": time.perf_counter() - t0}
+    emit({"phase": "multi_process_selftest", **selftest})
+    info = {"phase": "multi_process", "card": name, "power_limit": power,
+            "launches": launches}
+    emit(info)
+    return {**info, "runs": rows, "selftest": selftest}
+
+
 def shard_chunk_ms(torch, devs) -> dict:
     """One T = 8 chunk of the 2x2 mesh of 4096^2 on the card, by CUDA
     events: the collective route (the exchange, then four H12 launches)
@@ -2787,13 +2956,15 @@ def main() -> int:
         mesh_serve = phase_mesh_serving(torch)
         mesh_fault = phase_mesh_fault(torch)
         scaling = phase_strong_scaling(torch)
+        multi = phase_multi_process(torch, tool["name"],
+                                    tool["power_limit"])
         diff_path = phase_diff_path(torch, tool["name"],
                                     tool["power_limit"])
         launches = {**main_path["launches"], **serve["launch_counts"],
                     **serve_fam["launch_counts"],
                     **sharded_path["launches"]}
         launches["ens_tile_multi"] += diff_path["launches"]["ens_tile_multi"]
-        for leg in (sharded_ens, mesh_serve, scaling):
+        for leg in (sharded_ens, mesh_serve, scaling, multi):
             add_counts(launches, leg["launches"])
         for name in ("td_coeffs", "td_rows", "td_lanes"):
             launches[name] += implicit["launches"][name]
@@ -2822,7 +2993,8 @@ def main() -> int:
                    "sharded_ensembles": sharded_ens,
                    "spatial_ensembles": spatial_ens,
                    "mesh_serving": mesh_serve, "mesh_fault": mesh_fault,
-                   "strong_scaling": scaling, "diff_path": diff_path,
+                   "strong_scaling": scaling, "multi_process": multi,
+                   "diff_path": diff_path,
                    "kernels": rows,
                    "headline": head,
                    "seconds": time.perf_counter() - t0})

@@ -38,6 +38,18 @@ the JAX CLI's virtual host devices share the host:
 
 ``--device-info`` prints the device summary (name, count, power limit)
 and exits without running a kernel.
+
+``--coordinator/--num-processes/--process-id`` (the mpiexec launch line)
+or ``--multihost`` (torchrun's environment) run N processes as one world
+over ``torch.distributed`` (``parallel/multihost.py``): the mesh spans
+them, each process runs its own shards (``--host-device-count`` of them,
+default one), and process 0 prints, writes the ``.dat`` files and the
+run record. A binary dump and a checkpoint are written by every process
+into one file; with ``--dat-layout none`` nothing is gathered.
+
+    python -m heat2d_tpu_torch.cli --device cpu --mode dist2d --gridx 2 \\
+        --gridy 2 --host-device-count 2 --coordinator 127.0.0.1:29500 \\
+        --num-processes 2 --process-id 0      # and --process-id 1
 """
 
 from __future__ import annotations
@@ -151,6 +163,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="run on the CUDA card (default) or, with the "
                         "plain PyTorch versions of the kernels, the CPU")
+    m = p.add_argument_group(
+        "multi-process (the mpiexec launch line; under torchrun pass "
+        "--multihost and none of the others)")
+    m.add_argument("--coordinator", default=None,
+                   help="coordinator address host:port, where process 0 "
+                        "serves the torch.distributed store")
+    m.add_argument("--num-processes", type=int, default=None)
+    m.add_argument("--process-id", type=int, default=None)
+    m.add_argument("--multihost", action="store_true",
+                   help="initialize torch.distributed from torchrun's "
+                        "environment (MASTER_ADDR, MASTER_PORT, "
+                        "WORLD_SIZE, RANK)")
     return p
 
 
@@ -270,6 +294,29 @@ def _run_ensemble_cli(args, cfg) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    multihost = (args.multihost or args.coordinator is not None
+                 or args.num_processes is not None
+                 or args.process_id is not None)
+    if not multihost:
+        return _main(args)
+    from heat2d_tpu_torch.parallel import multihost as mh
+    try:
+        world = mh.initialize_distributed(
+            args.coordinator, args.num_processes, args.process_id,
+            force=True)
+    except ValueError as e:
+        print(f"{e}\nQuitting...", file=sys.stderr)
+        return 1
+    try:
+        if args.debug:
+            print(f"multihost world: {world}")
+        return _main(args)
+    finally:
+        mh.shutdown_distributed()
+
+
+def _main(args) -> int:
+    from heat2d_tpu_torch.parallel import multihost as mh
     if args.device_info:
         from heat2d_tpu_torch.utils.device import print_device_summary
         print_device_summary(args.device)
@@ -289,45 +336,61 @@ def main(argv=None) -> int:
         print(f"{e}\nQuitting...", file=sys.stderr)
         return 1
     if args.ensemble_cx or args.ensemble_cy:
+        if mh.is_multiprocess():
+            print("ensemble runs across processes are not ported yet "
+                  "(ROADMAP.md); run them in one process\nQuitting...",
+                  file=sys.stderr)
+            return 1
         return _run_ensemble_cli(args, cfg)
     try:
         from heat2d_tpu_torch.models.solver import Heat2DSolver
-        devices = None
-        if args.host_device_count:
+        devices = owners = None
+        if mh.is_multiprocess():
+            devices, owners = mh.world_slots(args.host_device_count or 1,
+                                             args.device)
+        elif args.host_device_count:
             from heat2d_tpu_torch.parallel.mesh import host_devices
             devices = host_devices(args.host_device_count, args.device)
-        solver = Heat2DSolver(cfg, device=args.device, devices=devices)
+        solver = Heat2DSolver(cfg, device=args.device, devices=devices,
+                              owners=owners)
     except (ConfigError, ValueError, DeviceUnavailableError) as e:
         print(f"{e}\nQuitting...", file=sys.stderr)
         return 1
 
     from heat2d_tpu_torch.io.binary import (CheckpointCorruptError,
-                                            load_checkpoint, save_checkpoint,
-                                            write_binary,
+                                            load_checkpoint, read_binary,
+                                            save_checkpoint, write_binary,
                                             write_binary_sharded,
                                             write_json_atomic)
-    from heat2d_tpu_torch.parallel.multihost import gather_to_host
     from heat2d_tpu_torch.io.writers import (write_grid_baseline,
                                              write_grid_rowmajor)
 
+    # Output and logging are process 0's (the master prints and writes
+    # final.dat; grad1612_mpi_heat.c:66-69, 319-323).
+    primary = mh.process_index() == 0
+
+    def say(msg):
+        if primary:
+            print(msg)
+
     # Startup banner (grad1612_mpi_heat.c:66-69).
-    print(f"Starting with {cfg.n_shards} shards")
-    print(f"Problem size:{cfg.nxprob}x{cfg.nyprob}")
+    say(f"Starting with {cfg.n_shards} shards")
+    say(f"Problem size:{cfg.nxprob}x{cfg.nyprob}")
     if cfg.problem != "heat5":
-        print(f"Problem family: {cfg.problem}")
+        say(f"Problem family: {cfg.problem}")
     if cfg.mode in ("dist2d", "hybrid"):
-        print(f"Each shard will take: {cfg.xcell}x{cfg.ycell}")
-    print(f"Amount of iterations: {cfg.steps}")
+        say(f"Each shard will take: {cfg.xcell}x{cfg.ycell}")
+    say(f"Amount of iterations: {cfg.steps}")
     if cfg.convergence:
-        print(f"Check for convergence every {cfg.interval} iterations")
+        say(f"Check for convergence every {cfg.interval} iterations")
     if cfg.debug and solver.mesh is not None:
         # The DEBUG topology dump (grad1612_mpi_heat.c:170-175), -1 = no
         # neighbour (MPI_PROC_NULL).
         from heat2d_tpu_torch.parallel.mesh import neighbor_table
         for row in neighbor_table(*solver.mesh.shape):
-            print(f"shard {row['shard']} at ({row['x']},{row['y']}): "
-                  f"N={row['north']} S={row['south']} "
-                  f"W={row['west']} E={row['east']}")
+            say(f"shard {row['shard']} at ({row['x']},{row['y']}): "
+                f"N={row['north']} S={row['south']} "
+                f"W={row['west']} E={row['east']}")
 
     start_step = 0
     if args.resume:
@@ -338,7 +401,7 @@ def main(argv=None) -> int:
             print(f"ERROR: checkpoint failed integrity verification "
                   f"({e})\nQuitting...", file=sys.stderr)
             return 1
-        print(f"Resuming from step {start_step}")
+        say(f"Resuming from step {start_step}")
         if tuple(grid.shape) != cfg.shape:
             print(f"ERROR: checkpoint grid is {grid.shape[0]}x"
                   f"{grid.shape[1]} but config is {cfg.nxprob}x"
@@ -346,13 +409,13 @@ def main(argv=None) -> int:
             return 1
         solver = Heat2DSolver(
             cfg.replace(steps=max(cfg.steps - start_step, 0)),
-            device=args.device, devices=devices)
+            device=args.device, devices=devices, owners=owners)
         u0 = solver.place(grid)
     else:
         u0 = solver.init_state()
 
     def write_dat(u_host, name):
-        if args.dat_layout == "none":
+        if args.dat_layout == "none" or not primary:
             return
         path = os.path.join(args.outdir, name)
         if args.dat_layout == "baseline":
@@ -363,39 +426,72 @@ def main(argv=None) -> int:
 
     def dump_binary(u, name):
         """A sharded state is written shard by shard (the MPI-IO
-        analogue), a single grid as it is."""
+        analogue; collective when it spans processes), a single grid as
+        it is. Returns the path."""
         path = os.path.join(args.outdir, name)
         if solver.mesh is not None:
             write_binary_sharded(u, path, shape=cfg.shape)
         else:
             write_binary(u, path)
+        return path
 
-    def to_host(u):
-        return gather_to_host(u)[:cfg.nxprob, :cfg.nyprob]
+    def to_host(u, binary_path=None):
+        """The grid on the host for text output. A grid that spans
+        processes and was just dumped is read back by process 0 (the
+        reference's binary->text conversion, grad1612_mpi_heat.c:
+        319-323) instead of gathered; others get None."""
+        if binary_path is not None and getattr(u, "spans_processes", False):
+            return read_binary(binary_path, cfg.shape) if primary else None
+        return mh.gather_to_host(u)[:cfg.nxprob, :cfg.nyprob]
 
     os.makedirs(args.outdir, exist_ok=True)
+    init_bin = None
     if args.binary_dumps:
-        dump_binary(u0, "initial_binary.dat")
-    write_dat(to_host(u0), "initial.dat")
+        init_bin = dump_binary(u0, "initial_binary.dat")
+    if args.dat_layout != "none":
+        write_dat(to_host(u0, init_bin), "initial.dat")
 
     result = solver.run(u0=u0, gather=False)
     total_steps = start_step + result.steps_done
-    print(f"Exiting after {result.steps_done} iterations")
-    print(f"Elapsed time: {result.elapsed:e} sec")
+    say(f"Exiting after {result.steps_done} iterations")
+    say(f"Elapsed time: {result.elapsed:e} sec")
+    fin_bin = None
     if args.binary_dumps:
-        dump_binary(result.u, "final_binary.dat")
-    u_host = to_host(result.u)
-    write_dat(u_host, "final.dat")
+        fin_bin = dump_binary(result.u, "final_binary.dat")
+    u_host = None
+    if args.dat_layout != "none":
+        u_host = to_host(result.u, fin_bin)
+        write_dat(u_host, "final.dat")
     if args.checkpoint:
-        save_checkpoint(u_host, total_steps, cfg, args.checkpoint)
+        if getattr(result.u, "spans_processes", False):
+            # the per-shard collective write (every process)
+            save_checkpoint(result.u, total_steps, cfg, args.checkpoint,
+                            shape=cfg.shape)
+        else:
+            if u_host is None:
+                u_host = to_host(result.u)
+            if primary:
+                save_checkpoint(u_host, total_steps, cfg, args.checkpoint)
 
     record = result.to_record()
     record["total_steps_including_resume"] = total_steps
     if args.resume:
         record["resume_from_step"] = start_step
-    if args.run_record:
+    if solver.mesh is not None and mh.is_multiprocess():
+        # every process's shard-kernel launches (warmup included) and
+        # cross-rank exchange totals over the timed run, gathered (a
+        # collective: every process calls it)
+        from heat2d_tpu_torch.ops.cuda_shard import launch_counts
+        from heat2d_tpu_torch.utils.timing import gather_over_processes
+        for key, counts in (("launches_by_process", launch_counts()),
+                            ("exchange_by_process", result.exchange)):
+            cols = {k: gather_over_processes(v) for k, v in counts.items()}
+            record[key] = [{k: type(counts[k])(col[p])
+                            for k, col in cols.items()}
+                           for p in range(mh.process_count())]
+    if args.run_record and primary:
         write_json_atomic(record, args.run_record)
-    if cfg.debug:
+    if cfg.debug and primary:
         print(json.dumps(record, indent=2))
     return 0
 

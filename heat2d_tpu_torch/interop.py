@@ -39,7 +39,8 @@ def state_from_numpy(u, device=None):
 
 def sharded_from_numpy(u, config, mesh):
     """A host grid as the ``ShardedGrid`` of ``mesh``: padded with zeros
-    up to equal shards, block (i, j) on mesh device (i, j)."""
+    up to equal shards, block (i, j) on mesh device (i, j) (this
+    process's blocks only, on a mesh that spans processes)."""
     from heat2d_tpu_torch.parallel.sharded import (ShardedGrid,
                                                    padded_global_shape)
     a = np.asarray(u, dtype=np.float32)
@@ -51,9 +52,10 @@ def sharded_from_numpy(u, config, mesh):
     gx, gy = mesh.shape
     bm, bn = pnx // gx, pny // gy
     blocks = [[state_from_numpy(a[i * bm:(i + 1) * bm, j * bn:(j + 1) * bn],
-                                mesh.devices[i][j]) for j in range(gy)]
+                                mesh.devices[i][j])
+               if mesh.is_local(i, j) else None for j in range(gy)]
               for i in range(gx)]
-    return ShardedGrid(blocks, config.nxprob, config.nyprob)
+    return ShardedGrid(blocks, config.nxprob, config.nyprob, mesh)
 
 
 def batch_from_numpy(u, cxs, cys, device=None):

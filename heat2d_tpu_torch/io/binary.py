@@ -85,32 +85,58 @@ def write_binary(u, path) -> None:
     _write_bytes_atomic(_host_f32(u).tobytes(), path)
 
 
-def write_binary_sharded(grid, path, shape=None) -> None:
-    """Per-shard write of a ``ShardedGrid`` (the MPI_File_write_all
-    analogue, grad1612_mpi_heat.c:182-189): each shard writes its block
-    into the one global row-major f32 file at its offset, cropped to the
-    true domain ``shape`` (default: the grid's (nx, ny)), so the bytes are
-    those of ``write_binary`` of the gathered, cropped grid. No full grid
-    is assembled; the file is staged and promoted like every write."""
-    nx, ny = shape if shape is not None else (grid.nx, grid.ny)
+def _write_blocks(grid, tmp, nx: int, ny: int) -> None:
+    """Write this process's blocks of ``grid`` into the staged global
+    file ``tmp`` at their offsets, cropped to (nx, ny). Across processes
+    a collective: process 0 sizes the file, a barrier, every process
+    writes its blocks, a barrier (a shared filesystem is assumed, as
+    MPI-IO assumes one)."""
+    from heat2d_tpu_torch.parallel.multihost import barrier, process_index
+    multi = grid.spans_processes
     bm, bn = grid.block_shape
-    tmp = str(path) + ".tmp"
-    with open(tmp, "wb") as f:
-        f.truncate(nx * ny * 4)
+    if not multi or process_index() == 0:
+        with open(tmp, "wb") as f:
+            f.truncate(nx * ny * 4)
+    if multi:
+        barrier()
     mm = np.memmap(tmp, dtype=np.float32, mode="r+", shape=(nx, ny))
     try:
         for i, row in enumerate(grid.blocks):
             for j, blk in enumerate(row):
                 r0, c0 = i * bm, j * bn
-                if r0 >= nx or c0 >= ny:
-                    continue          # the shard lies wholly in the padding
+                if blk is None or r0 >= nx or c0 >= ny:
+                    continue   # another process's, or wholly padding
                 r1, c1 = min(r0 + bm, nx), min(c0 + bn, ny)
                 mm[r0:r1, c0:c1] = _host_f32(blk[:r1 - r0, :c1 - c0])
         mm.flush()
     finally:
         del mm
     _fsync_path(tmp)
-    os.replace(tmp, str(path))
+    if multi:
+        barrier()
+
+
+def write_binary_sharded(grid, path, shape=None) -> None:
+    """Per-shard write of a ``ShardedGrid`` (the MPI_File_write_all
+    analogue, grad1612_mpi_heat.c:182-189): each shard writes its block
+    into the one global row-major f32 file at its offset, cropped to the
+    true domain ``shape`` (default: the grid's (nx, ny)), so the bytes are
+    those of ``write_binary`` of the gathered, cropped grid. No full grid
+    is assembled; the file is staged and promoted like every write.
+
+    On a grid that spans processes the call is COLLECTIVE: each process
+    writes its own blocks into the one file, process 0 promotes it after
+    the closing barrier, and no process returns before it has."""
+    from heat2d_tpu_torch.parallel.multihost import barrier, process_index
+    nx, ny = shape if shape is not None else (grid.nx, grid.ny)
+    tmp = str(path) + ".tmp"
+    _write_blocks(grid, tmp, nx, ny)
+    if not grid.spans_processes:
+        os.replace(tmp, str(path))
+        return
+    if process_index() == 0:
+        os.replace(tmp, str(path))
+    barrier()
 
 
 def read_binary(path, shape) -> np.ndarray:
@@ -164,7 +190,23 @@ def commit_checkpoint_files(tmp_path, path, step: int, config,
 
 def save_checkpoint(u, step: int, config, path, shape=None) -> None:
     """State dump + sidecar, committed crash-consistently. ``shape`` crops
-    a padded grid to the domain."""
+    a padded grid to the domain.
+
+    A ``ShardedGrid`` that spans processes is written per shard
+    (``write_binary_sharded``'s collective, into the staging file), then
+    process 0 commits it; the call is COLLECTIVE and no process returns
+    before the commit, so a process that resumes at once never races a
+    missing or stale pair."""
+    if getattr(u, "spans_processes", False):
+        from heat2d_tpu_torch.parallel.multihost import (barrier,
+                                                         process_index)
+        out_shape = tuple(shape) if shape is not None else (u.nx, u.ny)
+        tmp = checkpoint_tmp_path(path)
+        _write_blocks(u, tmp, *out_shape)
+        if process_index() == 0:
+            commit_checkpoint_files(tmp, path, step, config, out_shape)
+        barrier()
+        return
     a = _host_f32(u)
     if shape is not None and tuple(a.shape) != tuple(shape):
         a = a[:shape[0], :shape[1]]

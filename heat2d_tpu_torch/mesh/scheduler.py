@@ -30,8 +30,16 @@ admission control on modeled mesh capacity. The port of
   per-slot rate) with ``Rejected("mesh_saturated")`` before it queues.
   Cache hits and coalesced followers never reach it.
 
+With a multi-process ``world`` (``dist.runtime.DistWorld``) the spatial
+row also prices its seams (``links``): the census of the submesh's
+xy-adjacent slot pairs by link class over the world's host-major order
+(``dist/mesh.py``) and the modeled seconds one step's edge traffic costs
+on the port's route (``tune/measure.route_bytes_per_s``: the H100's link
+figures between slots of one process, the host-staged rate measured on
+the H100 between processes).
+
 Neither takes a tuning db yet (``tuned_rate_mcells`` is None until the
-port has ``tune/``'s db), nor a multi-process world (``world=`` raises).
+port has ``tune/``'s db).
 """
 
 from __future__ import annotations
@@ -63,11 +71,12 @@ def tuned_rate_mcells(nx: int, ny: int,
     return None
 
 
-def _refuse_world(world) -> None:
-    if world is not None:
+def _check_world(world) -> None:
+    from heat2d_tpu_torch.dist.runtime import DistWorld
+    if world is not None and not isinstance(world, DistWorld):
         raise ConfigError(
-            "a multi-process world (dist/) is not ported yet: it is "
-            "slice 7 of ROADMAP.md; drop world=")
+            f"world= takes a dist.runtime.DistWorld, got "
+            f"{type(world).__name__}")
 
 
 class MeshScheduler:
@@ -84,7 +93,7 @@ class MeshScheduler:
         from heat2d_tpu_torch.mesh.runner import attached_devices
         from heat2d_tpu_torch.obs.metrics import CounterDeltas
 
-        _refuse_world(world)
+        _check_world(world)
         slots = attached_devices(n_devices, devices)
         self.n_devices = len(slots)
         self.registry = registry
@@ -167,7 +176,39 @@ class MeshScheduler:
             return dict(out, route="single", reason="unplannable",
                         plan=plan)
         return dict(out, route="spatial", reason="exceeds_chip",
-                    spatial_grid=(gx, gy), plan=plan, links=None)
+                    spatial_grid=(gx, gy), plan=plan,
+                    links=self._seam_links(gx, gy, req0.ny))
+
+    def _seam_links(self, gx: int, gy: int, ny: int) -> Optional[dict]:
+        """The spatial row's cross-process seam pricing (module
+        docstring): the seam census over the (gx, gy) arrangement of the
+        world's host-major slot order, plus the bytes that cross
+        processes and the modeled seconds one step's edge traffic costs
+        on the port's route for each seam. None without a
+        world (the one-process schedulers lose nothing) or when the
+        submesh does not cover the world exactly (no arrangement to
+        census)."""
+        if self.world is None:
+            return None
+        from heat2d_tpu_torch.dist.mesh import (arrange_pod, seam_profile,
+                                                seams)
+        from heat2d_tpu_torch.tune.measure import route_bytes_per_s
+
+        if gx * gy != self.world.n_devices:
+            return None
+        rows = arrange_pod(self.world, gx, gy)
+        prof = seam_profile(self.world, rows, ny)
+        per_seam = 2 * ny * 4
+        procs = self.world.device_process
+        cross, seconds = 0, 0.0
+        for a, b in seams(rows):
+            same = procs[a] == procs[b]
+            cross += 0 if same else per_seam
+            seconds += per_seam / route_bytes_per_s(
+                self.world.link_kind(a, b), same)
+        prof["cross_process_bytes_per_step"] = cross
+        prof["seam_s_per_step"] = seconds
+        return prof
 
     def decisions(self) -> dict:
         """signature -> decision row (a copy; run-record provenance)."""

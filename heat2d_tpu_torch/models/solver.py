@@ -26,6 +26,9 @@ hybrid                the mesh with a hand kernel per shard (H12/H13, or
 The solver runs on ``cuda`` unless it is given ``device="cpu"``. A mesh
 takes its slots from ``devices`` (default: the visible devices of that
 type); ``parallel.mesh.host_devices(n)`` lets n shards share fewer cards.
+In a multi-process world ``owners`` names each slot's process
+(``parallel.multihost.world_slots``) and every process runs its own
+shards.
 """
 
 from __future__ import annotations
@@ -62,6 +65,12 @@ class RunResult:
     # shard) and the mesh the run used; None on one device.
     halo: Optional[dict] = None
     mesh: object = None
+    # Every process's own elapsed seconds, in process order (``elapsed``
+    # is their max, the reference's MPI_Reduce(MPI_MAX)); None untimed.
+    elapsed_by_process: Optional[list] = None
+    # This process's cross-process halo totals over the timed run
+    # (``TimedCall.exchange``); None in one process or untimed.
+    exchange: Optional[dict] = None
 
     @property
     def mcells_per_s(self) -> float:
@@ -76,6 +85,8 @@ class RunResult:
         and the residual reads, under the envelope that names the card."""
         from heat2d_tpu_torch.obs.record import build_record, halo_record
         extra = {"route": self.route, "residual_reads": self.residual_reads}
+        if self.elapsed_by_process is not None:
+            extra["elapsed_by_process"] = self.elapsed_by_process
         if self.halo is not None:
             from heat2d_tpu_torch.parallel.mesh import mesh_devices_summary
             extra["halo"] = halo_record(self.halo, self.mesh)
@@ -177,9 +188,11 @@ def _implicit_runner(cfg: HeatConfig, device) -> engine.Runner:
 
 
 class Heat2DSolver:
-    def __init__(self, config: HeatConfig, device=None, devices=None):
+    def __init__(self, config: HeatConfig, device=None, devices=None,
+                 owners=None):
         """``devices``: the slots of a distributed mode's mesh (default:
-        every visible device of ``device``'s type)."""
+        every visible device of ``device``'s type); ``owners``: the
+        process of each slot, for a mesh that spans processes."""
         self.config = config
         self.mesh = None
         if config.mode in SHARDED_MODES:
@@ -193,10 +206,12 @@ class Heat2DSolver:
                                   "all the CPU")
             if config.mode == "dist1d":
                 self.mesh = make_mesh(config.numworkers or config.gridx, 1,
-                                      devices)
+                                      devices, owners)
             else:
-                self.mesh = make_mesh(config.gridx, config.gridy, devices)
-            self.device = self.mesh.flat()[0]
+                self.mesh = make_mesh(config.gridx, config.gridy, devices,
+                                      owners)
+            local = self.mesh.local_devices()
+            self.device = local[0] if local else devices[0]
         else:
             self.device = resolve_device(device)
         self._runner = None
@@ -248,11 +263,12 @@ class Heat2DSolver:
         if u0 is None:
             u0 = self.init_state()
         runner = self.make_runner()
-        warmup_s = None
+        warmup_s = by_process = exchange = None
         if timed:
             tc = timed_call(runner, u0, warmup=warmup)
             (u, k), elapsed = tc
-            warmup_s = tc.warmup_s
+            warmup_s, by_process = tc.warmup_s, tc.elapsed_by_process
+            exchange = tc.exchange
         else:
             u, k = runner(u0)
             _fence(u)
@@ -265,7 +281,8 @@ class Heat2DSolver:
                          route=runner.route,
                          residual_reads=runner.residual_reads,
                          device=str(self.device),
-                         halo=getattr(runner, "halo", None), mesh=self.mesh)
+                         halo=getattr(runner, "halo", None), mesh=self.mesh,
+                         elapsed_by_process=by_process, exchange=exchange)
 
 
 def two_point_headline(nx: int, ny: int, lo: int, hi: int,

@@ -165,6 +165,12 @@ class MetricsRegistry:
             return {k[1]: v for k, v in self._counters.items()
                     if k[0] == name}
 
+    def find_gauges(self, name: str) -> dict:
+        """{label-pairs tuple: value} for every series of ``name``."""
+        with self._lock:
+            return {k[1]: v for k, v in self._gauges.items()
+                    if k[0] == name}
+
     def snapshot(self) -> dict:
         """Point-in-time view: counters and gauges flat, histograms
         summarized, series as point lists."""

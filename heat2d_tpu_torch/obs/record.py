@@ -22,12 +22,15 @@ RECORD_SCHEMA = "heat2d-tpu/run-record/v1"
 #: final loss, convergence, beside the ``inverse_*`` metric series),
 #: "multichip" (strong scaling and mesh serving, ``parallel/scaling.py``
 #: and ``mesh/bench.py``), "mesh_chaos" (the mesh fault gate,
-#: ``mesh/chaos_gate.py``).
+#: ``mesh/chaos_gate.py``), "dist" (the multi-process runtime's legs,
+#: ``dist/cli.py``).
 RECORD_KINDS = ("run", "ensemble", "bench", "serve", "inverse",
-                "multichip", "mesh_chaos")
+                "multichip", "mesh_chaos", "dist")
 
 
 def run_context(device=None) -> dict:
+    from heat2d_tpu_torch.parallel.multihost import (process_count,
+                                                     process_index)
     from heat2d_tpu_torch.utils.device import device_summary
     return {
         "schema": RECORD_SCHEMA,
@@ -35,7 +38,8 @@ def run_context(device=None) -> dict:
             datetime.timezone.utc).isoformat(timespec="seconds"),
         "torch_version": torch.__version__,
         "device": device_summary(device),
-        "world": {"process_index": 0, "process_count": 1},
+        "world": {"process_index": process_index(),
+                  "process_count": process_count()},
     }
 
 

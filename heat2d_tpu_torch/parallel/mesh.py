@@ -11,6 +11,10 @@ lists n slots over the visible cards in turn (or n CPU slots), the
 counterpart of the JAX package's virtual host devices
 (``--host-device-count``). A 2x2 mesh on one H100 holds four real shards;
 the exchange and the shard kernels do the same work as on four cards.
+
+In a multi-process world (``parallel/multihost.py``) a mesh spans the
+processes: ``owners[i][j]`` names the process that holds shard (i, j),
+and this process (``rank``) holds tensors for its own slots only.
 """
 
 from __future__ import annotations
@@ -28,12 +32,33 @@ AXIS_NAMES = ("x", "y")
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """``devices[i][j]`` holds shard (i, j)."""
+    """``devices[i][j]`` holds shard (i, j); ``owners[i][j]`` is the
+    process that holds it (None: this one holds every shard)."""
     devices: tuple
+    owners: tuple | None = None
+    rank: int = 0
 
     @property
     def shape(self) -> tuple[int, int]:
         return len(self.devices), len(self.devices[0])
+
+    def owner(self, i: int, j: int) -> int:
+        return self.rank if self.owners is None else self.owners[i][j]
+
+    def is_local(self, i: int, j: int) -> bool:
+        return self.owner(i, j) == self.rank
+
+    @property
+    def spans_processes(self) -> bool:
+        """Some shard lies on another process."""
+        return self.owners is not None and any(
+            o != self.rank for row in self.owners for o in row)
+
+    def local_devices(self) -> list:
+        """The devices of this process's shards, in slot order."""
+        gx, gy = self.shape
+        return [self.devices[i][j] for i in range(gx) for j in range(gy)
+                if self.is_local(i, j)]
 
     def flat(self) -> list:
         """The slots in row-major (x, y) order, the shard ids'."""
@@ -64,10 +89,13 @@ def host_devices(n: int, device=None) -> list:
     return [devs[i % len(devs)] for i in range(n)]
 
 
-def make_mesh(gridx: int, gridy: int = 1, devices=None) -> Mesh:
+def make_mesh(gridx: int, gridy: int = 1, devices=None,
+              owners=None) -> Mesh:
     """A (gridx, gridy) mesh over the first gridx * gridy ``devices``
     (default: ``visible_devices()``), validating the count the way
-    grad1612_mpi_heat.c:54-59 validates comm_sz == GRIDX*GRIDY."""
+    grad1612_mpi_heat.c:54-59 validates comm_sz == GRIDX*GRIDY.
+    ``owners``: the process of each of ``devices`` (``multihost.
+    world_slots``), for a mesh that spans processes."""
     if devices is None:
         devices = visible_devices()
     devices = [torch.device(d) for d in devices]
@@ -78,7 +106,12 @@ def make_mesh(gridx: int, gridy: int = 1, devices=None) -> Mesh:
             f"(gridx={gridx} * gridy={gridy}); have {len(devices)}.")
     rows = tuple(tuple(devices[i * gridy:(i + 1) * gridy])
                  for i in range(gridx))
-    return Mesh(rows)
+    if owners is None:
+        return Mesh(rows)
+    from heat2d_tpu_torch.parallel.multihost import process_index
+    owned = tuple(tuple(owners[i * gridy:(i + 1) * gridy])
+                  for i in range(gridx))
+    return Mesh(rows, owned, process_index())
 
 
 def neighbor_table(gridx: int, gridy: int = 1) -> list[dict]:
@@ -110,6 +143,8 @@ def mesh_devices_summary(mesh: Mesh) -> dict:
         "n_devices": len(mesh.distinct()),
         "n_shards": len(devs),
         "devices": [str(d) for d in devs],
+        "processes": sorted({mesh.owner(i, j) for i in range(mesh.shape[0])
+                             for j in range(mesh.shape[1])}),
         "device_kind": torch.cuda.get_device_name(d0) if cuda else "cpu",
         "platform": "gpu" if cuda else "cpu",
     }

@@ -16,6 +16,12 @@ steps. dist1d/dist2d advance with the golden loop (plain PyTorch, the
 literal step in ``accum_dtype``, as the JAX package's jnp path); hybrid
 with the kernels. The convergence residual is the sum of the shards'
 partials, read to the host once per INTERVAL chunk.
+
+A mesh may span processes (``parallel/multihost.py``): each process then
+holds and advances its own shards only, the exchange carries strips
+between ranks, and the residual is every shard's partial gathered to
+every rank and summed there in shard order, so each rank takes the
+one-process run's decision on the one-process run's bits.
 """
 
 from __future__ import annotations
@@ -43,20 +49,30 @@ DEFAULT_HALO_DEPTH = 8
 class ShardedGrid:
     """A (gx, gy) grid of (bm, bn) float32 blocks, ``blocks[i][j]`` on mesh
     device (i, j) and at global (i bm, j bn), of a true nx x ny domain
-    (cells past it are the equal-shard padding, held at 0)."""
+    (cells past it are the equal-shard padding, held at 0). On a ``mesh``
+    that spans processes, the other processes' blocks are None."""
     blocks: list
     nx: int
     ny: int
+    mesh: object = None
 
     @property
     def block_shape(self) -> tuple[int, int]:
-        return tuple(self.blocks[0][0].shape)
+        for b in self.tensors():
+            return tuple(b.shape)
+        gx, gy = len(self.blocks), len(self.blocks[0])
+        return -(-self.nx // gx), -(-self.ny // gy)
+
+    @property
+    def spans_processes(self) -> bool:
+        return self.mesh is not None and self.mesh.spans_processes
 
     def tensors(self) -> list:
-        return [b for row in self.blocks for b in row]
+        """This process's blocks, in shard order."""
+        return [b for row in self.blocks for b in row if b is not None]
 
     def with_blocks(self, blocks) -> "ShardedGrid":
-        return ShardedGrid(blocks, self.nx, self.ny)
+        return ShardedGrid(blocks, self.nx, self.ny, self.mesh)
 
 
 def _grid_of(mesh) -> tuple[int, int]:
@@ -96,11 +112,14 @@ def _form(config) -> int:
 def _fused_kernel_viable(config, mesh: Mesh, t: int) -> bool:
     """H14 serves a chunk of depth t: a mesh of more than one shard, the
     overlap geometry (its plain version's frames), at most the kernel's
-    table of shards, and every card able to read the others."""
+    table of shards, every card able to read the others, and every shard
+    in this process (H14 reads its neighbours' blocks by pointer, which
+    another process's memory does not offer)."""
     bm, bn = shard_shape(config, mesh)
     gx, gy = mesh.shape
     devs = mesh.flat()
     return (gx * gy > 1 and gx * gy <= csh.MAX_SHARDS
+            and not mesh.spans_processes
             and fused_halo_viable(bm, bn, t)
             and (devs[0].type == "cpu" or csh.fused_peer_ok(devs)))
 
@@ -173,8 +192,10 @@ def make_local_chunk(config, mesh: Mesh, kernel: bool = False, cxy=None):
         return coefs[dev]
 
     def each(fn, *grids):
-        """``fn(x0, y0, *items)`` at every shard, as a new grid."""
+        """``fn(x0, y0, *items)`` at every shard of this process, as a new
+        grid (None at other processes' shards)."""
         return [[fn(i * bm, j * bn, *(g[i][j] for g in grids))
+                 if mesh.is_local(i, j) else None
                  for j in range(gy)] for i in range(gx)]
 
     def chunk(grid: ShardedGrid, t: int) -> ShardedGrid:
@@ -185,7 +206,7 @@ def make_local_chunk(config, mesh: Mesh, kernel: bool = False, cxy=None):
                     return grid.with_blocks(
                         csh.shard_fused(blocks, t, nx, ny, cx, cy, form))
             with phase("halo_exchange"):
-                strips = exchange_halo_strips(blocks, t)
+                strips = exchange_halo_strips(blocks, t, mesh)
             with phase("stencil_chunk"):
                 return grid.with_blocks(each(
                     lambda x0, y0, u, s: csh.shard_tile_multi(
@@ -193,14 +214,14 @@ def make_local_chunk(config, mesh: Mesh, kernel: bool = False, cxy=None):
                     blocks, strips))
         if fused_req and gx * gy > 1 and fused_halo_viable(bm, bn, t):
             with phase("halo_overlap"):
-                strips = exchange_halo_strips(blocks, t)
+                strips = exchange_halo_strips(blocks, t, mesh)
                 return grid.with_blocks(each(
                     lambda x0, y0, u, s: csh.chunk_fused_plain(
                         u, s, t, x0, y0, nx, ny, *coef(u.device),
                         accum=accum),
                     blocks, strips))
         with phase("halo_exchange"):
-            ext = exchange_halo_2d_wide(blocks, t)
+            ext = exchange_halo_2d_wide(blocks, t, mesh)
         with phase("interior_stencil"):
             return grid.with_blocks(each(
                 lambda x0, y0, e: csh.advance(
@@ -235,9 +256,19 @@ def make_local_multi(config, mesh: Mesh, kernel: bool = False, cxy=None):
     return multi
 
 
-def _total(parts):
+def _total(parts, mesh=None, dtype=torch.float32):
     """The sum of the shards' residual partials, on the first shard's
-    device (the MPI_Allreduce)."""
+    device (the MPI_Allreduce). On a ``mesh`` spanning processes,
+    ``parts`` are this process's partials in shard order: every shard's
+    partial is gathered to every rank and summed there in shard order
+    (not an ``all_reduce``, whose order is the backend's), so the total
+    is the one-process run's, bit for bit, on every rank. ``dtype``: the
+    partials' (what a process without shards contributes)."""
+    if mesh is not None and mesh.spans_processes:
+        from heat2d_tpu_torch.parallel.multihost import gather_slots
+        dev = parts[0].device if parts else torch.device("cpu")
+        parts = [p.to(dev) for p in gather_slots(
+            mesh, parts, torch.zeros((), dtype=dtype))]
     dev = parts[0].device
     total = parts[0]
     for p in parts[1:]:
@@ -272,17 +303,20 @@ def make_sharded_runner(config, mesh: Mesh, kernel: bool = False):
     def residual(new, old):
         with phase("residual_reduction"):
             return _total([residual_sq(a, b, accum) for a, b in
-                           zip(new.tensors(), old.tensors())])
+                           zip(new.tensors(), old.tensors())], mesh, accum)
 
     def chunk_resid(grid, n):
         d = n % t or t
         grid = multi(grid, n - d)
         with phase("halo_exchange"):
-            strips = exchange_halo_strips(grid.blocks, d)
+            strips = exchange_halo_strips(grid.blocks, d, mesh)
         outs, parts = [], []
         for i in range(gx):
             row = []
             for j in range(gy):
+                if not mesh.is_local(i, j):
+                    row.append(None)
+                    continue
                 u, p = csh.shard_tile_multi_resid(
                     grid.blocks[i][j], strips[i][j], d, i * bm, j * bn, nx,
                     ny, config.cx, config.cy, form)
@@ -290,7 +324,7 @@ def make_sharded_runner(config, mesh: Mesh, kernel: bool = False):
                 parts.append(p)
             outs.append(row)
         with phase("residual_reduction"):
-            return grid.with_blocks(outs), _total(parts)
+            return grid.with_blocks(outs), _total(parts, mesh)
 
     def run(grid):
         if config.convergence:
@@ -312,13 +346,17 @@ def make_sharded_runner(config, mesh: Mesh, kernel: bool = False):
 
 def sharded_inidat(config, mesh: Mesh) -> ShardedGrid:
     """The initial condition, each shard computed on its device from its
-    global origin; pad cells of an uneven decomposition hold 0."""
+    global origin; pad cells of an uneven decomposition hold 0. Only this
+    process's shards are built."""
     nx, ny = config.nxprob, config.nyprob
     bm, bn = shard_shape(config, mesh)
     blocks = []
     for i, row in enumerate(mesh.devices):
         out = []
         for j, dev in enumerate(row):
+            if not mesh.is_local(i, j):
+                out.append(None)
+                continue
             x0, y0 = i * bm, j * bn
             val = inidat_block((bm, bn), nx, ny, x0, y0, device=dev)
             gi = x0 + torch.arange(bm, device=dev)[:, None]
@@ -326,4 +364,4 @@ def sharded_inidat(config, mesh: Mesh) -> ShardedGrid:
             out.append(torch.where((gi < nx) & (gj < ny), val,
                                    torch.zeros_like(val)))
         blocks.append(out)
-    return ShardedGrid(blocks, nx, ny)
+    return ShardedGrid(blocks, nx, ny, mesh)

@@ -896,3 +896,42 @@ def test_hybrid_scaling_across_cards(card, halo):
     assert rec["mcells_per_s_nchip"] > 0
     name = "shard_fused" if halo == "fused" else "shard_tile_multi"
     assert csh.launch_counts()[name] > 0
+
+
+@pytest.mark.parametrize("convergence", [False, True])
+def test_two_process_hybrid_world_on_the_card(card, tmp_path, convergence):
+    """A 2-process world of the port's CLI on the card (gloo, the strips
+    staged through pinned host buffers; rank r on cuda:(r % count)):
+    hybrid on a 2x2 mesh, two shards a process, running H12 (and H13
+    with convergence) per rank, bit for bit the one-process hybrid run
+    on host_devices(4), steps_done equal."""
+    import json
+    import sys
+
+    import numpy as np
+
+    from heat2d_tpu_torch.dist.harness import spawn_world
+    from heat2d_tpu_torch.parallel.mesh import host_devices
+    cfg = HeatConfig(nxprob=512, nyprob=384, steps=40, mode="hybrid",
+                     gridx=2, gridy=2, convergence=convergence,
+                     interval=10, sensitivity=1e9 if convergence else 0.1)
+    args = ["--mode", "hybrid", "--gridx", "2", "--gridy", "2",
+            "--nxprob", "512", "--nyprob", "384", "--steps", "40",
+            "--host-device-count", "2", "--binary-dumps",
+            "--dat-layout", "none", "--outdir", str(tmp_path),
+            "--run-record", str(tmp_path / "rec.json")]
+    if convergence:
+        args += ["--convergence", "--interval", "10", "--sensitivity",
+                 "1e9"]
+    res = spawn_world(2, lambda i, coord: [
+        sys.executable, "-m", "heat2d_tpu_torch.cli", "--coordinator",
+        coord, "--num-processes", "2", "--process-id", str(i)] + args,
+        timeout=180)
+    assert all(r.ok for r in res), [r.output for r in res]
+    ref = Heat2DSolver(cfg, devices=host_devices(4)).run(timed=False)
+    got = np.fromfile(tmp_path / "final_binary.dat", np.float32)
+    assert got.tobytes() == np.ascontiguousarray(ref.u).tobytes()
+    rec = json.loads((tmp_path / "rec.json").read_text())
+    assert rec["steps_done"] == ref.steps_done
+    name = "shard_tile_multi_resid" if convergence else "shard_tile_multi"
+    assert all(row[name] > 0 for row in rec["launches_by_process"])

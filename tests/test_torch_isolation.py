@@ -328,3 +328,38 @@ def test_mesh_entry_points_raise_without_a_card(no_card, capsys):
     assert cli.main(["--mode", "dist2d", "--ensemble-cx", "0.1",
                      "--ensemble-cy", "0.1"]) == 1
     assert capsys.readouterr().err.count("CUDA") >= 3
+
+
+def test_importing_dist_and_multihost_loads_no_jax():
+    """The multi-process runtime (dist/) and the world bring-up import
+    torch, never jax or the JAX package."""
+    code = ("import sys; import heat2d_tpu_torch.dist, "
+            "heat2d_tpu_torch.dist.cli, heat2d_tpu_torch.dist.harness, "
+            "heat2d_tpu_torch.dist.mesh, heat2d_tpu_torch.parallel.multihost, "
+            "heat2d_tpu_torch.mesh.scheduler; "
+            "print('jax' in sys.modules, 'heat2d_tpu' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "False"]
+    mods = {os.path.relpath(p, PKG).split(os.sep)[0]
+            for p in _port_sources()}
+    assert "dist" in mods
+
+
+def test_dist_entry_points_raise_without_a_card(no_card, capsys):
+    """The dist worker, its launcher legs and the slab route run on the card
+    unless asked for the CPU; world slots refuse too."""
+    from heat2d_tpu_torch.dist import cli as dcli
+    from heat2d_tpu_torch.dist.exchange import run_process_slab
+    from heat2d_tpu_torch.parallel.multihost import world_slots
+    for call in (lambda: run_process_slab(8, 8, 2),
+                 lambda: world_slots(2)):
+        with pytest.raises(DeviceUnavailableError, match="CUDA"):
+            call()
+    for argv in ([], ["--selftest"], ["--soak", "--kill-host"]):
+        assert dcli.main(argv) == 1
+    assert capsys.readouterr().err.count("CUDA") == 3
+    # ... and run when asked for the CPU.
+    got, step = run_process_slab(8, 8, 2, device="cpu")
+    assert step == 2 and got.shape == (8, 8)
+    assert world_slots(2, "cpu")[1] == [0, 0]

@@ -274,9 +274,14 @@ def test_scheduler_default_threshold_is_the_cards_on_chip_total():
 
 
 def test_scheduler_refuses_a_world():
+    """world= takes a dist.runtime.DistWorld (the multi-process world,
+    ported since slice 7) and refuses anything else."""
     from heat2d_tpu_torch.config import ConfigError
-    with pytest.raises(ConfigError, match="slice 7"):
+    from heat2d_tpu_torch.dist.runtime import DistWorld
+    with pytest.raises(ConfigError, match="DistWorld"):
         MeshScheduler(devices=SLOTS, world=object())
+    world = DistWorld(0, 2, device_process=(0, 0, 1, 1))
+    assert MeshScheduler(devices=SLOTS, world=world).world is world
 
 
 def test_unplannable_routes_single_chip_with_counter():

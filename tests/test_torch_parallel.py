@@ -117,9 +117,12 @@ def test_exchange_halo_strips_vs_jax(gx, gy, t, rng):
 
 
 def test_wide_exchange_and_shifts(rng):
-    xs = [torch.full((2, 2), float(i)) for i in range(3)]
-    assert [float(x[0, 0]) for x in halo.shift_from_lower(xs)] == [0, 0, 1]
-    assert [float(x[0, 0]) for x in halo.shift_from_upper(xs)] == [1, 2, 0]
+    xs = [[torch.full((2, 2), float(i))] for i in range(3)]   # 3x1 mesh
+    strips = halo.exchange_halo_strips(xs, 1)
+    # north from the lower neighbour, south from the upper; zeros at the
+    # mesh's edges
+    assert [float(s[0][0, 0]) for (s,) in strips] == [0, 0, 1]
+    assert [float(s[1][0, 0]) for (s,) in strips] == [1, 2, 0]
     blocks = [[torch.ones(4, 5), torch.ones(4, 5)]]
     ext = halo.exchange_halo_2d_wide(blocks, 2)
     assert tuple(ext[0][0].shape) == (8, 9)
