@@ -128,7 +128,20 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    exchange's ms and bytes per timed chunk, its share of each rank's
    elapsed and its rate, and the store halo bytes; the
    workers' H12/H13 launches, read from their run records, join the
-   kernels line.
+   kernels line;
+20. tune (after 18): the tuning subsystem (``heat2d_tpu_torch/tune``) on
+   the card, its db in a temporary directory (``phase_tune``): a real
+   search of 4096^2 (tile route: T and tile heights), 640x1024
+   (resident route's K, tile route) and the fused route on 2048^2
+   shards of a 2x2 mesh on host_devices(4), its frontier table and each
+   route's planner point beside its best; a resumed search that
+   measures nothing; every measured candidate bitwise the default plan
+   (and H6/H7 at lifted depths bitwise T = 8); the db applied to the
+   main path through the solver CLI (bitwise, ``tuned_config``), to a
+   hybrid --halo fused run (its depth), to a serving request (its
+   launch row) and to the mesh scheduler (its rate); then cleared, the
+   plans the defaults again. The db is copied to
+   ``chiprun_out/tune_db.json``.
 
 The last line of standard output is ``{"ok": true, "device": ...}``. The
 full results also go to ``chiprun_out/chip_smoke.json``.
@@ -2912,6 +2925,283 @@ def shard_kernel_rows(torch) -> list:
     return rows
 
 
+# ------------------------------------------------------------------ #
+# slice 8a: the tuning subsystem on the card
+# ------------------------------------------------------------------ #
+
+#: The tune phase's searches: (problem, routes). The fused problem is the
+#: shard of a 2x2 mesh of 4096^2 on host_devices(4) of the card.
+TUNE_SEARCHES = (((4096, 4096), ("tile",)),
+                 ((640, 1024), ("resident", "tile")),
+                 ((2048, 2048), ("fused",)))
+#: Steps of the bitwise check of every measured candidate, by problem.
+TUNE_CHECK_STEPS = {(4096, 4096): 240, (640, 1024): 10000,
+                    (2048, 2048): 240}
+TUNE_REPS = 2
+
+
+def _grids_equal(torch, a, b) -> bool:
+    """Bitwise equality of two grids, or of two ShardedGrids block by
+    block."""
+    if hasattr(a, "tensors"):
+        return all(torch.equal(x, y) for x, y in zip(a.tensors(),
+                                                     b.tensors()))
+    return torch.equal(a, b)
+
+
+def _quiet(fn, *args):
+    """``fn(*args)`` with its standard output dropped (the CLI's banner
+    and ``Writing ...`` lines)."""
+    import contextlib
+    import io
+    with contextlib.redirect_stdout(io.StringIO()):
+        return fn(*args)
+
+
+def _cli_run(outdir, nx, ny, steps) -> tuple:
+    """The solver CLI in mode pallas on the card: (run record, the bytes
+    of final_binary.dat)."""
+    from heat2d_tpu_torch.cli import main as cli_main
+    rec = os.path.join(outdir, "rec.json")
+    rc = _quiet(cli_main, ["--mode", "pallas", "--nxprob", str(nx),
+                           "--nyprob", str(ny), "--steps", str(steps),
+                           "--dat-layout", "none", "--binary-dumps",
+                           "--outdir", outdir, "--run-record", rec])
+    fail_unless(rc == 0, f"cli {nx}x{ny}: rc {rc}")
+    with open(rec) as f, open(os.path.join(outdir, "final_binary.dat"),
+                              "rb") as g:
+        return json.load(f), g.read()
+
+
+def tune_h6_depths(torch) -> dict:
+    """H6/H7 at the depths and tile heights the db may give them, bitwise
+    H6/H7 at the planner's T = 8 (frozen members and all): 3 members of
+    1000x1100, 60 steps."""
+    from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    u = torch.rand((3, 1000, 1100), generator=g, device="cuda") * 100
+    cxs = torch.tensor([0.05, 0.1, 0.2], device="cuda")
+    cys = torch.tensor([0.1, 0.2, 0.05], device="cuda")
+    act = torch.tensor([1, 0, 1], dtype=torch.int32, device="cuda")
+    want = ce.ens_tiled_chunk(u, 60, cxs, cys)
+    want_act = ce.ens_tiled_chunk(u, 60, cxs, cys, act)
+    checked = []
+    for t, ty in ((4, 16), (12, 32), (16, 32), (8, 16)):
+        fail_unless(torch.equal(ce.ens_tiled_chunk(
+            u, 60, cxs, cys, tsteps=t, ty=ty), want),
+            f"H6 at T={t} ty={ty} differs from T=8")
+        fail_unless(torch.equal(ce.ens_tiled_chunk(
+            u, 60, cxs, cys, act, tsteps=t, ty=ty), want_act),
+            f"H7 at T={t} ty={ty} differs from T=8")
+        checked.append([t, ty])
+    return {"members": 3, "shape": [1000, 1100], "steps": 60,
+            "t_ty": checked}
+
+
+def phase_tune(torch, name: str, power: str) -> dict:
+    """The tuning subsystem on the card, its db in a temporary directory:
+
+    (a) search on the card's real backend: 4096^2 on the tile route (its
+    T ladder and tile heights), 640x1024 on the resident (the K ladder)
+    and tile routes, the fused route on the 2048^2 shards of a 2x2 mesh
+    of 4096^2 on host_devices(4) (its T ladder); the frontier table, and
+    each shape's planner point beside its best;
+    (b) resume: a second search over the same file measures no point;
+    (c) bitwise: every measured candidate after 240 steps (4096^2, and
+    the fused mesh) or 10,000 (640x1024) equals the default plan's, and
+    H6/H7 at the depths the db may give them equal T = 8;
+    (d) apply: with ``set_tuning_db`` the main path (the solver CLI) at
+    4096^2 x 240 and 640x1024 x 10000 is bitwise the untuned run and its
+    record's ``tuned_config`` names the db's best (source exact) where
+    the main path's route takes it; a hybrid --halo fused 2x2 run is
+    bitwise at the db's depth; a serving request at 640x1024 carries the
+    db's answer in its launch row, bitwise; the mesh scheduler's
+    decision carries the db's rate;
+    (e) clear: the plans are the defaults again."""
+    import io
+    import shutil
+    import tempfile
+
+    from heat2d_tpu_torch.config import HeatConfig
+    from heat2d_tpu_torch.mesh.scheduler import MeshScheduler
+    from heat2d_tpu_torch.models.solver import Heat2DSolver
+    from heat2d_tpu_torch.ops import cuda_stencil as cs
+    from heat2d_tpu_torch.ops.init import inidat
+    from heat2d_tpu_torch.parallel.mesh import host_devices
+    from heat2d_tpu_torch.serve.engine import EnsembleEngine
+    from heat2d_tpu_torch.serve.schema import SolveRequest
+    from heat2d_tpu_torch.tune import cli as tcli
+    from heat2d_tpu_torch.tune import runtime as tr
+    from heat2d_tpu_torch.tune.db import TuningDB
+    from heat2d_tpu_torch.tune.measure import candidate_runner
+    from heat2d_tpu_torch.tune.space import Candidate, Problem, planner_pick
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="heat2d-tune-")
+    path = os.path.join(tmp, "tune_db.json")
+    kind = tr.device_kind("cuda")
+    problems = [(Problem(*shape), routes) for shape, routes in
+                TUNE_SEARCHES]
+
+    # (a) search
+    searches, log = [], []
+    db = TuningDB(path)
+    for problem, routes in problems:
+        buf = io.StringIO()
+        s = tcli.search_problem(db, problem, routes=routes, reps=TUNE_REPS,
+                                device="cuda", out=buf)
+        log.append(buf.getvalue())
+        fail_unless(s["measured"] > 0 and s["failed"] == 0,
+                    f"tune search {problem.key()}: {s}\n{buf.getvalue()}")
+        searches.append(s)
+    t_search = time.perf_counter() - t0
+    table = tcli.frontier_table(TuningDB(path), kind)
+    print(table, flush=True)
+    rows = []
+    for problem, _ in problems:
+        for r in tcli.planner_rows(TuningDB(path), kind, problem, "cuda"):
+            fail_unless(r["planner_point"] is not None,
+                        f"tune {r['key']}: the planner's point "
+                        f"{r['planner']} was not measured")
+            row = {"key": r["key"], "route": r["route"],
+                   "planner": r["planner"],
+                   "planner_step_ms": r["planner_point"]["step_time_s"]
+                   * 1e3,
+                   "best": Candidate(r["route_best"]["route"],
+                                     r["route_best"]["bm"],
+                                     r["route_best"]["tsteps"]).label(),
+                   "best_step_ms": r["route_best"]["step_time_s"] * 1e3,
+                   "best_steps": r["route_best"].get("steps"),
+                   "frontier_best": r["is_best"]}
+            rows.append(row)
+            emit({"phase": "tune_frontier", **row})
+
+    # (b) resume
+    db2 = TuningDB(path)
+    for problem, routes in problems:
+        s = tcli.search_problem(db2, problem, routes=routes, reps=TUNE_REPS,
+                                device="cuda", out=io.StringIO())
+        fail_unless(s["measured"] == 0 and s["cached"] > 0,
+                    f"tune resume {problem.key()} measured again: {s}")
+
+    # (c) bitwise: every measured candidate against the default plan
+    checked = 0
+    for problem, _ in problems:
+        n = TUNE_CHECK_STEPS[(problem.nx, problem.ny)]
+        fused = problem.nx == 2048
+        key = problem.fused_key() if fused else problem.key()
+        if fused:
+            ref_fn, u0 = candidate_runner(
+                problem, planner_pick(problem, "fused", "cuda"), "cuda")
+        else:
+            ref_fn = cs.make_single_chip_runner(HeatConfig(
+                nxprob=problem.nx, nyprob=problem.ny, steps=0,
+                mode="pallas"), "cuda").chunk
+            u0 = inidat(problem.nx, problem.ny, device="cuda")
+        want = ref_fn(u0, n)
+        for p in TuningDB(path).entry(kind, key)["points"]:
+            if p["status"] != "ok":
+                continue
+            cand = Candidate(p["route"], p["bm"], p["tsteps"])
+            fn, u = candidate_runner(problem, cand, "cuda")
+            fail_unless(_grids_equal(torch, fn(u, n), want),
+                        f"tune {key} {cand.label()}: {n} steps differ "
+                        f"from the default plan's")
+            checked += 1
+    h6 = tune_h6_depths(torch)
+
+    # (d) apply
+    untuned = {}
+    for nx, ny, steps in ((4096, 4096, 240), (640, 1024, 10000)):
+        d = os.path.join(tmp, f"base{nx}")
+        untuned[(nx, ny)] = _cli_run(d, nx, ny, steps)
+    devs = host_devices(4)
+    hyb = HeatConfig(nxprob=4096, nyprob=4096, steps=240, mode="hybrid",
+                     gridx=2, gridy=2, halo="fused")
+    hyb_base = Heat2DSolver(hyb, devices=devs).run(timed=False)
+    req = SolveRequest(nx=640, ny=1024, steps=10000, cx=0.1, cy=0.1)
+    best640 = TuningDB(path).entry(kind, "640x1024:float32")["best"]
+    if best640["route"] == "tile":
+        req = SolveRequest(nx=640, ny=1024, steps=10000, cx=0.1, cy=0.1,
+                           method="band")
+    serve_base = EnsembleEngine(max_batch=8).solve_batch([req])[0][0]
+
+    tr.set_tuning_db(path)
+    try:
+        applied = {}
+        for (nx, ny), (rec0, bytes0) in untuned.items():
+            tr.reset_applied()
+            rec, got = _cli_run(os.path.join(tmp, f"tuned{nx}"), nx, ny,
+                                rec0["steps_done"])
+            fail_unless(got == bytes0, f"tuned main path {nx}x{ny}: "
+                        f"final_binary.dat differs from the untuned run")
+            best = TuningDB(path).entry(kind, f"{nx}x{ny}:float32")["best"]
+            takes = "resident" if cs.fits_resident((nx, ny),
+                                                   "cuda") else "tile"
+            tuned = rec.get("tuned_config") or []
+            if best["route"] == takes:
+                fail_unless(len(tuned) == 1 and tuned[0]["source"] == "exact"
+                            and {k: tuned[0][k] for k in best} == best,
+                            f"tuned main path {nx}x{ny}: tuned_config "
+                            f"{tuned} does not name the db's best {best}")
+            else:
+                fail_unless(not tuned, f"{nx}x{ny}: the db's best {best} "
+                            f"is not the main path's route {takes}, yet "
+                            f"tuned_config is {tuned}")
+            applied[f"{nx}x{ny}"] = {"best": best, "route": takes,
+                                     "tuned_config": tuned}
+            emit({"phase": "tune_apply", "shape": [nx, ny],
+                  **applied[f"{nx}x{ny}"]})
+        fbest = TuningDB(path).entry(kind, "fused:2048x2048:float32")["best"]
+        hyb_got = Heat2DSolver(hyb, devices=devs).run(timed=False)
+        fail_unless(hyb_got.halo["depth"] == fbest["tsteps"]
+                    and hyb_got.halo["tier"] == "ici",
+                    f"tuned hybrid fused: halo {hyb_got.halo}, db best "
+                    f"{fbest}")
+        fail_unless(bool((hyb_got.u == hyb_base.u).all()),
+                    "tuned hybrid fused differs from the untuned run")
+        eng = EnsembleEngine(max_batch=8)
+        serve_got = eng.solve_batch([req])[0][0]
+        row = eng.launch_log[-1]["tuned_config"]
+        fail_unless(row is not None and {k: row[k] for k in best640}
+                    == best640, f"serve 640x1024: tuned_config {row}, db "
+                    f"best {best640}")
+        fail_unless(bool((serve_got == serve_base).all()),
+                    "tuned serving request differs from the untuned one")
+        rate = TuningDB(path).entry(kind, "640x1024:float32")["mcells_per_s"]
+        decision = MeshScheduler(devices=devs).decide(req)
+        fail_unless(decision["tuned_mcells_per_s"] == rate,
+                    f"scheduler rate {decision['tuned_mcells_per_s']} != "
+                    f"the db's {rate}")
+    finally:
+        tr.set_tuning_db(None)
+
+    # (e) clear
+    for nx, ny in ((4096, 4096), (640, 1024)):
+        cfg = HeatConfig(nxprob=nx, nyprob=ny, steps=1, mode="pallas")
+        plan = cs.make_single_chip_runner(cfg).plan
+        default = (cs.resident_plan(nx, ny, "cuda")
+                   if cs.fits_resident((nx, ny), "cuda")
+                   else cs.tile_plan(nx, ny, cs.DEFAULT_TSTEPS, "cuda"))
+        fail_unless(plan == default, f"cleared db: {nx}x{ny} plan {plan} "
+                    f"is not the default {default}")
+    fail_unless(tr.applied_configs() == [], "cleared db still applied")
+    out_db = os.path.join(HERE, "chiprun_out", "tune_db.json")
+    os.makedirs(os.path.dirname(out_db), exist_ok=True)
+    shutil.copyfile(path, out_db)
+    shutil.rmtree(tmp)
+    info = {"phase": "tune", "device": name, "power_limit": power,
+            "search_s": t_search, "seconds": time.perf_counter() - t0,
+            "measured": sum(s["measured"] for s in searches),
+            "bitwise_checked": checked, "h6_depths": h6,
+            "frontier": rows, "applied": applied,
+            "fused_depth": fbest["tsteps"],
+            "scheduler_mcells_per_s": rate, "search_log": log}
+    emit({k: v for k, v in info.items() if k != "search_log"})
+    return info
+
+
 def write_results(results: dict) -> None:
     out = os.path.join(HERE, "chiprun_out")
     os.makedirs(out, exist_ok=True)
@@ -2974,6 +3264,7 @@ def main() -> int:
              **fam_kern["max_abs_err"], **td_kern["max_abs_err"],
              **shard_kern["max_abs_err"]})
         head = phase_headline(torch, tool["name"], tool["power_limit"])
+        tune = phase_tune(torch, tool["name"], tool["power_limit"])
         for r in rows:
             fail_unless(all(math.isfinite(r[k]) for k in
                             ("ms", "plain_ms", "bound_ms")),
@@ -2996,7 +3287,7 @@ def main() -> int:
                    "strong_scaling": scaling, "multi_process": multi,
                    "diff_path": diff_path,
                    "kernels": rows,
-                   "headline": head,
+                   "headline": head, "tune": tune,
                    "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     print(smi("name,power.limit"))

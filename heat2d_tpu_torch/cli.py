@@ -37,7 +37,12 @@ the JAX CLI's virtual host devices share the host:
         --host-device-count 4 --nxprob 4096 --nyprob 4096 --steps 240
 
 ``--device-info`` prints the device summary (name, count, power limit)
-and exits without running a kernel.
+and exits without running a kernel. ``--metrics-out PATH`` writes the
+JAX CLI's telemetry JSONL (the ``run_start`` event, the registry's
+snapshot, the run record with ``metrics_aggregate``); ``--log-level``
+sets the ``heat2d_tpu_torch`` loggers. With a tuning db active
+(``HEAT2D_TUNE_DB``, ``tune/``) the run record carries the configs the
+planners took as ``tuned_config``.
 
 ``--coordinator/--num-processes/--process-id`` (the mpiexec launch line)
 or ``--multihost`` (torchrun's environment) run N processes as one world
@@ -62,6 +67,7 @@ import sys
 from heat2d_tpu_torch.config import (MODES, SHARDED_MODES, ConfigError,
                                      HeatConfig)
 from heat2d_tpu_torch.utils.device import DeviceUnavailableError
+from heat2d_tpu_torch.utils.logs import add_log_level_flag, configure_logging
 from heat2d_tpu_torch.vocab import PROBLEMS, TIME_METHODS
 
 
@@ -150,6 +156,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "steps run); either stack's checkpoints load")
     o.add_argument("--run-record", default=None,
                    help="path for the JSON run record")
+    o.add_argument("--metrics-out", default=None, metavar="PATH",
+                   help="write the run's telemetry as JSONL: the "
+                        "registry's events (run_start) and snapshot "
+                        "(steps_done, elapsed_s, warmup_compile_s "
+                        "gauges), then the run record")
+    add_log_level_flag(p)
     p.add_argument("--accum-dtype", default="float32",
                    choices=["float32", "float64"],
                    help="float64 mirrors the C reference's double promotion")
@@ -176,6 +188,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "environment (MASTER_ADDR, MASTER_PORT, "
                         "WORLD_SIZE, RANK)")
     return p
+
+
+def _add_tuned(record: dict) -> None:
+    """The tuned configs this process applied (``tune.runtime``), as the
+    record's ``tuned_config``; no key when none was (no db, or no answer
+    the planners took)."""
+    from heat2d_tpu_torch.tune import runtime as tune_runtime
+    tuned = tune_runtime.applied_configs()
+    if tuned:
+        record["tuned_config"] = tuned
+
+
+def _registry(args, cfg):
+    """The metrics registry of ``--metrics-out`` (None without it), its
+    ``run_start`` event recorded."""
+    if not args.metrics_out:
+        return None
+    from heat2d_tpu_torch.obs import MetricsRegistry
+    registry = MetricsRegistry()
+    registry.event("run_start", mode=cfg.mode,
+                   grid=f"{cfg.nxprob}x{cfg.nyprob}", steps=cfg.steps)
+    return registry
 
 
 def _run_ensemble_cli(args, cfg) -> int:
@@ -233,6 +267,7 @@ def _run_ensemble_cli(args, cfg) -> int:
         return 1
 
     sharded = cfg.mode in SHARDED_MODES
+    registry = _registry(args, cfg)
     try:
         devices = None
         if sharded:
@@ -285,6 +320,13 @@ def _run_ensemble_cli(args, cfg) -> int:
                "summary": ensemble_summary(batch, steps_done=steps_done),
                "route": run.method,
                "residual_reads": run.residual_reads})
+    _add_tuned(record)
+    if registry is not None:
+        registry.gauge("elapsed_s", float(run.elapsed))
+        registry.gauge("members", len(cxs))
+        registry.write_jsonl(args.metrics_out,
+                             extra_records=[{"event": "run_record",
+                                             **record}])
     if args.run_record:
         write_json_atomic(record, args.run_record)
     if cfg.debug:
@@ -294,6 +336,7 @@ def _run_ensemble_cli(args, cfg) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    configure_logging(args.log_level)
     multihost = (args.multihost or args.coordinator is not None
                  or args.num_processes is not None
                  or args.process_id is not None)
@@ -342,6 +385,7 @@ def _main(args) -> int:
                   file=sys.stderr)
             return 1
         return _run_ensemble_cli(args, cfg)
+    registry = _registry(args, cfg)
     try:
         from heat2d_tpu_torch.models.solver import Heat2DSolver
         devices = owners = None
@@ -489,6 +533,18 @@ def _main(args) -> int:
             record[key] = [{k: type(counts[k])(col[p])
                             for k, col in cols.items()}
                            for p in range(mh.process_count())]
+    _add_tuned(record)
+    if registry is not None:
+        registry.gauge("steps_done", result.steps_done)
+        registry.gauge("elapsed_s", result.elapsed)
+        if result.warmup_s is not None:
+            registry.gauge("warmup_compile_s", result.warmup_s)
+        # a collective in a world: every process calls it
+        record["metrics_aggregate"] = registry.aggregate_multihost()
+        if primary:
+            registry.write_jsonl(args.metrics_out,
+                                 extra_records=[{"event": "run_record",
+                                                 **record}])
     if args.run_record and primary:
         write_json_atomic(record, args.run_record)
     if cfg.debug and primary:

@@ -46,9 +46,11 @@ counterpart of the JAX package's jnp code, not a plain version standing
 in for a hand kernel; a hand adjoint-step kernel would be a feature the
 JAX package lacks.
 
-The JAX package pre-resolves its tuning db for the band route here; the
-port has no tuning db yet, and its run records say ``tuned_config:
-None``.
+The band route consults the tuning db (``tune.runtime.adjoint_config``)
+for H6's sweep depth and tile height on the grid's shape, where a db is
+active: ``make_diff_solve`` pre-resolves it, as the JAX package does, so
+that the inverse records carry ``tuned_config``, and each fused segment
+takes it. The plan moves no bit of the primal.
 """
 
 from __future__ import annotations
@@ -114,13 +116,15 @@ def _multi(spec: DiffSpec, u, a, b, n: int):
     if n == 0:
         return u
     if spec.method == "band":
+        from heat2d_tpu_torch.models.ensemble import tuned_tile
         from heat2d_tpu_torch.ops.cuda_ensemble import ens_tiled_chunk
         if u.dtype != torch.float32:
             raise ValueError(
                 f"method='band' runs H6 ens_tile_multi, which takes "
                 f"float32 grids, got {u.dtype}: use method='jnp'")
-        return ens_tiled_chunk(u.contiguous()[None], n, a.reshape(1),
-                               b.reshape(1))[0]
+        batch = u.contiguous()[None]
+        return ens_tiled_chunk(batch, n, a.reshape(1), b.reshape(1),
+                               **tuned_tile(batch))[0]
     for _ in range(n):
         u = _step(spec, u, a, b)
     return u
@@ -252,6 +256,12 @@ def make_diff_solve(nx: int, ny: int, steps: int, *, coeff: str = "const",
                     schedule=segment_schedule(steps, segment),
                     method=_resolve_method(method, nx, ny, coeff, adjoint,
                                            dev))
+    if spec.method == "band":
+        # The db's answer for the fused segments, resolved before the
+        # first solve so that the applied-config provenance reaches the
+        # records (each segment consults it again).
+        from heat2d_tpu_torch.tune import runtime as tune_runtime
+        tune_runtime.adjoint_config(nx, ny, device=dev)
 
     def solve(u0, a, b):
         u0 = torch.as_tensor(u0, device=dev)

@@ -269,8 +269,10 @@ def _write_outputs(args, registry, extra) -> None:
     from heat2d_tpu_torch.io.binary import write_json_atomic
     from heat2d_tpu_torch.obs.record import build_record, write_run_jsonl
 
-    # No tuning db in the port yet: nothing was tuned.
-    extra = {**extra, "tuned_config": None}
+    from heat2d_tpu_torch.tune import runtime as tune_runtime
+    tuned = tune_runtime.applied_configs()
+    if tuned:
+        extra = {**extra, "tuned_config": tuned}
     write_run_jsonl(registry, args.metrics_out, "inverse", extra,
                     device=args.device)
     if args.run_record:

@@ -115,7 +115,7 @@ def measure_serve_scaling(n_devices: Optional[int] = None,
     cap_1, cap_n = 8, meshed.max_batch
     on_card = slots[0].type == "cuda"
     rate = (per_chip_mcells_per_s
-            or tuned_rate_mcells(nx, ny)
+            or tuned_rate_mcells(nx, ny, device=slots[0])
             or MODEL_PER_CHIP_MCELLS_PER_S)
     cells = float(nx) * ny * steps
     m1 = cap_1 / modeled_launch_s(cells, cap_1, 1, rate * 1e6)

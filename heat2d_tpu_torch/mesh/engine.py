@@ -483,7 +483,7 @@ class MeshEnsembleEngine(EnsembleEngine):
         from heat2d_tpu_torch.models import ensemble
 
         req0 = requests[0]
-        tuned = self._preresolve_tuned(req0)
+        tuned = self._preresolve_tuned(req0, spatial=True)
         runner = self._spatial_runner(req0, decision)
         n = len(requests)
         # one wave advances nb members (a submesh row each), so the
@@ -577,14 +577,18 @@ class MeshEnsembleEngine(EnsembleEngine):
         launches also stamp the slots they ran on, the health fence taken
         when those were chosen (``degrade.serving_invariant`` checks it)
         and the recovery row when the launch survived a requeue."""
+        from heat2d_tpu_torch.models import ensemble
         self.launches += 1
         compile_key = (req0.signature(), capacity, decision["route"],
                        devices)
         first_launch = compile_key not in self._launched
         self._launched.add(compile_key)
+        slots = self.n_devices if devices is None else len(devices)
         row = {"signature": req0.signature(), "occupancy": n,
                "capacity": capacity, "problem": req0.problem,
-               "tuned_config": tuned, "first_launch": first_launch}
+               "tuned_config": ensemble.tuned_for_launch(
+                   tuned, -(-capacity // slots)),
+               "first_launch": first_launch}
         times, self._launch_times = self._launch_times, None
         if times is not None:
             row.update(times)

@@ -38,8 +38,8 @@ on the port's route (``tune/measure.route_bytes_per_s``: the H100's link
 figures between slots of one process, the host-staged rate measured on
 the H100 between processes).
 
-Neither takes a tuning db yet (``tuned_rate_mcells`` is None until the
-port has ``tune/``'s db).
+Both read the tuning db's measured rate for a request's shape on the
+slots' device kind (``tuned_rate_mcells``), when a db is active.
 """
 
 from __future__ import annotations
@@ -64,11 +64,14 @@ def grid_bytes(nx: int, ny: int, itemsize: int = 4,
     return int(nx) * int(ny) * itemsize * state_arrays(problem)
 
 
-def tuned_rate_mcells(nx: int, ny: int,
-                      dtype: str = "float32") -> Optional[float]:
-    """The tuning db's measured Mcells/s for this shape on this card: None
-    until the port has the db (``tune/``)."""
-    return None
+def tuned_rate_mcells(nx: int, ny: int, dtype: str = "float32",
+                      device=None) -> Optional[float]:
+    """The tuning db's measured Mcells/s for this shape on ``device``'s
+    kind (``tune.runtime.measured_rate``: the lookup ladder of every
+    consult), or None without a db or an entry: the admission model's
+    per-slot rate source."""
+    from heat2d_tpu_torch.tune import runtime as tune_runtime
+    return tune_runtime.measured_rate(nx, ny, dtype, device=device)
 
 
 def _check_world(world) -> None:
@@ -96,6 +99,8 @@ class MeshScheduler:
         _check_world(world)
         slots = attached_devices(n_devices, devices)
         self.n_devices = len(slots)
+        #: the slots' device: the tuning db's consults read its kind
+        self.device = slots[0]
         self.registry = registry
         self.halo = halo
         if spatial_bytes_threshold is None:
@@ -153,7 +158,8 @@ class MeshScheduler:
             "spatial_bytes_threshold": self.spatial_bytes_threshold,
             "demand": self._demand(str(req0.signature())),
             "tuned_mcells_per_s": tuned_rate_mcells(
-                req0.nx, req0.ny, getattr(req0, "dtype", "float32")),
+                req0.nx, req0.ny, getattr(req0, "dtype", "float32"),
+                device=self.device),
         }
         if getattr(req0, "request_kind", "solve") != "solve":
             return dict(out, route="single", reason="request_kind")
@@ -171,7 +177,8 @@ class MeshScheduler:
 
         gx, gy = self.spatial_grid()
         plan = ensemble.spatial_halo_plan(req0.nx, req0.ny, gx, gy,
-                                          halo=self.halo)
+                                          halo=self.halo,
+                                          device=self.device)
         if plan.get("tier") == "unplannable":
             return dict(out, route="single", reason="unplannable",
                         plan=plan)
@@ -230,7 +237,9 @@ class MeshAdmission:
             raise ValueError(f"window_s must be > 0, got {window_s}")
         if headroom <= 0:
             raise ValueError(f"headroom must be > 0, got {headroom}")
-        self.n_devices = len(attached_devices(n_devices, devices))
+        slots = attached_devices(n_devices, devices)
+        self.n_devices = len(slots)
+        self.device = slots[0]
         self.registry = registry
         self.per_chip_mcells_per_s = per_chip_mcells_per_s
         self.window_s = window_s
@@ -251,7 +260,8 @@ class MeshAdmission:
         rate = self.per_chip_mcells_per_s
         if rate is None and req is not None:
             rate = tuned_rate_mcells(req.nx, req.ny,
-                                     getattr(req, "dtype", "float32"))
+                                     getattr(req, "dtype", "float32"),
+                                     device=self.device)
         if rate is None:
             rate = DEFAULT_PER_CHIP_MCELLS_PER_S
         return rate * 1e6 * self.n_devices

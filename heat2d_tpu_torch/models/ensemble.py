@@ -20,6 +20,11 @@ auto     pallas when one member passes ``fits_resident``, band otherwise
          (per member, as the JAX package gates on ``fits_vmem``)
 =======  ==================================================================
 
+With a tuning db active (``tune/``), pallas takes H5's chunk depth K (on
+a one-member launch) and band H6/H7's sweep depth and tile height from
+the db's answer for the member shape (``tuned_config``), at every
+launch; the results are bitwise the untuned ones.
+
 The other problem families run the routes of ``problems/runners.py``
 (jnp, H8 for pallas, H9 for band), their route checked against the
 family's capability matrix (``pick_route``).
@@ -102,14 +107,55 @@ def _run_batch_jnp(u0, cxs, cys, *, steps):
     return u
 
 
+def tuned_config(route, nx: int, ny: int, device, members: int = 1):
+    """The tuning db's answer (a ``tune.db.TunedConfig``) for heat5's batch
+    ``route`` on ``members`` members of nx x ny: H5's chunk depth K on
+    pallas (``tune.runtime.resident_config``) for one member only, H6/H7's
+    depth and tile height on band (``band_config``); None on the other
+    routes and without an answer. The db's K is H4's, measured on one
+    member, and a batch plans its own: on the H100, 8 members of 640x1024
+    run 6.5% faster at their planner's K = 4 than at one member's K = 7
+    (``chip_smoke.py``'s ``k_sweep_ms``, PERF.md)."""
+    from heat2d_tpu_torch.tune import runtime as tune_runtime
+    if route == "pallas":
+        if members != 1:
+            return None
+        return tune_runtime.resident_config(nx, ny, device=device)
+    if route == "band":
+        return tune_runtime.band_config(nx, ny, allow_window=False,
+                                        device=device)
+    return None
+
+
+def tuned_for_launch(tuned, members: int):
+    """A signature's pre-resolved answer (``tuned_config(...).to_dict()``
+    or None) as a launch of ``members`` members a device takes it: None
+    for H5's K on more than one (``tuned_config``)."""
+    if tuned is not None and tuned["route"] == "resident" and members != 1:
+        return None
+    return tuned
+
+
+def tuned_tile(u0) -> dict:
+    """H6/H7's ``tsteps``/``ty`` for the batch ``u0``: the tuning db's, or
+    the planner's (T = 8, its own height) without an answer."""
+    cfg = tuned_config("band", *u0.shape[1:], u0.device)
+    if cfg is None:
+        return dict(tsteps=DEFAULT_TSTEPS, ty=None)
+    return dict(tsteps=cfg.tsteps, ty=cfg.bm)
+
+
 def _run_batch_pallas(u0, cxs, cys, *, steps):
+    cfg = tuned_config("pallas", *u0.shape[1:], u0.device, u0.shape[0])
     with phase("stencil_chunk"):
-        return ce.ens_resident(u0, steps, cxs, cys)
+        return ce.ens_resident(u0, steps, cxs, cys,
+                               k=cfg.tsteps if cfg is not None else None)
 
 
 def _run_batch_band(u0, cxs, cys, *, steps):
+    tile = tuned_tile(u0)
     with phase("stencil_chunk"):
-        return ce.ens_tiled_chunk(u0, steps, cxs, cys)
+        return ce.ens_tiled_chunk(u0, steps, cxs, cys, **tile)
 
 
 def _run_batch_adi(u0, cxs, cys, *, steps):
@@ -221,8 +267,10 @@ def _run_batch_conv_window(u0, cxs, cys, *, steps, interval, sensitivity,
     them. The JAX package takes its fused route only where the TPU's
     gates hold (a lane-aligned width, a probed VMEM envelope) and the
     pair-tracked loop elsewhere; the card has no such gate, so every
-    member shape takes this one."""
-    t = DEFAULT_TSTEPS
+    member shape takes this one. T and the tile height are the tuning
+    db's answer for the member shape where it has one."""
+    tile = tuned_tile(u0)
+    t = tile["tsteps"]
     iv = max(1, min(interval, steps)) if steps else interval
     n_chunks = steps // iv if iv else 0
     remainder = steps - n_chunks * iv
@@ -230,7 +278,7 @@ def _run_batch_conv_window(u0, cxs, cys, *, steps, interval, sensitivity,
 
     def multi(v, n, act):
         with phase("stencil_chunk"):
-            return ce.ens_tiled_chunk(v, n, cxs, cys, act)
+            return ce.ens_tiled_chunk(v, n, cxs, cys, act, **tile)
 
     def act_of(done):
         return (~done).to(torch.int32)
@@ -244,7 +292,7 @@ def _run_batch_conv_window(u0, cxs, cys, *, steps, interval, sensitivity,
         u = multi(u, iv - d, act)
         with phase("residual_reduction"):
             u, res = ce.ens_tile_multi_conv(u, d, cxs, cys, act,
-                                            resid=True)
+                                            resid=True, **tile)
         chunks = torch.where(done, chunks, chunks + 1)
         done = done | (res < sensitivity)
         yield
@@ -472,13 +520,14 @@ def run_ensemble_convergence_sharded(nx: int, ny: int, steps: int,
 # --------------------------------------------------------------------- #
 
 def spatial_halo_plan(nx, ny, gridx, gridy, halo="collective",
-                      halo_depth=None) -> dict:
+                      halo_depth=None, device=None) -> dict:
     """The halo route (route, tier, depth, shard, mesh) a (gridx, gridy)
     decomposition of an nx x ny member takes, decided from the geometry
-    alone, before anything runs (the serving engines' per-signature
-    pre-resolve). A shape the decomposition cannot take returns a
-    collective plan of tier ``unplannable`` carrying the error, and never
-    raises."""
+    alone (and a tuned fused depth for ``device``'s kind, where a tuning
+    db is active), before anything runs (the serving engines'
+    per-signature pre-resolve). A shape the decomposition cannot take
+    returns a collective plan of tier ``unplannable`` carrying the
+    error, and never raises."""
     from heat2d_tpu_torch.config import ConfigError, HeatConfig
     from heat2d_tpu_torch.parallel import sharded as sh
     try:
@@ -488,7 +537,7 @@ def spatial_halo_plan(nx, ny, gridx, gridy, halo="collective",
         return dict(requested=halo, route="collective",
                     tier="unplannable", depth=0, shard=None,
                     mesh=(gridx, gridy), error=str(e))
-    return sh.resolve_halo_route(cfg, (gridx, gridy))
+    return sh.resolve_halo_route(cfg, (gridx, gridy), device=device)
 
 
 class _Spatial:

@@ -1,7 +1,8 @@
 """Process-local metrics registry: counters, gauges, timing histograms
 and (x, y) point series, each labeled, with a JSONL export. The port's
-copy of the part of ``heat2d_tpu/obs/metrics.py`` the serve and diff
-modules use; the metric names are the JAX package's
+copy of the part of ``heat2d_tpu/obs/metrics.py`` the serve, diff and
+tune modules and the solver CLI use, with its structured events and
+its aggregate over processes; the metric names are the JAX package's
 (``docs/SERVING.md``, ``docs/RESILIENCE.md``).
 
 Pure host-side Python: recording a metric never touches a tensor.
@@ -115,6 +116,7 @@ class MetricsRegistry:
         self._gauges: dict = {}
         self._histograms: dict = {}
         self._series: dict = {}
+        self._events: list = []
 
     def counter(self, name: str, value: float = 1.0, **labels) -> None:
         """Monotonically add ``value`` to the counter."""
@@ -142,6 +144,17 @@ class MetricsRegistry:
         k = (name, _label_key(labels))
         with self._lock:
             self._series.setdefault(k, []).append((x, y))
+
+    def event(self, kind: str, **fields) -> None:
+        """Append a structured event (e.g. ``run_start``) to the log that
+        ``write_jsonl`` writes before the snapshot."""
+        with self._lock:
+            self._events.append(
+                {"event": kind, "ts": _utc_now_iso(), **fields})
+
+    def events(self) -> list:
+        with self._lock:
+            return list(self._events)
 
     @contextlib.contextmanager
     def timer(self, name: str, **labels):
@@ -186,13 +199,36 @@ class MetricsRegistry:
                            for k, v in self._series.items()},
             }
 
+    def aggregate_multihost(self) -> dict:
+        """Counters and gauges over the processes of a world: rank-max,
+        rank-mean and rank-min of each (the JAX package's
+        ``aggregate_multihost``; one process gives its own values in the
+        same shape). A collective in a world: every process calls it with
+        the same metric names, taken in sorted order."""
+        from heat2d_tpu_torch.utils.timing import gather_over_processes
+
+        with self._lock:
+            scalars = {**{("counter",) + k: v
+                          for k, v in self._counters.items()},
+                       **{("gauge",) + k: v
+                          for k, v in self._gauges.items()}}
+        out = {}
+        for k in sorted(scalars):
+            col = gather_over_processes(scalars[k])
+            out[self._fmt(k[1:])] = {"rank_max": max(col),
+                                     "rank_mean": sum(col) / len(col),
+                                     "rank_min": min(col)}
+        return out
+
     def write_jsonl(self, path: str, extra_records=()) -> None:
-        """A ``snapshot`` line, then any caller-supplied records (e.g. the
-        run record), committed atomically (tmp + fsync + ``os.replace``)."""
+        """The events, a ``snapshot`` line, then any caller-supplied
+        records (e.g. the run record), committed atomically (tmp + fsync +
+        ``os.replace``)."""
         from heat2d_tpu_torch.io.binary import write_text_atomic
 
-        lines = [json.dumps({"event": "snapshot", "ts": _utc_now_iso(),
-                             **self.snapshot()})]
+        lines = [json.dumps(ev) for ev in self.events()]
+        lines.append(json.dumps({"event": "snapshot", "ts": _utc_now_iso(),
+                                 **self.snapshot()}))
         lines.extend(json.dumps(rec) for rec in extra_records)
         write_text_atomic("\n".join(lines) + "\n", path)
 

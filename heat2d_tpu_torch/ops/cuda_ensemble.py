@@ -124,21 +124,23 @@ def _validate(u, cxs, cys, what: str, active=None) -> None:
         raise ValueError(f"{what}: unsupported device {u.device}")
 
 
-def _check_depth(nsub: int) -> None:
-    if not 1 <= nsub <= DEFAULT_TSTEPS:
-        raise ValueError(f"nsub must be in [1, T={DEFAULT_TSTEPS}], got "
-                         f"{nsub}")
+def _check_depth(nsub: int, tsteps: int) -> None:
+    if not 1 <= nsub <= tsteps:
+        raise ValueError(f"nsub must be in [1, T={tsteps}], got {nsub}")
 
 
 # --------------------------------------------------------------------- #
 # Tile planner
 # --------------------------------------------------------------------- #
 
-def tile_plan(nx: int, ny: int, device) -> cs.TilePlan:
-    """H6/H7's tiles for a member of nx x ny: H2's at depth T
-    (``cuda_stencil.tile_plan``; a batch on the CPU plans what the H100
-    would)."""
-    return cs.tile_plan(nx, ny, DEFAULT_TSTEPS, device)
+def tile_plan(nx: int, ny: int, device, tsteps: int = DEFAULT_TSTEPS,
+              ty=None) -> cs.TilePlan:
+    """H6/H7's tiles for a member of nx x ny: H2's at depth ``tsteps``,
+    of at most ``ty`` centre rows when given (``cuda_stencil.tile_plan``;
+    a batch on the CPU plans what the H100 would). Like H2, H6/H7 take
+    the depth at run time, and every cell takes the same updates at any
+    depth and tile."""
+    return cs.tile_plan(nx, ny, tsteps, device, ty)
 
 
 def tile_paths(plan: cs.TilePlan, nb: int, nx: int, ny: int) -> dict:
@@ -207,10 +209,11 @@ def _resident_launch(u, steps: int, cxs, cys, plan, window: bool = True):
     return out
 
 
-def ens_resident(u, steps: int, cxs, cys):
+def ens_resident(u, steps: int, cxs, cys, k=None):
     """H5: ``steps`` steps of every member in one cooperative launch, the
     members' tiles resident in shared memory for all of them
-    (``ops.resident.plan_resident``). A member too large to stay on the
+    (``ops.resident.plan_resident``, at chunk depth ``k`` when given, a
+    tuned depth). A member too large to stay on the
     chip (no plan: beyond the co-resident blocks' shared memory, ~3.6 M
     cells on the H100) advances by H6 sweeps instead, ``ens_tiled_chunk``:
     the same per-cell arithmetic, bitwise the same result, counted under
@@ -225,16 +228,17 @@ def ens_resident(u, steps: int, cxs, cys):
         return ens_multi_step_plain(u, steps, cxs, cys)
     if steps == 0:
         return u
-    plan = plan_resident(*u.shape, 1, u.device)
+    plan = plan_resident(*u.shape, 1, u.device, k)
     if plan is None:
         return ens_tiled_chunk(u, steps, cxs, cys)
     return _resident_launch(u, steps, cxs, cys, plan)
 
 
-def _tile_launch(u, nsub, cxs, cys, active, resid, name, paths=None):
+def _tile_launch(u, nsub, cxs, cys, active, resid, name, paths=None,
+                 tsteps=DEFAULT_TSTEPS, ty=None):
     """One H6 (H7 with ``active``) launch of ``tile_plan``'s tiles."""
     nb, nx, ny = u.shape
-    plan = tile_plan(nx, ny, u.device)
+    plan = tile_plan(nx, ny, u.device, tsteps, ty)
     if plan.grid[0] > 65535:
         raise ValueError(f"{name}: {nx} rows exceed the launch grid's y "
                          f"limit")
@@ -250,42 +254,48 @@ def _tile_launch(u, nsub, cxs, cys, active, resid, name, paths=None):
     return out, parts
 
 
-def ens_tile_multi(u, nsub: int, cxs, cys, paths=None):
-    """H6: ``nsub <= T`` steps of every member in one strip sweep of
-    shared-memory tiles: one read and one write of the batch. ``paths``
+def ens_tile_multi(u, nsub: int, cxs, cys, paths=None, *,
+                   tsteps: int = DEFAULT_TSTEPS, ty=None):
+    """H6: ``nsub <= tsteps`` steps of every member in one strip sweep of
+    shared-memory tiles (``tile_plan`` at ``tsteps`` and ``ty``): one read
+    and one write of the batch. ``paths``
     (``cuda_stencil.path_counter``): the kernel adds its tiles by path to
     it; the plain version, on the CPU, counts none."""
     _validate(u, cxs, cys, "ens_tile_multi")
-    _check_depth(nsub)
+    _check_depth(nsub, tsteps)
     if u.device.type == "cpu":
         return ens_multi_step_plain(u, nsub, cxs, cys)
     out, _ = _tile_launch(u, nsub, cxs, cys, None, False, "ens_tile_multi",
-                          paths)
+                          paths, tsteps, ty)
     return out
 
 
 def ens_tile_multi_conv(u, nsub: int, cxs, cys, active, resid: bool = False,
-                        paths=None):
+                        paths=None, *, tsteps: int = DEFAULT_TSTEPS,
+                        ty=None):
     """H7: H6 for the members whose int32 ``active`` flag is set, the
     others passed through unchanged; with ``resid`` also each member's
     residual of the last step pair (0 for a frozen member), summed on the
     device from one partial per tile. Returns u, or (u, residuals).
-    ``paths`` as H6's."""
+    ``paths``, ``tsteps`` and ``ty`` as H6's."""
     _validate(u, cxs, cys, "ens_tile_multi_conv", active)
-    _check_depth(nsub)
+    _check_depth(nsub, tsteps)
     if u.device.type == "cpu":
         return ens_conv_sweep_plain(u, nsub, cxs, cys, active, resid)
     out, parts = _tile_launch(u, nsub, cxs, cys, active, resid,
-                              "ens_tile_multi_conv", paths)
+                              "ens_tile_multi_conv", paths, tsteps, ty)
     return (out, torch.sum(parts, dim=1)) if resid else out
 
 
-def ens_tiled_chunk(u, n: int, cxs, cys, active=None):
-    """``n`` steps of every member as full T-deep sweeps plus one partial
-    sweep at depth ``n % T``: H6 sweeps, or with an int32 ``active``
-    vector H7 sweeps in which the frozen members pass through."""
-    nsweeps, rem = divmod(n, DEFAULT_TSTEPS)
-    for d in [DEFAULT_TSTEPS] * nsweeps + ([rem] if rem else []):
-        u = (ens_tile_multi(u, d, cxs, cys) if active is None
-             else ens_tile_multi_conv(u, d, cxs, cys, active))
+def ens_tiled_chunk(u, n: int, cxs, cys, active=None, *,
+                    tsteps: int = DEFAULT_TSTEPS, ty=None):
+    """``n`` steps of every member as full ``tsteps``-deep sweeps plus
+    one partial sweep at depth ``n % tsteps``: H6 sweeps, or with an
+    int32 ``active`` vector H7 sweeps in which the frozen members pass
+    through; tiles of at most ``ty`` centre rows when given."""
+    nsweeps, rem = divmod(n, tsteps)
+    kw = dict(tsteps=tsteps, ty=ty)
+    for d in [tsteps] * nsweeps + ([rem] if rem else []):
+        u = (ens_tile_multi(u, d, cxs, cys, **kw) if active is None
+             else ens_tile_multi_conv(u, d, cxs, cys, active, **kw))
     return u

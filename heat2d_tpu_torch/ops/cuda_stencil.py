@@ -174,13 +174,13 @@ def smem_limit(device) -> int:
     return total - _STATIC_SMEM
 
 
-def resident_plan(nx: int, ny: int, device):
+def resident_plan(nx: int, ny: int, device, k=None):
     """H4's plan (``ops/resident.plan_resident`` for one member of radius
-    1; its chunk depth K is the planner's, which timed fastest on the
-    H100), or None when the grid is too large to stay in the card's
-    shared memory."""
+    1; its chunk depth K is ``k`` when given, a tuned depth, else the
+    planner's, which timed fastest on the H100), or None when the grid
+    is too large to stay in the card's shared memory at that K."""
     from heat2d_tpu_torch.ops.resident import plan_resident
-    return plan_resident(1, nx, ny, 1, device)
+    return plan_resident(1, nx, ny, 1, device, k=k)
 
 
 def fits_resident(shape, device) -> bool:
@@ -224,14 +224,19 @@ def _round_up(n: int, m: int) -> int:
 
 
 def plan_tiles(nx: int, ny: int, tsteps: int = DEFAULT_TSTEPS,
-               smem: int = H100_SMEM_OPTIN - _STATIC_SMEM) -> TilePlan:
+               smem: int = H100_SMEM_OPTIN - _STATIC_SMEM,
+               ty: int | None = None) -> TilePlan:
     """Tile geometry of the H2/H3 sweeps: a centre of at most 64 x 128
     cells (rows of 512 bytes, coalesced; two blocks share an SM at
-    T = 8), shrunk to the grid, then halved until the two ext tiles fit
-    in ``smem`` bytes of shared memory."""
+    T = 8), or at most ``ty`` rows (a tuned height, a multiple of
+    ``BLOCK[1]``), shrunk to the grid, then halved until the two ext
+    tiles fit in ``smem`` bytes of shared memory."""
     if tsteps < 1:
         raise ValueError(f"tsteps must be >= 1, got {tsteps}")
-    ty = min(64, _round_up(nx, BLOCK[1]))
+    if ty is not None and (ty < BLOCK[1] or ty % BLOCK[1]):
+        raise ValueError(f"ty must be a positive multiple of {BLOCK[1]}, "
+                         f"got {ty}")
+    ty = min(64 if ty is None else ty, _round_up(nx, BLOCK[1]))
     tx = min(128, _round_up(ny, BLOCK[0]))
 
     def need(a, b):
@@ -250,26 +255,29 @@ def plan_tiles(nx: int, ny: int, tsteps: int = DEFAULT_TSTEPS,
 
 
 def plan_strip_sweep(nx: int, ny: int, t: int,
-                     smem: int = H100_SMEM_OPTIN) -> TilePlan:
+                     smem: int = H100_SMEM_OPTIN,
+                     ty: int | None = None) -> TilePlan:
     """The strip sweep's tiles on an (nx, ny) block with a t-deep ring
     (H2/H3 on a grid, H6/H7 on an ensemble's member, H12-H14 on a shard):
     ``plan_tiles`` (centres of at most 64 x 128) within ``smem`` bytes a
     block and within half an SM's shared memory, so that two blocks of
     ``STRIP_WARPS`` warps share an SM, as H9's plans do. Each block also
     takes 1 KB for the system and 4 bytes a warp for the residual's
-    partial sums."""
+    partial sums. ``ty``: at most that many centre rows (``plan_tiles``)."""
     sums = 4 * STRIP_WARPS
     half = SM_SMEM_BYTES // 2 - BLOCK_RESERVED_SMEM - sums
-    return plan_tiles(nx, ny, t, min(smem - sums, half))
+    return plan_tiles(nx, ny, t, min(smem - sums, half), ty)
 
 
-def tile_plan(nx: int, ny: int, tsteps: int, device) -> TilePlan:
+def tile_plan(nx: int, ny: int, tsteps: int, device,
+              ty: int | None = None) -> TilePlan:
     """H2/H3's tiles for sweeps of depth ``tsteps`` on ``device`` (a grid
-    on the CPU plans what the H100 would)."""
+    on the CPU plans what the H100 would), of at most ``ty`` centre rows
+    when given (a tuned height)."""
     dev = torch.device(device)
     smem = (device_caps(dev).smem_optin if dev.type == "cuda"
             else H100_SMEM_OPTIN)
-    return plan_strip_sweep(nx, ny, tsteps, smem)
+    return plan_strip_sweep(nx, ny, tsteps, smem, ty)
 
 
 #: H2/H3's paths, in the order of the words of a ``paths`` count
@@ -372,10 +380,11 @@ def _check_paths(paths, words: int, device) -> None:
                          f"{device} (path_counter)")
 
 
-def _tile_launch(u, nsub, cx, cy, form, tsteps, resid, paths=None):
+def _tile_launch(u, nsub, cx, cy, form, tsteps, resid, paths=None,
+                 ty=None):
     """One H2 (H3 with ``resid``) launch of ``tile_plan``'s tiles."""
     nx, ny = u.shape
-    plan = tile_plan(nx, ny, tsteps, u.device)
+    plan = tile_plan(nx, ny, tsteps, u.device, ty)
     if plan.grid[0] > 65535:
         raise ValueError(f"{nx} rows exceed the launch grid's y limit")
     _check_paths(paths, len(TILE_PATHS), u.device)
@@ -391,33 +400,35 @@ def _tile_launch(u, nsub, cx, cy, form, tsteps, resid, paths=None):
 
 
 def tile_multi(u, nsub: int, cx: float, cy: float, form: int = FORM_FMA,
-               tsteps: int = DEFAULT_TSTEPS, paths=None):
+               tsteps: int = DEFAULT_TSTEPS, paths=None, ty=None):
     """H2: ``nsub <= tsteps`` steps in one strip sweep of shared-memory
-    tiles. Device memory traffic is one read and one write of the grid
-    per sweep (plus the halo rings); the step loop's instructions bound
-    it. ``paths`` (``path_counter``): the kernel adds its tiles by path
-    to it; the plain version, on the CPU, counts none."""
+    tiles (of at most ``ty`` centre rows when given). Device memory
+    traffic is one read and one write of the grid per sweep (plus the
+    halo rings); the step loop's instructions bound it. ``paths``
+    (``path_counter``): the kernel adds its tiles by path to it; the
+    plain version, on the CPU, counts none."""
     _validate(u, "tile_multi")
     _check_depth(nsub, tsteps)
     if u.device.type == "cpu":
         return multi_step_plain(u, nsub, cx, cy, form)
     LAUNCHES["tile_multi"] += 1
-    out, _ = _tile_launch(u, nsub, cx, cy, form, tsteps, False, paths)
+    out, _ = _tile_launch(u, nsub, cx, cy, form, tsteps, False, paths, ty)
     return out
 
 
 def tile_multi_resid(u, nsub: int, cx: float, cy: float,
                      form: int = FORM_FMA, tsteps: int = DEFAULT_TSTEPS,
-                     paths=None):
+                     paths=None, ty=None):
     """H3: H2 plus the residual of the sweep's last step pair, summed on
     the device from one partial per tile. Returns (u, residual).
-    ``paths`` as H2's."""
+    ``paths`` and ``ty`` as H2's."""
     _validate(u, "tile_multi_resid")
     _check_depth(nsub, tsteps)
     if u.device.type == "cpu":
         return tile_multi_resid_plain(u, nsub, cx, cy, form)
     LAUNCHES["tile_multi_resid"] += 1
-    out, parts = _tile_launch(u, nsub, cx, cy, form, tsteps, True, paths)
+    out, parts = _tile_launch(u, nsub, cx, cy, form, tsteps, True, paths,
+                              ty)
     return out, torch.sum(parts)
 
 
@@ -451,13 +462,15 @@ def _resident_launch(u, steps: int, cx, cy, form, plan):
     return out
 
 
-def resident(u, steps: int, cx: float, cy: float, form: int = FORM_FMA):
+def resident(u, steps: int, cx: float, cy: float, form: int = FORM_FMA,
+             k=None):
     """H4: ``steps`` steps in one cooperative launch, the grid resident in
-    shared memory for all of them (``resident_plan``): a block per SM
-    steps its tile, trading rings with its neighbours every K steps. The
-    step loop's instructions and the exchanges bound it. A grid without
-    a plan raises: the route gate ``fits_resident`` sends it to the
-    streamed route before any launch."""
+    shared memory for all of them (``resident_plan``, at chunk depth
+    ``k`` when given): a block per SM steps its tile, trading rings with
+    its neighbours every K steps. The step loop's instructions and the
+    exchanges bound it. A grid without a plan raises: the route gate
+    ``fits_resident`` sends it to the streamed route before any
+    launch."""
     _validate(u, "resident")
     if steps < 0:
         raise ValueError(f"steps must be >= 0, got {steps}")
@@ -465,7 +478,7 @@ def resident(u, steps: int, cx: float, cy: float, form: int = FORM_FMA):
         return multi_step_plain(u, steps, cx, cy, form)
     if steps == 0:
         return u
-    plan = resident_plan(*u.shape, u.device)
+    plan = resident_plan(*u.shape, u.device, k)
     if plan is None:
         raise ValueError(f"resident: a {u.shape[0]}x{u.shape[1]} grid does "
                          f"not fit the card's shared memory (fits_resident "
@@ -478,18 +491,20 @@ def resident(u, steps: int, cx: float, cy: float, form: int = FORM_FMA):
 # --------------------------------------------------------------------- #
 
 def tiled_chunk(u, n: int, cx: float, cy: float, form: int = FORM_FMA,
-                tsteps: int = DEFAULT_TSTEPS):
+                tsteps: int = DEFAULT_TSTEPS, ty=None):
     """``n`` steps as full T-deep H2 sweeps plus one partial sweep at
-    depth ``n % T`` (the JAX package's ``_window_multi_padded``)."""
+    depth ``n % T`` (the JAX package's ``_window_multi_padded``), on
+    tiles of at most ``ty`` centre rows when given."""
     nsweeps, rem = divmod(n, tsteps)
     for _ in range(nsweeps):
-        u = tile_multi(u, tsteps, cx, cy, form, tsteps)
+        u = tile_multi(u, tsteps, cx, cy, form, tsteps, ty=ty)
     if rem:
-        u = tile_multi(u, rem, cx, cy, form, tsteps)
+        u = tile_multi(u, rem, cx, cy, form, tsteps, ty=ty)
     return u
 
 
-def make_single_chip_runner(config, device=None) -> engine.Runner:
+def make_single_chip_runner(config, device=None,
+                            tuned=None) -> engine.Runner:
     """The kernel route of mode ``pallas`` (``pallas_stencil.py:1402``),
     re-derived for the card:
 
@@ -503,38 +518,64 @@ def make_single_chip_runner(config, device=None) -> engine.Runner:
     - the literal form (``bitwise_parity``) and resident grids run
       convergence through ``run_convergence_chunked``.
 
+    The plan's knobs, H4's chunk depth K or H2/H3's depth T and tile
+    height, are the planner's, or the tuning db's answer for the grid
+    (``tune.runtime.resident_config``/``band_config``: None, so the
+    planner's, without a db), or those of ``tuned``, a
+    ``tune.db.TunedConfig`` whose route ("resident" or "tile") the
+    runner then takes whatever the gate says (how the search measures a
+    candidate). ``runner.plan`` is the plan its chunks launch and
+    ``runner.chunk(u, n)`` advances n steps. A plan change moves no bit:
+    every cell takes the same sequence of updates under any plan.
+
     ``device`` defaults to ``cuda`` and raises without a card; pass
     ``"cpu"`` to run the plain versions."""
     dev = resolve_device(device)
     cx, cy = config.cx, config.cy
     nx, ny = config.nxprob, config.nyprob
     form = FORM_LITERAL if config.bitwise_parity else FORM_FMA
-    is_resident = fits_resident((nx, ny), dev)
-    tw = DEFAULT_TSTEPS
+    if tuned is None:
+        from heat2d_tpu_torch.tune import runtime as tune_runtime
+        is_resident = fits_resident((nx, ny), dev)
+        tuned = (tune_runtime.resident_config(nx, ny, device=dev)
+                 if is_resident
+                 else tune_runtime.band_config(nx, ny, device=dev))
+    else:
+        is_resident = tuned.route == "resident"
+    if is_resident:
+        k = tuned.tsteps if tuned is not None else None
+        plan = resident_plan(nx, ny, dev, k)
+        if plan is None:
+            raise ValueError(f"resident: no plan keeps a {nx}x{ny} grid in "
+                             f"the card's shared memory at K={k}")
+    else:
+        tw = tuned.tsteps if tuned is not None else DEFAULT_TSTEPS
+        ty = tuned.bm if tuned is not None else None
+        plan = tile_plan(nx, ny, tw, dev, ty)
 
     if is_resident:
         def step_fn(u):
-            return resident(u, 1, cx, cy, form)
+            return resident(u, 1, cx, cy, form, k)
 
         def chunk(u, n):
             with phase("stencil_chunk"):
-                return resident(u, n, cx, cy, form)
+                return resident(u, n, cx, cy, form, k)
     else:
         def step_fn(u):
             return step(u, cx, cy, form)
 
         def chunk(u, n):
             with phase("stencil_chunk"):
-                return tiled_chunk(u, n, cx, cy, form, tw)
+                return tiled_chunk(u, n, cx, cy, form, tw, ty)
 
     fused = (config.convergence and not is_resident
              and form == FORM_FMA)
 
     def chunk_resid(u, n):
         d = n % tw or tw
-        u = tiled_chunk(u, n - d, cx, cy, form, tw)
+        u = tiled_chunk(u, n - d, cx, cy, form, tw, ty)
         with phase("residual_reduction"):
-            return tile_multi_resid(u, d, cx, cy, form, tw)
+            return tile_multi_resid(u, d, cx, cy, form, tw, ty=ty)
 
     def residual(a, b):
         with phase("residual_reduction"):
@@ -554,4 +595,6 @@ def make_single_chip_runner(config, device=None) -> engine.Runner:
     route = ("resident" if is_resident
              else "streamed-fused" if fused else "streamed")
     runner = engine.Runner(run, route)
+    runner.plan = plan
+    runner.chunk = chunk
     return runner

@@ -156,16 +156,17 @@ def plan_for_limits(nb: int, nx: int, ny: int, ring_w: int, smem: int,
     return best[1] if best else None
 
 
-def plan_resident(nb: int, nx: int, ny: int, ring_w: int,
-                  device) -> Optional[ResidentPlan]:
+def plan_resident(nb: int, nx: int, ny: int, ring_w: int, device,
+                  k: Optional[int] = None) -> Optional[ResidentPlan]:
     """The resident sweep's plan for a (nb, nx, ny) batch of an operator
-    of radius ``ring_w`` on ``device``, or None when a member is too large
-    to stay on the chip (its tiles exceed the co-resident blocks' shared
-    memory): the wrappers then advance it by tile sweeps. A batch on the
-    CPU is gated against the H100's 132 SMs and 232,448 bytes."""
+    of radius ``ring_w`` on ``device`` (at chunk depth ``k`` when given),
+    or None when a member is too large to stay on the chip (its tiles
+    exceed the co-resident blocks' shared memory): the wrappers then
+    advance it by tile sweeps. A batch on the CPU is gated against the
+    H100's 132 SMs and 232,448 bytes."""
     dev = torch.device(device)
     return plan_for_limits(nb, nx, ny, ring_w, cs.smem_limit(dev),
-                           _sm_count(dev))
+                           _sm_count(dev), k)
 
 
 def _sm_count(dev) -> int:

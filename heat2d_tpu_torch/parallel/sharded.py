@@ -96,12 +96,22 @@ def shard_shape(config, mesh: Mesh) -> tuple[int, int]:
     return pnx // gx, pny // gy
 
 
-def effective_halo_depth(config, mesh: Mesh) -> int:
-    """The exchange depth T: ``halo_depth`` or 8, clamped to the shard.
-    (The JAX package may take a tuned depth for the fused route from its
-    tuning db; without a db it takes this default, as here.)"""
+def effective_halo_depth(config, mesh: Mesh, device=None) -> int:
+    """The exchange depth T: ``halo_depth``, else, on the fused route, the
+    tuning db's depth for the shard shape (``tune.runtime.fused_config``,
+    re-validated against the overlap geometry and H14's tile plan; None
+    without a db), else 8; clamped to the shard. The db is read for the
+    kind of the mesh's first device, or of ``device`` for a bare (gx, gy)
+    pair."""
     bm, bn = shard_shape(config, mesh)
     want = config.halo_depth or DEFAULT_HALO_DEPTH
+    if config.halo_depth is None and config.halo == "fused":
+        from heat2d_tpu_torch.tune import runtime as tune_runtime
+        if tune_runtime.active_db() is not None:
+            dev = mesh.flat()[0] if isinstance(mesh, Mesh) else device
+            tuned = tune_runtime.fused_config(bm, bn, device=dev)
+            if tuned is not None:
+                want = tuned.tsteps
     return max(1, min(want, bm, bn))
 
 
@@ -124,7 +134,8 @@ def _fused_kernel_viable(config, mesh: Mesh, t: int) -> bool:
             and (devs[0].type == "cpu" or csh.fused_peer_ok(devs)))
 
 
-def resolve_halo_route(config, mesh: Mesh, kernel: bool = False) -> dict:
+def resolve_halo_route(config, mesh: Mesh, kernel: bool = False,
+                       device=None) -> dict:
     """The halo route a runner takes at the full chunk depth, under the
     JAX package's tier names (``parallel/sharded.py:274``):
 
@@ -137,11 +148,12 @@ def resolve_halo_route(config, mesh: Mesh, kernel: bool = False) -> dict:
     - ``window``: the JAX package's D2 route on TPU shards; H12 covers
       its work here, so the port never takes it.
 
-    ``mesh`` may be a bare (gx, gy) pair when ``kernel`` is False.
+    ``mesh`` may be a bare (gx, gy) pair when ``kernel`` is False, on
+    ``device`` (whose kind a tuned depth is read for).
     """
     gx, gy = _grid_of(mesh)
     bm, bn = shard_shape(config, mesh)
-    t = effective_halo_depth(config, mesh)
+    t = effective_halo_depth(config, mesh, device)
     out = dict(requested=config.halo, depth=t, shard=(bm, bn),
                mesh=(gx, gy))
     if config.halo != "fused":

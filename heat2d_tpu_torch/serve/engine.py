@@ -74,30 +74,49 @@ class EnsembleEngine:
         #: launch keys that have run in this process (a row's
         #: ``first_launch`` flag)
         self._launched: set = set()
-        #: signature -> the tuning db's config (None until the port has
-        #: the db, ``tune/``)
+        #: signature -> the tuning db's config (a dict) or None, resolved
+        #: before the signature's first launch
         self.tuned: dict = {}
         #: signature -> pre-resolved halo plan (spatial engines only)
         self.halo_plans: dict = {}
 
-    def _preresolve_tuned(self, req0):
+    def _preresolve_tuned(self, req0, spatial: bool = False):
         """Resolve a signature's plans once, before its first launch: the
-        tuned config (None: no db yet) and, for spatial engines, the halo
-        plan."""
+        tuning db's answer for the kernel its batch runner takes (heat5
+        only: H5's chunk depth K on route pallas, H6/H7's depth and tile
+        height on route band; the batch runner consults the same answer
+        at each launch) and, for spatial engines, the halo plan. The
+        answer rides every launch row as ``tuned_config``, as the launch
+        takes it (``ensemble.tuned_for_launch``: H5 takes the db's K on
+        one member only); it is None with no db, and for a ``spatial``
+        launch (the sharded golden loop
+        takes no tuned kernel plan; a tuned fused depth rides its halo
+        plan)."""
         sig = req0.signature()
         if sig in self.tuned:
             return self.tuned[sig]
-        self.tuned[sig] = None
+        from heat2d_tpu_torch.tune import runtime as tune_runtime
+        tuned = None
+        if (not spatial and tune_runtime.active_db() is not None
+                and getattr(req0, "problem", "heat5") == "heat5"):
+            route = ensemble._pick_method(req0.method, req0.nx, req0.ny,
+                                          self.device)
+            cfg = ensemble.tuned_config(route, req0.nx, req0.ny,
+                                        self.device)
+            if cfg is not None:
+                tuned = cfg.to_dict()
+        self.tuned[sig] = tuned
         if self.spatial_grid is not None:
             gx, gy = self.spatial_grid
             self.halo_plans[sig] = dict(
                 ensemble.spatial_halo_plan(req0.nx, req0.ny, gx, gy,
-                                           halo=self.halo),
+                                           halo=self.halo,
+                                           device=self.device),
                 compiled=False)
         if self.registry is not None:
             self.registry.counter("tune_serve_signatures_total",
-                                  tuned="false")
-        return None
+                                  tuned=str(tuned is not None).lower())
+        return tuned
 
     def solve_batch(self, requests) -> List[Tuple["object", int]]:
         """Solve same-signature ``requests`` in one ensemble launch.
@@ -155,7 +174,8 @@ class EnsembleEngine:
         self._launched.add(compile_key)
         row = {"signature": req0.signature(), "occupancy": n,
                "capacity": capacity, "method": runner.method,
-               "problem": req0.problem, "tuned_config": tuned,
+               "problem": req0.problem,
+               "tuned_config": ensemble.tuned_for_launch(tuned, capacity),
                "first_launch": first_launch,
                "setup_s": t1 - t0, "run_s": t2 - t1, "readback_s": t3 - t2}
         if self.spatial_grid is not None:

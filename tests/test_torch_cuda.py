@@ -935,3 +935,42 @@ def test_two_process_hybrid_world_on_the_card(card, tmp_path, convergence):
     assert rec["steps_done"] == ref.steps_done
     name = "shard_tile_multi_resid" if convergence else "shard_tile_multi"
     assert all(row[name] > 0 for row in rec["launches_by_process"])
+
+
+def test_tune_search_resumes_and_applies_bitwise(card, tmp_path):
+    """A two-candidate real search on the card (the tile route at 2048^2:
+    the planner's (ty, T) = (64, 8) and (32, 8)), resumed as a pure cache
+    hit; the
+    applied db steers the main path's plan, bitwise the default plan's
+    result, with ``tuned_config`` naming the db's best."""
+    import io
+
+    from heat2d_tpu_torch.tune import cli as tcli
+    from heat2d_tpu_torch.tune import runtime as tr
+    from heat2d_tpu_torch.tune.db import TuningDB
+    from heat2d_tpu_torch.tune.space import Problem
+
+    path = str(tmp_path / "db.json")
+    problem = Problem(2048, 2048)
+    kw = dict(routes=("tile",), ty_grid=(32,), t_ladder=(8,), reps=2,
+              device=card, out=io.StringIO())
+    s1 = tcli.search_problem(TuningDB(path), problem, **kw)
+    assert s1["measured"] == 2 and s1["failed"] == 0, s1
+    s2 = tcli.search_problem(TuningDB(path), problem, **kw)
+    assert s2["measured"] == 0 and s2["cached"] == s1["measured"]
+    best = s1["best"]
+    cfg = HeatConfig(nxprob=2048, nyprob=2048, steps=240, mode="pallas")
+    want = Heat2DSolver(cfg).run(timed=False).u
+    try:
+        tr.set_tuning_db(path)
+        runner = cs.make_single_chip_runner(cfg)
+        assert (runner.plan.ty, runner.plan.tsteps) == (best["bm"],
+                                                        best["tsteps"])
+        got = Heat2DSolver(cfg).run(timed=False).u
+        applied = tr.applied_configs()
+    finally:
+        tr.set_tuning_db(None)
+    assert (got == want).all()
+    assert applied[0]["source"] == "exact"
+    assert (applied[0]["bm"], applied[0]["tsteps"]) == (best["bm"],
+                                                        best["tsteps"])
