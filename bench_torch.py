@@ -20,9 +20,12 @@ Mcells/s (``bench.py``'s ``BASELINE_MCELLS``). ``time_to_solution`` is
 ``models.solution.bench_tts``: explicit against ADI at 513^2 (257^2
 when quick) to matched accuracy.
 
-Left out until the port has ``obs/roofline.py``: bench.py's
-``pct_of_calibrated_bound`` and ``bytes_per_cell_step``, whose
-constants were calibrated on the TPU.
+The roofline rows are bench.py's, from the port's ``obs/roofline``:
+``bytes_per_cell_step`` and ``mcells_per_hbm_byte`` (the route's analytic
+device-memory bytes a cell update, at the high step count), and, for mode
+pallas's two-point marginal on a card with calibrated peaks,
+``pct_of_calibrated_bound`` with its ``bound_source`` (the card's
+published bandwidth and float32 rate).
 
 Runs on the card unless ``--device cpu``; a number from the CPU is a
 smoke of the command, not a measurement of the card.
@@ -96,9 +99,39 @@ def main(argv=None) -> int:
         # high run, said as such.
         value = result.mcells_per_s
         method = "single-run (two-point within noise)"
-    print(json.dumps(build_record(value, method, result.elapsed, tts, mode,
-                                  args.device)))
+    rec = build_record(value, method, result.elapsed, tts, mode,
+                       args.device)
+    rec.update(roofline_rows(value, method, mode, args.device))
+    print(json.dumps(rec))
     return 0
+
+
+def roofline_rows(value: float, method: str, mode: str, device) -> dict:
+    """bench.py's roofline rows (``obs/roofline``), guarded as bench.py
+    guards them: a model gap never loses the headline."""
+    from heat2d_tpu_torch.obs import roofline
+    out = {}
+    model_method = "serial" if mode == "serial" else "auto"
+    try:
+        m = roofline.analytic_bytes_per_cell_step(
+            NX, NY, method=model_method, steps=STEPS, device=device)
+        out["bytes_per_cell_step"] = round(m["bytes_per_cell_step"], 4)
+        out["mcells_per_hbm_byte"] = round(
+            1.0 / (1e6 * m["bytes_per_cell_step"]), 9)
+    except Exception as e:  # noqa: BLE001 — record, don't lose bench
+        out["bytes_per_cell_step"] = {"error": f"{type(e).__name__}: {e}"}
+        return out
+    bound = roofline.roofline_bound(
+        NX, NY, method=model_method, steps=STEPS, device=device,
+        device_kind=roofline.device_kind(device))
+    if bound is not None and method == "two-point" and mode == "pallas":
+        # only mode pallas's two-point marginal is comparable with the
+        # bound: the single-run fallback is fence-dominated
+        out["pct_of_calibrated_bound"] = round(
+            100.0 * value / bound["bound_mcells_per_s"], 1)
+        out["bound_source"] = (f"{bound['source']}, bound by "
+                               f"{bound['bound_by']}")
+    return out
 
 
 if __name__ == "__main__":

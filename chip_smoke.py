@@ -142,6 +142,22 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    launch row) and to the mesh scheduler (its rate); then cleared, the
    plans the defaults again. The db is copied to
    ``chiprun_out/tune_db.json``.
+21. obs (after 20): the telemetry layer (``heat2d_tpu_torch/obs``) on the
+   card (``phase_obs``): (a) the main path, 4096^2 x 240 on the tile
+   route through the solver CLI, once untraced and once under
+   ``--profile`` and ``--trace-dir``: the final grids bitwise equal, the
+   launch counts equal, the capture's H2 events (``k_tile``) as many as
+   ``tile_multi``'s launches, H2 the top op, ``stencil_chunk``
+   annotated; the digest's per-kernel ms and shares, the stream's idle
+   share and longest gaps, H2's mean event beside the kernels line's
+   time, the traced over untraced elapsed; (b) the same at 640x1024 x
+   10000 on H4 (one persistent launch a run: its event time); (c) a
+   ``SolveServer`` with tracing, cost cards and an SLO armed serving H5
+   and H6 buckets: every request's merged trace connected with request,
+   queue and launch spans, every launch row stamped with a bound and at
+   most 100% of it, every card with a peak and a plan; (d) the card's
+   roofline bound known. Digests and the merged report go to
+   ``chiprun_out/obs_*.json``.
 
 The last line of standard output is ``{"ok": true, "device": ...}``. The
 full results also go to ``chiprun_out/chip_smoke.json``.
@@ -159,12 +175,6 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-#: The card's published peaks (H100 SXM at 700 W): device memory bytes/s
-#: and float32 FLOP/s outside the tensor cores.
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_FLOPS = 67e12
-#: FLOPs of one FMA-form cell update: a multiply, two adds, two FMAs.
-FLOPS_PER_CELL_STEP = 7
 
 SOURCES = {
     "step": "heat2d_tpu_torch/csrc/stencil.cu",
@@ -200,12 +210,6 @@ REPLACES = {
     "shard_tile_multi_resid": "heat2d_tpu/ops/pallas_stencil.py:1924",
     "shard_fused": "heat2d_tpu/ops/pallas_stencil.py:2217",
 }
-#: FLOPs of one cell update per family (each rounded operation of the
-#: update counted once): heat9 22, advdiff 14, reactdiff 12 (the division
-#: counted as one).
-FAMILY_FLOPS = {"heat9": 22, "advdiff": 14, "reactdiff": 12}
-#: FLOPs per unknown of a tridiagonal solve: 3 forward, 2 back.
-TD_FLOPS = 5
 #: The headline's two step counts: bench.py's (bench_torch.py takes the
 #: same), and those of the protocol used up to PR 10, timed beside them.
 HEADLINE_STEPS = (4800, 24000)
@@ -284,9 +288,27 @@ def time_device_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def update_flops(problem: str = "heat5") -> int:
+    """FLOPs of one cell update of ``problem`` (``obs.roofline``'s
+    table: each rounded operation counted once; heat5's FMA form a
+    multiply, two adds, two FMAs)."""
+    from heat2d_tpu_torch.obs import roofline
+    return roofline.FLOPS_PER_CELL_STEP[problem]
+
+
+def td_flops() -> int:
+    """FLOPs per unknown of a tridiagonal solve (``obs.roofline``)."""
+    from heat2d_tpu_torch.obs import roofline
+    return roofline.TD_FLOPS_PER_UNKNOWN
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    """The least time of the work on the card, by the published peaks of
+    ``obs.roofline`` (the H100's float32 row)."""
+    from heat2d_tpu_torch.obs import roofline
+    pk = roofline.peaks(roofline.H100_KIND, "float32")
+    t_bytes = nbytes / pk.bytes_per_s * 1e3
+    t_ops = flops / pk.flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -325,7 +347,7 @@ def phase_build() -> dict:
     caps = cs.device_caps("cuda")
     h2 = cs.tile_plan(4096, 4096, cs.DEFAULT_TSTEPS, "cuda")
     h9 = {}
-    for fam in FAMILY_FLOPS:
+    for fam in FAMILY_COEFS:
         plan = cf.tile_plan(4096, 4096, fam, "cuda", cf.SWEEP_TSTEPS[fam])
         h9[fam] = {"tsteps": cf.SWEEP_TSTEPS[fam], "ring": plan.tsteps,
                    "tile": [plan.ty, plan.tx],
@@ -1057,7 +1079,7 @@ def stencil_kernel_rows(torch) -> list:
     w = torch.tensor([[0.0, cx, 0.0], [cy, k0, cy], [0.0, cx, 0.0]],
                      device="cuda").reshape(1, 1, 3, 3)
     x4 = big.reshape(1, 1, *big.shape)
-    b, by = bound_ms(2 * plane, FLOPS_PER_CELL_STEP * cells)
+    b, by = bound_ms(2 * plane, update_flops() * cells)
     rows.append(dict(
         name="step", shape="4096x4096, 1 step",
         ms=time_ms(lambda: cs.step(big, cx, cy), 50),
@@ -1070,7 +1092,7 @@ def stencil_kernel_rows(torch) -> list:
     plan = cs.tile_plan(4096, 4096, t, "cuda")
     counted = cs.path_counter("cuda")
     cs.tile_multi(big, t, cx, cy, tsteps=t, paths=counted)
-    b, by = bound_ms(2 * plane, FLOPS_PER_CELL_STEP * cells * t)
+    b, by = bound_ms(2 * plane, update_flops() * cells * t)
     rows.append(dict(
         name="tile_multi", shape=f"4096x4096, one T={t} sweep",
         ms=time_ms(lambda: cs.tile_multi(big, t, cx, cy, tsteps=t), 20),
@@ -1084,7 +1106,7 @@ def stencil_kernel_rows(torch) -> list:
         plain_ms=time_ms(lambda: cs.multi_step_plain(big, t, cx, cy), 5),
         bound_ms=b, bound_by=by, library_ms=None))
     b, by = bound_ms(2 * plane + 4 * plan.ntiles,
-                     FLOPS_PER_CELL_STEP * cells * t + 3 * cells)
+                     update_flops() * cells * t + 3 * cells)
     rows.append(dict(
         name="tile_multi_resid",
         shape=f"4096x4096, one T={t} sweep + residual",
@@ -1099,7 +1121,7 @@ def stencil_kernel_rows(torch) -> list:
     n = 10000
     plan = cs.resident_plan(640, 1024, "cuda")
     b, by = bound_ms(2 * small.numel() * 4,
-                     FLOPS_PER_CELL_STEP * small.numel() * n)
+                     update_flops() * small.numel() * n)
 
     def launcher(form):
         return lambda p: cs._resident_launch(small, n, cx, cy, form, p)
@@ -1232,7 +1254,7 @@ def ensemble_kernel_rows(torch) -> list:
     u = inidat(640, 1024, device="cuda").expand(b, 640, 1024).contiguous()
     cxs = torch.linspace(0.02, 0.16, b, device="cuda")
     cys = torch.linspace(0.2, 0.06, b, device="cuda")
-    bnd, by = bound_ms(2 * u.numel() * 4, FLOPS_PER_CELL_STEP * u.numel() * n)
+    bnd, by = bound_ms(2 * u.numel() * 4, update_flops() * u.numel() * n)
     rows.append(dict(
         name="ens_resident", shape="8 x 640x1024 x 10000 steps",
         ms=time_ms(lambda: ce.ens_resident(u, n, cxs, cys), 3),
@@ -1264,13 +1286,13 @@ def ensemble_kernel_rows(torch) -> list:
             "4 x 4096x4096, one T=8 sweep",
             lambda: ce.ens_tile_multi(u, t, cxs, cys),
             lambda: ce.ens_multi_step_plain(u, t, cxs, cys),
-            bound_ms(2 * cells * 4, FLOPS_PER_CELL_STEP * cells * t)),
+            bound_ms(2 * cells * 4, update_flops() * cells * t)),
         "ens_tile_multi_conv": (
             "4 x 4096x4096, one T=8 sweep + residuals, all active",
             lambda: ce.ens_tile_multi_conv(u, t, cxs, cys, act, resid=True),
             lambda: ce.ens_conv_sweep_plain(u, t, cxs, cys, act, True),
             bound_ms(2 * cells * 4 + 4 * b * plan.ntiles,
-                     FLOPS_PER_CELL_STEP * cells * t + 3 * cells))}
+                     update_flops() * cells * t + 3 * cells))}
     turns = [[name, time_ms(kernels[name][1], 20)]
              for order in (list(kernels), list(kernels)[::-1])
              for name in order]
@@ -1306,7 +1328,7 @@ def family_tridiag_kernel_rows(torch) -> list:
     u = inidat(640, 1024, device="cuda").expand(b, 640, 1024).contiguous()
     cxs = torch.linspace(0.02, 0.125, b, device="cuda")
     scal = cf.scalar_block(fam, cxs, 0.17 - cxs)
-    bnd, by = bound_ms(2 * u.numel() * 4, FAMILY_FLOPS[fam] * u.numel() * n)
+    bnd, by = bound_ms(2 * u.numel() * 4, update_flops(fam) * u.numel() * n)
     rows.append(dict(
         name="fam_resident", shape="heat9, 8 x 640x1024 x 10000 steps",
         ms=time_ms(lambda: cf.fam_resident(u, n, scal, fam), 3),
@@ -1351,7 +1373,7 @@ def family_tridiag_kernel_rows(torch) -> list:
         plain_ms=time_ms(lambda: td.td_coeffs_plain(c, 4096), 2),
         bound_ms=bnd, bound_by=by, bound_chain=chain, library_ms=None))
     bnd, by = bound_ms(2 * rhs.numel() * 4 + 4 + 2 * 4096 * 4,
-                       TD_FLOPS * rhs.numel())
+                       td_flops() * rhs.numel())
     for name, fn, plain in (("td_rows", td.td_rows, td.td_rows_plain),
                             ("td_lanes", td.td_lanes, td.td_lanes_plain)):
         rows.append(dict(
@@ -1446,7 +1468,7 @@ def family_tile_row(torch) -> dict:
     u = inidat(4096, 4096, device="cuda").expand(b, 4096, 4096).contiguous()
     cxs = torch.tensor([0.03, 0.06, 0.09, 0.12], device="cuda")
     fams = {}
-    for fam in FAMILY_FLOPS:
+    for fam in FAMILY_COEFS:
         scal = cf.scalar_block(fam, cxs, 0.17 - cxs)
         t = cf.SWEEP_TSTEPS[fam]
         plan = cf.tile_plan(4096, 4096, fam, "cuda", t)
@@ -1467,7 +1489,7 @@ def family_tile_row(torch) -> dict:
     fam = "heat9"
     scal = cf.scalar_block(fam, cxs, 0.17 - cxs)
     t = cf.SWEEP_TSTEPS[fam]
-    bnd, by = bound_ms(2 * u.numel() * 4, FAMILY_FLOPS[fam] * u.numel() * t)
+    bnd, by = bound_ms(2 * u.numel() * 4, update_flops(fam) * u.numel() * t)
     return dict(
         name="fam_tile_multi",
         shape=f"heat9, 4 x 4096x4096, one T={t} sweep",
@@ -2879,7 +2901,7 @@ def shard_kernel_rows(torch) -> list:
     cells = bm * bm
     moved = 4 * (2 * cells + 2 * t * bm + 2 * (bm + 2 * t) * t)
     rows = []
-    b, by = bound_ms(moved, FLOPS_PER_CELL_STEP * cells * t)
+    b, by = bound_ms(moved, update_flops() * cells * t)
     rows.append(dict(
         name="shard_tile_multi",
         shape="one 2048^2 shard of a 2x2 mesh of 4096^2, one T=8 sweep",
@@ -2897,7 +2919,7 @@ def shard_kernel_rows(torch) -> list:
                         **dict(zip(csh.TILE_PATHS, counted.tolist()))}
     ntiles = plan.ntiles
     b, by = bound_ms(moved + 4 * ntiles,
-                     FLOPS_PER_CELL_STEP * cells * t + 3 * cells)
+                     update_flops() * cells * t + 3 * cells)
     rows.append(dict(
         name="shard_tile_multi_resid",
         shape="one 2048^2 shard, one T=8 sweep + residual",
@@ -2907,7 +2929,7 @@ def shard_kernel_rows(torch) -> list:
         bound_ms=b, bound_by=by, library_ms=None,
         device_ms=time_device_ms(
             lambda: csh.shard_tile_multi_resid(u, st, *args), 20)))
-    b, by = bound_ms(2 * 4 * n * n, FLOPS_PER_CELL_STEP * n * n * t)
+    b, by = bound_ms(2 * 4 * n * n, update_flops() * n * n * t)
     fplan = cs.tile_plan(bm, bm, t, "cuda")
     counted = csh.path_counter("cuda")
     csh.shard_fused(blocks, t, n, n, cx, cy, paths=counted)
@@ -3202,6 +3224,227 @@ def phase_tune(torch, name: str, power: str) -> dict:
     return info
 
 
+# ------------------------------------------------------------------ #
+# obs: the telemetry layer on the card
+# ------------------------------------------------------------------ #
+
+def _out_path(name: str) -> str:
+    out = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    return os.path.join(out, name)
+
+
+def _traced_cli(outdir, nx, ny, steps, traced: bool) -> dict:
+    """The solver CLI in mode pallas on the card, with ``--profile`` and
+    ``--trace-dir`` when ``traced``: its record, final_binary.dat's bytes
+    and the launch counts of the run (zeroed just before)."""
+    from heat2d_tpu_torch.cli import main as cli_main
+    from heat2d_tpu_torch.obs import tracing
+    from heat2d_tpu_torch.ops import cuda_stencil as cs
+    rec = os.path.join(outdir, "rec.json")
+    argv = ["--mode", "pallas", "--nxprob", str(nx), "--nyprob", str(ny),
+            "--steps", str(steps), "--dat-layout", "none",
+            "--binary-dumps", "--outdir", outdir, "--run-record", rec]
+    if traced:
+        argv += ["--profile", os.path.join(outdir, "prof"),
+                 "--trace-dir", os.path.join(outdir, "trace")]
+    cs.reset_launch_counts()
+    try:
+        rc = _quiet(cli_main, argv)
+    finally:
+        os.environ.pop("HEAT2D_TRACE_DIR", None)
+        tracing.set_ambient(None)
+        tracing.uninstall()
+    counts = cs.launch_counts()
+    fail_unless(rc == 0, f"cli {nx}x{ny} traced={traced}: rc {rc}")
+    with open(rec) as f, open(os.path.join(outdir, "final_binary.dat"),
+                              "rb") as g:
+        return {"record": json.load(f), "bytes": g.read(),
+                "launches": counts}
+
+
+def _digest_case(torch, tmp, name, nx, ny, steps, kernel, wrapper,
+                 kernel_ms) -> dict:
+    """One main-path case, untraced then traced; the digest's checks."""
+    from heat2d_tpu_torch.io.binary import write_json_atomic
+    from heat2d_tpu_torch.obs import trace_cli, trace_report
+    plain = _traced_cli(os.path.join(tmp, name + "_plain"), nx, ny, steps,
+                        False)
+    d = os.path.join(tmp, name + "_traced")
+    traced = _traced_cli(d, nx, ny, steps, True)
+    fail_unless(traced["bytes"] == plain["bytes"],
+                f"obs {name}: the traced run's grid differs from the "
+                f"untraced run's")
+    fail_unless(traced["launches"] == plain["launches"],
+                f"obs {name}: launches traced {traced['launches']} vs "
+                f"untraced {plain['launches']}")
+    digest = trace_report.report(os.path.join(d, "prof"))
+    write_json_atomic(digest, _out_path(f"obs_digest_{name}.json"))
+    kern = {k["kernel"]: k for k in digest["kernels"]}
+    n_events = kern.get(kernel, {}).get("count", 0)
+    fail_unless(n_events == traced["launches"][wrapper] > 0,
+                f"obs {name}: {n_events} {kernel} events in the capture, "
+                f"{traced['launches'][wrapper]} {wrapper} launches")
+    fail_unless(digest["top_ops"][0]["kernel"] == kernel,
+                f"obs {name}: top op {digest['top_ops'][0]}")
+    annotated = {a["name"] for a in digest["annotations"]}
+    fail_unless("stencil_chunk" in annotated,
+                f"obs {name}: no stencil_chunk annotation ({annotated})")
+    report = trace_cli.merge_report(os.path.join(d, "trace"))
+    fail_unless(len(report["traces"]) == 1
+                and report["traces"][0]["connected"],
+                f"obs {name}: the cli trace is not one connected trace")
+    fail_unless(traced["record"].get("trace_id")
+                == report["traces"][0]["trace_id"],
+                f"obs {name}: the record's trace_id is not the trace's")
+    lanes = [{k: lane[k] for k in ("lane", "total_s", "busy_s", "idle_s",
+                                   "idle_pct", "gaps")}
+             for lane in digest["lanes"]]
+    t_plain = plain["record"]["elapsed_s"]
+    t_traced = traced["record"]["elapsed_s"]
+    return {"shape": [nx, ny], "steps": steps, "kernel": kernel,
+            "route": traced["record"]["route"],
+            "launches": traced["launches"][wrapper], "events": n_events,
+            "event_mean_ms": kern[kernel]["mean_ms"],
+            "kernels_line_ms": kernel_ms,
+            "kernels": digest["kernels"], "window_s": digest["window_s"],
+            "categories": digest["categories"], "lanes": lanes,
+            "sync": digest["sync"],
+            "annotations": digest["annotations"],
+            "elapsed_untraced_s": t_plain, "elapsed_traced_s": t_traced,
+            "traced_over_untraced": t_traced / t_plain}
+
+
+def _served_with_obs(torch, tmp) -> dict:
+    """A SolveServer on the card with tracing, cost cards and an SLO
+    armed: an H5 bucket (4 x 640x1024 x 2000) and an H6 bucket
+    (4 x 4096^2 x 240)."""
+    import numpy as np
+
+    from heat2d_tpu_torch.io.binary import write_json_atomic
+    from heat2d_tpu_torch.obs import perf, slo, trace_cli, tracing
+    from heat2d_tpu_torch.obs.metrics import MetricsRegistry
+    from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    from heat2d_tpu_torch.serve.schema import SolveRequest
+    from heat2d_tpu_torch.serve.server import Client, SolveServer
+
+    tdir = os.path.join(tmp, "serve_trace")
+    registry = MetricsRegistry()
+    tracing.install(tracing.Tracer(tdir, service="serve"))
+    observer = perf.PerfObserver(registry=registry, dir=tdir,
+                                 service="serve")
+    perf.install(observer)
+    buckets = [
+        [SolveRequest(nx=640, ny=1024, steps=2000, cx=0.02 + 0.02 * i,
+                      cy=0.2 - 0.02 * i) for i in range(4)],
+        [SolveRequest(nx=4096, ny=4096, steps=240, cx=0.05 * (i + 1),
+                      cy=0.2 - 0.04 * i) for i in range(4)]]
+    server = SolveServer(max_batch=8, max_delay=0.5, registry=registry,
+                         default_timeout=600.0)
+    client = Client(server)
+    ce.reset_launch_counts()
+    try:
+        with server:
+            for reqs in buckets:
+                futs = [client.submit(r) for r in reqs]
+                for f in futs:
+                    u = f.result(timeout=900).u
+                    fail_unless(bool(np.isfinite(u).all()),
+                                "obs serving: non-finite result")
+        counts = ce.launch_counts()
+        cards = observer.cards()
+    finally:
+        perf.uninstall()
+        tracing.uninstall()
+    rows = slo.evaluate(registry, prefix="serve",
+                        default=slo.SLOPolicy(latency_p99_s=60.0))
+    report = trace_cli.merge_report(tdir)
+    write_json_atomic(report, _out_path("obs_serve_traces.json"))
+    n_req = sum(len(b) for b in buckets)
+    fail_unless(len(report["traces"]) == n_req,
+                f"obs serving: {len(report['traces'])} traces for {n_req} "
+                f"requests")
+    spans = trace_cli.assemble(trace_cli.load_dir(tdir)["spans"])
+    for r in report["traces"]:
+        kinds = {s.get("kind") for s in spans[r["trace_id"]]}
+        fail_unless(r["connected"] and {"request", "queue",
+                                        "launch"} <= kinds,
+                    f"obs serving: trace {r['trace_id']} connected="
+                    f"{r['connected']}, kinds {sorted(kinds)}")
+    fail_unless(counts["ens_resident"] > 0 and counts["ens_tile_multi"] > 0,
+                f"obs serving: launches {counts}")
+    log = server.engine.launch_log
+    for row in log:
+        p = row.get("perf") or {}
+        fail_unless(p.get("pct_of_bound") is not None,
+                    f"obs serving: launch row without a bound: {row}")
+        fail_unless(p["pct_of_bound"] <= 100.0,
+                    f"obs serving: {p['pct_of_bound']}% of the bound: the "
+                    f"byte model undercounts ({p})")
+    fail_unless(len(cards) == len(log), f"obs serving: {len(cards)} cards "
+                f"for {len(log)} launch keys")
+    for c in cards:
+        fail_unless(bool(c.get("peak_bytes")) and bool(c.get("plan")),
+                    f"obs serving: card without a peak or a plan: {c}")
+    return {"requests": n_req, "launches": server.engine.launches,
+            "launch_counts": counts,
+            "traces": [{k: r[k] for k in ("trace_id", "spans", "connected",
+                                          "breakdown")}
+                       for r in report["traces"]],
+            "launch_rows": [{"signature": str(row["signature"]),
+                             "method": row["method"],
+                             "run_s": row["run_s"], "perf": row["perf"]}
+                            for row in log],
+            "cards": [{k: c[k] for k in (
+                "signature", "kernel", "plan", "flops", "bytes_accessed",
+                "argument_bytes", "output_bytes", "temp_bytes",
+                "peak_bytes", "registers", "local_bytes",
+                "arithmetic_intensity")} for c in cards],
+            "slo": rows}
+
+
+def phase_obs(torch, name: str, power: str, rows: list) -> dict:
+    """The telemetry layer on the card (item 21 of the docstring)."""
+    import tempfile
+
+    from heat2d_tpu_torch.obs import roofline
+    t0 = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    bound = roofline.roofline_bound(4096, 4096, steps=240, device="cuda",
+                                    device_kind=kind)
+    fail_unless(bound is not None,
+                f"obs: no roofline bound for the card {kind!r}")
+    kms = {r["name"]: r["ms"] for r in rows}
+    with tempfile.TemporaryDirectory() as tmp:
+        main = _digest_case(torch, tmp, "main_4096", 4096, 4096, 240, "H2",
+                            "tile_multi", kms["tile_multi"])
+        emit({"phase": "obs_main_4096", "card": name, "power_limit": power,
+              **{k: main[k] for k in (
+                  "route", "launches", "events", "event_mean_ms",
+                  "kernels_line_ms", "kernels", "window_s", "categories",
+                  "lanes", "sync", "traced_over_untraced")}})
+        res = _digest_case(torch, tmp, "resident_640x1024", 640, 1024,
+                           10000, "H4", "resident", kms["resident"])
+        emit({"phase": "obs_resident_640x1024", "card": name,
+              "power_limit": power,
+              **{k: res[k] for k in (
+                  "route", "launches", "events", "event_mean_ms",
+                  "kernels_line_ms", "kernels", "categories", "sync",
+                  "traced_over_untraced")}})
+        served = _served_with_obs(torch, tmp)
+    emit({"phase": "obs_serving", "card": name, "power_limit": power,
+          **{k: served[k] for k in ("requests", "launches",
+                                    "launch_counts", "launch_rows",
+                                    "cards", "slo")}})
+    info = {"phase": "obs", "card": name, "power_limit": power,
+            "bound_4096": bound, "main": main, "resident": res,
+            "serving": served, "seconds": time.perf_counter() - t0}
+    emit({"phase": "obs", "seconds": info["seconds"],
+          "bound_4096_mcells_per_s": bound["bound_mcells_per_s"],
+          "bound_by": bound["bound_by"]})
+    return info
+
+
 def write_results(results: dict) -> None:
     out = os.path.join(HERE, "chiprun_out")
     os.makedirs(out, exist_ok=True)
@@ -3265,6 +3508,7 @@ def main() -> int:
              **shard_kern["max_abs_err"]})
         head = phase_headline(torch, tool["name"], tool["power_limit"])
         tune = phase_tune(torch, tool["name"], tool["power_limit"])
+        obs = phase_obs(torch, tool["name"], tool["power_limit"], rows)
         for r in rows:
             fail_unless(all(math.isfinite(r[k]) for k in
                             ("ms", "plain_ms", "bound_ms")),
@@ -3287,7 +3531,7 @@ def main() -> int:
                    "strong_scaling": scaling, "multi_process": multi,
                    "diff_path": diff_path,
                    "kernels": rows,
-                   "headline": head, "tune": tune,
+                   "headline": head, "tune": tune, "obs": obs,
                    "seconds": time.perf_counter() - t0})
     emit({"kernels": rows})
     print(smi("name,power.limit"))

@@ -39,8 +39,15 @@ the JAX CLI's virtual host devices share the host:
 ``--device-info`` prints the device summary (name, count, power limit)
 and exits without running a kernel. ``--metrics-out PATH`` writes the
 JAX CLI's telemetry JSONL (the ``run_start`` event, the registry's
-snapshot, the run record with ``metrics_aggregate``); ``--log-level``
-sets the ``heat2d_tpu_torch`` loggers. With a tuning db active
+snapshot, the run record with ``metrics_aggregate``, and on convergence
+runs the ``residual_trajectory`` the loops read, or the ensembles'
+``chunk_progress``); ``--log-level`` sets the ``heat2d_tpu_torch``
+loggers. ``--profile LOGDIR`` captures the run (warmup and timed run)
+with ``torch.profiler`` for ``heat2d-tpu-torch-prof LOGDIR``;
+``--trace-dir DIR`` arms request tracing (the ``cli.run`` root span, the
+``phase.*`` spans under it, the record's ``trace_id``; merge with
+``heat2d-tpu-torch-trace DIR``). ``HEAT2D_FLIGHT_DIR`` arms the crash
+flight recorder. With a tuning db active
 (``HEAT2D_TUNE_DB``, ``tune/``) the run record carries the configs the
 planners took as ``tuned_config``.
 
@@ -160,7 +167,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write the run's telemetry as JSONL: the "
                         "registry's events (run_start) and snapshot "
                         "(steps_done, elapsed_s, warmup_compile_s "
-                        "gauges), then the run record")
+                        "gauges), then the run record; on convergence "
+                        "runs the loops' residual reads stream into it "
+                        "(the same reads, no extra launch)")
+    o.add_argument("--profile", default=None, metavar="LOGDIR",
+                   help="capture a torch.profiler trace of the run "
+                        "(warmup and timed run) into LOGDIR; digest it "
+                        "with heat2d-tpu-torch-prof LOGDIR, or view it "
+                        "at ui.perfetto.dev. On the card a capture "
+                        "without a kernel event is an error")
+    o.add_argument("--trace-dir", default=None, metavar="DIR",
+                   help="arm request tracing (obs/tracing.py): host "
+                        "spans (the run root, phase() entries) land as "
+                        "JSONL in DIR; merge with heat2d-tpu-torch-trace "
+                        "DIR. The launches are the same either way. The "
+                        "run record gains trace_id")
     add_log_level_flag(p)
     p.add_argument("--accum-dtype", default="float32",
                    choices=["float32", "float64"],
@@ -212,6 +233,12 @@ def _registry(args, cfg):
     return registry
 
 
+def _add_trace(record: dict, args) -> None:
+    """The run's trace (``--trace-dir``) as the record's ``trace_id``."""
+    if getattr(args, "trace_span", None) is not None:
+        record["trace_id"] = args.trace_span.ctx.trace_id
+
+
 def _run_ensemble_cli(args, cfg) -> int:
     """A batched (cx, cy) parameter sweep in one launch: the JAX CLI's
     ensemble route (``heat2d_tpu/cli.py``). Modes serial and pallas run
@@ -256,6 +283,7 @@ def _run_ensemble_cli(args, cfg) -> int:
         ("--binary-dumps", args.binary_dumps),
         ("--checkpoint", args.checkpoint is not None),
         ("--resume", args.resume is not None),
+        ("--profile", args.profile is not None),
         # the batched routes evaluate steps and residuals in f32, and the
         # ensemble kernels take the FMA form only
         ("--accum-dtype float64", cfg.accum_dtype == "float64"),
@@ -268,6 +296,13 @@ def _run_ensemble_cli(args, cfg) -> int:
 
     sharded = cfg.mode in SHARDED_MODES
     registry = _registry(args, cfg)
+    telemetry = None
+    if (registry is not None and cfg.convergence and not sharded
+            and spatial_grid is None):
+        # chunk progress where one device reads the whole batch (the
+        # sharded loops read each slot's members)
+        from heat2d_tpu_torch.obs import TelemetryStream
+        telemetry = TelemetryStream(registry=registry)
     try:
         devices = None
         if sharded:
@@ -294,7 +329,8 @@ def _run_ensemble_cli(args, cfg) -> int:
             sensitivity=cfg.sensitivity, problem=cfg.problem,
             device=args.device, sharded=sharded, devices=devices,
             spatial_grid=spatial_grid, halo_depth=cfg.halo_depth,
-            halo=cfg.halo)
+            halo=cfg.halo,
+            tap=telemetry.tap_members if telemetry is not None else None)
     except (ConfigError, ValueError, DeviceUnavailableError) as e:
         print(f"{e}\nQuitting...", file=sys.stderr)
         return 1
@@ -320,7 +356,12 @@ def _run_ensemble_cli(args, cfg) -> int:
                "summary": ensemble_summary(batch, steps_done=steps_done),
                "route": run.method,
                "residual_reads": run.residual_reads})
+    if telemetry is not None and telemetry.chunk_progress():
+        # present only when chunks were read: an empty list would read
+        # as 'zero chunks ran'
+        record["chunk_progress"] = telemetry.chunk_progress()
     _add_tuned(record)
+    _add_trace(record, args)
     if registry is not None:
         registry.gauge("elapsed_s", float(run.elapsed))
         registry.gauge("members", len(cxs))
@@ -337,6 +378,28 @@ def _run_ensemble_cli(args, cfg) -> int:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     configure_logging(args.log_level)
+    args.trace_span = None
+    if args.trace_dir:
+        # the explicit flag wins over a stale HEAT2D_TRACE_DIR (else the
+        # campaign splits across two directories); the root span gives
+        # phase() spans a parent and the record a trace_id
+        os.environ["HEAT2D_TRACE_DIR"] = args.trace_dir
+        from heat2d_tpu_torch.obs import tracing
+        tracing.install(tracing.Tracer(args.trace_dir, service="cli"))
+        args.trace_span = tracing.begin(
+            "cli.run", kind="request", mode=args.mode,
+            grid=f"{args.nxprob}x{args.nyprob}", steps=args.steps)
+        tracing.set_ambient(args.trace_span.ctx)
+    from heat2d_tpu_torch.obs import flight
+    flight.maybe_install_from_env(service="cli")
+    try:
+        return _main_world(args)
+    finally:
+        if args.trace_span is not None:
+            args.trace_span.end()
+
+
+def _main_world(args) -> int:
     multihost = (args.multihost or args.coordinator is not None
                  or args.num_processes is not None
                  or args.process_id is not None)
@@ -386,6 +449,10 @@ def _main(args) -> int:
             return 1
         return _run_ensemble_cli(args, cfg)
     registry = _registry(args, cfg)
+    telemetry = None
+    if registry is not None and cfg.convergence:
+        from heat2d_tpu_torch.obs import TelemetryStream
+        telemetry = TelemetryStream(registry=registry)
     try:
         from heat2d_tpu_torch.models.solver import Heat2DSolver
         devices = owners = None
@@ -396,7 +463,7 @@ def _main(args) -> int:
             from heat2d_tpu_torch.parallel.mesh import host_devices
             devices = host_devices(args.host_device_count, args.device)
         solver = Heat2DSolver(cfg, device=args.device, devices=devices,
-                              owners=owners)
+                              owners=owners, telemetry=telemetry)
     except (ConfigError, ValueError, DeviceUnavailableError) as e:
         print(f"{e}\nQuitting...", file=sys.stderr)
         return 1
@@ -453,7 +520,8 @@ def _main(args) -> int:
             return 1
         solver = Heat2DSolver(
             cfg.replace(steps=max(cfg.steps - start_step, 0)),
-            device=args.device, devices=devices, owners=owners)
+            device=args.device, devices=devices, owners=owners,
+            telemetry=telemetry)
         u0 = solver.place(grid)
     else:
         u0 = solver.init_state()
@@ -495,7 +563,11 @@ def _main(args) -> int:
     if args.dat_layout != "none":
         write_dat(to_host(u0, init_bin), "initial.dat")
 
-    result = solver.run(u0=u0, gather=False)
+    from heat2d_tpu_torch.utils.profiling import profile_span
+    # the capture wraps the whole run; the timed window inside it is
+    # fenced as without it
+    with profile_span(args.profile, device=solver.device):
+        result = solver.run(u0=u0, gather=False)
     total_steps = start_step + result.steps_done
     say(f"Exiting after {result.steps_done} iterations")
     say(f"Elapsed time: {result.elapsed:e} sec")
@@ -534,6 +606,13 @@ def _main(args) -> int:
                             for k, col in cols.items()}
                            for p in range(mh.process_count())]
     _add_tuned(record)
+    _add_trace(record, args)
+    if telemetry is not None:
+        # a resumed run's engine counts from 0: shift the streamed steps
+        # to absolute step numbers (total_steps_including_resume)
+        record["residual_trajectory"] = [
+            {"step": p["step"] + start_step, "residual": p["residual"]}
+            for p in telemetry.trajectory()]
     if registry is not None:
         registry.gauge("steps_done", result.steps_done)
         registry.gauge("elapsed_s", result.elapsed)

@@ -177,6 +177,22 @@ int heat_ens_resident(const float* src, float* dst, heat::Word* scratch,
                                                    args, P, s);
 }
 
+// Registers and local (spill) bytes a thread of one build, as
+// cudaFuncGetAttributes reports them: which = 0 H5 (window_steps, the
+// wrapper's), 1 H6, 2 H7 (the cost cards of obs/perf.py).
+int heat_ens_func_attrs(int which, int* out) {
+  const void* fns[] = {(const void*)k_ens_resident<true>,
+                       (const void*)k_ens_tile<false>,
+                       (const void*)k_ens_tile<true>};
+  if (which < 0 || which > 2) return cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fns[which]);
+  if (e != cudaSuccess) return e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  return cudaSuccess;
+}
+
 // active == NULL selects H6, otherwise H7; parts == NULL skips the
 // residual partials (one per (member, tile) otherwise).  `paths`: NULL,
 // or k_ens_tile's two path counts.

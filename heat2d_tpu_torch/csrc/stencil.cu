@@ -220,6 +220,23 @@ int heat_tile_info(int smem, int* out) {
   return cudaSuccess;
 }
 
+// Registers and local (spill) bytes a thread of one build, as
+// cudaFuncGetAttributes reports them: which = 0 H1, 1 H2, 2 H3, 3 H4, each
+// in the FMA form (the cost cards of obs/perf.py).
+int heat_func_attrs(int which, int* out) {
+  const void* fns[] = {(const void*)k_step<FORM_FMA>,
+                       (const void*)k_tile<FORM_FMA, false>,
+                       (const void*)k_tile<FORM_FMA, true>,
+                       (const void*)k_resident<FORM_FMA>};
+  if (which < 0 || which > 3) return cudaErrorInvalidValue;
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fns[which]);
+  if (e != cudaSuccess) return e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  return cudaSuccess;
+}
+
 // plan: the host int array of ops/resident.ResidentPlan.as_ctypes (one
 // member).
 int heat_resident(const float* src, float* dst, heat::Word* scratch,

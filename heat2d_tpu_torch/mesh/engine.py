@@ -109,6 +109,8 @@ class MeshEnsembleEngine(EnsembleEngine):
         #: host times of the launch about to be accounted, consumed by
         #: ``_account`` (engine calls are serialized by the dispatcher)
         self._launch_times: Optional[dict] = None
+        #: the last launch's roofline inputs, consumed by ``_account``
+        self._launch_perf: Optional[dict] = None
         #: voluntary slot-count target (``resize``); None = all slots
         self._resize_target: Optional[int] = None
         #: one row per ``resize`` call
@@ -275,6 +277,7 @@ class MeshEnsembleEngine(EnsembleEngine):
                  if self.registry is not None
                  else contextlib.nullcontext())
         ab = None
+        meta, watch = self._perf_meta(req0, capacity, "mesh_batch", first)
         t1 = time.perf_counter()
         with timer:
             out = runner(u0, cxs, cys)
@@ -296,6 +299,9 @@ class MeshEnsembleEngine(EnsembleEngine):
                 steps_done = [req0.steps] * n
         self._launch_times = {"setup_s": t1 - t0, "run_s": t2 - t1,
                               "readback_s": time.perf_counter() - t2}
+        self._launch_perf = self._perf_of(
+            runner, (u0, cxs, cys), out, meta, watch, req0, steps_done,
+            t2 - t1, None, runner.devices)
         return u, steps_done, capacity, ab
 
     # -- the guarded (fault-tolerant) batch route ---------------------- #
@@ -499,14 +505,20 @@ class MeshEnsembleEngine(EnsembleEngine):
             cys += [cys[-1]] * (capacity - n)
             cxs, cys, u0 = ensemble._validated_batch(
                 req0.nx, req0.ny, cxs, cys, None, self.devices[0])
+            meta, watch = self._perf_meta(req0, capacity, "mesh_spatial",
+                                          self.devices[0])
             t1 = time.perf_counter()
-            u, k = runner(u0, cxs, cys)
+            out = u, k = runner(u0, cxs, cys)
             _sync(self.devices)
             t2 = time.perf_counter()
             steps_done = [int(s) for s in k[:n].cpu()]
             u = u[:n].cpu().numpy()
             self._launch_times = {"setup_s": t1 - t0, "run_s": t2 - t1,
                                   "readback_s": time.perf_counter() - t2}
+            # the spatial route steps the golden loop in torch ops
+            self._launch_perf = self._perf_of(
+                runner, (u0, cxs, cys), out, meta, watch, req0,
+                steps_done, t2 - t1, "jnp", self.devices)
             return u, steps_done
 
         timer = (self.registry.timer("serve_launch_s")
@@ -567,6 +579,42 @@ class MeshEnsembleEngine(EnsembleEngine):
         self._account(req0, n, capacity, tuned, decision)
         return [(u[i], steps_done[i]) for i in range(n)]
 
+    # -- roofline and cost cards --------------------------------------- #
+
+    @staticmethod
+    def _perf_meta(req0, capacity, route, device):
+        """The cost card's meta of a launch and the ``LaunchWatch`` to take
+        before it, or (None, None) when the perf observer is off."""
+        from heat2d_tpu_torch.obs import perf
+        if not perf.enabled():
+            return None, None
+        meta = {"signature": str(req0.signature()), "nx": req0.nx,
+                "ny": req0.ny, "steps": req0.steps, "method": req0.method,
+                "convergence": req0.convergence, "capacity": capacity,
+                "dtype": "float32", "problem": req0.problem,
+                "route": route}
+        return meta, perf.launch_watch(meta, device)
+
+    @staticmethod
+    def _perf_of(runner, args, out, meta, watch, req0, steps_done,
+                 run_s, route, devices) -> dict:
+        """What ``_account``'s roofline stamp needs of a launch: its
+        seconds to the device's end, the mean steps done, the route the
+        byte model takes (None: as the dispatch resolves it), the cards
+        its slots span and the cost card when perf is armed."""
+        from heat2d_tpu_torch.obs import perf
+        card = None
+        if meta is not None:
+            if route is not None:
+                meta = dict(meta, model_method=route)
+            card = perf.observe_launch(runner, args, meta=meta,
+                                       outputs=out, watch=watch)
+        return {"elapsed_s": run_s,
+                "steps": (sum(steps_done) / len(steps_done)
+                          if req0.convergence else req0.steps),
+                "route": route, "card": card,
+                "device": args[0].device, "cards": len(set(devices))}
+
     # -- shared accounting --------------------------------------------- #
 
     def _account(self, req0, n, capacity, tuned, decision,
@@ -594,6 +642,16 @@ class MeshEnsembleEngine(EnsembleEngine):
             row.update(times)
         if self.spatial_grid is not None:
             row["halo_plan"] = self.halo_plans.get(req0.signature())
+        lp, self._launch_perf = self._launch_perf, None
+        if lp is not None:
+            from heat2d_tpu_torch.obs import roofline
+            roofline.stamp_launch_row(
+                row, self.registry, nx=req0.nx, ny=req0.ny,
+                steps=lp["steps"], members=capacity,
+                elapsed_s=lp["elapsed_s"], method=req0.method,
+                signature=str(req0.signature()), card=lp["card"],
+                problem=req0.problem, device=lp["device"],
+                route=lp["route"], cards=lp["cards"])
         self.launch_log.append(row)
         if self.registry is not None:
             self.registry.counter("serve_launches_total")

@@ -127,15 +127,20 @@ class Runner:
     """``u0 -> (u_final, steps_done)`` for one config: the route it takes,
     and the host reads of the residual its last call made (its ``tap``
     counts them, whatever they report; pass it to the convergence
-    loops)."""
+    loops). ``stream``, when set, receives every read too (a
+    ``obs.stream.TelemetryStream``'s ``tap`` or ``tap_members``): the
+    reads are the loops' own, so arming it adds no launch."""
 
     def __init__(self, fn, route: str):
         self._fn = fn
         self.route = route
         self.residual_reads = 0
+        self.stream = None
 
-    def tap(self, *_) -> None:
+    def tap(self, *args) -> None:
         self.residual_reads += 1
+        if self.stream is not None:
+            self.stream(*args)
 
     def __call__(self, u):
         self.residual_reads = 0

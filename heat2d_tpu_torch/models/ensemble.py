@@ -735,13 +735,17 @@ def timed_ensemble(nx: int, ny: int, steps: int, cxs, cys, u0=None,
                    problem: str = "heat5", device=None,
                    sharded: bool = False, devices=None,
                    spatial_grid=None, halo_depth=None,
-                   halo: str = "collective") -> EnsembleResult:
+                   halo: str = "collective", tap=None) -> EnsembleResult:
     """One ensemble launch under the reference timing protocol (an
     untimed warmup run, then a fenced timed run): the CLI's entry.
     ``sharded=True`` spreads the members over the slots ``devices``
     (default: the visible devices of ``device``); ``spatial_grid=(gridx,
     gridy)`` decomposes each member over a submesh of them (route
-    ``spatial``), whatever ``sharded`` says."""
+    ``spatial``), whatever ``sharded`` says. ``tap``: receives every
+    chunk's read of a convergence run, ``tap(chunk, steps_done,
+    residuals, done)`` (``obs.stream.TelemetryStream.tap_members``): on
+    one device the whole batch's; the sharded loops report each slot's
+    members, and the spatial route none."""
     from heat2d_tpu_torch.config import ConfigError
     if problem != vocab.DEFAULT_PROBLEM and (sharded
                                              or spatial_grid is not None):
@@ -784,6 +788,7 @@ def timed_ensemble(nx: int, ny: int, steps: int, cxs, cys, u0=None,
                 return fixed(u, cxs, cys), None
 
     runner = engine.Runner(run, method)
+    runner.stream = tap
     tc = timed_call(runner, u0)
     (u, k), elapsed = tc
     return EnsembleResult(u, k, elapsed, method, runner.residual_reads,

@@ -189,11 +189,14 @@ def _implicit_runner(cfg: HeatConfig, device) -> engine.Runner:
 
 class Heat2DSolver:
     def __init__(self, config: HeatConfig, device=None, devices=None,
-                 owners=None):
+                 owners=None, telemetry=None):
         """``devices``: the slots of a distributed mode's mesh (default:
         every visible device of ``device``'s type); ``owners``: the
-        process of each slot, for a mesh that spans processes."""
+        process of each slot, for a mesh that spans processes;
+        ``telemetry``: an ``obs.stream.TelemetryStream`` that receives
+        every residual the convergence loops read."""
         self.config = config
+        self.telemetry = telemetry
         self.mesh = None
         if config.mode in SHARDED_MODES:
             from heat2d_tpu_torch.parallel.mesh import (make_mesh,
@@ -251,6 +254,8 @@ class Heat2DSolver:
                 self._runner = make_single_chip_runner(cfg, self.device)
             else:
                 self._runner = _serial_runner(cfg)
+            if self.telemetry is not None:
+                self._runner.stream = self.telemetry.tap
         return self._runner
 
     def run(self, u0=None, timed: bool = True, warmup: bool = True,

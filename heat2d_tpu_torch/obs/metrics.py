@@ -1,9 +1,11 @@
 """Process-local metrics registry: counters, gauges, timing histograms
-and (x, y) point series, each labeled, with a JSONL export. The port's
-copy of the part of ``heat2d_tpu/obs/metrics.py`` the serve, diff and
-tune modules and the solver CLI use, with its structured events and
-its aggregate over processes; the metric names are the JAX package's
-(``docs/SERVING.md``, ``docs/RESILIENCE.md``).
+and (x, y) point series, each labeled, with JSONL and Prometheus-text
+exports. The port's copy of ``heat2d_tpu/obs/metrics.py``: its structured
+events, its structured lookups (``find_histograms`` and the rest, which
+``obs/slo.py`` reads), its aggregate over processes; the metric names are
+the JAX package's (``docs/SERVING.md``, ``docs/RESILIENCE.md``). Fed the
+same observations, both registries give the same summaries and the same
+Prometheus text.
 
 Pure host-side Python: recording a metric never touches a tensor.
 """
@@ -15,6 +17,7 @@ import datetime
 import json
 import math
 import random
+import re
 import threading
 import time
 
@@ -31,6 +34,28 @@ def _utc_now_iso() -> str:
 
 def _label_key(labels: dict) -> tuple:
     return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+_PROM_NAME = re.compile(r"[^a-zA-Z0-9_:]")
+
+
+def _prom_name(name: str) -> str:
+    n = _PROM_NAME.sub("_", name)
+    return n if not n[:1].isdigit() else "_" + n
+
+
+def _prom_value(v: str) -> str:
+    """Escape a label value per the Prometheus text-format spec."""
+    return (v.replace("\\", r"\\").replace('"', r'\"')
+            .replace("\n", r"\n"))
+
+
+def _prom_labels(labels: tuple) -> str:
+    if not labels:
+        return ""
+    inner = ",".join(f'{_prom_name(k)}="{_prom_value(v)}"'
+                     for k, v in labels)
+    return "{" + inner + "}"
 
 
 def quantile(sorted_samples: list, q: float) -> float:
@@ -68,6 +93,10 @@ class Reservoir:
             i = self._rng.randrange(self.count)
             if i < self.cap:
                 self.samples[i] = v
+
+    def exact(self) -> bool:
+        """True while quantiles are exact (no sample was evicted)."""
+        return self.count <= self.cap
 
     def summary(self) -> dict:
         s = sorted(self.samples)
@@ -172,6 +201,15 @@ class MetricsRegistry:
             return name
         return name + "{" + ",".join(f"{k}={v}" for k, v in labels) + "}"
 
+    def find_histograms(self, name: str) -> dict:
+        """{label-pairs tuple: summary} for every series of ``name`` (the
+        structured accessor: snapshot keys flatten labels into strings,
+        which is ambiguous for label values holding commas, such as
+        signature tuples)."""
+        with self._lock:
+            return {k[1]: v.summary() for k, v in self._histograms.items()
+                    if k[0] == name}
+
     def find_counters(self, name: str) -> dict:
         """{label-pairs tuple: value} for every series of ``name``."""
         with self._lock:
@@ -220,6 +258,43 @@ class MetricsRegistry:
                                      "rank_min": min(col)}
         return out
 
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition: counters, gauges, and each
+        histogram as a summary (its exact running ``_sum``/``_count`` and
+        one ``{quantile="..."}`` line for p50, p90 and p99)."""
+        lines = []
+        with self._lock:
+            counters = dict(self._counters)
+            gauges = dict(self._gauges)
+            hists = {k: (v.sum, v.count, sorted(v.samples))
+                     for k, v in self._histograms.items()}
+        seen = set()
+
+        def typ(name, kind):
+            if name not in seen:
+                seen.add(name)
+                lines.append(f"# TYPE {name} {kind}")
+
+        for (name, labels), v in sorted(counters.items()):
+            n = _prom_name(name)
+            typ(n, "counter")
+            lines.append(f"{n}{_prom_labels(labels)} {v}")
+        for (name, labels), v in sorted(gauges.items()):
+            n = _prom_name(name)
+            typ(n, "gauge")
+            lines.append(f"{n}{_prom_labels(labels)} {v}")
+        for (name, labels), (total, count, samples) in sorted(
+                hists.items()):
+            n = _prom_name(name)
+            typ(n, "summary")
+            lines.append(f"{n}_sum{_prom_labels(labels)} {float(total)}")
+            lines.append(f"{n}_count{_prom_labels(labels)} {count}")
+            for q in (0.5, 0.9, 0.99):
+                ql = labels + (("quantile", f"{q}"),)
+                lines.append(f"{n}{_prom_labels(ql)} "
+                             f"{quantile(samples, q)}")
+        return "\n".join(lines) + "\n"
+
     def write_jsonl(self, path: str, extra_records=()) -> None:
         """The events, a ``snapshot`` line, then any caller-supplied
         records (e.g. the run record), committed atomically (tmp + fsync +
@@ -238,4 +313,11 @@ _default_registry = MetricsRegistry()
 
 def get_registry() -> MetricsRegistry:
     """The process-default registry."""
+    return _default_registry
+
+
+def reset_registry() -> MetricsRegistry:
+    """A fresh default registry (test isolation); returns it."""
+    global _default_registry
+    _default_registry = MetricsRegistry()
     return _default_registry

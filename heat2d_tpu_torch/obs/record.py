@@ -52,6 +52,15 @@ def halo_record(halo: dict, mesh) -> dict:
             "devices": [str(d) for d in mesh.flat()]}
 
 
+def attach_context(rec: dict, kind: str, device=None) -> dict:
+    """Add the shared envelope to an existing record in place (returns
+    it); keys the record already carries are kept."""
+    rec.setdefault("kind", kind)
+    for k, v in run_context(device).items():
+        rec.setdefault(k, v)
+    return rec
+
+
 def build_record(kind: str, config=None, steps_done=None, elapsed_s=None,
                  mcells_per_s=None, warmup_s=None, extra=None,
                  device=None) -> dict:
@@ -74,10 +83,7 @@ def build_record(kind: str, config=None, steps_done=None, elapsed_s=None,
         rec["warmup_s"] = float(warmup_s)
     if extra:
         rec.update(extra)
-    rec.setdefault("kind", kind)
-    for k, v in run_context(device).items():
-        rec.setdefault(k, v)
-    return rec
+    return attach_context(rec, kind, device)
 
 
 def write_run_jsonl(registry, path, kind: str, extra: dict,

@@ -39,6 +39,7 @@ SIGNATURES = {
         "heat_tile_multi": (_I, [_P, _P, _P, _P, _I, _I, _F, _F, _F, _I,
                                  _I, _I, _I, _I, _P]),
         "heat_tile_info": (_I, [_I, _P]),
+        "heat_func_attrs": (_I, [_I, _P]),
         "heat_resident": (_I, [_P, _P, _P, _P, _F, _F, _F, _I, _I, _P]),
     },
     "ensemble": {
@@ -46,6 +47,7 @@ SIGNATURES = {
         "heat_ens_resident": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _P]),
         "heat_ens_tile": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                _I, _I, _I, _P]),
+        "heat_ens_func_attrs": (_I, [_I, _P]),
     },
     "family": {
         "heat_error_string": (ctypes.c_char_p, [_I]),

@@ -124,6 +124,20 @@ def _validate(u, cxs, cys, what: str, active=None) -> None:
         raise ValueError(f"{what}: unsupported device {u.device}")
 
 
+#: The builds ``func_attrs`` reads, in ``heat_ens_func_attrs``' order.
+FUNC_BUILDS = ("ens_resident", "ens_tile_multi", "ens_tile_multi_conv")
+
+
+def func_attrs(name: str) -> dict:
+    """Registers and local (spill) bytes a thread of wrapper ``name``'s
+    build on the card (``cudaFuncGetAttributes``)."""
+    buf = (ctypes.c_int * 2)()
+    _check(_lib().heat_ens_func_attrs(FUNC_BUILDS.index(name),
+                                      ctypes.cast(buf, ctypes.c_void_p)),
+           f"func_attrs {name}")
+    return {"registers": buf[0], "local_bytes": buf[1]}
+
+
 def _check_depth(nsub: int, tsteps: int) -> None:
     if not 1 <= nsub <= tsteps:
         raise ValueError(f"nsub must be in [1, T={tsteps}], got {nsub}")

@@ -432,6 +432,20 @@ def tile_multi_resid(u, nsub: int, cx: float, cy: float,
     return out, torch.sum(parts)
 
 
+#: The builds ``func_attrs`` reads, in ``heat_func_attrs``' order.
+FUNC_BUILDS = ("step", "tile_multi", "tile_multi_resid", "resident")
+
+
+def func_attrs(name: str) -> dict:
+    """Registers and local (spill) bytes a thread of wrapper ``name``'s
+    FMA-form build on the card (``cudaFuncGetAttributes``)."""
+    buf = (ctypes.c_int * 2)()
+    _check(_lib().heat_func_attrs(FUNC_BUILDS.index(name),
+                                  ctypes.cast(buf, ctypes.c_void_p)),
+           f"func_attrs {name}")
+    return {"registers": buf[0], "local_bytes": buf[1]}
+
+
 def tile_info(plan: TilePlan) -> dict:
     """H2's FMA build on the card at ``plan``: registers and local (spill)
     bytes a thread, and the blocks an SM holds

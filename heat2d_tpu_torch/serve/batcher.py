@@ -38,7 +38,9 @@ import time
 from typing import TYPE_CHECKING, Callable, Optional, Union
 
 from heat2d_tpu_torch.analysis.locks import AuditedCondition, guarded_by
-from heat2d_tpu_torch.serve.schema import Rejected, SolveRequest
+from heat2d_tpu_torch.obs import tracing
+from heat2d_tpu_torch.serve.schema import (Rejected, SolveRequest,
+                                           request_trace)
 
 #: What the batcher queues: a solve or an inverse request
 #: (``heat2d_tpu_torch/diff/serving.py``), both with ``signature()``.
@@ -301,6 +303,13 @@ class MicroBatcher:
 
     def _record_batch(self, sig, batch) -> None:
         now = time.monotonic()
+        if tracing.enabled():
+            # the queue wait, stamped admission -> dispatch here on the
+            # scheduler thread (known finished: tracing.emit)
+            for p in batch:
+                tracing.emit("serve.queue", p.enqueued, now,
+                             kind="queue", parent=request_trace(p.req),
+                             signature=str(sig))
         r = self.registry
         if r is None:
             return

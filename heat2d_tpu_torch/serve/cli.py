@@ -26,6 +26,13 @@ is a usage error (exit 2).
 
 ``--metrics-out PATH`` writes the metrics snapshot and a ``kind="serve"``
 run record as JSONL; ``--log-level`` sets the port's loggers' level.
+``--trace-dir DIR`` arms request tracing (each request's admission,
+queue and launch spans; merge with ``heat2d-tpu-torch-trace DIR``),
+``--perf`` the cost cards (persisted beside the spans with
+``--trace-dir``), ``--slo-p99 S`` and ``--slo-error-budget F`` the
+per-signature SLO evaluation; the record gains ``trace``, ``perf`` and
+``slo`` as the JAX serve CLI's does. ``HEAT2D_FLIGHT_DIR`` arms the crash
+flight recorder.
 ``--device cpu`` runs the plain PyTorch versions of the kernels on the
 CPU; without it the server runs on the card and refuses to start where
 there is none.
@@ -37,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
@@ -104,6 +112,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics-out", default=None, metavar="PATH",
                    help="write the metrics snapshot and the kind='serve' "
                         "run record as JSONL")
+    p.add_argument("--trace-dir", default=None, metavar="DIR",
+                   help="arm request tracing: per-request spans "
+                        "(admission, queue, launch) land as JSONL in DIR; "
+                        "merge with heat2d-tpu-torch-trace DIR")
+    p.add_argument("--perf", action="store_true",
+                   help="arm the cost cards (obs/perf.py: the roofline "
+                        "model at each launch's plan, operand and peak "
+                        "bytes, the kernel's registers) at each "
+                        "signature's first launch; persisted beside the "
+                        "spans with --trace-dir, and in the run record")
+    s2 = p.add_argument_group("SLO objectives")
+    s2.add_argument("--slo-p99", type=float, default=None, metavar="S",
+                    help="per-signature p99 latency target in seconds; "
+                         "the evaluation lands in the run record's 'slo' "
+                         "rows and the slo_* gauges")
+    s2.add_argument("--slo-error-budget", type=float, default=0.001,
+                    metavar="F",
+                    help="allowed failure fraction per signature "
+                         "(default 0.001 = 99.9%%)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="serve on the CUDA card (default) or, with the "
                         "plain PyTorch versions of the kernels, the CPU")
@@ -331,6 +358,33 @@ def run_requests(args, registry) -> int:
 def _write_metrics(args, registry, server, extra) -> None:
     from heat2d_tpu_torch.obs.record import write_run_jsonl
 
+    extra = dict(extra)
+    if args.slo_p99 is not None:
+        # evaluated at export time, never on the serving path
+        from heat2d_tpu_torch.obs import slo
+        rows = slo.evaluate(
+            registry, prefix="serve",
+            default=slo.SLOPolicy(latency_p99_s=args.slo_p99,
+                                  error_budget=args.slo_error_budget))
+        slo.stamp_record(extra, rows)
+        for r in rows:
+            if not r.get("ok", True):
+                print(f"SLO VIOLATION: {r['signature']}: p99 "
+                      f"{r['p99_s']} vs target "
+                      f"{r['latency_target_p99_s']}, burn rate "
+                      f"{r['burn_rate']:.2f}", file=sys.stderr)
+    if args.trace_dir:
+        from heat2d_tpu_torch.obs import tracing
+        t = tracing.tracer()
+        extra["trace"] = {"dir": args.trace_dir,
+                          "spans_emitted": (t.spans_emitted
+                                            if t is not None else 0)}
+    from heat2d_tpu_torch.obs import perf
+    obs = perf.observer()
+    if obs is not None:
+        # the card book rides the record, and its file is closed
+        extra["perf"] = obs.snapshot()
+        perf.uninstall()
     write_run_jsonl(registry, args.metrics_out, "serve", {
         "launches": server.engine.launches,
         "launch_log": [dict(row, signature=list(map(str, row["signature"])))
@@ -356,8 +410,21 @@ def main(argv=None) -> int:
             if armed:
                 parser.error(f"{flag} requires --mesh")
     configure_logging(args.log_level)
-    from heat2d_tpu_torch.obs import MetricsRegistry
+    if args.trace_dir:
+        # the explicit flag wins over a stale HEAT2D_TRACE_DIR
+        os.environ["HEAT2D_TRACE_DIR"] = args.trace_dir
+        from heat2d_tpu_torch.obs import tracing
+        tracing.install(tracing.Tracer(args.trace_dir, service="serve"))
+    from heat2d_tpu_torch.obs import MetricsRegistry, flight
     registry = MetricsRegistry()
+    flight.maybe_install_from_env(service="serve", registry=registry)
+    if args.perf:
+        # the cards share the trace campaign's directory when one is armed
+        # (heat2d-tpu-torch-trace --stats joins them on signature)
+        from heat2d_tpu_torch.obs import perf
+        perf.install(perf.PerfObserver(registry=registry,
+                                       dir=args.trace_dir,
+                                       service="serve"))
     try:
         if args.selftest:
             return run_selftest(args, registry)

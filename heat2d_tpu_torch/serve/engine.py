@@ -23,6 +23,13 @@ copy of the batch to the host). Metrics: ``serve_launches_total``,
 ``serve_launch_s`` (run + readback), ``problem_requests_total{problem=}``
 (launches per family) and ``serve_compile_cache_size`` (the runner
 cache's size).
+
+Every row carries ``perf``, its roofline stamp (``obs/roofline``: the
+achieved Mcells/s over ``run_s`` against the card's bound for the
+route's bytes and FLOPs at the launch's plan; the bound is None off the
+H100), and the ``perf_*`` gauges; with the perf observer armed
+(``obs/perf``), a signature's first launch at a capacity also makes its
+cost card.
 """
 
 from __future__ import annotations
@@ -149,6 +156,17 @@ class EnsembleEngine:
             convergence=req0.convergence, interval=interval,
             sensitivity=sensitivity, problem=req0.problem,
             device=str(device))
+        from heat2d_tpu_torch.obs import perf, roofline
+        meta = None
+        watch = None
+        if perf.enabled():
+            meta = {"signature": str(req0.signature()), "nx": req0.nx,
+                    "ny": req0.ny, "steps": req0.steps,
+                    "method": req0.method,
+                    "convergence": req0.convergence, "capacity": capacity,
+                    "dtype": "float32", "problem": req0.problem,
+                    "route": "batch"}
+            watch = perf.launch_watch(meta, device)
         t1 = time.perf_counter()
 
         timer = (self.registry.timer("serve_launch_s")
@@ -180,6 +198,17 @@ class EnsembleEngine:
                "setup_s": t1 - t0, "run_s": t2 - t1, "readback_s": t3 - t2}
         if self.spatial_grid is not None:
             row["halo_plan"] = self.halo_plans.get(req0.signature())
+        card = None
+        if meta is not None:
+            card = perf.observe_launch(runner, (u0, cxs, cys), meta=meta,
+                                       outputs=out, watch=watch)
+        roofline.stamp_launch_row(
+            row, self.registry, nx=req0.nx, ny=req0.ny,
+            steps=(sum(steps_done) / n if req0.convergence
+                   else req0.steps),
+            members=capacity, elapsed_s=t2 - t1, method=req0.method,
+            signature=str(req0.signature()), card=card,
+            problem=req0.problem, device=device)
         self.launch_log.append(row)
         if self.registry is not None:
             self.registry.counter("serve_launches_total")

@@ -67,6 +67,13 @@ class SolveRequest:
     interval: int = 20
     sensitivity: float = 0.1
     problem: str = "heat5"
+    #: the tracing context (``obs.tracing.TraceContext``) riding beside
+    #: the spec: compare=False keeps it out of eq/hash, and spec(),
+    #: content_hash() and signature() never read it, so requests that
+    #: differ only in trace are the same computation. Not a wire field:
+    #: from_dict rejects it.
+    trace: "object" = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     def validate(self) -> "SolveRequest":
         if self.nx < 3 or self.ny < 3:
@@ -144,7 +151,7 @@ class SolveRequest:
 
     @classmethod
     def from_dict(cls, d: dict) -> "SolveRequest":
-        known = {f.name for f in dataclasses.fields(cls)}
+        known = {f.name for f in dataclasses.fields(cls)} - {"trace"}
         bad = set(d) - known
         if bad:
             raise Rejected("invalid",
@@ -153,6 +160,23 @@ class SolveRequest:
             return cls(**d).validate()
         except TypeError as e:
             raise Rejected("invalid", str(e)) from None
+
+
+def attach_trace(req, ctx) -> None:
+    """Attach a tracing context to a (frozen) request in place. Any
+    request of the serving protocol takes it (``SolveRequest``, diff's
+    ``InverseRequest``): the context is metadata outside the hash, the
+    signature and eq, so it never changes what the request means."""
+    try:
+        object.__setattr__(req, "trace", ctx)
+    except (AttributeError, TypeError):
+        pass    # a slotted request without the field: the trace is lost,
+        #         the request still serves
+
+
+def request_trace(req):
+    """The attached tracing context, or None."""
+    return getattr(req, "trace", None)
 
 
 @dataclasses.dataclass

@@ -35,8 +35,14 @@ and a non-drain stop once per iteration, and aborts.
 ``engine=`` takes another solve executor, the mesh engine
 (``mesh.MeshEnsembleEngine``), whose ``max_batch`` then drives the
 batcher; ``admission=`` arms modeled-capacity admission
-(``mesh.MeshAdmission``), which sheds a leader before it queues. The JAX
-server's tracing spans are not ported yet (slice 8 of ROADMAP.md).
+(``mesh.MeshAdmission``), which sheds a leader before it queues.
+
+Tracing (``obs/tracing.py``, armed by ``HEAT2D_TRACE_DIR`` or
+``tracing.install``): one ``serve.request`` span per admission, the
+batcher's ``serve.queue`` span and one ``serve.launch`` span per member
+after its launch, all in the request's trace, so that
+``heat2d-tpu-torch-trace`` connects each request end to end. Off, every
+hook is one ``enabled()`` check.
 """
 
 from __future__ import annotations
@@ -47,12 +53,15 @@ import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Optional
 
+from heat2d_tpu_torch.obs import tracing
 from heat2d_tpu_torch.resil.retry import (DegradedMode, RetryPolicy,
                                           Watchdog, call_with_retries)
 from heat2d_tpu_torch.serve.batcher import MicroBatcher
 from heat2d_tpu_torch.serve.cache import ResultCache, SingleFlight
 from heat2d_tpu_torch.serve.engine import EnsembleEngine
-from heat2d_tpu_torch.serve.schema import Rejected, SolveRequest, SolveResult
+from heat2d_tpu_torch.serve.schema import (Rejected, SolveRequest,
+                                           SolveResult, attach_trace,
+                                           request_trace)
 
 
 class SolveServer:
@@ -150,17 +159,36 @@ class SolveServer:
             return _failed(e)
         key = req.content_hash()
 
+        # One "serve.request" span per admission, the child of a context
+        # that arrived with the request; the queue and launch spans
+        # descend from it through the attached context.
+        span = tracing.NULL_SPAN
+        if tracing.enabled():
+            span = tracing.begin(
+                "serve.request", kind="request",
+                parent=request_trace(req), content_hash=key,
+                signature=str(req.signature()))
+            attach_trace(req, span.ctx)
+
         hit = self.cache.get(key)
         if hit is not None:
             # Served even in degraded mode: the breaker sheds compute,
             # not answers the server already holds.
             self._count("cache_hit")
             self._latency(t0)
+            span.end(outcome="cache_hit")
             fut = Future()
             fut.set_result(hit.as_cache_hit())
             return fut
 
         fut, leader = self.flight.claim(key)
+        if span is not tracing.NULL_SPAN:
+            # one close per admission, whatever path answers it (a
+            # follower's closes with its leader's future)
+            if not leader:
+                span.set(coalesced=True)
+            fut.add_done_callback(
+                lambda f: span.end(outcome=_outcome_of(f)))
         if leader and not self.breaker.allow():
             self._count("rejected_degraded")
             self.registry.counter("serve_degraded_shed_total")
@@ -262,6 +290,7 @@ class SolveServer:
                   else self.engine)
         watchdog = Watchdog(self.launch_deadline, on_timeout,
                             clock=self.deadline_clock)
+        t_launch0 = time.monotonic()
         try:
             with watchdog:
                 results = call_with_retries(
@@ -271,12 +300,15 @@ class SolveServer:
             self.registry.counter("serve_launch_failures_total")
             if not watchdog.fired:
                 self.breaker.record_failure()
+            self._emit_launch_spans(batch, t_launch0, time.monotonic(),
+                                    kind, error=repr(e))
             outcome = _outcome_label(e)
             for p in batch:
                 self.flight.fail(p.key, e)
                 self._count(outcome)
                 self._sig_count(sig_str, outcome)
             return
+        self._emit_launch_spans(batch, t_launch0, time.monotonic(), kind)
         if not watchdog.fired:
             # a launch that outlived its deadline is a failure even if it
             # returned: a too-slow backend must not reset the breaker
@@ -298,6 +330,28 @@ class SolveServer:
                 self.registry.observe("serve_signature_latency_s",
                                       time.monotonic() - p.enqueued,
                                       signature=sig_str)
+
+    # -- tracing ------------------------------------------------------- #
+
+    def _emit_launch_spans(self, batch, t0: float, t1: float, kind: str,
+                           error=None) -> None:
+        """One "serve.launch" span per member, the child of that member's
+        request span: a launch serves N traces, and each request's
+        critical path needs the segment. The engine's launch row flags a
+        signature's first launch (its kernels' build and load), which
+        the trace CLI buckets as "compile"."""
+        if not tracing.enabled():
+            return
+        attrs = {"occupancy": len(batch)}
+        if error is not None:
+            attrs["error"] = error
+        elif kind != "inverse" and self.engine.launch_log:
+            row = self.engine.launch_log[-1]
+            attrs.update(capacity=row["capacity"],
+                         first_launch=row.get("first_launch", False))
+        for p in batch:
+            tracing.emit("serve.launch", t0, t1, kind="launch",
+                         parent=request_trace(p.req), **attrs)
 
     # -- metrics ------------------------------------------------------- #
 
@@ -341,6 +395,14 @@ def _outcome_label(exc: BaseException) -> str:
     error."""
     return ("rejected_" + exc.code if isinstance(exc, Rejected)
             else "error")
+
+
+def _outcome_of(f: Future) -> str:
+    """The span outcome label of a resolved future."""
+    exc = f.exception()
+    if exc is None:
+        return "completed"
+    return _outcome_label(exc)
 
 
 def _failed(exc: BaseException) -> Future:

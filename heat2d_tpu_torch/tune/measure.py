@@ -35,6 +35,7 @@ import math
 import time
 from typing import Optional
 
+from heat2d_tpu_torch.obs.roofline import H100_HBM_BYTES_PER_S
 from heat2d_tpu_torch.tune.space import Candidate, Problem
 
 #: Absolute floor of the timed window (seconds): a smaller window can be
@@ -45,10 +46,10 @@ NOISE_FLOOR_S = 0.05
 #: for either to be believed.
 AGREE_FACTOR = 1.5
 
-#: The card's memory bandwidth (NVIDIA H100 80GB HBM3 at its 700 W
-#: power limit, data sheet): what a 'local' seam, on-chip traffic of the
-#: kernel's own stream, prices as.
-HBM_BYTES_PER_S = 3.35e12
+#: The card's memory bandwidth (``obs.roofline``'s calibrated H100 row):
+#: what a 'local' seam, on-chip traffic of the kernel's own stream,
+#: prices as.
+HBM_BYTES_PER_S = H100_HBM_BYTES_PER_S
 
 #: Per-direction link bandwidths by class (``DistWorld.link_kind``'s
 #: vocabulary), the NVIDIA H100 80GB HBM3's data-sheet figures at its

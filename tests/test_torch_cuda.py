@@ -974,3 +974,46 @@ def test_tune_search_resumes_and_applies_bitwise(card, tmp_path):
     assert applied[0]["source"] == "exact"
     assert (applied[0]["bm"], applied[0]["tsteps"]) == (best["bm"],
                                                         best["tsteps"])
+
+
+@pytest.mark.parametrize("shape,steps,kernel,wrapper", [
+    ((2048, 2100), 80, "H2", "tile_multi"),
+    ((640, 1024), 2000, "H4", "resident")])
+def test_profiled_run_counts_and_bits_equal_untraced(card, tmp_path, shape,
+                                                     steps, kernel, wrapper):
+    """A run under ``profile_span`` and an armed tracer gives the
+    untraced run's grid bit for bit and its launch counts, and the
+    capture holds one event of the kernel per launch (``trace_report``'s
+    H labels)."""
+    from heat2d_tpu_torch.obs import trace_report, tracing
+    from heat2d_tpu_torch.utils.profiling import profile_span
+    cfg = HeatConfig(nxprob=shape[0], nyprob=shape[1], steps=steps,
+                     mode="pallas")
+    cs.reset_launch_counts()
+    want = Heat2DSolver(cfg).run()
+    plain = cs.launch_counts()
+    tracing.install(tracing.Tracer(str(tmp_path / "trace"), service="t"))
+    try:
+        cs.reset_launch_counts()
+        with profile_span(str(tmp_path / "prof"), device=card):
+            got = Heat2DSolver(cfg).run()
+        traced = cs.launch_counts()
+    finally:
+        tracing.uninstall()
+    assert (got.u.tobytes() == want.u.tobytes()) and traced == plain
+    d = trace_report.report(str(tmp_path / "prof"))
+    kern = {k["kernel"]: k for k in d["kernels"]}
+    assert kern[kernel]["count"] == traced[wrapper] > 0
+    # the run's own kernel is the top compute op (the copies, such as
+    # the result's gather to the host, are host/transfer)
+    top = [op for op in d["top_ops"] if op["category"] == "compute"][0]
+    assert top["kernel"] == kernel
+    assert d["lanes"] and d["lanes"][0]["busy_s"] > 0
+
+
+def test_profile_span_refuses_a_capture_without_kernels(card, tmp_path):
+    from heat2d_tpu_torch.utils.profiling import (EmptyCaptureError,
+                                                  profile_span)
+    with pytest.raises(EmptyCaptureError, match="no CUDA kernel event"):
+        with profile_span(str(tmp_path), device=card):
+            torch.ones(3).sum()     # on the host: nothing on the card

@@ -14,7 +14,10 @@ residual is summed in shard order on every rank. Four worlds:
 - dist2d in float64, 4 processes x 1 slot, text output (the gather);
 - hybrid ``--halo fused`` (the CPU twins of H12), which must record the
   collective tier;
-- hybrid ``--convergence`` (the CPU twins of H13), steps_done equal.
+- hybrid ``--convergence`` (the CPU twins of H13), steps_done equal; in
+  the same world ``--metrics-out`` (process 0's file: the aggregate over
+  ranks and the residual trajectory) and ``--trace-dir`` (a span file a
+  rank, each rank's run one connected trace).
 
 Tolerances. Within the port every comparison is bitwise: against the
 one-process run of the same mode (and dist2d against mode serial). The
@@ -165,7 +168,9 @@ def test_two_process_hybrid_convergence_matches_one_process(tmp_path):
         "--steps", "400", "--convergence", "--interval", "10",
         "--sensitivity", "1000", "--binary-dumps", "--dat-layout", "none"]
     w = tmp_path / "world"
-    _world(w, args + ["--run-record", str(w / "rec.json")])
+    _world(w, args + ["--run-record", str(w / "rec.json"),
+                      "--metrics-out", str(w / "m.jsonl"),
+                      "--trace-dir", str(w / "trace")])
     _one_process(tmp_path / "one",
                  args + ["--run-record", str(tmp_path / "one.json")])
     rec = json.loads((w / "rec.json").read_text())
@@ -175,3 +180,25 @@ def test_two_process_hybrid_convergence_matches_one_process(tmp_path):
     assert rec["residual_reads"] == one["residual_reads"]
     assert _bytes(w / "final_binary.dat") == \
         _bytes(tmp_path / "one" / "final_binary.dat")
+    # --metrics-out in the world: process 0 writes the aggregate over
+    # both ranks and the residual trajectory every rank read alike
+    lines = [json.loads(x) for x in
+             (w / "m.jsonl").read_text().splitlines()]
+    agg = lines[-1]["metrics_aggregate"]
+    assert agg["steps_done"] == {"rank_max": 230.0, "rank_mean": 230.0,
+                                 "rank_min": 230.0}
+    assert agg["elapsed_s"]["rank_max"] >= agg["elapsed_s"]["rank_min"]
+    traj = lines[-1]["residual_trajectory"]
+    assert [p["step"] for p in traj] == list(range(10, 240, 10))
+    assert traj == rec["residual_trajectory"]
+    # --trace-dir in the world: one span file a rank, each rank's run one
+    # connected trace
+    from heat2d_tpu_torch.obs import trace_cli
+    files = sorted((w / "trace").iterdir())
+    assert len(files) == 2 and all(f.name.startswith("spans-cli-")
+                                   for f in files)
+    report = trace_cli.merge_report(str(w / "trace"))
+    assert len(report["traces"]) == 2
+    assert all(r["connected"] and r["processes"] == 1
+               for r in report["traces"])
+    assert rec["trace_id"] in {r["trace_id"] for r in report["traces"]}

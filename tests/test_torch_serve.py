@@ -91,8 +91,7 @@ def test_hash_and_signature_equal_jax(fields):
 
 def test_request_fields_equal_jax():
     names = [f.name for f in dataclasses.fields(SolveRequest)]
-    assert names == [f.name for f in dataclasses.fields(JRequest)
-                     if f.name != "trace"]
+    assert names == [f.name for f in dataclasses.fields(JRequest)]
 
 
 @pytest.mark.parametrize("cap", [1, 3, 8])
