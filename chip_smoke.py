@@ -121,7 +121,11 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    2x2 mesh, two 2048^2 shards a process (H12 per rank), and hybrid
    convergence at 1024^2 (H13 per rank, a sensitivity that stops the
    one-process run at step 140 of 240), each ``final_binary.dat`` bit
-   for bit the one-process hybrid run's, steps_done equal; then
+   for bit the one-process hybrid run's, steps_done equal; the 4096^2
+   world also writes collective managed snapshots (``--checkpoint DIR/
+   --checkpoint-every 120``, no rank gathering the grid), and a third
+   world resumes from the directory past its torn step-240 snapshot
+   (from 120, H12 per rank), bitwise; then
    ``heat2d-tpu-torch-dist --selftest`` at 4096^2 x 64, segment 8 (the
    store halo route), bitwise. It prints each rank's and the slowest
    rank's elapsed, Mcells/s beside the one-process run's, the host-staged
@@ -158,6 +162,20 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    most 100% of it, every card with a peak and a plan; (d) the card's
    roofline bound known. Digests and the merged report go to
    ``chiprun_out/obs_*.json``.
+22. resil (after 19, before the kernels line): ``resil/`` and
+   ``analysis/`` on the card through the solver CLI (``phase_resil``):
+   (a) 4096^2 x 240 on H2 uninterrupted against ``--checkpoint DIR/
+   --checkpoint-every 48``, bitwise, 5 snapshots, each one's host copy
+   and write + sha256 + commit ms, the 64 MiB copy pageable against
+   pinned; (b) the same killed at its 3rd checkpoint's mid_write
+   (``HEAT2D_CHAOS_KILL_CKPT_AT=3``, a subprocess): rc 137, manifest
+   [48, 96], a flight dump, and ``--resume DIR`` from step 96 bitwise
+   (a); (c) 640x1024 x 10000 on H4 every 2000 steps, bitwise; (d)
+   convergence at 2048^2 on H2 + H3 every 100 steps, the unsegmented
+   run's stop step 160; (e) the build sentinel over the serve occupancy
+   sweep (H5): no rebuild, capacities within the log2 budget; (f) the
+   implicit gate (H6, H10/H11), rc 0. Its launches join the kernels
+   line's.
 
 The last line of standard output is ``{"ok": true, "device": ...}``. The
 full results also go to ``chiprun_out/chip_smoke.json``.
@@ -2712,16 +2730,20 @@ def phase_strong_scaling(torch) -> dict:
 # slice 7: worlds of several processes on the card
 # ------------------------------------------------------------------ #
 
-def _world_run(torch, name: str, cfg, reference) -> dict:
+def _world_run(torch, name: str, cfg, reference, extra=(), env=None,
+               steps_done=None) -> dict:
     """One 2-process world of the port's CLI on the card (rank r on
     ``cuda:(r % count)``, two slots each, the 2x2 mesh spanning both),
     spawned by ``dist.harness.spawn_world``, with per-shard binary dumps
-    and no gather; its ``final_binary.dat`` against ``reference`` (the
-    one-process run's ``RunResult``) bit for bit, steps_done equal."""
+    and no gather, ``extra`` flags and ``env`` (``dist.harness.clean_env``
+    overrides); its ``final_binary.dat`` against ``reference`` (the
+    one-process run's ``RunResult``) bit for bit, steps_done equal (or
+    ``steps_done``, for a resumed world)."""
     import shutil
     import tempfile
 
-    from heat2d_tpu_torch.dist.harness import first_error_line, spawn_world
+    from heat2d_tpu_torch.dist.harness import (clean_env, first_error_line,
+                                               spawn_world)
     d = tempfile.mkdtemp(prefix=f"heat2d-{name}-")
     rec_path = os.path.join(d, "rec.json")
     args = ["--mode", cfg.mode, "--gridx", str(cfg.gridx), "--gridy",
@@ -2733,10 +2755,11 @@ def _world_run(torch, name: str, cfg, reference) -> dict:
         args += ["--convergence", "--interval", str(cfg.interval),
                  "--sensitivity", str(cfg.sensitivity)]
     t0 = time.perf_counter()
+    args += list(extra)
     res = spawn_world(2, lambda i, coord: [
         sys.executable, "-m", "heat2d_tpu_torch.cli", "--coordinator",
         coord, "--num-processes", "2", "--process-id", str(i)] + args,
-        timeout=300)
+        env=clean_env(env), timeout=300)
     wall = time.perf_counter() - t0
     outs = [r.output for r in res]
     fail_unless(all(r.ok for r in res),
@@ -2754,9 +2777,9 @@ def _world_run(torch, name: str, cfg, reference) -> dict:
     fail_unless(got.tobytes() == want.tobytes(),
                 f"{name}: final_binary.dat differs from the one-process "
                 f"run (max_abs_err {float(np.abs(got - want).max())})")
-    fail_unless(rec["steps_done"] == reference.steps_done,
-                f"{name}: steps_done {rec['steps_done']} vs "
-                f"{reference.steps_done}")
+    want_steps = reference.steps_done if steps_done is None else steps_done
+    fail_unless(rec["steps_done"] == want_steps,
+                f"{name}: steps_done {rec['steps_done']} vs {want_steps}")
     fail_unless(rec["halo"]["tier"] == "collective",
                 f"{name}: tier {rec['halo']['tier']}")
     ex = rec["exchange_by_process"]
@@ -2785,7 +2808,13 @@ def _world_run(torch, name: str, cfg, reference) -> dict:
                    ex, rec["elapsed_by_process"])],
            "host_staged_bytes_per_s": [e["bytes"] / e["seconds"]
                                        for e in ex],
-           "exchange_by_process": ex}
+           "exchange_by_process": ex,
+           "resuming_lines": [ln for o in outs for ln in o.splitlines()
+                              if ln.startswith("Resuming from step")]}
+    for key in ("checkpoints_written", "checkpoint_timings",
+                "resume_from_step"):
+        if key in rec:
+            row[key] = rec[key]
     emit({"phase": "multi_process_run", **row})
     return row
 
@@ -2793,7 +2822,11 @@ def _world_run(torch, name: str, cfg, reference) -> dict:
 def phase_multi_process(torch, name: str, power: str) -> dict:
     """Worlds of 2 processes on the one card (gloo, strips staged through
     pinned host buffers): (a) hybrid 4096^2 x 240 on a 2x2 mesh, two
-    2048^2 shards a process (H12 per rank), (b) the same with
+    2048^2 shards a process (H12 per rank), writing collective managed
+    snapshots at steps 120 and 240 under HEAT2D_FORBID_GATHER; (a2) step
+    240's snapshot torn, a world resumes from the directory's
+    ``latest_valid()`` (step 120) under the same tripwire, bit for bit
+    (a)'s reference; (b) the same with
     convergence at 1024^2 (H13 per rank), stopping at step 140 of 240,
     each bit for bit the one-process hybrid run on ``host_devices(4)``;
     (c) the dist worker's ``--selftest`` at 4096^2 x 64, segment 8 (the
@@ -2820,6 +2853,9 @@ def phase_multi_process(torch, name: str, power: str) -> dict:
     exit_step = 7 * conv.interval
     conv = conv.replace(sensitivity=math.sqrt(trace[5] * trace[6]))
     rows, launches = [], {}
+    import tempfile
+    ck = tempfile.mkdtemp(prefix="heat2d-world-ck-") + os.sep
+    nogather = {"HEAT2D_FORBID_GATHER": "1"}
     for leg, cfg in (("a_hybrid_4096", fixed), ("b_convergence_1024",
                                                   conv)):
         ref = Heat2DSolver(cfg, devices=devs).run()
@@ -2827,14 +2863,42 @@ def phase_multi_process(torch, name: str, power: str) -> dict:
                     f"{leg}: the one-process run stopped at "
                     f"{ref.steps_done}, not {exit_step} (residuals "
                     f"{trace})")
-        row = _world_run(torch, leg, cfg, ref)
+        # (a) also writes collective managed snapshots at 120 and 240
+        extra = (["--checkpoint", ck, "--checkpoint-every", "120"]
+                 if not cfg.convergence else [])
+        row = _world_run(torch, leg, cfg, ref, extra=extra,
+                         env=nogather if extra else None)
         add_counts(launches, row["launches"])
         rows.append(row)
+        if cfg.convergence:
+            continue
+        # (a2) the managed resume across processes: step 240's snapshot
+        # torn, a world resumes from latest_valid() (120), H12 per rank,
+        # no rank gathering the grid
+        from heat2d_tpu_torch.resil import CheckpointManager
+        m = CheckpointManager(ck, keep=None)
+        fail_unless(m.steps() == [120, 240],
+                    f"{leg}: manifest steps {m.steps()}")
+        import numpy as np
+        with open(m.path_for(240), "rb") as f:
+            fail_unless(f.read() == np.ascontiguousarray(
+                ref.u, np.float32).tobytes(),
+                f"{leg}: the step-240 snapshot is not the final grid")
+        with open(m.path_for(240), "r+b") as f:
+            f.write(b"\xff" * 64)
+        row = _world_run(torch, "a2_managed_resume_4096", fixed, ref,
+                         extra=["--resume", ck], env=nogather,
+                         steps_done=120)
+        fail_unless(row.get("resume_from_step") == 120
+                    and row["resuming_lines"] == ["Resuming from step 120"],
+                    f"a2: did not resume from step 120: {row}")
+        add_counts(launches, row["launches"])
+        rows.append(row)
+    import shutil
+    shutil.rmtree(ck, ignore_errors=True)
     fail_unless(launches.get("shard_tile_multi", 0) > 0
                 and launches.get("shard_tile_multi_resid", 0) > 0,
                 f"the workers did not launch H12 and H13: {launches}")
-    import shutil
-    import tempfile
     d = tempfile.mkdtemp(prefix="heat2d-selftest-")
     t0 = time.perf_counter()
     rc = dcli.main(["--selftest", "--nx", "4096", "--ny", "4096",
@@ -3225,6 +3289,274 @@ def phase_tune(torch, name: str, power: str) -> dict:
 
 
 # ------------------------------------------------------------------ #
+# resil: managed checkpoints, kill and resume, the build sentinel, the
+# implicit gate
+# ------------------------------------------------------------------ #
+
+def _resil_cli(argv) -> tuple:
+    """The solver CLI in process on the card: (rc, its standard output,
+    the launches it made)."""
+    import contextlib
+    import io
+
+    from heat2d_tpu_torch.analysis.launch_pin import launch_counts
+    from heat2d_tpu_torch.cli import main as cli_main
+    before = launch_counts()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(argv)
+    after = launch_counts()
+    return rc, buf.getvalue(), {k: after[k] - before.get(k, 0)
+                                for k in after if after[k] - before.get(k, 0)}
+
+
+def _resil_pair(tmp, name, base, every) -> dict:
+    """``base`` uninterrupted and with ``--checkpoint DIR/
+    --checkpoint-every every``: both records, final bytes, launches and
+    wall seconds."""
+    out = {}
+    for leg, extra in (("whole", []),
+                       ("segmented", ["--checkpoint",
+                                      os.path.join(tmp, name + "_ck") + "/",
+                                      "--checkpoint-every", str(every),
+                                      "--checkpoint-keep", "0"])):
+        d = os.path.join(tmp, f"{name}_{leg}")
+        rec = os.path.join(d, "rec.json")
+        t0 = time.perf_counter()
+        rc, _, launches = _resil_cli(base + extra + [
+            "--binary-dumps", "--dat-layout", "none", "--outdir", d,
+            "--run-record", rec])
+        wall = time.perf_counter() - t0
+        fail_unless(rc == 0, f"resil {name} {leg}: rc {rc}")
+        with open(rec) as f, open(os.path.join(d, "final_binary.dat"),
+                                  "rb") as g:
+            out[leg] = {"record": json.load(f), "bytes": g.read(),
+                        "launches": launches, "wall_s": wall}
+    a, b = out["whole"], out["segmented"]
+    fail_unless(a["bytes"] == b["bytes"],
+                f"resil {name}: the segmented run's grid differs")
+    for key in ("steps_done", "route", "residual_reads"):
+        fail_unless(a["record"][key] == b["record"][key],
+                    f"resil {name}: {key} {a['record'][key]} vs "
+                    f"{b['record'][key]}")
+    return out
+
+
+def _pinned_d2h_ms(torch, nbytes: int, reps: int = 5) -> dict:
+    """One grid's device-to-host copy: pageable (``snapshot_state``'s
+    ``.to("cpu", copy=True)``) against a pinned staging buffer."""
+    n = nbytes // 4
+    src = torch.rand(n, device="cuda")
+    pinned = torch.empty(n, dtype=torch.float32, pin_memory=True)
+
+    def pageable():
+        src.to("cpu", copy=True)
+
+    def staged():
+        pinned.copy_(src)
+    out = {}
+    for key, fn in (("pageable_ms", pageable), ("pinned_ms", staged)):
+        fn()
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        out[key] = min(times)
+    return out
+
+
+def phase_resil(torch, name: str, power: str) -> dict:
+    """The resil and analysis modules on the card, through the solver
+    CLI: (a) 4096^2 x 240 in mode pallas (H2), uninterrupted against
+    ``--checkpoint DIR/ --checkpoint-every 48`` (5 snapshots), bitwise;
+    (b) the same killed at the 3rd checkpoint's mid_write (a subprocess,
+    ``HEAT2D_CHAOS_KILL_CKPT_AT=3``): rc 137, manifest [48, 96], a flight
+    dump, then ``--resume DIR`` from step 96 bitwise (a); (c) 640x1024 x
+    10000 (H4) every 2000 steps, bitwise; (d) convergence at 2048^2 (the
+    smallest square past the resident gate, so H2 + H3), every 100 steps,
+    stopping at the unsegmented run's step 160; (e) the build sentinel
+    over the serve occupancy sweep (H5); (f) the implicit gate (H6,
+    H10/H11)."""
+    import shutil
+    import tempfile
+
+    from heat2d_tpu_torch.analysis import implicit_gate
+    from heat2d_tpu_torch.analysis.launch_pin import launch_counts
+    from heat2d_tpu_torch.analysis.recompile import serve_compile_report
+    from heat2d_tpu_torch.config import HeatConfig
+    from heat2d_tpu_torch.resil import CheckpointManager
+
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="heat2d-resil-")
+    launches: dict = {}
+    legs = {}
+    try:
+        # (a) 4096^2 x 240 on H2
+        base = ["--mode", "pallas", "--nxprob", "4096", "--nyprob", "4096",
+                "--steps", "240"]
+        a = _resil_pair(tmp, "a_4096", base, 48)
+        seg = a["segmented"]["record"]
+        fail_unless(seg["checkpoints_written"] == 5,
+                    f"resil a: {seg['checkpoints_written']} checkpoints")
+        # the same 5 fenced segments with no snapshot and no write: what
+        # segmenting alone costs, apart from the writer beside it
+        from heat2d_tpu_torch.models.solver import Heat2DSolver
+        s48 = Heat2DSolver(HeatConfig(nxprob=4096, nyprob=4096, steps=48,
+                                      mode="pallas"))
+        u, bare_s = s48.init_state(), 0.0
+        before = launch_counts()
+        for i in range(5):
+            r48 = s48.run(u0=u, warmup=i == 0, gather=False)
+            u, bare_s = r48.u, bare_s + r48.elapsed
+        del u
+        add_counts(launches, {k: v - before.get(k, 0)
+                              for k, v in launch_counts().items()})
+        timings = seg["checkpoint_timings"]
+        legs["a_4096x240"] = {
+            "bitwise": True, "route": seg["route"],
+            "elapsed_s": a["whole"]["record"]["elapsed_s"],
+            "segmented_elapsed_s": seg["elapsed_s"],
+            "segments_without_writer_s": bare_s,
+            "wall_s": a["whole"]["wall_s"],
+            "segmented_wall_s": a["segmented"]["wall_s"],
+            "snapshot_d2h_ms": [1e3 * x["snapshot_s"] for x in timings],
+            "write_sha256_commit_ms": [1e3 * x["write_s"]
+                                       for x in timings],
+            "launches": a["whole"]["launches"],
+            "segmented_launches": a["segmented"]["launches"],
+            "d2h_64mib": _pinned_d2h_ms(torch, 4096 * 4096 * 4)}
+        for leg in a.values():
+            add_counts(launches, leg["launches"])
+
+        # (b) killed at the 3rd checkpoint, mid_write; resumed
+        from heat2d_tpu_torch.dist.harness import clean_env
+        ck = os.path.join(tmp, "b_ck") + os.sep
+        flight = os.path.join(tmp, "b_flight")
+        env = {k: v for k, v in clean_env().items()
+               if not k.startswith("HEAT2D_CHAOS_")}
+        env.update(HEAT2D_CHAOS_KILL_CKPT_AT="3",
+                   HEAT2D_FLIGHT_DIR=flight)
+        tk = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "heat2d_tpu_torch.cli"] + base
+            + ["--dat-layout", "none", "--outdir",
+               os.path.join(tmp, "b_killed"), "--checkpoint", ck,
+               "--checkpoint-every", "48"],
+            cwd=HERE, env=env, capture_output=True, text=True, timeout=300)
+        killed_s = time.perf_counter() - tk
+        fail_unless(r.returncode == 137,
+                    f"resil b: the killed run exited {r.returncode}: "
+                    f"{r.stderr[-2000:]}")
+        steps = CheckpointManager(ck, keep=None).steps()
+        fail_unless(steps == [48, 96], f"resil b: manifest steps {steps}")
+        dumps = os.listdir(flight) if os.path.isdir(flight) else []
+        fail_unless(bool(dumps), "resil b: no flight-recorder dump")
+        d = os.path.join(tmp, "b_resumed")
+        rc, out, got = _resil_cli(base + [
+            "--resume", ck, "--binary-dumps", "--dat-layout", "none",
+            "--outdir", d])
+        fail_unless(rc == 0 and "Resuming from step 96" in out,
+                    f"resil b: resume rc {rc}: {out[-500:]}")
+        with open(os.path.join(d, "final_binary.dat"), "rb") as f:
+            fail_unless(f.read() == a["whole"]["bytes"],
+                        "resil b: the resumed grid differs from (a)")
+        add_counts(launches, got)
+        legs["b_kill_resume"] = {"rc": r.returncode, "manifest": steps,
+                                 "flight_dumps": dumps,
+                                 "killed_run_wall_s": killed_s,
+                                 "resumed_from": 96, "bitwise": True,
+                                 "launches": got}
+
+        # (c) 640x1024 x 10000 on H4
+        c = _resil_pair(tmp, "c_640x1024", [
+            "--mode", "pallas", "--nxprob", "640", "--nyprob", "1024",
+            "--steps", "10000"], 2000)
+        fail_unless(c["segmented"]["record"]["route"] == "resident",
+                    f"resil c: route {c['segmented']['record']['route']}")
+        ct = c["segmented"]["record"]["checkpoint_timings"]
+        legs["c_640x1024x10000"] = {
+            "bitwise": True,
+            "elapsed_s": c["whole"]["record"]["elapsed_s"],
+            "segmented_elapsed_s": c["segmented"]["record"]["elapsed_s"],
+            "snapshot_d2h_ms": [1e3 * x["snapshot_s"] for x in ct],
+            "write_sha256_commit_ms": [1e3 * x["write_s"] for x in ct],
+            "launches": c["whole"]["launches"],
+            "segmented_launches": c["segmented"]["launches"]}
+        for leg in c.values():
+            add_counts(launches, leg["launches"])
+
+        # (d) convergence at 2048^2 through H2 + H3
+        conv = HeatConfig(nxprob=2048, nyprob=2048, steps=400,
+                          mode="pallas", convergence=True, interval=20)
+        trace = residual_trace(torch, conv, None, None)
+        sens = math.sqrt(trace[6] * trace[7])      # stops at step 160
+        dres = _resil_pair(tmp, "d_conv_2048", [
+            "--mode", "pallas", "--nxprob", "2048", "--nyprob", "2048",
+            "--steps", "400", "--convergence", "--interval", "20",
+            "--sensitivity", repr(sens)], 100)
+        dw = dres["whole"]["record"]
+        fail_unless(dw["steps_done"] == 160 and
+                    dw["route"] == "streamed-fused",
+                    f"resil d: steps_done {dw['steps_done']}, route "
+                    f"{dw['route']}")
+        fail_unless(dres["segmented"]["launches"].get("tile_multi_resid",
+                                                      0) > 0,
+                    f"resil d: no H3 launch {dres['segmented']['launches']}")
+        legs["d_convergence_2048"] = {
+            "steps_done": dw["steps_done"], "sensitivity": sens,
+            "bitwise": True, "elapsed_s": dw["elapsed_s"],
+            "segmented_elapsed_s": dres["segmented"]["record"]["elapsed_s"],
+            "launches": dres["whole"]["launches"],
+            "segmented_launches": dres["segmented"]["launches"]}
+        for leg in dres.values():
+            add_counts(launches, leg["launches"])
+
+        # (e) the build sentinel over the serve occupancy sweep (H5)
+        before = launch_counts()
+        rep = serve_compile_report(nx=256, ny=256, steps=100,
+                                   method="pallas", max_batch=8,
+                                   device="cuda")
+        got = {k: v - before.get(k, 0) for k, v in launch_counts().items()
+               if v - before.get(k, 0)}
+        fail_unless(rep["ok"] and got.get("ens_resident", 0) > 0,
+                    f"resil e: sentinel {rep}, launches {got}")
+        add_counts(launches, got)
+        legs["e_build_sentinel"] = {**rep, "launch_counts": got}
+
+        # (f) the implicit gate on the card
+        before = launch_counts()
+        import contextlib
+        import io
+        buf = io.StringIO()
+        tg = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = implicit_gate.run_gate("cuda", out=sys.stdout)
+        got = {k: v - before.get(k, 0) for k, v in launch_counts().items()
+               if v - before.get(k, 0)}
+        fail_unless(rc == 0, f"resil f: implicit gate rc {rc}: "
+                    f"{buf.getvalue()[-1500:]}")
+        fail_unless(got.get("td_rows", 0) > 0 and got.get("td_lanes", 0) > 0,
+                    f"resil f: the gate did not launch H10/H11: {got}")
+        add_counts(launches, got)
+        legs["f_implicit_gate"] = {"rc": rc, "seconds":
+                                   time.perf_counter() - tg,
+                                   "lines": buf.getvalue().splitlines(),
+                                   "launch_counts": got}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for key, leg in legs.items():
+        emit({"phase": f"resil_{key}", "card": name, "power_limit": power,
+              **{k: v for k, v in leg.items() if k != "lines"}})
+    info = {"phase": "resil", "card": name, "power_limit": power,
+            "seconds": time.perf_counter() - t0, "launches": launches}
+    emit(info)
+    return {**info, "legs": legs}
+
+
+# ------------------------------------------------------------------ #
 # obs: the telemetry layer on the card
 # ------------------------------------------------------------------ #
 
@@ -3493,11 +3825,12 @@ def main() -> int:
                                     tool["power_limit"])
         diff_path = phase_diff_path(torch, tool["name"],
                                     tool["power_limit"])
+        resil = phase_resil(torch, tool["name"], tool["power_limit"])
         launches = {**main_path["launches"], **serve["launch_counts"],
                     **serve_fam["launch_counts"],
                     **sharded_path["launches"]}
         launches["ens_tile_multi"] += diff_path["launches"]["ens_tile_multi"]
-        for leg in (sharded_ens, mesh_serve, scaling, multi):
+        for leg in (sharded_ens, mesh_serve, scaling, multi, resil):
             add_counts(launches, leg["launches"])
         for name in ("td_coeffs", "td_rows", "td_lanes"):
             launches[name] += implicit["launches"][name]
@@ -3529,7 +3862,7 @@ def main() -> int:
                    "spatial_ensembles": spatial_ens,
                    "mesh_serving": mesh_serve, "mesh_fault": mesh_fault,
                    "strong_scaling": scaling, "multi_process": multi,
-                   "diff_path": diff_path,
+                   "diff_path": diff_path, "resil": resil,
                    "kernels": rows,
                    "headline": head, "tune": tune, "obs": obs,
                    "seconds": time.perf_counter() - t0})

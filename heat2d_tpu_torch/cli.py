@@ -51,6 +51,19 @@ flight recorder. With a tuning db active
 (``HEAT2D_TUNE_DB``, ``tune/``) the run record carries the configs the
 planners took as ``tuned_config``.
 
+``--checkpoint DIR/ --checkpoint-every K`` runs in K-step segments and
+writes a restart point after each into a managed directory (a manifest,
+``--checkpoint-keep`` retention, ``resil/``), copied to the host between
+segments and committed on a worker thread; ``--resume DIR`` resumes
+from the newest snapshot that loads verified, falling back past torn
+ones. ``HEAT2D_CHAOS_KILL_CKPT_AT=N`` kills the run at its Nth
+checkpoint's commit (``resil/chaos.py``).
+
+    python -m heat2d_tpu_torch.cli --mode pallas --nxprob 4096 \
+        --nyprob 4096 --steps 240 --checkpoint ck/ --checkpoint-every 48
+    python -m heat2d_tpu_torch.cli --mode pallas --nxprob 4096 \
+        --nyprob 4096 --steps 240 --resume ck/
+
 ``--coordinator/--num-processes/--process-id`` (the mpiexec launch line)
 or ``--multihost`` (torchrun's environment) run N processes as one world
 over ``torch.distributed`` (``parallel/multihost.py``): the mesh spans
@@ -157,10 +170,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "(MPI-IO byte format)")
     o.add_argument("--checkpoint", default=None,
                    help="path to write a loadable checkpoint of the final "
-                        "state (the JAX package's format)")
+                        "state (the JAX package's format). An existing "
+                        "DIRECTORY (or a path ending in '/') selects "
+                        "managed mode: crash-consistent snapshots under a "
+                        "manifest with retention and torn-entry fallback "
+                        "(resil/)")
+    o.add_argument("--checkpoint-every", type=int, default=None,
+                   metavar="K",
+                   help="with --checkpoint: also write a restart point "
+                        "every K steps. The run goes in K-step segments; "
+                        "snapshots are copied to the host between them "
+                        "and written on a worker thread, off the timed "
+                        "segments (resil.AsyncCheckpointer)")
+    o.add_argument("--checkpoint-keep", type=int, default=3, metavar="N",
+                   help="managed (directory) checkpoints retained before "
+                        "old snapshots are removed (0 = keep all)")
     o.add_argument("--resume", default=None,
-                   help="checkpoint file to resume from (the remaining "
-                        "steps run); either stack's checkpoints load")
+                   help="checkpoint to resume from (the remaining steps "
+                        "run): a checkpoint file, or a checkpoint "
+                        "DIRECTORY, resumed from its newest snapshot that "
+                        "loads verified, falling back past torn or corrupt "
+                        "entries; either stack's checkpoints load")
     o.add_argument("--run-record", default=None,
                    help="path for the JSON run record")
     o.add_argument("--metrics-out", default=None, metavar="PATH",
@@ -239,6 +269,78 @@ def _add_trace(record: dict, args) -> None:
         record["trace_id"] = args.trace_span.ctx.trace_id
 
 
+def _run_with_periodic_checkpoints(solver, u0, args, start_step, ckpt,
+                                   make_solver):
+    """Drive the run in K-step segments (``--checkpoint-every K``),
+    writing a restart point after each: the JAX CLI's periodic
+    checkpoints (``heat2d_tpu/cli.py``). One solver per distinct segment
+    length (``make_solver(config)``), warmed up only on that length's
+    first run; the reported elapsed is the sum of the segments' fenced
+    times (the checkpoint I/O left out, as the reference's clock leaves
+    out its dump). With convergence on, K must be a multiple of INTERVAL
+    so that the checks fall where an unsegmented run's do (a convergence
+    landing exactly on a segment boundary is noticed one INTERVAL into
+    the next segment, as in the JAX CLI).
+
+    ``ckpt`` is a ``resil.AsyncCheckpointer``: each restart point is
+    copied to the host between segments and written and committed on its
+    worker thread while the next segment runs; its ``close`` makes every
+    snapshot durable before the CLI reports success. A segment's length
+    changes only the tail of its plan (H2's last sweep, H4's last chunk),
+    and every plan gives the same grid bit for bit."""
+    import dataclasses
+
+    k = args.checkpoint_every
+    cfg = solver.config
+    if k < 1:
+        raise ConfigError(f"--checkpoint-every must be >= 1, got {k}")
+    if cfg.convergence and k % cfg.interval:
+        raise ConfigError(
+            f"--checkpoint-every ({k}) must be a multiple of --interval "
+            f"({cfg.interval}) when --convergence is on, so the "
+            f"residual-check schedule matches an unsegmented run")
+
+    total = cfg.steps
+    seg_solvers = {}
+    u, done, elapsed, warmup_s, reads = u0, 0, 0.0, 0.0, 0
+    by_process = exchange = None
+    r = None
+    with ckpt:
+        while done < total:
+            n = min(k, total - done)
+            fresh = n not in seg_solvers
+            if fresh:
+                seg_solvers[n] = make_solver(cfg.replace(steps=n))
+            # gather=False: a sharded state stays on its devices from one
+            # segment to the next
+            r = seg_solvers[n].run(u0=u, warmup=fresh, gather=False)
+            u = r.u
+            done += r.steps_done
+            elapsed += r.elapsed
+            warmup_s += r.warmup_s or 0.0
+            reads += r.residual_reads
+            if r.elapsed_by_process is not None:
+                by_process = [a + b for a, b in zip(
+                    by_process or [0.0] * len(r.elapsed_by_process),
+                    r.elapsed_by_process)]
+            if r.exchange is not None:
+                exchange = {key: (exchange or {}).get(key, 0) + v
+                            for key, v in r.exchange.items()}
+            ckpt.save_async(u, start_step + done)
+            if r.steps_done < n:    # converged inside the segment
+                break
+        if r is None:   # no step left: still honour --checkpoint
+            r = solver.run(u0=u0, timed=False, gather=False)
+            ckpt.save_async(r.u, start_step)
+    if by_process is not None:
+        # each process's own total, then the slowest (MPI_Reduce(MAX))
+        elapsed = max(by_process)
+    return dataclasses.replace(
+        r, u=u, steps_done=done, elapsed=elapsed, config=cfg,
+        warmup_s=warmup_s, residual_reads=reads,
+        elapsed_by_process=by_process, exchange=exchange)
+
+
 def _run_ensemble_cli(args, cfg) -> int:
     """A batched (cx, cy) parameter sweep in one launch: the JAX CLI's
     ensemble route (``heat2d_tpu/cli.py``). Modes serial and pallas run
@@ -282,6 +384,7 @@ def _run_ensemble_cli(args, cfg) -> int:
     unsupported = [flag for flag, on in [
         ("--binary-dumps", args.binary_dumps),
         ("--checkpoint", args.checkpoint is not None),
+        ("--checkpoint-every", args.checkpoint_every is not None),
         ("--resume", args.resume is not None),
         ("--profile", args.profile is not None),
         # the batched routes evaluate steps and residuals in f32, and the
@@ -450,7 +553,9 @@ def _main(args) -> int:
         return _run_ensemble_cli(args, cfg)
     registry = _registry(args, cfg)
     telemetry = None
-    if registry is not None and cfg.convergence:
+    if registry is not None and cfg.convergence and not args.checkpoint_every:
+        # (periodic-checkpoint segments count their steps from 0 each: their
+        # trajectories would interleave, so streaming stays off there)
         from heat2d_tpu_torch.obs import TelemetryStream
         telemetry = TelemetryStream(registry=registry)
     try:
@@ -503,26 +608,60 @@ def _main(args) -> int:
                 f"N={row['north']} S={row['south']} "
                 f"W={row['west']} E={row['east']}")
 
+    # Managed-checkpoint mode: an existing directory (or a trailing
+    # separator) selects resil.CheckpointManager: a manifest, retention,
+    # and the torn-entry fallback on resume.
+    from heat2d_tpu_torch.resil import (AsyncCheckpointer, CheckpointManager,
+                                        is_manager_dir)
+    ckpt_manager = None
+    if args.checkpoint and (is_manager_dir(args.checkpoint)
+                            or args.checkpoint.endswith(os.sep)):
+        ckpt_manager = CheckpointManager(
+            args.checkpoint, keep=args.checkpoint_keep or None,
+            registry=registry)
+
+    def make_solver(c):
+        return Heat2DSolver(c, device=args.device, devices=devices,
+                            owners=owners, telemetry=telemetry)
+
     start_step = 0
     if args.resume:
+        # A mesh places only this process's blocks, so the snapshot is
+        # mapped, not read whole: no process holds the global grid.
+        mmap = solver.mesh is not None
         try:
-            grid, start_step, _ = load_checkpoint(args.resume,
-                                                  shape=cfg.shape)
+            if is_manager_dir(args.resume):
+                # registry=None: the CLI records the restore below (the
+                # manager would count it twice)
+                found = CheckpointManager(args.resume, keep=None) \
+                    .latest_valid(mmap=mmap)
+                if found is None:
+                    print(f"ERROR: no valid checkpoint in {args.resume} "
+                          f"(every manifest entry is missing or torn)"
+                          f"\nQuitting...", file=sys.stderr)
+                    return 1
+                grid, start_step, _ = found
+            else:
+                grid, start_step, _ = load_checkpoint(
+                    args.resume, shape=cfg.shape, mmap=mmap)
         except CheckpointCorruptError as e:
             print(f"ERROR: checkpoint failed integrity verification "
-                  f"({e})\nQuitting...", file=sys.stderr)
+                  f"({e}); pass a checkpoint DIRECTORY to fall back to the "
+                  f"previous snapshot\nQuitting...", file=sys.stderr)
             return 1
         say(f"Resuming from step {start_step}")
+        if registry is not None:
+            registry.counter("resil_restore_total")
+            registry.gauge("resil_restore_step", start_step)
         if tuple(grid.shape) != cfg.shape:
             print(f"ERROR: checkpoint grid is {grid.shape[0]}x"
                   f"{grid.shape[1]} but config is {cfg.nxprob}x"
                   f"{cfg.nyprob}\nQuitting...", file=sys.stderr)
             return 1
-        solver = Heat2DSolver(
-            cfg.replace(steps=max(cfg.steps - start_step, 0)),
-            device=args.device, devices=devices, owners=owners,
-            telemetry=telemetry)
+        solver = make_solver(cfg.replace(steps=max(cfg.steps - start_step,
+                                                   0)))
         u0 = solver.place(grid)
+        del grid
     else:
         u0 = solver.init_state()
 
@@ -564,10 +703,27 @@ def _main(args) -> int:
         write_dat(to_host(u0, init_bin), "initial.dat")
 
     from heat2d_tpu_torch.utils.profiling import profile_span
-    # the capture wraps the whole run; the timed window inside it is
-    # fenced as without it
-    with profile_span(args.profile, device=solver.device):
-        result = solver.run(u0=u0, gather=False)
+    ckpt_writer = None
+    try:
+        # the capture wraps the whole run; the timed window inside it is
+        # fenced as without it
+        with profile_span(args.profile, device=solver.device):
+            if args.checkpoint_every:
+                if not args.checkpoint:
+                    raise ConfigError(
+                        "--checkpoint-every requires --checkpoint (the path "
+                        "the restart points are written to)")
+                ckpt_writer = AsyncCheckpointer(
+                    ckpt_manager if ckpt_manager is not None
+                    else args.checkpoint,
+                    cfg, shape=cfg.shape, registry=registry)
+                result = _run_with_periodic_checkpoints(
+                    solver, u0, args, start_step, ckpt_writer, make_solver)
+            else:
+                result = solver.run(u0=u0, gather=False)
+    except ConfigError as e:
+        print(f"{e}\nQuitting...", file=sys.stderr)
+        return 1
     total_steps = start_step + result.steps_done
     say(f"Exiting after {result.steps_done} iterations")
     say(f"Elapsed time: {result.elapsed:e} sec")
@@ -578,21 +734,29 @@ def _main(args) -> int:
     if args.dat_layout != "none":
         u_host = to_host(result.u, fin_bin)
         write_dat(u_host, "final.dat")
-    if args.checkpoint:
+    if args.checkpoint and not args.checkpoint_every:
+        # (the periodic path already wrote the final restart point)
+        save = (ckpt_manager.save if ckpt_manager is not None
+                else lambda u, step, c, **kw: save_checkpoint(
+                    u, step, c, args.checkpoint, **kw))
         if getattr(result.u, "spans_processes", False):
             # the per-shard collective write (every process)
-            save_checkpoint(result.u, total_steps, cfg, args.checkpoint,
-                            shape=cfg.shape)
+            save(result.u, total_steps, cfg, shape=cfg.shape)
         else:
             if u_host is None:
                 u_host = to_host(result.u)
             if primary:
-                save_checkpoint(u_host, total_steps, cfg, args.checkpoint)
+                save(u_host, total_steps, cfg)
 
     record = result.to_record()
     record["total_steps_including_resume"] = total_steps
     if args.resume:
         record["resume_from_step"] = start_step
+    if ckpt_writer is not None:
+        record["checkpoints_written"] = ckpt_writer.saves
+        # per snapshot: the main thread's host copy and the worker's
+        # write + sha256 + commit, in seconds
+        record["checkpoint_timings"] = ckpt_writer.timings
     if solver.mesh is not None and mh.is_multiprocess():
         # every process's shard-kernel launches (warmup included) and
         # cross-rank exchange totals over the timed run, gathered (a

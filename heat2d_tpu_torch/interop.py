@@ -40,21 +40,29 @@ def state_from_numpy(u, device=None):
 def sharded_from_numpy(u, config, mesh):
     """A host grid as the ``ShardedGrid`` of ``mesh``: padded with zeros
     up to equal shards, block (i, j) on mesh device (i, j) (this
-    process's blocks only, on a mesh that spans processes)."""
+    process's blocks only, on a mesh that spans processes). Each block is
+    sliced and padded on its own, so a memory-mapped grid
+    (``io.binary.load_checkpoint(mmap=True)``) is read only where this
+    process holds a block."""
     from heat2d_tpu_torch.parallel.sharded import (ShardedGrid,
                                                    padded_global_shape)
-    a = np.asarray(u, dtype=np.float32)
-    if a.ndim != 2:
-        raise ValueError(f"expected a 2D grid, got shape {a.shape}")
+    if not isinstance(u, np.ndarray):
+        u = np.asarray(u, dtype=np.float32)
+    if u.ndim != 2:
+        raise ValueError(f"expected a 2D grid, got shape {u.shape}")
     pnx, pny = padded_global_shape(config, mesh)
-    if a.shape != (pnx, pny):
-        a = np.pad(a, ((0, pnx - a.shape[0]), (0, pny - a.shape[1])))
     gx, gy = mesh.shape
     bm, bn = pnx // gx, pny // gy
-    blocks = [[state_from_numpy(a[i * bm:(i + 1) * bm, j * bn:(j + 1) * bn],
-                                mesh.devices[i][j])
-               if mesh.is_local(i, j) else None for j in range(gy)]
-              for i in range(gx)]
+
+    def block(i, j):
+        a = np.asarray(u[i * bm:(i + 1) * bm, j * bn:(j + 1) * bn],
+                       dtype=np.float32)
+        if a.shape != (bm, bn):
+            a = np.pad(a, ((0, bm - a.shape[0]), (0, bn - a.shape[1])))
+        return state_from_numpy(a, mesh.devices[i][j])
+
+    blocks = [[block(i, j) if mesh.is_local(i, j) else None
+               for j in range(gy)] for i in range(gx)]
     return ShardedGrid(blocks, config.nxprob, config.nyprob, mesh)
 
 

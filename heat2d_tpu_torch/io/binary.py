@@ -85,6 +85,57 @@ def write_binary(u, path) -> None:
     _write_bytes_atomic(_host_f32(u).tobytes(), path)
 
 
+def grid_blocks(grid) -> list:
+    """This process's blocks of a ``ShardedGrid`` at their global
+    offsets, ``[(row0, col0, block), ...]`` (blocks of other processes
+    left out, padding included)."""
+    bm, bn = grid.block_shape
+    return [(i * bm, j * bn, blk) for i, row in enumerate(grid.blocks)
+            for j, blk in enumerate(row) if blk is not None]
+
+
+def _stage_file(tmp, nx: int, ny: int) -> None:
+    """Size the staging file of an (nx, ny) float32 grid (process 0's
+    part of a collective write; a barrier must follow across
+    processes)."""
+    with open(tmp, "wb") as f:
+        f.truncate(nx * ny * 4)
+
+
+def _write_local_blocks(blocks, tmp, nx: int, ny: int) -> None:
+    """Write ``[(row0, col0, block), ...]`` (tensors or host arrays) into
+    the sized staging file ``tmp`` at their offsets, cropped to (nx, ny),
+    then fsync it. No collective: safe on any thread. Each block goes out
+    by positioned writes of its rows (one write where it spans whole
+    rows), straight from its buffer: a write releases the GIL, so a
+    worker thread writing a block holds up no other thread."""
+    fd = os.open(str(tmp), os.O_WRONLY)
+    try:
+        for r0, c0, blk in blocks:
+            if r0 >= nx or c0 >= ny:
+                continue   # wholly padding
+            r1 = min(r0 + blk.shape[0], nx)
+            c1 = min(c0 + blk.shape[1], ny)
+            a = np.ascontiguousarray(_host_f32(blk[:r1 - r0, :c1 - c0]))
+            if c0 == 0 and c1 == ny:
+                _pwrite_all(fd, a, r0 * ny * 4)
+                continue
+            for i in range(r1 - r0):
+                _pwrite_all(fd, a[i], ((r0 + i) * ny + c0) * 4)
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _pwrite_all(fd, a: np.ndarray, offset: int) -> None:
+    """``os.pwrite`` of a contiguous array's bytes at ``offset``, retried
+    past short writes."""
+    view = memoryview(a).cast("B")
+    while view:
+        n = os.pwrite(fd, view, offset)
+        view, offset = view[n:], offset + n
+
+
 def _write_blocks(grid, tmp, nx: int, ny: int) -> None:
     """Write this process's blocks of ``grid`` into the staged global
     file ``tmp`` at their offsets, cropped to (nx, ny). Across processes
@@ -93,25 +144,11 @@ def _write_blocks(grid, tmp, nx: int, ny: int) -> None:
     MPI-IO assumes one)."""
     from heat2d_tpu_torch.parallel.multihost import barrier, process_index
     multi = grid.spans_processes
-    bm, bn = grid.block_shape
     if not multi or process_index() == 0:
-        with open(tmp, "wb") as f:
-            f.truncate(nx * ny * 4)
+        _stage_file(tmp, nx, ny)
     if multi:
         barrier()
-    mm = np.memmap(tmp, dtype=np.float32, mode="r+", shape=(nx, ny))
-    try:
-        for i, row in enumerate(grid.blocks):
-            for j, blk in enumerate(row):
-                r0, c0 = i * bm, j * bn
-                if blk is None or r0 >= nx or c0 >= ny:
-                    continue   # another process's, or wholly padding
-                r1, c1 = min(r0 + bm, nx), min(c0 + bn, ny)
-                mm[r0:r1, c0:c1] = _host_f32(blk[:r1 - r0, :c1 - c0])
-        mm.flush()
-    finally:
-        del mm
-    _fsync_path(tmp)
+    _write_local_blocks(grid_blocks(grid), tmp, nx, ny)
     if multi:
         barrier()
 
@@ -172,10 +209,15 @@ def commit_checkpoint_files(tmp_path, path, step: int, config,
     fsync, ``os.replace`` the binary, then the sidecar with the digest
     the same way, then fsync the directory. A crash between the two
     replaces leaves a pair whose digest does not match, which
-    ``load_checkpoint`` rejects."""
+    ``load_checkpoint`` rejects. Both windows are announced to
+    ``resil.chaos`` (``mid_write`` before the digest, ``pre_meta`` before
+    the sidecar), where the JAX package announces them."""
+    from heat2d_tpu_torch.resil import chaos
+    chaos.checkpoint_point("mid_write")
     digest = _sha256_file(tmp_path)
     _fsync_path(tmp_path)
     os.replace(tmp_path, path)
+    chaos.checkpoint_point("pre_meta")
     meta = {
         "step": int(step),
         "shape": [int(s) for s in out_shape],
@@ -216,11 +258,17 @@ def save_checkpoint(u, step: int, config, path, shape=None) -> None:
     commit_checkpoint_files(tmp, path, step, config, a.shape)
 
 
-def load_checkpoint(path, shape=None, verify: bool = True):
+def load_checkpoint(path, shape=None, verify: bool = True,
+                    mmap: bool = False):
     """Returns (grid, step, config_dict). Without a sidecar (a raw
     ``final_binary.dat``) ``shape`` is required and step is 0. A sidecar's
     sha256 is verified unless ``verify`` is False; a mismatch, truncation
-    or unreadable sidecar raises ``CheckpointCorruptError``."""
+    or unreadable sidecar raises ``CheckpointCorruptError``.
+
+    ``mmap=True`` digests the file in chunks and returns the grid as a
+    read-only ``np.memmap``: a process that places only its own shards
+    (``interop.sharded_from_numpy``) then reads only their rows, and no
+    process holds the global grid in memory."""
     meta_path = str(path) + ".meta.json"
     if not os.path.exists(meta_path):
         if shape is None:
@@ -235,24 +283,35 @@ def load_checkpoint(path, shape=None, verify: bool = True):
         digest = meta.get("sha256")
     except (json.JSONDecodeError, KeyError, ValueError, TypeError) as e:
         raise CheckpointCorruptError(f"{path}: {e}") from e
+    expected = int(np.prod(meta_shape))
     try:
-        with open(path, "rb") as f:
-            buf = f.read()
+        if mmap:
+            buf = None
+            size = os.path.getsize(path)
+            actual = (_sha256_file(path) if verify and digest is not None
+                      else None)
+        else:
+            with open(path, "rb") as f:
+                buf = f.read()
+            size = len(buf)
+            actual = (hashlib.sha256(buf).hexdigest()
+                      if verify and digest is not None else None)
     except OSError as e:
         raise CheckpointCorruptError(f"{path}: {e}") from e
-    if verify and digest is not None:
-        actual = hashlib.sha256(buf).hexdigest()
-        if actual != digest:
-            raise CheckpointCorruptError(
-                f"{path}: sha256 mismatch (sidecar {digest[:12]}..., "
-                f"file {actual[:12]}...) - torn or corrupt checkpoint")
-    a = np.frombuffer(buf, dtype=np.float32)
-    expected = int(np.prod(meta_shape))
-    if a.size != expected:
+    if actual is not None and actual != digest:
+        raise CheckpointCorruptError(
+            f"{path}: sha256 mismatch (sidecar {digest[:12]}..., "
+            f"file {actual[:12]}...) - torn or corrupt checkpoint")
+    if size != 4 * expected:
         raise CheckpointCorruptError(
             f"{path}: expected {expected} float32 values for shape "
-            f"{meta_shape}, found {a.size}")
-    return a.reshape(meta_shape).copy(), step, meta.get("config", {})
+            f"{meta_shape}, found {size // 4}")
+    if mmap:
+        grid = np.memmap(path, dtype=np.float32, mode="r", shape=meta_shape)
+    else:
+        grid = np.frombuffer(buf, dtype=np.float32).reshape(
+            meta_shape).copy()
+    return grid, step, meta.get("config", {})
 
 
 def _write_sidecar(path, meta: dict) -> None:

@@ -92,19 +92,24 @@ def _run_leg(method: str, u0, steps: int, cx: float, cy: float,
 def time_to_solution(nx: int, ny: int, *, steps_explicit: int,
                      step_ratio: int, cx: float = 0.2, cy: float = 0.2,
                      methods=("explicit", "adi"), use_kernels: bool = False,
-                     device=None) -> dict:
-    """Run every method to the same ``t_final`` and compare (float32).
-    The explicit leg runs ``steps_explicit`` steps at (cx, cy), checked
-    against the stability box; each implicit leg ``steps_explicit //
-    step_ratio`` steps at the diffusion numbers that reach the same
-    dimensionless time. Returns ``{"rows": [...], "summary": {...}}``."""
+                     device=None, dtype=np.float32) -> dict:
+    """Run every method to the same ``t_final`` and compare (``dtype``,
+    float32 by default; float64 runs the plain steps only, the kernels
+    being float32). The explicit leg runs ``steps_explicit`` steps at
+    (cx, cy), checked against the stability box; each implicit leg
+    ``steps_explicit // step_ratio`` steps at the diffusion numbers that
+    reach the same dimensionless time. Returns ``{"rows": [...],
+    "summary": {...}}``."""
     from heat2d_tpu_torch.utils.device import resolve_device
     if step_ratio < 1:
         raise ValueError(f"step_ratio must be >= 1, got {step_ratio}")
+    dtype = np.dtype(dtype)
+    if use_kernels and dtype != np.float32:
+        raise ValueError(f"the kernels run float32, not {dtype}")
     dev = resolve_device(device)
     that_x = cx * steps_explicit
     that_y = cy * steps_explicit
-    u0 = torch.from_numpy(analytic.separable_mode(nx, ny)).to(dev)
+    u0 = torch.from_numpy(analytic.separable_mode(nx, ny, dtype)).to(dev)
     ref = analytic.mode_solution(nx, ny, that_x, that_y, np.float64)
 
     rows = []
@@ -128,7 +133,7 @@ def time_to_solution(nx: int, ny: int, *, steps_explicit: int,
 
     by = {r["method"]: r for r in rows}
     summary = {"nx": nx, "ny": ny, "that_x": that_x, "that_y": that_y,
-               "dtype": "float32", "device": str(dev)}
+               "dtype": dtype.name, "device": str(dev)}
     if "explicit" in by:
         exp = by["explicit"]
         for method, r in by.items():
@@ -142,7 +147,7 @@ def time_to_solution(nx: int, ny: int, *, steps_explicit: int,
                 exp["modeled_s"] / r["modeled_s"])
             summary[f"{method}_matched_accuracy"] = bool(
                 r["accuracy"] <= max(ACCURACY_MARGIN * exp["accuracy"],
-                                     accuracy_floor(np.float32)))
+                                     accuracy_floor(dtype)))
     return {"rows": rows, "summary": summary}
 
 

@@ -9,6 +9,10 @@ edited source or flag set is rebuilt and an unchanged one is reused.
 
 The build runs at first use, never at import: the CPU tests import every
 module of the package on a machine without ``nvcc``.
+
+``EVENTS`` logs every ``nvcc`` build started and every library loaded in
+this process, as ``("build" | "load", name)`` in order: what "compile"
+means for the port, read by ``analysis.recompile.CompileWatch``.
 """
 
 from __future__ import annotations
@@ -76,6 +80,10 @@ SIGNATURES = {
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
 
+#: ("build" | "load", library name) for every nvcc build started and every
+#: library loaded in this process, in order
+EVENTS: list[tuple[str, str]] = []
+
 
 def nvcc_path() -> str:
     """The CUDA compiler, from PATH or the toolkit's default prefix."""
@@ -109,6 +117,7 @@ def _start_build(name: str) -> tuple[subprocess.Popen, Path, Path] | None:
     cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+    EVENTS.append(("build", name))
     return proc, tmp, out
 
 
@@ -145,6 +154,7 @@ def load(name: str) -> ctypes.CDLL:
                 getattr(lib, fn).restype = restype
                 getattr(lib, fn).argtypes = argtypes
             _loaded[name] = lib
+            EVENTS.append(("load", name))
         return lib
 
 

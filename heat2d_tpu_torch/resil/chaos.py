@@ -1,6 +1,16 @@
-"""Fault injection at the serve engines' launch points: the port's copy of
-the launch and mesh parts of ``heat2d_tpu/resil/chaos.py``.
+"""Fault injection: the port's copy of the checkpoint, launch and mesh
+parts of ``heat2d_tpu/resil/chaos.py``.
 
+- **kill a checkpoint mid-write**: ``HEAT2D_CHAOS_KILL_CKPT_AT=N``
+  hard-kills the process (``os._exit(137)``, the SIGKILL exit code) at
+  the Nth checkpoint's commit point. ``HEAT2D_CHAOS_KILL_CKPT_PHASE``
+  picks the window: ``mid_write`` (default: only the staging file
+  exists, the previous checkpoint must stay durable) or ``pre_meta``
+  (the binary was replaced but its sidecar was not: a torn pair the
+  digest check must catch). ``HEAT2D_CHAOS_CKPT_LATENCY_S`` sleeps
+  inside each checkpoint write (drives the async-overlap tests). The
+  crash flight recorder (``obs/flight.py``) is flushed just before the
+  kill;
 - **fail N launches**: ``HEAT2D_CHAOS_FAIL_LAUNCHES=N`` makes the first N
   launches raise ``ChaosError`` (a transient the retry policy must
   absorb);
@@ -26,7 +36,10 @@ A campaign comes from the environment, or from ``install()`` in a test.
 Parsing is strict: a value that does not parse raises ``ValueError``
 naming the variable, since a campaign that silently does nothing lets the
 test it drives pass for nothing. Unset, empty and ``0`` mean off. When
-nothing is armed, ``launch_point`` is a flag test and a return.
+nothing is armed, every hook is a flag test and a return. The module
+imports neither torch nor numpy (lint rule R004): a campaign can change
+only the host's orchestration around a launch, never what a launch
+computes.
 """
 
 from __future__ import annotations
@@ -39,6 +52,9 @@ from typing import Optional
 from heat2d_tpu_torch.analysis.locks import AuditedLock
 
 _ENV_PREFIX = "HEAT2D_CHAOS_"
+
+#: phases of a checkpoint commit where a kill can be injected
+CKPT_PHASES = ("mid_write", "pre_meta")
 
 
 class ChaosError(RuntimeError):
@@ -56,6 +72,17 @@ class DeviceLostError(ChaosError):
         self.device_index = device_index
 
 
+def _flight_flush(reason: str) -> None:
+    """Flush the crash flight recorder, if one is installed, before a
+    hard kill. Guarded: a broken recorder must never stop the kill (the
+    contract is that the process dies)."""
+    try:
+        from heat2d_tpu_torch.obs import flight
+        flight.crash_flush(reason)
+    except BaseException:   # noqa: BLE001 (the kill must proceed)
+        pass
+
+
 @dataclasses.dataclass
 class ChaosConfig:
     fail_launches: int = 0          # the first N launches raise
@@ -65,16 +92,25 @@ class ChaosConfig:
     hang_collective: Optional[int] = None   # 1-based mesh launch
     hang_collective_s: float = 2.0          # bounded hang duration
     flip_bit: Optional[int] = None          # 1-based mesh launch
+    # (after the launch fields, whose positional order callers keep)
+    kill_ckpt_at: Optional[int] = None      # 1-based checkpoint ordinal
+    kill_ckpt_phase: str = "mid_write"
+    ckpt_latency_s: float = 0.0             # sleep inside each write
 
     def __post_init__(self):
+        if self.kill_ckpt_phase not in CKPT_PHASES:
+            raise ValueError(
+                f"kill_ckpt_phase must be one of {CKPT_PHASES}, got "
+                f"{self.kill_ckpt_phase!r}")
         # Ordinals are 1-based: 0 can never fire, so it means off.
-        for f in ("device_fail_at", "hang_collective", "flip_bit"):
+        for f in ("kill_ckpt_at", "device_fail_at", "hang_collective",
+                  "flip_bit"):
             if getattr(self, f) == 0:
                 setattr(self, f, None)
 
     @classmethod
     def from_env(cls, env=os.environ) -> Optional["ChaosConfig"]:
-        """A config if any launch variable is armed, else None."""
+        """A config if any variable is armed, else None."""
         def get(name, cast, default):
             v = env.get(_ENV_PREFIX + name)
             if v in (None, ""):
@@ -87,7 +123,10 @@ class ChaosConfig:
                     f"{cast.__name__}: refusing to run a chaos campaign "
                     f"that silently does nothing") from None
 
-        cfg = cls(fail_launches=get("FAIL_LAUNCHES", int, 0),
+        cfg = cls(kill_ckpt_at=get("KILL_CKPT_AT", int, None),
+                  kill_ckpt_phase=get("KILL_CKPT_PHASE", str, "mid_write"),
+                  ckpt_latency_s=get("CKPT_LATENCY_S", float, 0.0),
+                  fail_launches=get("FAIL_LAUNCHES", int, 0),
                   launch_latency_s=get("LAUNCH_LATENCY_S", float, 0.0),
                   device_fail_at=get("DEVICE_FAIL_AT", int, None),
                   device_fail_index=get("DEVICE_FAIL_INDEX", int, 0),
@@ -97,20 +136,23 @@ class ChaosConfig:
         return cfg if cfg.any_active() else None
 
     def any_active(self) -> bool:
-        return bool(self.fail_launches or self.launch_latency_s
+        return bool(self.kill_ckpt_at is not None or self.ckpt_latency_s
+                    or self.fail_launches or self.launch_latency_s
                     or self.device_fail_at is not None
                     or self.hang_collective is not None
                     or self.flip_bit is not None)
 
 
 class _Controller:
-    """The active campaign and its counters (thread-safe: launches run on
-    the scheduler thread, tests read from theirs)."""
+    """The active campaign and its counters (thread-safe: checkpoint
+    commits run on the async writer's thread, launches on the scheduler
+    thread, tests read from theirs)."""
 
     def __init__(self, config: ChaosConfig, registry=None):
         self.config = config
         self.registry = registry
         self._lock = AuditedLock("resil.chaos.controller")
+        self.ckpt_count = 0             # checkpoints that reached mid_write
         self.launch_count = 0
         self.launches_failed = 0
         self.mesh_launches = 0          # mesh launch attempts
@@ -120,6 +162,23 @@ class _Controller:
         if self.registry is not None:
             self.registry.counter("resil_chaos_injected_total",
                                   point=point)
+
+    def checkpoint_point(self, phase: str) -> None:
+        cfg = self.config
+        with self._lock:
+            if phase == "mid_write":
+                self.ckpt_count += 1
+            n = self.ckpt_count
+        if phase == "mid_write" and cfg.ckpt_latency_s:
+            self._count("ckpt_latency")
+            time.sleep(cfg.ckpt_latency_s)
+        if (cfg.kill_ckpt_at is not None and n == cfg.kill_ckpt_at
+                and phase == cfg.kill_ckpt_phase):
+            # A hard kill: no atexit, no finally blocks. The flight
+            # recorder alone is flushed first (it writes only its own
+            # file, never the checkpoint whose torn windows this tests).
+            _flight_flush("chaos_kill_ckpt")
+            os._exit(137)
 
     def launch_point(self) -> None:
         cfg = self.config
@@ -181,7 +240,7 @@ class _Controller:
 
 _lock = AuditedLock("resil.chaos")
 _controller: Optional[_Controller] = None
-_enabled = False        # False == launch_point is a no-op
+_enabled = False        # False == every hook is a no-op
 _env_checked = False
 
 
@@ -216,6 +275,22 @@ def controller() -> Optional[_Controller]:
                     _enabled = True
                 _env_checked = True
     return _controller
+
+
+def enabled() -> bool:
+    """True when a campaign is armed (installed, or from the
+    environment)."""
+    controller()
+    return _enabled
+
+
+def checkpoint_point(phase: str) -> None:
+    """Called by the checkpoint commit path at each crash window."""
+    if not _enabled and _env_checked:
+        return
+    c = controller()
+    if c is not None:
+        c.checkpoint_point(phase)
 
 
 def launch_point() -> None:

@@ -1017,3 +1017,90 @@ def test_profile_span_refuses_a_capture_without_kernels(card, tmp_path):
     with pytest.raises(EmptyCaptureError, match="no CUDA kernel event"):
         with profile_span(str(tmp_path), device=card):
             torch.ones(3).sum()     # on the host: nothing on the card
+
+
+# --------------------------------------------------------------------- #
+# resil/ and analysis/ on the card: segmented runs, kill and resume, pins
+# --------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("shape,steps,k,route", [
+    ((2048, 2048), 40, 12, "streamed"),     # H2, tails of 4-step sweeps
+    ((640, 1024), 1000, 300, "resident"),   # H4, chunks clipped at 300
+])
+def test_checkpoint_every_launch_pin_on_the_card(card, tmp_path, shape,
+                                                 steps, k, route):
+    """``--checkpoint DIR/ --checkpoint-every k`` through the CLI: the
+    grid bit for bit the unsegmented run's, and its launches exactly its
+    segments' (``analysis.launch_pin``)."""
+    from heat2d_tpu_torch.analysis import launch_pin
+    cfg = HeatConfig(nxprob=shape[0], nyprob=shape[1], steps=steps,
+                     mode="pallas")
+    out = launch_pin.pin_checkpoint_every(cfg, k, str(tmp_path), "cuda")
+    assert out["on"]["route"] == route
+    assert out["on"]["launches"] == out["expected_launches"]
+    assert sum(out["on"]["launches"].values()) > 0
+    assert out["on"]["checkpoints_written"] == -(-steps // k)
+
+
+@pytest.mark.parametrize("pin", ["chaos", "lock_audit"])
+@pytest.mark.parametrize("convergence", [False, True])
+def test_free_when_off_pins_on_the_card(card, pin, convergence):
+    """Chaos armed with nothing due, and the lock audit, change no launch
+    and no bit of the main path (H2, or H2 + H3 with convergence)."""
+    from heat2d_tpu_torch.analysis import launch_pin
+    cfg = HeatConfig(nxprob=2048, nyprob=2048, steps=60, mode="pallas",
+                     convergence=convergence, interval=20,
+                     sensitivity=1e-30)
+    fn = launch_pin.pin_chaos if pin == "chaos" else \
+        launch_pin.pin_lock_audit
+    out = fn(cfg, "cuda")
+    want = {"tile_multi"} | ({"tile_multi_resid"} if convergence else set())
+    assert set(out["on"]["launches"]) == want
+
+
+def test_kill_mid_checkpoint_then_resume_on_the_card(card, tmp_path):
+    """2048^2 x 48 on H2, killed at the 2nd of 4 checkpoints (mid_write,
+    a subprocess): exit 137, the manifest holds step 12 only, a flight
+    dump exists; --resume DIR ends bit for bit on the uninterrupted run."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from heat2d_tpu_torch import cli
+    from heat2d_tpu_torch.resil import CheckpointManager
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    base = ["--mode", "pallas", "--nxprob", "2048", "--nyprob", "2048",
+            "--steps", "48", "--dat-layout", "none"]
+    ck = str(tmp_path / "ck") + os.sep
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("HEAT2D_CHAOS_")}
+    env.update(HEAT2D_CHAOS_KILL_CKPT_AT="2",
+               HEAT2D_FLIGHT_DIR=str(tmp_path / "flight"))
+    r = subprocess.run([sys.executable, "-m", "heat2d_tpu_torch.cli"] + base
+                       + ["--outdir", str(tmp_path / "k"), "--checkpoint",
+                          ck, "--checkpoint-every", "12"],
+                       cwd=repo, env=env, capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode == 137, r.stderr[-2000:]
+    assert CheckpointManager(ck).steps() == [12]
+    assert os.listdir(tmp_path / "flight")
+    assert cli.main(base + ["--binary-dumps", "--outdir",
+                            str(tmp_path / "ref")]) == 0
+    rec = tmp_path / "rec.json"
+    assert cli.main(base + ["--binary-dumps", "--resume", ck, "--outdir",
+                            str(tmp_path / "out"), "--run-record",
+                            str(rec)]) == 0
+    assert (tmp_path / "out" / "final_binary.dat").read_bytes() == \
+        (tmp_path / "ref" / "final_binary.dat").read_bytes()
+    assert json.loads(rec.read_text())["resume_from_step"] == 12
+
+
+def test_build_sentinel_on_the_card(card):
+    """The serve occupancy sweep through H5: capacities within the log2
+    budget, nothing built or loaded twice."""
+    from heat2d_tpu_torch.analysis.recompile import serve_compile_report
+    rep = serve_compile_report(nx=64, ny=64, steps=20, method="pallas",
+                               max_batch=8, device="cuda")
+    assert rep["ok"] and rep["capacities"] == [1, 2, 4, 8]
+    assert rep["rebuilds"] == [] and rep["loads"] <= 1

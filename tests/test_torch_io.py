@@ -280,3 +280,82 @@ def test_cli_ensemble_sharded_and_spatial_runs(tmp_path, capsys, flags,
     t, j = json.loads(rec.read_text()), json.loads(jrec.read_text())
     assert t["summary"].get("steps_done") == j["summary"].get("steps_done")
     assert t["summary"]["members"] == 3
+
+
+def test_commit_announces_the_chaos_windows_where_jax_does(tmp_path, rng,
+                                                           monkeypatch):
+    """commit_checkpoint_files calls chaos.checkpoint_point("mid_write")
+    before it digests and "pre_meta" before the sidecar, in both stacks:
+    at mid_write only the staging file exists, at pre_meta the binary
+    has been promoted and its sidecar not."""
+    from heat2d_tpu.resil import chaos as jchaos
+    from heat2d_tpu_torch.resil import chaos as tchaos
+    a = _grid(rng)
+    seen = {}
+    for name, mod, save, cfg in (
+            ("port", tchaos, tbin.save_checkpoint, HeatConfig()),
+            ("jax", jchaos, jbin.save_checkpoint, JConfig())):
+        path = tmp_path / f"{name}.bin"
+        calls = seen.setdefault(name, [])
+
+        def point(phase, calls=calls, path=path):
+            calls.append((phase, path.exists(),
+                          (tmp_path / f"{path.name}.tmp").exists()))
+        monkeypatch.setattr(mod, "checkpoint_point", point)
+        save(a, 5, cfg, path)
+    assert seen["port"] == seen["jax"] == [("mid_write", False, True),
+                                           ("pre_meta", True, False)]
+
+
+@pytest.mark.parametrize("mmap", [False, True])
+@pytest.mark.parametrize("damage", ["none", "truncated", "flipped"])
+def test_load_checkpoint_mapped_or_read(tmp_path, rng, mmap, damage):
+    """mmap=True verifies the digest in chunks and maps the grid
+    read-only; it loads and rejects exactly what a whole read does."""
+    a = _grid(rng)
+    path = tmp_path / "ck.bin"
+    tbin.save_checkpoint(a, 9, HeatConfig(), path)
+    raw = bytearray(path.read_bytes())
+    if damage == "truncated":
+        path.write_bytes(bytes(raw[:-4]))
+    elif damage == "flipped":
+        raw[5] ^= 0x01
+        path.write_bytes(bytes(raw))
+    if damage != "none":
+        with pytest.raises(tbin.CheckpointCorruptError):
+            tbin.load_checkpoint(path, mmap=mmap)
+        return
+    grid, step, _ = tbin.load_checkpoint(path, mmap=mmap)
+    assert step == 9 and grid.tobytes() == a.tobytes()
+    assert isinstance(grid, np.memmap) == mmap
+    if mmap:
+        assert not grid.flags.writeable
+
+
+@pytest.mark.parametrize("shape,grid", [((13, 7), (2, 2)), ((16, 9), (4, 1)),
+                                        ((12, 12), (2, 3))])
+def test_sharded_placement_of_a_mapped_grid(tmp_path, rng, shape, grid):
+    """A host grid placed as a ShardedGrid block by block (padded per
+    block) equals the whole-grid padding it replaced, from an array or a
+    memory map."""
+    from heat2d_tpu_torch.interop import sharded_from_numpy
+    from heat2d_tpu_torch.parallel.mesh import host_devices, make_mesh
+    from heat2d_tpu_torch.parallel.sharded import padded_global_shape
+    a = _grid(rng, shape)
+    gx, gy = grid
+    mesh = make_mesh(gx, gy, host_devices(gx * gy, "cpu"))
+
+    class Cfg:      # the domain (padding only needs its shape)
+        nxprob, nyprob = shape
+    pnx, pny = padded_global_shape(Cfg, mesh)
+    want = np.pad(a, ((0, pnx - shape[0]), (0, pny - shape[1])))
+    path = tmp_path / "ck.bin"
+    tbin.save_checkpoint(a, 1, HeatConfig(), path)
+    mapped, _, _ = tbin.load_checkpoint(path, mmap=True)
+    for src in (a, mapped):
+        g = sharded_from_numpy(src, Cfg, mesh)
+        bm, bn = g.block_shape
+        for i in range(gx):
+            for j in range(gy):
+                assert g.blocks[i][j].numpy().tobytes() == want[
+                    i * bm:(i + 1) * bm, j * bn:(j + 1) * bn].tobytes()

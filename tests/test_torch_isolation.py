@@ -363,3 +363,31 @@ def test_dist_entry_points_raise_without_a_card(no_card, capsys):
     got, step = run_process_slab(8, 8, 2, device="cpu")
     assert step == 2 and got.shape == (8, 8)
     assert world_slots(2, "cpu")[1] == [0, 0]
+
+
+def test_importing_resil_and_analysis_loads_no_jax():
+    """The checkpoint manager and writer, the chaos points and every
+    analysis module import torch and numpy only."""
+    code = ("import sys; import heat2d_tpu_torch.resil, "
+            "heat2d_tpu_torch.resil.manager, heat2d_tpu_torch.resil.writer, "
+            "heat2d_tpu_torch.resil.chaos, heat2d_tpu_torch.analysis.lint, "
+            "heat2d_tpu_torch.analysis.cli, heat2d_tpu_torch.analysis.locks, "
+            "heat2d_tpu_torch.analysis.recompile, "
+            "heat2d_tpu_torch.analysis.launch_pin, "
+            "heat2d_tpu_torch.analysis.implicit_gate; "
+            "print('jax' in sys.modules, 'heat2d_tpu' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "False"]
+    mods = {os.path.relpath(p, PKG) for p in _port_sources()}
+    assert {os.path.join("resil", "manager.py"),
+            os.path.join("resil", "writer.py"),
+            os.path.join("analysis", "lint.py"),
+            os.path.join("analysis", "implicit_gate.py")} <= mods
+
+
+def test_implicit_gate_raises_without_a_card(no_card, capsys):
+    """The gate runs on the card unless asked for the CPU."""
+    from heat2d_tpu_torch.analysis import implicit_gate
+    assert implicit_gate.main([]) == 1
+    assert "CUDA" in capsys.readouterr().err

@@ -23,6 +23,7 @@ import jax.numpy as jnp
 
 from heat2d_tpu.ops import abft as jabft
 from heat2d_tpu.resil import chaos as jchaos
+from heat2d_tpu_torch.analysis import locks as tlocks
 from heat2d_tpu_torch.mesh import (FaultPolicy, HealthMonitor,
                                    MeshEnsembleEngine, MeshStallError,
                                    mesh_batch_runner, mesh_capacity)
@@ -47,6 +48,22 @@ def _no_chaos():
     chaos.uninstall()
     yield
     chaos.uninstall()
+
+
+@pytest.fixture(autouse=True)
+def _lock_audit():
+    """The port's lock auditor, armed by HEAT2D_LOCK_AUDIT=1 (the JAX
+    package's variable; tests/conftest.py wires the JAX auditor only):
+    the test fails on a lock-order cycle or a guarded write without its
+    lock."""
+    if not tlocks._env_enabled():
+        yield
+        return
+    tlocks.install()
+    yield
+    rep = tlocks.report()
+    tlocks.uninstall()
+    assert rep.clean, rep.render()
 
 
 @pytest.fixture(autouse=True, scope="module")

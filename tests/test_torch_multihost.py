@@ -7,13 +7,15 @@ Each world is ``python -m heat2d_tpu_torch.cli --device cpu --coordinator
 ... --num-processes N --process-id i`` spawned through
 ``dist/harness.spawn_world`` with a 60 s timeout; the mesh spans the
 processes, strips cross ranks by gloo sends and receives, and the
-residual is summed in shard order on every rank. Four worlds:
+residual is summed in shard order on every rank. Five worlds:
 
 - dist2d, 2 processes x 2 slots, with the parallel binary write and the
-  collective checkpoint under HEAT2D_FORBID_GATHER=1;
+  collective managed checkpoints every 6 steps under
+  HEAT2D_FORBID_GATHER=1, then a second world that resumes from the
+  directory past a torn newest snapshot;
 - dist2d in float64, 4 processes x 1 slot, text output (the gather);
 - hybrid ``--halo fused`` (the CPU twins of H12), which must record the
-  collective tier;
+  collective tier, with the single-file collective checkpoint;
 - hybrid ``--convergence`` (the CPU twins of H13), steps_done equal; in
   the same world ``--metrics-out`` (process 0's file: the aggregate over
   ranks and the residual trajectory) and ``--trace-dir`` (a span file a
@@ -40,6 +42,7 @@ from heat2d_tpu.models.solver import Heat2DSolver as JSolver
 from heat2d_tpu_torch import cli as tcli
 from heat2d_tpu_torch.dist.harness import clean_env, spawn_world
 from heat2d_tpu_torch.io.binary import load_checkpoint
+from heat2d_tpu_torch.resil import CheckpointManager
 
 GRID = ["--nxprob", "16", "--nyprob", "16"]
 
@@ -80,15 +83,21 @@ def _bytes(path):
 def test_two_process_dist2d_parallel_binary_write(tmp_path):
     """dist2d 16x16 x 10 on a 2x2 mesh of two processes x two slots: the
     per-shard binary dumps (the MPI_File_write_all analogue) and the
-    collective checkpoint, all under the no-gather tripwire, are byte for
-    byte the one-process dist2d run's and mode serial's; within the FMA
-    bound of the JAX package's serial run; process 0 alone prints the
-    banner and writes the record, whose elapsed time is the slowest
-    process's (``max_over_processes``)."""
+    collective managed checkpoints (``--checkpoint DIR/
+    --checkpoint-every 6``: snapshots at steps 6 and 10), all under the
+    no-gather tripwire, are byte for byte the one-process dist2d run's
+    and mode serial's; within the FMA bound of the JAX package's serial
+    run; process 0 alone prints the banner and writes the record, whose
+    elapsed time is the slowest process's (``max_over_processes``).
+    Then step 10's snapshot is torn and a second world resumes from
+    ``latest_valid()`` (step 6) for the remaining 4 steps, still under
+    the tripwire: its final_binary.dat is the first world's."""
     args = ["--mode", "dist2d", "--gridx", "2", "--gridy", "2"] + GRID + [
         "--steps", "10", "--binary-dumps", "--dat-layout", "none"]
     w = tmp_path / "world"
-    outs = _world(w, args + ["--checkpoint", str(w / "ck.bin"),
+    ck = tmp_path / "ck"
+    outs = _world(w, args + ["--checkpoint", str(ck) + "/",
+                             "--checkpoint-every", "6",
                              "--run-record", str(w / "rec.json")],
                   env={"HEAT2D_FORBID_GATHER": "1"})
     assert sum("Problem size:16x16" in o for o in outs) == 1, outs
@@ -105,19 +114,34 @@ def test_two_process_dist2d_parallel_binary_write(tmp_path):
                      .run(timed=False).u)
     assert float(np.abs(got - ref).max()) <= 10 * 2.0 ** -21 * float(
         np.abs(ref).max())
-    grid, step, _ = load_checkpoint(str(w / "ck.bin"))
+    m = CheckpointManager(ck, keep=None)
+    assert m.steps() == [6, 10]
+    grid, step, _ = load_checkpoint(m.path_for(10))
     assert step == 10 and grid.shape == (16, 16)
     assert grid.tobytes() == _bytes(w / "final_binary.dat")
+    with open(m.path_for(10), "r+b") as f:      # tear the newest
+        f.write(b"\xff" * 16)
+    r = tmp_path / "resumed"
+    outs = _world(r, args + ["--resume", str(ck),
+                             "--run-record", str(r / "rec.json")],
+                  env={"HEAT2D_FORBID_GATHER": "1"})
+    assert sum("Resuming from step 6" in o for o in outs) == 1, outs
+    assert _bytes(r / "final_binary.dat") == _bytes(w / "final_binary.dat")
+    rr = json.loads((r / "rec.json").read_text())
+    assert (rr["resume_from_step"], rr["steps_done"],
+            rr["total_steps_including_resume"]) == (6, 4, 10)
     rec = json.loads((w / "rec.json").read_text())
     assert rec["world"] == {"process_index": 0, "process_count": 2}
     assert rec["mesh"]["processes"] == [0, 1]
     assert len(rec["elapsed_by_process"]) == 2
     assert rec["elapsed_s"] == max(rec["elapsed_by_process"])
-    # the timed run's exchanges alone (the warmup's left out): chunks of
-    # 8 and 2 steps, each moving two (t, 8) strips each way a rank
+    assert rec["checkpoints_written"] == 2
+    # the timed runs' exchanges alone (the warmups' left out): one chunk
+    # in each segment, of 6 and 4 steps, each moving two (t, 8) strips
+    # each way a rank
     ex = rec["exchange_by_process"]
     assert [e["exchanges"] for e in ex] == [2, 2]
-    assert [e["bytes"] for e in ex] == [2 * 2 * (8 + 2) * 8 * 4] * 2
+    assert [e["bytes"] for e in ex] == [2 * 2 * (6 + 4) * 8 * 4] * 2
 
 
 def test_four_process_dist2d_float64_text_equals_jax(tmp_path):
@@ -148,11 +172,16 @@ def test_two_process_hybrid_fused_takes_the_collective_tier(tmp_path):
         "--steps", "10", "--halo", "fused", "--halo-depth", "2",
         "--binary-dumps", "--dat-layout", "none"]
     w = tmp_path / "world"
-    _world(w, args + ["--run-record", str(w / "rec.json")])
+    _world(w, args + ["--run-record", str(w / "rec.json"),
+                      "--checkpoint", str(w / "ck.bin")],
+           env={"HEAT2D_FORBID_GATHER": "1"})
     _one_process(tmp_path / "one",
                  args + ["--run-record", str(tmp_path / "one.json")])
     assert _bytes(w / "final_binary.dat") == \
         _bytes(tmp_path / "one" / "final_binary.dat")
+    # the single-file collective checkpoint of the final state
+    grid, step, _ = load_checkpoint(str(w / "ck.bin"))
+    assert step == 10 and grid.tobytes() == _bytes(w / "final_binary.dat")
     halo = json.loads((w / "rec.json").read_text())["halo"]
     assert (halo["requested"], halo["route"], halo["tier"]) == \
         ("fused", "collective", "collective")

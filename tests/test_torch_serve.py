@@ -51,6 +51,22 @@ def _no_chaos():
     chaos.uninstall()
 
 
+@pytest.fixture(autouse=True)
+def _lock_audit():
+    """The port's lock auditor, armed by HEAT2D_LOCK_AUDIT=1 (the JAX
+    package's variable; tests/conftest.py wires the JAX auditor only):
+    the test fails on a lock-order cycle or a guarded write without its
+    lock."""
+    if not tlocks._env_enabled():
+        yield
+        return
+    tlocks.install()
+    yield
+    rep = tlocks.report()
+    tlocks.uninstall()
+    assert rep.clean, rep.render()
+
+
 def _server(**kw):
     kw.setdefault("max_delay", 0.05)
     return SolveServer(registry=MetricsRegistry(), device="cpu", **kw)
@@ -278,13 +294,15 @@ def test_stop_drain_resolves_every_admitted_request():
 
 def test_queue_full_is_shed_at_the_door():
     srv = _server(max_queue=1)      # not started: nothing drains
-    srv.batcher._running = True     # admit without a scheduler thread
+    with srv.batcher._cond:         # a guarded field: write it locked
+        srv.batcher._running = True     # admit without a scheduler thread
     srv.submit(SolveRequest(nx=8, ny=8, steps=1, cx=0.1))
     f = srv.submit(SolveRequest(nx=8, ny=8, steps=1, cx=0.2))
     with pytest.raises(Rejected) as e:
         f.result(timeout=5)
     assert e.value.code == "queue_full"
-    srv.batcher._running = False
+    with srv.batcher._cond:
+        srv.batcher._running = False
     srv.stop()
 
 
