@@ -176,6 +176,20 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    sweep (H5): no rebuild, capacities within the log2 budget; (f) the
    implicit gate (H6, H10/H11), rc 0. Its launches join the kernels
    line's.
+23. fleet (after 22): ``heat2d_tpu_torch.fleet`` on the card
+   (``phase_fleet``): a ``FleetServer(device="cuda")`` of 3 worker
+   processes, each a CUDA context on the card, answers 24 requests of
+   640x1024 x ~2000 steps (H5) and 6 of 4096^2 x ~240 (H6), with
+   duplicates (coalesced) and repeats (cache hits); worker 0 dies at its
+   4th pickup (``HEAT2D_CHAOS_WORKER_KILL_AFTER``), worker 1 is killed
+   with 4096^2 requests in flight. Every distinct answer bitwise the
+   one-process ``SolveServer`` on the card, nothing lost, >= 2 deaths and
+   restarts, none on heartbeat age, no resident give-up, no build in a
+   worker and ``build/kernels/`` unchanged, a clean stop; it reports the
+   workers' start and recovery seconds by part, wire ms per answer, the
+   wire's share of the traced requests, latency p50/p99 per width and
+   ``nvidia-smi``'s compute apps. The workers' H5/H6 launches (their
+   heartbeats' counts) join the kernels line's.
 
 The last line of standard output is ``{"ok": true, "device": ...}``. The
 full results also go to ``chiprun_out/chip_smoke.json``.
@@ -3557,6 +3571,311 @@ def phase_resil(torch, name: str, power: str) -> dict:
 
 
 # ------------------------------------------------------------------ #
+# fleet: supervised worker processes sharing the card
+# ------------------------------------------------------------------ #
+
+#: the pickup at which worker 0's chaos env kills it (its first generation)
+FLEET_KILL_AFTER = 4
+
+
+def _fleet_steps(route_signature, SolveRequest, nx, ny, base, slot,
+                 alive) -> int:
+    """The first step count from ``base`` whose signature rendezvous
+    routes onto ``slot`` of ``alive`` (so that each worker's part of the
+    load is known in advance)."""
+    for steps in range(base, base + 256):
+        sig = str(SolveRequest(nx=nx, ny=ny, steps=steps).signature())
+        if route_signature(sig, alive) == slot:
+            return steps
+    raise SmokeFailure(f"no step count near {base} routes to slot {slot}")
+
+
+def _wire_ms(wire, res, reps: int = 3) -> dict:
+    """Host ms to put one answer on the wire as a worker does
+    (``wire.result_line``) and to take it off as the supervisor does
+    (JSON + decode), the least of ``reps``; the decoded grid must be
+    bitwise the answer."""
+    enc, dec = [], []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        line = wire.result_line(1, res)
+        t1 = time.perf_counter()
+        back = wire.decode_result(json.loads(line))
+        t2 = time.perf_counter()
+        enc.append((t1 - t0) * 1e3)
+        dec.append((t2 - t1) * 1e3)
+    fail_unless(back.u.tobytes() == res.u.tobytes(),
+                "fleet: the wire did not carry a grid bit for bit")
+    return {"shape": list(res.u.shape), "line_bytes": len(line),
+            "encode_ms": min(enc), "decode_ms": min(dec)}
+
+
+def _compute_apps():
+    """Contexts on the card as ``nvidia-smi --query-compute-apps`` lists
+    them (None when it cannot say)."""
+    import shutil
+    exe = shutil.which("nvidia-smi")
+    if exe is None:
+        return None
+    try:
+        out = subprocess.run([exe, "--query-compute-apps=pid,used_memory",
+                              "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=30, check=True).stdout
+    except (OSError, subprocess.SubprocessError):
+        return None
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def _quantiles(vals) -> dict:
+    v = sorted(vals)
+    if not v:
+        return {"n": 0}
+    pick = lambda q: v[min(len(v) - 1, int(math.ceil(q * len(v))) - 1)]
+    return {"n": len(v), "p50_s": pick(0.50), "p99_s": pick(0.99),
+            "max_s": v[-1]}
+
+
+def phase_fleet(torch, name: str, power: str) -> dict:
+    """The fleet (``heat2d_tpu_torch.fleet``) on the card: a
+    ``FleetServer(device="cuda")`` of 3 worker processes, each a CUDA
+    context on the one card, answers 24 requests of 640x1024 x ~2000
+    steps (two signatures, H5) and 6 of 4096^2 x ~240 (H6), with 2
+    duplicates in the burst (coalesced) and 3 repeats after it (cache
+    hits). Worker 0 is armed with ``HEAT2D_CHAOS_WORKER_KILL_AFTER`` and
+    dies at its 4th pickup; worker 1 is hard-killed (``kill_worker``)
+    with its 4096^2 requests in flight. Must hold: completed ==
+    submitted, every distinct answer bitwise the one-process
+    ``SolveServer(device="cuda")``'s, >= 2 deaths and restarts and no
+    death on heartbeat age, no resident give-up, no kernel build in a
+    worker and ``build/kernels/`` unchanged, H5 and H6 launched in the
+    workers (their heartbeats' counts, from 0 at each worker's start),
+    a clean stop. Reports the workers' start and recovery seconds by
+    part, wire encode/decode ms per answer at both widths, the wire's
+    share of the traced requests, latency p50/p99 per width and the
+    compute apps ``nvidia-smi`` lists during the leg."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from heat2d_tpu_torch.fleet import FleetServer, route_signature, wire
+    from heat2d_tpu_torch.obs import trace_cli, tracing
+    from heat2d_tpu_torch.obs.metrics import MetricsRegistry
+    from heat2d_tpu_torch.ops import _build
+    from heat2d_tpu_torch.serve.schema import SolveRequest
+    from heat2d_tpu_torch.serve.server import SolveServer
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    kdir = _build.BUILD_DIR
+
+    def listing():
+        return sorted((p.name, p.stat().st_size) for p in kdir.iterdir())
+
+    kernels_before = listing()
+    alive = [0, 1, 2]
+    sa = _fleet_steps(route_signature, SolveRequest, 640, 1024, 2000, 0,
+                      alive)
+    sb = _fleet_steps(route_signature, SolveRequest, 640, 1024, 2000, 2,
+                      alive)
+    sc = _fleet_steps(route_signature, SolveRequest, 4096, 4096, 240, 1,
+                      alive)
+    small = [SolveRequest(nx=640, ny=1024, steps=(sa, sb)[i % 2],
+                          cx=0.02 + 0.005 * i, cy=0.2 - 0.005 * i)
+             for i in range(24)]
+    big = [SolveRequest(nx=4096, ny=4096, steps=sc, cx=0.02 * (i + 1),
+                        cy=0.12 - 0.01 * i) for i in range(6)]
+    burst = small + big + [small[2], small[3]]
+    repeats = [small[0], small[1], big[0]]
+    tmp = tempfile.mkdtemp(prefix="heat2d-fleet-")
+    trace_dir = os.path.join(tmp, "trace")
+    os.makedirs(trace_dir)
+    reg = MetricsRegistry()
+    fs = FleetServer(
+        workers=3, registry=reg, max_batch=8, max_delay=0.05,
+        default_timeout=300.0, worker_timeout=300.0, max_replays=4,
+        env={"HEAT2D_TRACE_DIR": trace_dir, "HEAT2D_FLIGHT_DIR": trace_dir},
+        per_worker_env={0: {"HEAT2D_CHAOS_WORKER_KILL_AFTER":
+                            str(FLEET_KILL_AFTER)}}, device="cuda")
+    tracing.install(tracing.Tracer(trace_dir, service="router"))
+    lat: dict = {}
+    answers: list = []
+    apps = {}
+    try:
+        t0 = time.monotonic()
+        fs.start()
+        t_started = time.monotonic()
+        # only the first generation of slot 0 is armed: a restart of the
+        # slot rebuilds from this durable env
+        fs.sup.update_slot_env(0, {"HEAT2D_CHAOS_WORKER_KILL_AFTER": "0"})
+        apps["started"] = _compute_apps()
+
+        def timed(r):
+            ts = time.monotonic()
+            fut = fs.submit(r)
+            fut.add_done_callback(lambda f, r=r, ts=ts: lat.setdefault(
+                (r.nx, r.content_hash()), []).append(time.monotonic() - ts))
+            return fut
+
+        futs = [timed(r) for r in burst]
+        deadline = time.monotonic() + 30
+        while not any(rec.slot == 1 and rec.sig == str(big[0].signature())
+                      for rec in list(fs._records.values())):
+            fail_unless(time.monotonic() < deadline,
+                        "fleet: no 4096^2 request in flight on worker 1")
+            time.sleep(0.005)
+        in_flight_1 = sum(1 for rec in list(fs._records.values())
+                          if rec.slot == 1)
+        t_kill = time.monotonic()
+        fs.sup.kill_worker(1)
+        outcomes = []
+        for r, f in zip(burst, futs):
+            try:
+                answers.append((r, f.result(timeout=600)))
+                outcomes.append("completed")
+            except Exception as e:  # noqa: BLE001 (every failure counts)
+                outcomes.append(repr(e))
+        t_answered = time.monotonic()
+        deadline = time.monotonic() + 120
+        while not (len(fs.sup.alive_slots()) == 3 and not fs._cold
+                   and fs.sup.restarts >= 2):
+            fail_unless(time.monotonic() < deadline,
+                        f"fleet: not whole again (alive "
+                        f"{fs.sup.alive_slots()}, cold {fs._cold}, "
+                        f"restarts {fs.sup.restarts})")
+            time.sleep(0.05)
+        t_whole = time.monotonic()
+        apps["recovered"] = _compute_apps()
+        hits = [fs.solve(r, timeout=600) for r in repeats]
+        gens = fs.sup.generations_snapshot()
+        warmed = list(fs.warmed)
+        deaths, restarts, replays = (fs.sup.deaths, fs.sup.restarts,
+                                     fs.replays)
+        clean = fs.stop()
+        launches = fs.sup.kernel_launches()
+    finally:
+        fs.stop()
+        tracing.uninstall()
+    kernels_after = listing()
+
+    # -- what must hold ------------------------------------------------- #
+    gave_up = sum(1 for o in outcomes if "gave up" in o)
+    failed = [o for o in outcomes if o != "completed"]
+    fail_unless(not failed, f"fleet: {len(failed)} of {len(burst)} "
+                f"requests failed ({gave_up} resident give-ups): "
+                f"{failed[:3]}")
+    counters = reg.snapshot()["counters"]
+    false_deaths = counters.get("fleet_worker_deaths_total{cause=heartbeat}",
+                                0)
+    fail_unless(false_deaths == 0,
+                f"fleet: {false_deaths} death(s) declared on heartbeat age")
+    fail_unless(deaths >= 2 and restarts >= 2,
+                f"fleet: deaths {deaths}, restarts {restarts}")
+    fail_unless(in_flight_1 > 0, "fleet: the kill found nothing in flight")
+    fail_unless(clean, "fleet: the pool did not stop cleanly")
+    fail_unless(kernels_after == kernels_before,
+                f"fleet: build/kernels/ changed: {kernels_before} -> "
+                f"{kernels_after}")
+    builds = [g["startup"].get("builds") for g in gens]
+    fail_unless(all(b == 0 for b in builds),
+                f"fleet: a worker ran nvcc ({builds})")
+    fail_unless(launches.get("ens_resident", 0) > 0
+                and launches.get("ens_tile_multi", 0) > 0,
+                f"fleet: the workers did not launch H5 and H6: {launches}")
+    fail_unless(counters.get("fleet_coalesced_total", 0) >= 2,
+                f"fleet: duplicates not coalesced ({counters})")
+    for r, h in zip(repeats, hits):
+        first = next(a for q, a in answers if q is r)
+        fail_unless(h.cache_hit and h.u.tobytes() == first.u.tobytes(),
+                    "fleet: a repeat was not a bitwise cache hit")
+
+    # -- the oracle: one process on the card, every distinct hash ------- #
+    distinct = {}
+    for r, a in answers:
+        distinct.setdefault(r.content_hash(), (r, a))
+    t_or = time.perf_counter()
+    with SolveServer(max_batch=8, max_delay=0.05, registry=MetricsRegistry(),
+                     default_timeout=600.0) as one:
+        ofuts = [(r, a, one.submit(r)) for r, a in distinct.values()]
+        mismatched = [r.content_hash()[:12] for r, a, f in ofuts
+                      if f.result(timeout=600).u.tobytes() != a.u.tobytes()]
+    oracle_s = time.perf_counter() - t_or
+    for _r, a in distinct.values():
+        fail_unless(bool(np.isfinite(a.u).all()),
+                    "fleet: non-finite answer")
+    fail_unless(not mismatched, f"fleet: {len(mismatched)} answers differ "
+                f"bitwise from the one-process server: {mismatched}")
+
+    # -- what it reports ------------------------------------------------ #
+    def parts(g):
+        st = g["startup"]
+        out = {"slot": g["slot"], "via": g["via"],
+               "spawn_to_main_s": st["main"] - g["spawned_at"],
+               "context_s": st["context"] - st["main"],
+               "libraries_s": st["libraries"] - st["context"],
+               "server_s": st["ready"] - st["libraries"],
+               "ready_seen_s": g["ready_at"] - st["ready"],
+               "spawn_to_ready_s": g["ready_at"] - g["spawned_at"]}
+        warm = [t for s, t in warmed if s == g["slot"]
+                and t >= g["ready_at"]]
+        if g["via"] == "restart":
+            out["warmup_s"] = (min(warm) - g["ready_at"]) if warm else None
+            if g["slot"] == 1:
+                out["kill_to_spawn_s"] = g["spawned_at"] - t_kill
+                if warm:
+                    out["kill_to_warm_s"] = min(warm) - t_kill
+        return out
+
+    report = trace_cli.merge_report(trace_dir)
+    rows = [r for r in report["traces"] if r["root"] == "fleet.request"]
+    wire_share = {}
+    widths = (("640x1024", 640), ("4096x4096", 4096))
+    for label, nx in widths:
+        sel = [r for r in rows
+               if (r["signature"] or "").startswith(f"({nx}, ")]
+        total = sum(r["breakdown"]["total"] for r in sel)
+        wire_share[label] = {
+            "traces": len(sel),
+            "wire_s": sum(r["breakdown"]["wire"] for r in sel),
+            "total_s": total,
+            "share": (sum(r["breakdown"]["wire"] for r in sel) / total
+                      if total else None)}
+    connected = sum(1 for r in rows if r.get("connected"))
+    latency = {label: _quantiles([t for (nx, _h), ts in lat.items()
+                                  if nx == w for t in ts])
+               for label, w in widths}
+    shutil.rmtree(tmp, ignore_errors=True)
+    info = {
+        "phase": "fleet", "card": name, "power_limit": power,
+        "workers": 3, "requests": len(burst) + len(repeats),
+        "submitted": len(burst), "completed": len(answers),
+        "distinct": len(distinct),
+        "steps": {widths[0][0]: [sa, sb], widths[1][0]: sc},
+        "deaths": deaths, "restarts": restarts, "replays": replays,
+        "false_deaths": false_deaths, "give_ups": gave_up,
+        "killed_in_flight": in_flight_1, "clean_exit": clean,
+        "launches": launches,
+        "coalesced": counters.get("fleet_coalesced_total", 0),
+        "start_s": t_started - t0,
+        "starts": [parts(g) for g in gens if g["via"] == "start"],
+        "recoveries": [parts(g) for g in gens if g["via"] == "restart"],
+        "answered_s": t_answered - t_started,
+        "whole_again_s": t_whole - t_kill,
+        "wire": {label: _wire_ms(wire, next(a for r, a in answers
+                                            if r.nx == nx))
+                 for label, nx in widths},
+        "wire_share": wire_share, "traces": len(rows),
+        "traces_connected": connected, "latency": latency,
+        "compute_apps": {k: (None if v is None else len(v))
+                         for k, v in apps.items()},
+        "compute_apps_rows": apps, "oracle_s": oracle_s,
+        "kernels_dir_unchanged": kernels_after == kernels_before,
+        "seconds": time.perf_counter() - t_phase}
+    emit({k: v for k, v in info.items() if k != "compute_apps_rows"})
+    return info
+
+
+# ------------------------------------------------------------------ #
 # obs: the telemetry layer on the card
 # ------------------------------------------------------------------ #
 
@@ -3826,11 +4145,12 @@ def main() -> int:
         diff_path = phase_diff_path(torch, tool["name"],
                                     tool["power_limit"])
         resil = phase_resil(torch, tool["name"], tool["power_limit"])
+        fleet = phase_fleet(torch, tool["name"], tool["power_limit"])
         launches = {**main_path["launches"], **serve["launch_counts"],
                     **serve_fam["launch_counts"],
                     **sharded_path["launches"]}
         launches["ens_tile_multi"] += diff_path["launches"]["ens_tile_multi"]
-        for leg in (sharded_ens, mesh_serve, scaling, multi, resil):
+        for leg in (sharded_ens, mesh_serve, scaling, multi, resil, fleet):
             add_counts(launches, leg["launches"])
         for name in ("td_coeffs", "td_rows", "td_lanes"):
             launches[name] += implicit["launches"][name]
@@ -3863,6 +4183,7 @@ def main() -> int:
                    "mesh_serving": mesh_serve, "mesh_fault": mesh_fault,
                    "strong_scaling": scaling, "multi_process": multi,
                    "diff_path": diff_path, "resil": resil,
+                   "fleet": fleet,
                    "kernels": rows,
                    "headline": head, "tune": tune, "obs": obs,
                    "seconds": time.perf_counter() - t0})

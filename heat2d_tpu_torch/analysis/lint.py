@@ -155,7 +155,7 @@ def load_baseline(path: Optional[str]) -> Dict[str, str]:
         if not just or not isinstance(just, str) or not just.strip():
             raise BaselineError(
                 f"{path}: baselined finding {key!r} has no "
-                "justification: grandfathering requires a reason")
+                "justification — grandfathering requires a reason")
         out[key] = just
     return out
 
@@ -567,7 +567,8 @@ def _rule_r004(rel: str, tree: ast.Module, scopes: _Scopes,
 
 def _rule_r006(rel: str, tree: ast.Module, scopes: _Scopes,
                src_lines: List[str]) -> List[Finding]:
-    if not any(seg in rel.split("/") for seg in ("serve", "resil", "mesh")):
+    if not any(seg in rel.split("/") for seg in ("serve", "fleet",
+                                                 "resil", "mesh")):
         return []
     out = []
     for node in ast.walk(tree):

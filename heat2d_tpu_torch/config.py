@@ -133,7 +133,7 @@ class HeatConfig:
                     f"only in the solver (the pallas/distributed "
                     f"modes are built for the heat5 operator; use "
                     f"the ensemble/serve path for batched kernel "
-                    f"routes) - got mode {self.mode!r}")
+                    f"routes) — got mode {self.mode!r}")
             ok, reason = spec.supports_method(self.method)
             if not ok:
                 raise ConfigError(reason)
@@ -157,7 +157,7 @@ class HeatConfig:
             raise ConfigError(
                 f"method {self.method!r} runs single-device modes "
                 f"(serial/pallas) only; distributed implicit sweeps "
-                f"are not built yet - got mode {self.mode!r}")
+                f"are not built yet — got mode {self.mode!r}")
 
     @property
     def shape(self) -> tuple[int, int]:

@@ -141,8 +141,8 @@ def run_process_slab(nx: int, ny: int, steps: int, *,
     if process_count > 1 and min(h - l for l, h in slabs) < depth:
         raise ValueError(
             f"slab of {nx} rows over {process_count} processes is "
-            f"shallower than the depth-{depth} halo: a neighbour's halo "
-            "would have to span TWO hosts")
+            f"shallower than the depth-{depth} halo — a neighbor's "
+            "halo would have to span TWO hosts")
     full = (inidat(nx, ny, device=dev) if u0 is None else
             torch.as_tensor(np.asarray(u0, np.float32), device=dev))
     if tuple(full.shape) != (nx, ny):

@@ -300,8 +300,8 @@ def load_checkpoint(path, shape=None, verify: bool = True,
         raise CheckpointCorruptError(f"{path}: {e}") from e
     if actual is not None and actual != digest:
         raise CheckpointCorruptError(
-            f"{path}: sha256 mismatch (sidecar {digest[:12]}..., "
-            f"file {actual[:12]}...) - torn or corrupt checkpoint")
+            f"{path}: sha256 mismatch (sidecar {digest[:12]}…, "
+            f"file {actual[:12]}…) — torn or corrupt checkpoint")
     if size != 4 * expected:
         raise CheckpointCorruptError(
             f"{path}: expected {expected} float32 values for shape "
@@ -381,8 +381,8 @@ def load_field(path, verify: bool = True):
         actual = hashlib.sha256(buf).hexdigest()
         if actual != digest:
             raise CheckpointCorruptError(
-                f"{path}: sha256 mismatch (sidecar {digest[:12]}..., file "
-                f"{actual[:12]}...) - torn or corrupt field file")
+                f"{path}: sha256 mismatch (sidecar {digest[:12]}…, file "
+                f"{actual[:12]}…) — torn or corrupt field file")
     a = np.frombuffer(buf, dtype=np.uint8 if dtype == "bool"
                       else np.dtype(dtype))
     expected = int(np.prod(shape)) if shape else 1

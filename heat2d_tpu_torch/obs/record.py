@@ -23,9 +23,10 @@ RECORD_SCHEMA = "heat2d-tpu/run-record/v1"
 #: "multichip" (strong scaling and mesh serving, ``parallel/scaling.py``
 #: and ``mesh/bench.py``), "mesh_chaos" (the mesh fault gate,
 #: ``mesh/chaos_gate.py``), "dist" (the multi-process runtime's legs,
-#: ``dist/cli.py``), "tune" (the kernel search, ``tune/cli.py``).
+#: ``dist/cli.py``), "tune" (the kernel search, ``tune/cli.py``), "fleet"
+#: (the worker pool's soak, ``fleet/cli.py``).
 RECORD_KINDS = ("run", "ensemble", "bench", "serve", "inverse",
-                "multichip", "mesh_chaos", "dist", "tune")
+                "multichip", "mesh_chaos", "dist", "tune", "fleet")
 
 
 def run_context(device=None) -> dict:

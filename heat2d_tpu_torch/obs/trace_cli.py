@@ -150,8 +150,8 @@ def critical_path(trace_spans: list) -> dict:
     - ``compile`` — launch spans flagged ``first_launch`` (the first
       launch of a signature pays its kernels' build and load);
     - ``launch``  — warm launch spans;
-    - ``wire``    — wire spans (a JAX fleet's dispatches; the port
-      emits none) MINUS the request span each one carried;
+    - ``wire``    — wire spans (the fleet router's dispatches) MINUS
+      the request span each one carried;
     - ``replay``  — the gaps between consecutive wire spans;
     - ``other``   — the root's remaining unattributed time.
     """

@@ -56,7 +56,7 @@ def check_explicit_stability(cx: float, cy: float,
         raise ConfigError(
             f"{where}: cx + cy = {cx + cy:g} exceeds the explicit "
             f"stability limit cx + cy <= {EXPLICIT_COEFF_LIMIT} "
-            f"(alpha*dt <= {stability_limit():g} at unit spacing - "
+            f"(alpha*dt <= {stability_limit():g} at unit spacing — "
             f"ops/stability.py). Use an implicit method "
             f"(--method adi or mg), which is unconditionally stable, "
             f"or reduce the time step")
@@ -75,7 +75,7 @@ def check_heat9_stability(cx: float, cy: float,
             f"{where}: cx + cy = {cx + cy:g} exceeds the heat9 "
             f"(4th-order 9-point) stability limit cx + cy <= "
             f"{HEAT9_COEFF_LIMIT} (worst-mode eigenvalue 16/3 per "
-            f"axis - ops/stability.py); reduce the time step")
+            f"axis — ops/stability.py); reduce the time step")
 
 
 def check_advdiff_stability(cx: float, cy: float,
@@ -91,7 +91,7 @@ def check_advdiff_stability(cx: float, cy: float,
                 f"{where}: advection CFL (cell-Reynolds) bound "
                 f"v{axis}^2 <= 2*c{axis} violated: {v:g}^2 = "
                 f"{v * v:g} > {2.0 * c:g} (family velocity "
-                f"v{axis} = {v:g}, vocab.ADVECTION_VELOCITY - "
+                f"v{axis} = {v:g}, vocab.ADVECTION_VELOCITY — "
                 f"ops/stability.py); increase c{axis} or use a "
                 f"diffusivity of at least {v * v / 2.0:g}")
 
@@ -106,7 +106,7 @@ def check_reactdiff_stability(cx: float, cy: float,
     if r > 0.5:
         raise ConfigError(
             f"{where}: explicit reaction-rate bound r <= 1/2 "
-            f"violated: r = {r:g} (vocab.REACTION_RATE - "
+            f"violated: r = {r:g} (vocab.REACTION_RATE — "
             f"ops/stability.py); reduce the reaction time step")
 
 

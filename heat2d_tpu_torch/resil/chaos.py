@@ -1,5 +1,6 @@
-"""Fault injection: the port's copy of the checkpoint, launch and mesh
-parts of ``heat2d_tpu/resil/chaos.py``.
+"""Fault injection: the port's copy of the checkpoint, launch, mesh and
+fleet-worker parts of ``heat2d_tpu/resil/chaos.py`` (the control plane's
+rollout storm waits for ``control/``).
 
 - **kill a checkpoint mid-write**: ``HEAT2D_CHAOS_KILL_CKPT_AT=N``
   hard-kills the process (``os._exit(137)``, the SIGKILL exit code) at
@@ -30,7 +31,17 @@ parts of ``heat2d_tpu/resil/chaos.py``.
   XOR a high exponent bit into the Nth launch attempt's host result
   buffer (member 0, grid centre) before it is verified or served; the
   ABFT tier (``ops/abft.py``) must catch it. The engine applies the flip;
-  this module only answers "which launch".
+  this module only answers "which launch";
+- **kill a fleet worker mid-load**: ``HEAT2D_CHAOS_WORKER_KILL_AFTER=N``
+  hard-kills the worker process (``os._exit(137)``, after the flight
+  recorder's flush) as it picks up its Nth request: the request was
+  accepted and is never answered, the in-flight loss the fleet router's
+  replay must absorb;
+- **drop heartbeats**: ``HEAT2D_CHAOS_HEARTBEAT_DROP_AFTER=N`` makes a
+  worker go silent after its Nth heartbeat while it keeps serving, the
+  gray failure the supervisor must catch on heartbeat age alone;
+- **slow worker**: ``HEAT2D_CHAOS_SLOW_WORKER_S`` sleeps inside each
+  request pickup (a straggler).
 
 A campaign comes from the environment, or from ``install()`` in a test.
 Parsing is strict: a value that does not parse raises ``ValueError``
@@ -96,6 +107,10 @@ class ChaosConfig:
     kill_ckpt_at: Optional[int] = None      # 1-based checkpoint ordinal
     kill_ckpt_phase: str = "mid_write"
     ckpt_latency_s: float = 0.0             # sleep inside each write
+    # (the fleet worker's fields, after those, for the same reason)
+    worker_kill_after: Optional[int] = None     # 1-based request ordinal
+    heartbeat_drop_after: Optional[int] = None  # beats after N dropped
+    slow_worker_s: float = 0.0                  # sleep at each pickup
 
     def __post_init__(self):
         if self.kill_ckpt_phase not in CKPT_PHASES:
@@ -103,8 +118,9 @@ class ChaosConfig:
                 f"kill_ckpt_phase must be one of {CKPT_PHASES}, got "
                 f"{self.kill_ckpt_phase!r}")
         # Ordinals are 1-based: 0 can never fire, so it means off.
-        for f in ("kill_ckpt_at", "device_fail_at", "hang_collective",
-                  "flip_bit"):
+        for f in ("kill_ckpt_at", "worker_kill_after",
+                  "heartbeat_drop_after", "device_fail_at",
+                  "hang_collective", "flip_bit"):
             if getattr(self, f) == 0:
                 setattr(self, f, None)
 
@@ -120,12 +136,16 @@ class ChaosConfig:
             except ValueError:
                 raise ValueError(
                     f"{_ENV_PREFIX}{name}={v!r} is not a valid "
-                    f"{cast.__name__}: refusing to run a chaos campaign "
-                    f"that silently does nothing") from None
+                    f"{cast.__name__} — refusing to run a chaos "
+                    f"campaign that silently no-ops") from None
 
         cfg = cls(kill_ckpt_at=get("KILL_CKPT_AT", int, None),
                   kill_ckpt_phase=get("KILL_CKPT_PHASE", str, "mid_write"),
                   ckpt_latency_s=get("CKPT_LATENCY_S", float, 0.0),
+                  worker_kill_after=get("WORKER_KILL_AFTER", int, None),
+                  heartbeat_drop_after=get("HEARTBEAT_DROP_AFTER", int,
+                                           None),
+                  slow_worker_s=get("SLOW_WORKER_S", float, 0.0),
                   fail_launches=get("FAIL_LAUNCHES", int, 0),
                   launch_latency_s=get("LAUNCH_LATENCY_S", float, 0.0),
                   device_fail_at=get("DEVICE_FAIL_AT", int, None),
@@ -137,6 +157,9 @@ class ChaosConfig:
 
     def any_active(self) -> bool:
         return bool(self.kill_ckpt_at is not None or self.ckpt_latency_s
+                    or self.worker_kill_after is not None
+                    or self.heartbeat_drop_after is not None
+                    or self.slow_worker_s
                     or self.fail_launches or self.launch_latency_s
                     or self.device_fail_at is not None
                     or self.hang_collective is not None
@@ -146,7 +169,8 @@ class ChaosConfig:
 class _Controller:
     """The active campaign and its counters (thread-safe: checkpoint
     commits run on the async writer's thread, launches on the scheduler
-    thread, tests read from theirs)."""
+    thread, a fleet worker's heartbeats on their own, tests read from
+    theirs)."""
 
     def __init__(self, config: ChaosConfig, registry=None):
         self.config = config
@@ -157,6 +181,8 @@ class _Controller:
         self.launches_failed = 0
         self.mesh_launches = 0          # mesh launch attempts
         self.dead_devices: set = set()  # failed or hung slot indices
+        self.worker_requests = 0        # fleet-worker request pickups
+        self.heartbeats = 0             # heartbeats attempted
 
     def _count(self, point: str) -> None:
         if self.registry is not None:
@@ -195,6 +221,37 @@ class _Controller:
             self._count("launch_failure")
             raise ChaosError(
                 f"injected launch failure {n}/{cfg.fail_launches}")
+
+    def worker_request_point(self) -> None:
+        cfg = self.config
+        with self._lock:
+            self.worker_requests += 1
+            n = self.worker_requests
+        if cfg.slow_worker_s:
+            self._count("slow_worker")
+            time.sleep(cfg.slow_worker_s)
+        if (cfg.worker_kill_after is not None
+                and n == cfg.worker_kill_after):
+            # The request was accepted and will never be answered: the
+            # supervisor sees the exit and the router replays it. The
+            # flight recorder is flushed first, so that the post-mortem
+            # holds the in-flight request's spans.
+            self._count("worker_kill")
+            _flight_flush("chaos_worker_kill")
+            os._exit(137)
+
+    def heartbeat_point(self) -> bool:
+        """True: send the heartbeat; False: drop it (the worker keeps
+        serving, a gray failure only heartbeat age can detect)."""
+        cfg = self.config
+        with self._lock:
+            self.heartbeats += 1
+            n = self.heartbeats
+        if (cfg.heartbeat_drop_after is not None
+                and n > cfg.heartbeat_drop_after):
+            self._count("heartbeat_drop")
+            return False
+        return True
 
     def mesh_launch_point(self) -> None:
         """At each mesh launch attempt: a hang blocks here for
@@ -300,6 +357,25 @@ def launch_point() -> None:
     c = controller()
     if c is not None:
         c.launch_point()
+
+
+def worker_request_point() -> None:
+    """Called by a fleet worker as it picks each request off its pipe."""
+    if not _enabled and _env_checked:
+        return
+    c = controller()
+    if c is not None:
+        c.worker_request_point()
+
+
+def heartbeat_point() -> bool:
+    """Called by a fleet worker before each heartbeat; False = drop."""
+    if not _enabled and _env_checked:
+        return True
+    c = controller()
+    if c is None:
+        return True
+    return c.heartbeat_point()
 
 
 def mesh_launch_point() -> None:

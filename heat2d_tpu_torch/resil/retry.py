@@ -3,7 +3,10 @@ of ``heat2d_tpu/resil/retry.py``.
 
 - ``RetryPolicy`` + ``call_with_retries``: capped exponential backoff for
   transient failures. A structured ``Rejected`` is an answer, not a
-  fault, and is never retried; nor is a programming error.
+  fault, and is never retried; nor is a programming error. With
+  ``jitter=True`` the sleep is drawn uniform below its cap (full
+  jitter), which the fleet supervisor's restarts take so that workers
+  killed by one fault come back apart.
 - ``Watchdog``: a deadline on a block of work; on expiry it fires a
   callback (the server fails the waiting futures with
   ``Rejected("watchdog_timeout")``) instead of letting callers hang.
@@ -18,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import random
 import threading
 import time
 from typing import Callable, Optional
@@ -44,25 +48,37 @@ def default_transient(exc: BaseException) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class RetryPolicy:
-    """Retry i (0-based) sleeps ``min(base_delay * backoff**i,
-    max_delay)``."""
+    """Retry i (0-based) sleeps ``cap_i = min(base_delay * backoff**i,
+    max_delay)``; with ``jitter=True`` a draw uniform over ``[0, cap_i)``
+    from ``rng`` (a seeded ``random.Random`` in tests) or the module's."""
 
     max_attempts: int = 3       # total tries, including the first
     base_delay: float = 0.05
     backoff: float = 2.0
     max_delay: float = 2.0
+    jitter: bool = False
 
     def __post_init__(self):
         if self.max_attempts < 1:
             raise ValueError(
                 f"max_attempts must be >= 1, got {self.max_attempts}")
 
-    def delay(self, retry_index: int) -> float:
+    def cap(self, retry_index: int) -> float:
+        """The ceiling of retry ``retry_index``'s sleep; ``backoff ** i``
+        may overflow a float for a long-lived caller, and the cap wins
+        there."""
         try:
             d = self.base_delay * self.backoff ** retry_index
         except OverflowError:
             return self.max_delay
         return min(d, self.max_delay)
+
+    def delay(self, retry_index: int,
+              rng: Optional[random.Random] = None) -> float:
+        d = self.cap(retry_index)
+        if not self.jitter:
+            return d
+        return d * (rng if rng is not None else random).random()
 
 
 def call_with_retries(fn: Callable, policy: RetryPolicy, *,
@@ -172,12 +188,16 @@ class DegradedMode:
     reports expires after one more cooldown."""
 
     def __init__(self, threshold: int = 5, cooldown: float = 5.0,
-                 registry=None, clock: Callable[[], float] = time.monotonic):
+                 registry=None, clock: Callable[[], float] = time.monotonic,
+                 metric_prefix: str = "serve"):
         if threshold < 1:
             raise ValueError(f"threshold must be >= 1, got {threshold}")
         self.threshold = threshold
         self.cooldown = cooldown
         self.registry = registry
+        #: the metric family's prefix (``fleet`` for the fleet router's
+        #: breaker: ``fleet_degraded``, ``fleet_breaker_trips_total``)
+        self.metric_prefix = metric_prefix
         self._clock = clock
         self._lock = AuditedLock("resil.degraded")
         self._failures = 0          # consecutive
@@ -234,11 +254,12 @@ class DegradedMode:
                                 "consecutive failures (cooldown %.1fs)",
                                 self._failures, self.cooldown)
                     if self.registry is not None:
-                        self.registry.counter("serve_breaker_trips_total")
+                        self.registry.counter(
+                            self.metric_prefix + "_breaker_trips_total")
                 self._opened_at = self._clock()
             self._gauge_locked()
 
     def _gauge_locked(self) -> None:
         if self.registry is not None:
-            self.registry.gauge("serve_degraded",
+            self.registry.gauge(self.metric_prefix + "_degraded",
                                 0.0 if self._opened_at is None else 1.0)

@@ -13,7 +13,9 @@ future, so N duplicates cost one compute and one cache fill.
 Metrics (``obs/metrics.py`` registry, optional): ``serve_cache_hits_total``,
 ``serve_cache_misses_total``, ``serve_cache_evictions_total`` counters,
 ``serve_cache_size`` / ``serve_cache_hit_rate`` gauges,
-``serve_coalesced_total`` counter.
+``serve_coalesced_total`` counter. The fleet router's shared cache and
+single-flight take the same classes under their own names (``prefix=
+"fleet_cache"``, ``counter="fleet_coalesced_total"``).
 """
 
 from __future__ import annotations
@@ -30,12 +32,14 @@ class ResultCache:
     """Bounded LRU over content hashes. Thread-safe: admission runs on
     caller threads, fills on the scheduler thread."""
 
-    def __init__(self, capacity: int = 256, registry=None):
+    def __init__(self, capacity: int = 256, registry=None,
+                 prefix: str = "serve_cache"):
         if capacity < 0:
             raise ValueError(f"capacity must be >= 0, got {capacity}")
         self.capacity = capacity
         self.registry = registry
-        self._lock = AuditedLock("serve_cache")
+        self.prefix = prefix
+        self._lock = AuditedLock(prefix)
         self._data: "collections.OrderedDict" = collections.OrderedDict()
         self.hits = 0
         self.misses = 0
@@ -65,7 +69,7 @@ class ResultCache:
                 evicted += 1
             self.evictions += evicted
         if evicted and self.registry is not None:
-            self.registry.counter("serve_cache_evictions_total", evicted)
+            self.registry.counter(self.prefix + "_evictions_total", evicted)
         self._record()
 
     def __len__(self) -> int:
@@ -77,13 +81,13 @@ class ResultCache:
         if r is None:
             return
         if hit is True:
-            r.counter("serve_cache_hits_total")
+            r.counter(self.prefix + "_hits_total")
         elif hit is False:
-            r.counter("serve_cache_misses_total")
-        r.gauge("serve_cache_size", len(self))
+            r.counter(self.prefix + "_misses_total")
+        r.gauge(self.prefix + "_size", len(self))
         total = self.hits + self.misses
         if total:
-            r.gauge("serve_cache_hit_rate", self.hits / total)
+            r.gauge(self.prefix + "_hit_rate", self.hits / total)
 
 
 class SingleFlight:
@@ -92,10 +96,11 @@ class SingleFlight:
     (while it is unresolved) get the SAME Future back. Coalesced
     requests share the leader's fate — result or rejection."""
 
-    def __init__(self, registry=None):
+    def __init__(self, registry=None, counter: str = "serve_coalesced_total"):
         self._lock = AuditedLock("single_flight")
         self._inflight: dict = {}
         self.registry = registry
+        self._counter = counter
 
     def claim(self, key: str):
         """(future, leader): ``leader`` is True when this caller must
@@ -104,7 +109,7 @@ class SingleFlight:
             fut = self._inflight.get(key)
             if fut is not None:
                 if self.registry is not None:
-                    self.registry.counter("serve_coalesced_total")
+                    self.registry.counter(self._counter)
                 return fut, False
             fut = Future()
             self._inflight[key] = fut

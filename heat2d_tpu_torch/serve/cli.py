@@ -434,7 +434,8 @@ def main(argv=None) -> int:
         print(f"{e}\nQuitting...", file=sys.stderr)
         return 1
     print("nothing to do: pass --selftest or --requests FILE.jsonl "
-          "(embed SolveServer in your process for anything else)",
+          "(a network listener is deliberately out of scope — embed "
+          "SolveServer in your process; docs/SERVING.md)",
           file=sys.stderr)
     return 2
 

@@ -411,6 +411,10 @@ def _failed(exc: BaseException) -> Future:
     return fut
 
 
+#: public alias: the fleet router shares the same failure path
+failed_future = _failed
+
+
 def coalesced_future(leader: Future) -> Future:
     """A single-flight follower's future: the leader's result relabeled
     ``coalesced=True`` (the grid is shared, not copied); the leader's

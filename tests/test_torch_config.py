@@ -111,5 +111,4 @@ def test_invalid_configs_raise_in_both(kw):
         jcfg.HeatConfig(**kw)
     with pytest.raises(tcfg.ConfigError) as te:
         tcfg.HeatConfig(**kw)
-    assert str(te.value).replace("-", "") == \
-        str(je.value).replace("—", "").replace("-", "")
+    assert str(te.value) == str(je.value)

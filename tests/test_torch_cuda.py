@@ -1104,3 +1104,31 @@ def test_build_sentinel_on_the_card(card):
                                max_batch=8, device="cuda")
     assert rep["ok"] and rep["capacities"] == [1, 2, 4, 8]
     assert rep["rebuilds"] == [] and rep["loads"] <= 1
+
+
+def test_fleet_pool_on_the_card(card):
+    """Two fleet workers, each a CUDA context on the card, serve H5 and
+    H6 requests (a kill in flight between them), bitwise the one-process
+    server on the card; their heartbeats report the kernels' launches."""
+    from heat2d_tpu_torch.fleet import FleetServer
+    from heat2d_tpu_torch.obs.metrics import MetricsRegistry
+    from heat2d_tpu_torch.serve.schema import SolveRequest
+    from heat2d_tpu_torch.serve.server import SolveServer
+
+    reqs = ([SolveRequest(nx=640, ny=1024, steps=200, cx=0.02 + 0.01 * i,
+                          cy=0.1) for i in range(6)]
+            + [SolveRequest(nx=2048, ny=2048, steps=24, cx=0.05 * (i + 1),
+                            cy=0.1) for i in range(3)])
+    with FleetServer(workers=2, registry=MetricsRegistry(),
+                     default_timeout=300.0) as fs:
+        futs = [fs.submit(r) for r in reqs]
+        fs.sup.kill_worker(0)
+        got = [f.result(timeout=300) for f in futs]
+        assert fs.stop()
+        launches = fs.sup.kernel_launches()
+    assert fs.sup.deaths == 1
+    assert launches["ens_resident"] > 0 and launches["ens_tile_multi"] > 0
+    with SolveServer(registry=MetricsRegistry()) as one:
+        want = [one.submit(r) for r in reqs]
+        for g, w in zip(got, want):
+            assert g.u.tobytes() == w.result(timeout=300).u.tobytes()

@@ -102,6 +102,30 @@ def test_torn_checkpoint_rejected(tmp_path, rng):
         jbin.load_checkpoint(tmp_path / "ck.bin")
 
 
+@pytest.mark.parametrize("kind", ["checkpoint", "field"])
+def test_torn_file_texts_equal_jax(tmp_path, rng, kind):
+    """A torn checkpoint or field file reports the same text in either
+    stack, character for character (managed directories load across
+    stacks, so the operator reads one message whichever loaded it)."""
+    a = _grid(rng)
+    path = tmp_path / "f.bin"
+    if kind == "checkpoint":
+        tbin.save_checkpoint(a, 3, HeatConfig(), path)
+        loads = (tbin.load_checkpoint, jbin.load_checkpoint)
+    else:
+        tbin.save_field(a, path)
+        loads = (tbin.load_field, jbin.load_field)
+    raw = bytearray(path.read_bytes())
+    raw[0] ^= 0xFF
+    path.write_bytes(bytes(raw))
+    with pytest.raises(tbin.CheckpointCorruptError) as te:
+        loads[0](path)
+    with pytest.raises(jbin.CheckpointCorruptError) as je:
+        loads[1](path)
+    assert "torn or corrupt" in str(te.value)
+    assert str(te.value) == str(je.value)
+
+
 def _jax_cli(argv):
     # conftest already runs JAX on the CPU with x64 enabled, which is
     # what --platform cpu --accum-dtype float64 set up in a fresh process

@@ -391,3 +391,29 @@ def test_implicit_gate_raises_without_a_card(no_card, capsys):
     from heat2d_tpu_torch.analysis import implicit_gate
     assert implicit_gate.main([]) == 1
     assert "CUDA" in capsys.readouterr().err
+
+
+def test_importing_the_fleet_loads_no_jax():
+    code = ("import sys; import heat2d_tpu_torch.fleet.cli, "
+            "heat2d_tpu_torch.fleet.worker; "
+            "print('jax' in sys.modules, 'heat2d_tpu' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "False"]
+
+
+def test_fleet_refuses_without_a_card(no_card, capsys):
+    """The soak's oracle and its workers run on the card by default: no
+    card, no soak (exit 1 naming CUDA), and a pool whose workers cannot
+    reach the card stops at start instead of answering from the CPU."""
+    from heat2d_tpu_torch.fleet import FleetServer
+    from heat2d_tpu_torch.fleet import cli as fleet_cli
+    from heat2d_tpu_torch.fleet.supervisor import WorkerStartError
+    from heat2d_tpu_torch.obs import MetricsRegistry
+    assert fleet_cli.main(["--soak", "1", "--workers", "1"]) == 1
+    assert "CUDA" in capsys.readouterr().err
+    if torch.cuda.device_count():
+        return      # the worker subprocess would see the card
+    fs = FleetServer(workers=1, registry=MetricsRegistry())
+    with pytest.raises(WorkerStartError, match="before reporting ready"):
+        fs.start()

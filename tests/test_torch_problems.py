@@ -79,10 +79,6 @@ def _coefs(rng, fam, b):
             rng.uniform(lo, hi, b).astype(np.float32))
 
 
-def _norm(msg: str) -> str:
-    return msg.replace("—", "").replace("-", "")
-
-
 # ------------------------------------------------------------------ #
 # The registry and each family's plain step
 # ------------------------------------------------------------------ #
@@ -338,7 +334,7 @@ def test_family_config_errors_equal_jax(kw):
         jcfg.HeatConfig(**kw)
     with pytest.raises(tcfg.ConfigError) as te:
         tcfg.HeatConfig(**kw)
-    assert _norm(str(te.value)) == _norm(str(je.value))
+    assert str(te.value) == str(je.value)
 
 
 @pytest.mark.parametrize("kw", [
@@ -360,7 +356,7 @@ def test_stability_errors_equal_jax(problem, cx, cy):
         jstab.check_problem_stability(problem, cx, cy)
     with pytest.raises(tcfg.ConfigError) as te:
         tstab.check_problem_stability(problem, cx, cy)
-    assert _norm(str(te.value)) == _norm(str(je.value))
+    assert str(te.value) == str(je.value)
 
 
 def test_stability_constants_equal_jax():

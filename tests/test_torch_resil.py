@@ -354,7 +354,14 @@ def test_writer_lock_declarations_equal_jax():
     {"HEAT2D_CHAOS_KILL_CKPT_AT": "0", "HEAT2D_CHAOS_FAIL_LAUNCHES": "0",
      "HEAT2D_CHAOS_LAUNCH_LATENCY_S": "0",
      "HEAT2D_CHAOS_CKPT_LATENCY_S": "0"},
-], ids=["unset", "empty", "phase_alone", "zero"])
+    {"HEAT2D_CHAOS_WORKER_KILL_AFTER": "",
+     "HEAT2D_CHAOS_HEARTBEAT_DROP_AFTER": "",
+     "HEAT2D_CHAOS_SLOW_WORKER_S": ""},
+    {"HEAT2D_CHAOS_WORKER_KILL_AFTER": "0",
+     "HEAT2D_CHAOS_HEARTBEAT_DROP_AFTER": "0",
+     "HEAT2D_CHAOS_SLOW_WORKER_S": "0"},
+], ids=["unset", "empty", "phase_alone", "zero", "worker_empty",
+        "worker_zero"])
 def test_chaos_env_off(env):
     """Unset, empty and 0 mean off in both packages."""
     assert ChaosConfig.from_env(env) is None
@@ -368,6 +375,9 @@ def test_chaos_env_off(env):
     ({"HEAT2D_CHAOS_KILL_CKPT_AT": "x"}, "KILL_CKPT_AT"),
     ({"HEAT2D_CHAOS_KILL_CKPT_AT": "1",
       "HEAT2D_CHAOS_KILL_CKPT_PHASE": "bogus"}, "kill_ckpt_phase"),
+    ({"HEAT2D_CHAOS_WORKER_KILL_AFTER": "x"}, "WORKER_KILL_AFTER"),
+    ({"HEAT2D_CHAOS_HEARTBEAT_DROP_AFTER": "1.5"}, "HEARTBEAT_DROP_AFTER"),
+    ({"HEAT2D_CHAOS_SLOW_WORKER_S": "slow"}, "SLOW_WORKER_S"),
 ])
 def test_chaos_env_garbage_raises_not_noops(env, match):
     """A typo'd variable refuses loudly in both packages: a campaign that
@@ -376,6 +386,76 @@ def test_chaos_env_garbage_raises_not_noops(env, match):
         ChaosConfig.from_env(env)
     with pytest.raises(ValueError, match=match):
         jchaos.ChaosConfig.from_env(env)
+
+
+@pytest.mark.parametrize("env", [
+    {"HEAT2D_CHAOS_FAIL_LAUNCHES": "lots"},
+    {"HEAT2D_CHAOS_WORKER_KILL_AFTER": "x"},
+    {"HEAT2D_CHAOS_SLOW_WORKER_S": "slow"},
+])
+def test_chaos_env_garbage_texts_equal_jax(env):
+    with pytest.raises(ValueError) as te:
+        ChaosConfig.from_env(env)
+    with pytest.raises(ValueError) as je:
+        jchaos.ChaosConfig.from_env(env)
+    assert str(te.value) == str(je.value)
+
+
+def test_chaos_env_arms_the_worker_points_like_jax():
+    env = {"HEAT2D_CHAOS_WORKER_KILL_AFTER": "5",
+           "HEAT2D_CHAOS_HEARTBEAT_DROP_AFTER": "25",
+           "HEAT2D_CHAOS_SLOW_WORKER_S": "0.4"}
+    got = ChaosConfig.from_env(env)
+    want = jchaos.ChaosConfig.from_env(env)
+    for f in ("worker_kill_after", "heartbeat_drop_after",
+              "slow_worker_s"):
+        assert getattr(got, f) == getattr(want, f)
+    assert not ChaosConfig(worker_kill_after=0).any_active()
+
+
+def test_chaos_worker_hooks_in_process():
+    """Slow-worker injects latency into request pickup; heartbeat-drop
+    silences beats after N while the process keeps running."""
+    reg = MetricsRegistry()
+    chaos.install(ChaosConfig(slow_worker_s=0.05,
+                              heartbeat_drop_after=2), registry=reg)
+    t0 = time.monotonic()
+    chaos.worker_request_point()
+    assert time.monotonic() - t0 >= 0.05
+    assert [chaos.heartbeat_point() for _ in range(4)] == \
+        [True, True, False, False]
+    snap = reg.snapshot()
+    assert snap["counters"][
+        "resil_chaos_injected_total{point=slow_worker}"] == 1
+    assert snap["counters"][
+        "resil_chaos_injected_total{point=heartbeat_drop}"] == 2
+    chaos.uninstall()
+    chaos.install(None)
+    assert chaos.heartbeat_point() is True      # disarmed: no-ops
+    chaos.worker_request_point()
+
+
+def test_worker_kill_flushes_the_flight_recorder_first(monkeypatch):
+    from heat2d_tpu_torch.obs import flight
+    calls = []
+
+    def fake_exit(code):
+        calls.append(("exit", code))
+        raise SystemExit(code)
+
+    monkeypatch.setattr(flight, "crash_flush",
+                        lambda reason: calls.append(("flush", reason)))
+    monkeypatch.setattr(chaos.os, "_exit", fake_exit)
+    chaos.install(ChaosConfig(worker_kill_after=2))
+    try:
+        chaos.worker_request_point()
+        assert calls == []
+        with pytest.raises(SystemExit):
+            chaos.worker_request_point()
+    finally:
+        chaos.uninstall()
+        chaos.install(None)
+    assert calls == [("flush", "chaos_worker_kill"), ("exit", 137)]
 
 
 def test_chaos_env_arms_the_kill_point():
