@@ -190,6 +190,29 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    wire's share of the traced requests, latency p50/p99 per width and
    ``nvidia-smi``'s compute apps. The workers' H5/H6 launches (their
    heartbeats' counts) join the kernels line's.
+24. load (after 23): ``heat2d_tpu_torch.load`` on the card
+   (``phase_load``), three legs: (a) the fleet phase's recorded
+   admissions (its spans) replayed through ``heat2d-tpu-torch-load
+   --replay --target serve --device cuda --max-skew`` against an
+   in-process server, every arrival completed, H5 and H6 launched; (b)
+   one ``ServeTarget(device="cuda")``: a probe of the top rate it keeps
+   up with on the ``card_h5`` mix (640x1024 x 2000-2001 steps, H5), a
+   sweep of 3 rates (half, once and twice that rate), a fit that must
+   find the knee; the gated surface below the knee (2 rates, the
+   committed baseline's), a healthy re-run that passes the gate against
+   it and a chaos-slowed one (``launch_latency_s``) that fails it, the
+   gated surface held against ``heat2d_tpu_torch/load/baseline_h100.json``
+   at the default margins, and one point of the ``card_h6`` mix (4096^2 x
+   240, H6) past its knee; (c) one ``FleetTarget(workers=2,
+   device="cuda")``: the 640x1024 mix at two rates and the 4096^2 mix at
+   two, each width's fit over 2 units, the router's decode ms of a
+   4096^2 answer, a clean stop. Every arrival answered, no error outcome,
+   no shedding at or below a knee, no kernel build; per point offered and
+   achieved req/s, p50/p99, shed rate and submit-skew p99, each fit, the
+   warmup seconds, the gate verdicts and the launch rows' run and
+   readback seconds. Its H5/H6 launches (the pool's from the workers'
+   heartbeats) join the kernels line's. Full results in
+   ``chiprun_out/load_phase.json``.
 
 The last line of standard output is ``{"ok": true, "device": ...}``. The
 full results also go to ``chiprun_out/chip_smoke.json``.
@@ -201,8 +224,10 @@ import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -3635,7 +3660,7 @@ def _quantiles(vals) -> dict:
             "max_s": v[-1]}
 
 
-def phase_fleet(torch, name: str, power: str) -> dict:
+def phase_fleet(torch, name: str, power: str, trace_dir: str) -> dict:
     """The fleet (``heat2d_tpu_torch.fleet``) on the card: a
     ``FleetServer(device="cuda")`` of 3 worker processes, each a CUDA
     context on the one card, answers 24 requests of 640x1024 x ~2000
@@ -3652,10 +3677,9 @@ def phase_fleet(torch, name: str, power: str) -> dict:
     a clean stop. Reports the workers' start and recovery seconds by
     part, wire encode/decode ms per answer at both widths, the wire's
     share of the traced requests, latency p50/p99 per width and the
-    compute apps ``nvidia-smi`` lists during the leg."""
-    import shutil
-    import tempfile
-
+    compute apps ``nvidia-smi`` lists during the leg. The spans land in
+    ``trace_dir`` (an empty directory the caller owns: the load phase
+    replays them)."""
     import numpy as np
 
     from heat2d_tpu_torch.fleet import FleetServer, route_signature, wire
@@ -3687,9 +3711,6 @@ def phase_fleet(torch, name: str, power: str) -> dict:
                         cy=0.12 - 0.01 * i) for i in range(6)]
     burst = small + big + [small[2], small[3]]
     repeats = [small[0], small[1], big[0]]
-    tmp = tempfile.mkdtemp(prefix="heat2d-fleet-")
-    trace_dir = os.path.join(tmp, "trace")
-    os.makedirs(trace_dir)
     reg = MetricsRegistry()
     fs = FleetServer(
         workers=3, registry=reg, max_batch=8, max_delay=0.05,
@@ -3844,7 +3865,6 @@ def phase_fleet(torch, name: str, power: str) -> dict:
     latency = {label: _quantiles([t for (nx, _h), ts in lat.items()
                                   if nx == w for t in ts])
                for label, w in widths}
-    shutil.rmtree(tmp, ignore_errors=True)
     info = {
         "phase": "fleet", "card": name, "power_limit": power,
         "workers": 3, "requests": len(burst) + len(repeats),
@@ -3872,6 +3892,513 @@ def phase_fleet(torch, name: str, power: str) -> dict:
         "kernels_dir_unchanged": kernels_after == kernels_before,
         "seconds": time.perf_counter() - t_phase}
     emit({k: v for k, v in info.items() if k != "compute_apps_rows"})
+    return info
+
+
+# ------------------------------------------------------------------ #
+# load: the open-loop runner on the card
+# ------------------------------------------------------------------ #
+
+#: The committed card baseline that leg 2's surface is gated against.
+LOAD_BASELINE = os.path.join(HERE, "heat2d_tpu_torch", "load",
+                             "baseline_h100.json")
+#: where the phase serves (the card; a rehearsal on the CPU sets "cpu")
+LOAD_DEVICE = "cuda"
+LOAD_SEED = 17
+#: seconds of schedule per sweep point (the 4096^2 pool points take more:
+#: one answer a half second on the router's decode)
+LOAD_POINT_S = 2.0
+LOAD_POOL_H6_S = (4.0, 3.0)
+#: leg 1's bound on the replay's p99 submit skew (``--max-skew``): 14x
+#: the 3.6 ms the pacing thread showed on an H100 host, well below the
+#: recorded gaps' scale (the burst's admissions sit ms apart, the
+#: repeats seconds later), so a replay that keeps it kept the gaps
+LOAD_REPLAY_MAX_SKEW_S = 0.05
+#: leg 2's probe: base rates doubling from this one, 1 s a point
+LOAD_PROBE_START_RPS = 50.0
+LOAD_PROBE_POINTS = 6
+#: leg 2's gated surface: base rates at these fractions of the probe's
+#: knee (the committed baseline's, once there is one). The gate's margins
+#: judge a point below the knee, where the shed rate is 0 on any host; past
+#: it, the shed rate is 1 - capacity / offered, and the in-process server's
+#: capacity is host-bound: 355-479 req/s at the sweep's top point over the
+#: H100 hosts measured, so its shed rate spans 0.41-0.54 there, more than
+#: the 0.05 shed slack. The sweep's overloaded points are measured and
+#: checked, not gated.
+LOAD_GATE_FRACTIONS = (0.25, 0.5)
+#: the chaos campaign of the gate's seeded regression: a sleep inside
+#: every launch, and the per-request deadline that bounds its drain
+LOAD_CHAOS_LATENCY_S = 0.25
+LOAD_CHAOS_TIMEOUT_S = 2.0
+#: the pool's base rates: the 640x1024 mix about its knee (probes
+#: doubling from 10 req/s, 2 s a point, on an H100 host: the pool kept
+#: up at 10 in three runs of three, at 20 in two, at 40 in none), the
+#: 4096^2 mix at about 1 and 4 req/s; the in-process 4096^2 point's base
+#: rate (past its knee: its achieved rate is the capacity)
+LOAD_POOL_H5_RPS = (10.0, 40.0)
+LOAD_POOL_H6_RPS = (1.0, 4.0)
+LOAD_SERVE_H6_RPS = 60.0
+
+
+def load_mixes():
+    """The load phase's full-width mixes: ``smoke``'s shape at the
+    serving legs' width on H5, and one 4096^2 signature on H6 (the named
+    profiles are 16x16 on method "jnp": the plain loop, no hand
+    kernel)."""
+    from heat2d_tpu_torch.load import synth
+    h5 = synth.MixProfile(
+        name="card_h5", signatures=2, zipf_s=1.0, nx=640, ny=1024,
+        steps=2000, method="auto", burst_factor=2.0, burst_on_s=1.0,
+        burst_off_s=2.0,
+        tenants=(("interactive", 0.8, 0), ("batch", 0.2, 1)))
+    h6 = synth.MixProfile(name="card_h6", signatures=1, nx=4096, ny=4096,
+                          steps=240, method="auto")
+    return h5, h6
+
+
+def _load_point(target, profile, rate, duration, launch_log=None,
+                timeout=30.0) -> dict:
+    """One open-loop point of ``profile`` at base ``rate`` (no warmup:
+    the caller warmed the target), with its schedule's fingerprint and,
+    for an in-process target, the launch rows it added: count, mean
+    occupancy, median run and readback seconds."""
+    from heat2d_tpu_torch.load import synth
+    from heat2d_tpu_torch.load.runner import measure_point
+    sched = synth.synthesize(profile, rate, duration, seed=LOAD_SEED)
+    n0 = len(launch_log) if launch_log is not None else 0
+    t_wall = time.time()
+    row = measure_point(sched, target, warmup=False, timeout=timeout)
+    reg = row.pop("_registry")
+    row["window"] = (t_wall, time.time())
+    row["rate"] = rate
+    row["fingerprint"] = sched.fingerprint()[:16]
+    row["submit_skew"] = reg.snapshot()["histograms"].get(
+        "load_submit_skew_s")
+    if launch_log is not None:
+        rows = launch_log[n0:]
+        med = lambda k: sorted(r[k] for r in rows)[len(rows) // 2]
+        row["launch_rows"] = {
+            "n": len(rows),
+            "occupancy_mean": (sum(r["occupancy"] for r in rows)
+                               / len(rows)) if rows else None,
+            "run_s_p50": med("run_s") if rows else None,
+            "readback_s_p50": med("readback_s") if rows else None,
+            "methods": sorted({r["method"] for r in rows})}
+    return row
+
+
+def _load_surface(rows) -> list:
+    """The lines a surface prints: offered and achieved req/s, p50 and
+    p99, shed rate, submit-skew p99."""
+    return [{"rate": r["rate"], "offered_rps": r["offered_rps"],
+             "achieved_rps": r["achieved_rps"],
+             "p50_s": (r.get("latency") or {}).get("p50"),
+             "p99_s": (r.get("latency") or {}).get("p99"),
+             "shed_rate": r["shed_rate"],
+             "skew_p99_s": r["fidelity"]["p99_skew_s"],
+             "arrivals": r["arrivals"], "outcomes": r["outcomes"],
+             **({"launch_rows": r["launch_rows"]} if "launch_rows" in r
+                else {})} for r in rows]
+
+
+def _load_checks(label: str, rows, fit) -> None:
+    """Every arrival answered, no error outcome, no shedding at or below
+    the knee (the best qualifying point)."""
+    for r in rows:
+        fail_unless(r["unanswered"] == 0,
+                    f"load {label}: {r['unanswered']} of {r['arrivals']} "
+                    f"unanswered at {r['rate']:g} rps")
+        fail_unless("error" not in r["outcomes"],
+                    f"load {label}: error outcomes at {r['rate']:g} rps: "
+                    f"{r['outcomes']}")
+    from heat2d_tpu_torch.load.capacity import _qualifies
+    crit = fit["criteria"]
+    knee = max((r["offered_rps"] for r in rows
+                if _qualifies(r, crit["keepup_margin"],
+                              crit["max_shed_rate"])), default=0.0)
+    for r in rows:
+        if r["offered_rps"] <= knee:
+            fail_unless(r["shed"] == 0,
+                        f"load {label}: {r['shed']} shed at "
+                        f"{r['offered_rps']:g} rps, at or below the knee")
+
+
+def _load_replay_leg(torch, trace_dir, tmp) -> dict:
+    """Leg 1: the fleet phase's recorded admissions replayed through
+    ``heat2d-tpu-torch-load --replay`` against an in-process server on
+    the card, with the recorded gaps and ``--max-skew``."""
+    from heat2d_tpu_torch.load import cli, replay
+    from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    sched = replay.schedule_from_trace_dir(trace_dir)
+    widths = {}
+    for a in sched:
+        key = f"{a.spec['nx']}x{a.spec['ny']}"
+        widths[key] = widths.get(key, 0) + 1
+    out = os.path.join(tmp, "replay.jsonl")
+    ce.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = _quiet(cli.main, ["--replay", trace_dir, "--target", "serve",
+                           "--device", LOAD_DEVICE, "--max-skew",
+                           str(LOAD_REPLAY_MAX_SKEW_S), "--metrics-out",
+                           out])
+    seconds = time.perf_counter() - t0
+    launches = ce.launch_counts()
+    with open(out) as f:
+        rec = [json.loads(line) for line in f
+               if '"run_record"' in line][0]
+    row = rec["surface"][0]
+    fail_unless(rc == 0, f"load replay: rc {rc}, failures "
+                f"{rec['failures']}")
+    fail_unless(row["arrivals"] == len(sched) == row["completed"]
+                and row["unanswered"] == 0,
+                f"load replay: {row['completed']} of {row['arrivals']} "
+                f"completed ({row['outcomes']})")
+    fail_unless(launches["ens_resident"] > 0
+                and launches["ens_tile_multi"] > 0,
+                f"load replay: H5/H6 not launched: {launches}")
+    return {"arrivals": len(sched), "widths": widths,
+            "span_s": sched.duration(), "offered_rps": row["offered_rps"],
+            "achieved_rps": row["achieved_rps"],
+            "completed": row["completed"], "outcomes": row["outcomes"],
+            "latency": row.get("latency"), "fidelity": row["fidelity"],
+            "max_skew_s": LOAD_REPLAY_MAX_SKEW_S,
+            "fingerprint": sched.fingerprint()[:16],
+            "launches": launches, "seconds": seconds}
+
+
+def _load_probe(target, profile, launch_log) -> dict:
+    """Base rates doubling from ``LOAD_PROBE_START_RPS``, 1 s a point,
+    until the server no longer keeps up: the knee is the last base rate
+    whose achieved rate came within the fit's keep-up margin of the
+    offered one with nothing shed."""
+    from heat2d_tpu_torch.load.capacity import _qualifies
+    points, knee = [], None
+    rate = LOAD_PROBE_START_RPS
+    for _ in range(LOAD_PROBE_POINTS):
+        r = _load_point(target, profile, rate, 1.0, launch_log)
+        points.append(_load_surface([r])[0])
+        if not _qualifies(r, 0.2, 0.0):
+            break
+        knee = rate
+        rate *= 2
+    return {"points": points, "knee_rate": knee}
+
+
+def _h5_warm_schedule(h5):
+    """Every signature of the 640x1024 mix, for ``warm_target``."""
+    from heat2d_tpu_torch.load import synth
+    from heat2d_tpu_torch.load.schedule import Schedule
+    warm = Schedule([a for r in (25.0, 400.0)
+                     for a in synth.synthesize(h5, r, 1.0, seed=LOAD_SEED)])
+    fail_unless(len(warm.signatures()) == h5.signatures,
+                f"load: the warm schedule misses a signature: "
+                f"{warm.signatures()}")
+    return warm
+
+
+def _load_sweep(target, profile, rates, units, launch_log=None,
+                timeout=30.0, chips_per_unit=1):
+    from heat2d_tpu_torch.load.capacity import fit_capacity
+    rows = [_load_point(target, profile, r, LOAD_POINT_S, launch_log,
+                        timeout) for r in rates]
+    return rows, fit_capacity(rows, units, chips_per_unit=chips_per_unit)
+
+
+def _load_serve_leg(torch, name, power, measure: bool) -> dict:
+    """Leg 2: the in-process server's surface at 640x1024 (H5) and its
+    fit; the gate's round trip and the committed baseline on the gated
+    surface below the knee (``LOAD_GATE_FRACTIONS``); a one-point probe
+    at 4096^2 (H6)."""
+    from heat2d_tpu_torch.load import gate, synth
+    from heat2d_tpu_torch.load.runner import ServeTarget, warm_target
+    from heat2d_tpu_torch.obs.metrics import MetricsRegistry
+    from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    from heat2d_tpu_torch.resil import chaos
+
+    h5, h6 = load_mixes()
+    committed = None
+    if os.path.exists(LOAD_BASELINE):
+        with open(LOAD_BASELINE) as f:
+            committed = json.load(f)
+    fail_unless(measure or committed is not None,
+                f"load: no committed baseline at {LOAD_BASELINE}")
+    reg = MetricsRegistry()
+    ce.reset_launch_counts()
+    t0 = time.perf_counter()
+    target = ServeTarget(registry=reg, device=LOAD_DEVICE)
+    log = target.server.engine.launch_log
+    out = {"target": "serve", "device": LOAD_DEVICE}
+    try:
+        t_warm = time.perf_counter()
+        warm = _h5_warm_schedule(h5)
+        out["warm_requests"] = warm_target(target, warm)
+        out["warm_s"] = time.perf_counter() - t_warm
+        out["probe"] = _load_probe(target, h5, log)
+        knee = out["probe"]["knee_rate"]
+        fail_unless(knee is not None, f"load: the probe found no rate the "
+                    f"server keeps up with: {out['probe']['points']}")
+        rates = [knee / 2, knee, knee * 2]
+        out["rates"] = rates
+        rows, fit = _load_sweep(target, h5, rates, 1, log)
+        out["surface"], out["fit"] = _load_surface(rows), fit
+        _load_checks("serve 640x1024", rows, fit)
+        fail_unless(fit["saturated"], f"load: the in-process fit never "
+                    f"found the knee (a lower bound): {out['surface']}")
+        # the gated surface, and the gate's round trip against it
+        gate_rates = (committed["meta"]["rates"] if not measure
+                      else [knee * f for f in LOAD_GATE_FRACTIONS])
+        out["gate_rates"] = gate_rates
+        grows, gfit = _load_sweep(target, h5, gate_rates, 1, log)
+        _load_checks("serve gate 640x1024", grows, gfit)
+        out["gate_surface"] = _load_surface(grows)
+        out["gate_fit"] = gfit
+        own = gate.build_baseline(grows, gfit)
+        rows2, fit2 = _load_sweep(target, h5, gate_rates, 1, log)
+        out["healthy"] = {"surface": _load_surface(rows2), "fit": fit2,
+                          "failures": gate.compare(rows2, fit2, own)}
+        fail_unless(not out["healthy"]["failures"],
+                    f"load: a healthy re-run failed the gate: "
+                    f"{out['healthy']['failures']}")
+        chaos.install(chaos.ChaosConfig(
+            launch_latency_s=LOAD_CHAOS_LATENCY_S))
+        try:
+            rows3, fit3 = _load_sweep(target, h5, gate_rates, 1, log,
+                                      timeout=LOAD_CHAOS_TIMEOUT_S)
+        finally:
+            chaos.uninstall()
+        out["chaos"] = {"launch_latency_s": LOAD_CHAOS_LATENCY_S,
+                        "timeout_s": LOAD_CHAOS_TIMEOUT_S,
+                        "surface": _load_surface(rows3), "fit": fit3,
+                        "failures": gate.compare(rows3, fit3, own)}
+        fail_unless(out["chaos"]["failures"],
+                    "load: the chaos-slowed run passed the gate")
+        meta = {"profile": _profile_dict(h5), "seed": LOAD_SEED,
+                "rates": gate_rates, "knee_rate": knee,
+                "duration_s": LOAD_POINT_S,
+                "target": "serve", "device": LOAD_DEVICE, "card": name,
+                "power_limit": power,
+                "measured_by": "chip_smoke.py, phase load, leg 2",
+                "commit": "the commit that added this file"}
+        if measure:
+            from heat2d_tpu_torch.io.binary import write_json_atomic
+            write_json_atomic(gate.build_baseline(grows, gfit, meta=meta),
+                              _out_path("load_baseline_h100.json"))
+        if committed is not None:
+            out["committed_gate"] = gate.compare(grows, gfit, committed)
+            out["committed_meta"] = committed.get("meta")
+            fail_unless(measure or not out["committed_gate"],
+                        f"load: the surface failed the committed card "
+                        f"baseline: {out['committed_gate']}")
+        # the in-process server at 4096^2: one point past its knee
+        t_warm = time.perf_counter()
+        warm6 = synth.synthesize(h6, LOAD_SERVE_H6_RPS, LOAD_POINT_S,
+                                 seed=LOAD_SEED)
+        out["h6_warm_requests"] = warm_target(target, warm6)
+        out["h6_warm_s"] = time.perf_counter() - t_warm
+        r6 = _load_point(target, h6, LOAD_SERVE_H6_RPS, LOAD_POINT_S, log)
+        out["h6_point"] = _load_surface([r6])[0]
+        _load_checks("serve 4096^2", [r6], {"criteria": fit["criteria"]})
+        # past its knee the achieved rate is the capacity; a point that
+        # kept up gives a lower bound only
+        out["h6_point"]["past_knee"] = (r6["achieved_rps"]
+                                        < 0.8 * r6["offered_rps"])
+        failures = reg.snapshot()["counters"].get(
+            "serve_launch_failures_total", 0)
+        fail_unless(failures == 0, f"load: {failures} launch failures")
+    finally:
+        target.close()
+    out["launches"] = ce.launch_counts()
+    fail_unless(out["launches"]["ens_resident"] > 0
+                and out["launches"]["ens_tile_multi"] > 0,
+                f"load serve: H5/H6 not launched: {out['launches']}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def _profile_dict(profile) -> dict:
+    import dataclasses
+    return {k: (list(map(list, v)) if k == "tenants" else v)
+            for k, v in dataclasses.asdict(profile).items()}
+
+
+def _pool_segments(report, row) -> dict:
+    """Where the pool's requests of one point spent their time: the
+    per-segment statistics (``trace_cli.segment_stats``: worker queue,
+    launch, wire = dispatch to answer less the worker's request span,
+    other = the router's wait before dispatch) over the fleet roots
+    admitted in the point's window."""
+    from heat2d_tpu_torch.obs import trace_cli
+    t0, t1 = row["window"]
+    sel = [r for r in report["traces"] if r["root"] == "fleet.request"
+           and t0 <= r["t0"] <= t1]
+    stats = trace_cli.segment_stats({"traces": sel})
+    return {"traces": len(sel),
+            **{seg: {k: stats[seg][k] for k in ("mean", "p50", "p99")}
+               for seg in ("queue", "launch", "wire", "other", "total")}}
+
+
+def _load_pool_leg(torch, tmp) -> dict:
+    """Leg 3: one pool of 2 workers on the card (``FleetTarget``), traced
+    (router and workers): two rates of the 640x1024 mix, two of the
+    4096^2 mix, each width's fit over 2 units and the segments of
+    each width's top point; the router's decode ms of a 4096^2 answer in
+    the same run; the compute apps during the leg; a clean stop."""
+    from heat2d_tpu_torch.fleet import route_signature, wire
+    from heat2d_tpu_torch.load import synth
+    from heat2d_tpu_torch.load.capacity import fit_capacity
+    from heat2d_tpu_torch.load.runner import FleetTarget, warm_target
+    from heat2d_tpu_torch.obs import trace_cli, tracing
+    from heat2d_tpu_torch.obs.metrics import MetricsRegistry
+
+    h5, h6 = load_mixes()
+    reg = MetricsRegistry()
+    tdir = os.path.join(tmp, "pool_trace")
+    os.makedirs(tdir)
+    t0 = time.perf_counter()
+    tracing.install(tracing.Tracer(tdir, service="router"))
+    try:
+        target = FleetTarget(workers=2, registry=reg,
+                             quotas=h5.quotas(256), device=LOAD_DEVICE,
+                             default_timeout=120.0,
+                             env={"HEAT2D_TRACE_DIR": tdir,
+                                  "HEAT2D_FLIGHT_DIR": tdir})
+    except BaseException:
+        tracing.uninstall()
+        raise
+    out = {"target": "fleet", "workers": 2, "device": LOAD_DEVICE,
+           "traced": True, "start_s": time.perf_counter() - t0}
+    fs = target.fleet
+    try:
+        out["compute_apps"] = _compute_apps()
+        t_warm = time.perf_counter()
+        warm = _h5_warm_schedule(h5)
+        out["h5_warm_requests"] = warm_target(target, warm)
+        out["h5_warm_s"] = time.perf_counter() - t_warm
+        out["h5_routes"] = {str(s): route_signature(str(s), [0, 1])
+                            for s in warm.signatures()}
+        rates5 = list(LOAD_POOL_H5_RPS)
+        rows5, fit5 = _load_sweep(target, h5, rates5, 2)
+        _load_checks("pool 640x1024", rows5, fit5)
+        out["h5"] = {"rates": rates5, "surface": _load_surface(rows5),
+                     "fit": fit5}
+        t_warm = time.perf_counter()
+        warm6 = synth.synthesize(h6, 4.0, 2.0, seed=LOAD_SEED)
+        out["h6_warm_requests"] = warm_target(target, warm6)
+        out["h6_warm_s"] = time.perf_counter() - t_warm
+        # one answer kept, to time the router's decode of its line
+        res = target.submit(warm6.arrivals[0].build_request(), "default",
+                            120.0).result(timeout=300)
+        out["h6_wire"] = _wire_ms(wire, res, reps=2)
+        del res
+        rows6 = [_load_point(target, h6, r, d, timeout=120.0)
+                 for r, d in zip(LOAD_POOL_H6_RPS, LOAD_POOL_H6_S)]
+        fit6 = fit_capacity(rows6, 2)
+        _load_checks("pool 4096^2", rows6, fit6)
+        out["h6"] = {"rates": list(LOAD_POOL_H6_RPS),
+                     "durations_s": list(LOAD_POOL_H6_S),
+                     "surface": _load_surface(rows6), "fit": fit6}
+        out["compute_apps_after"] = _compute_apps()
+        deaths = fs.sup.deaths
+        out["clean_stop"] = fs.stop()
+        out["launches"] = fs.sup.kernel_launches()
+        gens = fs.sup.generations_snapshot()
+    finally:
+        target.close()
+        tracing.uninstall()
+    fail_unless(deaths == 0, f"load pool: {deaths} worker deaths")
+    fail_unless(out["clean_stop"], "load pool: the pool did not stop "
+                "cleanly")
+    builds = [g["startup"].get("builds") for g in gens]
+    fail_unless(all(b == 0 for b in builds),
+                f"load pool: a worker ran nvcc ({builds})")
+    fail_unless(out["launches"].get("ens_resident", 0) > 0
+                and out["launches"].get("ens_tile_multi", 0) > 0,
+                f"load pool: the workers did not launch H5 and H6: "
+                f"{out['launches']}")
+    report = trace_cli.merge_report(tdir)
+    out["segments"] = {"640x1024": _pool_segments(report, rows5[-1]),
+                       "4096x4096": _pool_segments(report, rows6[-1])}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_load(torch, name: str, power: str, trace_dir: str,
+               measure: bool = False) -> dict:
+    """The load runner (``heat2d_tpu_torch.load``) on the card (item 24
+    of the docstring). ``measure``: the committed baseline is compared
+    and reported but not required (without one, leg 2's rates come from
+    its probe), and the surface is written as a baseline candidate to
+    ``chiprun_out/load_baseline_h100.json``."""
+    import tempfile
+
+    from heat2d_tpu_torch.io.binary import write_json_atomic
+    from heat2d_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    kdir = _build.BUILD_DIR
+
+    def listing():
+        return sorted((p.name, p.stat().st_size) for p in kdir.iterdir())
+
+    kernels_before = listing()
+    with tempfile.TemporaryDirectory(prefix="heat2d-load-") as tmp:
+        replay_leg = _load_replay_leg(torch, trace_dir, tmp)
+        serve_leg = _load_serve_leg(torch, name, power, measure)
+        torch.cuda.empty_cache()
+        pool_leg = _load_pool_leg(torch, tmp)
+    torch.cuda.empty_cache()
+    kernels_after = listing()
+    fail_unless(kernels_after == kernels_before,
+                f"load: build/kernels/ changed: {kernels_before} -> "
+                f"{kernels_after}")
+    launches: dict = {}
+    for leg in (replay_leg, serve_leg, pool_leg):
+        add_counts(launches, leg["launches"])
+    fit5 = serve_leg["fit"]
+    info = {"phase": "load", "card": name, "power_limit": power,
+            "replay": replay_leg, "serve": serve_leg, "pool": pool_leg,
+            # the fits' per-unit rates, and each target's achieved rate
+            # at its top (overloaded) point of each width: what it
+            # carries saturated
+            "per_unit_rps": {
+                "serve_640x1024": fit5["per_unit_rps"],
+                "pool_640x1024": pool_leg["h5"]["fit"]["per_unit_rps"],
+                "pool_4096x4096": pool_leg["h6"]["fit"]["per_unit_rps"]},
+            "saturated_rps": {
+                "serve_640x1024": serve_leg["surface"][-1]["achieved_rps"],
+                "pool_640x1024": pool_leg["h5"]["surface"][-1][
+                    "achieved_rps"],
+                "serve_4096x4096": serve_leg["h6_point"]["achieved_rps"],
+                "pool_4096x4096": pool_leg["h6"]["surface"][-1][
+                    "achieved_rps"]},
+            "launches": launches,
+            "kernels_dir_unchanged": kernels_after == kernels_before,
+            "seconds": time.perf_counter() - t0}
+    write_json_atomic(info, _out_path("load_phase.json"))
+    emit({"phase": "load", "card": name, "power_limit": power,
+          "replay": {k: replay_leg[k] for k in (
+              "arrivals", "widths", "span_s", "completed", "fidelity",
+              "max_skew_s", "seconds")},
+          "serve": {"warm_s": serve_leg["warm_s"],
+                    "knee_rate": serve_leg["probe"]["knee_rate"],
+                    "rates": serve_leg["rates"],
+                    "surface": serve_leg["surface"],
+                    "fit": serve_leg["fit"],
+                    "gate_rates": serve_leg["gate_rates"],
+                    "gate_surface": serve_leg["gate_surface"],
+                    "healthy_failures": serve_leg["healthy"]["failures"],
+                    "chaos_failures": serve_leg["chaos"]["failures"],
+                    "committed_gate": serve_leg.get("committed_gate"),
+                    "h6_point": serve_leg["h6_point"],
+                    "seconds": serve_leg["seconds"]},
+          "pool": {k: pool_leg[k] for k in (
+              "start_s", "h5_warm_s", "h6_warm_s", "h5_routes", "h5", "h6",
+              "h6_wire", "segments", "compute_apps", "clean_stop",
+              "seconds")},
+          "per_unit_rps": info["per_unit_rps"],
+          "saturated_rps": info["saturated_rps"], "launches": launches,
+          "seconds": info["seconds"]})
     return info
 
 
@@ -4145,12 +4672,20 @@ def main() -> int:
         diff_path = phase_diff_path(torch, tool["name"],
                                     tool["power_limit"])
         resil = phase_resil(torch, tool["name"], tool["power_limit"])
-        fleet = phase_fleet(torch, tool["name"], tool["power_limit"])
+        fleet_dir = tempfile.mkdtemp(prefix="heat2d-fleet-")
+        try:
+            fleet = phase_fleet(torch, tool["name"], tool["power_limit"],
+                                fleet_dir)
+            load = phase_load(torch, tool["name"], tool["power_limit"],
+                              fleet_dir)
+        finally:
+            shutil.rmtree(fleet_dir, ignore_errors=True)
         launches = {**main_path["launches"], **serve["launch_counts"],
                     **serve_fam["launch_counts"],
                     **sharded_path["launches"]}
         launches["ens_tile_multi"] += diff_path["launches"]["ens_tile_multi"]
-        for leg in (sharded_ens, mesh_serve, scaling, multi, resil, fleet):
+        for leg in (sharded_ens, mesh_serve, scaling, multi, resil, fleet,
+                    load):
             add_counts(launches, leg["launches"])
         for name in ("td_coeffs", "td_rows", "td_lanes"):
             launches[name] += implicit["launches"][name]
@@ -4183,7 +4718,7 @@ def main() -> int:
                    "mesh_serving": mesh_serve, "mesh_fault": mesh_fault,
                    "strong_scaling": scaling, "multi_process": multi,
                    "diff_path": diff_path, "resil": resil,
-                   "fleet": fleet,
+                   "fleet": fleet, "load": load,
                    "kernels": rows,
                    "headline": head, "tune": tune, "obs": obs,
                    "seconds": time.perf_counter() - t0})

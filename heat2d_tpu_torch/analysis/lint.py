@@ -103,7 +103,9 @@ METRIC_RE = re.compile(
     r"|perf|problem|ir|analysis|autoscale|dist)_[a-z0-9_]+$")
 
 #: keyword names whose literal string values name a metric family
-#: (e.g. ``SingleFlight(counter="fleet_coalesced_total")``)
+#: (e.g. ``SingleFlight(counter="fleet_coalesced_total")``); ``name``
+#: only in a call of one of ``METRIC_METHODS`` (elsewhere it names other
+#: things: ``MixProfile(name="inverse_heavy")`` is a traffic profile)
 METRIC_KEYWORDS = {"counter", "metric", "name"}
 
 
@@ -621,12 +623,14 @@ def _code_metric_names(trees: Dict[str, ast.Module]) -> Tuple[
                 continue
             if not isinstance(node, ast.Call):
                 continue
+            method = (isinstance(node.func, ast.Attribute)
+                      and node.func.attr in METRIC_METHODS)
             for kw in node.keywords:
                 if kw.arg in METRIC_KEYWORDS and isinstance(
-                        kw.value, ast.Constant):
+                        kw.value, ast.Constant) and (
+                            method or kw.arg != "name"):
                     note(kw.value.value, rel, kw.value.lineno)
-            if not (isinstance(node.func, ast.Attribute)
-                    and node.func.attr in METRIC_METHODS and node.args):
+            if not (method and node.args):
                 continue
             arg = node.args[0]
             if isinstance(arg, ast.Constant):

@@ -24,9 +24,10 @@ RECORD_SCHEMA = "heat2d-tpu/run-record/v1"
 #: and ``mesh/bench.py``), "mesh_chaos" (the mesh fault gate,
 #: ``mesh/chaos_gate.py``), "dist" (the multi-process runtime's legs,
 #: ``dist/cli.py``), "tune" (the kernel search, ``tune/cli.py``), "fleet"
-#: (the worker pool's soak, ``fleet/cli.py``).
+#: (the worker pool's soak, ``fleet/cli.py``), "load" (the load runner's
+#: surface, capacity fit and gate, ``load/cli.py``).
 RECORD_KINDS = ("run", "ensemble", "bench", "serve", "inverse",
-                "multichip", "mesh_chaos", "dist", "tune", "fleet")
+                "multichip", "mesh_chaos", "dist", "tune", "fleet", "load")
 
 
 def run_context(device=None) -> dict:

@@ -157,6 +157,24 @@ def test_rule_fires_on_its_seeded_tree(tmp_path, rule):
         assert f.key.startswith(f"{rule}:") and str(f.line) not in f.key
 
 
+def test_r005_name_keyword_names_a_metric_only_in_a_metric_call(tmp_path):
+    """``name=`` is a metric slot in a registry call, not in any call:
+    a traffic profile named like a metric family is no finding."""
+    root = _tree(tmp_path, {"pkg/load/synth.py": '''
+        def f(registry, MixProfile):
+            MixProfile(name="inverse_heavy")
+            registry.timer(name="serve_undocumented_s")
+        ''', "README.md": '''
+        ## Port metric families
+
+        | families |
+        |---|
+        | `serve_documented_total` |
+        '''})
+    found = {f.match for f in lint.lint_tree(root, rules=["R005"])}
+    assert found == {"serve_undocumented_s", "serve_documented_total"}
+
+
 def test_tracing_entry_points_are_torch_only(tmp_path):
     """``re.compile`` and a bare ``trace`` are not torch's tracers; the
     decorator form and ``jit.script`` are."""

@@ -1132,3 +1132,28 @@ def test_fleet_pool_on_the_card(card):
         want = [one.submit(r) for r in reqs]
         for g, w in zip(got, want):
             assert g.u.tobytes() == w.result(timeout=300).u.tobytes()
+
+
+def test_load_replay_through_a_serve_target_on_the_card(card, tmp_path):
+    """A short 256^2 schedule, written and read back as the replay path
+    does, fired open-loop at ``ServeTarget(device="cuda")``: every arrival
+    completed, and the buckets ran on H5."""
+    from heat2d_tpu_torch.load import synth
+    from heat2d_tpu_torch.load.runner import ServeTarget, run_schedule
+    from heat2d_tpu_torch.load.schedule import Schedule
+    from heat2d_tpu_torch.obs.metrics import MetricsRegistry
+
+    prof = synth.MixProfile(name="card_256", signatures=2, nx=256,
+                            ny=256, steps=100, method="auto")
+    path = tmp_path / "sched.jsonl"
+    synth.synthesize(prof, 40.0, 1.0, seed=3).to_jsonl(str(path))
+    sched = Schedule.from_jsonl(str(path))
+    target = ServeTarget(registry=MetricsRegistry(), device="cuda")
+    try:
+        ce.reset_launch_counts()
+        row = run_schedule(sched, target, MetricsRegistry())
+    finally:
+        target.close()
+    assert row["arrivals"] == len(sched) > 0
+    assert row["completed"] == row["arrivals"] and row["unanswered"] == 0
+    assert ce.launch_counts()["ens_resident"] > 0

@@ -417,3 +417,30 @@ def test_fleet_refuses_without_a_card(no_card, capsys):
     fs = FleetServer(workers=1, registry=MetricsRegistry())
     with pytest.raises(WorkerStartError, match="before reporting ready"):
         fs.start()
+
+
+def test_importing_load_loads_no_jax():
+    code = ("import sys; import heat2d_tpu_torch.load, "
+            "heat2d_tpu_torch.load.cli, heat2d_tpu_torch.load.runner, "
+            "heat2d_tpu_torch.load.gate; "
+            "print('jax' in sys.modules, 'heat2d_tpu' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "False"]
+
+
+def test_load_refuses_without_a_card(no_card, capsys):
+    """``heat2d-tpu-torch-load`` serves on the card by default: without
+    one every mode exits 1 naming CUDA before a target starts, and a
+    serve target on ``cuda`` raises instead of serving from the CPU."""
+    from heat2d_tpu_torch.load import cli as load_cli
+    from heat2d_tpu_torch.load.runner import ServeTarget
+    for argv in (["--selftest"],
+                 ["--profile", "smoke", "--duration", "1"],
+                 ["--profile", "smoke", "--target", "fleet",
+                  "--workers", "1"]):
+        assert load_cli.main(argv) == 1
+        err = capsys.readouterr().err
+        assert "CUDA" in err and "selftest: " not in err
+    with pytest.raises(DeviceUnavailableError, match="CUDA"):
+        ServeTarget()
