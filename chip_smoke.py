@@ -213,6 +213,50 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    readback seconds. Its H5/H6 launches (the pool's from the workers'
    heartbeats) join the kernels line's. Full results in
    ``chiprun_out/load_phase.json``.
+25. control (after 24): ``heat2d_tpu_torch.control`` on the card
+   (``phase_control``). One pool of 3 workers serves under a validated
+   tuning db seeded with H4/H5's chunk depth K = ``CONTROL_SEED_K`` (1, a
+   K the search never picks) at 640x1024, while a background mix of 640x1024 x 2000-2001 steps on auto
+   (H5) and band (H6) runs throughout. The control plane ticks; the
+   retuner (``backend=None``) measures the hot 640x1024 signature on the
+   card while the router is idle (the mix's latency before and during the
+   measurement reported) and stages the candidate, whose best must be a
+   resident K other than 1 (every K's rate reported). (a) A healthy rollout probed by one member of
+   640x1024 x 10000 on pallas: promoted; the canary's H5 launch rows (the
+   workers' heartbeats, ``Supervisor.tuned_launches``) took the
+   candidate's K, the incumbent's took 1; the validated db advances. (b)
+   A bad candidate (``HEAT2D_CHAOS_SLOW_WORKER_S=0.5`` on the canary's
+   overlay): reverted, bitwise after the revert. (c) A kill storm of every
+   worker in the observation window: ``no_unvalidated_serving`` true, a
+   revert proven bitwise, the restarts' seconds. Every mix request
+   answered (resident give-ups counted), each distinct answer and the
+   probe's bitwise the one-process ``SolveServer``'s, no kernel build, a
+   clean stop. Then the CLIs as the JAX package's CI runs them, with
+   ``--device cuda``: ``heat2d-tpu-torch-fleet --workers 3 --soak 10
+   --control-rollout --control-storm-phase observe``, ``heat2d-tpu-torch-
+   perf --soak 5 --chaos-slow 0.5 --expect-anomaly`` (one request a
+   window, to keep the slowed half short) and ``--soak 5
+   --expect-clean`` (20 windows each); each must exit 0. The workers' H5/H6 and the perf
+   soaks' in-process launches join the kernels line's.
+26. autoscale (after 25): ``heat2d_tpu_torch.autoscale`` on the card
+   (``phase_autoscale``): ``fleet.cli.run_elastic`` on the diurnal
+   profile at 640x1024 x 2000 steps on auto (H5), a pool of 1 to 3
+   workers, 20 s (one period), utilization ``AUTOSCALE_UTIL`` (0.6, the
+   CLI's), calibrated on one worker and on the pool of 3 (both rates
+   reported: on one card the pool carries about one worker's rate, and a
+   unit is sized at the pool's rate per worker): at least one scale-up
+   and one scale-down, every request completed, the pool's mean under the
+   envelope's peak above its mean under the trough, chip-seconds below 3
+   workers held static; a 640x1024 x 40-step init recovery on the band
+   route (H6 forward) over 120 Adam iterations, attached to the highest
+   slot and live-migrated by its retirement, bitwise its unmigrated run on
+   the card; the mesh leg over 4 slots of the card (``host_devices(4)``):
+   resize down and up, a quarantine and a parole, each bitwise the full
+   mesh, the paroled slot serving again. Then ``heat2d-tpu-torch-fleet
+   --workers 3 --autoscale --soak 20 --device cuda`` (one period) must
+   exit 0. The pool-size trace, actions, chip-seconds and the migration's
+   seconds are reported; the workers' H5 and the in-process H5/H6
+   launches join the kernels line's.
 
 The last line of standard output is ``{"ok": true, "device": ...}``. The
 full results also go to ``chiprun_out/chip_smoke.json``.
@@ -4403,6 +4447,534 @@ def phase_load(torch, name: str, power: str, trace_dir: str,
 
 
 # ------------------------------------------------------------------ #
+# control: the SLO control plane and safe rollouts on the card
+# ------------------------------------------------------------------ #
+
+#: the incumbent's chunk depth at 640x1024, seeded into the validated db
+#: the pool starts under: a valid K the card search never picks, so that a
+#: promoted candidate changes what H5 runs. One member's H5 at K 1 takes
+#: ~1.7x K 4-8's time (the kernels line's k_sweep_ms), where K 4-8 lie
+#: within ~5% of each other and their order moves between runs; the phase
+#: prints every K's rate beside the pick
+CONTROL_SEED_K = 1
+#: the rollouts' probe: one member on method pallas, the launch that takes
+#: a db's K (``models.ensemble.tuned_config``)
+CONTROL_PROBE = {"nx": 640, "ny": 1024, "steps": 10000, "cx": 0.123,
+                 "cy": 0.1, "method": "pallas"}
+#: the background mix: 640x1024 at these step counts on auto (H5) and
+#: band (H6), one request every CONTROL_MIX_GAP_S
+CONTROL_MIX_STEPS = (2000, 2001)
+CONTROL_MIX_GAP_S = 0.5
+#: the perf CLI's soaks: 20 windows of 0.25 s (the CLI's floor is 10),
+#: armed at the 10th in the anomaly soak
+CONTROL_PERF_SOAK_S = 5
+
+
+def _control_mix(SolveRequest, i: int):
+    return SolveRequest(nx=640, ny=1024,
+                        steps=CONTROL_MIX_STEPS[i % 2],
+                        cx=round(0.02 + 0.0007 * (i % 200), 6), cy=0.1,
+                        method=("auto", "band")[(i // 2) % 2])
+
+
+def _probe_ks(rows, sig: str) -> list:
+    """The chunk depths the launches of ``sig`` took in one worker
+    generation's tuned rows (``worker.TunedTally``; None: no db
+    answer, the planner's)."""
+    return sorted({(r[2] or {}).get("tsteps") if (r[2] or {}).get(
+        "route") == "resident" else None for r in rows if r[0] == sig},
+        key=lambda k: -1 if k is None else k)
+
+
+def _run_cli(main, argv) -> tuple:
+    """(rc, seconds, stdout) of one in-process CLI call; its stdout is
+    kept (the CLIs print progress and JSON there), its stderr passes."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, time.perf_counter() - t0, buf.getvalue()
+
+
+def _records(path: str) -> dict:
+    """The run records of a ``--metrics-out`` file, by kind."""
+    with open(path) as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    return {r["kind"]: r for r in recs if r.get("event") == "run_record"}
+
+
+def phase_control(torch, name: str, power: str, tmp_root: str) -> dict:
+    """The control plane (``heat2d_tpu_torch.control``) on the card (item
+    25 of the docstring)."""
+    import threading
+
+    import numpy as np
+
+    from heat2d_tpu_torch.control import ControlPlane, Retuner, RolloutConfig
+    from heat2d_tpu_torch.fleet import FleetServer
+    from heat2d_tpu_torch.fleet import cli as fleet_cli
+    from heat2d_tpu_torch.obs import perf_cli
+    from heat2d_tpu_torch.obs import slo
+    from heat2d_tpu_torch.obs.metrics import MetricsRegistry
+    from heat2d_tpu_torch.ops import _build
+    from heat2d_tpu_torch.resil import chaos
+    from heat2d_tpu_torch.serve.schema import SolveRequest
+    from heat2d_tpu_torch.serve.server import SolveServer
+    from heat2d_tpu_torch.tune import runtime as tune_runtime
+    from heat2d_tpu_torch.tune.db import TuningDB
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    kdir = _build.BUILD_DIR
+
+    def listing():
+        return sorted((p.name, p.stat().st_size) for p in kdir.iterdir())
+
+    kernels_before = listing()
+    tmp = os.path.join(tmp_root, "control")
+    os.makedirs(tmp)
+    vp = os.path.join(tmp, "validated.json")
+    cp = os.path.join(tmp, "candidate.json")
+    kind = tune_runtime.device_kind("cuda")
+    seed = TuningDB(vp)
+    seed.set_best(kind, "640x1024:float32",
+                  {"route": "resident", "bm": 0, "tsteps": CONTROL_SEED_K},
+                  None, {"seeded": "chip_smoke.py control phase"})
+    seed.save()
+    probe_req = SolveRequest.from_dict(dict(CONTROL_PROBE))
+    probe_sig = str(probe_req.signature())
+    reg = MetricsRegistry()
+    fs = FleetServer(
+        workers=3, registry=reg, max_batch=8, max_delay=0.05,
+        default_timeout=300.0, worker_timeout=300.0, max_replays=5,
+        cache_size=0, worker_cache_size=0, env={"HEAT2D_TUNE_DB": vp},
+        device="cuda")
+    mix: list = []          # (request, submit time, future)
+    stop_mix = threading.Event()
+    out: dict = {"phase": "control", "card": name, "power_limit": power,
+                 "workers": 3, "seed_k": CONTROL_SEED_K}
+    plane = None
+    try:
+        t0 = time.monotonic()
+        fs.start()
+        out["start_s"] = time.monotonic() - t0
+        retuner = Retuner(fs, candidate_path=cp, validated_path=vp,
+                          backend=None, registry=reg, device="cuda")
+        plane = ControlPlane(fs, policy=slo.SLOPolicy(latency_p99_s=30.0),
+                             retuner=retuner, registry=reg).start()
+
+        def mix_loop():
+            i = 0
+            while not stop_mix.is_set():
+                r = _control_mix(SolveRequest, i)
+                i += 1
+                row = [r, time.monotonic(), None, None]
+                fut = fs.submit(r)
+                row[2] = fut
+                fut.add_done_callback(
+                    lambda f, row=row: row.__setitem__(3, time.monotonic()))
+                mix.append(row)
+                stop_mix.wait(CONTROL_MIX_GAP_S)
+
+        mixer = threading.Thread(target=mix_loop, name="control-mix",
+                                 daemon=True)
+        mixer.start()
+        deadline = time.monotonic() + 120
+        while sum(1 for row in list(mix) if row[3] is not None) < 8:
+            fail_unless(time.monotonic() < deadline,
+                        "control: the mix did not warm up")
+            time.sleep(0.05)
+
+        # -- the card retuner stages a measured candidate, off-peak ---- #
+        hot = [s for s, _n in retuner.hot_signatures()
+               if s.startswith("(640, 1024, ")]
+        fail_unless(bool(hot), "control: no hot 640x1024 signature")
+        fail_unless(retuner.off_peak(), "control: the router is not idle")
+        t_stage = time.monotonic()
+        staged = retuner.stage_candidate(hot[0])
+        t_staged = time.monotonic()
+        best = staged["best"] or {}
+
+        def lat(lo, hi):
+            # latency of the mix requests submitted in [lo, hi)
+            return _quantiles([row[3] - row[1] for row in list(mix)
+                               if lo <= row[1] < hi
+                               and row[3] is not None])
+
+        out["retune"] = {"signature": hot[0], "epoch": staged["epoch"],
+                         "measured": staged["measured"],
+                         "best": {k: best.get(k) for k in (
+                             "route", "bm", "tsteps", "mcells_per_s")},
+                         "seconds": t_staged - t_stage,
+                         "mix_latency_before": lat(t0, t_stage),
+                         "mix_latency_during": lat(t_stage, t_staged)}
+        points = TuningDB(cp).entry(kind, "640x1024:float32")["points"]
+        out["retune"]["mcells_per_s"] = {
+            (f"K{p['tsteps']}" if p["route"] == "resident"
+             else f"{p['route']} ty={p['bm']} T={p['tsteps']}"):
+            p.get("mcells_per_s") for p in points if p.get("status") == "ok"}
+        rates = out["retune"]["mcells_per_s"]
+        fail_unless(f"K{CONTROL_SEED_K}" in rates,
+                    f"control: the card search did not measure the "
+                    f"incumbent's K {CONTROL_SEED_K}: {sorted(rates)}")
+        out["retune"]["pick_over_seed"] = (best.get("mcells_per_s", 0.0)
+                                           / rates[f"K{CONTROL_SEED_K}"])
+        fail_unless(best.get("route") == "resident"
+                    and best.get("tsteps") != CONTROL_SEED_K,
+                    f"control: the card search's best {best} is no "
+                    f"resident K other than the incumbent's "
+                    f"{CONTROL_SEED_K}: parity would prove nothing")
+        cand_k = best["tsteps"]
+
+        # -- a healthy rollout: promoted, canary on the candidate's K -- #
+        cfg = dict(candidate_path=cp, validated_path=vp,
+                   probe_spec=dict(CONTROL_PROBE), observe_s=2.0,
+                   observe_probes=4, probe_timeout=120.0,
+                   ready_timeout=120.0)
+        t1 = time.monotonic()
+        healthy = plane.run_rollout(RolloutConfig(**cfg))
+        out["healthy"] = {"outcome": healthy["outcome"],
+                          "phases": healthy["phases"],
+                          "seconds": time.monotonic() - t1}
+        fail_unless(healthy["outcome"] == "promoted",
+                    f"control: the card-measured candidate did not "
+                    f"promote: {healthy}")
+        vdb = TuningDB(vp)
+        fail_unless(vdb.validated and vdb.epoch == staged["epoch"]
+                    and vdb.lookup(kind, 640, 1024).tsteps == cand_k,
+                    "control: promote did not advance the validated db")
+        gens = fs.sup.tuned_launches()
+        canary = [g for g in gens if g["via"] == "rollout"
+                  and (g["overlay"] or {}).get("HEAT2D_TUNE_DB") == cp]
+        incumbent = healthy["phases"][0]["incumbent"]
+        first = [g for g in gens if g["via"] == "start"
+                 and g["slot"] == incumbent]
+        out["healthy"]["canary_ks"] = _probe_ks(canary[0]["tuned"],
+                                                probe_sig)
+        out["healthy"]["incumbent_ks"] = _probe_ks(first[0]["tuned"],
+                                                   probe_sig)
+        fail_unless(out["healthy"]["canary_ks"] == [cand_k],
+                    f"control: the canary's H5 launches took K "
+                    f"{out['healthy']['canary_ks']}, not the candidate's "
+                    f"{cand_k}")
+        fail_unless(out["healthy"]["incumbent_ks"] == [CONTROL_SEED_K],
+                    f"control: the incumbent's H5 launches took K "
+                    f"{out['healthy']['incumbent_ks']}, not "
+                    f"{CONTROL_SEED_K}")
+
+        # -- a bad candidate: measured, reverted, bitwise after ------- #
+        staged2 = retuner.stage_candidate(hot[0])
+        out["restage_measured"] = staged2["measured"]
+        t1 = time.monotonic()
+        bad = plane.run_rollout(RolloutConfig(
+            **cfg, extra_canary_env={"HEAT2D_CHAOS_SLOW_WORKER_S": "0.5"}))
+        out["bad"] = {"outcome": bad["outcome"], "phases": bad["phases"],
+                      "post_revert_parity": bad["post_revert_parity"],
+                      "seconds": time.monotonic() - t1}
+        fail_unless(bad["outcome"].startswith("reverted")
+                    and bad["post_revert_parity"] is True,
+                    f"control: the bad candidate was not reverted with "
+                    f"bitwise parity: {bad}")
+
+        # -- a kill storm in the observation window ------------------- #
+        retuner.stage_candidate(hot[0])
+        deaths0, gens0 = fs.sup.deaths, len(fs.sup.generations_snapshot())
+        chaos.install(chaos.ChaosConfig(rollout_kill_phase="observe",
+                                        rollout_kills=0), registry=reg)
+        t1 = time.monotonic()
+        try:
+            storm = plane.run_rollout(RolloutConfig(**cfg))
+        finally:
+            chaos.uninstall()
+        storm_s = time.monotonic() - t1
+        deadline = time.monotonic() + 120
+        while len(fs.sup.alive_slots()) < 3:
+            fail_unless(time.monotonic() < deadline,
+                        "control: the pool did not recover from the storm")
+            time.sleep(0.05)
+        after = fs.sup.generations_snapshot()[gens0:]
+        inv = plane.serving_invariant()
+        out["storm"] = {
+            "outcome": storm["outcome"], "phases": storm["phases"],
+            "post_revert_parity": storm["post_revert_parity"],
+            "deaths": fs.sup.deaths - deaths0,
+            "restarts": [{"slot": g["slot"], "via": g["via"],
+                          "spawn_to_ready_s": g["ready_at"]
+                          - g["spawned_at"]} for g in after],
+            "no_unvalidated_serving": inv["no_unvalidated_serving"],
+            "seconds": storm_s}
+        fail_unless(inv["no_unvalidated_serving"],
+                    f"control: an unvalidated generation served: "
+                    f"{inv['unvalidated_serving']}")
+        fail_unless(fs.sup.deaths - deaths0 >= 3,
+                    f"control: the storm killed {fs.sup.deaths - deaths0} "
+                    f"of 3 workers")
+        fail_unless(not storm["outcome"].startswith("reverted")
+                    or storm["post_revert_parity"] is True,
+                    f"control: a storm revert without bitwise parity: "
+                    f"{storm}")
+
+        # -- drain the mix; every answer against one process ---------- #
+        stop_mix.set()
+        mixer.join(timeout=10)
+        probe_ans = fs.solve(probe_req, timeout=300)
+        outcomes, answers = [], []
+        for r, _ts, f, _td in mix:
+            try:
+                answers.append((r, f.result(timeout=600)))
+                outcomes.append("completed")
+            except Exception as e:  # noqa: BLE001 (every failure counts)
+                outcomes.append(repr(e))
+        plane.stop()
+        summary = plane.summary()
+        plane = None
+        gens = fs.sup.generations_snapshot()
+        tuned = fs.sup.tuned_launches()
+        out["clean_exit"] = fs.stop()
+        launches = fs.sup.kernel_launches()
+    finally:
+        stop_mix.set()
+        if plane is not None:
+            plane.stop()
+        fs.stop()
+    gave_up = sum(1 for o in outcomes if "gave up" in o)
+    failed = [o for o in outcomes if o != "completed"]
+    out.update(mix_requests=len(mix), give_ups=gave_up,
+               decisions=[d["action"] for d in summary["decisions"]],
+               generations=len(gens))
+    fail_unless(not failed, f"control: {len(failed)} of {len(mix)} mix "
+                f"requests failed ({gave_up} resident give-ups): "
+                f"{failed[:3]}")
+    fail_unless(out["clean_exit"], "control: the pool did not stop cleanly")
+    builds = [g["startup"].get("builds") for g in gens]
+    fail_unless(all(b == 0 for b in builds),
+                f"control: a worker ran nvcc ({builds})")
+    fail_unless(launches.get("ens_resident", 0) > 0
+                and launches.get("ens_tile_multi", 0) > 0,
+                f"control: the workers did not launch H5 and H6: {launches}")
+    # after promote every worker serves epoch 1: its probe takes cand_k
+    late = [g for g in tuned if g["via"] in ("rollout", "restart")
+            and not g["overlay"]]
+    out["validated_ks"] = sorted({k for g in late
+                                  for k in _probe_ks(g["tuned"], probe_sig)
+                                  if k is not None})
+    t_or = time.perf_counter()
+    distinct = {}
+    for r, a in answers:
+        distinct.setdefault(r.content_hash(), (r, a))
+    with SolveServer(max_batch=8, max_delay=0.05, registry=MetricsRegistry(),
+                     default_timeout=600.0) as one:
+        ofuts = [(r, a, one.submit(r)) for r, a in distinct.values()]
+        want_probe = one.solve(probe_req, timeout=600).u.tobytes()
+        mismatched = [r.content_hash()[:12] for r, a, f in ofuts
+                      if f.result(timeout=600).u.tobytes() != a.u.tobytes()]
+    out["oracle_s"] = time.perf_counter() - t_or
+    fail_unless(probe_ans.u.tobytes() == want_probe,
+                "control: the pool's probe answer differs bitwise from the "
+                "one-process server's")
+    fail_unless(not mismatched, f"control: {len(mismatched)} mix answers "
+                f"differ bitwise from the one-process server: {mismatched}")
+    fail_unless(all(bool(np.isfinite(a.u).all())
+                    for _r, a in distinct.values()),
+                "control: non-finite answer")
+    out["mix_latency"] = {meth: _quantiles([
+        row[3] - row[1] for row in mix
+        if row[0].method == meth and row[3] is not None])
+        for meth in ("auto", "band")}
+    out["launches_pool"] = dict(launches)
+
+    # -- the CLIs on the card, as the JAX CI runs them ------------------ #
+    clis = {}
+    fleet_out = os.path.join(tmp, "fleet.jsonl")
+    rc, secs, _so = _run_cli(fleet_cli.main, [
+        "--workers", "3", "--soak", "10", "--control-rollout",
+        "--control-storm-phase", "observe", "--device", "cuda",
+        "--metrics-out", fleet_out])
+    recs = _records(fleet_out)
+    clis["fleet"] = {"rc": rc, "seconds": secs,
+                     "summary": {k: recs["fleet"].get(k) for k in (
+                         "submitted", "completed", "deaths", "restarts",
+                         "replays", "control", "failures")}}
+    fail_unless(rc == 0, f"control: heat2d-tpu-torch-fleet --control-"
+                f"rollout --control-storm-phase observe exited {rc}: "
+                f"{recs['fleet'].get('failures')}")
+    add_counts(launches, recs["fleet"]["kernel_launches"])
+    for label, extra in (("perf_anomaly", ["--chaos-slow", "0.5",
+                                           "--expect-anomaly",
+                                           "--per-window", "1"]),
+                         ("perf_clean", ["--expect-clean"])):
+        path = os.path.join(tmp, f"{label}.jsonl")
+        reset_counts()
+        rc, secs, so = _run_cli(perf_cli.main, [
+            "--soak", str(CONTROL_PERF_SOAK_S), "--device", "cuda", "--json",
+            "--metrics-out", path, *extra])
+        counts = read_counts()
+        rec = _records(path)["perf"]
+        clis[label] = {"rc": rc, "seconds": secs, "soak": rec["soak"],
+                       "findings": rec["findings"], "launches": counts}
+        fail_unless(rc == 0, f"control: heat2d-tpu-torch-perf --soak "
+                    f"{CONTROL_PERF_SOAK_S} "
+                    f"{' '.join(extra)} exited {rc}: {rec['soak']}, "
+                    f"{rec['findings'][:2]}")
+        add_counts(launches, counts)
+    kernels_after = listing()
+    fail_unless(kernels_after == kernels_before,
+                f"control: build/kernels/ changed: {kernels_before} -> "
+                f"{kernels_after}")
+    out.update(clis=clis, launches=launches,
+               seconds=time.perf_counter() - t_phase)
+    emit({k: v for k, v in out.items()
+          if k not in ("healthy", "bad", "storm")})
+    emit({"phase": "control_rollouts", "card": name, "power_limit": power,
+          **{k: out[k] for k in ("healthy", "bad", "storm")}})
+    return out
+
+
+# ------------------------------------------------------------------ #
+# autoscale: the elastic pool on the card
+# ------------------------------------------------------------------ #
+
+#: the elastic leg's traffic: the diurnal profile at the serving legs'
+#: width and depth, on the hand kernels' route (H5)
+AUTOSCALE_STEPS = 2000
+#: one period of the diurnal envelope: its peak and its trough both
+AUTOSCALE_SOAK_S = 20.0
+#: the leg's target utilization, the CLI's default. The leg calibrates one
+#: worker and the pool of 3: at 640x1024 a pool on one card carries about
+#: what one worker does (the router decodes every 3.5 MB answer under one
+#: interpreter lock, and the workers share the card), so a unit is sized at
+#: the pool's rate per worker, and the phase prints both rates
+AUTOSCALE_UTIL = 0.6
+#: the CLI's elastic soak at 16x16: one period of the diurnal envelope
+AUTOSCALE_CLI_SOAK_S = 20
+#: the migrated inverse job: 640x1024 init recovery, band route (H6
+#: forward), this many steps a solve and Adam iterations (~50 ms an
+#: iteration at 40 steps: the job runs ~6 s, and the retirement lands
+#: past its 50th iteration)
+AUTOSCALE_INV_STEPS = 40
+AUTOSCALE_INV_ITERS = 120
+
+
+def phase_autoscale(torch, name: str, power: str, tmp_root: str) -> dict:
+    """The elastic pool (``heat2d_tpu_torch.autoscale``) on the card (item
+    26 of the docstring)."""
+    import dataclasses
+    import types
+
+    from heat2d_tpu_torch.diff.adjoint import make_diff_solve
+    from heat2d_tpu_torch.diff.inverse import (InverseProblem,
+                                               observation_mask,
+                                               unit_reference_init)
+    from heat2d_tpu_torch.fleet import cli as fleet_cli
+    from heat2d_tpu_torch.load.synth import PROFILES
+    from heat2d_tpu_torch.obs.metrics import MetricsRegistry
+    from heat2d_tpu_torch.ops import _build
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    kdir = _build.BUILD_DIR
+
+    def listing():
+        return sorted((p.name, p.stat().st_size) for p in kdir.iterdir())
+
+    kernels_before = listing()
+    tmp = os.path.join(tmp_root, "autoscale")
+    os.makedirs(tmp)
+    profile = dataclasses.replace(PROFILES["diurnal"], nx=640, ny=1024,
+                                  steps=AUTOSCALE_STEPS, method="auto")
+    dev = torch.device("cuda")
+    nx, ny = 640, 1024
+    u0 = unit_reference_init(nx, ny)
+    with torch.no_grad():
+        u_true = make_diff_solve(nx, ny, AUTOSCALE_INV_STEPS, method="band",
+                                 device=dev)(
+            torch.as_tensor(u0, device=dev), 0.1, 0.1).cpu().numpy()
+    prob = InverseProblem(nx=nx, ny=ny, steps=AUTOSCALE_INV_STEPS,
+                          target="init",
+                          obs_mask=observation_mask(nx, ny, every=1),
+                          obs_values=u_true, cx=0.1, cy=0.1, method="band",
+                          device="cuda")
+    path = os.path.join(tmp, "autoscale.jsonl")
+    args = types.SimpleNamespace(
+        workers=3, soak=AUTOSCALE_SOAK_S, timeout=120.0,
+        heartbeat_timeout=2.0, concurrency=8, autoscale_util=AUTOSCALE_UTIL,
+        autoscale_seed=0, slo_p99=None, slo_error_budget=0.001,
+        device="cuda", host_device_count=4, metrics_out=path)
+    reset_counts()
+    t0 = time.perf_counter()
+    rc, s = fleet_cli.run_elastic(args, MetricsRegistry(), profile,
+                                  migration=(prob, AUTOSCALE_INV_ITERS,
+                                             0.05))
+    api_s = time.perf_counter() - t0
+    in_process = read_counts()
+    fail_unless("trace" in s, f"autoscale: the elastic leg stopped early: "
+                f"{s['failures']}")
+    rec = _records(path)["autoscale"]
+    launches = dict(rec["kernel_launches"])
+    add_counts(launches, in_process)
+    out = {"phase": "autoscale", "card": name, "power_limit": power,
+           "profile": {"nx": nx, "ny": ny, "steps": AUTOSCALE_STEPS,
+                       "method": "auto", "signatures": profile.signatures,
+                       "period_s": profile.diurnal_period_s,
+                       "amplitude": profile.diurnal_amplitude},
+           "rc": rc, "seconds_api": api_s,
+           **{k: s[k] for k in (
+               "submitted", "completed", "calibrated_rps_per_worker",
+               "calibrated_rps_pool", "per_unit_rps", "base_rate_rps",
+               "scale_ups", "scale_downs", "workers_min",
+               "workers_max", "chip_seconds", "static_chip_seconds",
+               "savings_fraction", "migration", "mesh", "failures")},
+           "pool_trace": [[round(t - s["t_load"], 3), p]
+                          for t, p in s["trace"]],
+           "actions": [{k: a.get(k) for k in ("t", "action", "slot",
+                                              "slots", "pool", "target")}
+                       for a in s["actions"]],
+           "launches_workers": rec["kernel_launches"],
+           "launches_in_process": in_process}
+    emit({k: v for k, v in out.items() if k != "actions"})
+    fail_unless(rc == 0, f"autoscale: the elastic leg failed: "
+                f"{s['failures']}")
+    fail_unless(s["migration"].get("bitwise_vs_oracle") is True,
+                "autoscale: the migrated job is not bitwise its oracle")
+    fail_unless(s["mesh"].get("devices") == 4
+                and s["mesh"].get("invariant_ok") is True
+                and s["mesh"].get("paroled_device_served") is True,
+                f"autoscale: the mesh leg: {s['mesh']}")
+    fail_unless(launches.get("ens_resident", 0) > 0
+                and in_process.get("ens_tile_multi", 0) > 0,
+                f"autoscale: H5 in the workers and H6 in the migrated job "
+                f"did not run: {launches}")
+
+    # -- the CLI on the card, as the JAX CI runs it --------------------- #
+    cli_out = os.path.join(tmp, "cli.jsonl")
+    rc, secs, _so = _run_cli(fleet_cli.main, [
+        "--workers", "3", "--autoscale", "--soak", str(AUTOSCALE_CLI_SOAK_S),
+        "--device", "cuda", "--metrics-out", cli_out])
+    crec = _records(cli_out)["autoscale"]
+    out["cli"] = {"rc": rc, "seconds": secs,
+                  **{k: crec.get(k) for k in (
+                      "submitted", "completed", "calibrated_rps_per_worker",
+                      "calibrated_rps_pool", "per_unit_rps",
+                      "scale_ups", "scale_downs", "chip_seconds",
+                      "static_chip_seconds", "savings_fraction", "migration",
+                      "mesh", "failures")}}
+    fail_unless(rc == 0, f"autoscale: heat2d-tpu-torch-fleet --autoscale "
+                f"exited {rc}: {crec.get('failures')}")
+    add_counts(launches, crec["kernel_launches"])
+    kernels_after = listing()
+    fail_unless(kernels_after == kernels_before,
+                f"autoscale: build/kernels/ changed: {kernels_before} -> "
+                f"{kernels_after}")
+    out.update(launches=launches, seconds=time.perf_counter() - t_phase)
+    emit({"phase": "autoscale_cli", "card": name, "power_limit": power,
+          **out["cli"], "launches": launches,
+          "phase_seconds": out["seconds"]})
+    return out
+
+
+# ------------------------------------------------------------------ #
 # obs: the telemetry layer on the card
 # ------------------------------------------------------------------ #
 
@@ -4678,6 +5250,10 @@ def main() -> int:
                                 fleet_dir)
             load = phase_load(torch, tool["name"], tool["power_limit"],
                               fleet_dir)
+            control = phase_control(torch, tool["name"],
+                                    tool["power_limit"], fleet_dir)
+            elastic = phase_autoscale(torch, tool["name"],
+                                      tool["power_limit"], fleet_dir)
         finally:
             shutil.rmtree(fleet_dir, ignore_errors=True)
         launches = {**main_path["launches"], **serve["launch_counts"],
@@ -4685,7 +5261,7 @@ def main() -> int:
                     **sharded_path["launches"]}
         launches["ens_tile_multi"] += diff_path["launches"]["ens_tile_multi"]
         for leg in (sharded_ens, mesh_serve, scaling, multi, resil, fleet,
-                    load):
+                    load, control, elastic):
             add_counts(launches, leg["launches"])
         for name in ("td_coeffs", "td_rows", "td_lanes"):
             launches[name] += implicit["launches"][name]
@@ -4718,7 +5294,8 @@ def main() -> int:
                    "mesh_serving": mesh_serve, "mesh_fault": mesh_fault,
                    "strong_scaling": scaling, "multi_process": multi,
                    "diff_path": diff_path, "resil": resil,
-                   "fleet": fleet, "load": load,
+                   "fleet": fleet, "load": load, "control": control,
+                   "autoscale": elastic,
                    "kernels": rows,
                    "headline": head, "tune": tune, "obs": obs,
                    "seconds": time.perf_counter() - t0})

@@ -27,8 +27,9 @@ re-rooted: it lints ``heat2d_tpu_torch/`` and the port's root scripts
   the obs registry must appear in the port's metric tables (the
   README's "Port metric families" section), and every family listed
   there must exist in code.
-- **R006 bare locks in serve/resil/mesh**: threaded modules take their
-  mutexes from ``analysis.locks`` so the lock audit
+- **R006 bare locks in threaded packages** (``THREADED_PACKAGES``: serve,
+  fleet, resil, mesh, and the control plane's control and autoscale):
+  their mutexes come from ``analysis.locks`` so the lock audit
   (``HEAT2D_LOCK_AUDIT=1``) sees every acquisition.
 
 The port calls none of torch's tracing entry points today, so R002/R003
@@ -86,6 +87,10 @@ CAPTURE_CONTEXTS = {"graph"}
 #: callees whose function-valued arguments run on the HOST (never mark
 #: their arguments traced even when lexically inside a tracer call)
 HOST_CALLS = {"Thread", "submit", "partial", "register_hook"}
+
+#: packages whose modules run threads, where R006 bans bare locks
+THREADED_PACKAGES = ("serve", "fleet", "resil", "mesh", "control",
+                     "autoscale")
 
 #: wall-clock / RNG call chains banned inside traced scopes (R002)
 WALLCLOCK_ROOTS = {"time", "random"}
@@ -569,8 +574,7 @@ def _rule_r004(rel: str, tree: ast.Module, scopes: _Scopes,
 
 def _rule_r006(rel: str, tree: ast.Module, scopes: _Scopes,
                src_lines: List[str]) -> List[Finding]:
-    if not any(seg in rel.split("/") for seg in ("serve", "fleet",
-                                                 "resil", "mesh")):
+    if not any(seg in rel.split("/") for seg in THREADED_PACKAGES):
         return []
     out = []
     for node in ast.walk(tree):

@@ -112,6 +112,7 @@ class WorkerHandle:
         self.info = None            # the worker's ready line (tune
         #                             stamp etc.), once it reports
         self.launches: Dict[str, int] = {}  # its last heartbeat's counts
+        self.tuned: List[list] = []         # and its launches' tuned plans
         self.reader: Optional[threading.Thread] = None  # its stdout's
         self.write_lock = AuditedLock(f"fleet.worker{slot}.pipe")
 
@@ -323,6 +324,18 @@ class Supervisor:
                 total[k] = total.get(k, 0) + int(v)
         return total
 
+    def tuned_launches(self) -> List[dict]:
+        """Per worker generation ever spawned (in spawn order): its slot,
+        pid, how it was spawned, its one-generation overlay, and its
+        launch rows' tuning-db plans as of its last heartbeat
+        (``worker.TunedTally``: [signature, capacity, tuned_config,
+        launches] rows). What a rollout's canary actually ran."""
+        with self._lock:
+            handles = list(self._spawned)
+        return [{"slot": h.slot, "pid": h.pid(), "via": h.via,
+                 "overlay": h.overlay, "tuned": list(h.tuned)}
+                for h in handles]
+
     def generations_snapshot(self) -> List[dict]:
         """Every worker generation that reported ready, in order — the
         control plane's audit trail for the no-unvalidated-serving
@@ -470,6 +483,10 @@ class Supervisor:
         drain (answers flush before exit 0). A drain that outlives
         ``timeout`` (on the supervisor's injectable ``clock``) is
         killed and ``on_worker_lost`` replays its in-flight requests.
+        A worker that never reported ready was never routed to, so it
+        holds nothing to drain: its start is stopped at once (a clean
+        retirement), where waiting it out would hold the caller for the
+        rest of the start (~9 s on the card; the JAX package drains).
         Returns True iff the drain was clean. Idempotent."""
         with self._lock:
             if slot in self._retired:
@@ -481,9 +498,18 @@ class Supervisor:
             self._restart_at[slot] = None
             if h is not None:
                 h.dead = True   # fence: monitor, alive_slots, send
+                starting = not h.ready
         if self.on_worker_retiring is not None:
             self.on_worker_retiring(slot)
         clean = True
+        if h is not None and starting:
+            h.proc.kill()
+            try:
+                h.proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                pass
+            self._close_pipes(h)
+            h = None
         if h is not None:
             with h.write_lock:
                 h.draining = True
@@ -629,6 +655,8 @@ class Supervisor:
                     # last_seen above is the point; the counts ride along
                     if isinstance(msg.get("launches"), dict):
                         h.launches = msg["launches"]
+                    if isinstance(msg.get("tuned"), list):
+                        h.tuned = msg["tuned"]
                 elif "id" in msg and self.on_response is not None:
                     self.on_response(h.slot, msg)
         except (OSError, ValueError):

@@ -19,7 +19,9 @@ reach its device raises, so the process exits nonzero with the error on
 stderr: it never answers from another device.
 
 Liveness: a daemon thread heartbeats every ``--heartbeat`` seconds,
-carrying the process's hand-kernel launch counts. The chaos hook
+carrying the process's hand-kernel launch counts and the tuning-db
+configs its launches took (``TunedTally``: what a rollout's canary ran,
+read by the supervisor). The chaos hook
 ``chaos.heartbeat_point()`` sits in front of each beat
 (``HEAT2D_CHAOS_HEARTBEAT_DROP_AFTER``), and
 ``chaos.worker_request_point()`` in each request pickup
@@ -78,6 +80,37 @@ def launch_counts() -> dict:
                 tridiag):
         out.update(mod.launch_counts())
     return out
+
+
+class TunedTally:
+    """The tuning-db plans a worker's launches took, as its heartbeat
+    carries them: [signature, capacity, tuned_config, launches] per
+    distinct (signature, capacity, tuned config) among the engine's
+    launch rows (``tuned_config`` None for the planner's own). Each call
+    reads only the rows appended since the last one, so a beat costs
+    the launches since the previous beat plus the groups, however long
+    the worker has served (``launch_log`` only grows)."""
+
+    def __init__(self):
+        self._seen = 0
+        self._groups: dict = {}
+        # the heartbeat thread and the exit path's last beat
+        self._lock = AuditedLock("fleet.worker.tuned")
+
+    def rows(self, launch_log) -> list:
+        with self._lock:
+            end = len(launch_log)
+            for i in range(self._seen, end):
+                row = launch_log[i]
+                tuned = row.get("tuned_config")
+                key = (str(row.get("signature")), row.get("capacity"),
+                       json.dumps(tuned, sort_keys=True))
+                group = self._groups.get(key)
+                if group is None:
+                    self._groups[key] = group = [key[0], key[1], tuned, 0]
+                group[3] += 1
+            self._seen = end
+            return [list(g) for _k, g in sorted(self._groups.items())]
 
 
 def _bring_up(device: str) -> dict:
@@ -175,9 +208,12 @@ def main(argv=None) -> int:
             except (BrokenPipeError, OSError):
                 pass
 
+    tally = TunedTally()
+
     def beat() -> None:
         emit({"event": "hb", "worker": args.worker_id,
-              "launches": launch_counts()})
+              "launches": launch_counts(),
+              "tuned": tally.rows(server.engine.launch_log)})
 
     stop_hb = threading.Event()
 

@@ -13,12 +13,20 @@ port's counterpart of ``heat2d-tpu-perf``).
   ``--device-kind``, by default the calibrated H100).
 - ``--watch DIR``: live console over a trace directory a ``--perf`` serve
   run is writing: cost cards and launch-span duty per lane.
-- ``--soak S`` drives the JAX package's control plane
-  (``control.plane.ControlPlane``), which the port does not have yet:
-  it exits 2 naming the missing module.
+- ``--soak S``: an in-process serve soak on ``--device`` (the card by
+  default) driving the anomaly sentinel through the control plane's real
+  tick (``control.plane.ControlPlane``). ``--chaos-slow X`` arms a launch
+  latency injection (``resil/chaos.py``) at the soak's midpoint;
+  ``--expect-anomaly`` requires the sentinel to flag it within
+  ``--max-detect-windows`` windows of arming, ``--expect-clean`` requires
+  ZERO findings. A ``kind="perf"`` record (cards, findings, control
+  decisions, duty cycle, verdict) goes to ``--metrics-out``. The soak's
+  requests take ``--method`` (``auto``: on the card the hand kernels'
+  route, H5 at the default 48^2 grid), where the JAX soak takes ``jnp``.
 
     heat2d-tpu-torch-perf --roofline 4096x4096,640x1024 --steps 240
     heat2d-tpu-torch-perf --card 640x1024 --batch 8 --steps 10000
+    heat2d-tpu-torch-perf --soak 20 --chaos-slow 0.5 --expect-anomaly
 """
 
 from __future__ import annotations
@@ -124,11 +132,136 @@ def cmd_roofline(args) -> int:
     return 0
 
 
+class _StubFleet:
+    """The minimal fleet surface ControlPlane touches, for a soak with
+    no worker processes: shed is recorded, the generation book is empty
+    (a vacuously valid serving invariant)."""
+
+    class _Sup:
+        @staticmethod
+        def alive_slots():
+            return []
+
+        @staticmethod
+        def generations_snapshot():
+            return []
+
+    def __init__(self):
+        self.sup = self._Sup()
+        self.shed = None
+
+    def set_preemptive_shed(self, watermark):
+        self.shed = watermark
+
+
 def cmd_soak(args) -> int:
-    print("--soak drives the control plane (control.plane.ControlPlane, "
-          "heat2d_tpu/control/), which heat2d_tpu_torch does not have yet "
-          "(heat2d_tpu_torch/control/ is to come)", file=sys.stderr)
-    return 2
+    from heat2d_tpu_torch.control.plane import ControlPlane
+    from heat2d_tpu_torch.obs import perf, tracing
+    from heat2d_tpu_torch.obs.metrics import MetricsRegistry
+    from heat2d_tpu_torch.obs.record import write_run_jsonl
+    from heat2d_tpu_torch.resil import chaos
+    from heat2d_tpu_torch.serve.schema import SolveRequest
+    from heat2d_tpu_torch.serve.server import SolveServer
+    from heat2d_tpu_torch.utils.device import (DeviceUnavailableError,
+                                               resolve_device)
+
+    try:
+        resolve_device(args.device)
+    except DeviceUnavailableError as e:
+        print(f"{e}\nQuitting...", file=sys.stderr)
+        return 1
+    reg = MetricsRegistry()
+    observer = perf.PerfObserver(registry=reg, dir=args.trace_dir,
+                                 service="perf-soak")
+    perf.install(observer)
+    sampler = None
+    if args.trace_dir:
+        tracing.install(tracing.Tracer(args.trace_dir, service="serve"))
+        sampler = perf.DutyCycleSampler(reg, window_s=2.0)
+        tracing.add_span_tap(sampler.feed)
+        sampler.start()
+
+    sentinel = perf.AnomalySentinel(
+        warmup=args.warmup, sustain=args.sustain)
+    fleet = _StubFleet()
+    plane = ControlPlane(fleet, registry=reg, sentinel=sentinel)
+
+    server = SolveServer(max_batch=4, registry=reg,
+                         device=args.device).start()
+    windows = max(int(args.soak / args.window), 2 * args.warmup + 4)
+    arm_at = windows // 2 if args.chaos_slow else None
+    detect_at = None
+    n_req = 0
+    try:
+        for w in range(windows):
+            if arm_at is not None and w == arm_at:
+                chaos.install(chaos.ChaosConfig(
+                    launch_latency_s=args.chaos_slow), registry=reg)
+            for _ in range(args.per_window):
+                # a cx jitter below any physical relevance keeps the
+                # SIGNATURE constant (one sentinel series) while
+                # defeating the result cache: every solve launches
+                n_req += 1
+                server.solve(SolveRequest(
+                    nx=args.grid, ny=args.grid,
+                    steps=args.grid_steps, method=args.method,
+                    cx=0.1 + 1e-9 * n_req))
+            before = len(sentinel.findings)
+            plane.tick()
+            if (detect_at is None
+                    and len(sentinel.findings) > before):
+                detect_at = w
+            # pacing keeps the windowed rate metric meaningful: the
+            # injected latency dominates when armed
+            time.sleep(args.window if args.soak >= windows * args.window
+                       else 0.05)
+    finally:
+        server.stop(drain=True)
+        chaos.uninstall()
+        if sampler is not None:
+            tracing.remove_span_tap(sampler.feed)
+            sampler.stop()
+        tracing.install(None)
+        perf.uninstall()
+
+    findings = list(sentinel.findings)
+    decisions = [d for d in plane.decisions
+                 if d["action"] == "perf_anomaly"]
+    detect_windows = (detect_at - arm_at + 1
+                      if detect_at is not None and arm_at is not None
+                      else None)
+    verdict = {
+        "windows": windows, "armed_at_window": arm_at,
+        "findings": len(findings),
+        "detection_windows": detect_windows,
+    }
+    print(json.dumps({"verdict": verdict, "findings": findings},
+                     indent=None if args.json else 2))
+
+    if args.metrics_out:
+        write_run_jsonl(reg, args.metrics_out, "perf", {
+            "soak": verdict, "findings": findings,
+            "control_decisions": decisions,
+            "duty": sampler.snapshot() if sampler else None,
+            "cost_cards": observer.cards(),
+        }, device=args.device)
+
+    if args.expect_anomaly:
+        if not findings or not decisions:
+            print("expected an anomaly finding in the control plane "
+                  "decision log; got none", file=sys.stderr)
+            return 1
+        if (detect_windows is None
+                or detect_windows > args.max_detect_windows):
+            print(f"detection took {detect_windows} windows "
+                  f"(> {args.max_detect_windows})", file=sys.stderr)
+            return 1
+    if args.expect_clean and findings:
+        print(f"expected a clean soak; sentinel flagged "
+              f"{len(findings)} finding(s): {findings[0]}",
+              file=sys.stderr)
+        return 1
+    return 0
 
 
 def _recent_launch_duty(trace_dir: str, window_s: float) -> dict:
@@ -193,16 +326,17 @@ def cmd_watch(args) -> int:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="heat2d-tpu-torch-perf",
-        description="cost cards, roofline ledger, live watch")
+        description="cost cards, roofline ledger, sentinel soak, live watch")
     p.add_argument("--card", metavar="NXxNY",
                    help="run one serve-batch launch at this shape and "
                         "print its cost card")
     p.add_argument("--steps", type=int, default=100)
-    p.add_argument("--method", default="auto")
+    p.add_argument("--method", default="auto",
+                   help="--card's and --soak's request method")
     p.add_argument("--batch", type=int, default=1,
                    help="members of the launch the card describes")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
-                   help="--card's device (default the card)")
+                   help="--card's and --soak's device (default the card)")
     p.add_argument("--gate-model-pct", type=float, default=None,
                    help="exit 1 unless boundary bytes agree with the "
                         "analytic model within this percent")
@@ -214,8 +348,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--roofline's peaks (default: the calibrated "
                         "NVIDIA H100 80GB HBM3)")
     p.add_argument("--soak", type=float, default=None, metavar="S",
-                   help="the anomaly-sentinel soak (needs control/, not "
-                        "ported yet: exits 2)")
+                   help="run an S-second serve soak with the sentinel")
+    p.add_argument("--window", type=float, default=0.25,
+                   help="sentinel window pacing during --soak")
+    p.add_argument("--per-window", type=int, default=3,
+                   help="requests per soak window")
+    p.add_argument("--grid", type=int, default=48,
+                   help="soak request grid edge")
+    p.add_argument("--grid-steps", type=int, default=30,
+                   help="soak request step count")
+    p.add_argument("--warmup", type=int, default=3)
+    p.add_argument("--sustain", type=int, default=2)
+    p.add_argument("--chaos-slow", type=float, default=None,
+                   metavar="SEC", help="inject this launch latency at "
+                                       "the soak midpoint")
+    p.add_argument("--expect-anomaly", action="store_true",
+                   help="exit 1 unless the sentinel flags the "
+                        "injection fast enough")
+    p.add_argument("--expect-clean", action="store_true",
+                   help="exit 1 if the sentinel flags anything")
+    p.add_argument("--max-detect-windows", type=int, default=3)
+    p.add_argument("--trace-dir", default=None,
+                   help="soak trace/card dir (also arms the duty "
+                        "sampler)")
+    p.add_argument("--metrics-out", default=None,
+                   help="write the kind=perf run record JSONL here")
     p.add_argument("--watch", metavar="DIR",
                    help="live console over a --perf run's trace dir")
     p.add_argument("--watch-interval", type=float, default=1.0)

@@ -25,9 +25,13 @@ RECORD_SCHEMA = "heat2d-tpu/run-record/v1"
 #: ``mesh/chaos_gate.py``), "dist" (the multi-process runtime's legs,
 #: ``dist/cli.py``), "tune" (the kernel search, ``tune/cli.py``), "fleet"
 #: (the worker pool's soak, ``fleet/cli.py``), "load" (the load runner's
-#: surface, capacity fit and gate, ``load/cli.py``).
+#: surface, capacity fit and gate, ``load/cli.py``), "control" (the
+#: control plane's decisions, rollouts and serving invariant, beside a
+#: fleet record), "perf" (the anomaly-sentinel soak, ``obs/perf_cli.py``),
+#: "autoscale" (the elastic soak, ``fleet/cli.py --autoscale``).
 RECORD_KINDS = ("run", "ensemble", "bench", "serve", "inverse",
-                "multichip", "mesh_chaos", "dist", "tune", "fleet", "load")
+                "multichip", "mesh_chaos", "dist", "tune", "fleet", "load",
+                "control", "perf", "autoscale")
 
 
 def run_context(device=None) -> dict:
@@ -89,12 +93,17 @@ def build_record(kind: str, config=None, steps_done=None, elapsed_s=None,
 
 
 def write_run_jsonl(registry, path, kind: str, extra: dict,
-                    device=None) -> None:
+                    device=None, more=()) -> None:
     """The CLIs' telemetry export: the registry's snapshot line and a
-    ``kind`` run record carrying ``extra`` as its payload, as JSONL. No-op
-    without a registry or a path."""
+    ``kind`` run record carrying ``extra`` as its payload, as JSONL.
+    ``more`` appends further (kind, extra) records to the same file: the
+    fleet CLI's ``kind="control"`` record beside its ``kind="fleet"`` one.
+    No-op without a registry or a path."""
     if registry is None or not path:
         return
-    rec = build_record(kind, extra=dict(extra), device=device)
-    registry.write_jsonl(path, extra_records=[{"event": "run_record",
-                                               **rec}])
+    records = [{"event": "run_record",
+                **build_record(kind, extra=dict(extra), device=device)}]
+    for k2, e2 in more:
+        records.append({"event": "run_record",
+                        **build_record(k2, extra=dict(e2), device=device)})
+    registry.write_jsonl(path, extra_records=records)

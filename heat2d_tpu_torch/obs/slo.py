@@ -131,7 +131,7 @@ def stamp_record(extra: dict, rows: list) -> dict:
 
 class BurnWindow:
     """Windowed, SUSTAINED burn-rate detection (the JAX package's
-    control-plane trigger; the port's ``control/`` is still to come).
+    control-plane trigger, ``heat2d_tpu_torch/control/plane.py``).
 
     ``evaluate`` above is cumulative: ten minutes of clean serving
     dilute a current outage below any threshold. The control plane

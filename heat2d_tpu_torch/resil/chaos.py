@@ -1,6 +1,5 @@
-"""Fault injection: the port's copy of the checkpoint, launch, mesh and
-fleet-worker parts of ``heat2d_tpu/resil/chaos.py`` (the control plane's
-rollout storm waits for ``control/``).
+"""Fault injection: the port's copy of ``heat2d_tpu/resil/chaos.py``
+(checkpoint, launch, mesh, fleet-worker and control-plane points).
 
 - **kill a checkpoint mid-write**: ``HEAT2D_CHAOS_KILL_CKPT_AT=N``
   hard-kills the process (``os._exit(137)``, the SIGKILL exit code) at
@@ -41,7 +40,14 @@ rollout storm waits for ``control/``).
   worker go silent after its Nth heartbeat while it keeps serving, the
   gray failure the supervisor must catch on heartbeat age alone;
 - **slow worker**: ``HEAT2D_CHAOS_SLOW_WORKER_S`` sleeps inside each
-  request pickup (a straggler).
+  request pickup (a straggler);
+- **kill storm mid-rollout**: ``HEAT2D_CHAOS_ROLLOUT_KILL_PHASE`` names a
+  control-plane rollout window (``canary`` | ``parity`` | ``observe`` |
+  ``promote``); when the rollout reaches it, the hook fires the caller's
+  kill callback ONCE against ``HEAT2D_CHAOS_ROLLOUT_KILLS`` workers (0 =
+  every alive worker, the full storm). This is how the control gate
+  proves that a tuning rollout interrupted at its worst moment never
+  leaves a worker serving a non-validated config.
 
 A campaign comes from the environment, or from ``install()`` in a test.
 Parsing is strict: a value that does not parse raises ``ValueError``
@@ -66,6 +72,11 @@ _ENV_PREFIX = "HEAT2D_CHAOS_"
 
 #: phases of a checkpoint commit where a kill can be injected
 CKPT_PHASES = ("mid_write", "pre_meta")
+
+#: control-plane rollout windows where a kill storm can be injected
+#: (``heat2d_tpu_torch/control/rollout.py`` announces each through
+#: ``rollout_point``)
+ROLLOUT_PHASES = ("canary", "parity", "observe", "promote")
 
 
 class ChaosError(RuntimeError):
@@ -111,12 +122,20 @@ class ChaosConfig:
     worker_kill_after: Optional[int] = None     # 1-based request ordinal
     heartbeat_drop_after: Optional[int] = None  # beats after N dropped
     slow_worker_s: float = 0.0                  # sleep at each pickup
+    # (the control plane's storm, after those, for the same reason)
+    rollout_kill_phase: Optional[str] = None    # rollout window to storm
+    rollout_kills: int = 0                      # workers to kill (0: all)
 
     def __post_init__(self):
         if self.kill_ckpt_phase not in CKPT_PHASES:
             raise ValueError(
                 f"kill_ckpt_phase must be one of {CKPT_PHASES}, got "
                 f"{self.kill_ckpt_phase!r}")
+        if (self.rollout_kill_phase is not None
+                and self.rollout_kill_phase not in ROLLOUT_PHASES):
+            raise ValueError(
+                f"rollout_kill_phase must be one of {ROLLOUT_PHASES}, "
+                f"got {self.rollout_kill_phase!r}")
         # Ordinals are 1-based: 0 can never fire, so it means off.
         for f in ("kill_ckpt_at", "worker_kill_after",
                   "heartbeat_drop_after", "device_fail_at",
@@ -152,7 +171,9 @@ class ChaosConfig:
                   device_fail_index=get("DEVICE_FAIL_INDEX", int, 0),
                   hang_collective=get("HANG_COLLECTIVE", int, None),
                   hang_collective_s=get("HANG_COLLECTIVE_S", float, 2.0),
-                  flip_bit=get("FLIP_BIT", int, None))
+                  flip_bit=get("FLIP_BIT", int, None),
+                  rollout_kill_phase=get("ROLLOUT_KILL_PHASE", str, None),
+                  rollout_kills=get("ROLLOUT_KILLS", int, 0))
         return cfg if cfg.any_active() else None
 
     def any_active(self) -> bool:
@@ -163,7 +184,8 @@ class ChaosConfig:
                     or self.fail_launches or self.launch_latency_s
                     or self.device_fail_at is not None
                     or self.hang_collective is not None
-                    or self.flip_bit is not None)
+                    or self.flip_bit is not None
+                    or self.rollout_kill_phase is not None)
 
 
 class _Controller:
@@ -183,6 +205,7 @@ class _Controller:
         self.dead_devices: set = set()  # failed or hung slot indices
         self.worker_requests = 0        # fleet-worker request pickups
         self.heartbeats = 0             # heartbeats attempted
+        self.rollout_fired = False      # the storm fires exactly once
 
     def _count(self, point: str) -> None:
         if self.registry is not None:
@@ -239,6 +262,23 @@ class _Controller:
             self._count("worker_kill")
             _flight_flush("chaos_worker_kill")
             os._exit(137)
+
+    def rollout_point(self, phase: str, kill_cb=None) -> None:
+        """Called by the control plane's rollout as it enters each window
+        (``ROLLOUT_PHASES``). When the armed phase matches,
+        ``kill_cb(n)`` fires ONCE: the caller supplies the worker-killing
+        action (``n`` workers; 0 = all alive), which keeps this module
+        free of the fleet. It runs in the ROUTER's process: the storm
+        kills worker processes, never the control plane itself."""
+        cfg = self.config
+        if cfg.rollout_kill_phase != phase or kill_cb is None:
+            return
+        with self._lock:
+            if self.rollout_fired:
+                return
+            self.rollout_fired = True
+        self._count("rollout_kill")
+        kill_cb(cfg.rollout_kills)
 
     def heartbeat_point(self) -> bool:
         """True: send the heartbeat; False: drop it (the worker keeps
@@ -376,6 +416,16 @@ def heartbeat_point() -> bool:
     if c is None:
         return True
     return c.heartbeat_point()
+
+
+def rollout_point(phase: str, kill_cb=None) -> None:
+    """Called by the control plane's rollout at each window boundary; an
+    armed campaign fires ``kill_cb`` (the storm) once at its phase."""
+    if not _enabled and _env_checked:
+        return
+    c = controller()
+    if c is not None:
+        c.rollout_point(phase, kill_cb)
 
 
 def mesh_launch_point() -> None:

@@ -1157,3 +1157,83 @@ def test_load_replay_through_a_serve_target_on_the_card(card, tmp_path):
     assert row["arrivals"] == len(sched) > 0
     assert row["completed"] == row["arrivals"] and row["unanswered"] == 0
     assert ce.launch_counts()["ens_resident"] > 0
+
+
+def test_rollout_on_the_card_takes_the_candidate_k(card, tmp_path):
+    """A pool of 2 workers on the card under a validated db that pins
+    640x1024's H5 chunk depth at 4; a candidate at K = 6 (hand-staged,
+    validated=False, epoch 1) rolls out: its canary's one-member probe
+    launches take K 6, the incumbent's K 4, the answers are bitwise,
+    and it promotes."""
+    from heat2d_tpu_torch.control import Rollout, RolloutConfig
+    from heat2d_tpu_torch.fleet import FleetServer
+    from heat2d_tpu_torch.obs.metrics import MetricsRegistry
+    from heat2d_tpu_torch.serve.schema import SolveRequest
+    from heat2d_tpu_torch.tune import runtime
+    from heat2d_tpu_torch.tune.db import TuningDB
+
+    kind = runtime.device_kind(card)
+    vp, cp = str(tmp_path / "validated.json"), str(tmp_path / "cand.json")
+    for path, k, validated in ((vp, 4, True), (cp, 6, False)):
+        db = TuningDB(path)
+        db.set_best(kind, "640x1024:float32",
+                    {"route": "resident", "bm": 0, "tsteps": k}, None, {})
+        db.mark_entries(validated=validated, epoch=int(not validated))
+        db.stamp_rollout(epoch=int(not validated), validated=validated)
+        db.save()
+    probe = {"nx": 640, "ny": 1024, "steps": 2000, "cx": 0.123, "cy": 0.1,
+             "method": "pallas"}
+    sig = str(SolveRequest.from_dict(dict(probe)).signature())
+    with FleetServer(workers=2, registry=MetricsRegistry(),
+                     default_timeout=300.0, cache_size=0,
+                     worker_cache_size=0,
+                     env={"HEAT2D_TUNE_DB": vp}) as fs:
+        out = Rollout(fs, RolloutConfig(
+            candidate_path=cp, validated_path=vp, probe_spec=probe,
+            observe_s=1.0, observe_probes=2, probe_timeout=120.0)).run()
+        rows = fs.sup.tuned_launches()
+        assert fs.stop()
+    assert out["outcome"] == "promoted", out
+
+    def ks(g):
+        return sorted({r[2]["tsteps"] for r in g["tuned"] if r[0] == sig})
+
+    (canary,) = [g for g in rows if g["overlay"]]
+    (incumbent,) = [g for g in rows if g["via"] == "start"
+                    and g["slot"] == out["phases"][0]["incumbent"]]
+    assert ks(canary) == [6] and ks(incumbent) == [4]
+    assert TuningDB(vp).lookup(kind, 640, 1024).tsteps == 6
+
+
+def test_migrated_inverse_job_is_bitwise_on_the_card(card):
+    """A 256^2 init recovery on the band route (H6 forward), paused at
+    iteration 5, shipped through a JSON ticket and resumed on the card:
+    bitwise the run that never moved; its optimizer state crossed the
+    wire from the card as host bytes."""
+    import json
+
+    from heat2d_tpu_torch.autoscale import migrate
+    from heat2d_tpu_torch.diff.adjoint import make_diff_solve
+    from heat2d_tpu_torch.diff.inverse import (InverseProblem,
+                                               observation_mask,
+                                               unit_reference_init)
+
+    n, steps = 256, 20
+    u0 = unit_reference_init(n, n)
+    with torch.no_grad():
+        u_true = make_diff_solve(n, n, steps, method="band", device=card)(
+            torch.as_tensor(u0, device=card), 0.1, 0.1).cpu().numpy()
+    prob = InverseProblem(nx=n, ny=n, steps=steps, target="init",
+                          obs_mask=observation_mask(n, n, every=1),
+                          obs_values=u_true, method="band", device="cuda")
+    ce.reset_launch_counts()
+    oracle = migrate.run_unmigrated(prob, iterations=20, lr=0.05)
+    assert ce.launch_counts()["ens_tile_multi"] > 0
+    half = prob.solve(iterations=20, lr=0.05, pause=lambda it: it >= 5)
+    ticket = json.dumps(migrate.encode_ticket(prob, half.state,
+                                              iterations=20, lr=0.05))
+    job = migrate.resume_job(ticket)
+    job.join(timeout=300)
+    assert job.problem.device is None           # the card by default
+    assert job.solution.params.tobytes() == oracle.params.tobytes()
+    assert job.solution.loss_history == list(oracle.loss_history)

@@ -716,13 +716,20 @@ def test_fleet_cli_chaos_soak(tmp_path):
 
 
 @pytest.mark.parametrize("argv,names", [
-    (["--control"], "heat2d_tpu_torch.control"),
-    (["--control-rollout", "--control-storm-phase", "canary"],
-     "heat2d_tpu_torch.control"),
-    (["--autoscale"], "heat2d_tpu_torch.autoscale"),
+    (["--soak", "1", "--control-storm-phase", "observe"],
+     "require --control-rollout"),
+    (["--soak", "1", "--control-bad-candidate"],
+     "require --control-rollout"),
+    (["--control", "--control-storm-phase", "canary",
+      "--control-bad-candidate"], "require --control-rollout"),
     ([], "--soak"),
 ])
 def test_cli_refuses_what_the_port_lacks(argv, names, capsys):
+    """The refusals the JAX CLI makes too, with its exit code: the chaos
+    flags of the control legs without a rollout to act on, and nothing
+    to do without ``--soak`` or ``--autoscale``."""
+    from heat2d_tpu.fleet.cli import main as jmain
     from heat2d_tpu_torch.fleet.cli import main
     assert main(argv) == 2
     assert names in capsys.readouterr().err
+    assert jmain(argv) == 2

@@ -444,3 +444,45 @@ def test_load_refuses_without_a_card(no_card, capsys):
         assert "CUDA" in err and "selftest: " not in err
     with pytest.raises(DeviceUnavailableError, match="CUDA"):
         ServeTarget()
+
+
+def test_importing_control_and_autoscale_loads_no_jax():
+    code = ("import sys; import heat2d_tpu_torch.control, "
+            "heat2d_tpu_torch.control.rollout, heat2d_tpu_torch.autoscale, "
+            "heat2d_tpu_torch.autoscale.migrate, "
+            "heat2d_tpu_torch.obs.perf_cli; "
+            "print('jax' in sys.modules, 'heat2d_tpu' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "False"]
+
+
+def test_control_and_autoscale_refuse_without_a_card(no_card, capsys):
+    """The control legs, the elastic soak and the sentinel soak run on the
+    card by default: without one each exits 1 naming CUDA before a
+    worker starts; a migrated job resumes on the card by default, and a
+    card retune refuses the CPU."""
+    import json as _json
+
+    from heat2d_tpu_torch.autoscale import migrate
+    from heat2d_tpu_torch.control import Retuner
+    from heat2d_tpu_torch.fleet import cli as fleet_cli
+    from heat2d_tpu_torch.obs import perf_cli
+    for argv in (["--soak", "1", "--workers", "1", "--control-rollout"],
+                 ["--autoscale", "--soak", "1", "--workers", "1"]):
+        assert fleet_cli.main(argv) == 1
+        assert "CUDA" in capsys.readouterr().err
+    assert perf_cli.main(["--soak", "1"]) == 1
+    assert "CUDA" in capsys.readouterr().err
+    spec = {"nx": 4, "ny": 4, "steps": 1, "target": "init",
+            "obs_mask": migrate._encode_array(np.ones((4, 4), bool)),
+            "obs_values": migrate._encode_array(np.zeros((4, 4),
+                                                         np.float32)),
+            "cx": 0.1, "cy": 0.1}
+    with pytest.raises(DeviceUnavailableError, match="CUDA"):
+        migrate.problem_from_spec(_json.loads(_json.dumps(spec))) \
+            .value_and_grad()
+    ret = Retuner(None, candidate_path="c.json", validated_path="v.json",
+                  backend=None, device="cpu")
+    with pytest.raises(ValueError, match="on the card"):
+        ret.stage_candidate("(16, 16, 4, 'float32', 'auto')")

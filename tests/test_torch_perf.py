@@ -14,7 +14,7 @@ launch's plan and its boundary bytes the operands' and results' own
 never raised, and cached; every serve and mesh launch row is stamped,
 cards made once per key when armed; ``HEAT2D_PERF_DIR`` arms the
 observer; ``heat2d-tpu-torch-perf`` (--roofline, --card and its gate,
---watch, and --soak refused with the module it needs).
+--watch, and a short --soak --expect-clean on the CPU).
 """
 
 import itertools
@@ -280,8 +280,13 @@ def test_perf_cli(tmp_path, capsys):
                           "--gate-model-pct", "1", "--json"]) == 0
     card = json.loads(capsys.readouterr().out.splitlines()[0])
     assert card["model"]["boundary_agreement_pct"] == 100.0
-    assert perf_cli.main(["--soak", "1"]) == 2
-    assert "control.plane.ControlPlane" in capsys.readouterr().err
+    assert perf_cli.main(["--soak", "0.25", "--window", "0.25",
+                          "--warmup", "1", "--per-window", "1",
+                          "--grid", "8", "--grid-steps", "2",
+                          "--expect-clean", "--device", "cpu",
+                          "--json"]) == 0
+    soak = json.loads(capsys.readouterr().out.splitlines()[-1])
+    assert soak["verdict"]["windows"] == 6 and soak["findings"] == []
     assert perf_cli.main([]) == 2
     (tmp_path / "cost-cards-t-1.jsonl").write_text(json.dumps(
         {"signature": "SIG", "kernel": "H5", "plan": "p",
