@@ -226,14 +226,15 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    workers' heartbeats, ``Supervisor.tuned_launches``) took the
    candidate's K, the incumbent's took 1; the validated db advances. (b)
    A bad candidate (``HEAT2D_CHAOS_SLOW_WORKER_S=0.5`` on the canary's
-   overlay): reverted, bitwise after the revert. (c) A kill storm of every
-   worker in the observation window: ``no_unvalidated_serving`` true, a
-   revert proven bitwise, the restarts' seconds. Every mix request
+   overlay): reverted, bitwise after the revert. Every mix request
    answered (resident give-ups counted), each distinct answer and the
    probe's bitwise the one-process ``SolveServer``'s, no kernel build, a
    clean stop. Then the CLIs as the JAX package's CI runs them, with
    ``--device cuda``: ``heat2d-tpu-torch-fleet --workers 3 --soak 10
-   --control-rollout --control-storm-phase observe``, ``heat2d-tpu-torch-
+   --control-rollout --control-storm-phase observe`` (the kill storm of
+   every worker in the rollout: its record must show
+   ``no_unvalidated_serving`` true and every request completed, no
+   resident give-up; its deaths reported), ``heat2d-tpu-torch-
    perf --soak 5 --chaos-slow 0.5 --expect-anomaly`` (one request a
    window, to keep the slowed half short) and ``--soak 5
    --expect-clean`` (20 windows each); each must exit 0. The workers' H5/H6 and the perf
@@ -257,6 +258,25 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    exit 0. The pool-size trace, actions, chip-seconds and the migration's
    seconds are reported; the workers' H5 and the in-process H5/H6
    launches join the kernels line's.
+27. native (after 26): a 2560x2048 field as ``.dat`` text in both layouts
+   through ``heat2d_tpu_torch/native`` (built with the host's g++ into
+   ``build/native/`` at first use) and the Python formatter: the bytes
+   equal, both times (``phase_native``).
+28. ensemble_world (started before 27, read after it): a 2-process world
+   of the CLI on the card,
+   4 x 640x1024 x 2000 members with ``--mode dist1d``, one slot a rank
+   (H5, two members a rank), and the same ensemble in this process over
+   2 slots: every ``final_m<i>.dat`` byte for byte equal; each rank's
+   elapsed and H5 launches (``phase_ensemble_world``).
+29. sweeps (after 28): ``tools/sweep_torch.py --suite chip --quick`` (H4)
+   and ``tools/sweep_ensemble_torch.py --scale 0.2`` (H5, H6, H7) in
+   this process within 20 s together; every chip point finite with no
+   suspect row after the sanity pass, every batching efficiency measured
+   (``phase_sweeps``; rows in ``chiprun_out/sweeps/``).
+30. lint_ir (started after 2, read after 29): ``python -m
+   heat2d_tpu_torch.analysis.cli --ir`` (``heat2d-tpu-torch-lint --ir``)
+   in a background process on the host's CPU: exit 0, no finding, every
+   family, ``stencil_step`` and the sharded programs swept.
 
 The last line of standard output is ``{"ok": true, "device": ...}``. The
 full results also go to ``chiprun_out/chip_smoke.json``.
@@ -4519,7 +4539,6 @@ def phase_control(torch, name: str, power: str, tmp_root: str) -> dict:
     from heat2d_tpu_torch.obs import slo
     from heat2d_tpu_torch.obs.metrics import MetricsRegistry
     from heat2d_tpu_torch.ops import _build
-    from heat2d_tpu_torch.resil import chaos
     from heat2d_tpu_torch.serve.schema import SolveRequest
     from heat2d_tpu_torch.serve.server import SolveServer
     from heat2d_tpu_torch.tune import runtime as tune_runtime
@@ -4678,44 +4697,6 @@ def phase_control(torch, name: str, power: str, tmp_root: str) -> dict:
                     f"control: the bad candidate was not reverted with "
                     f"bitwise parity: {bad}")
 
-        # -- a kill storm in the observation window ------------------- #
-        retuner.stage_candidate(hot[0])
-        deaths0, gens0 = fs.sup.deaths, len(fs.sup.generations_snapshot())
-        chaos.install(chaos.ChaosConfig(rollout_kill_phase="observe",
-                                        rollout_kills=0), registry=reg)
-        t1 = time.monotonic()
-        try:
-            storm = plane.run_rollout(RolloutConfig(**cfg))
-        finally:
-            chaos.uninstall()
-        storm_s = time.monotonic() - t1
-        deadline = time.monotonic() + 120
-        while len(fs.sup.alive_slots()) < 3:
-            fail_unless(time.monotonic() < deadline,
-                        "control: the pool did not recover from the storm")
-            time.sleep(0.05)
-        after = fs.sup.generations_snapshot()[gens0:]
-        inv = plane.serving_invariant()
-        out["storm"] = {
-            "outcome": storm["outcome"], "phases": storm["phases"],
-            "post_revert_parity": storm["post_revert_parity"],
-            "deaths": fs.sup.deaths - deaths0,
-            "restarts": [{"slot": g["slot"], "via": g["via"],
-                          "spawn_to_ready_s": g["ready_at"]
-                          - g["spawned_at"]} for g in after],
-            "no_unvalidated_serving": inv["no_unvalidated_serving"],
-            "seconds": storm_s}
-        fail_unless(inv["no_unvalidated_serving"],
-                    f"control: an unvalidated generation served: "
-                    f"{inv['unvalidated_serving']}")
-        fail_unless(fs.sup.deaths - deaths0 >= 3,
-                    f"control: the storm killed {fs.sup.deaths - deaths0} "
-                    f"of 3 workers")
-        fail_unless(not storm["outcome"].startswith("reverted")
-                    or storm["post_revert_parity"] is True,
-                    f"control: a storm revert without bitwise parity: "
-                    f"{storm}")
-
         # -- drain the mix; every answer against one process ---------- #
         stop_mix.set()
         mixer.join(timeout=10)
@@ -4800,6 +4781,20 @@ def phase_control(torch, name: str, power: str, tmp_root: str) -> dict:
     fail_unless(rc == 0, f"control: heat2d-tpu-torch-fleet --control-"
                 f"rollout --control-storm-phase observe exited {rc}: "
                 f"{recs['fleet'].get('failures')}")
+    # the kill storm's two checks, on the CLI's storm: no generation
+    # outside the rollout's overlay served an unvalidated db, and every
+    # request completed (a resident give-up is an answer that did not);
+    # the deaths and the rollout's outcome are reported
+    storm = recs["fleet"]
+    out["storm"] = {k: storm.get(k) for k in (
+        "submitted", "completed", "deaths", "restarts", "replays",
+        "control")}
+    fail_unless(storm["control"]["no_unvalidated_serving"] is True,
+                f"control: an unvalidated generation served in the "
+                f"storm: {storm['control']}")
+    fail_unless(storm["completed"] == storm["submitted"],
+                f"control: {storm['submitted'] - storm['completed']} of "
+                f"{storm['submitted']} storm requests gave up")
     add_counts(launches, recs["fleet"]["kernel_launches"])
     for label, extra in (("perf_anomaly", ["--chaos-slow", "0.5",
                                            "--expect-anomaly",
@@ -5195,6 +5190,279 @@ def phase_obs(torch, name: str, power: str, rows: list) -> dict:
     return info
 
 
+# ------------------------------------------------------------------ #
+# slice 12: the native formatter, an ensemble world, the sweeps and the
+# IR verifier on the card host
+# ------------------------------------------------------------------ #
+
+#: the native formatter's grid: the reference's largest sweep size
+NATIVE_SHAPE = (2560, 2048)
+#: the ensemble world: 4 members of the reference CUDA program's width,
+#: H5 on each rank's slot (two members a rank)
+ENS_WORLD_SHAPE = (640, 1024)
+ENS_WORLD_STEPS = 2000
+ENS_WORLD_CX = (0.05, 0.1, 0.15, 0.2)
+ENS_WORLD_CY = 0.1
+#: the sweeps' budget together (``tools/sweep_torch.py --suite chip
+#: --quick`` and ``tools/sweep_ensemble_torch.py --scale``)
+SWEEPS_BUDGET_S = 20.0
+SWEEP_ENSEMBLE_SCALE = 0.2
+
+
+def phase_native(torch, name: str, power: str) -> dict:
+    """A 2560x2048 field as ``.dat`` text in both layouts through the
+    native formatter (built from the checkout into ``build/native/`` at
+    first use, the build timed) and through the Python formatter: the
+    bytes equal, both times reported; the writers report "native"."""
+    import numpy as np
+
+    from heat2d_tpu_torch.io import writers
+    from heat2d_tpu_torch.native import lib as native_lib
+    from heat2d_tpu_torch.ops.init import inidat
+    fail_unless(native_lib.available(), "native: no C++ compiler on the "
+                "card host")
+    t0 = time.perf_counter()
+    nat = native_lib.load()
+    build_s = time.perf_counter() - t0
+    rng = np.random.default_rng(19)
+    nx, ny = NATIVE_SHAPE
+    u = (inidat(nx, ny).numpy() * np.float32(1e-9)
+         + rng.uniform(-50, 50, (nx, ny)).astype(np.float32))
+    out = {"phase": "native", "card": name, "power_limit": power,
+           "shape": list(NATIVE_SHAPE), "library": str(nat.path),
+           "build_and_load_s": build_s, "writer": writers.dat_writer()}
+    for layout in ("rowmajor", "baseline"):
+        t0 = time.perf_counter()
+        text = getattr(nat, f"format_{layout}")(u)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = getattr(writers, f"python_format_{layout}")(u)
+        python_s = time.perf_counter() - t0
+        fail_unless(text == want, f"native: the {layout} bytes differ "
+                    f"from the Python formatter's")
+        out[layout] = {"bytes": len(text), "native_s": native_s,
+                       "python_s": python_s,
+                       "python_over_native": python_s / native_s}
+    fail_unless(out["writer"] == "native",
+                f"native: the writers run {out['writer']}")
+    emit(out)
+    return out
+
+
+def start_ensemble_world() -> dict:
+    """Start the ``ensemble_world`` phase's 2-process world of the CLI on
+    the card (``dist.harness.spawn_world``, in a thread): 4 x 640x1024 x
+    2000 members, ``--mode dist1d``, one slot a rank, so H5 runs two
+    members on each rank. Its processes start (~8 s of imports and CUDA
+    context) while this process formats the ``native`` phase's text;
+    ``finish_ensemble_world`` reads it."""
+    import threading
+
+    from heat2d_tpu_torch.dist.harness import clean_env, spawn_world
+    d = tempfile.mkdtemp(prefix="heat2d-ensworld-")
+    nx, ny = ENS_WORLD_SHAPE
+    base = ["--device", "cuda", "--mode", "dist1d", "--nxprob", str(nx),
+            "--nyprob", str(ny), "--steps", str(ENS_WORLD_STEPS),
+            "--ensemble-cx", ",".join(map(str, ENS_WORLD_CX)),
+            "--ensemble-cy", ",".join([str(ENS_WORLD_CY)]
+                                      * len(ENS_WORLD_CX))]
+    job = {"dir": d, "base": base, "t0": time.perf_counter()}
+
+    def world():
+        job["results"] = spawn_world(2, lambda i, coord: [
+            sys.executable, "-m", "heat2d_tpu_torch.cli", "--coordinator",
+            coord, "--num-processes", "2", "--process-id", str(i),
+            "--host-device-count", "1", "--outdir",
+            os.path.join(d, "world"), "--run-record",
+            os.path.join(d, "world.json")] + base,
+            env=clean_env(), timeout=300)
+        job["wall_s"] = time.perf_counter() - job["t0"]
+
+    job["thread"] = threading.Thread(target=world, daemon=True)
+    job["thread"].start()
+    return job
+
+
+def finish_ensemble_world(torch, job: dict, name: str, power: str) -> dict:
+    """The world of ``start_ensemble_world``, then the same ensemble in
+    this process over 2 slots: every ``final_m<i>.dat`` of the world
+    equals the one-process run's bytes; each rank's elapsed, its H5
+    launches (the record's ``launches_by_process``) and the one-process
+    elapsed are reported."""
+    from heat2d_tpu_torch import cli
+    from heat2d_tpu_torch.dist.harness import first_error_line
+    d = job["dir"]
+    try:
+        job["thread"].join(timeout=330)
+        fail_unless("results" in job, "ensemble_world: the world did not "
+                    "end within 330 s")
+        res = job["results"]
+        outs = [r.output for r in res]
+        fail_unless(all(r.ok for r in res),
+                    f"ensemble_world: world exited "
+                    f"{[r.returncode for r in res]}: "
+                    f"{first_error_line(outs)}")
+        fail_unless(outs[1].strip() == "", f"ensemble_world: rank 1 "
+                    f"printed: {outs[1][-500:]}")
+        reset_counts()
+        t0 = time.perf_counter()
+        rc, _s, _o = _run_cli(cli.main, job["base"] + [
+            "--host-device-count", "2", "--outdir", os.path.join(d, "one"),
+            "--run-record", os.path.join(d, "one.json")])
+        one_wall = time.perf_counter() - t0
+        one_launches = read_counts()
+        fail_unless(rc == 0, f"ensemble_world: the one-process run exited "
+                    f"{rc}")
+        with open(os.path.join(d, "world.json")) as f:
+            rec = json.load(f)
+        with open(os.path.join(d, "one.json")) as f:
+            one = json.load(f)
+        same = []
+        for i in range(len(ENS_WORLD_CX)):
+            with open(os.path.join(d, "world", f"final_m{i}.dat"),
+                      "rb") as f:
+                got = f.read()
+            with open(os.path.join(d, "one", f"final_m{i}.dat"),
+                      "rb") as f:
+                want = f.read()
+            same.append(got == want)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    fail_unless(all(same), f"ensemble_world: final_m<i>.dat differ from "
+                f"the one-process run: {same}")
+    fail_unless(rec["route"] == one["route"] == "pallas",
+                f"ensemble_world: routes {rec['route']}, {one['route']} "
+                f"(H5 expected)")
+    fail_unless(rec["summary"] == one["summary"],
+                "ensemble_world: the summaries differ")
+    by_rank = rec["launches_by_process"]
+    fail_unless(all(r.get("ens_resident", 0) > 0 for r in by_rank),
+                f"ensemble_world: a rank launched no H5: {by_rank}")
+    launches = {}
+    for row in by_rank:
+        add_counts(launches, row)
+    add_counts(launches, one_launches)
+    out = {"phase": "ensemble_world", "card": name, "power_limit": power,
+           "members": len(ENS_WORLD_CX), "shape": list(ENS_WORLD_SHAPE),
+           "steps": ENS_WORLD_STEPS, "route": rec["route"],
+           "bitwise": True, "elapsed_by_process_s":
+               rec["elapsed_by_process"],
+           "max_over_processes_s": rec["elapsed_s"],
+           "one_process_elapsed_s": one["elapsed_s"],
+           "world_wall_s": job["wall_s"], "one_process_wall_s": one_wall,
+           "launches_by_process": by_rank,
+           "one_process_launches": one_launches, "launches": launches,
+           "dat_writer": rec.get("dat_writer")}
+    emit(out)
+    return out
+
+
+def _sweep_rows(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def phase_sweeps(torch, name: str, power: str) -> dict:
+    """``tools/sweep_torch.py --suite chip --quick`` (80x64 and 160x128,
+    serial and pallas: H4) and ``tools/sweep_ensemble_torch.py --scale
+    0.2`` (640x512 on H5, 2560x2048 on H6, fixed and convergence at
+    sensitivity 0: H7) on the card, in this process, within
+    ``SWEEPS_BUDGET_S`` together: every chip point finite and no suspect
+    row left after the sanity pass, every ensemble point measured past
+    the noise; the rows are in ``chiprun_out/sweeps/``."""
+    from heat2d_tpu_torch.ops import cuda_stencil as cs
+    from tools import sweep_ensemble_torch, sweep_torch
+    out_dir = os.path.join(HERE, "chiprun_out", "sweeps")
+    reset_counts()
+    cs0 = cs.launch_counts()
+    t0 = time.perf_counter()
+    rc = _quiet(sweep_torch.main, ["--suite", "chip", "--quick",
+                                   "--out", out_dir])
+    chip_s = time.perf_counter() - t0
+    fail_unless(rc == 0, f"sweeps: sweep_torch exited {rc}")
+    t0 = time.perf_counter()
+    rc = _quiet(sweep_ensemble_torch.main,
+                ["--scale", str(SWEEP_ENSEMBLE_SCALE), "--out", out_dir])
+    ens_s = time.perf_counter() - t0
+    fail_unless(rc == 0, f"sweeps: sweep_ensemble_torch exited {rc}")
+    launches = read_counts()
+    add_counts(launches, {k: v - cs0[k]
+                          for k, v in cs.launch_counts().items()})
+    chip = _sweep_rows(os.path.join(out_dir, "sweep_chip_quick.jsonl"))
+    ens = _sweep_rows(os.path.join(out_dir, "sweep_ensemble.jsonl"))
+    fail_unless(len(chip) == 4 and all(
+        math.isfinite(r["mcells_per_s"]) and r["mcells_per_s"] > 0
+        for r in chip), f"sweeps: bad chip rows {chip}")
+    fail_unless(sweep_torch.suspect_rows(chip) == [],
+                f"sweeps: suspect rows after the sanity pass: "
+                f"{sweep_torch.suspect_rows(chip)}")
+    fail_unless(all(r["batching_efficiency"] is not None
+                    and math.isfinite(r["batching_efficiency"])
+                    for r in ens),
+                f"sweeps: an ensemble point stayed inside the noise: "
+                f"{[r['batching_efficiency'] for r in ens]}")
+    fail_unless(launches.get("resident", 0) > 0
+                and launches.get("ens_resident", 0) > 0
+                and launches.get("ens_tile_multi", 0) > 0
+                and launches.get("ens_tile_multi_conv", 0) > 0,
+                f"sweeps: H4/H5/H6/H7 not all launched: {launches}")
+    secs = chip_s + ens_s
+    out = {"phase": "sweeps", "card": name, "power_limit": power,
+           "chip_s": chip_s, "ensemble_s": ens_s, "seconds": secs,
+           "chip": [{k: r.get(k) for k in (
+               "mode", "grid", "route", "steps", "step_time_s",
+               "mcells_per_s", "method", "rechecked")} for r in chip],
+           "ensemble": [{k: r.get(k) for k in (
+               "class", "route", "convergence", "B", "single_step_s",
+               "batch_step_s", "batching_efficiency")} for r in ens],
+           "launches": launches}
+    emit(out)
+    fail_unless(secs <= SWEEPS_BUDGET_S, f"sweeps: {secs:.1f} s, over the "
+                f"{SWEEPS_BUDGET_S} s budget")
+    return out
+
+
+def start_lint_ir():
+    """``python -m heat2d_tpu_torch.analysis.cli --ir --format json``
+    started in the background (it traces on the host's CPU; nothing of it
+    touches the card), to be read by ``finish_lint_ir``."""
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    return subprocess.Popen(
+        [sys.executable, "-m", "heat2d_tpu_torch.analysis.cli", "--ir",
+         "--format", "json"], cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True), time.perf_counter()
+
+
+def finish_lint_ir(job, name: str, power: str) -> dict:
+    """``heat2d-tpu-torch-lint --ir`` exits 0 on the card host with no
+    finding over every family, ``stencil_step``, the tile plans and the
+    sharded programs."""
+    proc, t0 = job
+    try:
+        so, se = proc.communicate(timeout=300)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise SmokeFailure("lint_ir: heat2d-tpu-torch-lint --ir ran past "
+                           "300 s")
+    fail_unless(proc.returncode == 0, f"lint_ir: exit {proc.returncode}: "
+                f"{so[-2000:]} {se[-2000:]}")
+    rep = json.loads(so)
+    fail_unless(rep["ok"] and not rep["findings"],
+                f"lint_ir: findings {rep['findings']}")
+    programs = {r["program"] for r in rep["collectives"]}
+    fail_unless(len(rep["footprint_rows"]) == 6 and any(
+        p.startswith("sharded/fused[ici]") for p in programs),
+        f"lint_ir: sweep incomplete: {sorted(programs)}")
+    out = {"phase": "lint_ir", "card": name, "power_limit": power,
+           "rc": proc.returncode, "findings": 0,
+           "footprint_rows": len(rep["footprint_rows"]),
+           "cards": len(rep["cards"]), "censuses": len(programs),
+           "seconds_since_start": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
 def write_results(results: dict) -> None:
     out = os.path.join(HERE, "chiprun_out")
     os.makedirs(out, exist_ok=True)
@@ -5219,10 +5487,12 @@ def main() -> int:
         print("chip_smoke.py: no CUDA device (torch.cuda.is_available() "
               "is False)", file=sys.stderr)
         return 2
+    lint_job = ens_job = None
     try:
         t0 = time.perf_counter()
         tool = phase_toolchain(torch)
         build = phase_build()
+        lint_job = start_lint_ir()
         kern = phase_kernels(torch)
         ens_kern = phase_ensemble_kernels(torch)
         fam_kern = phase_family_kernels(torch)
@@ -5256,12 +5526,19 @@ def main() -> int:
                                       tool["power_limit"], fleet_dir)
         finally:
             shutil.rmtree(fleet_dir, ignore_errors=True)
+        ens_job = start_ensemble_world()
+        native = phase_native(torch, tool["name"], tool["power_limit"])
+        ens_world = finish_ensemble_world(torch, ens_job, tool["name"],
+                                          tool["power_limit"])
+        sweeps = phase_sweeps(torch, tool["name"], tool["power_limit"])
+        lint_ir = finish_lint_ir(lint_job, tool["name"],
+                                 tool["power_limit"])
         launches = {**main_path["launches"], **serve["launch_counts"],
                     **serve_fam["launch_counts"],
                     **sharded_path["launches"]}
         launches["ens_tile_multi"] += diff_path["launches"]["ens_tile_multi"]
         for leg in (sharded_ens, mesh_serve, scaling, multi, resil, fleet,
-                    load, control, elastic):
+                    load, control, elastic, ens_world, sweeps):
             add_counts(launches, leg["launches"])
         for name in ("td_coeffs", "td_rows", "td_lanes"):
             launches[name] += implicit["launches"][name]
@@ -5280,6 +5557,12 @@ def main() -> int:
     except SmokeFailure as e:
         print(f"chip_smoke.py: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if lint_job is not None and lint_job[0].poll() is None:
+            lint_job[0].kill()
+            lint_job[0].communicate()
+        if ens_job is not None:
+            ens_job["thread"].join(timeout=330)
     write_results({"toolchain": tool, "build": build, "kernels_check": kern,
                    "ensemble_kernels_check": ens_kern,
                    "family_kernels_check": fam_kern,
@@ -5295,7 +5578,9 @@ def main() -> int:
                    "strong_scaling": scaling, "multi_process": multi,
                    "diff_path": diff_path, "resil": resil,
                    "fleet": fleet, "load": load, "control": control,
-                   "autoscale": elastic,
+                   "autoscale": elastic, "native": native,
+                   "ensemble_world": ens_world, "sweeps": sweeps,
+                   "lint_ir": lint_ir,
                    "kernels": rows,
                    "headline": head, "tune": tune, "obs": obs,
                    "seconds": time.perf_counter() - t0})

@@ -12,10 +12,12 @@
   library loads, the serve engine's O(log max_batch) capacity ladder);
 - ``analysis.launch_pin``: the "free when off" pins (route, residual
   reads, bits and launches, armed against disarmed);
-- ``analysis.implicit_gate``: the implicit routes' acceptance gate.
-
-The JAX package's jaxpr verifier (``ir``, ``footprint``, ``dtype_flow``)
-has no counterpart yet (ROADMAP.md, A5.3b).
+- ``analysis.implicit_gate``: the implicit routes' acceptance gate;
+- ``analysis.ir`` (with ``footprint`` and ``dtype_flow``): the IR
+  verifier, the counterpart of the JAX package's jaxpr verifier: every
+  registered program's access radius, coefficient reads, casts and
+  exchanges against its declared contract (``heat2d-tpu-torch-lint
+  --ir``).
 """
 
 from heat2d_tpu_torch.analysis.locks import (AuditedCondition, AuditedLock,

@@ -6,11 +6,18 @@ rc 1 on any NEW finding (one not grandfathered, with a justification, in
 ``analysis/baseline.json``), rc 2 on a bad baseline or rule name.
 ``--format json`` emits machine-readable findings; stale baseline
 entries (the finding was fixed but its entry lingers) are reported, so
-the baseline only ever shrinks deliberately. The JAX CLI's ``--ir`` (the
-jaxpr verifier) has no counterpart yet (ROADMAP.md, A5.3b).
+the baseline only ever shrinks deliberately.
+
+``--ir`` switches from the source rules to the IR verifier
+(``analysis/ir.py``): it traces every registered (family x route) program
+on CPU tensors and records the sharded programs on CPU slots, checks the
+declared footprint, dtype and collective contracts, and exits rc 1 on
+any finding (rc 2 if the verifier itself fails). It runs on the CPU
+whatever the host has: no kernel is launched.
 
     heat2d-tpu-torch-lint                  # the checkout in the cwd
     heat2d-tpu-torch-lint --rules R001,R006 --format json
+    heat2d-tpu-torch-lint --ir [--verbose] [--format json]
 """
 
 from __future__ import annotations
@@ -38,6 +45,34 @@ def default_baseline_path() -> str:
                         "baseline.json")
 
 
+def _run_ir(args) -> int:
+    """The ``--ir`` mode: run the verifier and render its report."""
+    from heat2d_tpu_torch.analysis import ir
+    try:
+        rep = ir.verify_all()
+    except Exception as e:      # a crash must fail the gate loudly
+        print(f"heat2d-tpu-torch-lint --ir: verifier error: "
+              f"{type(e).__name__}: {e}", file=sys.stderr)
+        return 2
+    if args.format == "json":
+        print(json.dumps({
+            "findings": [vars(f) for f in rep.findings],
+            "footprint_rows": [
+                {**r, "derived": list(r["derived"]) if r["derived"]
+                 else None,
+                 "witness": list(r["witness"]) if r["witness"] else None}
+                for r in rep.footprint_rows],
+            "cards": [{"program": c.program,
+                       "casts": [c2.describe() for c2 in c.casts]}
+                      for c in rep.cards],
+            "collectives": rep.collective_rows,
+            "ok": rep.ok,
+        }, indent=2))
+    else:
+        print(ir.render_report(rep, verbose=args.verbose))
+    return 0 if rep.ok else 1
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
         prog="heat2d-tpu-torch-lint",
@@ -58,7 +93,17 @@ def main(argv=None) -> int:
                    help="markdown file holding the port's metric tables "
                         "for the drift rule (default: <root>/README.md, "
                         f"its {lint.METRICS_HEADING!r} section)")
+    p.add_argument("--ir", action="store_true",
+                   help="run the IR verifier (footprint, dtype-flow, "
+                        "collective contracts) over every registered "
+                        "program instead of the source lint rules")
+    p.add_argument("--verbose", action="store_true",
+                   help="with --ir: print the precision cards and the "
+                        "collective censuses, not just the findings")
     args = p.parse_args(argv)
+
+    if args.ir:
+        return _run_ir(args)
 
     root = args.root or _default_root()
     rules = ([r.strip() for r in args.rules.split(",") if r.strip()]

@@ -32,8 +32,9 @@ re-rooted: it lints ``heat2d_tpu_torch/`` and the port's root scripts
   their mutexes come from ``analysis.locks`` so the lock audit
   (``HEAT2D_LOCK_AUDIT=1``) sees every acquisition.
 
-The port calls none of torch's tracing entry points today, so R002/R003
-check an empty set on the tree; their tests seed one. Pure stdlib
+The port's one tracer call is the IR verifier's ``make_fx``
+(``analysis/footprint.py``), whose traced scope makes no such call;
+the rules' tests seed violations. Pure stdlib
 ``ast``; the ``heat2d-tpu-torch-lint`` CLI (``analysis/cli.py``) holds the
 tree at zero findings not in ``analysis/baseline.json``.
 """
@@ -42,6 +43,7 @@ from __future__ import annotations
 
 import ast
 import dataclasses
+import glob
 import json
 import os
 import re
@@ -52,6 +54,10 @@ ALL_RULES = ("R001", "R002", "R003", "R004", "R005", "R006")
 #: the package linted, and the port's scripts at the repo root
 PACKAGE = "heat2d_tpu_torch"
 ROOT_SCRIPTS = ("chip_smoke.py", "bench_torch.py")
+
+#: the port's tools beside the package (the sweeps and the phase
+#: profiler), linted like the root scripts
+TOOL_GLOB = "tools/*_torch.py"
 
 #: directory names never scanned (the JAX package is never linted here)
 SKIP_DIRS = {"tests", "__pycache__", ".git", ".claude", "benchmarks",
@@ -70,6 +76,7 @@ TRACER_CALLS = {
     "symbolic_trace", "compile", "script", "trace", "trace_module",
     "make_graphed_callables", "vmap", "grad", "grad_and_value", "jacrev",
     "jacfwd", "hessian", "vjp", "jvp", "functional_call", "export",
+    "make_fx",
 }
 
 #: first names of a call chain that make ``TRACER_CALLS`` torch's
@@ -79,7 +86,7 @@ TRACER_ROOTS = {"torch", "fx", "jit", "func", "functorch"}
 #: with ``from torch.fx import symbolic_trace`` and the like; the others,
 #: such as ``compile`` or ``trace``, are too common a name)
 BARE_TRACER_CALLS = {"symbolic_trace", "make_graphed_callables", "vmap",
-                     "jacrev", "jacfwd", "functional_call"}
+                     "jacrev", "jacfwd", "functional_call", "make_fx"}
 
 #: context managers whose body is captured: ``with torch.cuda.graph(g):``
 CAPTURE_CONTEXTS = {"graph"}
@@ -390,8 +397,8 @@ def _walk_py(top: str) -> Iterable[str]:
 
 def _iter_py_files(root: str) -> Iterable[str]:
     """The files linted under ``root``: a repo checkout (it holds
-    ``PACKAGE``) gives the package and the ``ROOT_SCRIPTS`` beside it;
-    any other tree (a fixture, the package directory itself) is walked
+    ``PACKAGE``) gives the package, the ``ROOT_SCRIPTS`` beside it and
+    the tools matching ``TOOL_GLOB``; any other tree (a fixture, the package directory itself) is walked
     whole, ``SKIP_DIRS`` left out."""
     pkg = os.path.join(root, PACKAGE)
     if not os.path.isdir(pkg):
@@ -402,6 +409,7 @@ def _iter_py_files(root: str) -> Iterable[str]:
         path = os.path.join(root, name)
         if os.path.isfile(path):
             yield path
+    yield from sorted(glob.glob(os.path.join(root, TOOL_GLOB)))
 
 
 def _relpath(path: str, root: str) -> str:

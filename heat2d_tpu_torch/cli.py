@@ -347,13 +347,22 @@ def _run_ensemble_cli(args, cfg) -> int:
     on one device; dist1d, dist2d and hybrid shard the members over the
     slots of ``--host-device-count`` (or the visible cards); ``--mode
     dist2d --gridx/--gridy`` decomposes each member over a submesh.
-    Flags the route would silently ignore are refused."""
+    Flags the route would silently ignore are refused.
+
+    In a multi-process world the slots are the world's
+    (``--host-device-count`` per process, ``multihost.world_slots``):
+    batch-sharded members span every rank's slots, and a spatial
+    member's submesh may span ranks. Process 0 alone prints, writes the
+    ``final_m<i>.dat`` files and the run record (the JAX CLI's rule,
+    ``heat2d_tpu/cli.py:341-389``)."""
     from heat2d_tpu_torch.io.binary import write_json_atomic
-    from heat2d_tpu_torch.io.writers import (write_grid_baseline,
+    from heat2d_tpu_torch.io.writers import (dat_writer,
+                                             write_grid_baseline,
                                              write_grid_rowmajor)
     from heat2d_tpu_torch.models.ensemble import (ensemble_summary,
                                                   timed_ensemble)
     from heat2d_tpu_torch.obs.record import build_record
+    from heat2d_tpu_torch.parallel import multihost as mh
 
     try:
         cxs = [float(s) for s in (args.ensemble_cx or "").split(",") if s]
@@ -406,25 +415,34 @@ def _run_ensemble_cli(args, cfg) -> int:
         # sharded loops read each slot's members)
         from heat2d_tpu_torch.obs import TelemetryStream
         telemetry = TelemetryStream(registry=registry)
+    primary = mh.process_index() == 0
+
+    def say(msg):
+        if primary:
+            print(msg)
+
     try:
-        devices = None
-        if sharded:
+        devices = owners = None
+        if sharded and mh.is_multiprocess():
+            devices, owners = mh.world_slots(args.host_device_count or 1,
+                                             args.device)
+        elif sharded:
             from heat2d_tpu_torch.parallel.mesh import (host_devices,
                                                         visible_devices)
             devices = (host_devices(args.host_device_count, args.device)
                        if args.host_device_count
                        else visible_devices(args.device))
-        print(f"Starting ensemble of {len(cxs)} members"
-              + (f" over {len(devices)} devices" if sharded else ""))
-        print(f"Problem size:{cfg.nxprob}x{cfg.nyprob}")
+        say(f"Starting ensemble of {len(cxs)} members"
+            + (f" over {len(devices)} devices" if sharded else ""))
+        say(f"Problem size:{cfg.nxprob}x{cfg.nyprob}")
         if cfg.problem != "heat5":
-            print(f"Problem family: {cfg.problem}")
+            say(f"Problem family: {cfg.problem}")
         if spatial_grid:
-            print(f"Each member decomposed over a "
-                  f"{spatial_grid[0]}x{spatial_grid[1]} spatial submesh")
-        print(f"Amount of iterations: {cfg.steps}")
+            say(f"Each member decomposed over a "
+                f"{spatial_grid[0]}x{spatial_grid[1]} spatial submesh")
+        say(f"Amount of iterations: {cfg.steps}")
         if cfg.convergence:
-            print(f"Check for convergence every {cfg.interval} iterations")
+            say(f"Check for convergence every {cfg.interval} iterations")
         run = timed_ensemble(
             cfg.nxprob, cfg.nyprob, cfg.steps, cxs, cys,
             method="auto" if cfg.method == "explicit" else cfg.method,
@@ -432,7 +450,7 @@ def _run_ensemble_cli(args, cfg) -> int:
             sensitivity=cfg.sensitivity, problem=cfg.problem,
             device=args.device, sharded=sharded, devices=devices,
             spatial_grid=spatial_grid, halo_depth=cfg.halo_depth,
-            halo=cfg.halo,
+            halo=cfg.halo, owners=owners,
             tap=telemetry.tap_members if telemetry is not None else None)
     except (ConfigError, ValueError, DeviceUnavailableError) as e:
         print(f"{e}\nQuitting...", file=sys.stderr)
@@ -440,8 +458,20 @@ def _run_ensemble_cli(args, cfg) -> int:
     steps_done = (None if run.steps_done is None
                   else [int(k) for k in run.steps_done.cpu()])
     if steps_done is not None:
-        print(f"Members exited after {steps_done} iterations")
-    print(f"Elapsed time: {run.elapsed:e} sec")
+        say(f"Members exited after {steps_done} iterations")
+    say(f"Elapsed time: {run.elapsed:e} sec")
+    launches_by_process = None
+    if mh.is_multiprocess():
+        # every process's ensemble-kernel launches, warmup included,
+        # gathered (a collective: every process calls it)
+        from heat2d_tpu_torch.ops.cuda_ensemble import launch_counts
+        from heat2d_tpu_torch.utils.timing import gather_over_processes
+        counts = launch_counts()
+        cols = {k: gather_over_processes(v) for k, v in counts.items()}
+        launches_by_process = [{k: int(col[p]) for k, col in cols.items()}
+                               for p in range(mh.process_count())]
+    if not primary:
+        return 0
     batch = run.batch.cpu().numpy()
     os.makedirs(args.outdir, exist_ok=True)
     if args.dat_layout != "none":
@@ -459,6 +489,11 @@ def _run_ensemble_cli(args, cfg) -> int:
                "summary": ensemble_summary(batch, steps_done=steps_done),
                "route": run.method,
                "residual_reads": run.residual_reads})
+    if args.dat_layout != "none":
+        record["dat_writer"] = dat_writer()
+    if run.elapsed_by_process is not None:
+        record["elapsed_by_process"] = run.elapsed_by_process
+        record["launches_by_process"] = launches_by_process
     if telemetry is not None and telemetry.chunk_progress():
         # present only when chunks were read: an empty list would read
         # as 'zero chunks ran'
@@ -545,11 +580,6 @@ def _main(args) -> int:
         print(f"{e}\nQuitting...", file=sys.stderr)
         return 1
     if args.ensemble_cx or args.ensemble_cy:
-        if mh.is_multiprocess():
-            print("ensemble runs across processes are not ported yet "
-                  "(ROADMAP.md); run them in one process\nQuitting...",
-                  file=sys.stderr)
-            return 1
         return _run_ensemble_cli(args, cfg)
     registry = _registry(args, cfg)
     telemetry = None
@@ -750,6 +780,9 @@ def _main(args) -> int:
 
     record = result.to_record()
     record["total_steps_including_resume"] = total_steps
+    if args.dat_layout != "none":
+        from heat2d_tpu_torch.io.writers import dat_writer
+        record["dat_writer"] = dat_writer()
     if args.resume:
         record["resume_from_step"] = start_step
     if ckpt_writer is not None:

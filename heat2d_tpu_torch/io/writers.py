@@ -9,8 +9,12 @@ and with ``heat2d_tpu/io/writers.py``.
   line per row.
 
 Python's ``%`` formatting and C's ``%6.1f`` give the same bytes for the
-same double. A whole line is formatted by one ``%`` over a tuple, so the
-loop over values runs in C.
+same double. The writers format through the native formatter
+(``native/heat2d_io.cpp``, built at first use into ``build/native/``), as
+the JAX package's do; a failed build with a compiler present raises. Only
+where no compiler exists do they use the Python formatter (a whole line
+formatted by one ``%`` over a tuple). ``dat_writer()`` names the one that
+runs, which the CLIs put in their run records.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 
 from heat2d_tpu_torch.io.binary import _host_f32, write_text_atomic
+from heat2d_tpu_torch.native import lib as native_lib
 
 
 def _grid(u) -> np.ndarray:
@@ -27,8 +32,20 @@ def _grid(u) -> np.ndarray:
     return a
 
 
-def format_grid_baseline(u) -> str:
-    """mpi_heat2Dn.c prtdat byte format (y-descending lines, x across)."""
+def dat_writer() -> str:
+    """The formatter the writers run: "native", or "python" where no C++
+    compiler exists."""
+    return "native" if native_lib.available() else "python"
+
+
+def _native():
+    """The native formatter, or None where no compiler exists (a failed
+    build with one raises ``native.lib.NativeBuildError``)."""
+    return native_lib.load() if native_lib.available() else None
+
+
+def python_format_baseline(u) -> str:
+    """The Python formatter of the baseline layout."""
     a = _grid(u)
     nx, ny = a.shape
     fmt = " ".join(["%6.1f"] * nx)
@@ -36,11 +53,25 @@ def format_grid_baseline(u) -> str:
                    for iy in range(ny - 1, -1, -1))
 
 
-def format_grid_rowmajor(u) -> str:
-    """grad1612 writer byte format (row-major, trailing space per value)."""
+def python_format_rowmajor(u) -> str:
+    """The Python formatter of the row-major layout."""
     a = _grid(u)
     fmt = "%6.1f " * a.shape[1]
     return "".join(fmt % tuple(row) + "\n" for row in a.tolist())
+
+
+def format_grid_baseline(u) -> str:
+    """mpi_heat2Dn.c prtdat byte format (y-descending lines, x across)."""
+    a = _grid(u)
+    nat = _native()
+    return nat.format_baseline(a) if nat else python_format_baseline(a)
+
+
+def format_grid_rowmajor(u) -> str:
+    """grad1612 writer byte format (row-major, trailing space per value)."""
+    a = _grid(u)
+    nat = _native()
+    return nat.format_rowmajor(a) if nat else python_format_rowmajor(a)
 
 
 def write_grid_baseline(u, path) -> None:

@@ -56,6 +56,12 @@ slots sharing fewer cards through ``host_devices(n)``):
   golden loop with per-member coefficients (``parallel.sharded``'s
   ``cxy=``; the JAX package runs jnp there too), the batch over rows of
   such submeshes.
+
+Both run in a world of processes (``timed_ensemble(owners=...)``, the
+slots of ``parallel.multihost.world_slots``): each process advances the
+members or blocks of its own slots, a spatial submesh may span ranks
+(its strips cross them through ``parallel/halo.py``), and the batch
+comes back to every process, bit for bit the one-process run's.
 """
 
 from __future__ import annotations
@@ -441,50 +447,96 @@ def _inert_pad(u0, cxs, cys, pad: int):
             torch.cat([cxs, z]), torch.cat([cys, z]))
 
 
-def _split(u0, cxs, cys, devices) -> list:
+def _split(u0, cxs, cys, devices, owners=None) -> list:
     """The batch in contiguous equal parts, part i on ``devices[i]``:
-    ``[(u, cxs, cys), ...]`` (the batch axis sharded in mesh order)."""
+    ``[(u, cxs, cys), ...]`` (the batch axis sharded in mesh order). With
+    ``owners`` (a world's slots, ``multihost.world_slots``), the parts of
+    other processes' slots are None and never moved."""
     per = u0.shape[0] // len(devices)
+    rank = _rank() if owners is not None else None
 
     def on(x, i, d):
         return x[i * per:(i + 1) * per].to(d).contiguous()
-    return [(on(u0, i, d), on(cxs, i, d), on(cys, i, d))
+    return [None if owners is not None and owners[i] != rank
+            else (on(u0, i, d), on(cxs, i, d), on(cys, i, d))
             for i, d in enumerate(devices)]
 
 
-def _shard_members(u0, cxs, cys, devices):
+def _rank() -> int:
+    from heat2d_tpu_torch.parallel.multihost import process_index
+    return process_index()
+
+
+def _shard_members(u0, cxs, cys, devices, owners=None):
     """(parts, b): the B members padded to a multiple of min(slots, B)
-    and split over that many slots."""
+    and split over that many slots (None at other processes' slots)."""
     b = u0.shape[0]
     nd = min(len(devices), b)
     u0, cxs, cys = _inert_pad(u0, cxs, cys, (-b) % nd)
-    return _split(u0, cxs, cys, devices[:nd]), b
+    return _split(u0, cxs, cys, devices[:nd],
+                  None if owners is None else owners[:nd]), b
 
 
 def _gather(parts, dev):
     return torch.cat([p.to(dev) for p in parts])
 
 
-def _run_sharded(route, steps, u0, cxs, cys, devices):
-    """Every slot's part launched through ``route`` before any is read
-    back; the cropped (B, nx, ny) batch on ``u0``'s device."""
-    parts, b = _shard_members(u0, cxs, cys, devices)
+def _gather_world(parts, owners, like, dev):
+    """The slots' parts (each shaped and typed as ``like``, None at other
+    processes' slots) in slot order on every process, on ``dev``: the
+    tiled all-gather of ``multihost.all_gather_rows`` (a collective:
+    every process calls it). A world's slots are process-major."""
+    from heat2d_tpu_torch.parallel.multihost import (all_gather_rows,
+                                                     process_count)
+    owners = list(owners[:len(parts)])
+    if owners != sorted(owners):
+        raise ValueError(f"slot owners must be process-major, got {owners}")
+    mine = [p.detach().cpu() for p in parts if p is not None]
+    rows = (torch.cat(mine) if mine
+            else like.detach().cpu()[:0])
+    k = like.shape[0]
+    counts = [owners.count(p) * k for p in range(process_count())]
+    return torch.cat(all_gather_rows(rows, counts)).to(dev)
+
+
+def _sharded_parts(route, steps, u0, cxs, cys, devices, owners=None):
+    """(outs, b): every local slot's part launched through ``route``
+    before any is read back; None at other processes' slots."""
+    parts, b = _shard_members(u0, cxs, cys, devices, owners)
     run = _BATCH_RUNNERS[route]
-    outs = [run(u, cx, cy, steps=steps) for u, cx, cy in parts]
+    return [None if p is None else run(*p, steps=steps) for p in parts], b
+
+
+def _conv_sharded_parts(route, steps, interval, sensitivity, u0, cxs, cys,
+                        devices, owners=None, tap=None):
+    """(outs, b): each local slot runs the route's convergence loop on its
+    members, the loops driven a chunk at a time in turn (``_drive_all``);
+    a slot's loop ends when its own members are done, so the slots of
+    different processes need no exchange. ``outs[i]`` is slot i's
+    (batch, steps_done), None at other processes' slots. Inert pad
+    members reach residual 0 after one chunk, so for any sensitivity > 0
+    they converge at once and never hold their slot's loop open."""
+    parts, b = _shard_members(u0, cxs, cys, devices, owners)
+    loop = _conv_loop(route, vocab.DEFAULT_PROBLEM, steps, interval,
+                      sensitivity)
+    live = [i for i, p in enumerate(parts) if p is not None]
+    done = _drive_all([loop(*parts[i], tap=tap) for i in live])
+    outs = [None] * len(parts)
+    for i, o in zip(live, done):
+        outs[i] = o
+    return outs, b
+
+
+def _run_sharded(route, steps, u0, cxs, cys, devices):
+    """The cropped (B, nx, ny) batch on ``u0``'s device."""
+    outs, b = _sharded_parts(route, steps, u0, cxs, cys, devices)
     return _gather(outs, u0.device)[:b]
 
 
 def _run_conv_sharded(route, steps, interval, sensitivity, u0, cxs, cys,
                       devices, tap=None):
-    """Each slot runs the route's convergence loop on its members, the
-    loops driven a chunk at a time in turn (``_drive_all``); a slot's
-    loop ends when its own members are done. Inert pad members reach
-    residual 0 after one chunk, so for any sensitivity > 0 they converge
-    at once and never hold their slot's loop open."""
-    parts, b = _shard_members(u0, cxs, cys, devices)
-    loop = _conv_loop(route, vocab.DEFAULT_PROBLEM, steps, interval,
-                      sensitivity)
-    outs = _drive_all([loop(u, cx, cy, tap=tap) for u, cx, cy in parts])
+    outs, b = _conv_sharded_parts(route, steps, interval, sensitivity, u0,
+                                  cxs, cys, devices, tap=tap)
     return (_gather([o[0] for o in outs], u0.device)[:b],
             _gather([o[1] for o in outs], u0.device)[:b])
 
@@ -546,10 +598,20 @@ class _Spatial:
     row-major order), each row advancing its members, decomposed over
     its submesh, by the sharded golden loop with per-member
     coefficients. ``nb`` is the number of rows, the members one wave
-    advances."""
+    advances.
+
+    ``owners``: the process of each slot, in a multi-process world
+    (``multihost.world_slots``). A process then advances the blocks of
+    its own slots only; a row whose submesh spans processes exchanges
+    its strips across them (``parallel/halo.py``), and its convergence
+    residual is every shard's partial gathered and summed in shard order
+    (as ``parallel.sharded._total`` sums a world's). Each chunk, every
+    row's done flags go to every process by one integer all-reduce, so
+    every process takes the same decisions; the result is gathered to
+    every process, row by row."""
 
     def __init__(self, nx, ny, steps, gridx, gridy, devices, convergence,
-                 interval, sensitivity, halo_depth, halo):
+                 interval, sensitivity, halo_depth, halo, owners=None):
         from heat2d_tpu_torch.config import HeatConfig
         from heat2d_tpu_torch.parallel import sharded as sh
         from heat2d_tpu_torch.parallel.mesh import make_mesh
@@ -559,9 +621,12 @@ class _Spatial:
             raise ValueError(
                 f"batch x spatial ensemble needs at least gridx*gridy = "
                 f"{spatial} devices; have {len(devices)}")
-        self.meshes = [make_mesh(gridx, gridy,
-                                 devices[r * spatial:(r + 1) * spatial])
-                       for r in range(nb)]
+        self.owners = owners
+        self.meshes = [make_mesh(
+            gridx, gridy, devices[r * spatial:(r + 1) * spatial],
+            None if owners is None
+            else owners[r * spatial:(r + 1) * spatial])
+            for r in range(nb)]
         self.cfg = HeatConfig(
             nxprob=nx, nyprob=ny, steps=steps, mode="dist2d", gridx=gridx,
             gridy=gridy, convergence=convergence, interval=interval,
@@ -572,14 +637,16 @@ class _Spatial:
         self.halo = sh.resolve_halo_route(self.cfg, self.meshes[0])
 
     def _place(self, u, mesh):
-        """A (B, pnx, pny) batch as the ``ShardedGrid`` of ``mesh``."""
+        """A (B, pnx, pny) batch as the ``ShardedGrid`` of ``mesh`` (None
+        at other processes' slots)."""
         from heat2d_tpu_torch.parallel.sharded import ShardedGrid
         gx, gy = mesh.shape
         bm, bn = self.pnx // gx, self.pny // gy
         blocks = [[u[:, i * bm:(i + 1) * bm, j * bn:(j + 1) * bn]
                    .to(mesh.devices[i][j]).contiguous()
+                   if mesh.is_local(i, j) else None
                    for j in range(gy)] for i in range(gx)]
-        return ShardedGrid(blocks, self.cfg.nxprob, self.cfg.nyprob)
+        return ShardedGrid(blocks, self.cfg.nxprob, self.cfg.nyprob, mesh)
 
     def __call__(self, u0, cxs, cys, nb=None):
         """(batch, steps_done) of a (B, nx, ny) batch on ``nb`` rows
@@ -595,30 +662,66 @@ class _Spatial:
         per = u0.shape[0] // nb
         rows = []
         for r, mesh in enumerate(self.meshes[:nb]):
-            dev = mesh.devices[0][0]
+            local = mesh.local_devices()
+            dev = local[0] if local else u0.device
             sl = slice(r * per, (r + 1) * per)
             cxy = (cxs[sl].to(dev).reshape(-1, 1, 1),
                    cys[sl].to(dev).reshape(-1, 1, 1))
             rows.append(dict(
-                mesh=mesh, grid=self._place(u0[sl], mesh),
+                mesh=mesh, dev=dev, mine=bool(local),
+                spans=_spans(mesh), leader=mesh.owner(0, 0) == _rank(),
+                grid=self._place(u0[sl], mesh),
                 multi=sh.make_local_multi(cfg, mesh, cxy=cxy),
                 step=sh.make_local_step(cfg, mesh, cxy=cxy)))
         if cfg.convergence:
             k = self._converge(rows, per)
         else:
             for row in rows:
-                row["grid"] = row["multi"](row["grid"], cfg.steps)
+                if row["mine"]:
+                    row["grid"] = row["multi"](row["grid"], cfg.steps)
             k = torch.full((per * nb,), cfg.steps, dtype=torch.int32)
-        out = torch.cat([_assemble(row["grid"]).to(u0.device)
+        out = torch.cat([self._assemble(row, per).to(u0.device)
                          for row in rows])
         return out[:b, :nx, :ny], k.to(u0.device)[:b]
+
+    def _assemble(self, row, per):
+        """A row's (per, pnx, pny) batch: its blocks concatenated, each
+        process's gathered to every process in a world (a collective)."""
+        grid = row["grid"]
+        if self.owners is None:
+            return _assemble(grid)
+        from heat2d_tpu_torch.parallel.multihost import gather_slots
+        mesh = row["mesh"]
+        gx, gy = mesh.shape
+        like = torch.zeros((per, self.pnx // gx, self.pny // gy))
+        flat = gather_slots(mesh, grid.tensors(), like)
+        return _assemble(grid.with_blocks(
+            [flat[i * gy:(i + 1) * gy] for i in range(gx)]))
+
+    def _residuals(self, row, new, prev, per, accum):
+        """Each member's residual of the step pair (prev, new) on ``row``:
+        per shard the members' partials, summed over the shards in shard
+        order (the order ``parallel.sharded._total`` sums in)."""
+        parts = [torch.stack([residual_sq(a[m], p[m], accum)
+                              for m in range(per)])
+                 for a, p in zip(new.tensors(), prev.tensors())]
+        if row["spans"]:
+            from heat2d_tpu_torch.parallel.multihost import gather_slots
+            parts = gather_slots(row["mesh"], parts,
+                                 torch.zeros(per, dtype=accum))
+        if not parts:
+            return None
+        dev = row["dev"]
+        total = parts[0].to(dev)
+        for p in parts[1:]:
+            total = total + p.to(dev)
+        return total
 
     def _converge(self, rows, per):
         """Masked completion: every chunk runs on all members, a member
         that converged keeps its plane by select, and the loop ends once
         every member of every row is done (the JAX package's uniform trip
         count; one host read per chunk). Returns steps_done."""
-        from heat2d_tpu_torch.parallel.sharded import _total
         cfg = self.cfg
         steps, interval = cfg.steps, cfg.interval
         iv = max(1, min(interval, steps)) if steps else interval
@@ -626,42 +729,77 @@ class _Spatial:
         remainder = steps - n_chunks * iv
         accum = getattr(torch, cfg.accum_dtype)
         for row in rows:
-            dev = row["mesh"].devices[0][0]
-            row["chunks"] = torch.zeros(per, dtype=torch.int32, device=dev)
-            row["done"] = torch.zeros(per, dtype=torch.bool, device=dev)
+            row["chunks"] = torch.zeros(per, dtype=torch.int32,
+                                        device=row["dev"])
+            row["done"] = torch.zeros(per, dtype=torch.bool,
+                                      device=row["dev"])
         for _ in range(n_chunks):
+            flags = []
             for row in rows:
                 grid, done = row["grid"], row["done"]
-                prev = row["multi"](grid, iv - 1) if iv > 1 else grid
-                new = row["step"](prev)
-                with phase("residual_reduction"):
-                    res = torch.stack([
-                        _total([residual_sq(a[m], p[m], accum) for a, p in
-                                zip(new.tensors(), prev.tensors())])
-                        for m in range(per)])
-                row["grid"] = _select(done, grid, new)
+                new = prev = None
+                if row["mine"]:
+                    prev = row["multi"](grid, iv - 1) if iv > 1 else grid
+                    new = row["step"](prev)
+                res = None
+                if row["mine"] or row["spans"]:
+                    with phase("residual_reduction"):
+                        res = self._residuals(
+                            row, grid if new is None else new,
+                            grid if prev is None else prev, per, accum)
+                if row["mine"]:
+                    row["grid"] = _select(done, grid, new)
                 row["chunks"] = torch.where(done, row["chunks"],
                                             row["chunks"] + 1)
-                row["done"] = done | (res < cfg.sensitivity)
+                flags.append(done | (res < cfg.sensitivity)
+                             if res is not None else done)
+            self._agree(rows, flags)
             if all(bool(row["done"].all()) for row in rows):
                 break
         ks = []
         for row in rows:
             k = row["chunks"] * iv
             if remainder:
-                adv = row["multi"](row["grid"], remainder)
-                row["grid"] = _select(row["done"], row["grid"], adv)
+                if row["mine"]:
+                    adv = row["multi"](row["grid"], remainder)
+                    row["grid"] = _select(row["done"], row["grid"], adv)
                 k = torch.where(row["done"], k, k + remainder)
             ks.append(k.to(torch.int32))
         return _gather(ks, ks[0].device)
 
+    def _agree(self, rows, flags) -> None:
+        """Set every row's done flags to ``flags``; in a world, each row's
+        flags as its leader (the owner of its first slot) computed them,
+        by one integer all-reduce (a collective)."""
+        if self.owners is None:
+            for row, f in zip(rows, flags):
+                row["done"] = f
+            return
+        import torch.distributed as dist
+        mine = torch.cat([
+            (f.cpu() if row["leader"] else torch.zeros_like(f.cpu()))
+            .to(torch.int32) for row, f in zip(rows, flags)])
+        dist.all_reduce(mine)
+        for r, row in enumerate(rows):
+            seg = mine[r * len(flags[r]):(r + 1) * len(flags[r])]
+            row["done"] = (seg != 0).to(row["dev"])
+
+
+def _spans(mesh) -> bool:
+    """The mesh's slots belong to more than one process (the same answer
+    on every process, unlike ``Mesh.spans_processes``)."""
+    return mesh.owners is not None and len(
+        {o for row in mesh.owners for o in row}) > 1
+
 
 def _select(done, old, new):
     """Per member: ``old`` where ``done``, else ``new`` (grids of
-    (B, bm, bn) blocks)."""
+    (B, bm, bn) blocks; None at other processes' slots)."""
     masks = {}
 
     def pick(a, b):
+        if a is None:
+            return None
         if a.device not in masks:
             masks[a.device] = done.to(a.device).reshape(-1, 1, 1)
         return torch.where(masks[a.device], a, b)
@@ -727,6 +865,8 @@ class EnsembleResult(NamedTuple):
     method: str                          # the route that ran
     residual_reads: int                  # host reads of the timed run
     warmup_s: Optional[float]
+    #: every process's elapsed seconds in a multi-process world
+    elapsed_by_process: Optional[list] = None
 
 
 def timed_ensemble(nx: int, ny: int, steps: int, cxs, cys, u0=None,
@@ -735,7 +875,8 @@ def timed_ensemble(nx: int, ny: int, steps: int, cxs, cys, u0=None,
                    problem: str = "heat5", device=None,
                    sharded: bool = False, devices=None,
                    spatial_grid=None, halo_depth=None,
-                   halo: str = "collective", tap=None) -> EnsembleResult:
+                   halo: str = "collective", tap=None,
+                   owners=None) -> EnsembleResult:
     """One ensemble launch under the reference timing protocol (an
     untimed warmup run, then a fenced timed run): the CLI's entry.
     ``sharded=True`` spreads the members over the slots ``devices``
@@ -745,7 +886,15 @@ def timed_ensemble(nx: int, ny: int, steps: int, cxs, cys, u0=None,
     chunk's read of a convergence run, ``tap(chunk, steps_done,
     residuals, done)`` (``obs.stream.TelemetryStream.tap_members``): on
     one device the whole batch's; the sharded loops report each slot's
-    members, and the spatial route none."""
+    members, and the spatial route none.
+
+    ``owners``: the process of each of ``devices`` in a multi-process
+    world (``multihost.world_slots``; every process calls this alike).
+    Each process then runs the members of its own slots; the sharded
+    route's slots are gathered to every process after the timed run,
+    the spatial route's rows inside it (their strips and residuals cross
+    processes). The batch and steps_done come back on every process on
+    the CPU, and ``elapsed`` is the slowest process's."""
     from heat2d_tpu_torch.config import ConfigError
     if problem != vocab.DEFAULT_PROBLEM and (sharded
                                              or spatial_grid is not None):
@@ -755,11 +904,16 @@ def timed_ensemble(nx: int, ny: int, steps: int, cxs, cys, u0=None,
             f"heat5 operator); drop sharded/spatial_grid")
     multi = sharded or spatial_grid is not None
     devs = _slots(devices, device) if multi else None
-    cxs, cys, u0 = _validated_batch(nx, ny, cxs, cys, u0,
-                                    devs[0] if multi else device)
+    world = multi and owners is not None and len(set(owners)) > 1
+    if not world:
+        owners = None
+    home = (devs[list(owners).index(_rank())] if world
+            else devs[0] if multi else device)
+    cxs, cys, u0 = _validated_batch(nx, ny, cxs, cys, u0, home)
+    gather = None
     if spatial_grid is not None:
         prog = _Spatial(nx, ny, steps, *spatial_grid, devs, convergence,
-                        interval, sensitivity, halo_depth, halo)
+                        interval, sensitivity, halo_depth, halo, owners)
         method = "spatial"
 
         def run(u):
@@ -769,11 +923,32 @@ def timed_ensemble(nx: int, ny: int, steps: int, cxs, cys, u0=None,
         method = _pick_method(method, nx, ny, devs[0])
 
         def run(u):
+            if world:
+                if convergence:
+                    return _conv_sharded_parts(
+                        method, steps, interval, sensitivity, u, cxs, cys,
+                        devs, owners, tap=runner.tap)
+                return _sharded_parts(method, steps, u, cxs, cys, devs,
+                                      owners)
             if convergence:
                 return _run_conv_sharded(method, steps, interval,
                                          sensitivity, u, cxs, cys, devs,
                                          tap=runner.tap)
             return _run_sharded(method, steps, u, cxs, cys, devs), None
+
+        if world:
+            def gather(out):
+                outs, b = out
+                per = -(-b // len(outs))
+                z = torch.zeros((per, nx, ny))
+                if convergence:
+                    u = _gather_world([o and o[0] for o in outs], owners,
+                                      z, "cpu")[:b]
+                    k = _gather_world(
+                        [o and o[1] for o in outs], owners,
+                        torch.zeros(per, dtype=torch.int32), "cpu")[:b]
+                    return u, k
+                return _gather_world(outs, owners, z, "cpu")[:b], None
     else:
         method = _route(method, problem, nx, ny, u0.device)
         if convergence:
@@ -790,9 +965,12 @@ def timed_ensemble(nx: int, ny: int, steps: int, cxs, cys, u0=None,
     runner = engine.Runner(run, method)
     runner.stream = tap
     tc = timed_call(runner, u0)
-    (u, k), elapsed = tc
+    out, elapsed = tc
+    u, k = gather(out) if gather is not None else out
+    if world:
+        u, k = u.cpu(), (None if k is None else k.cpu())
     return EnsembleResult(u, k, elapsed, method, runner.residual_reads,
-                          tc.warmup_s)
+                          tc.warmup_s, tc.elapsed_by_process)
 
 
 def ensemble_summary(batch, steps_done=None) -> dict:

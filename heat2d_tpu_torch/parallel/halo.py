@@ -20,7 +20,10 @@ phase posted before any wait (so no pair of blocking calls can
 deadlock). gloo moves CPU tensors: a card's strips are staged into
 pinned host buffers and copied back to the card before a kernel reads
 them. ``cross_process_counts()`` holds the exchanges, bytes and seconds
-of that route.
+of that route; its three parts are the profiler ranges ``halo_stage``
+(the waits on the card and the copies to pinned host buffers),
+``halo_transfer`` (gloo's sends and receives) and ``halo_unstage`` (the
+copies back, enqueued).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import time
 import torch
 
 from heat2d_tpu_torch.parallel.mesh import Mesh
+from heat2d_tpu_torch.utils.profiling import annotate
 
 #: The cross-process route's totals in this process: exchanges (calls of
 #: ``exchange_halo_strips`` that moved a strip between ranks, one a
@@ -119,21 +123,25 @@ def _phase(mesh, shifts):
         return outs
     import torch.distributed as dist
 
-    _sync([s for s, _, _ in sends] + [r[3] for r in recvs])
-    t0 = time.perf_counter()
-    staged = [(s.contiguous().to("cpu", non_blocking=True), dst, tag)
-              for s, dst, tag in sends]
-    _sync([s for s, _, _ in sends])
-    bufs = [torch.empty(like.shape, dtype=like.dtype,
-                        pin_memory=like.is_cuda)
-            for _, _, _, like, _, _ in recvs]
-    ops = [dist.P2POp(dist.isend, h, dst, tag=tag) for h, dst, tag in staged]
-    ops += [dist.P2POp(dist.irecv, b, src, tag=tag)
-            for b, (_, _, _, _, src, tag) in zip(bufs, recvs)]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    for b, (k, i, j, like, _, _) in zip(bufs, recvs):
-        outs[k][i][j] = b.to(like.device, non_blocking=True)
+    with annotate("halo_stage"):
+        _sync([s for s, _, _ in sends] + [r[3] for r in recvs])
+        t0 = time.perf_counter()
+        staged = [(s.contiguous().to("cpu", non_blocking=True), dst, tag)
+                  for s, dst, tag in sends]
+        _sync([s for s, _, _ in sends])
+        bufs = [torch.empty(like.shape, dtype=like.dtype,
+                            pin_memory=like.is_cuda)
+                for _, _, _, like, _, _ in recvs]
+    with annotate("halo_transfer"):
+        ops = [dist.P2POp(dist.isend, h, dst, tag=tag)
+               for h, dst, tag in staged]
+        ops += [dist.P2POp(dist.irecv, b, src, tag=tag)
+                for b, (_, _, _, _, src, tag) in zip(bufs, recvs)]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    with annotate("halo_unstage"):
+        for b, (k, i, j, like, _, _) in zip(bufs, recvs):
+            outs[k][i][j] = b.to(like.device, non_blocking=True)
     CROSS_PROCESS["phases"] += 1
     CROSS_PROCESS["bytes"] += sum(h.numel() * h.element_size()
                                   for h, _, _ in staged) + sum(

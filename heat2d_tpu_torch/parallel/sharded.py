@@ -44,6 +44,40 @@ from heat2d_tpu_torch.utils.profiling import phase
 #: clamped to the shard size.
 DEFAULT_HALO_DEPTH = 8
 
+#: The declared communication contract of every sharded halo route, the
+#: port's copy of the JAX package's (``parallel/sharded.py:53-66``), which
+#: the IR verifier's collective pass (``analysis/ir.py``) holds each
+#: recorded program to (``analysis/dtype_flow.record_collectives``). An
+#: exchange (``halo.exchange_halo_strips``) is 4 strip shifts, two phases
+#: (N/S, then E/W from the vertically-extended edge columns), each moving
+#: a strip between nearest neighbours, never wrapping; the residual sum
+#: (``_total``, the MPI_Allreduce) appears only in convergence programs;
+#: the gather family is forbidden: it turns O(halo) bytes into O(grid)
+#: bytes a step. The calls a shimmed scope may make inside it are listed
+#: under ``nested``: the exchange's sends and receives between ranks, the
+#: residual's shard-order gather of per-shard partials between ranks, and
+#: H14's plain version, whose exchange on the CPU stands for the kernel's
+#: reads of its neighbours' blocks. Tier ``ici`` (H14) exchanges no strip
+#: outside the kernel.
+COLLECTIVE_CONTRACT = {
+    "allowed": ("exchange", "strip_shift", "allreduce", "shard_fused",
+                "barrier"),
+    "forbidden": ("all_gather", "all_gather_object",
+                  "all_gather_into_tensor", "gather", "gather_object",
+                  "scatter", "all_to_all", "all_to_all_single",
+                  "reduce_scatter", "reduce_scatter_tensor"),
+    #: strip shifts per exchange
+    "shifts_per_exchange": 4,
+    #: |di| + |dj| between the source and destination shard of a shift
+    "neighbor_distance": 1,
+    "nested": {
+        "exchange": ("strip_shift", "batch_isend_irecv"),
+        "allreduce": ("all_gather",),
+        "shard_fused": ("exchange",),
+    },
+    "no_exchange_tiers": ("ici",),
+}
+
 
 @dataclasses.dataclass
 class ShardedGrid:

@@ -6,6 +6,7 @@ fit the H100's shared memory; chip_smoke.py refuses to run without a card
 or without the package beside it."""
 
 import ast
+import glob
 import os
 import shutil
 import subprocess
@@ -42,6 +43,7 @@ def _port_sources():
                 yield os.path.join(d, f)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "bench_torch.py")
+    yield from sorted(glob.glob(os.path.join(REPO, "tools", "*_torch.py")))
 
 
 def _imported(path):
@@ -64,6 +66,28 @@ def test_no_module_imports_jax_or_the_jax_package():
     bad = [(os.path.relpath(p, REPO), m) for p in sources
            for m in _imported(p) if _forbidden(m)]
     assert bad == []
+
+
+def test_new_modules_are_among_the_sources():
+    rel = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert {"heat2d_tpu_torch/analysis/ir.py",
+            "heat2d_tpu_torch/analysis/footprint.py",
+            "heat2d_tpu_torch/analysis/dtype_flow.py",
+            "heat2d_tpu_torch/native/lib.py", "tools/sweep_torch.py",
+            "tools/sweep_iters_torch.py", "tools/sweep_ensemble_torch.py",
+            "tools/profile_phases_torch.py"} <= rel
+
+
+def test_importing_the_ir_verifier_native_and_tools_loads_no_jax():
+    code = ("import sys; import heat2d_tpu_torch.analysis.ir, "
+            "heat2d_tpu_torch.analysis.cli, heat2d_tpu_torch.native.lib, "
+            "heat2d_tpu_torch.io.writers, tools.sweep_torch, "
+            "tools.sweep_iters_torch, tools.sweep_ensemble_torch, "
+            "tools.profile_phases_torch; "
+            "print('jax' in sys.modules, 'heat2d_tpu' in sys.modules)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, check=True)
+    assert out.stdout.split() == ["False", "False"]
 
 
 def test_importing_the_solver_loads_no_jax():

@@ -7,7 +7,7 @@ Each world is ``python -m heat2d_tpu_torch.cli --device cpu --coordinator
 ... --num-processes N --process-id i`` spawned through
 ``dist/harness.spawn_world`` with a 60 s timeout; the mesh spans the
 processes, strips cross ranks by gloo sends and receives, and the
-residual is summed in shard order on every rank. Five worlds:
+residual is summed in shard order on every rank. Six worlds:
 
 - dist2d, 2 processes x 2 slots, with the parallel binary write and the
   collective managed checkpoints every 6 steps under
@@ -19,7 +19,12 @@ residual is summed in shard order on every rank. Five worlds:
 - hybrid ``--convergence`` (the CPU twins of H13), steps_done equal; in
   the same world ``--metrics-out`` (process 0's file: the aggregate over
   ranks and the residual trajectory) and ``--trace-dir`` (a span file a
-  rank, each rank's run one connected trace).
+  rank, each rank's run one connected trace);
+- ensembles, 2 processes, four CLI runs in one world: spatial members on
+  a 2x1 submesh of each rank (('b'=2, x=2, y=1)) and on one submesh
+  spanning both ranks with per-member exits, batch-sharded members over
+  every rank's slots, fixed and with exits; ``.dat`` bytes equal the
+  one-process runs' and the JAX package's serial runs'.
 
 Tolerances. Within the port every comparison is bitwise: against the
 one-process run of the same mode (and dist2d against mode serial). The
@@ -231,3 +236,91 @@ def test_two_process_hybrid_convergence_matches_one_process(tmp_path):
     assert all(r["connected"] and r["processes"] == 1
                for r in report["traces"])
     assert rec["trace_id"] in {r["trace_id"] for r in report["traces"]}
+
+
+#: One process of the ensemble world: joins the world once and runs the
+#: CLI for each launch line in turn (``cli._main`` inside the world).
+_ENSEMBLE_DRIVER = """
+import json, sys
+from heat2d_tpu_torch import cli
+from heat2d_tpu_torch.parallel import multihost as mh
+coord, n, pid, runs = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \\
+    json.loads(sys.argv[4])
+mh.initialize_distributed(coord, n, pid)
+try:
+    for argv in runs:
+        args = cli.build_parser().parse_args(argv)
+        args.trace_span = None
+        rc = cli._main(args)
+        if rc:
+            sys.exit(rc)
+finally:
+    mh.shutdown_distributed()
+"""
+
+#: The ensemble runs of the world, by name: (the port's flags, slots a
+#: process); the JAX package's serial run takes the same steps and
+#: convergence flags.
+CONV = ["--steps", "60", "--convergence", "--interval", "2",
+        "--sensitivity", "5e3"]
+ENSEMBLE_RUNS = {
+    # ('b'=2, x=2, y=1): each member's 2x1 submesh on one process
+    "spatial": (["--mode", "dist2d", "--gridx", "2", "--gridy", "1"], 2),
+    # one 2x1 submesh spanning both processes, members exiting early:
+    # strips and residual partials cross the ranks
+    "spatial_span": (["--mode", "dist2d", "--gridx", "2", "--gridy", "1"]
+                     + CONV, 1),
+    # batch-sharded: members over every rank's slots
+    "batch": (["--mode", "dist1d"], 2),
+    "batch_conv": (["--mode", "hybrid"] + CONV, 1),
+}
+MEMBERS = ["--ensemble-cx", "0.03125,0.25,0.1", "--ensemble-cy",
+           "0.03125,0.25,0.1"]
+
+
+def test_two_process_ensembles_match_one_process_and_jax(tmp_path):
+    """Ensembles across processes (batch-sharded and spatial, fixed and
+    with per-member exits) in one 2-process world: process 0 alone prints
+    and writes, every ``final_m<i>.dat`` equals the one-process run's
+    (over as many slots) and the JAX package's single-process serial
+    run's, steps_done equal, and the record carries each rank's
+    elapsed."""
+    runs = []
+    for name, (flags, slots) in ENSEMBLE_RUNS.items():
+        runs.append(["--device", "cpu", "--host-device-count", str(slots),
+                     "--outdir", str(tmp_path / name), "--run-record",
+                     str(tmp_path / f"{name}.json"), "--steps", "10"]
+                    + GRID + MEMBERS + flags)
+    results = spawn_world(
+        2, lambda i, coord: [sys.executable, "-c", _ENSEMBLE_DRIVER, coord,
+                             "2", str(i), json.dumps(runs)],
+        env=clean_env(), timeout=120)
+    outs = [r.output for r in results]
+    assert all(r.ok for r in results), outs
+    assert outs[1] == "", outs[1]
+    assert outs[0].count("Starting ensemble of 3 members") == 4
+    assert "Each member decomposed over a 2x1 spatial submesh" in outs[0]
+    for name, (flags, slots) in ENSEMBLE_RUNS.items():
+        one = tmp_path / f"{name}_one"
+        _one_process(one, ["--steps", "10"] + GRID + MEMBERS + flags
+                     + ["--run-record", str(tmp_path / f"{name}_one.json")],
+                     slots=2 * slots)
+        jax = tmp_path / f"{name}_jax"
+        assert jcli.main(["--mode", "serial", "--platform", "cpu",
+                          "--outdir", str(jax), "--steps", "10"] + GRID
+                         + MEMBERS + (CONV if CONV[-1] in flags
+                                      else [])) == 0
+        for i in range(3):
+            got = _bytes(tmp_path / name / f"final_m{i}.dat")
+            assert got == _bytes(one / f"final_m{i}.dat"), (name, i)
+            assert got == _bytes(jax / f"final_m{i}.dat"), (name, i)
+        rec = json.loads((tmp_path / f"{name}.json").read_text())
+        ref = json.loads((tmp_path / f"{name}_one.json").read_text())
+        assert rec["summary"] == ref["summary"], name
+        assert len(rec["elapsed_by_process"]) == 2
+        assert rec["elapsed_s"] == max(rec["elapsed_by_process"])
+        assert rec["route"] == ref["route"]
+    for name in ("spatial_span", "batch_conv"):
+        done = json.loads((tmp_path / f"{name}.json").read_text())[
+            "summary"]["steps_done"]
+        assert done[0] < 60 and done[1] == 60, (name, done)
