@@ -45,7 +45,7 @@ runs the ``residual_trajectory`` the loops read, or the ensembles'
 loggers. ``--profile LOGDIR`` captures the run (warmup and timed run)
 with ``torch.profiler`` for ``heat2d-tpu-torch-prof LOGDIR``;
 ``--trace-dir DIR`` arms request tracing (the ``cli.run`` root span, the
-``phase.*`` spans under it, the record's ``trace_id``; merge with
+``utils.profiling.phase`` spans under it, the record's ``trace_id``; merge with
 ``heat2d-tpu-torch-trace DIR``). ``HEAT2D_FLIGHT_DIR`` arms the crash
 flight recorder. With a tuning db active
 (``HEAT2D_TUNE_DB``, ``tune/``) the run record carries the configs the

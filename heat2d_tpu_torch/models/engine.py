@@ -14,6 +14,10 @@ flag) is later work (ROADMAP.md).
 
 The comparison with ``sensitivity`` is made in float32, as the JAX loop
 makes it (an f32 residual against a weakly typed Python float).
+
+Each read's wait is the hook ``solver.residual_read``
+(``utils.profiling.phase``): the host blocks there until the chunk that
+produced the residual is done.
 """
 
 from __future__ import annotations
@@ -22,10 +26,13 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from heat2d_tpu_torch.utils.profiling import phase
+
 
 def _read(res, k: int, tap: Optional[Callable]) -> float:
     """One host read of the residual (exact f32 value as a float)."""
-    r = float(res)
+    with phase("solver.residual_read"):
+        r = float(res)
     if tap is not None:
         tap(k, r)
     return r

@@ -45,6 +45,7 @@ from heat2d_tpu_torch.models import engine
 from heat2d_tpu_torch.ops.init import inidat
 from heat2d_tpu_torch.ops.stencil import residual_sq, stencil_step
 from heat2d_tpu_torch.utils.device import resolve_device
+from heat2d_tpu_torch.utils.profiling import phase
 from heat2d_tpu_torch.utils.timing import _fence, timed_call
 
 
@@ -195,6 +196,10 @@ class Heat2DSolver:
         process of each slot, for a mesh that spans processes;
         ``telemetry``: an ``obs.stream.TelemetryStream`` that receives
         every residual the convergence loops read."""
+        with phase("solve.construct"):
+            self._construct(config, device, devices, owners, telemetry)
+
+    def _construct(self, config, device, devices, owners, telemetry):
         self.config = config
         self.telemetry = telemetry
         self.mesh = None
@@ -264,10 +269,13 @@ class Heat2DSolver:
         the reference protocol: warmup excluded, fenced on every device.
         ``gather=False`` leaves a sharded result as its ``ShardedGrid``
         (padded), for ``io.binary.write_binary_sharded``; otherwise the
-        result is the host grid, the padding cropped."""
-        if u0 is None:
-            u0 = self.init_state()
-        runner = self.make_runner()
+        result is the host grid, the padding cropped. Its steps are the
+        hook's ``solve.prepare``, ``solve.launch``, ``solve.fence`` (the
+        untimed run's) and ``solve.gather`` (``utils.profiling.phase``)."""
+        with phase("solve.prepare"):
+            if u0 is None:
+                u0 = self.init_state()
+            runner = self.make_runner()
         warmup_s = by_process = exchange = None
         if timed:
             tc = timed_call(runner, u0, warmup=warmup)
@@ -275,12 +283,16 @@ class Heat2DSolver:
             warmup_s, by_process = tc.warmup_s, tc.elapsed_by_process
             exchange = tc.exchange
         else:
-            u, k = runner(u0)
-            _fence(u)
+            with phase("solve.launch"):
+                u, k = runner(u0)
+            with phase("solve.fence"):
+                _fence(u)
             elapsed = float("nan")
         if gather:
             from heat2d_tpu_torch.parallel.multihost import gather_to_host
-            u = gather_to_host(u)[:self.config.nxprob, :self.config.nyprob]
+            with phase("solve.gather"):
+                u = gather_to_host(u)[:self.config.nxprob,
+                                      :self.config.nyprob]
         return RunResult(u=u, steps_done=int(k), elapsed=elapsed,
                          config=self.config, warmup_s=warmup_s,
                          route=runner.route,

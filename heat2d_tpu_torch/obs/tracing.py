@@ -5,8 +5,11 @@ schema, span-file names and record keys, so that either package's merger
 
 A ``TraceContext`` (``trace_id``/``span_id``) is minted at request
 admission and rides through the serving stack: the batcher's queue
-(``serve.queue``), the launch (``serve.launch``, one per member), and the
-solver CLI's run (``cli.run``, with ``phase.<name>`` spans under it).
+(``serve.queue``), the scheduler thread's ``serve.dispatch`` (under the
+oldest member's request, with the engine's and the resolve's
+``utils.profiling.phase`` spans under it), the launch (``serve.launch``,
+one per member), and the solver CLI's run (``cli.run``, with the
+solver's phase spans under it).
 ``obs/trace_cli.py`` merges the per-process span files into one timeline
 and a per-request critical path.
 
@@ -25,8 +28,14 @@ Span records are one JSON object per line in
      "name": "serve.launch", "kind": "launch", "t0": ..., "t1": ...,
      "attrs": {"signature": "...", "first_launch": true}}
 
-``t0``/``t1`` are epoch seconds from one per-process monotonic->epoch
-anchor. Every span is also teed into the flight recorder's ring
+``t0``/``t1`` are epoch seconds on the profiler's timeline: spans are
+stamped with ``time.monotonic()`` and written as the wall clock
+(``time.time()``, the clock ``torch.profiler`` stamps its ranges with:
+``ts + baseTimeNanoseconds/1000`` in a Chrome trace, in microseconds)
+less the stamp's age at the write, so a span file lays over a device
+trace of the same process, and a span and the ``record_function`` range
+of the same ``utils.profiling.phase`` entry agree to well under a
+millisecond. Every span is also teed into the flight recorder's ring
 (``obs/flight.py``) when one is installed. The writer takes the tracer's
 lock around each line (spans are emitted from the submitting threads and
 the batcher's scheduler thread alike).
@@ -111,15 +120,16 @@ class Span:
         self.attrs.update(attrs)
         return self
 
-    def end(self, **attrs) -> None:
-        """Close the span (idempotent — a future's done-callback may
-        race a failure path; first close wins)."""
+    def end(self, t1: Optional[float] = None, **attrs) -> None:
+        """Close the span at ``t1`` (a ``time.monotonic()`` stamp,
+        default now); idempotent — a future's done-callback may race a
+        failure path; first close wins."""
         if self._done:
             return
         self._done = True
         if attrs:
             self.attrs.update(attrs)
-        self.tracer._emit(self, time.monotonic())
+        self.tracer._emit(self, time.monotonic() if t1 is None else t1)
 
 
 class _NullSpan:
@@ -156,11 +166,6 @@ class Tracer:
         self.service = service
         self.sink = sink
         self.pid = os.getpid()
-        # ONE monotonic->epoch anchor per tracer: every span timestamp
-        # is epoch0 + (mono - mono0), so in-process intervals are
-        # monotonic-exact and never jump with wall-clock adjustments.
-        self._epoch0 = time.time()
-        self._mono0 = time.monotonic()
         self._lock = AuditedLock("obs.tracer")
         self._file = None
         self.path = (None if dir is None else os.path.join(
@@ -169,11 +174,12 @@ class Tracer:
 
     # -- time ---------------------------------------------------------- #
 
-    def epoch_of(self, mono: float) -> float:
-        """Epoch seconds for a ``time.monotonic()`` stamp (how
-        retroactive spans — queue waits recorded at dispatch — get
-        consistent timestamps)."""
-        return self._epoch0 + (mono - self._mono0)
+    @staticmethod
+    def epoch_of(mono: float) -> float:
+        """The profiler's timeline (epoch seconds) for a
+        ``time.monotonic()`` stamp: the wall clock now, less the stamp's
+        age. Durations within a record stay monotonic-exact."""
+        return time.time() - (time.monotonic() - mono)
 
     # -- span lifecycle ------------------------------------------------ #
 
@@ -186,11 +192,14 @@ class Tracer:
             span_id=_new_span_id())
 
     def begin(self, name: str, *, kind: str = "internal",
-              parent: Optional[TraceContext] = None, **attrs) -> Span:
+              parent: Optional[TraceContext] = None,
+              t0: Optional[float] = None, **attrs) -> Span:
+        """A live span opened at ``t0`` (a ``time.monotonic()`` stamp,
+        default now)."""
         ctx = self.mint(parent)
         sp = Span(self, name, kind, ctx,
                   parent.span_id if parent else None,
-                  time.monotonic(), dict(attrs))
+                  time.monotonic() if t0 is None else t0, dict(attrs))
         # A span_start record the moment the span opens: a process
         # killed mid-span (the chaos scenario this subsystem exists
         # for) still leaves its open spans in the file/ring, so the
@@ -229,14 +238,15 @@ class Tracer:
     # -- emission ------------------------------------------------------ #
 
     def _emit(self, span: Span, t1_mono: float) -> None:
+        t1 = self.epoch_of(t1_mono)
         rec = {
             "event": "span", "schema": TRACE_SCHEMA,
             "service": self.service, "pid": self.pid,
             "trace_id": span.ctx.trace_id, "span_id": span.ctx.span_id,
             "parent_id": span.parent_id,
             "name": span.name, "kind": span.kind,
-            "t0": self.epoch_of(span.t0),
-            "t1": self.epoch_of(t1_mono),
+            "t0": t1 - (t1_mono - span.t0),
+            "t1": t1,
             "attrs": span.attrs,
         }
         self.spans_emitted += 1
@@ -367,8 +377,9 @@ _ambient = threading.local()
 def set_ambient(ctx: Optional[TraceContext]) -> None:
     """Set THIS thread's ambient parent context: what free-floating
     spans (``phase()`` entries) attach to when nothing explicit is in
-    scope. The CLI's run root sets it; server paths never do (their
-    parents are always explicit)."""
+    scope. The CLI's run root sets it, and each phase span is its
+    thread's ambient context while it is open (the scheduler thread's
+    ``serve.dispatch``, given its request parent explicitly)."""
     _ambient.ctx = ctx
 
 
@@ -379,13 +390,14 @@ def ambient() -> Optional[TraceContext]:
 # -- hook-site conveniences (cheap no-ops when off) -------------------- #
 
 def begin(name: str, *, kind: str = "internal",
-          parent: Optional[TraceContext] = None, **attrs):
+          parent: Optional[TraceContext] = None,
+          t0: Optional[float] = None, **attrs):
     """A live span, or ``NULL_SPAN`` when tracing is off — hook sites
     call ``.end()`` unconditionally."""
     t = tracer() if _enabled or not _env_checked else None
     if t is None:
         return NULL_SPAN
-    return t.begin(name, kind=kind, parent=parent, **attrs)
+    return t.begin(name, kind=kind, parent=parent, t0=t0, **attrs)
 
 
 def emit(name: str, t0_mono: float, t1_mono: float, *,

@@ -33,7 +33,7 @@ import time
 import torch
 
 from heat2d_tpu_torch.parallel.mesh import Mesh
-from heat2d_tpu_torch.utils.profiling import annotate
+from heat2d_tpu_torch.utils.profiling import phase
 
 #: The cross-process route's totals in this process: exchanges (calls of
 #: ``exchange_halo_strips`` that moved a strip between ranks, one a
@@ -123,7 +123,7 @@ def _phase(mesh, shifts):
         return outs
     import torch.distributed as dist
 
-    with annotate("halo_stage"):
+    with phase("halo_stage"):
         _sync([s for s, _, _ in sends] + [r[3] for r in recvs])
         t0 = time.perf_counter()
         staged = [(s.contiguous().to("cpu", non_blocking=True), dst, tag)
@@ -132,14 +132,14 @@ def _phase(mesh, shifts):
         bufs = [torch.empty(like.shape, dtype=like.dtype,
                             pin_memory=like.is_cuda)
                 for _, _, _, like, _, _ in recvs]
-    with annotate("halo_transfer"):
+    with phase("halo_transfer"):
         ops = [dist.P2POp(dist.isend, h, dst, tag=tag)
                for h, dst, tag in staged]
         ops += [dist.P2POp(dist.irecv, b, src, tag=tag)
                 for b, (_, _, _, _, src, tag) in zip(bufs, recvs)]
         for work in dist.batch_isend_irecv(ops):
             work.wait()
-    with annotate("halo_unstage"):
+    with phase("halo_unstage"):
         for b, (k, i, j, like, _, _) in zip(bufs, recvs):
             outs[k][i][j] = b.to(like.device, non_blocking=True)
     CROSS_PROCESS["phases"] += 1

@@ -23,6 +23,15 @@ from any number of producers (the "async" front half — a
 ``concurrent.futures.Future`` per request, awaitable from asyncio via
 ``asyncio.wrap_future``).
 
+The scheduler's turns are the hook's (``utils.profiling.phase``):
+``serve.batcher.turn`` is one turn of its loop, so that the thread is
+named at every instant; inside it ``serve.batcher.wait_empty`` while
+nothing is queued, ``serve.batcher.wait_delay`` while a partial bucket
+ages toward ``max_delay`` (or a deadline nears), or the dispatch
+(``serve.dispatch``, ``serve/server.py``). The turn and the waits are
+profiler ranges and ``trace_span*_total`` counts only: no request owns
+them.
+
 Metrics: ``serve_queue_depth`` gauge, ``serve_queue_wait_s`` histogram
 (admission -> dispatch, the time-to-first-dispatch), ``serve_batch_
 occupancy`` / ``serve_batch_fill`` histograms, ``serve_dispatch_total``
@@ -41,6 +50,7 @@ from heat2d_tpu_torch.analysis.locks import AuditedCondition, guarded_by
 from heat2d_tpu_torch.obs import tracing
 from heat2d_tpu_torch.serve.schema import (Rejected, SolveRequest,
                                            request_trace)
+from heat2d_tpu_torch.utils.profiling import phase
 
 #: What the batcher queues: a solve or an inverse request
 #: (``heat2d_tpu_torch/diff/serving.py``), both with ``signature()``.
@@ -200,34 +210,42 @@ class MicroBatcher:
 
     def _loop(self) -> None:
         while True:
-            expired, batch, sig = [], None, None
-            with self._cond:
-                if not self._running:
+            with phase("serve.batcher.turn"):
+                if not self._turn():
                     return
-                if self._draining and self._depth == 0:
-                    self._running = False
-                    return              # drained dry: a clean exit
-                now = time.monotonic()
-                expired = self._pop_expired_locked(now)
-                sig, batch = self._pop_ready_locked(
-                    now, drain=self._draining)
-                if not expired and batch is None:
+
+    def _turn(self) -> bool:
+        """One turn of the scheduler: reject what expired, then wait, or
+        dispatch the ready bucket. False once the scheduler stops."""
+        with self._cond:
+            if not self._running:
+                return False
+            if self._draining and self._depth == 0:
+                self._running = False
+                return False            # drained dry: a clean exit
+            now = time.monotonic()
+            expired = self._pop_expired_locked(now)
+            sig, batch = self._pop_ready_locked(now, drain=self._draining)
+            if not expired and batch is None:
+                with phase("serve.batcher.wait_delay" if self._depth
+                           else "serve.batcher.wait_empty"):
                     self._cond.wait(timeout=self._wake_in_locked(now))
-                    continue
-            for p in expired:
-                self._reject(p, Rejected(
-                    "timeout", "request timed out in queue",
-                    content_hash=p.key,
-                    waited_s=round(time.monotonic() - p.enqueued, 6)))
-            if batch is not None:
-                self._gauge_depth()
-                self._record_batch(sig, batch)
-                try:
-                    self._dispatch(sig, batch)
-                except BaseException as e:  # noqa: BLE001 — must not
-                    #                         kill the scheduler thread
-                    for p in batch:
-                        self._reject(p, e)
+                return True
+        for p in expired:
+            self._reject(p, Rejected(
+                "timeout", "request timed out in queue",
+                content_hash=p.key,
+                waited_s=round(time.monotonic() - p.enqueued, 6)))
+        if batch is not None:
+            self._gauge_depth()
+            self._record_batch(sig, batch)
+            try:
+                self._dispatch(sig, batch)
+            except BaseException as e:  # noqa: BLE001 — must not
+                #                         kill the scheduler thread
+                for p in batch:
+                    self._reject(p, e)
+        return True
 
     def _pop_expired_locked(self, now: float) -> list:
         out = []

@@ -19,7 +19,12 @@ capacity, the route and problem family it ran, and where its host time
 went: ``setup_s``
 (padding, the initial batch, the coefficient vectors on the device),
 ``run_s`` (the runner until the device is done) and ``readback_s`` (the
-copy of the batch to the host). Metrics: ``serve_launches_total``,
+copy of the batch to the host). Those are the launch's steps of the hook
+(``utils.profiling.stages``): ``serve.engine.prepare``,
+``serve.engine.run``, ``serve.engine.readback``, then
+``serve.engine.account`` (the row, its roofline stamp, the counters);
+the row's times are the stages' own boundaries, one clock read each.
+Metrics: ``serve_launches_total``,
 ``serve_launch_s`` (run + readback), ``problem_requests_total{problem=}``
 (launches per family) and ``serve_compile_cache_size`` (the runner
 cache's size).
@@ -34,9 +39,7 @@ cost card.
 
 from __future__ import annotations
 
-import contextlib
 import logging
-import time
 from typing import List, Tuple
 
 import torch
@@ -44,6 +47,7 @@ import torch
 from heat2d_tpu_torch.models import ensemble
 from heat2d_tpu_torch.resil import chaos
 from heat2d_tpu_torch.utils.device import resolve_device
+from heat2d_tpu_torch.utils.profiling import stages
 
 log = logging.getLogger("heat2d_tpu_torch.serve")
 
@@ -137,46 +141,44 @@ class EnsembleEngine:
 
     def _solve_on(self, requests, device) -> List[Tuple["object", int]]:
         """``solve_batch``'s launch on ``device``."""
-        t0 = time.perf_counter()
-        req0 = requests[0]
-        tuned = self._preresolve_tuned(req0)
-        n = len(requests)
-        capacity = _pad_capacity(n, self.max_batch)
-        cxs = [r.cx for r in requests]
-        cys = [r.cy for r in requests]
-        cxs += [cxs[-1]] * (capacity - n)
-        cys += [cys[-1]] * (capacity - n)
-        cxs, cys, u0 = ensemble._validated_batch(
-            req0.nx, req0.ny, cxs, cys, None, device)
-        # Fixed-step requests hand the runner cache (0, 0.0), never their
-        # unused interval/sensitivity: one signature, one runner.
-        interval, sensitivity = req0.schedule()
-        runner = ensemble.batch_runner(
-            req0.nx, req0.ny, req0.steps, req0.method,
-            convergence=req0.convergence, interval=interval,
-            sensitivity=sensitivity, problem=req0.problem,
-            device=str(device))
-        from heat2d_tpu_torch.obs import perf, roofline
-        meta = None
-        watch = None
-        if perf.enabled():
-            meta = {"signature": str(req0.signature()), "nx": req0.nx,
-                    "ny": req0.ny, "steps": req0.steps,
-                    "method": req0.method,
-                    "convergence": req0.convergence, "capacity": capacity,
-                    "dtype": "float32", "problem": req0.problem,
-                    "route": "batch"}
-            watch = perf.launch_watch(meta, device)
-        t1 = time.perf_counter()
+        with stages("serve.engine.prepare") as st:
+            req0 = requests[0]
+            tuned = self._preresolve_tuned(req0)
+            n = len(requests)
+            capacity = _pad_capacity(n, self.max_batch)
+            cxs = [r.cx for r in requests]
+            cys = [r.cy for r in requests]
+            cxs += [cxs[-1]] * (capacity - n)
+            cys += [cys[-1]] * (capacity - n)
+            cxs, cys, u0 = ensemble._validated_batch(
+                req0.nx, req0.ny, cxs, cys, None, device)
+            # Fixed-step requests hand the runner cache (0, 0.0), never
+            # their unused interval/sensitivity: one signature, one runner.
+            interval, sensitivity = req0.schedule()
+            runner = ensemble.batch_runner(
+                req0.nx, req0.ny, req0.steps, req0.method,
+                convergence=req0.convergence, interval=interval,
+                sensitivity=sensitivity, problem=req0.problem,
+                device=str(device))
+            from heat2d_tpu_torch.obs import perf, roofline
+            meta = None
+            watch = None
+            if perf.enabled():
+                meta = {"signature": str(req0.signature()), "nx": req0.nx,
+                        "ny": req0.ny, "steps": req0.steps,
+                        "method": req0.method,
+                        "convergence": req0.convergence,
+                        "capacity": capacity, "dtype": "float32",
+                        "problem": req0.problem, "route": "batch"}
+                watch = perf.launch_watch(meta, device)
 
-        timer = (self.registry.timer("serve_launch_s")
-                 if self.registry is not None else contextlib.nullcontext())
-        with timer:
+            st.next("serve.engine.run")
             out = runner(u0, cxs, cys)
             u = out[0] if req0.convergence else out
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
-            t2 = time.perf_counter()
+
+            st.next("serve.engine.readback")
             # Only the real members go to the host: the pads' copies
             # would be readback time for results nobody asked for.
             if req0.convergence:
@@ -184,38 +186,44 @@ class EnsembleEngine:
             else:
                 steps_done = [req0.steps] * n
             u = u[:n].cpu().numpy()
-        t3 = time.perf_counter()
 
-        self.launches += 1
-        compile_key = (req0.signature(), capacity)
-        first_launch = compile_key not in self._launched
-        self._launched.add(compile_key)
-        row = {"signature": req0.signature(), "occupancy": n,
-               "capacity": capacity, "method": runner.method,
-               "problem": req0.problem,
-               "tuned_config": ensemble.tuned_for_launch(tuned, capacity),
-               "first_launch": first_launch,
-               "setup_s": t1 - t0, "run_s": t2 - t1, "readback_s": t3 - t2}
-        if self.spatial_grid is not None:
-            row["halo_plan"] = self.halo_plans.get(req0.signature())
-        card = None
-        if meta is not None:
-            card = perf.observe_launch(runner, (u0, cxs, cys), meta=meta,
-                                       outputs=out, watch=watch)
-        roofline.stamp_launch_row(
-            row, self.registry, nx=req0.nx, ny=req0.ny,
-            steps=(sum(steps_done) / n if req0.convergence
-                   else req0.steps),
-            members=capacity, elapsed_s=t2 - t1, method=req0.method,
-            signature=str(req0.signature()), card=card,
-            problem=req0.problem, device=device)
-        self.launch_log.append(row)
-        if self.registry is not None:
-            self.registry.counter("serve_launches_total")
-            self.registry.counter("problem_requests_total",
-                                  problem=req0.problem)
-            self.registry.gauge("serve_compile_cache_size",
-                                ensemble.batch_runner.cache_info().currsize)
+            st.next("serve.engine.account")
+            t0, t1, t2, t3 = st.stamps
+            self.launches += 1
+            compile_key = (req0.signature(), capacity)
+            first_launch = compile_key not in self._launched
+            self._launched.add(compile_key)
+            row = {"signature": req0.signature(), "occupancy": n,
+                   "capacity": capacity, "method": runner.method,
+                   "problem": req0.problem,
+                   "tuned_config": ensemble.tuned_for_launch(tuned,
+                                                             capacity),
+                   "first_launch": first_launch,
+                   "setup_s": t1 - t0, "run_s": t2 - t1,
+                   "readback_s": t3 - t2}
+            if self.spatial_grid is not None:
+                row["halo_plan"] = self.halo_plans.get(req0.signature())
+            card = None
+            if meta is not None:
+                card = perf.observe_launch(runner, (u0, cxs, cys),
+                                           meta=meta, outputs=out,
+                                           watch=watch)
+            roofline.stamp_launch_row(
+                row, self.registry, nx=req0.nx, ny=req0.ny,
+                steps=(sum(steps_done) / n if req0.convergence
+                       else req0.steps),
+                members=capacity, elapsed_s=t2 - t1, method=req0.method,
+                signature=str(req0.signature()), card=card,
+                problem=req0.problem, device=device)
+            self.launch_log.append(row)
+            if self.registry is not None:
+                self.registry.observe("serve_launch_s", t3 - t1)
+                self.registry.counter("serve_launches_total")
+                self.registry.counter("problem_requests_total",
+                                      problem=req0.problem)
+                self.registry.gauge(
+                    "serve_compile_cache_size",
+                    ensemble.batch_runner.cache_info().currsize)
         log.debug("launch %d: %dx%d steps=%d occupancy=%d/%d route=%s",
                   self.launches, req0.nx, req0.ny, req0.steps, n, capacity,
                   runner.method)

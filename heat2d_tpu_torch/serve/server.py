@@ -41,8 +41,14 @@ Tracing (``obs/tracing.py``, armed by ``HEAT2D_TRACE_DIR`` or
 ``tracing.install``): one ``serve.request`` span per admission, the
 batcher's ``serve.queue`` span and one ``serve.launch`` span per member
 after its launch, all in the request's trace, so that
-``heat2d-tpu-torch-trace`` connects each request end to end. Off, every
-hook is one ``enabled()`` check.
+``heat2d-tpu-torch-trace`` connects each request end to end. The host
+path is the hook's (``utils.profiling.phase``): ``serve.submit`` on the
+client's thread; on the scheduler thread ``serve.dispatch``, a span
+under the oldest member's request (``members`` lists the others' trace
+ids), holding the engine's four steps (``serve.engine.prepare``,
+``.run``, ``.readback``, ``.account``) and ``serve.resolve`` (the cache
+and the futures, which run the clients' callbacks). Off, every hook is a
+flag check.
 """
 
 from __future__ import annotations
@@ -62,6 +68,7 @@ from heat2d_tpu_torch.serve.engine import EnsembleEngine
 from heat2d_tpu_torch.serve.schema import (Rejected, SolveRequest,
                                            SolveResult, attach_trace,
                                            request_trace)
+from heat2d_tpu_torch.utils.profiling import phase
 
 
 class SolveServer:
@@ -150,6 +157,10 @@ class SolveServer:
         ``InverseRequest``; the future resolves to its result
         (``SolveResult`` or ``InverseResult``) or fails with a structured
         ``Rejected``."""
+        with phase("serve.submit", parent=request_trace(req)):
+            return self._submit(req, timeout)
+
+    def _submit(self, req, timeout: Optional[float]) -> Future:
         t0 = time.monotonic()
         timeout = self.default_timeout if timeout is None else timeout
         try:
@@ -266,7 +277,17 @@ class SolveServer:
         cache. Terminal failures fail every member and feed the
         breaker. An inverse bucket runs through the ``InverseEngine``
         under the same plumbing, and its ``InverseResult`` s cache and
-        resolve as solve results do."""
+        resolve as solve results do. All of it is the ``serve.dispatch``
+        span, under the oldest member's request."""
+        attrs = {}
+        if tracing.enabled():
+            attrs["members"] = [c.trace_id for c in (
+                request_trace(p.req) for p in batch[1:]) if c is not None]
+        with phase("serve.dispatch", parent=request_trace(batch[0].req),
+                   **attrs):
+            self._launch_and_resolve(sig, batch, kind)
+
+    def _launch_and_resolve(self, sig, batch, kind: str) -> None:
         reqs = [p.req for p in batch]
         sig_str = str(sig)
 
@@ -313,23 +334,27 @@ class SolveServer:
             # a launch that outlived its deadline is a failure even if it
             # returned: a too-slow backend must not reset the breaker
             self.breaker.record_success()
-        for p, r in zip(batch, results):
-            if kind == "inverse":
-                res = dataclasses.replace(r, content_hash=p.key,
-                                          batch_size=len(batch))
-            else:
-                u, steps_done = r
-                res = SolveResult(u=u, steps_done=steps_done,
-                                  content_hash=p.key, batch_size=len(batch))
-            self.cache.put(p.key, res)
-            self.flight.resolve(p.key, res)
-            self._count("completed_late" if watchdog.fired
-                        else "completed")
-            if not watchdog.fired:
-                self._sig_count(sig_str, "completed")
-                self.registry.observe("serve_signature_latency_s",
-                                      time.monotonic() - p.enqueued,
-                                      signature=sig_str)
+        # the results into the cache and the members' futures, which run
+        # the clients' done-callbacks
+        with phase("serve.resolve"):
+            for p, r in zip(batch, results):
+                if kind == "inverse":
+                    res = dataclasses.replace(r, content_hash=p.key,
+                                              batch_size=len(batch))
+                else:
+                    u, steps_done = r
+                    res = SolveResult(u=u, steps_done=steps_done,
+                                      content_hash=p.key,
+                                      batch_size=len(batch))
+                self.cache.put(p.key, res)
+                self.flight.resolve(p.key, res)
+                self._count("completed_late" if watchdog.fired
+                            else "completed")
+                if not watchdog.fired:
+                    self._sig_count(sig_str, "completed")
+                    self.registry.observe("serve_signature_latency_s",
+                                          time.monotonic() - p.enqueued,
+                                          signature=sig_str)
 
     # -- tracing ------------------------------------------------------- #
 

@@ -5,11 +5,39 @@ counterpart of ``heat2d_tpu/utils/profiling.py``).
 ``--profile`` wraps the whole timed run in it, warmup included; the
 timed window inside is fenced as without it) and writes the Chrome trace
 into LOGDIR, which ``heat2d-tpu-torch-prof LOGDIR`` digests per hand
-kernel and per idle gap, and ui.perfetto.dev shows. ``annotate(name)``
-marks a named range in it; ``phase(name)`` is the hot paths' range, with
-the names the JAX package gives its phases (``stencil_chunk``,
-``residual_reduction``, ``halo_exchange``, ...), so that a trace of
-either stack attributes time to the same spans.
+kernel and per idle gap, and ui.perfetto.dev shows.
+
+``phase(name, parent=None, **attrs)`` is the one hook of the hot paths.
+The kernel loops use the names the JAX package gives its phases
+(``stencil_chunk``, ``residual_reduction``, ``halo_exchange``, ...), so
+that a trace of either stack attributes time to the same spans; the
+solver and the server name their host steps (``solve.*``,
+``solver.residual_read``, ``serve.*``; docs/OBSERVABILITY.md lists
+them).
+
+- **Off** (no profiler records and tracing is not armed): ``phase``
+  checks the profiler's module flag and the tracer's and returns a
+  shared no-op context. It reads no clock and builds no
+  ``record_function``.
+- **On**: a ``record_function`` range while a profiler records; the
+  span ``name`` (kind ``phase``) while tracing is armed
+  (``obs/tracing.py``), under ``parent`` or else the thread's ambient
+  context, and that span is the thread's ambient context until it
+  closes (a thread with neither, such as the server's scheduler between
+  dispatches, emits no span). While either holds, each entry adds one to
+  ``trace_spans_total{span=name}`` and its host seconds to
+  ``trace_span_seconds_total{span=name}`` in the process registry
+  (``obs.get_registry()``): the benchmark's per-layer readers read
+  these.
+- **One clock**: the span's stamps are the hook's own
+  ``time.monotonic()`` reads, written on the profiler's timeline (epoch
+  seconds; ``obs/tracing.py``), so a span and the range of the same
+  entry agree to well under a millisecond in a Chrome trace.
+
+``stages(first)`` is the same hook for consecutive steps of one call
+that share their boundaries (the serving engine's launch): one clock
+read a boundary, kept in ``stages.stamps`` for the caller's own
+accounting.
 
     heat2d-tpu-torch --profile /tmp/prof --mode pallas --nxprob 4096 \\
         --nyprob 4096 --steps 240
@@ -24,6 +52,10 @@ import socket
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+from heat2d_tpu_torch.obs import tracing
+from heat2d_tpu_torch.obs.metrics import get_registry
 
 
 class EmptyCaptureError(RuntimeError):
@@ -66,31 +98,130 @@ def profile_span(logdir: str | None, device=None):
             f"events only (is CUPTI available?)")
 
 
-@contextlib.contextmanager
-def annotate(name: str):
-    """A named range in the profiler's timeline (``record_function``:
-    next to nothing when no profiler is recording)."""
-    with torch.profiler.record_function(name):
-        yield
+class _Off:
+    """The hook's off path: one shared context that does nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
 
 
-@contextlib.contextmanager
-def phase(name: str):
-    """A hot path's named range (``annotate``). When distributed tracing
-    is armed (``obs/tracing.py``), each entry also emits a host span
-    ``phase.<name>`` under the thread's ambient context (the CLI's run
-    root): host bookkeeping only, the launches are the same either way.
-    A thread with no ambient context (a server's scheduler thread, whose
-    requests carry their own launch spans) emits none: each launch would
-    otherwise open a trace of its own. (The JAX package's phases run at
-    trace time, once per program; the port's run at every launch.)"""
-    from heat2d_tpu_torch.obs import tracing
+_OFF = _Off()
 
-    parent = tracing.ambient() if tracing.enabled() else None
-    span = (tracing.begin("phase." + name, kind="phase", parent=parent)
-            if parent is not None else tracing.NULL_SPAN)
-    try:
-        with torch.profiler.record_function(name):
-            yield
-    finally:
-        span.end()
+
+def _on() -> bool:
+    """A profiler records, or tracing is armed (or not yet looked up in
+    the environment): the hook's one check."""
+    return (_autograd_profiler._is_profiler_enabled or tracing._enabled
+            or not tracing._env_checked)
+
+
+def _open(name: str, parent, attrs: dict, t0=None):
+    """Open one entry of the hook: the range, the span, the ambient
+    context. Returns its state, or None when nothing records."""
+    profiling = _autograd_profiler._is_profiler_enabled
+    armed = tracing.enabled()
+    if not (profiling or armed):
+        return None
+    rng = span = prev = None
+    if t0 is None:
+        t0 = time.monotonic()
+    if profiling:
+        rng = torch.profiler.record_function(name)
+        rng.__enter__()
+    if armed:
+        ctx = parent if parent is not None else tracing.ambient()
+        if ctx is not None:
+            span = tracing.begin(name, kind="phase", parent=ctx, t0=t0,
+                                 **attrs)
+            prev = tracing.ambient()
+            tracing.set_ambient(span.ctx)
+    return (name, t0, rng, span, prev)
+
+
+def _close(state, t1=None) -> None:
+    name, t0, rng, span, prev = state
+    if t1 is None:
+        t1 = time.monotonic()
+    # the range closes before the span's record is written, so that
+    # both end at the stamp
+    if rng is not None:
+        rng.__exit__(None, None, None)
+    if span is not None:
+        tracing.set_ambient(prev)
+        span.end(t1=t1)
+    reg = get_registry()
+    reg.counter("trace_spans_total", span=name)
+    reg.counter("trace_span_seconds_total", t1 - t0, span=name)
+
+
+class _Phase:
+    __slots__ = ("name", "parent", "attrs", "_state")
+
+    def __init__(self, name: str, parent, attrs: dict):
+        self.name = name
+        self.parent = parent
+        self.attrs = attrs
+
+    def __enter__(self):
+        self._state = _open(self.name, self.parent, self.attrs)
+        return None
+
+    def __exit__(self, *exc):
+        if self._state is not None:
+            _close(self._state)
+        return False
+
+
+def phase(name: str, parent=None, **attrs):
+    """The hot paths' hook (see the module docstring): a context that
+    marks ``name`` in the profiler's timeline and the trace, and counts
+    it, while either records; a shared no-op otherwise. ``parent`` (a
+    ``tracing.TraceContext``) places the span where the thread has no
+    ambient context; ``attrs`` ride the span."""
+    return _Phase(name, parent, attrs) if _on() else _OFF
+
+
+class stages:
+    """Consecutive entries of the hook on one thread that share their
+    boundaries: ``next(name)`` closes the open one and opens ``name`` at
+    one clock read. The boundaries are read whether or not anything
+    records, and kept in ``stamps`` (``time.monotonic()`` seconds; the
+    first at entry, the last at exit), for a caller that accounts its own
+    durations with them: the serving engine's launch row.
+
+        with stages("serve.engine.prepare") as st:
+            ...
+            st.next("serve.engine.run")
+            ...
+        prepare_s = st.stamps[1] - st.stamps[0]
+    """
+
+    __slots__ = ("stamps", "_first", "_state")
+
+    def __init__(self, first: str):
+        self._first = first
+
+    def __enter__(self) -> "stages":
+        t = time.monotonic()
+        self.stamps = [t]
+        self._state = _open(self._first, None, {}, t) if _on() else None
+        return self
+
+    def next(self, name: str) -> None:
+        t = time.monotonic()
+        self.stamps.append(t)
+        if self._state is not None:
+            _close(self._state, t)
+        self._state = _open(name, None, {}, t) if _on() else None
+
+    def __exit__(self, *exc):
+        t = time.monotonic()
+        self.stamps.append(t)
+        if self._state is not None:
+            _close(self._state, t)
+        return False

@@ -15,7 +15,7 @@ reference's MPI_Reduce(MPI_MAX), grad1612_mpi_heat.c:277-280). The
 cross-process halo route's totals (``parallel.halo.CROSS_PROCESS``) are
 read over the timed run alone, so they leave the warmup out as the
 clock does. The timed run is the profiler range ``timed_run``
-(``utils.profiling.annotate``), so a capture of the whole call can be
+(``utils.profiling.phase``), so a capture of the whole call can be
 cut to it (``tools/profile_phases_torch.py``).
 """
 
@@ -100,7 +100,7 @@ def timed_call(fn, *args, warmup: bool = True):
     ``TimedCall`` whose elapsed time is the slowest process's."""
     from heat2d_tpu_torch.parallel import multihost
     from heat2d_tpu_torch.parallel.halo import cross_process_counts
-    from heat2d_tpu_torch.utils.profiling import annotate
+    from heat2d_tpu_torch.utils.profiling import phase
     warmup_s = None
     if warmup:
         w0 = time.perf_counter()
@@ -110,7 +110,7 @@ def timed_call(fn, *args, warmup: bool = True):
     multihost.barrier()
     ex0 = cross_process_counts()
     t0 = time.perf_counter()
-    with annotate("timed_run"):
+    with phase("timed_run"):
         out = fn(*args)
         _fence(out)
     elapsed = time.perf_counter() - t0

@@ -41,7 +41,7 @@ from heat2d_tpu_torch.obs.stream import TelemetryStream
 from heat2d_tpu_torch.ops import cuda_ensemble as ce
 from heat2d_tpu_torch.ops import cuda_stencil as cs
 from heat2d_tpu_torch.ops import resident as rs
-from heat2d_tpu_torch.utils.profiling import annotate, phase, profile_span
+from heat2d_tpu_torch.utils.profiling import phase, profile_span
 
 
 def _feed(reg, seed: int, n: int) -> None:
@@ -433,7 +433,7 @@ def test_cpu_capture_through_profile_span_digests(tmp_path):
     cfg = HeatConfig(nxprob=24, nyprob=32, steps=30, convergence=True,
                      interval=10, mode="pallas")
     with profile_span(str(tmp_path), device="cpu"):
-        with annotate("outer"):
+        with phase("outer"):
             Heat2DSolver(cfg, device="cpu").run()
     files = trace_report.find_trace_files(str(tmp_path))
     assert len(files) == 1 and not trace_report.has_kernel_events(files[0])

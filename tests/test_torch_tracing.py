@@ -16,7 +16,11 @@ bit, the same launch counts and residual reads (the port's counterpart
 of the JAX jaxpr pin); a served request is traced end to end and
 connected, an untraced server writes nothing; the crash hooks flush on an
 unhandled exception and on SIGTERM in a child process; the tracer's
-writer under many threads.
+writer under many threads. The one hook (``utils/profiling.phase``):
+off it builds no range and counts nothing; under a profiler each span
+of the solver and the server is a range and is counted; an armed span
+and its range share the clock; a traced server's dispatch holds the
+engine's steps and answers bit for bit as an untraced one.
 """
 
 import json
@@ -264,7 +268,7 @@ def test_served_request_traced_end_to_end(tmp_path):
     assert set(by_outcome) == {"completed", "cache_hit"}
     spans = trace_cli.assemble(trace_cli.load_dir(str(tmp_path))["spans"])
     kinds = sorted(sorted({s["kind"] for s in ss}) for ss in spans.values())
-    assert kinds == [["launch", "queue", "request"], ["request"],
+    assert kinds == [["launch", "phase", "queue", "request"], ["request"],
                      ["request"]]
     cold = [ss for ss in spans.values() if len(ss) > 1][0]
     launch = [s for s in cold if s["kind"] == "launch"][0]
@@ -322,10 +326,12 @@ def test_tracing_and_streaming_leave_results_alone(tmp_path, mode,
     assert row["connected"] and row["trace_id"] == rb["trace_id"]
     names = {s["name"] for s in trace_cli.load_dir(
         str(tmp_path / "tr"))["spans"]}
-    # the kernel route's chunks are phases (the golden loop has none)
-    assert names == ({"cli.run", "phase.stencil_chunk",
-                      "phase.residual_reduction"} if mode == "pallas"
-                     else {"cli.run"})
+    # the solver's steps and reads are phases on both routes; the kernel
+    # route's chunks too (the golden loop has none)
+    steps = {"cli.run", "solve.construct", "solve.prepare", "timed_run",
+             "solver.residual_read"}
+    assert names == (steps | {"stencil_chunk", "residual_reduction"}
+                     if mode == "pallas" else steps)
     assert len(rb["residual_trajectory"]) == rb["residual_reads"]
     capsys.readouterr()
 
@@ -400,7 +406,13 @@ def test_serve_cli_record_keys_equal_jax(tmp_path, capsys):
     j, t = recs["jax"], recs["torch"]
     assert {"slo", "trace", "perf"} <= set(j) & set(t)
     assert set(t["trace"]) == set(j["trace"])
-    assert t["trace"]["spans_emitted"] == j["trace"]["spans_emitted"]
+    # the same request, queue and launch spans; the port's host path
+    # adds its phase spans (serve.dispatch and what it holds)
+    phases = sum(s["kind"] == "phase" for s in trace_cli.load_dir(
+        str(tmp_path / "torch" / "tr"))["spans"])
+    assert phases >= 6
+    assert t["trace"]["spans_emitted"] - phases == \
+        j["trace"]["spans_emitted"]
     assert set(t["perf"]) == set(j["perf"])
     jcard, tcard = j["perf"]["cards"][0], t["perf"]["cards"][0]
     assert set(jcard) <= set(tcard)
@@ -409,3 +421,197 @@ def test_serve_cli_record_keys_equal_jax(tmp_path, capsys):
     assert set(j["launch_log"][0]) <= set(t["launch_log"][0])
     assert set(j["launch_log"][0]["perf"]) <= set(t["launch_log"][0]["perf"])
     capsys.readouterr()
+
+
+# --------------------------------------------------------------------- #
+# the one hook (utils/profiling.phase): off, on, one clock
+# --------------------------------------------------------------------- #
+
+#: every span the solver and the server name, by the call that makes it
+SOLVE_SPANS = ("solve.construct", "solve.prepare", "solve.launch",
+               "solve.fence", "solve.gather", "solver.residual_read")
+SERVE_SPANS = ("serve.submit", "serve.batcher.turn",
+               "serve.batcher.wait_empty",
+               "serve.batcher.wait_delay", "serve.dispatch",
+               "serve.engine.prepare", "serve.engine.run",
+               "serve.engine.readback", "serve.engine.account",
+               "serve.resolve")
+ENGINE_STEPS = ("serve.engine.prepare", "serve.engine.run",
+                "serve.engine.readback", "serve.engine.account",
+                "serve.resolve")
+
+
+def _converge_solve():
+    from heat2d_tpu_torch.config import HeatConfig
+    from heat2d_tpu_torch.models.solver import Heat2DSolver
+    cfg = HeatConfig(nxprob=24, nyprob=32, steps=60, convergence=True,
+                     interval=10, sensitivity=1e-30, mode="pallas")
+    return Heat2DSolver(cfg, device="cpu").run(timed=False)
+
+
+def _serve(n, **kw):
+    """``n`` distinct requests, one after another (a launch each), then
+    three at once (one launch); the results in order."""
+    from heat2d_tpu_torch.serve.server import SolveServer
+    out = []
+    with SolveServer(registry=MetricsRegistry(), device="cpu",
+                     max_delay=0.02, **kw) as s:
+        for i in range(n):
+            out.append(s.submit(SolveRequest(
+                nx=16, ny=16, steps=4, cx=0.1 + 0.005 * i)).result(60))
+        futs = [s.submit(SolveRequest(nx=16, ny=16, steps=4,
+                                      cx=0.2 + 0.005 * i))
+                for i in range(3)]
+        out += [f.result(60) for f in futs]
+    return out
+
+
+def _span_counts(reg):
+    return {dict(k)["span"]: v
+            for k, v in reg.find_counters("trace_spans_total").items()}
+
+
+def test_hook_off_builds_no_range_and_counts_nothing(monkeypatch):
+    import torch
+
+    from heat2d_tpu_torch.obs.metrics import reset_registry
+    from heat2d_tpu_torch.utils import profiling
+
+    def refuse(*a, **k):
+        raise AssertionError("record_function built with nothing on")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    reg = reset_registry()
+    r = _converge_solve()
+    _serve(2)
+    assert r.residual_reads == 6
+    assert profiling.phase("x") is profiling.phase("y")
+    assert not reg.find_counters("trace_spans_total")
+    assert not reg.find_counters("trace_span_seconds_total")
+
+
+@pytest.fixture(scope="module")
+def profiled():
+    """One CPU capture of a converge solve and of a server's launches
+    (every thread's host events), its events and the span counters."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from heat2d_tpu_torch.obs.metrics import reset_registry
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+        cfg = _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        cfg = None
+    reg = reset_registry()
+    with profile(activities=[ProfilerActivity.CPU],
+                 experimental_config=cfg) as prof:
+        result = _converge_solve()
+        _serve(2)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "t.pt.trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    secs = {dict(k)["span"]: v for k, v in
+            reg.find_counters("trace_span_seconds_total").items()}
+    return {"events": events, "counts": _span_counts(reg),
+            "seconds": secs, "result": result}
+
+
+@pytest.mark.parametrize("name", SOLVE_SPANS + SERVE_SPANS)
+def test_each_span_is_a_profiler_range_and_counted(profiled, name):
+    ranges = [e for e in profiled["events"]
+              if e.get("cat") == "user_annotation" and e["name"] == name]
+    assert ranges, name
+    assert profiled["counts"][name] == len(ranges)
+    assert profiled["seconds"][name] > 0
+
+
+def test_residual_reads_counted_as_the_run_reports(profiled):
+    assert profiled["counts"]["solver.residual_read"] == \
+        profiled["result"].residual_reads == 6
+
+
+def test_armed_span_and_its_range_share_the_clock():
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from heat2d_tpu_torch.utils.profiling import phase
+
+    # a process's first range pays the profiler's own set-up, after the
+    # hook's stamp: the agreement is the steady state's
+    with profile(activities=[ProfilerActivity.CPU]):
+        with phase("warm"):
+            pass
+    recs = []
+    tracing.install(tracing.Tracer(sink=recs.append, service="t"))
+    root = tracing.begin("cli.run", kind="request")
+    tracing.set_ambient(root.ctx)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(5):
+            with phase("solve.launch"):
+                with phase("solver.residual_read"):
+                    sum(range(20000))
+    tracing.set_ambient(None)
+    root.end()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "t.pt.trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            trace = json.load(f)
+    base_us = trace["baseTimeNanoseconds"] / 1e3
+    for name in ("solve.launch", "solver.residual_read"):
+        ranges = sorted((e["ts"] + base_us, e["ts"] + e["dur"] + base_us)
+                        for e in trace["traceEvents"]
+                        if e.get("cat") == "user_annotation"
+                        and e["name"] == name)
+        spans = sorted((1e6 * r["t0"], 1e6 * r["t1"]) for r in recs
+                       if r["event"] == "span" and r["name"] == name)
+        assert len(ranges) == len(spans) == 5
+        for (a0, a1), (b0, b1) in zip(ranges, spans):
+            assert abs(a0 - b0) < 1e3 and abs(a1 - b1) < 1e3
+    # nested: each read under its launch, each launch under the run
+    by_id = {r["span_id"]: r for r in recs if r["event"] == "span"}
+    for r in by_id.values():
+        if r["name"] == "solver.residual_read":
+            assert by_id[r["parent_id"]]["name"] == "solve.launch"
+        elif r["name"] == "solve.launch":
+            assert r["parent_id"] == root.ctx.span_id
+
+
+def test_traced_server_dispatch_holds_the_engine_steps(tmp_path):
+    plain = _serve(8)
+    tracing.install(tracing.Tracer(str(tmp_path), service="serve"))
+    traced = _serve(8)
+    tracing.uninstall()
+    for a, b in zip(plain, traced):
+        assert a.u.tobytes() == b.u.tobytes()
+        assert a.steps_done == b.steps_done
+    rep = trace_cli.merge_report(str(tmp_path))
+    assert len(rep["traces"]) == 11
+    assert all(r["connected"] for r in rep["traces"])
+    spans = trace_cli.load_dir(str(tmp_path))["spans"]
+    by_trace = {}
+    for r in spans:
+        by_trace.setdefault(r["trace_id"], []).append(r)
+    assert len(by_trace) == 11
+    dispatches = [r for r in spans if r["name"] == "serve.dispatch"]
+    assert len(dispatches) == 9
+    members = set()
+    for d in dispatches:
+        members.update(d["attrs"].get("members", []))
+        kids = sorted(r["name"] for r in by_trace[d["trace_id"]]
+                      if r["parent_id"] == d["span_id"]
+                      and r["kind"] == "phase" and r["name"] in ENGINE_STEPS)
+        assert kids == sorted(ENGINE_STEPS)
+        (req,) = [r for r in by_trace[d["trace_id"]]
+                  if r["span_id"] == d["parent_id"]]
+        assert req["name"] == "serve.request"
+    # every request's trace holds a dispatch, or a dispatch names it
+    for tid, ss in by_trace.items():
+        assert tid in members or any(r["name"] == "serve.dispatch"
+                                     for r in ss)
+    assert len(members) == 2
