@@ -538,9 +538,13 @@ def make_single_chip_runner(config, device=None,
     planner's, without a db), or those of ``tuned``, a
     ``tune.db.TunedConfig`` whose route ("resident" or "tile") the
     runner then takes whatever the gate says (how the search measures a
-    candidate). ``runner.plan`` is the plan its chunks launch and
-    ``runner.chunk(u, n)`` advances n steps. A plan change moves no bit:
-    every cell takes the same sequence of updates under any plan.
+    candidate). ``runner.plan`` is the plan its chunks launch,
+    ``runner.chunk(u, n)`` advances n steps, and
+    ``runner.chunk_resid(u, n)`` is the streamed route's fused
+    convergence chunk (H2 sweeps, then one H3 sweep), which also returns
+    the residual of its last step pair (None on the resident route). A
+    plan change moves no bit: every cell takes the same
+    sequence of updates under any plan.
 
     ``device`` defaults to ``cuda`` and raises without a card; pass
     ``"cpu"`` to run the plain versions."""
@@ -611,4 +615,5 @@ def make_single_chip_runner(config, device=None,
     runner = engine.Runner(run, route)
     runner.plan = plan
     runner.chunk = chunk
+    runner.chunk_resid = None if is_resident else chunk_resid
     return runner

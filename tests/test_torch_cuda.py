@@ -8,14 +8,17 @@ Literal form: bitwise. FMA form: within ``n * 2**-21 * max|plain|``
 after n steps (the kernel contracts each update into FMAs, the plain
 version rounds every operation)."""
 
+import numpy as np
 import pytest
 import torch
 
 from heat2d_tpu_torch.config import HeatConfig
 from heat2d_tpu_torch.models import ensemble
 from heat2d_tpu_torch.models.solver import Heat2DSolver
+from heat2d_tpu_torch.obs.metrics import get_registry
 from heat2d_tpu_torch.ops import cuda_ensemble as ce
 from heat2d_tpu_torch.ops import cuda_stencil as cs
+from heat2d_tpu_torch.ops.init import inidat
 
 pytestmark = pytest.mark.cuda
 
@@ -136,6 +139,59 @@ def test_pallas_solver_on_the_card(card, monkeypatch, streamed):
     want = Heat2DSolver(cfg.replace(mode="serial")).run(timed=False)
     assert got.steps_done == want.steps_done
     assert (got.u == want.u).all()
+
+
+def _reads_counted():
+    reg = get_registry()
+    return [sum(reg.find_counters(n).values()) for n in (
+        "solver_reads_ahead_total", "solver_chunks_discarded_total")]
+
+
+def test_pipelined_convergence_reads_on_the_card(card):
+    """The benchmark's 2560x2048 configuration (report-2560x2048: the
+    fused route, a residual every 20 steps) for 200 steps: the runner,
+    which reads each residual one chunk late, against a synchronous loop
+    over its own ``chunk_resid`` that reads each before the next chunk;
+    run to the cap, then with a sensitivity that stops mid-run, taken
+    from the first run's taps. Grid, steps_done and taps alike; reads
+    ahead and the dropped chunk counted."""
+    cfg = HeatConfig(nxprob=2560, nyprob=2048, steps=200, cx=0.1, cy=0.1,
+                     mode="pallas", convergence=True, interval=20,
+                     sensitivity=0.1)
+    u0 = inidat(2560, 2048, device=card)
+
+    def synchronous(runner, sens):
+        u, taps = u0, []
+        for c in range(1, 11):
+            u, r = runner.chunk_resid(u, 20)
+            taps.append((20 * c, float(r)))
+            if not np.float32(taps[-1][1]) >= np.float32(sens):
+                break
+        return u, 20 * len(taps), taps
+
+    sens = cfg.sensitivity
+    for stop in (False, True):
+        if stop:
+            (_, r4), (_, r5) = taps[4], taps[5]
+            sens = float(np.sqrt(r4 * r5))
+        runner = cs.make_single_chip_runner(cfg.replace(sensitivity=sens),
+                                            card)
+        assert runner.route == "streamed-fused"
+        taps = []
+        runner.stream = lambda k, r: taps.append((k, r))
+        before = _reads_counted()
+        got, k = runner(u0)
+        grew = [b - a for a, b in zip(before, _reads_counted())]
+        want, want_k, want_taps = synchronous(runner, sens)
+        assert torch.equal(got, want)
+        assert (k, taps) == (want_k, want_taps)
+        assert runner.residual_reads == len(taps)
+        if stop:
+            assert len(taps) < 10
+            assert grew == [len(taps), 1]
+        else:
+            assert len(taps) == 10
+            assert grew == [9, 0]
 
 
 def _batch(card, b, shape, seed=11):

@@ -18,6 +18,7 @@ from heat2d_tpu.ops import inidat as jinidat
 from heat2d_tpu.ops.stencil import residual_sq as jres
 from heat2d_tpu.ops.stencil import stencil_step as jstep
 from heat2d_tpu_torch.models import engine as teng
+from heat2d_tpu_torch.obs.metrics import get_registry
 from heat2d_tpu_torch.ops import cuda_stencil as cs
 from heat2d_tpu_torch.ops.stencil import residual_sq as tres
 from heat2d_tpu_torch.ops.stencil import stencil_step as tstep
@@ -152,3 +153,101 @@ def test_tiled_fused_schedule_matches_jax_chunked(steps, interval):
 
 def ps_multi(u, n):
     return jax.lax.fori_loop(0, n, lambda _, v: jstep(v, 0.1, 0.1), u)
+
+
+# --------------------------------------------------------------------- #
+# The one-chunk pipeline of the fused and chunked loops
+# --------------------------------------------------------------------- #
+
+def _sync_fused(chunk_resid_fn, multi_step_fn, u0, steps, interval,
+                sensitivity, tap):
+    """The plain synchronous loop: each chunk's residual is read before
+    the next chunk is issued."""
+    if steps:
+        interval = max(1, min(interval, steps))
+    n_chunks = steps // interval if interval else 0
+    remainder = steps - n_chunks * interval
+    u, c, res = u0, 0, float("inf")
+    while c < n_chunks and np.float32(res) >= np.float32(sensitivity):
+        u, r = chunk_resid_fn(u, interval)
+        c += 1
+        res = float(r)
+        tap(c * interval, res)
+    k = c * interval
+    if remainder and not np.float32(res) < np.float32(sensitivity):
+        u = multi_step_fn(u, remainder)
+        k += remainder
+    return u, k
+
+
+def _tchunk(v, n):
+    p = _tmulti(v, n - 1)
+    w = _ts(p)
+    return w, _tr(w, p)
+
+
+#: the sensitivity of each case, and whether the residual turns NaN
+#: where it falls below the mid threshold (a blown-up solve's reading)
+PIPE = {"never": (0.0, False), "mid": (SENS["mid"], False),
+        "first_check": (1e30, False), "nan": (0.0, True)}
+
+
+def _counts():
+    reg = get_registry()
+    return [sum(reg.find_counters(n).values()) for n in (
+        "solver_residual_reads_total", "solver_reads_ahead_total",
+        "solver_chunks_discarded_total")]
+
+
+@pytest.mark.parametrize("loop", ["fused", "chunked"])
+@pytest.mark.parametrize("case", list(PIPE))
+@pytest.mark.parametrize("interval", [1, 7, 20])
+@pytest.mark.parametrize("steps", [0, 19, 20, 57])
+def test_pipelined_loop_equals_the_synchronous_one(steps, interval, case,
+                                                   loop):
+    """The loop that reads each residual one chunk late gives the
+    synchronous loop's grid bit for bit, its steps_done and its sequence
+    of taps; it runs one chunk more than it reads only where it stops
+    before its cap, and counts its reads, those taken ahead and the
+    chunk it dropped."""
+    sens, nan = PIPE[case]
+    mid = np.float32(SENS["mid"])
+    calls = []
+
+    def chunk(v, n):
+        calls.append(n)
+        w, r = _tchunk(v, n)
+        return w, (r * float("nan") if nan and np.float32(r) < mid else r)
+
+    u0 = torch.from_numpy(np.asarray(jinidat(NX, NY)).copy())
+    want_taps, got_taps = [], []
+    want_u, want_k = _sync_fused(chunk, _tmulti, u0, steps, interval, sens,
+                                 lambda k, r: want_taps.append((k, r)))
+    calls.clear()
+    before = _counts()
+    if loop == "fused":
+        got_u, got_k = teng.run_convergence_fused(
+            chunk, _tmulti, u0, steps, interval, sens,
+            tap=lambda k, r: got_taps.append((k, r)))
+    else:
+        def residual(a, b):
+            # once per chunk issued, as chunk_resid_fn above
+            calls.append(None)
+            r = _tr(a, b)
+            return r * float("nan") if nan and np.float32(r) < mid else r
+
+        got_u, got_k = teng.run_convergence_chunked(
+            _tmulti, _ts, residual, u0, steps, interval, sens,
+            tap=lambda k, r: got_taps.append((k, r)))
+    np.testing.assert_array_equal(got_u.numpy(), want_u.numpy())
+    assert got_k == want_k
+    assert [(k, repr(r)) for k, r in got_taps] == \
+        [(k, repr(r)) for k, r in want_taps]
+    every = max(1, min(interval, steps)) if steps else interval
+    n_chunks = steps // every
+    reads = len(got_taps)
+    capped = reads == n_chunks
+    assert len(calls) == reads + (not capped)
+    grew = [b - a for a, b in zip(before, _counts())]
+    assert grew == ([reads, reads - capped, int(not capped)] if reads
+                    else [0, 0, 0])
