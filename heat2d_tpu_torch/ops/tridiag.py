@@ -62,6 +62,7 @@ from heat2d_tpu_torch.ops import _build
 from heat2d_tpu_torch.ops import cuda_stencil as cs
 from heat2d_tpu_torch.ops.cuda_stencil import H100_SMEM_OPTIN
 from heat2d_tpu_torch.ops.resident import H100_SM_COUNT
+from heat2d_tpu_torch.utils.profiling import phase
 
 #: Launches per kernel wrapper since the last ``reset_launch_counts``.
 LAUNCHES = {"td_coeffs": 0, "td_rows": 0, "td_lanes": 0}
@@ -480,21 +481,27 @@ def td_lanes(rhs, c, coef=None):
 
 def adi_coeffs(u, cxs, cys):
     """The two axes' ``td_coeffs`` of a (B, nx, ny) batch: (cx over nx
-    rows, cy over ny columns), what every step of a run shares."""
-    return td_coeffs(cxs, u.shape[-2]), td_coeffs(cys, u.shape[-1])
+    rows, cy over ny columns), what every step of a run shares. The
+    hook's span ``adi.coeffs`` covers the pass."""
+    with phase("adi.coeffs"):
+        return td_coeffs(cxs, u.shape[-2]), td_coeffs(cys, u.shape[-1])
 
 
 def adi_sweep_kernel(u, cxs, cys, coefs=None):
     """One batched ADI step of the (B, nx, ny) batch: the x half through
     H10, the y half through H11; ``cxs``/``cys`` are (B,) float32 vectors
     on u's device, ``coefs`` their ``adi_coeffs`` (computed when
-    absent)."""
+    absent). The hook's spans ``adi.half_x`` and ``adi.half_y`` each
+    cover a half: its right-hand side, its solve's launch and the held
+    edges."""
     cb, db = cxs.reshape(-1, 1, 1), cys.reshape(-1, 1, 1)
     _validate(u, cxs, "adi_sweep_kernel")
     _validate(u, cys, "adi_sweep_kernel")
     kx, ky = adi_coeffs(u, cxs, cys) if coefs is None else coefs
-    ustar = _hold_edges(td_rows(_rhs_half(u, db, 1), cxs, kx), u)
-    return _hold_edges(td_lanes(_rhs_half(ustar, cb, 0), cys, ky), u)
+    with phase("adi.half_x"):
+        ustar = _hold_edges(td_rows(_rhs_half(u, db, 1), cxs, kx), u)
+    with phase("adi.half_y"):
+        return _hold_edges(td_lanes(_rhs_half(ustar, cb, 0), cys, ky), u)
 
 
 def batched_adi_kernel(u0, cxs, cys, *, steps: int, coefs=None):

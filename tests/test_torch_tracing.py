@@ -20,7 +20,9 @@ writer under many threads. The one hook (``utils/profiling.phase``):
 off it builds no range and counts nothing; under a profiler each span
 of the solver and the server is a range and is counted; an armed span
 and its range share the clock; a traced server's dispatch holds the
-engine's steps and answers bit for bit as an untraced one.
+engine's steps and answers bit for bit as an untraced one; the ADI
+step's spans count one entry a half a step and one coefficient pass a
+runner, and read no clock off.
 """
 
 import json
@@ -615,3 +617,52 @@ def test_traced_server_dispatch_holds_the_engine_steps(tmp_path):
         assert tid in members or any(r["name"] == "serve.dispatch"
                                      for r in ss)
     assert len(members) == 2
+
+
+# --------------------------------------------------------------------- #
+# the ADI step's spans (ops/tridiag.py): adi.coeffs, adi.half_x/_y
+# --------------------------------------------------------------------- #
+
+ADI_SPANS = ("adi.coeffs", "adi.half_x", "adi.half_y")
+
+
+def _adi_solve(steps):
+    from heat2d_tpu_torch.config import HeatConfig
+    from heat2d_tpu_torch.models.solver import Heat2DSolver
+    cfg = HeatConfig(nxprob=20, nyprob=24, steps=steps, cx=25.0, cy=12.5,
+                     method="adi", mode="pallas")
+    return Heat2DSolver(cfg, device="cpu").run(timed=False)
+
+
+@pytest.mark.parametrize("steps", [1, 5])
+def test_adi_spans_count_each_half_and_one_coefficient_pass(steps):
+    from torch.profiler import ProfilerActivity, profile
+
+    from heat2d_tpu_torch.obs.metrics import reset_registry
+    reg = reset_registry()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        # two solves, each its own runner and its own coefficient pass
+        for _ in range(2):
+            assert _adi_solve(steps).route == "adi-kernel"
+    counts = _span_counts(reg)
+    assert counts["adi.half_x"] == counts["adi.half_y"] == 2 * steps
+    assert counts["adi.coeffs"] == 2
+    ranges = {e.key: e.count for e in prof.key_averages()
+              if e.key in ADI_SPANS}
+    assert ranges == {k: counts[k] for k in ADI_SPANS}
+
+
+def test_adi_spans_off_read_no_clock(monkeypatch):
+    import types
+
+    from heat2d_tpu_torch.obs.metrics import reset_registry
+    from heat2d_tpu_torch.utils import profiling
+
+    def refuse():
+        raise AssertionError("the hook read a clock with nothing on")
+
+    monkeypatch.setattr(profiling, "time",
+                        types.SimpleNamespace(monotonic=refuse))
+    reg = reset_registry()
+    assert _adi_solve(3).steps_done == 3
+    assert not reg.find_counters("trace_spans_total")
