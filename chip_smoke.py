@@ -26,7 +26,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    bit for bit where it masks (rows and n not multiples of 32, n < 32),
    and both bit for bit on the hoisted coefficients (``td_coeffs``,
    itself bitwise against its plain version) at 1 and 4 members of
-   4096^2;
+   4096^2, and so are their right-hand-side builds (an ADI half each,
+   as the step loop launches them) against the builds' plain versions
+   at 2560x2048 and 4096^2, B in {1, 4};
 4. main path: ``Heat2DSolver`` in mode ``pallas`` against mode ``serial``
    on the card: 4096^2 x 240 steps fixed, the same with convergence
    (interval 20) in both step forms, and 640x1024x10000 on the resident
@@ -907,7 +909,11 @@ def phase_tridiag_kernels(torch) -> dict:
     shapes, diffusion numbers up to 51.2. Then the paths' shapes bit for
     bit, on the hoisted coefficients: one member of 4096^2 at c = 51.2
     (the ADI path) and leg (f)'s four; and the coefficient pass
-    (``td_coeffs``) against its plain version."""
+    (``td_coeffs``) against its plain version. Last the right-hand-side
+    builds, which the ADI step loop launches (``td_rows_rhs`` the x half,
+    ``td_lanes_rhs`` the y half on its result), bit for bit against their
+    plain versions at the ADI cell's 2560x2048 and at 4096^2, which
+    spills the L2, with 1 and 4 members."""
     from heat2d_tpu_torch.ops import tridiag as td
     g = torch.Generator(device="cuda")
     g.manual_seed(1615)
@@ -955,6 +961,24 @@ def phase_tridiag_kernels(torch) -> dict:
                         f"{name} B={len(c)} 4096^2 on the hoisted "
                         f"coefficients: not bitwise equal to plain")
         checks += 3
+    for shape in ((2560, 2048), (4096, 4096)):
+        for cx in ([25.0], [51.2, 25.0, 12.8, 0.3]):
+            cxs = torch.tensor(cx, device="cuda")
+            cys = cxs.flip(0) * 0.5
+            u = torch.rand((len(cx),) + shape, generator=g,
+                           device="cuda") * 1e3
+            kx, ky = td.adi_coeffs(u, cxs, cys)
+            ustar = td.td_rows_rhs(u, cxs, cys, kx)
+            fail_unless(torch.equal(ustar, td.td_rows_rhs_plain(
+                u, cxs, cys, kx)), f"td_rows_rhs B={len(cx)} {shape}: not "
+                f"bitwise equal to plain")
+            fail_unless(torch.equal(
+                td.td_lanes_rhs(ustar, cys, cxs, ky),
+                td.td_lanes_rhs_plain(ustar, cys, cxs, ky)),
+                f"td_lanes_rhs B={len(cx)} {shape}: not bitwise equal to "
+                f"plain")
+            checks += 2
+            del u, ustar
     torch.cuda.synchronize()
     info = {"phase": "tridiag_kernels", "checks": checks,
             "max_abs_err": worst}
@@ -1434,8 +1458,9 @@ def ensemble_kernel_rows(torch) -> list:
 
 def family_tridiag_kernel_rows(torch) -> list:
     """H8-H11 timed at their paths' shapes. H8/H9 for heat9, the widest
-    family (legs e); H10/H11 on one 4096^2 member at c = 51.2 (the ADI
-    path). No single PyTorch call runs T family steps or a batched
+    family (legs e); H10/H11 on one 4096^2 member at c = 51.2 in the
+    right-hand-side builds the ADI path launches, beside their solves
+    alone. No single PyTorch call runs T family steps or a batched
     tridiagonal solve, so no library time."""
     from heat2d_tpu_torch.ops import cuda_family as cf
     from heat2d_tpu_torch.ops import tridiag as td
@@ -1476,10 +1501,13 @@ def family_tridiag_kernel_rows(torch) -> list:
     rows.append(family_tile_row(torch))
 
     # H10 / H11: one member's 4096 systems of 4096 unknowns, c = 51.2,
-    # on the hoisted coefficients (``ms``, solve only); ``with_coeffs_ms``
-    # is the call that computes its own (cp, mi) first. The coefficient
-    # pass is a row of its own: n dependent steps, two IEEE divisions
-    # each, no bound worth the name.
+    # on the hoisted coefficients. ``ms``: the right-hand-side build, one
+    # ADI half as the path launches it (the stencil at c too), against
+    # its plain version and the bound of the half's grid in and out;
+    # ``solve_ms``: the solve alone on a formed right-hand side,
+    # ``with_coeffs_ms`` that call computing its own (cp, mi) first. The
+    # coefficient pass is a row of its own: n dependent steps, two IEEE
+    # divisions each, no bound worth the name.
     rhs = inidat(4096, 4096, device="cuda")[None].contiguous()
     c = torch.tensor([51.2], device="cuda")
     coef = td.td_coeffs(c, 4096)
@@ -1493,16 +1521,20 @@ def family_tridiag_kernel_rows(torch) -> list:
         ms=coeffs_ms,
         plain_ms=time_ms(lambda: td.td_coeffs_plain(c, 4096), 2),
         bound_ms=bnd, bound_by=by, bound_chain=chain, library_ms=None))
-    bnd, by = bound_ms(2 * rhs.numel() * 4 + 4 + 2 * 4096 * 4,
-                       td_flops() * rhs.numel())
-    for name, fn, plain in (("td_rows", td.td_rows, td.td_rows_plain),
-                            ("td_lanes", td.td_lanes, td.td_lanes_plain)):
+    bnd, by = bound_ms(2 * rhs.numel() * 4 + 2 * 4 + 2 * 4096 * 4,
+                       (td_flops() + ADI_RHS_FLOPS) * rhs.numel())
+    for name, fn, build, plain in (
+            ("td_rows", td.td_rows, td.td_rows_rhs, td.td_rows_rhs_plain),
+            ("td_lanes", td.td_lanes, td.td_lanes_rhs,
+             td.td_lanes_rhs_plain)):
         rows.append(dict(
-            name=name, shape="1 x 4096 systems of 4096, c=51.2, solve only",
-            ms=time_ms(lambda: fn(rhs, c, coef), 20),
+            name=name,
+            shape="1 x 4096 systems of 4096, c=51.2, an ADI half",
+            ms=time_ms(lambda: build(rhs, c, c, coef), 20),
+            solve_ms=time_ms(lambda: fn(rhs, c, coef), 20),
             with_coeffs_ms=time_ms(lambda: fn(rhs, c), 20),
             coeffs_ms=coeffs_ms,
-            plain_ms=time_ms(lambda: plain(rhs, c), 2),
+            plain_ms=time_ms(lambda: plain(rhs, c, c, coef), 2),
             bound_ms=bnd, bound_by=by, library_ms=None))
     plan = td.plan_td_rows(1, 4096, 4096, *caps_of(torch))
     rows[-2]["plan"] = plan._asdict()
@@ -1516,6 +1548,12 @@ def family_tridiag_kernel_rows(torch) -> list:
 #: dependent FP32 operations (the multiply, the subtract, and the division
 #: counted as one), each at the FP32 pipe's 4-clock dependent latency.
 TD_CHAIN_CLOCKS = 12
+
+
+#: FLOPs of an ADI half's right-hand side an update: the factored
+#: ``(1 - c)*u + (c/2)*(n + s)``, an add, two multiplies and an add, as
+#: ``portbench/yardstick_adi.py`` counts it.
+ADI_RHS_FLOPS = 4
 
 
 def td_chain_bound(c: float, n: int) -> dict:
@@ -1623,28 +1661,23 @@ def family_tile_row(torch) -> dict:
 
 def adi_step_breakdown(torch, n: int, c: float) -> dict:
     """Where one ADI step of ``adi_sweep_kernel`` goes on an n x n
-    member: each of its operations timed alone by CUDA events, and the
-    whole step as a run takes it (``step``: on the run's hoisted
-    coefficients) and alone (``step_with_coeffs``: the two coefficient
-    passes first; ``coeffs``: those passes). Beside it, the y half solved
-    as H11 does it and as a transpose, H10 and a transpose back, on that
-    member and on leg (f)'s four members."""
+    member: its two launches timed alone by CUDA events (``half_x``,
+    H10's right-hand-side build; ``half_y``, H11's), and the whole step
+    as a run takes it (``step``: on the run's hoisted coefficients) and
+    alone (``step_with_coeffs``: the two coefficient passes first;
+    ``coeffs``: those passes). Beside it, the y half's solve as H11 does
+    it and as a transpose, H10 and a transpose back, on that member and
+    on leg (f)'s four members."""
     from heat2d_tpu_torch.ops import tridiag as td
     from heat2d_tpu_torch.ops.init import inidat
 
     u = inidat(n, n, device="cuda")[None].contiguous()
     cs_ = torch.tensor([c], device="cuda")
-    cb = cs_.reshape(-1, 1, 1)
     kx, ky = coefs = td.adi_coeffs(u, cs_, cs_)
-    rhs1 = td._rhs_half(u, cb, 1)
-    x = td.td_rows(rhs1, cs_, kx)
-    ustar = td._hold_edges(x, u)
-    rhs2 = td._rhs_half(ustar, cb, 0)
-    y = td.td_lanes(rhs2, cs_, ky)
+    ustar = td.td_rows_rhs(u, cs_, cs_, kx)
     u4 = u.expand(4, n, n).contiguous()
     c4 = torch.tensor([51.2, 51.2, 12.8, 3.2], device="cuda")
     coefs4 = td.adi_coeffs(u4, c4, c4)
-    rhs4 = td._rhs_half(u4, c4.reshape(-1, 1, 1), 0)
 
     def xpose(r, cc, k):
         return td.td_rows(r.transpose(1, 2).contiguous(), cc, k) \
@@ -1652,17 +1685,14 @@ def adi_step_breakdown(torch, n: int, c: float) -> dict:
 
     parts = {
         "coeffs": lambda: td.adi_coeffs(u, cs_, cs_),
-        "rhs_half_y": lambda: td._rhs_half(u, cb, 1),
-        "td_rows_x": lambda: td.td_rows(rhs1, cs_, kx),
-        "hold_edges_x": lambda: td._hold_edges(x, u),
-        "rhs_half_x": lambda: td._rhs_half(ustar, cb, 0),
-        "td_lanes_y": lambda: td.td_lanes(rhs2, cs_, ky),
-        "hold_edges_y": lambda: td._hold_edges(y, u),
+        "half_x": lambda: td.td_rows_rhs(u, cs_, cs_, kx),
+        "half_y": lambda: td.td_lanes_rhs(ustar, cs_, cs_, ky),
         "step": lambda: td.adi_sweep_kernel(u, cs_, cs_, coefs),
         "step_with_coeffs": lambda: td.adi_sweep_kernel(u, cs_, cs_),
-        "y_half_xpose": lambda: xpose(rhs2, cs_, ky),
-        "b4_td_lanes_y": lambda: td.td_lanes(rhs4, c4, coefs4[1]),
-        "b4_y_half_xpose": lambda: xpose(rhs4, c4, coefs4[1]),
+        "td_lanes_y": lambda: td.td_lanes(ustar, cs_, ky),
+        "y_half_xpose": lambda: xpose(ustar, cs_, ky),
+        "b4_td_lanes_y": lambda: td.td_lanes(u4, c4, coefs4[1]),
+        "b4_y_half_xpose": lambda: xpose(u4, c4, coefs4[1]),
         "b4_step": lambda: td.adi_sweep_kernel(u4, c4, c4, coefs4),
     }
     return {k: time_ms(fn, 10) for k, fn in parts.items()}

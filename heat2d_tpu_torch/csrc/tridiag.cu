@@ -29,6 +29,23 @@
 //                     a lane): H10's design with the tile transposed in
 //                     shared memory (below).
 //
+// Each solve kernel has a second build, RHS (a template argument, as H3
+// is the RESID build of k_tile): one whole half of a Peaceman-Rachford
+// ADI step in one launch.  It reads the step's grid u and forms each
+// unknown's right-hand side as it stages it, ctr + h*((u[+1] + u[-1]) -
+// 2*ctr) along the other axis with h = sc/2, every operation rounded on
+// its own in the order of the port's _rhs_half (the JAX package runs it
+// as XLA ops around TD), and its stores hold the four edges of u
+// (_hold_edges).  The x half runs through H10, whose stencil runs across
+// a staged row: a second warp a panel, the producer, stages u with the
+// panel's two outer columns and hands the solving warp each stage's
+// right-hand side (below).  The y half runs through H11, whose slots also
+// stage the row above and the row below the panel.  The chain, the back
+// sweep and the stores are the plain build's, so a half equals
+// _hold_edges(solve(_rhs_half(u)), u) bit for bit; the torch ops that
+// did the same around the solves read and wrote the grid ~10 times a
+// half, in ~10 launches.
+//
 // The solve is out[i] = (rhs[i] - a_i*out[i-1]) * mi[i] forward (a_i = a
 // on rows 1..n-2, 0 on rows 0 and n-1; row 0 is then rhs[0] exactly) and
 // out[i] -= cp[i] * out[i+1] back.  Every operation rounds on its own
@@ -79,10 +96,24 @@
 // of a panel are neither copied nor stored; their lanes run the chain on
 // whatever the slot holds, and nothing reads it.
 //
+// The RHS builds.  H10's solving warp is alone on its SM at the ADI
+// path's sizes (2048 columns are 64 panels on 132 SMs) and waits on its
+// own chain, so whatever else it issues lengthens the sweep: forming the
+// right-hand side in that warp cost a third of H10's time again (its
+// neighbours read from ring rows of 34 columns; more with shuffles and
+// two halo columns), handing it to a producer warp a sixth, with the
+// producer's ring at RAW_STAGES = 2 slots (4 and 8 timed slower:
+// PERF.md).  The producer and the solving warp share slots 0 and 1 of
+// the solving warp's ring in the forward sweep, which stages nothing
+// itself; the back sweep is the plain build's.  H11 forms the right-hand
+// side in its own warp: its rows lie across the tile it stages anyway.
+//
 // Every entry point returns a cudaError_t (0 on success); the Python
 // wrapper raises on anything else.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 #include "tile.cuh"
 
@@ -98,7 +129,28 @@ constexpr int STAGES = 8;        // ring slots per warp (a power of two)
 constexpr int RING = STAGES * STAGE_ROWS * PANEL;   // floats per warp
 constexpr int SLOT_STRIDE = PANEL + 1;  // H11: a slot's row stride, floats
 constexpr int SLOT = PANEL * SLOT_STRIDE;            // H11: floats a slot
-constexpr int LANES_RING = STAGES * SLOT;            // H11: floats per warp
+// The RHS builds' wider rings: H10's producer warp's ring of RAW_STAGES
+// slots of rows of 34 columns (the panel's and the two beside it) beside
+// the solving warp's, H11's slots of 34 rows.
+constexpr int RAW_STAGES = 2;
+constexpr int RAW_ROW = PANEL + 2;
+constexpr int RAW_RING = RAW_STAGES * STAGE_ROWS * RAW_ROW;
+constexpr int SLOT_RHS = (PANEL + 2) * SLOT_STRIDE;
+
+__host__ __device__ constexpr int rows_ring(bool rhs) {
+  return RING + (rhs ? RAW_RING : 0);
+}
+__host__ __device__ constexpr int lanes_slot(bool rhs) {
+  return rhs ? SLOT_RHS : SLOT;
+}
+
+// An ADI half's right-hand side at one unknown: ctr + h*((p + q) - 2*ctr),
+// every operation rounded on its own, in _rhs_half's order.
+__device__ __forceinline__ float half_rhs(float ctr, float p, float q,
+                                          float h) {
+  return __fadd_rn(
+      ctr, __fmul_rn(h, __fsub_rn(__fadd_rn(p, q), __fmul_rn(2.0f, ctr))));
+}
 
 // Shared memory of one member's (cp, mi), rounded up to 16 bytes.
 __host__ __device__ constexpr int coef_floats(int n) {
@@ -160,18 +212,34 @@ __global__ void k_td_coeffs(const float* __restrict__ c,
 
 // One stage of a warp's panel into a ring slot: rows row0 + dir*k, k <
 // cnt, of the panel whose column 0 is `col0` (row stride m), row k to
-// slot[k * PANEL + lane], each lane its own column.  The group is
-// committed in every lane, empty or not, so the group count stays the
-// same in all of them.
-__device__ __forceinline__ void stage_in(float* slot, const float* col0,
-                                         int row0, int dir, int cnt,
-                                         size_t m, int lane, int cols) {
+// slot[k * w + lane] (a ring row of w floats), each lane its own column.
+// `side` (the RHS build's forward sweep): lane 0 also copies the column
+// left of the panel to slot[k * w - 1] (bit 0) and lane 31 the column
+// right of it to slot[k * w + 32] (bit 1), where the batch has them.  The
+// group is committed in every lane, empty or not, so the group count
+// stays the same in all of them.
+__device__ __forceinline__ void stage_in(float* slot, int w,
+                                         const float* col0, int row0,
+                                         int dir, int cnt, size_t m,
+                                         int lane, int cols, int side = 0) {
+  // a halo lane's second column (lane 31 has one only in a whole panel,
+  // so both are < cols)
+  const bool left = lane == 0 && (side & 1);
+  const int off = left ? -1 : 1;
+  const bool two = left || (lane == PANEL - 1 && (side & 2));
   if (lane < cols) {
-    for (int k = 0; k < cnt; ++k)
-      cp_async4(slot + k * PANEL + lane,
-                col0 + lane + (size_t)(row0 + dir * k) * m);
+    for (int k = 0; k < cnt; ++k) {
+      const float* from = col0 + lane + (size_t)(row0 + dir * k) * m;
+      cp_async4(slot + k * w + lane, from);
+      if (two) cp_async4(slot + k * w + lane + off, from + off);
+    }
   }
   cp_async_commit();
+}
+
+// The two warps of an RHS panel meet at named barrier 1 + panel.
+__device__ __forceinline__ void pair_sync(int panel) {
+  asm volatile("bar.sync %0, 64;" ::"r"(1 + panel) : "memory");
 }
 
 // H10: warp w of block (blockIdx.x, blockIdx.y) solves the panel of
@@ -183,22 +251,38 @@ __device__ __forceinline__ void stage_in(float* slot, const float* col0,
 // runs the chain on them, so that no row's operations wait on a load; a
 // stage of interior rows (a_i = a throughout) runs without the per-row
 // edge test.
-template <bool COEF_SMEM>
-__global__ void __launch_bounds__(128) k_td_rows(
+// RHS: `rhs` is the step's grid u, and each panel has a second warp, its
+// producer (warps w + `warps` of the block), for the forward sweep.  The
+// solving warp's chain is latency-bound and alone on its SM at the ADI
+// path's sizes, so whatever it issues besides lengthens it; the producer
+// instead stages u through a ring of its own, RAW_STAGES slots of rows of
+// 34 columns (the panel's at 1..32 and the two beside it at 0 and 33,
+// where the batch has them), forms each row's right-hand side along the
+// columns at h = sc[b]/2 (a __syncwarp after the copies land: a lane
+// reads its neighbours' columns), and writes it into slot s % 2 of the
+// solving warp's ring while the solving warp runs stage s - 1's chain;
+// the two meet at a named barrier once a stage.  An unknown on an edge of
+// the grid keeps u's value, and so does its store in both sweeps, while
+// its lane's chain runs on as in the plain build.
+template <bool COEF_SMEM, bool RHS>
+__global__ void __launch_bounds__(RHS ? 256 : 128) k_td_rows(
     const float* __restrict__ rhs, float* __restrict__ out,
-    const float* __restrict__ c, const float* __restrict__ coef, int n,
-    int m) {
+    const float* __restrict__ c, const float* __restrict__ sc,
+    const float* __restrict__ coef, int n, int m) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.y;
-  const int warp = threadIdx.x / PANEL, lane = threadIdx.x % PANEL;
-  const int warps = blockDim.x / PANEL;
+  const int lane = threadIdx.x % PANEL;
+  const int warps = blockDim.x / PANEL / (RHS ? 2 : 1);  // panels a block
+  const bool producer = RHS && (int)threadIdx.x >= warps * PANEL;
+  const int warp = threadIdx.x / PANEL - (producer ? warps : 0);  // panel
   const float* gcp = coef + (size_t)b * 2 * n;
   const float* gmi = gcp + n;
   float* scp = smem;
   float* smi = smem + n;
   // the warp's ring: slot s, row k, column l at [(s*R + k)*32 + l], 16-byte
-  // aligned after the coefficients
-  float* ring = smem + (COEF_SMEM ? coef_floats(n) : 0) + warp * RING;
+  // aligned after the coefficients; RHS: the producers' rings after all
+  float* rings = smem + (COEF_SMEM ? coef_floats(n) : 0);
+  float* ring = rings + warp * RING;
   auto slot_of = [&](int s) {
     return ring + (s % STAGES) * STAGE_ROWS * PANEL;
   };
@@ -207,6 +291,11 @@ __global__ void __launch_bounds__(128) k_td_rows(
     for (int i = threadIdx.x; i < 2 * n; i += blockDim.x)
       cp_async4(scp + i, gcp + i);
     cp_async_commit();
+    if (RHS) {
+      // the two roles count their groups apart: the coefficients first
+      cp_async_wait<0>();
+      __syncthreads();
+    }
   }
   const int j0 = (blockIdx.x * warps + warp) * PANEL;
   const int cols = min(PANEL, m - j0);  // the panel's columns in the batch
@@ -215,30 +304,78 @@ __global__ void __launch_bounds__(128) k_td_rows(
   const float* src = rhs + (size_t)b * n * m + j0;
   float* dst = out + (size_t)b * n * m + j0;
   const float a = __fmul_rn(-0.5f, c[b]);
+  // RHS: the lane's column is inside the grid's edges
+  const bool inner_col = (unsigned)(j0 + lane - 1) < (unsigned)(m - 2);
   auto cp_at = [&](int i) { return COEF_SMEM ? scp[i] : __ldg(gcp + i); };
   auto mi_at = [&](int i) { return COEF_SMEM ? smi[i] : __ldg(gmi + i); };
-  float x[STAGE_ROWS], y[STAGE_ROWS];
+  auto inner_row = [&](int i) { return (unsigned)(i - 1) < (unsigned)(n - 2); };
 
   // Forward sweep: stage s holds rows [s*R, s*R + R).
   const int nf = (n + STAGE_ROWS - 1) / STAGE_ROWS;
   auto fwd_cnt = [&](int s) {
     return s < nf ? min(STAGE_ROWS, n - s * STAGE_ROWS) : 0;
   };
-  for (int s = 0; s < STAGES - 1; ++s)
-    stage_in(slot_of(s), src, s * STAGE_ROWS, 1, fwd_cnt(s), mm, lane,
-                  cols);
-  if (COEF_SMEM) {
-    // The coefficient group is older than the STAGES-1 stage groups.
-    cp_async_wait<STAGES - 1>();
-    __syncthreads();
+
+  if (producer) {
+    float* raw = rings + warps * RING + warp * RAW_RING;
+    auto raw_of = [&](int s) {
+      return raw + (s % RAW_STAGES) * STAGE_ROWS * RAW_ROW + 1;
+    };
+    // the halo columns the panel has (left of column 0, right of 31)
+    const int side = (j0 > 0) | ((j0 + PANEL < m) << 1);
+    auto raw_stage = [&](int s) {
+      stage_in(raw_of(s), RAW_ROW, src, s * STAGE_ROWS, 1, fwd_cnt(s), mm,
+               lane, cols, side);
+    };
+    const float h = __fmul_rn(0.5f, sc[b]);
+    for (int s = 0; s < RAW_STAGES - 1; ++s) raw_stage(s);
+    for (int s = 0; s < nf; ++s) {
+      // slot s-1 refills: every lane read it before the last pair_sync
+      raw_stage(s + RAW_STAGES - 1);
+      cp_async_wait<RAW_STAGES - 1>();
+      __syncwarp();  // every lane's copies of stage s have landed
+      const float* from = raw_of(s) + lane;
+      float* to = slot_of(s % 2) + lane;
+      const int row0 = s * STAGE_ROWS;
+      // straight-line over the whole slot (rows past the stage's count
+      // compute on stale values that nothing reads)
+#pragma unroll
+      for (int k = 0; k < STAGE_ROWS; ++k) {
+        const float ctr = from[k * RAW_ROW];
+        const float r = half_rhs(ctr, from[k * RAW_ROW + 1],
+                                 from[k * RAW_ROW - 1], h);
+        to[k * PANEL] = inner_col && inner_row(row0 + k) ? r : ctr;
+      }
+      pair_sync(warp);  // stage s is in slot s % 2
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  float x[STAGE_ROWS], y[STAGE_ROWS];
+  if (!RHS) {
+    for (int s = 0; s < STAGES - 1; ++s)
+      stage_in(slot_of(s), PANEL, src, s * STAGE_ROWS, 1, fwd_cnt(s), mm,
+               lane, cols);
+    if (COEF_SMEM) {
+      // The coefficient group is older than the STAGES-1 stage groups.
+      cp_async_wait<STAGES - 1>();
+      __syncthreads();
+    }
   }
   float prev = 0.0f;
   for (int s = 0; s < nf; ++s) {
-    const int t = s + STAGES - 1;
-    stage_in(slot_of(t), src, t * STAGE_ROWS, 1, fwd_cnt(t), mm, lane,
-                  cols);
-    cp_async_wait<STAGES - 1>();
-    const float* slot = slot_of(s) + lane;
+    const float* slot;
+    if (RHS) {
+      pair_sync(warp);  // the producer has written stage s
+      slot = slot_of(s % 2) + lane;
+    } else {
+      const int t = s + STAGES - 1;
+      stage_in(slot_of(t), PANEL, src, t * STAGE_ROWS, 1, fwd_cnt(t), mm,
+               lane, cols);
+      cp_async_wait<STAGES - 1>();
+      slot = slot_of(s) + lane;
+    }
     const int row0 = s * STAGE_ROWS, cnt = fwd_cnt(s);
 #pragma unroll
     for (int k = 0; k < STAGE_ROWS; ++k)
@@ -251,16 +388,17 @@ __global__ void __launch_bounds__(128) k_td_rows(
 #pragma unroll
       for (int k = 0; k < STAGE_ROWS; ++k) {
         prev = __fmul_rn(__fsub_rn(x[k], __fmul_rn(a, prev)), y[k]);
-        if (valid) o[k * mm] = prev;
+        if (valid) o[k * mm] = RHS && !inner_col ? x[k] : prev;
       }
     } else {
 #pragma unroll
       for (int k = 0; k < STAGE_ROWS; ++k)
         if (k < cnt) {
           const int i = row0 + k;
-          const float ai = (unsigned)(i - 1) < (unsigned)(n - 2) ? a : 0.0f;
+          const float ai = inner_row(i) ? a : 0.0f;
           prev = __fmul_rn(__fsub_rn(x[k], __fmul_rn(ai, prev)), y[k]);
-          if (valid) o[k * mm] = prev;
+          if (valid)
+            o[k * mm] = RHS && !(inner_col && inner_row(i)) ? x[k] : prev;
         }
     }
   }
@@ -273,13 +411,13 @@ __global__ void __launch_bounds__(128) k_td_rows(
     return s < nbk ? min(STAGE_ROWS, n - 1 - s * STAGE_ROWS) : 0;
   };
   for (int s = 0; s < STAGES - 1; ++s)
-    stage_in(slot_of(s), dst, n - 2 - s * STAGE_ROWS, -1, back_cnt(s),
-                  mm, lane, cols);
+    stage_in(slot_of(s), PANEL, dst, n - 2 - s * STAGE_ROWS, -1,
+             back_cnt(s), mm, lane, cols);
   float next = prev;
   for (int s = 0; s < nbk; ++s) {
     const int t = s + STAGES - 1;
-    stage_in(slot_of(t), dst, n - 2 - t * STAGE_ROWS, -1, back_cnt(t),
-                  mm, lane, cols);
+    stage_in(slot_of(t), PANEL, dst, n - 2 - t * STAGE_ROWS, -1,
+             back_cnt(t), mm, lane, cols);
     cp_async_wait<STAGES - 1>();
     const float* slot = slot_of(s) + lane;
     const int hi = n - 2 - s * STAGE_ROWS, cnt = back_cnt(s);
@@ -294,22 +432,27 @@ __global__ void __launch_bounds__(128) k_td_rows(
     for (int k = 0; k < STAGE_ROWS; ++k)
       if (k < cnt) {
         next = __fsub_rn(x[k], __fmul_rn(y[k], next));
-        if (valid) o[-(ptrdiff_t)(k * mm)] = next;
+        // RHS: an edge unknown keeps what the forward sweep stored (u's)
+        if (valid)
+          o[-(ptrdiff_t)(k * mm)] =
+              RHS && !(inner_col && hi - k >= 1) ? x[k] : next;
       }
   }
   cp_async_wait<0>();
 }
 
-// One H11 stage: columns [col0, col0 + cnt) of the panel's `nrows` rows
-// (row stride n, row 0 at `rows`) into `slot`, lane l copying column
+// One H11 stage: columns [col0, col0 + cnt) of the panel's rows k in
+// [lo, hi) (row stride n, row 0 at `rows`; lo is -1 where the RHS build
+// stages the row above the panel) into `slot`, lane l copying column
 // col0 + l of every row to slot[k * SLOT_STRIDE + l]: one 128-byte row
 // segment a warp instruction.  Committed in every lane, as stage_in.
 __device__ __forceinline__ void stage_cols(float* slot, const float* rows,
-                                           int col0, int cnt, int nrows,
+                                           int col0, int cnt, int lo, int hi,
                                            size_t n, int lane) {
   if (lane < cnt) {
-    for (int k = 0; k < nrows; ++k)
-      cp_async4(slot + k * SLOT_STRIDE + lane, rows + k * n + col0 + lane);
+    for (int k = lo; k < hi; ++k)
+      cp_async4(slot + k * SLOT_STRIDE + lane,
+                rows + (ptrdiff_t)k * (ptrdiff_t)n + col0 + lane);
   }
   cp_async_commit();
 }
@@ -329,11 +472,17 @@ __device__ __forceinline__ void store_cols(const float* slot, float* rows,
 // rows, n) batch, lane l row l of the panel.  COEF_SMEM as in H10; each
 // stage gathers its values and coefficients into registers first, and a
 // stage of interior columns runs without the per-column edge test.
-template <bool COEF_SMEM>
+// RHS: `rhs` is the step's grid u; a slot holds 34 rows, the panel's at
+// slot rows 1..32 and the rows above and below it at 0 and 33 (where the
+// batch has them), and the gather forms each column's right-hand side
+// along the rows at h = sc[b]/2 before the chain writes its results over
+// the lane's row (a __syncwarp between: the lanes beside read it).  Edge
+// unknowns keep u's value, as in H10.
+template <bool COEF_SMEM, bool RHS>
 __global__ void __launch_bounds__(128) k_td_lanes(
     const float* __restrict__ rhs, float* __restrict__ out,
-    const float* __restrict__ c, const float* __restrict__ coef, int rows,
-    int n) {
+    const float* __restrict__ c, const float* __restrict__ sc,
+    const float* __restrict__ coef, int rows, int n) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.y;
   const int warp = threadIdx.x / PANEL, lane = threadIdx.x % PANEL;
@@ -342,8 +491,13 @@ __global__ void __launch_bounds__(128) k_td_lanes(
   const float* gmi = gcp + n;
   float* scp = smem;
   float* smi = smem + n;
-  float* ring = smem + (COEF_SMEM ? coef_floats(n) : 0) + warp * LANES_RING;
-  auto slot_of = [&](int s) { return ring + (s % STAGES) * SLOT; };
+  float* ring = smem + (COEF_SMEM ? coef_floats(n) : 0) +
+                warp * STAGES * lanes_slot(RHS);
+  // slot s's panel row 0 (its first row in the plain build, its second in
+  // the RHS build)
+  auto slot_of = [&](int s) {
+    return ring + (s % STAGES) * lanes_slot(RHS) + (RHS ? SLOT_STRIDE : 0);
+  };
 
   if (COEF_SMEM) {
     for (int i = threadIdx.x; i < 2 * n; i += blockDim.x)
@@ -356,15 +510,21 @@ __global__ void __launch_bounds__(128) k_td_lanes(
   const float* src = rhs + ((size_t)b * rows + r0) * nn;
   float* dst = out + ((size_t)b * rows + r0) * nn;
   const float a = __fmul_rn(-0.5f, c[b]);
+  const float h = RHS ? __fmul_rn(0.5f, sc[b]) : 0.0f;
+  // RHS: the lane's row is inside the grid's edges; the rows staged
+  const bool inner_row = (unsigned)(r0 + lane - 1) < (unsigned)(rows - 2);
+  const int lo = RHS && r0 > 0 ? -1 : 0;
+  const int hi = RHS ? min(nrows + 1, rows - r0) : nrows;
   auto cp_at = [&](int i) { return COEF_SMEM ? scp[i] : __ldg(gcp + i); };
   auto mi_at = [&](int i) { return COEF_SMEM ? smi[i] : __ldg(gmi + i); };
-  float x[PANEL], y[PANEL];
+  auto inner_col = [&](int i) { return (unsigned)(i - 1) < (unsigned)(n - 2); };
+  float x[PANEL] = {}, y[PANEL];
 
   // Forward sweep: stage s holds columns [s*32, s*32 + 32).
   const int nf = (n + PANEL - 1) / PANEL;
   auto fwd_cnt = [&](int s) { return s < nf ? min(PANEL, n - s * PANEL) : 0; };
   for (int s = 0; s < STAGES - 1; ++s)
-    stage_cols(slot_of(s), src, s * PANEL, fwd_cnt(s), nrows, nn, lane);
+    stage_cols(slot_of(s), src, s * PANEL, fwd_cnt(s), lo, hi, nn, lane);
   if (COEF_SMEM) {
     // The coefficient group is older than the STAGES-1 stage groups.
     cp_async_wait<STAGES - 1>();
@@ -374,32 +534,44 @@ __global__ void __launch_bounds__(128) k_td_lanes(
   for (int s = 0; s < nf; ++s) {
     const int t = s + STAGES - 1;
     __syncwarp();  // every lane has stored stage s-1, whose slot t refills
-    stage_cols(slot_of(t), src, t * PANEL, fwd_cnt(t), nrows, nn, lane);
+    stage_cols(slot_of(t), src, t * PANEL, fwd_cnt(t), lo, hi, nn, lane);
     cp_async_wait<STAGES - 1>();
     __syncwarp();  // every lane's copies of stage s have landed
     float* slot = slot_of(s);
     float* mine = slot + lane * SLOT_STRIDE;
     const int col0 = s * PANEL, cnt = fwd_cnt(s);
+    const bool interior = col0 >= 1 && col0 + PANEL <= n - 1;
 #pragma unroll
     for (int k = 0; k < PANEL; ++k)
       if (k < cnt) {
         x[k] = mine[k];
         y[k] = mi_at(col0 + k);
       }
-    if (col0 >= 1 && col0 + PANEL <= n - 1) {
+    if (RHS) {
+      // straight-line over the whole tile, as in H10 (columns past cnt
+      // and rows outside the batch compute on values nothing reads)
+#pragma unroll
+      for (int k = 0; k < PANEL; ++k) {
+        const float r = half_rhs(x[k], mine[k + SLOT_STRIDE],
+                                 mine[k - SLOT_STRIDE], h);
+        x[k] = inner_row && (interior || inner_col(col0 + k)) ? r : x[k];
+      }
+      __syncwarp();  // the lanes beside have read this lane's row
+    }
+    if (interior) {
 #pragma unroll
       for (int k = 0; k < PANEL; ++k) {
         prev = __fmul_rn(__fsub_rn(x[k], __fmul_rn(a, prev)), y[k]);
-        mine[k] = prev;
+        mine[k] = RHS && !inner_row ? x[k] : prev;
       }
     } else {
 #pragma unroll
       for (int k = 0; k < PANEL; ++k)
         if (k < cnt) {
           const int i = col0 + k;
-          const float ai = (unsigned)(i - 1) < (unsigned)(n - 2) ? a : 0.0f;
+          const float ai = inner_col(i) ? a : 0.0f;
           prev = __fmul_rn(__fsub_rn(x[k], __fmul_rn(ai, prev)), y[k]);
-          mine[k] = prev;
+          mine[k] = RHS && !(inner_row && inner_col(i)) ? x[k] : prev;
         }
     }
     __syncwarp();
@@ -418,83 +590,107 @@ __global__ void __launch_bounds__(128) k_td_lanes(
     return s < nbk ? min(PANEL, n - 1 - back_lo(s)) : 0;
   };
   for (int s = 0; s < STAGES - 1; ++s)
-    stage_cols(slot_of(s), dst, back_lo(s), back_cnt(s), nrows, nn, lane);
+    stage_cols(slot_of(s), dst, back_lo(s), back_cnt(s), 0, nrows, nn, lane);
   float next = prev;
   for (int s = 0; s < nbk; ++s) {
     const int t = s + STAGES - 1;
     __syncwarp();
-    stage_cols(slot_of(t), dst, back_lo(t), back_cnt(t), nrows, nn, lane);
+    stage_cols(slot_of(t), dst, back_lo(t), back_cnt(t), 0, nrows, nn, lane);
     cp_async_wait<STAGES - 1>();
     __syncwarp();
     float* slot = slot_of(s);
     float* mine = slot + lane * SLOT_STRIDE;
-    const int lo = back_lo(s), cnt = back_cnt(s);
-    // register k holds column lo + cnt-1 - k: the chain runs downwards
+    const int c0 = back_lo(s), cnt = back_cnt(s);
+    // RHS: an edge unknown keeps what the forward sweep stored (u's)
+    auto held = [&](int i) { return RHS && !(inner_row && i >= 1); };
+    // register k holds column c0 + cnt-1 - k: the chain runs downwards
     if (cnt == PANEL) {
 #pragma unroll
       for (int k = 0; k < PANEL; ++k) {
         x[k] = mine[PANEL - 1 - k];
-        y[k] = cp_at(lo + PANEL - 1 - k);
+        y[k] = cp_at(c0 + PANEL - 1 - k);
       }
 #pragma unroll
       for (int k = 0; k < PANEL; ++k) {
         next = __fsub_rn(x[k], __fmul_rn(y[k], next));
-        mine[PANEL - 1 - k] = next;
+        mine[PANEL - 1 - k] = held(c0 + PANEL - 1 - k) ? x[k] : next;
       }
     } else {
 #pragma unroll
       for (int k = 0; k < PANEL; ++k)
         if (k < cnt) {
           x[k] = mine[cnt - 1 - k];
-          y[k] = cp_at(lo + cnt - 1 - k);
+          y[k] = cp_at(c0 + cnt - 1 - k);
         }
 #pragma unroll
       for (int k = 0; k < PANEL; ++k)
         if (k < cnt) {
           next = __fsub_rn(x[k], __fmul_rn(y[k], next));
-          mine[cnt - 1 - k] = next;
+          mine[cnt - 1 - k] = held(c0 + cnt - 1 - k) ? x[k] : next;
         }
     }
     __syncwarp();
-    store_cols(slot, dst, lo, cnt, nrows, nn, lane);
+    store_cols(slot, dst, c0, cnt, nrows, nn, lane);
   }
   cp_async_wait<0>();
 }
 
-template <bool COEF_SMEM>
+template <bool COEF_SMEM, bool RHS>
 cudaError_t launch_rows(const float* rhs, float* out, const float* c,
-                        const float* coef, int nb, int n, int m, int warps,
-                        cudaStream_t s) {
+                        const float* sc, const float* coef, int nb, int n,
+                        int m, int warps, cudaStream_t s) {
   const size_t smem =
-      ((COEF_SMEM ? coef_floats(n) : 0) + (size_t)warps * RING) *
+      ((COEF_SMEM ? coef_floats(n) : 0) + (size_t)warps * rows_ring(RHS)) *
       sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      k_td_rows<COEF_SMEM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k_td_rows<COEF_SMEM, RHS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   const int panels = (m + PANEL - 1) / PANEL;
   const dim3 grid((panels + warps - 1) / warps, nb);
-  k_td_rows<COEF_SMEM><<<grid, warps * PANEL, smem, s>>>(rhs, out, c, coef,
-                                                         n, m);
+  k_td_rows<COEF_SMEM, RHS><<<grid, warps * PANEL * (RHS ? 2 : 1), smem, s>>>(
+      rhs, out, c, sc, coef, n, m);
   return cudaGetLastError();
 }
 
-template <bool COEF_SMEM>
+template <bool COEF_SMEM, bool RHS>
 cudaError_t launch_lanes(const float* rhs, float* out, const float* c,
-                         const float* coef, int nb, int rows, int n,
-                         int warps, cudaStream_t s) {
-  const size_t smem =
-      ((COEF_SMEM ? coef_floats(n) : 0) + (size_t)warps * LANES_RING) *
-      sizeof(float);
+                         const float* sc, const float* coef, int nb,
+                         int rows, int n, int warps, cudaStream_t s) {
+  const size_t smem = ((COEF_SMEM ? coef_floats(n) : 0) +
+                       (size_t)warps * STAGES * lanes_slot(RHS)) *
+                      sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      k_td_lanes<COEF_SMEM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k_td_lanes<COEF_SMEM, RHS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
   const int panels = (rows + PANEL - 1) / PANEL;
   const dim3 grid((panels + warps - 1) / warps, nb);
-  k_td_lanes<COEF_SMEM><<<grid, warps * PANEL, smem, s>>>(rhs, out, c, coef,
-                                                          rows, n);
+  k_td_lanes<COEF_SMEM, RHS><<<grid, warps * PANEL, smem, s>>>(
+      rhs, out, c, sc, coef, rows, n);
   return cudaGetLastError();
+}
+
+// Either solve kernel's four builds, from the entry points' arguments: the
+// RHS build where `sc` (the stencil's diffusion numbers) is given.
+template <bool LANES>
+int launch(const float* rhs, float* out, const float* c, const float* sc,
+           const float* coef, int nb, int n1, int n2, int warps,
+           int coef_smem, void* stream) {
+  if (warps < 1 || warps > 4) return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const auto go = [&](auto cs, auto rhs_build) {
+    constexpr bool CS = decltype(cs)::value, R = decltype(rhs_build)::value;
+    return LANES ? launch_lanes<CS, R>(rhs, out, c, sc, coef, nb, n1, n2,
+                                       warps, s)
+                 : launch_rows<CS, R>(rhs, out, c, sc, coef, nb, n1, n2,
+                                      warps, s);
+  };
+  using T = std::true_type;
+  using F = std::false_type;
+  if (sc != nullptr)
+    return coef_smem ? go(T{}, T{}) : go(F{}, T{});
+  return coef_smem ? go(T{}, F{}) : go(F{}, F{});
 }
 
 }  // namespace
@@ -518,11 +714,8 @@ int heat_td_coeffs(const float* c, float* coef, int nb, int n,
 int heat_td_rows(const float* rhs, float* out, const float* c,
                  const float* coef, int nb, int n, int m, int warps,
                  int coef_smem, void* stream) {
-  if (warps < 1 || warps > 4) return cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  return coef_smem
-             ? launch_rows<true>(rhs, out, c, coef, nb, n, m, warps, s)
-             : launch_rows<false>(rhs, out, c, coef, nb, n, m, warps, s);
+  return launch<false>(rhs, out, c, nullptr, coef, nb, n, m, warps,
+                       coef_smem, stream);
 }
 
 // Solve along axis 2 of the (nb, rows, n) batch with the (nb, 2, n)
@@ -531,11 +724,25 @@ int heat_td_rows(const float* rhs, float* out, const float* c,
 int heat_td_lanes(const float* rhs, float* out, const float* c,
                   const float* coef, int nb, int rows, int n, int warps,
                   int coef_smem, void* stream) {
-  if (warps < 1 || warps > 4) return cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  return coef_smem
-             ? launch_lanes<true>(rhs, out, c, coef, nb, rows, n, warps, s)
-             : launch_lanes<false>(rhs, out, c, coef, nb, rows, n, warps, s);
+  return launch<true>(rhs, out, c, nullptr, coef, nb, rows, n, warps,
+                      coef_smem, stream);
+}
+
+// The ADI halves, one launch each: heat_td_rows (the x half) and
+// heat_td_lanes (the y half) in their RHS builds on the step's grid u,
+// the stencil at the (nb,) diffusion numbers sc of the other axis.
+int heat_td_rows_rhs(const float* u, float* out, const float* c,
+                     const float* sc, const float* coef, int nb, int n,
+                     int m, int warps, int coef_smem, void* stream) {
+  return launch<false>(u, out, c, sc, coef, nb, n, m, warps, coef_smem,
+                       stream);
+}
+
+int heat_td_lanes_rhs(const float* u, float* out, const float* c,
+                      const float* sc, const float* coef, int nb, int rows,
+                      int n, int warps, int coef_smem, void* stream) {
+  return launch<true>(u, out, c, sc, coef, nb, rows, n, warps, coef_smem,
+                      stream);
 }
 
 }  // extern "C"

@@ -65,6 +65,10 @@ SIGNATURES = {
         "heat_td_coeffs": (_I, [_P, _P, _I, _I, _P]),
         "heat_td_rows": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
         "heat_td_lanes": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+        "heat_td_rows_rhs": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                  _P]),
+        "heat_td_lanes_rhs": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _P]),
     },
     "shard": {
         "heat_error_string": (ctypes.c_char_p, [_I]),

@@ -35,10 +35,14 @@ accuracy, far past the explicit box.
   (cp, mi) depend on (c, n) only: ``adi_coeffs`` computes both axes'
   once, and ``batched_adi_kernel`` hands them to every step (the solves
   take them as ``coef=``; without it a solve computes its own).
-  ``adi_sweep_kernel`` runs one batched step through them: the x half
-  through H10, the y half through H11, with no transpose between them.
-  The half-RHS stencils and the held edges are torch ops, as they are
-  XLA ops around the TPU kernel.
+  ``adi_sweep_kernel`` runs one batched step through them, one launch a
+  half: the x half through H10's right-hand-side build
+  (``td_rows_rhs``), the y half through H11's (``td_lanes_rhs``), with
+  no transpose between them. Each build forms its half's right-hand side
+  (``_rhs_half``) as it stages the step's grid and holds the grid's
+  edges (``_hold_edges``) in its stores, where the JAX package runs both
+  as XLA ops around the TPU kernel; its plain version is that
+  composition, which the kernel equals bit for bit.
   The TPU route is gated on VMEM (``adi_kernel_viable``); the card has no
   such envelope, so every float32 CUDA batch takes the kernels and a CPU
   batch their plain versions, which repeat the kernels' arithmetic.
@@ -47,8 +51,13 @@ accuracy, far past the explicit box.
   ``plan_td_lanes``).
 
 On a CPU tensor a kernel wrapper runs its plain version; on a CUDA tensor
-it launches the kernel or raises. Each launch adds one to the wrapper's
-entry in ``LAUNCHES``; the plain versions count nothing.
+it launches the kernel or raises. Each launch adds one to the kernel's
+entry in ``LAUNCHES`` (a right-hand-side build counts as its solve
+kernel); the plain versions count nothing. The registry's
+``adi_halves_total`` counts the ADI halves of every step loop, and
+``adi_halves_fused_total`` the launches of the right-hand-side builds
+among them (every half on a card, none on the CPU), once per call of
+``adi_sweep_kernel`` or ``batched_adi_kernel``.
 """
 
 from __future__ import annotations
@@ -58,6 +67,7 @@ from typing import NamedTuple
 
 import torch
 
+from heat2d_tpu_torch.obs.metrics import get_registry
 from heat2d_tpu_torch.ops import _build
 from heat2d_tpu_torch.ops import cuda_stencil as cs
 from heat2d_tpu_torch.ops.cuda_stencil import H100_SMEM_OPTIN
@@ -66,6 +76,11 @@ from heat2d_tpu_torch.utils.profiling import phase
 
 #: Launches per kernel wrapper since the last ``reset_launch_counts``.
 LAUNCHES = {"td_coeffs": 0, "td_rows": 0, "td_lanes": 0}
+
+#: Launches of the right-hand-side builds in this process, never reset:
+#: each is one ADI half run as one launch. The step loops add the
+#: launches of their call to the registry's ``adi_halves_fused_total``.
+_rhs_launches = 0
 
 #: The solve kernels put the member on blockIdx.y.
 MAX_MEMBERS = 65535
@@ -405,6 +420,12 @@ TD_RING_BYTES = 8 * 32 * 32 * 4
 #: H11's ring per warp: STAGES slots of 32 rows x 32 columns at a row
 #: stride of 33 floats (``SLOT_STRIDE``, no bank conflicts).
 TD_LANES_RING_BYTES = 8 * 32 * 33 * 4
+#: The right-hand-side builds' rings: H10's ring and, beside it, its
+#: producer warp's ring of 2 slots of 32 rows of 34 columns (the panel's
+#: 32 and the two beside them); H11's slots of 34 rows (the panel's 32 and
+#: the rows above and below it).
+TD_RHS_RING_BYTES = TD_RING_BYTES + 2 * 32 * (32 + 2) * 4
+TD_LANES_RHS_RING_BYTES = 8 * (32 + 2) * 33 * 4
 
 
 def _plan_panels(nb: int, n: int, systems: int, ring: int, sms: int,
@@ -423,17 +444,44 @@ def _plan_panels(nb: int, n: int, systems: int, ring: int, sms: int,
 
 
 def plan_td_rows(nb: int, n: int, m: int, sms: int = H100_SM_COUNT,
-                 smem: int = H100_SMEM_OPTIN) -> RowsPlan:
+                 smem: int = H100_SMEM_OPTIN, rhs: bool = False) -> RowsPlan:
     """H10's launch on a (nb, n, m) batch: panels of 32 columns
-    (``_plan_panels``)."""
-    return _plan_panels(nb, n, m, TD_RING_BYTES, sms, smem)
+    (``_plan_panels``); ``rhs``: the right-hand-side build's ring."""
+    return _plan_panels(nb, n, m, TD_RHS_RING_BYTES if rhs
+                        else TD_RING_BYTES, sms, smem)
 
 
 def plan_td_lanes(nb: int, rows: int, n: int, sms: int = H100_SM_COUNT,
-                  smem: int = H100_SMEM_OPTIN) -> RowsPlan:
+                  smem: int = H100_SMEM_OPTIN,
+                  rhs: bool = False) -> RowsPlan:
     """H11's launch on a (nb, rows, n) batch: panels of 32 rows, H10's
-    rule with H11's padded rings (``_plan_panels``)."""
-    return _plan_panels(nb, n, rows, TD_LANES_RING_BYTES, sms, smem)
+    rule with H11's padded rings (``_plan_panels``); ``rhs``: the
+    right-hand-side build's slots of 34 rows."""
+    return _plan_panels(nb, n, rows, TD_LANES_RHS_RING_BYTES if rhs
+                        else TD_LANES_RING_BYTES, sms, smem)
+
+
+def _launch(kernel: str, x, c, coef, sc=None):
+    """One launch of H10 (``kernel`` "td_rows") or H11 ("td_lanes") on the
+    (B, n1, n2) batch ``x`` on its card, planned from the card: the solve,
+    or with ``sc`` (the stencil's (B,) diffusion numbers) the ADI half's
+    right-hand-side build on the step's grid ``x``."""
+    global _rhs_launches
+    nb, n1, n2 = x.shape
+    caps = cs.device_caps(x.device)
+    plan = (plan_td_lanes if kernel == "td_lanes" else plan_td_rows)(
+        nb, n1, n2, caps.sm_count, caps.smem_optin, sc is not None)
+    out = torch.empty_like(x)
+    LAUNCHES[kernel] += 1
+    args = (_ptr(x), _ptr(out), _ptr(c)) + (
+        (_ptr(sc),) if sc is not None else ()) + (
+        _ptr(coef), nb, n1, n2, plan.warps, int(plan.coef_smem),
+        _stream(x))
+    entry = f"heat_{kernel}" + ("_rhs" if sc is not None else "")
+    _check(getattr(_lib(), entry)(*args), kernel)
+    if sc is not None:
+        _rhs_launches += 1
+    return out
 
 
 def td_rows(rhs, c, coef=None):
@@ -442,19 +490,10 @@ def td_rows(rhs, c, coef=None):
     (``plan_td_rows``). ``coef``: the (B, 2, n) ``td_coeffs(c, n)``,
     computed here when absent."""
     _validate(rhs, c, "td_rows")
-    n = rhs.shape[1]
-    coef = _checked_coef(coef, c, n, "td_rows")
+    coef = _checked_coef(coef, c, rhs.shape[1], "td_rows")
     if rhs.device.type == "cpu":
         return td_rows_plain(rhs, c, coef)
-    nb, _, m = rhs.shape
-    caps = cs.device_caps(rhs.device)
-    plan = plan_td_rows(nb, n, m, caps.sm_count, caps.smem_optin)
-    out = torch.empty_like(rhs)
-    LAUNCHES["td_rows"] += 1
-    _check(_lib().heat_td_rows(_ptr(rhs), _ptr(out), _ptr(c), _ptr(coef),
-                               nb, n, m, plan.warps, int(plan.coef_smem),
-                               _stream(rhs)), "td_rows")
-    return out
+    return _launch("td_rows", rhs, c, coef)
 
 
 def td_lanes(rhs, c, coef=None):
@@ -463,20 +502,51 @@ def td_lanes(rhs, c, coef=None):
     tiles are transposed in shared memory. ``coef``: the (B, 2, n)
     ``td_coeffs(c, n)``, computed here when absent."""
     _validate(rhs, c, "td_lanes")
-    n = rhs.shape[2]
-    coef = _checked_coef(coef, c, n, "td_lanes")
+    coef = _checked_coef(coef, c, rhs.shape[2], "td_lanes")
     if rhs.device.type == "cpu":
         return td_lanes_plain(rhs, c, coef)
-    nb, rows, _ = rhs.shape
-    caps = cs.device_caps(rhs.device)
-    plan = plan_td_lanes(nb, rows, n, caps.sm_count, caps.smem_optin)
-    out = torch.empty_like(rhs)
-    LAUNCHES["td_lanes"] += 1
-    _check(_lib().heat_td_lanes(_ptr(rhs), _ptr(out), _ptr(c), _ptr(coef),
-                                nb, rows, n, plan.warps,
-                                int(plan.coef_smem), _stream(rhs)),
-           "td_lanes")
-    return out
+    return _launch("td_lanes", rhs, c, coef)
+
+
+def td_rows_rhs_plain(u, c, s, coef=None):
+    """H10's right-hand-side build, plain: the x half of an ADI step of
+    the (B, n, m) batch ``u``, implicit along axis 1 at ``c``, the stencil
+    along axis 2 at ``s``, u's edges held."""
+    return _hold_edges(td_rows_plain(_rhs_half(u, s.reshape(-1, 1, 1), 1),
+                                     c, coef), u)
+
+
+def td_lanes_rhs_plain(u, c, s, coef=None):
+    """H11's right-hand-side build, plain: the y half, implicit along
+    axis 2 at ``c``, the stencil along axis 1 at ``s``, u's edges held."""
+    return _hold_edges(td_lanes_plain(
+        _rhs_half(u, s.reshape(-1, 1, 1), 0), c, coef), u)
+
+
+def td_rows_rhs(u, c, s, coef=None):
+    """The x half of an ADI step of the (B, n, m) batch ``u`` in one H10
+    launch (its right-hand-side build): each row's right-hand side at
+    the stencil's ``s[b]`` formed as the kernel stages u, the solve at
+    ``c[b]`` with the (B, 2, n) ``coef`` (computed when absent), u's edges
+    held in its stores; bit for bit ``td_rows_rhs_plain``."""
+    _validate(u, c, "td_rows_rhs")
+    _validate(u, s, "td_rows_rhs")
+    coef = _checked_coef(coef, c, u.shape[1], "td_rows_rhs")
+    if u.device.type == "cpu":
+        return td_rows_rhs_plain(u, c, s, coef)
+    return _launch("td_rows", u, c, coef, s)
+
+
+def td_lanes_rhs(u, c, s, coef=None):
+    """The y half in one H11 launch: implicit along axis 2 of u at
+    ``c[b]``, the stencil along axis 1 at ``s[b]``; bit for bit
+    ``td_lanes_rhs_plain``."""
+    _validate(u, c, "td_lanes_rhs")
+    _validate(u, s, "td_lanes_rhs")
+    coef = _checked_coef(coef, c, u.shape[2], "td_lanes_rhs")
+    if u.device.type == "cpu":
+        return td_lanes_rhs_plain(u, c, s, coef)
+    return _launch("td_lanes", u, c, coef, s)
 
 
 def adi_coeffs(u, cxs, cys):
@@ -487,35 +557,50 @@ def adi_coeffs(u, cxs, cys):
         return td_coeffs(cxs, u.shape[-2]), td_coeffs(cys, u.shape[-1])
 
 
+def _count_halves(halves: int, launches_before: int) -> None:
+    """Add a step loop's ``halves`` and the right-hand-side builds it
+    launched (``_rhs_launches`` since ``launches_before``) to the
+    registry."""
+    reg = get_registry()
+    reg.counter("adi_halves_total", halves)
+    reg.counter("adi_halves_fused_total", _rhs_launches - launches_before)
+
+
+def _sweep(u, cxs, cys, coefs):
+    with phase("adi.half_x"):
+        ustar = td_rows_rhs(u, cxs, cys, coefs[0])
+    with phase("adi.half_y"):
+        return td_lanes_rhs(ustar, cys, cxs, coefs[1])
+
+
 def adi_sweep_kernel(u, cxs, cys, coefs=None):
     """One batched ADI step of the (B, nx, ny) batch: the x half through
-    H10, the y half through H11; ``cxs``/``cys`` are (B,) float32 vectors
-    on u's device, ``coefs`` their ``adi_coeffs`` (computed when
-    absent). The hook's spans ``adi.half_x`` and ``adi.half_y`` each
-    cover a half: its right-hand side, its solve's launch and the held
-    edges."""
-    cb, db = cxs.reshape(-1, 1, 1), cys.reshape(-1, 1, 1)
+    H10, the y half through H11, each one launch of its right-hand-side
+    build (the composition of ``_rhs_half``, the solve and ``_hold_edges``
+    on the CPU); ``cxs``/``cys`` are (B,) float32 vectors on u's device,
+    ``coefs`` their ``adi_coeffs`` (computed when absent). The hook's
+    spans ``adi.half_x`` and ``adi.half_y`` each cover a half."""
     _validate(u, cxs, "adi_sweep_kernel")
     _validate(u, cys, "adi_sweep_kernel")
-    kx, ky = adi_coeffs(u, cxs, cys) if coefs is None else coefs
-    with phase("adi.half_x"):
-        ustar = _hold_edges(td_rows(_rhs_half(u, db, 1), cxs, kx), u)
-    with phase("adi.half_y"):
-        return _hold_edges(td_lanes(_rhs_half(ustar, cb, 0), cys, ky), u)
+    before = _rhs_launches
+    out = _sweep(u, cxs, cys,
+                 adi_coeffs(u, cxs, cys) if coefs is None else coefs)
+    _count_halves(2, before)
+    return out
 
 
 def batched_adi_kernel(u0, cxs, cys, *, steps: int, coefs=None):
     """``steps`` batched ADI steps through the kernels, the time loop on
-    the host (two solver launches and the torch ops around them per
-    step); each axis's (cp, mi) computed once (``adi_coeffs``) unless
-    ``coefs`` brings them."""
+    the host (two launches a step); each axis's (cp, mi) computed once
+    (``adi_coeffs``) unless ``coefs`` brings them."""
     if steps <= 0:
         return u0
     if coefs is None:
         _validate(u0, cxs, "batched_adi_kernel")
         _validate(u0, cys, "batched_adi_kernel")
         coefs = adi_coeffs(u0, cxs, cys)
-    u = u0
+    before, u = _rhs_launches, u0
     for _ in range(steps):
-        u = adi_sweep_kernel(u, cxs, cys, coefs)
+        u = _sweep(u, cxs, cys, coefs)
+    _count_halves(2 * steps, before)
     return u

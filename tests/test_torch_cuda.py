@@ -500,6 +500,65 @@ def test_td_rows_reads_large_systems_through_the_cache(card):
     assert torch.equal(td.td_rows(rhs, c), td.td_rows_plain(rhs, c))
 
 
+@pytest.mark.parametrize("b", [1, 4])
+@pytest.mark.parametrize("m", [3, 31, 33, 4097])
+@pytest.mark.parametrize("n", [3, 31, 33, 4097])
+def test_adi_halves_one_launch_bitwise(card, n, m, b):
+    """H10's and H11's right-hand-side builds (one launch an ADI half)
+    against the solves on ``_rhs_half`` with ``_hold_edges`` after them,
+    on the card, bit for bit: panels cut short by 31, 33 and 4097,
+    systems shorter than a stage or ending inside one."""
+    from heat2d_tpu_torch.ops import tridiag as td
+    g = torch.Generator(device=card)
+    g.manual_seed(n * 7919 + m * 31 + b)
+    u = torch.rand((b, n, m), generator=g, device=card) * 1e3 - 500
+    cx = torch.tensor([25.0, 51.2, 0.3, 12.5][:b], device=card)
+    cy = torch.tensor([51.2, 0.3, 25.0, 3.2][:b], device=card)
+    kx, ky = td.adi_coeffs(u, cx, cy)
+    td.reset_launch_counts()
+    ustar = td.td_rows_rhs(u, cx, cy, kx)
+    y = td.td_lanes_rhs(ustar, cy, cx, ky)
+    assert td.launch_counts() == {"td_coeffs": 0, "td_rows": 1,
+                                  "td_lanes": 1}
+    want = td._hold_edges(td.td_rows(td._rhs_half(
+        u, cy.reshape(-1, 1, 1), 1), cx, kx), u)
+    assert torch.equal(ustar, want)
+    assert torch.equal(y, td._hold_edges(td.td_lanes(td._rhs_half(
+        ustar, cx.reshape(-1, 1, 1), 0), cy, ky), ustar))
+
+
+def test_adi_solve_fused_equals_the_composed_loop(card):
+    """A 40-step 2560x2048 solve through ``Heat2DSolver`` (method adi,
+    mode pallas: two launches a step, each half's right-hand side and
+    held edges inside H10 and H11) equals a step loop of the torch ops
+    around the solves, bit for bit, in 40 launches of each kernel; every
+    half counts as fused."""
+    from heat2d_tpu_torch.ops import tridiag as td
+    cfg = HeatConfig(nxprob=2560, nyprob=2048, steps=40, cx=25.0, cy=12.5,
+                     method="adi", mode="pallas")
+    reg = get_registry()
+
+    def halves():
+        return [sum(reg.find_counters(k).values()) for k in
+                ("adi_halves_total", "adi_halves_fused_total")]
+    before = halves()
+    td.reset_launch_counts()
+    got = Heat2DSolver(cfg).run(timed=False)
+    assert td.launch_counts() == {"td_coeffs": 2, "td_rows": 40,
+                                  "td_lanes": 40}
+    assert [a - b for a, b in zip(halves(), before)] == [80, 80]
+    u = inidat(2560, 2048, device=card)[None].contiguous()
+    cx = torch.tensor([25.0], device=card)
+    cy = torch.tensor([12.5], device=card)
+    kx, ky = td.adi_coeffs(u, cx, cy)
+    for _ in range(40):
+        ustar = td._hold_edges(td.td_rows(td._rhs_half(
+            u, cy.reshape(-1, 1, 1), 1), cx, kx), u)
+        u = td._hold_edges(td.td_lanes(td._rhs_half(
+            ustar, cx.reshape(-1, 1, 1), 0), cy, ky), u)
+    assert np.array_equal(got.u, u[0].cpu().numpy())
+
+
 @pytest.mark.parametrize("shape, b", [((37, 53), 3), ((641, 1023), 2),
                                       ((4099, 4097), 1)])
 @pytest.mark.parametrize("problem", ["heat9", "advdiff", "reactdiff"])
@@ -544,9 +603,12 @@ def test_adi_solver_on_the_card(card):
     got = Heat2DSolver(cfg).run(timed=False)
     want = Heat2DSolver(cfg.replace(mode="serial")).run(timed=False)
     assert got.steps_done == want.steps_done == 10
-    # (cp, mi) of each axis once for the run, then two solves a step
-    assert td.launch_counts() == {"td_coeffs": 2, "td_rows": 10,
-                                  "td_lanes": 10}
+    # (cp, mi) of each axis once for the run, then two solves a step: the
+    # first check's ten steps, and the next chunk's ten, issued before
+    # that check's residual was read (models/engine.py reads one chunk
+    # late) and dropped when it stopped the run
+    assert td.launch_counts() == {"td_coeffs": 2, "td_rows": 20,
+                                  "td_lanes": 20}
     err = float(abs(got.u.astype("float64") - want.u).max())
     assert err <= 10 * 51 * 2.0 ** -22 * float(abs(want.u).max())
 

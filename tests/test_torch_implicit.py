@@ -31,6 +31,7 @@ from heat2d_tpu_torch.config import HeatConfig
 from heat2d_tpu_torch.models import ensemble as tens
 from heat2d_tpu_torch.models import solution as tsol
 from heat2d_tpu_torch.models.solver import Heat2DSolver
+from heat2d_tpu_torch.obs.metrics import get_registry
 from heat2d_tpu_torch.ops import analytic as tan
 from heat2d_tpu_torch.ops import multigrid as tmg
 from heat2d_tpu_torch.ops import tridiag as ttd
@@ -419,6 +420,175 @@ def test_plan_td_lanes(nb, rows, n, warps, coef_smem, blocks):
     assert ttd.TD_LANES_RING_BYTES == 8 * 32 * 33 * 4
     if rows == 4096:
         assert plan.blocks <= 132 and plan.blocks * plan.warps == nb * 128
+
+
+# ------------------------------------------------------------------ #
+# One launch an ADI half: H10's and H11's right-hand-side builds
+# ------------------------------------------------------------------ #
+
+def _half_x(u, cxs, cys, kx):
+    """The x half as the step loop composed it before the builds: the
+    right-hand side, H10's plain solve, the held edges."""
+    return ttd._hold_edges(ttd.td_rows_plain(
+        ttd._rhs_half(u, cys.reshape(-1, 1, 1), 1), cxs, kx), u)
+
+
+def _half_y(ustar, cxs, cys, ky, u):
+    return ttd._hold_edges(ttd.td_lanes_plain(
+        ttd._rhs_half(ustar, cxs.reshape(-1, 1, 1), 0), cys, ky), u)
+
+
+def _halves():
+    reg = get_registry()
+    return [sum(reg.find_counters(k).values())
+            for k in ("adi_halves_total", "adi_halves_fused_total")]
+
+
+@pytest.mark.parametrize("c", [0.3, 25.0, 51.2])
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("shape", [(1, 5), (2, 7), (3, 3), (31, 33),
+                                   (70, 37)])
+def test_adi_half_builds_equal_the_composition(shape, b, c, rng):
+    """The builds' plain versions (what ``td_rows_rhs``/``td_lanes_rhs``
+    run on the CPU) equal ``_hold_edges(solve(_rhs_half(u)), u)`` bit for
+    bit, with and without the hoisted coefficients; u's four edges pass
+    through both halves; nothing counts as a launch."""
+    u = torch.from_numpy((rng.normal(size=(b,) + shape) * 500)
+                         .astype(np.float32))
+    cxs = torch.tensor([c, c / 2, c * 2][:b])
+    cys = torch.tensor([c * 2, c, c / 2][:b])
+    kx, ky = ttd.adi_coeffs(u, cxs, cys)
+    ttd.reset_launch_counts()
+    ustar = ttd.td_rows_rhs(u, cxs, cys, kx)
+    assert torch.equal(ustar, _half_x(u, cxs, cys, kx))
+    assert torch.equal(ttd.td_rows_rhs_plain(u, cxs, cys, kx), ustar)
+    assert torch.equal(ttd.td_rows_rhs(u, cxs, cys), ustar)
+    y = ttd.td_lanes_rhs(ustar, cys, cxs, ky)
+    assert torch.equal(y, _half_y(ustar, cxs, cys, ky, u))
+    assert torch.equal(ttd.td_lanes_rhs_plain(ustar, cys, cxs, ky), y)
+    assert torch.equal(ttd.td_lanes_rhs(ustar, cys, cxs), y)
+    for v in (ustar, y):
+        assert torch.equal(v[:, [0, -1]], u[:, [0, -1]])
+        assert torch.equal(v[:, :, [0, -1]], u[:, :, [0, -1]])
+    assert ttd.launch_counts() == {"td_coeffs": 0, "td_rows": 0,
+                                   "td_lanes": 0}
+
+
+def test_batched_adi_kernel_is_the_composed_loop_and_counts_halves(rng):
+    """Four steps of ``batched_adi_kernel`` equal a step loop of the
+    composition, bit for bit; the registry counts 2 x 4 halves in one
+    call, none of them one launch on the CPU; ``adi_sweep_kernel`` counts
+    its step's 2."""
+    ub = torch.from_numpy((rng.normal(size=(3, 31, 33)) * 500)
+                          .astype(np.float32))
+    cxs = torch.tensor([0.3, 25.0, 51.2])
+    cys = torch.tensor([51.2, 0.3, 25.0])
+    before = _halves()
+    got = ttd.batched_adi_kernel(ub, cxs, cys, steps=4)
+    assert [a - b for a, b in zip(_halves(), before)] == [8, 0]
+    kx, ky = ttd.adi_coeffs(ub, cxs, cys)
+    u = ub
+    for _ in range(4):
+        u = _half_y(_half_x(u, cxs, cys, kx), cxs, cys, ky, u)
+    assert torch.equal(got, u)
+    before = _halves()
+    one = ttd.adi_sweep_kernel(ub, cxs, cys)
+    assert [a - b for a, b in zip(_halves(), before)] == [2, 0]
+    assert torch.equal(one, _half_y(_half_x(ub, cxs, cys, kx), cxs, cys,
+                                    ky, ub))
+    before = _halves()
+    assert ttd.batched_adi_kernel(ub, cxs, cys, steps=0) is ub
+    assert _halves() == before
+
+
+def _record_launches(monkeypatch) -> list:
+    """Send ``_launch``'s calls to a library that records them and
+    returns 0, on an H100's SMs and shared memory; the list of (entry,
+    args)."""
+    import ctypes
+    from types import SimpleNamespace
+    calls = []
+
+    class Lib:
+        def __getattr__(self, name):
+            return lambda *args: calls.append((name, args)) or 0
+    monkeypatch.setattr(ttd, "_lib", Lib)
+    monkeypatch.setattr(ttd, "_stream", lambda t: ctypes.c_void_p(7))
+    monkeypatch.setattr(ttd.cs, "device_caps", lambda d: SimpleNamespace(
+        sm_count=132, smem_optin=232448))
+    return calls
+
+
+@pytest.mark.parametrize("rhs", [False, True])
+@pytest.mark.parametrize("kernel", ["td_rows", "td_lanes"])
+def test_launch_passes_each_build_its_entry_and_plan(kernel, rhs,
+                                                     monkeypatch):
+    """``_launch`` (the card's side of the wrappers, here against a
+    library that records its calls): a right-hand-side build goes to its
+    own entry point with the stencil's diffusion numbers after c, on the
+    plan of its wider ring, and counts as its solve kernel's launch."""
+    from heat2d_tpu_torch.ops import _build
+    calls = _record_launches(monkeypatch)
+    x = torch.zeros(2, 70, 37)
+    c, s = torch.ones(2), torch.full((2,), 2.0)
+    coef = ttd.td_coeffs(c, 70 if kernel == "td_rows" else 37)
+    ttd.reset_launch_counts()
+    out = ttd._launch(kernel, x, c, coef, s if rhs else None)
+    [(name, args)] = calls
+    assert name == f"heat_{kernel}" + ("_rhs" if rhs else "")
+    assert len(args) == len(_build.SIGNATURES["tridiag"][name][1])
+    ptrs = [x, out, c] + ([s] if rhs else []) + [coef]
+    assert [a.value for a in args[:len(ptrs)]] == [t.data_ptr()
+                                                   for t in ptrs]
+    planner = ttd.plan_td_rows if kernel == "td_rows" else ttd.plan_td_lanes
+    plan = planner(2, 70, 37, rhs=rhs)
+    assert args[len(ptrs):-1] == (2, 70, 37, plan.warps,
+                                  int(plan.coef_smem))
+    assert ttd.launch_counts()[kernel] == 1
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+def test_fused_halves_are_counted_at_the_launch(steps, monkeypatch):
+    """``adi_halves_fused_total`` counts the right-hand-side builds that
+    ``_launch`` ran, not the device: with each half's build sent to a
+    recording library, as a card's wrappers send it, a call of
+    ``batched_adi_kernel`` counts 2 x steps halves and as many launches,
+    one entry point a half in turn; ``adi_sweep_kernel`` counts its 2."""
+    calls = _record_launches(monkeypatch)
+    monkeypatch.setattr(ttd, "td_rows_rhs", lambda u, c, s, coef:
+                        ttd._launch("td_rows", u, c, coef, s))
+    monkeypatch.setattr(ttd, "td_lanes_rhs", lambda u, c, s, coef:
+                        ttd._launch("td_lanes", u, c, coef, s))
+    u = torch.zeros(2, 7, 9)
+    cxs, cys = torch.tensor([0.3, 25.0]), torch.tensor([51.2, 0.3])
+    before = _halves()
+    ttd.batched_adi_kernel(u, cxs, cys, steps=steps)
+    assert [a - b for a, b in zip(_halves(), before)] == [2 * steps] * 2
+    assert [name for name, _ in calls] == [
+        "heat_td_rows_rhs", "heat_td_lanes_rhs"] * steps
+    before = _halves()
+    ttd.adi_sweep_kernel(u, cxs, cys)
+    assert [a - b for a, b in zip(_halves(), before)] == [2, 2]
+
+
+@pytest.mark.parametrize("nb, n1, n2", [(1, 2560, 2048), (4, 4096, 4096),
+                                        (3, 70, 37), (1, 30000, 36)])
+def test_plan_rhs_builds_count_their_wider_rings(nb, n1, n2):
+    """The right-hand-side builds plan H10 and H11 as the solves do, with
+    their rings: H10's two halo columns beside each ring row, H11's slots
+    of 34 rows; every plan fits the H100's 232,448 bytes."""
+    assert ttd.TD_RHS_RING_BYTES == 8 * 32 * 32 * 4 + 2 * 32 * 34 * 4
+    assert ttd.TD_LANES_RHS_RING_BYTES == 8 * 34 * 33 * 4
+    for planner, ring in ((ttd.plan_td_rows, ttd.TD_RHS_RING_BYTES),
+                          (ttd.plan_td_lanes, ttd.TD_LANES_RHS_RING_BYTES)):
+        plan = planner(nb, n1, n2, rhs=True)
+        solve = planner(nb, n1, n2)
+        assert (plan.warps, plan.blocks) == (solve.warps, solve.blocks)
+        n = n1 if planner is ttd.plan_td_rows else n2
+        coef = -(-8 * n // 16) * 16
+        assert plan.coef_smem == (coef + plan.warps * ring <= 232448)
+        assert plan.smem_bytes == (coef if plan.coef_smem else 0) \
+            + plan.warps * ring <= 232448
 
 
 # ------------------------------------------------------------------ #

@@ -374,6 +374,16 @@ def test_digest_of_synthetic_cuda_events():
     assert "H2" in trace_report.to_markdown(d)
 
 
+#: H10's and H11's right-hand-side builds (one launch an ADI half), as a
+#: CUDA profiler's trace names them on the H100
+ADI_HALF_X = ("void (anonymous namespace)::k_td_rows<true, true>(float "
+              "const*, float*, float const*, float const*, float const*, "
+              "int, int)")
+ADI_HALF_Y = ("void (anonymous namespace)::k_td_lanes<true, true>(float "
+              "const*, float*, float const*, float const*, float const*, "
+              "int, int)")
+
+
 @pytest.mark.parametrize("name,label", [
     (H2, "H2"), (H3, "H3"), (H7, "H7"), (H9, "H9"),
     ("void (anonymous namespace)::k_ens_tile<false>(float const*)", "H6"),
@@ -386,6 +396,7 @@ def test_digest_of_synthetic_cuda_events():
      "AdvDiff, false>(float*)", "H8"),
     ("void (anonymous namespace)::k_td_rows<true>(float*)", "H10"),
     ("void (anonymous namespace)::k_td_lanes<false>(float*)", "H11"),
+    (ADI_HALF_X, "H10"), (ADI_HALF_Y, "H11"),
     ("k_td_coeffs(float const*, float*, int, int)", "td_coeffs"),
     ("void (anonymous namespace)::k_shard_fused<0>(float**)", "H14"),
     ("void at::native::vectorized_elementwise_kernel<4, at::native::"
@@ -393,6 +404,17 @@ def test_digest_of_synthetic_cuda_events():
     ("ncclKernel_AllReduce_RING_LL_Sum_float", None)])
 def test_kernel_labels_cover_every_hand_kernel(name, label):
     assert trace_report.kernel_label(name) == label
+
+
+@pytest.mark.parametrize("name,label", [
+    (ADI_HALF_X, "H10 k_td_rows"), (ADI_HALF_Y, "H11 k_td_lanes")])
+def test_benchmark_digest_labels_the_adi_halves(name, label):
+    """The benchmark's digest (``portbench/trace_digest.py``) gives the
+    ADI halves' builds the solves' labels, which
+    ``kernels_roofline.adi_tridiag`` reads."""
+    from portbench import trace_digest
+    assert trace_digest.kernel_label(name) == label.split()[0]
+    assert trace_digest.op_name({"cat": "kernel", "name": name}) == label
 
 
 def _write_capture(path, events, gz=False):

@@ -22,22 +22,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 from pathlib import Path
 
-
-def time_ms(torch, fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+from checkout_timing import card, load, time_ms
 
 
 def main(argv=None) -> int:
@@ -47,31 +35,20 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", default="20,10000")
     ap.add_argument("--reps", type=int, default=20)
     args = ap.parse_args(argv)
-    root = Path(args.root).resolve()
-    sys.path.insert(0, str(root))
-
-    import torch
-    if not torch.cuda.is_available():
-        print("time_resident: no CUDA device", file=sys.stderr)
+    got = load(args.root, "ops.cuda_stencil", "time_resident")
+    if got is None:
         return 1
-    from heat2d_tpu_torch.ops import cuda_stencil as cs
+    torch, cs = got
     from heat2d_tpu_torch.ops.init import inidat
-    if not Path(cs.__file__).resolve().is_relative_to(root):
-        print(f"time_resident: imported {cs.__file__}, not from {root}",
-              file=sys.stderr)
-        return 1
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
     u = inidat(640, 1024, device="cuda")
     ms = {}
     for n in (int(s) for s in args.steps.split(",")):
         reps = max(1, min(args.reps, 20000 // n))
         ms[str(n)] = time_ms(
             torch, lambda: cs.resident(u, n, 0.1, 0.1), reps)
-    print(json.dumps({"root": str(root), "card": card,
+    print(json.dumps({"root": str(Path(args.root).resolve()),
+                      "card": card(),
                       "shape": "640x1024", "ms": ms}))
     return 0
 
