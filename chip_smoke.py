@@ -467,7 +467,7 @@ def phase_build() -> dict:
     from heat2d_tpu_torch.ops.resident import plan_resident
     t0 = time.perf_counter()
     libs = _build.build_all()
-    caps = cs.device_caps("cuda")
+    caps = _build.device_caps("cuda")
     h2 = cs.tile_plan(4096, 4096, cs.DEFAULT_TSTEPS, "cuda")
     h9 = {}
     for fam in FAMILY_COEFS:
@@ -506,6 +506,7 @@ def phase_kernels(torch) -> dict:
     own count of its tiles by path must equal the planner's). H4 in both
     forms bit for bit against the H2 route, and a wait that cannot end,
     which must raise."""
+    from heat2d_tpu_torch.ops import _build
     from heat2d_tpu_torch.ops import cuda_stencil as cs
     from heat2d_tpu_torch.ops.resident import ResidentPlan
     g = torch.Generator(device="cuda")
@@ -514,7 +515,7 @@ def phase_kernels(torch) -> dict:
               (10, 10)]
     forms = (cs.FORM_FMA, cs.FORM_LITERAL)
     cx, cy = 0.1, 0.1
-    worst = {k: 0.0 for k in cs.LAUNCHES}
+    worst = {k: 0.0 for k in _build.LAUNCH_NAMES["stencil"]}
     checks = 0
     paths = {}
 
@@ -577,7 +578,8 @@ def phase_kernels(torch) -> dict:
                     lambda: cs.tiled_chunk(u, n, cx, cy, form,
                                            cs.DEFAULT_TSTEPS),
                     lambda: cs.multi_step_plain(u, n, cx, cy, form),
-                    cs.launch_counts, "tile_multi",
+                    functools.partial(_build.launch_counts, "stencil"),
+                    "tile_multi",
                     lambda ref: (0.0 if form == cs.FORM_LITERAL
                                  else fma_tol(n, ref)),
                     f"{shape} steps={n} form {form}")
@@ -651,12 +653,13 @@ def phase_ensemble_kernels(torch) -> dict:
     and 4099x4097 members, which must be served by H6; the step loop H5
     does not take, bit for bit too; and a wait that cannot end, which must
     raise."""
+    from heat2d_tpu_torch.ops import _build
     from heat2d_tpu_torch.ops import cuda_ensemble as ce
     from heat2d_tpu_torch.ops import cuda_stencil as cs
     from heat2d_tpu_torch.ops.resident import ResidentPlan, plan_resident
     g = torch.Generator(device="cuda")
     g.manual_seed(1613)
-    worst = {k: 0.0 for k in ce.LAUNCHES}
+    worst = {k: 0.0 for k in _build.LAUNCH_NAMES["ensemble"]}
     checks = 0
     paths = {}
 
@@ -712,9 +715,9 @@ def phase_ensemble_kernels(torch) -> dict:
                     f"path {got}, the planner's {planned}")
         paths[f"{shape[0]}x{shape[1]}"] = got
         if shape == (4099, 4097):
-            before = ce.launch_counts()
+            before = _build.launch_counts("ensemble")
             ce.ens_resident(u, 9, cxs, cys)
-            after = ce.launch_counts()
+            after = _build.launch_counts("ensemble")
             fail_unless(after["ens_resident"] == before["ens_resident"]
                         and after["ens_tile_multi"]
                         == before["ens_tile_multi"] + 2,
@@ -732,7 +735,8 @@ def phase_ensemble_kernels(torch) -> dict:
                 lambda: ce.ens_tiled_chunk(u, n, cxs, cys),
                 (lambda: ce.ens_multi_step_plain(u, n, cxs, cys))
                 if b <= 8 else None,
-                ce.launch_counts, "ens_tile_multi",
+                functools.partial(_build.launch_counts, "ensemble"),
+                "ens_tile_multi",
                 lambda ref: fma_tol(n, ref), f"B={b} {shape} steps={n}")
             worst["ens_resident"] = max(worst["ens_resident"], err)
             checks += 1
@@ -816,12 +820,13 @@ def phase_family_kernels(torch) -> dict:
     Then H8's on-chip sweep (``resident_cases``) against the H9 route bit
     for bit (the step loop H8 does not take too), and 4099x4097 members,
     which must be served by H9."""
+    from heat2d_tpu_torch.ops import _build
     from heat2d_tpu_torch.ops import cuda_family as cf
     from heat2d_tpu_torch.ops.resident import plan_resident
     from heat2d_tpu_torch.problems.registry import get_family
     g = torch.Generator(device="cuda")
     g.manual_seed(1614)
-    worst = {k: 0.0 for k in cf.LAUNCHES}
+    worst = {k: 0.0 for k in _build.LAUNCH_NAMES["family"]}
     checks = 0
     for problem, (lo, hi) in FAMILY_COEFS.items():
         for shape in [(37, 53), (4099, 4097)]:
@@ -842,9 +847,9 @@ def phase_family_kernels(torch) -> dict:
                                     f"{err} > {tol}")
                         checks += 1
                 if shape == (4099, 4097) and b == 8:
-                    before = cf.launch_counts()
+                    before = _build.launch_counts("family")
                     cf.fam_resident(u, 9, scal, problem)
-                    after = cf.launch_counts()
+                    after = _build.launch_counts("family")
                     sweeps = len(cf.sweep_schedule(9, problem))
                     fail_unless(
                         after["fam_resident"] == before["fam_resident"]
@@ -865,7 +870,8 @@ def phase_family_kernels(torch) -> dict:
                     lambda: cf.fam_tiled_chunk(u, n, scal, problem),
                     (lambda: cf.fam_multi_step_plain(u, n, scal, problem))
                     if b <= 3 else None,
-                    cf.launch_counts, "fam_tile_multi",
+                    functools.partial(_build.launch_counts, "family"),
+                    "fam_tile_multi",
                     lambda ref: family_tol(problem, n, ref),
                     f"{problem} B={b} {shape} steps={n}")
                 worst["fam_resident"] = max(worst["fam_resident"], err)
@@ -914,10 +920,11 @@ def phase_tridiag_kernels(torch) -> dict:
     ``td_lanes_rhs`` the y half on its result), bit for bit against their
     plain versions at the ADI cell's 2560x2048 and at 4096^2, which
     spills the L2, with 1 and 4 members."""
+    from heat2d_tpu_torch.ops import _build
     from heat2d_tpu_torch.ops import tridiag as td
     g = torch.Generator(device="cuda")
     g.manual_seed(1615)
-    worst = {k: 0.0 for k in td.LAUNCHES}
+    worst = {k: 0.0 for k in _build.LAUNCH_NAMES["tridiag"]}
     checks = 0
     cs_ = [51.2, 0.3, 7.0]
     for shape in [(37, 53), (1031, 2053), (4099, 4097)]:
@@ -1028,7 +1035,7 @@ def phase_serve(torch) -> dict:
     route on the card."""
     from heat2d_tpu_torch.models import ensemble
     from heat2d_tpu_torch.obs.metrics import MetricsRegistry
-    from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    from heat2d_tpu_torch.ops import _build
     from heat2d_tpu_torch.serve.schema import SolveRequest
     from heat2d_tpu_torch.serve.server import Client, SolveServer
 
@@ -1050,7 +1057,7 @@ def phase_serve(torch) -> dict:
                          default_timeout=600.0)
     client = Client(server)
     answers, seconds = {}, {}
-    ce.reset_launch_counts()
+    _build.reset_launch_counts()
     with server:
         for name, reqs in legs.items():
             t0 = time.perf_counter()
@@ -1063,7 +1070,7 @@ def phase_serve(torch) -> dict:
         pair = [client.submit(dup), client.submit(dup)]
         pair = [f.result(timeout=900) for f in pair]
         seconds["d"] = time.perf_counter() - t0
-    counts = ce.launch_counts()
+    counts = _build.launch_counts("ensemble")
     requests = sum(len(r) for r in legs.values()) + 3
     launches = server.engine.launches
 
@@ -1131,7 +1138,7 @@ def phase_main_path(torch) -> dict:
     golden model on the card."""
     from heat2d_tpu_torch.config import HeatConfig
     from heat2d_tpu_torch.models.solver import Heat2DSolver
-    from heat2d_tpu_torch.ops import cuda_stencil as cs
+    from heat2d_tpu_torch.ops import _build
 
     def both(cfg):
         got = Heat2DSolver(cfg).run()
@@ -1162,12 +1169,12 @@ def phase_main_path(torch) -> dict:
             big.replace(convergence=True, interval=20),
             big.replace(convergence=True, interval=20, bitwise_parity=True),
             HeatConfig(nxprob=640, nyprob=1024, steps=10000, mode="pallas")]
-    cs.reset_launch_counts()
+    _build.reset_launch_counts()
     runs = []
     for cfg in cfgs:
         runs.append(both(cfg))
         emit({"phase": "main_path_run", **runs[-1]})
-    counts = cs.launch_counts()
+    counts = _build.launch_counts("stencil")
     for name, n in counts.items():
         fail_unless(n > 0, f"kernel {name} never launched on the main path")
     routes = [r["route"] for r in runs]
@@ -1367,13 +1374,13 @@ def resident_k_sweep(torch, launch, ring_w: int, ks, nb: int = 8) -> dict:
     forced (the planner's tiles for that K): K -> ms. ``launch(plan)``
     runs the kernel on ``plan``. The planner's exchange cost is fitted to
     these."""
-    from heat2d_tpu_torch.ops import cuda_stencil as cs
+    from heat2d_tpu_torch.ops import _build
     from heat2d_tpu_torch.ops.resident import plan_for_limits
-    caps = cs.device_caps("cuda")
+    caps = _build.device_caps("cuda")
     out = {}
     for k in ks:
-        plan = plan_for_limits(nb, 640, 1024, ring_w, cs.smem_limit("cuda"),
-                               caps.sm_count, k)
+        plan = plan_for_limits(nb, 640, 1024, ring_w,
+                               _build.smem_limit("cuda"), caps.sm_count, k)
         out[str(k)] = time_ms(functools.partial(launch, plan), 1)
     return out
 
@@ -1536,10 +1543,9 @@ def family_tridiag_kernel_rows(torch) -> list:
             coeffs_ms=coeffs_ms,
             plain_ms=time_ms(lambda: plain(rhs, c, c, coef), 2),
             bound_ms=bnd, bound_by=by, library_ms=None))
-    plan = td.plan_td_rows(1, 4096, 4096, *caps_of(torch))
+    plan = td.plan_td_rows(1, 4096, 4096, "cuda")
     rows[-2]["plan"] = plan._asdict()
-    rows[-1]["plan"] = td.plan_td_lanes(1, 4096, 4096,
-                                        *caps_of(torch))._asdict()
+    rows[-1]["plan"] = td.plan_td_lanes(1, 4096, 4096, "cuda")._asdict()
     rows[-2]["variants_ms"] = td_rows_variants(torch, rhs, c, coef, plan)
     return rows
 
@@ -1583,6 +1589,7 @@ def td_rows_variants(torch, rhs, c, coef, plan) -> dict:
     them here, or through the read-only cache, as above ~24k rows) at the
     plan's warps, each timed and checked bitwise against the plain
     version."""
+    from heat2d_tpu_torch.ops import _build
     from heat2d_tpu_torch.ops import tridiag as td
     nb, n, m = rhs.shape
     want = td.td_rows_plain(rhs, c, coef)
@@ -1591,22 +1598,14 @@ def td_rows_variants(torch, rhs, c, coef, plan) -> dict:
         got = torch.empty_like(rhs)
 
         def run():
-            td._check(td._lib().heat_td_rows(
-                td._ptr(rhs), td._ptr(got), td._ptr(c), td._ptr(coef), nb,
-                n, m, plan.warps, coef_smem, td._stream(rhs)),
-                "td_rows variant")
+            _build.call("tridiag", "heat_td_rows", "td_rows",
+                        "td_rows variant", rhs, got, c, coef, nb, n, m,
+                        plan.warps, coef_smem)
         key = f"coef_smem={coef_smem}"
         out[key] = time_ms(run, 20)
         fail_unless(torch.equal(got, want),
                     f"H10 {key} differs from td_rows_plain")
     return out
-
-
-def caps_of(torch) -> tuple:
-    """(SMs, opt-in shared memory per block) of the card."""
-    from heat2d_tpu_torch.ops import cuda_stencil as cs
-    caps = cs.device_caps("cuda")
-    return caps.sm_count, caps.smem_optin
 
 
 #: H9's plan sweep: the depths T tried per family.
@@ -1770,8 +1769,8 @@ def phase_implicit_path(torch) -> dict:
     before the solver runs, show H10 and H11 ran."""
     from heat2d_tpu_torch.config import HeatConfig
     from heat2d_tpu_torch.models.solver import Heat2DSolver
+    from heat2d_tpu_torch.ops import _build
     from heat2d_tpu_torch.ops import analytic
-    from heat2d_tpu_torch.ops import tridiag as td
 
     c, interval, exit_check = 51.2, 10, 5
     fixed = HeatConfig(nxprob=4096, nyprob=4096, steps=20, cx=c, cy=c,
@@ -1781,14 +1780,14 @@ def phase_implicit_path(torch) -> dict:
     conv = fixed.replace(nxprob=1024, nyprob=1024, steps=100,
                          convergence=True, interval=interval,
                          sensitivity=sens)
-    td.reset_launch_counts()
+    _build.reset_launch_counts()
     runs = []
     for cfg in (fixed, conv):
         got = Heat2DSolver(cfg).run()
         want = Heat2DSolver(cfg.replace(mode="serial")).run(timed=False)
         runs.append(adi_check(torch, got, want, cfg))
         emit({"phase": "implicit_path_run", **runs[-1]})
-    counts = td.launch_counts()
+    counts = _build.launch_counts("tridiag")
     for name in ("td_coeffs", "td_rows", "td_lanes"):
         fail_unless(counts[name] > 0, f"{name} never launched on the ADI "
                     f"path")
@@ -1906,7 +1905,7 @@ def phase_serve_families(torch) -> dict:
     H8-H11 ran."""
     from heat2d_tpu_torch.models import ensemble
     from heat2d_tpu_torch.obs.metrics import MetricsRegistry
-    from heat2d_tpu_torch.ops import cuda_family as cf
+    from heat2d_tpu_torch.ops import _build
     from heat2d_tpu_torch.ops import tridiag as td
     from heat2d_tpu_torch.ops.init import inidat
     from heat2d_tpu_torch.serve.schema import Rejected, SolveRequest
@@ -1918,8 +1917,7 @@ def phase_serve_families(torch) -> dict:
                          default_timeout=600.0)
     client = Client(server)
     answers, seconds = {}, {}
-    cf.reset_launch_counts()
-    td.reset_launch_counts()
+    _build.reset_launch_counts()
     with server:
         for name, reqs in legs.items():
             t0 = time.perf_counter()
@@ -1933,7 +1931,8 @@ def phase_serve_families(torch) -> dict:
             rejected = None
         except Rejected as e:
             rejected = e
-    counts = {**cf.launch_counts(), **td.launch_counts()}
+    counts = {**_build.launch_counts("family"),
+              **_build.launch_counts("tridiag")}
     fail_unless(hit.cache_hit and hit.u.tobytes()
                 == answers["f"][0].u.tobytes(),
                 "leg f: the repeat was not a bitwise cache hit")
@@ -2188,6 +2187,7 @@ def phase_diff_path(torch, name: str, power: str) -> dict:
     launches are counted over the band gradients and the inverse requests,
     and must equal their sweeps."""
     from heat2d_tpu_torch.diff.adjoint import make_diff_solve
+    from heat2d_tpu_torch.ops import _build
     from heat2d_tpu_torch.ops import cuda_ensemble as ce
     from heat2d_tpu_torch.ops.init import inidat
 
@@ -2200,10 +2200,10 @@ def phase_diff_path(torch, name: str, power: str) -> dict:
     band = make_diff_solve(n, n, steps, method="auto", device="cuda")
     fail_unless(band.spec.method == "band",
                 f"{n}^2 auto resolved to {band.spec.method}, not band")
-    ce.reset_launch_counts()
+    _build.reset_launch_counts()
     runs = {"band_checkpoint": grad_run(torch, band, u0, w, 0.1, 0.1)}
     inverse = diff_inverse_requests(torch)
-    launches = ce.launch_counts()
+    launches = _build.launch_counts("ensemble")
     sweeps = sum(-(-k // ce.DEFAULT_TSTEPS) for k in band.spec.schedule)
     want = 2 * sweeps + inverse["h6_sweeps"]
     fail_unless(launches["ens_tile_multi"] == want,
@@ -2323,13 +2323,14 @@ def phase_shard_kernels(torch) -> dict:
     shards by path in one sweep, as H12/H13 counted them (``paths``); they
     must equal the planner's count (``cuda_shard.tile_paths``), and every
     path must be taken."""
+    from heat2d_tpu_torch.ops import _build
     from heat2d_tpu_torch.ops import cuda_shard as csh
     from heat2d_tpu_torch.ops import cuda_stencil as cs
     from heat2d_tpu_torch.parallel.halo import exchange_halo_strips
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1616)
     cx, cy, t = 0.1, 0.1, 8
-    worst = {k: 0.0 for k in csh.LAUNCHES}
+    worst = {k: 0.0 for k in _build.LAUNCH_NAMES["shard"]}
     checks = 0
 
     def judge(name, got, ref, n, form, what):
@@ -2350,7 +2351,7 @@ def phase_shard_kernels(torch) -> dict:
         blocks = _shard_grid(torch, nx, ny, gx, gy, gen)
         bm, bn = blocks[0][0].shape
         strips = exchange_halo_strips(blocks, t)
-        plan = cs.plan_strip_sweep(bm, bn, t)
+        plan = cs.tile_plan(bm, bn, t, "cuda")
         kinds = [csh.tile_paths(plan, i * bm, j * bn, bm, bn, nx, ny)
                  for i in range(gx) for j in range(gy)]
         planned = {k: sum(d[k] for d in kinds) for k in csh.TILE_PATHS}
@@ -2478,7 +2479,7 @@ def phase_sharded_path(torch) -> dict:
     strips) of the one card, against mode serial on the card."""
     from heat2d_tpu_torch.config import HeatConfig
     from heat2d_tpu_torch.models.solver import Heat2DSolver
-    from heat2d_tpu_torch.ops import cuda_shard as csh
+    from heat2d_tpu_torch.ops import _build
     from heat2d_tpu_torch.parallel.mesh import host_devices
     devs = host_devices(4)
     big = HeatConfig(nxprob=4096, nyprob=4096, steps=240, gridx=2, gridy=2,
@@ -2505,7 +2506,7 @@ def phase_sharded_path(torch) -> dict:
         return serial[key]
 
     def run(cfg, want=None, u0=None):
-        before = csh.launch_counts()
+        before = _build.launch_counts("shard")
         solver = Heat2DSolver(cfg, devices=devs)
         got = solver.run(u0=None if u0 is None else solver.place(u0))
         u = torch.from_numpy(got.u)
@@ -2524,7 +2525,7 @@ def phase_sharded_path(torch) -> dict:
         err = max_err(u, ref_u)
         tol = 0.0 if exact else fma_tol(got.steps_done, ref_u)
         fail_unless(err <= tol, f"{cfg}: max_abs_err {err} > {tol}")
-        after = csh.launch_counts()
+        after = _build.launch_counts("shard")
         row = {"mode": cfg.mode, "shape": list(cfg.shape),
                "steps": cfg.steps, "halo": cfg.halo,
                "bitwise_parity": cfg.bitwise_parity,
@@ -2542,7 +2543,7 @@ def phase_sharded_path(torch) -> dict:
         emit({"phase": "sharded_path_run", **row})
         return got, row
 
-    csh.reset_launch_counts()
+    _build.reset_launch_counts()
     rows = []
     for cfg in (big.replace(mode="dist2d"), big.replace(mode="dist1d"),
                 big.replace(mode="hybrid"),
@@ -2557,7 +2558,7 @@ def phase_sharded_path(torch) -> dict:
     rows.append(row)
     rows.append(run(conv, u0=noisy)[1])
     rows.append(run(ref2d)[1])
-    counts = csh.launch_counts()
+    counts = _build.launch_counts("shard")
     for name, n in counts.items():
         fail_unless(n > 0, f"kernel {name} never launched on the sharded "
                     f"path")
@@ -2576,23 +2577,16 @@ def phase_sharded_path(torch) -> dict:
 # slice 6: members over slots, mesh serving, the fault tier, scaling
 # ------------------------------------------------------------------ #
 
-def _counters():
-    from heat2d_tpu_torch.ops import cuda_ensemble as ce
-    from heat2d_tpu_torch.ops import cuda_family as cf
-    from heat2d_tpu_torch.ops import cuda_shard as csh
-    return ce, cf, csh
-
-
 def reset_counts() -> None:
-    for mod in _counters():
-        mod.reset_launch_counts()
+    from heat2d_tpu_torch.ops import _build
+    _build.reset_launch_counts()
 
 
 def read_counts() -> dict:
-    out = {}
-    for mod in _counters():
-        out.update(mod.launch_counts())
-    return out
+    """The ensemble, family and shard kernels' launches."""
+    from heat2d_tpu_torch.ops import _build
+    return {k: v for lib in ("ensemble", "family", "shard")
+            for k, v in _build.launch_counts(lib).items()}
 
 
 def add_counts(total: dict, counts: dict) -> None:
@@ -3108,7 +3102,7 @@ def shard_kernel_rows(torch) -> list:
         bound_ms=b, bound_by=by, library_ms=None,
         device_ms=time_device_ms(
             lambda: csh.shard_tile_multi(u, st, *args), 20)))
-    plan = cs.plan_strip_sweep(bm, bm, t, caps_of(torch)[1])
+    plan = cs.tile_plan(bm, bm, t, "cuda")
     counted = csh.path_counter("cuda")
     csh.shard_tile_multi(u, st, *args, paths=counted)
     rows[-1]["plan"] = {"tile": [plan.ty, plan.tx], "ring": plan.tsteps,
@@ -4122,21 +4116,21 @@ def _load_replay_leg(torch, trace_dir, tmp) -> dict:
     ``heat2d-tpu-torch-load --replay`` against an in-process server on
     the card, with the recorded gaps and ``--max-skew``."""
     from heat2d_tpu_torch.load import cli, replay
-    from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    from heat2d_tpu_torch.ops import _build
     sched = replay.schedule_from_trace_dir(trace_dir)
     widths = {}
     for a in sched:
         key = f"{a.spec['nx']}x{a.spec['ny']}"
         widths[key] = widths.get(key, 0) + 1
     out = os.path.join(tmp, "replay.jsonl")
-    ce.reset_launch_counts()
+    _build.reset_launch_counts()
     t0 = time.perf_counter()
     rc = _quiet(cli.main, ["--replay", trace_dir, "--target", "serve",
                            "--device", LOAD_DEVICE, "--max-skew",
                            str(LOAD_REPLAY_MAX_SKEW_S), "--metrics-out",
                            out])
     seconds = time.perf_counter() - t0
-    launches = ce.launch_counts()
+    launches = _build.launch_counts("ensemble")
     with open(out) as f:
         rec = [json.loads(line) for line in f
                if '"run_record"' in line][0]
@@ -4206,7 +4200,7 @@ def _load_serve_leg(torch, name, power, measure: bool) -> dict:
     from heat2d_tpu_torch.load import gate, synth
     from heat2d_tpu_torch.load.runner import ServeTarget, warm_target
     from heat2d_tpu_torch.obs.metrics import MetricsRegistry
-    from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    from heat2d_tpu_torch.ops import _build
     from heat2d_tpu_torch.resil import chaos
 
     h5, h6 = load_mixes()
@@ -4217,7 +4211,7 @@ def _load_serve_leg(torch, name, power, measure: bool) -> dict:
     fail_unless(measure or committed is not None,
                 f"load: no committed baseline at {LOAD_BASELINE}")
     reg = MetricsRegistry()
-    ce.reset_launch_counts()
+    _build.reset_launch_counts()
     t0 = time.perf_counter()
     target = ServeTarget(registry=reg, device=LOAD_DEVICE)
     log = target.server.engine.launch_log
@@ -4301,7 +4295,7 @@ def _load_serve_leg(torch, name, power, measure: bool) -> dict:
         fail_unless(failures == 0, f"load: {failures} launch failures")
     finally:
         target.close()
-    out["launches"] = ce.launch_counts()
+    out["launches"] = _build.launch_counts("ensemble")
     fail_unless(out["launches"]["ens_resident"] > 0
                 and out["launches"]["ens_tile_multi"] > 0,
                 f"load serve: H5/H6 not launched: {out['launches']}")
@@ -5015,7 +5009,7 @@ def _traced_cli(outdir, nx, ny, steps, traced: bool) -> dict:
     and the launch counts of the run (zeroed just before)."""
     from heat2d_tpu_torch.cli import main as cli_main
     from heat2d_tpu_torch.obs import tracing
-    from heat2d_tpu_torch.ops import cuda_stencil as cs
+    from heat2d_tpu_torch.ops import _build
     rec = os.path.join(outdir, "rec.json")
     argv = ["--mode", "pallas", "--nxprob", str(nx), "--nyprob", str(ny),
             "--steps", str(steps), "--dat-layout", "none",
@@ -5023,14 +5017,14 @@ def _traced_cli(outdir, nx, ny, steps, traced: bool) -> dict:
     if traced:
         argv += ["--profile", os.path.join(outdir, "prof"),
                  "--trace-dir", os.path.join(outdir, "trace")]
-    cs.reset_launch_counts()
+    _build.reset_launch_counts()
     try:
         rc = _quiet(cli_main, argv)
     finally:
         os.environ.pop("HEAT2D_TRACE_DIR", None)
         tracing.set_ambient(None)
         tracing.uninstall()
-    counts = cs.launch_counts()
+    counts = _build.launch_counts("stencil")
     fail_unless(rc == 0, f"cli {nx}x{ny} traced={traced}: rc {rc}")
     with open(rec) as f, open(os.path.join(outdir, "final_binary.dat"),
                               "rb") as g:
@@ -5099,7 +5093,7 @@ def _served_with_obs(torch, tmp) -> dict:
     from heat2d_tpu_torch.io.binary import write_json_atomic
     from heat2d_tpu_torch.obs import perf, slo, trace_cli, tracing
     from heat2d_tpu_torch.obs.metrics import MetricsRegistry
-    from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    from heat2d_tpu_torch.ops import _build
     from heat2d_tpu_torch.serve.schema import SolveRequest
     from heat2d_tpu_torch.serve.server import Client, SolveServer
 
@@ -5117,7 +5111,7 @@ def _served_with_obs(torch, tmp) -> dict:
     server = SolveServer(max_batch=8, max_delay=0.5, registry=registry,
                          default_timeout=600.0)
     client = Client(server)
-    ce.reset_launch_counts()
+    _build.reset_launch_counts()
     try:
         with server:
             for reqs in buckets:
@@ -5126,7 +5120,7 @@ def _served_with_obs(torch, tmp) -> dict:
                     u = f.result(timeout=900).u
                     fail_unless(bool(np.isfinite(u).all()),
                                 "obs serving: non-finite result")
-        counts = ce.launch_counts()
+        counts = _build.launch_counts("ensemble")
         cards = observer.cards()
     finally:
         perf.uninstall()
@@ -5400,11 +5394,11 @@ def phase_sweeps(torch, name: str, power: str) -> dict:
     ``SWEEPS_BUDGET_S`` together: every chip point finite and no suspect
     row left after the sanity pass, every ensemble point measured past
     the noise; the rows are in ``chiprun_out/sweeps/``."""
-    from heat2d_tpu_torch.ops import cuda_stencil as cs
+    from heat2d_tpu_torch.ops import _build
     from tools import sweep_ensemble_torch, sweep_torch
     out_dir = os.path.join(HERE, "chiprun_out", "sweeps")
     reset_counts()
-    cs0 = cs.launch_counts()
+    cs0 = _build.launch_counts("stencil")
     t0 = time.perf_counter()
     rc = _quiet(sweep_torch.main, ["--suite", "chip", "--quick",
                                    "--out", out_dir])
@@ -5417,7 +5411,7 @@ def phase_sweeps(torch, name: str, power: str) -> dict:
     fail_unless(rc == 0, f"sweeps: sweep_ensemble_torch exited {rc}")
     launches = read_counts()
     add_counts(launches, {k: v - cs0[k]
-                          for k, v in cs.launch_counts().items()})
+                          for k, v in _build.launch_counts("stencil").items()})
     chip = _sweep_rows(os.path.join(out_dir, "sweep_chip_quick.jsonl"))
     ens = _sweep_rows(os.path.join(out_dir, "sweep_ensemble.jsonl"))
     fail_unless(len(chip) == 4 and all(

@@ -10,8 +10,8 @@ compares what a run DOES, armed against disarmed:
 - the route the runner took and its host reads of the residual
   (``residual_reads``), and ``steps_done``;
 - the result's bits (its sha256);
-- on the card, the hand kernels' launches (every wrapper's ``LAUNCHES``
-  counter; the plain versions on the CPU count nothing, so there this
+- on the card, the hand kernels' launches (``ops._build.launch_counts``,
+  by wrapper; the plain versions on the CPU count nothing, so there this
   part is vacuous and the card's tests hold it).
 
 Three pins:
@@ -37,16 +37,7 @@ import json
 import os
 from typing import Optional
 
-
-def launch_counts() -> dict:
-    """Every hand-kernel wrapper's launch count, by wrapper name."""
-    from heat2d_tpu_torch.ops import (cuda_ensemble, cuda_family, cuda_shard,
-                                      cuda_stencil, tridiag)
-    out = {}
-    for mod in (cuda_stencil, cuda_ensemble, cuda_family, cuda_shard,
-                tridiag):
-        out.update(mod.launch_counts())
-    return out
+from heat2d_tpu_torch.ops._build import launch_counts
 
 
 def _delta(before: dict, after: dict) -> dict:

@@ -464,9 +464,9 @@ def _run_ensemble_cli(args, cfg) -> int:
     if mh.is_multiprocess():
         # every process's ensemble-kernel launches, warmup included,
         # gathered (a collective: every process calls it)
-        from heat2d_tpu_torch.ops.cuda_ensemble import launch_counts
+        from heat2d_tpu_torch.ops._build import launch_counts
         from heat2d_tpu_torch.utils.timing import gather_over_processes
-        counts = launch_counts()
+        counts = launch_counts("ensemble")
         cols = {k: gather_over_processes(v) for k, v in counts.items()}
         launches_by_process = [{k: int(col[p]) for k, col in cols.items()}
                                for p in range(mh.process_count())]
@@ -794,9 +794,9 @@ def _main(args) -> int:
         # every process's shard-kernel launches (warmup included) and
         # cross-rank exchange totals over the timed run, gathered (a
         # collective: every process calls it)
-        from heat2d_tpu_torch.ops.cuda_shard import launch_counts
+        from heat2d_tpu_torch.ops._build import launch_counts
         from heat2d_tpu_torch.utils.timing import gather_over_processes
-        for key, counts in (("launches_by_process", launch_counts()),
+        for key, counts in (("launches_by_process", launch_counts("shard")),
                             ("exchange_by_process", result.exchange)):
             cols = {k: gather_over_processes(v) for k, v in counts.items()}
             record[key] = [{k: type(counts[k])(col[p])

@@ -69,19 +69,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def launch_counts() -> dict:
-    """This process's hand-kernel launches, by kernel (every counter of
-    ``ops``; zero until a kernel runs, and zero on the CPU, where the
-    wrappers run their plain versions)."""
-    from heat2d_tpu_torch.ops import (cuda_ensemble, cuda_family,
-                                      cuda_shard, cuda_stencil, tridiag)
-    out: dict = {}
-    for mod in (cuda_stencil, cuda_ensemble, cuda_family, cuda_shard,
-                tridiag):
-        out.update(mod.launch_counts())
-    return out
-
-
 class TunedTally:
     """The tuning-db plans a worker's launches took, as its heartbeat
     carries them: [signature, capacity, tuned_config, launches] per
@@ -155,6 +142,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     from heat2d_tpu_torch.fleet import wire
     from heat2d_tpu_torch.obs import MetricsRegistry, flight, tracing
+    from heat2d_tpu_torch.ops._build import launch_counts
     from heat2d_tpu_torch.resil import chaos
     from heat2d_tpu_torch.serve.schema import (Rejected, SolveRequest,
                                                attach_trace)

@@ -38,8 +38,9 @@ H6/H7 move the batch through device memory once each way per sweep;
 their step loop's instructions bound them, as H2's do.
 
 On a CPU tensor a wrapper runs its kernel's plain version; on a CUDA
-tensor it launches the kernel or raises. Each launch adds one to the
-wrapper's entry in ``LAUNCHES``; the plain versions count nothing.
+tensor it launches the kernel or raises. Each launch counts under the
+wrapper's name in ``_build.launch_counts``; the plain versions count
+nothing.
 """
 
 from __future__ import annotations
@@ -48,16 +49,12 @@ import ctypes
 
 import torch
 
-from heat2d_tpu_torch.ops import _build
 from heat2d_tpu_torch.ops import cuda_stencil as cs
+from heat2d_tpu_torch.ops._build import call
 from heat2d_tpu_torch.ops.cuda_stencil import (DEFAULT_TSTEPS,
                                                multi_step_plain, step_plain)
 from heat2d_tpu_torch.ops.resident import (launch_scratch, plan_resident,
                                             raise_if_gave_up)
-
-#: Launches per kernel wrapper since the last ``reset_launch_counts``.
-LAUNCHES = {"ens_resident": 0, "ens_tile_multi": 0,
-            "ens_tile_multi_conv": 0}
 
 #: The tile kernels put the member on blockIdx.z.
 MAX_MEMBERS = 65535
@@ -66,31 +63,6 @@ MAX_MEMBERS = 65535
 #: csrc/ensemble.cu): 8, H2's heat5 build (on the H100 17% faster than 4,
 #: PERF.md).
 STRIP = 8
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def launch_counts() -> dict:
-    return dict(LAUNCHES)
-
-
-def _lib():
-    return _build.load("ensemble")
-
-
-def _check(rc: int, what: str) -> None:
-    _build.check(_lib(), rc, what)
-
-
-def _stream(u) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(u.device).cuda_stream)
-
-
-def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
 
 
 def _validate(u, cxs, cys, what: str, active=None) -> None:
@@ -132,9 +104,8 @@ def func_attrs(name: str) -> dict:
     """Registers and local (spill) bytes a thread of wrapper ``name``'s
     build on the card (``cudaFuncGetAttributes``)."""
     buf = (ctypes.c_int * 2)()
-    _check(_lib().heat_ens_func_attrs(FUNC_BUILDS.index(name),
-                                      ctypes.cast(buf, ctypes.c_void_p)),
-           f"func_attrs {name}")
+    call("ensemble", "heat_ens_func_attrs", None, f"func_attrs {name}",
+         FUNC_BUILDS.index(name), buf)
     return {"registers": buf[0], "local_bytes": buf[1]}
 
 
@@ -215,10 +186,8 @@ def _resident_launch(u, steps: int, cxs, cys, plan, window: bool = True):
             f"bytes of shared memory)")
     out = torch.empty_like(u)
     scratch = launch_scratch(plan, steps, u.device)
-    LAUNCHES["ens_resident"] += 1
-    _check(_lib().heat_ens_resident(
-        _ptr(u), _ptr(out), _ptr(scratch), _ptr(cxs), _ptr(cys),
-        plan.as_ctypes(), steps, int(window), _stream(u)), what)
+    call("ensemble", "heat_ens_resident", "ens_resident", what, u, out,
+         scratch, cxs, cys, plan.as_ctypes(), steps, int(window))
     raise_if_gave_up(scratch, what, plan)
     return out
 
@@ -260,11 +229,8 @@ def _tile_launch(u, nsub, cxs, cys, active, resid, name, paths=None,
     out = torch.empty_like(u)
     parts = (torch.empty((nb, plan.ntiles), dtype=torch.float32,
                          device=u.device) if resid else None)
-    LAUNCHES[name] += 1
-    _check(_lib().heat_ens_tile(
-        _ptr(u), _ptr(out), _ptr(parts), _ptr(paths), _ptr(cxs), _ptr(cys),
-        _ptr(active), nb, nx, ny, plan.tsteps, nsub, plan.ty, plan.tx,
-        _stream(u)), name)
+    call("ensemble", "heat_ens_tile", name, name, u, out, parts, paths, cxs,
+         cys, active, nb, nx, ny, plan.tsteps, nsub, plan.ty, plan.tx)
     return out, parts
 
 

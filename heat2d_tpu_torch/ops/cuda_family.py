@@ -36,8 +36,8 @@ rounded update sequences on the recomputed ring; its paths sweep
 ``SWEEP_TSTEPS[problem]`` steps at a time, a depth measured on the card.
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
-launches the kernel or raises. Each launch adds one to the wrapper's
-entry in ``LAUNCHES``; the plain versions count nothing.
+launches the kernel or raises. Each launch counts under the wrapper's
+name in ``_build.launch_counts``; the plain versions count nothing.
 """
 
 from __future__ import annotations
@@ -46,17 +46,13 @@ import ctypes
 
 import torch
 
-from heat2d_tpu_torch.ops import _build
-from heat2d_tpu_torch.ops.cuda_stencil import (BLOCK_RESERVED_SMEM,
-                                               DEFAULT_TSTEPS, SM_SMEM_BYTES,
-                                               STRIP_WARPS, plan_tiles,
-                                               smem_limit)
+from heat2d_tpu_torch.ops._build import (BLOCK_RESERVED_SMEM, SM_SMEM_BYTES,
+                                         call, smem_limit)
+from heat2d_tpu_torch.ops.cuda_stencil import (DEFAULT_TSTEPS, STRIP_WARPS,
+                                               plan_tiles)
 from heat2d_tpu_torch.ops.resident import (launch_scratch, plan_resident,
                                             raise_if_gave_up)
 from heat2d_tpu_torch.problems.registry import get_family
-
-#: Launches per kernel wrapper since the last ``reset_launch_counts``.
-LAUNCHES = {"fam_resident": 0, "fam_tile_multi": 0}
 
 #: The families the kernels are built for, and their codes in
 #: csrc/family.cu.
@@ -76,36 +72,11 @@ MAX_MEMBERS = 65535
 _ROUNDING = {"heat9": 22 * 3.0, "advdiff": 14 * 3.2, "reactdiff": 12 * 3.25}
 
 
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def launch_counts() -> dict:
-    return dict(LAUNCHES)
-
-
 def rounding_factor(problem: str) -> float:
     """The per-step tolerance factor of ``problem`` (see ``_ROUNDING``):
     after n steps kernel and plain version differ by at most ``n *
     factor * 2**-24 * max|plain|``."""
     return _ROUNDING[problem]
-
-
-def _lib():
-    return _build.load("family")
-
-
-def _check(rc: int, what: str) -> None:
-    _build.check(_lib(), rc, what)
-
-
-def _stream(u) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(u.device).cuda_stream)
-
-
-def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
 
 
 def scalar_block(problem: str, cxs, cys):
@@ -175,10 +146,9 @@ def _resident_launch(u, steps: int, scal, problem: str, plan,
             f"{plan.smem_bytes} bytes of shared memory)")
     out = torch.empty_like(u)
     scratch = launch_scratch(plan, steps, u.device)
-    LAUNCHES["fam_resident"] += 1
-    _check(_lib().heat_fam_resident(
-        FAMILY_CODES[problem], _ptr(u), _ptr(out), _ptr(scratch),
-        _ptr(scal), plan.as_ctypes(), steps, int(window), _stream(u)), what)
+    call("family", "heat_fam_resident", "fam_resident", what,
+         FAMILY_CODES[problem], u, out, scratch, scal, plan.as_ctypes(),
+         steps, int(window))
     raise_if_gave_up(scratch, what, plan)
     return out
 
@@ -244,11 +214,9 @@ def _tile_launch(u, nsub: int, scal, problem: str, plan):
         raise ValueError(f"fam_tile_multi: {nx} rows exceed the launch "
                          f"grid's y limit")
     out = torch.empty_like(u)
-    LAUNCHES["fam_tile_multi"] += 1
-    _check(_lib().heat_fam_tile(
-        FAMILY_CODES[problem], _ptr(u), _ptr(out), _ptr(scal), nb, nx, ny,
-        plan.tsteps, nsub, plan.ty, plan.tx, _stream(u)),
-        f"H9 fam_tile_multi ({problem})")
+    call("family", "heat_fam_tile", "fam_tile_multi",
+         f"H9 fam_tile_multi ({problem})", FAMILY_CODES[problem], u, out,
+         scal, nb, nx, ny, plan.tsteps, nsub, plan.ty, plan.tx)
     return out
 
 
@@ -271,10 +239,8 @@ def tile_info(problem: str, plan) -> dict:
     bytes a thread (what ``nvcc -Xptxas -v`` reports), and the blocks an
     SM holds by ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
     buf = (ctypes.c_int * 4)()
-    _check(_lib().heat_fam_tile_info(FAMILY_CODES[problem],
-                                     plan.smem_bytes,
-                                     ctypes.cast(buf, ctypes.c_void_p)),
-           f"H9 tile_info ({problem})")
+    call("family", "heat_fam_tile_info", None, f"H9 tile_info ({problem})",
+         FAMILY_CODES[problem], plan.smem_bytes, buf)
     return {"registers": buf[0], "local_bytes": buf[1],
             "blocks_per_sm": buf[2], "max_threads": buf[3],
             "warps": FAM_WARPS, "smem_bytes": plan.smem_bytes}

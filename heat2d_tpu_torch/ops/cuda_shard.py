@@ -7,7 +7,7 @@ H12    ``shard_tile_multi``        one (bm, bn) shard and its four T-deep
                                    halo strips -> the shard advanced nsub <=
                                    T steps by the strip sweep of
                                    ``csrc/tile.cuh`` (H9's, planned by
-                                   ``cs.plan_strip_sweep``); replaces kernel D
+                                   ``cs.tile_plan``); replaces kernel D
                                    (``_shard_fused_vmem_kernel``,
                                    ``_shard_fused_band_kernel``) and D2
                                    (``_shard_window_kernel``)
@@ -31,7 +31,8 @@ forms: FMA (``_step_value``) and literal (``_step_value_literal``, bitwise
 equal to the golden step in float32).
 
 Every wrapper runs the plain version on CPU tensors and launches its
-kernel (or raises) on CUDA tensors; each launch adds one to ``LAUNCHES``.
+kernel (or raises) on CUDA tensors; each launch counts under the
+wrapper's name in ``_build.launch_counts``.
 """
 
 from __future__ import annotations
@@ -40,8 +41,8 @@ import ctypes
 
 import torch
 
-from heat2d_tpu_torch.ops import _build
 from heat2d_tpu_torch.ops import cuda_stencil as cs
+from heat2d_tpu_torch.ops._build import call
 from heat2d_tpu_torch.ops.stencil import residual_sq, stencil_step
 from heat2d_tpu_torch.parallel.halo import (exchange_halo_strips, extend,
                                             fused_halo_viable)
@@ -55,27 +56,6 @@ MAX_SHARDS = 64
 #: 8, H2's heat5 build (on the H100 15% faster than the 4 of H12/H13,
 #: PERF.md).
 FUSED_STRIP = 8
-
-LAUNCHES = {"shard_tile_multi": 0, "shard_tile_multi_resid": 0,
-            "shard_fused": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def launch_counts() -> dict:
-    return dict(LAUNCHES)
-
-
-def _lib():
-    return _build.load("shard")
-
-
-def _check(rc: int, what: str) -> None:
-    _build.check(_lib(), rc, what)
-
 
 # --------------------------------------------------------------------- #
 # Plain PyTorch versions
@@ -256,24 +236,20 @@ def _shard_launch(u, strips, nsub, x0, y0, nx, ny, cx, cy, form, resid,
     bm, bn = u.shape
     strips = [s.contiguous() for s in strips]
     t = strips[0].shape[0]
-    plan = cs.plan_strip_sweep(bm, bn, t,
-                              cs.device_caps(u.device).smem_optin)
+    plan = cs.tile_plan(bm, bn, t, u.device)
     if plan.grid[0] > 65535:
         raise ValueError(f"{bm} rows exceed the launch grid's y limit")
     cs._check_paths(paths, len(TILE_PATHS), u.device)
     out = torch.empty_like(u)
     parts = (torch.empty(plan.ntiles, dtype=torch.float32, device=u.device)
              if resid else None)
-    p = cs._ptr
+    name = "shard_tile_multi_resid" if resid else "shard_tile_multi"
     with torch.cuda.device(u.device):
-        rc = _lib().heat_shard_tile(
-            p(u), *(p(s) for s in strips), p(out),
-            p(parts) if resid else None,
-            None if paths is None else p(paths), x0, y0, bm, bn, nx, ny,
-            cx, cy, cs._k0(cx, cy), form, t, nsub, plan.ty, plan.tx,
-            cs._stream(u))
-    _check(rc, "H13 shard_tile_multi_resid" if resid
-           else "H12 shard_tile_multi")
+        call("shard", "heat_shard_tile", name,
+             "H13 shard_tile_multi_resid" if resid
+             else "H12 shard_tile_multi", u, *strips, out, parts, paths,
+             x0, y0, bm, bn, nx, ny, cx, cy, cs._k0(cx, cy), form, t, nsub,
+             plan.ty, plan.tx)
     return out, parts
 
 
@@ -284,13 +260,12 @@ def shard_tile_multi(u, strips, nsub: int, x0: int, y0: int, nx: int,
     advanced ``nsub`` steps from its halo strips ``(north, south, west,
     east)`` of depth T >= nsub. One read and one write of the block per
     sweep; the tiles' rings are recomputed in shared memory
-    (``cs.plan_strip_sweep``). ``paths`` (``path_counter``): the kernel adds
+    (``cs.tile_plan``). ``paths`` (``path_counter``): the kernel adds
     its tiles by path to it; the plain version, on the CPU, counts none."""
     _validate(u, strips, nsub, "shard_tile_multi")
     if u.device.type == "cpu":
         return shard_tile_multi_plain(u, strips, nsub, x0, y0, nx, ny, cx,
                                       cy, form)
-    LAUNCHES["shard_tile_multi"] += 1
     out, _ = _shard_launch(u, strips, nsub, x0, y0, nx, ny, cx, cy, form,
                            resid=False, paths=paths)
     return out
@@ -306,7 +281,6 @@ def shard_tile_multi_resid(u, strips, nsub: int, x0: int, y0: int, nx: int,
     if u.device.type == "cpu":
         return shard_tile_multi_resid_plain(u, strips, nsub, x0, y0, nx, ny,
                                             cx, cy, form)
-    LAUNCHES["shard_tile_multi_resid"] += 1
     out, parts = _shard_launch(u, strips, nsub, x0, y0, nx, ny, cx, cy,
                                form, resid=True, paths=paths)
     return out, torch.sum(parts)
@@ -376,8 +350,8 @@ def shard_fused(blocks, nsub: int, nx: int, ny: int, cx: float, cy: float,
             with torch.cuda.device(c):
                 for o in cards:
                     if o != c:
-                        _check(_lib().heat_shard_enable_peer(o),
-                               "H14 peer access")
+                        call("shard", "heat_shard_enable_peer", None,
+                             "H14 peer access", o)
         _sync_devices(cards)
     plan = cs.tile_plan(bm, bn, nsub, devices[0])
     if plan.grid[0] > 65535:
@@ -390,14 +364,11 @@ def shard_fused(blocks, nsub: int, nx: int, ny: int, cx: float, cy: float,
             *[outs[z].data_ptr() for z in mine])
         pos = (ctypes.c_int * (2 * len(mine)))(
             *[v for z in mine for v in divmod(z, gy)])
-        LAUNCHES["shard_fused"] += 1
         with torch.cuda.device(c):
-            rc = _lib().heat_shard_fused(
-                table, optr, pos, None if paths is None else cs._ptr(paths),
-                len(mine), gx, gy, bm, bn, nx, ny, cx, cy, cs._k0(cx, cy),
-                form, nsub, nsub, plan.ty, plan.tx,
-                cs._stream(flat[mine[0]]))
-        _check(rc, "H14 shard_fused")
+            call("shard", "heat_shard_fused", "shard_fused", "H14 shard_fused",
+                 table, optr, pos, paths, len(mine), gx, gy, bm, bn, nx, ny,
+                 cx, cy, cs._k0(cx, cy), form, nsub, nsub, plan.ty, plan.tx,
+                 device=flat[mine[0]].device)
     if len(cards) > 1:
         _sync_devices(cards)
     return [outs[i * gy:(i + 1) * gy] for i in range(gx)]

@@ -30,14 +30,15 @@ literal form with the plain step.
 
 Every wrapper takes a float32 grid. On a CPU tensor it runs the kernel's
 plain PyTorch version (same step form, same mask); on a CUDA tensor it
-launches the kernel, or raises. It never falls back. Each launch adds one
-to the wrapper's entry in ``LAUNCHES``; the plain versions count nothing.
+launches the kernel, or raises. It never falls back. Each launch counts
+under the wrapper's name in ``_build.launch_counts``; the plain versions
+count nothing.
 
 The TPU kernels' row-band and VMEM geometry (``plan_bands``, the probed
 window tables, the column panels) has no counterpart here: those were
 ways around the TPU's VMEM, and the tiles are planned from the card's
-shared-memory limit instead (``plan_tiles``, ``tile_plan``,
-``resident_plan``).
+shared-memory limit instead (``_build.device_caps``; ``plan_tiles``,
+``tile_plan``, ``resident_plan``).
 """
 
 from __future__ import annotations
@@ -48,7 +49,10 @@ from typing import NamedTuple
 import torch
 
 from heat2d_tpu_torch.models import engine
-from heat2d_tpu_torch.ops import _build
+from heat2d_tpu_torch.ops._build import (BLOCK_RESERVED_SMEM, SM_SMEM_BYTES,
+                                         call, device_caps, round_up)
+from heat2d_tpu_torch.ops.resident import (launch_scratch, plan_resident,
+                                            raise_if_gave_up)
 from heat2d_tpu_torch.ops.stencil import residual_sq
 from heat2d_tpu_torch.utils.device import resolve_device
 from heat2d_tpu_torch.utils.profiling import phase
@@ -70,49 +74,10 @@ TILE_STRIP = 8
 #: Thread block of the tile and step kernels (csrc/stencil.cu).
 BLOCK = (32, 8)
 
-#: The H100's opt-in shared memory per block (232,448 bytes), the plan's
-#: limit for grids that live on the CPU, so that the CPU runs plan the
-#: tiles the card would.
-H100_SMEM_OPTIN = 232448
-#: Shared memory of one SM (228 KB), of which each resident block also
-#: takes 1 KB for the system: what bounds blocks per SM besides threads.
-SM_SMEM_BYTES = 233472
-BLOCK_RESERVED_SMEM = 1024
 #: Warps of a strip-sweep block (``STRIP_BY`` of csrc/tile.cuh; H2/H3,
 #: H6/H7, H9 and H12-H14): 32 x STRIP_WARPS threads, each updating strips
 #: of 4 or 8 cells of one column.
 STRIP_WARPS = 16
-#: Static shared memory of the tile kernel (H3's warp sums).
-_STATIC_SMEM = 4 * (BLOCK[0] * BLOCK[1] // 32)
-
-#: Launches per kernel wrapper since the last ``reset_launch_counts``.
-LAUNCHES = {"step": 0, "tile_multi": 0, "tile_multi_resid": 0,
-            "resident": 0}
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def launch_counts() -> dict:
-    return dict(LAUNCHES)
-
-
-def _lib():
-    return _build.load("stencil")
-
-
-def _check(rc: int, what: str) -> None:
-    _build.check(_lib(), rc, what)
-
-
-def _stream(u) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(u.device).cuda_stream)
-
-
-def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
 
 
 def _k0(cx, cy):
@@ -139,47 +104,14 @@ def _validate(u, what: str) -> None:
 
 
 # --------------------------------------------------------------------- #
-# Device capabilities
+# The resident route's gate
 # --------------------------------------------------------------------- #
-
-class DeviceCaps(NamedTuple):
-    l2_bytes: int
-    smem_optin: int
-    sm_count: int
-    cooperative: bool
-
-
-_caps: dict[int, DeviceCaps] = {}
-
-
-def device_caps(device) -> DeviceCaps:
-    """The card's limits, read once per device through the kernels'
-    library (which builds at first use)."""
-    dev = torch.device(device)
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _caps:
-        buf = (ctypes.c_int * 4)()
-        with torch.cuda.device(idx):
-            _check(_lib().heat_device_caps(ctypes.cast(buf, ctypes.c_void_p)),
-                   "heat_device_caps")
-        _caps[idx] = DeviceCaps(buf[0], buf[1], buf[2], bool(buf[3]))
-    return _caps[idx]
-
-
-def smem_limit(device) -> int:
-    """Dynamic shared memory a tile may use on ``device``."""
-    dev = torch.device(device)
-    total = (device_caps(dev).smem_optin if dev.type == "cuda"
-             else H100_SMEM_OPTIN)
-    return total - _STATIC_SMEM
-
 
 def resident_plan(nx: int, ny: int, device, k=None):
     """H4's plan (``ops/resident.plan_resident`` for one member of radius
     1; its chunk depth K is ``k`` when given, a tuned depth, else the
     planner's, which timed fastest on the H100), or None when the grid
     is too large to stay in the card's shared memory at that K."""
-    from heat2d_tpu_torch.ops.resident import plan_resident
     return plan_resident(1, nx, ny, 1, device, k=k)
 
 
@@ -192,10 +124,9 @@ def fits_resident(shape, device) -> bool:
     take the route the card would. A grid that fails it takes the
     streamed route. The ensembles' and families' ``auto`` routes share
     it."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not device_caps(dev).cooperative:
+    if not device_caps(device).cooperative:
         return False
-    return resident_plan(shape[0], shape[1], dev) is not None
+    return resident_plan(shape[0], shape[1], device) is not None
 
 
 # --------------------------------------------------------------------- #
@@ -219,12 +150,7 @@ class TilePlan(NamedTuple):
         return 2 * (self.ty + 2 * t) * (self.tx + 2 * t) * 4
 
 
-def _round_up(n: int, m: int) -> int:
-    return -(-n // m) * m
-
-
-def plan_tiles(nx: int, ny: int, tsteps: int = DEFAULT_TSTEPS,
-               smem: int = H100_SMEM_OPTIN - _STATIC_SMEM,
+def plan_tiles(nx: int, ny: int, tsteps: int, smem: int,
                ty: int | None = None) -> TilePlan:
     """Tile geometry of the H2/H3 sweeps: a centre of at most 64 x 128
     cells (rows of 512 bytes, coalesced; two blocks share an SM at
@@ -236,8 +162,8 @@ def plan_tiles(nx: int, ny: int, tsteps: int = DEFAULT_TSTEPS,
     if ty is not None and (ty < BLOCK[1] or ty % BLOCK[1]):
         raise ValueError(f"ty must be a positive multiple of {BLOCK[1]}, "
                          f"got {ty}")
-    ty = min(64 if ty is None else ty, _round_up(nx, BLOCK[1]))
-    tx = min(128, _round_up(ny, BLOCK[0]))
+    ty = min(64 if ty is None else ty, round_up(nx, BLOCK[1]))
+    tx = min(128, round_up(ny, BLOCK[0]))
 
     def need(a, b):
         return 2 * (a + 2 * tsteps) * (b + 2 * tsteps) * 4
@@ -254,30 +180,21 @@ def plan_tiles(nx: int, ny: int, tsteps: int = DEFAULT_TSTEPS,
     return TilePlan(ty, tx, tsteps, (-(-nx // ty), -(-ny // tx)))
 
 
-def plan_strip_sweep(nx: int, ny: int, t: int,
-                     smem: int = H100_SMEM_OPTIN,
-                     ty: int | None = None) -> TilePlan:
-    """The strip sweep's tiles on an (nx, ny) block with a t-deep ring
-    (H2/H3 on a grid, H6/H7 on an ensemble's member, H12-H14 on a shard):
-    ``plan_tiles`` (centres of at most 64 x 128) within ``smem`` bytes a
-    block and within half an SM's shared memory, so that two blocks of
-    ``STRIP_WARPS`` warps share an SM, as H9's plans do. Each block also
-    takes 1 KB for the system and 4 bytes a warp for the residual's
-    partial sums. ``ty``: at most that many centre rows (``plan_tiles``)."""
-    sums = 4 * STRIP_WARPS
-    half = SM_SMEM_BYTES // 2 - BLOCK_RESERVED_SMEM - sums
-    return plan_tiles(nx, ny, t, min(smem - sums, half), ty)
-
-
 def tile_plan(nx: int, ny: int, tsteps: int, device,
               ty: int | None = None) -> TilePlan:
-    """H2/H3's tiles for sweeps of depth ``tsteps`` on ``device`` (a grid
-    on the CPU plans what the H100 would), of at most ``ty`` centre rows
-    when given (a tuned height)."""
-    dev = torch.device(device)
-    smem = (device_caps(dev).smem_optin if dev.type == "cuda"
-            else H100_SMEM_OPTIN)
-    return plan_strip_sweep(nx, ny, tsteps, smem, ty)
+    """The strip sweep's tiles on an (nx, ny) block with a ``tsteps``-deep
+    ring on ``device`` (H2/H3 on a grid, H6/H7 on an ensemble's member,
+    H12-H14 on a shard; a block on the CPU plans what the H100 would):
+    ``plan_tiles`` (centres of at most 64 x 128, or of at most ``ty``
+    rows when given, a tuned height) within the card's opt-in shared
+    memory a block and within half an SM's, so that two blocks of
+    ``STRIP_WARPS`` warps share an SM, as H9's plans do. Each block also
+    takes 1 KB for the system and 4 bytes a warp for the residual's
+    partial sums."""
+    sums = 4 * STRIP_WARPS
+    half = SM_SMEM_BYTES // 2 - BLOCK_RESERVED_SMEM - sums
+    return plan_tiles(nx, ny, tsteps,
+                      min(device_caps(device).smem_optin - sums, half), ty)
 
 
 #: H2/H3's paths, in the order of the words of a ``paths`` count
@@ -360,9 +277,8 @@ def step(u, cx: float, cy: float, form: int = FORM_FMA):
     if -(-nx // BLOCK[1]) > 65535:
         raise ValueError(f"step: {nx} rows exceed the launch grid's y limit")
     out = torch.empty_like(u)
-    LAUNCHES["step"] += 1
-    _check(_lib().heat_step(_ptr(u), _ptr(out), nx, ny, cx, cy, _k0(cx, cy),
-                            form, _stream(u)), "H1 step")
+    call("stencil", "heat_step", "step", "H1 step", u, out, nx, ny, cx, cy,
+         _k0(cx, cy), form)
     return out
 
 
@@ -383,6 +299,7 @@ def _check_paths(paths, words: int, device) -> None:
 def _tile_launch(u, nsub, cx, cy, form, tsteps, resid, paths=None,
                  ty=None):
     """One H2 (H3 with ``resid``) launch of ``tile_plan``'s tiles."""
+    name = "tile_multi_resid" if resid else "tile_multi"
     nx, ny = u.shape
     plan = tile_plan(nx, ny, tsteps, u.device, ty)
     if plan.grid[0] > 65535:
@@ -391,11 +308,10 @@ def _tile_launch(u, nsub, cx, cy, form, tsteps, resid, paths=None,
     out = torch.empty_like(u)
     parts = (torch.empty(plan.ntiles, dtype=torch.float32, device=u.device)
              if resid else None)
-    rc = _lib().heat_tile_multi(
-        _ptr(u), _ptr(out), _ptr(parts) if resid else None,
-        None if paths is None else _ptr(paths), nx, ny, cx, cy, _k0(cx, cy),
-        form, plan.tsteps, nsub, plan.ty, plan.tx, _stream(u))
-    _check(rc, "H3 tile_multi_resid" if resid else "H2 tile_multi")
+    call("stencil", "heat_tile_multi", name,
+         "H3 tile_multi_resid" if resid else "H2 tile_multi", u, out, parts,
+         paths, nx, ny, cx, cy, _k0(cx, cy), form, plan.tsteps, nsub,
+         plan.ty, plan.tx)
     return out, parts
 
 
@@ -411,7 +327,6 @@ def tile_multi(u, nsub: int, cx: float, cy: float, form: int = FORM_FMA,
     _check_depth(nsub, tsteps)
     if u.device.type == "cpu":
         return multi_step_plain(u, nsub, cx, cy, form)
-    LAUNCHES["tile_multi"] += 1
     out, _ = _tile_launch(u, nsub, cx, cy, form, tsteps, False, paths, ty)
     return out
 
@@ -426,7 +341,6 @@ def tile_multi_resid(u, nsub: int, cx: float, cy: float,
     _check_depth(nsub, tsteps)
     if u.device.type == "cpu":
         return tile_multi_resid_plain(u, nsub, cx, cy, form)
-    LAUNCHES["tile_multi_resid"] += 1
     out, parts = _tile_launch(u, nsub, cx, cy, form, tsteps, True, paths,
                               ty)
     return out, torch.sum(parts)
@@ -440,9 +354,8 @@ def func_attrs(name: str) -> dict:
     """Registers and local (spill) bytes a thread of wrapper ``name``'s
     FMA-form build on the card (``cudaFuncGetAttributes``)."""
     buf = (ctypes.c_int * 2)()
-    _check(_lib().heat_func_attrs(FUNC_BUILDS.index(name),
-                                  ctypes.cast(buf, ctypes.c_void_p)),
-           f"func_attrs {name}")
+    call("stencil", "heat_func_attrs", None, f"func_attrs {name}",
+         FUNC_BUILDS.index(name), buf)
     return {"registers": buf[0], "local_bytes": buf[1]}
 
 
@@ -451,9 +364,8 @@ def tile_info(plan: TilePlan) -> dict:
     bytes a thread, and the blocks an SM holds
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
     buf = (ctypes.c_int * 3)()
-    _check(_lib().heat_tile_info(plan.smem_bytes,
-                                 ctypes.cast(buf, ctypes.c_void_p)),
-           "H2 tile_info")
+    call("stencil", "heat_tile_info", None, "H2 tile_info", plan.smem_bytes,
+         buf)
     return {"strip": TILE_STRIP, "registers": buf[0], "local_bytes": buf[1],
             "blocks_per_sm": buf[2], "smem_bytes": plan.smem_bytes}
 
@@ -462,16 +374,12 @@ def _resident_launch(u, steps: int, cx, cy, form, plan):
     """One H4 launch of ``plan`` (a one-member ``ops.resident`` plan).
     Raises when the launch is refused (the plan's blocks must all be
     co-resident) or a block gave up waiting for a neighbour's ring."""
-    from heat2d_tpu_torch.ops.resident import (launch_scratch,
-                                                raise_if_gave_up)
     what = (f"H4 resident ({plan.blocks} blocks of {plan.smem_bytes} bytes "
             f"of shared memory)")
     out = torch.empty_like(u)
     scratch = launch_scratch(plan, steps, u.device)
-    LAUNCHES["resident"] += 1
-    _check(_lib().heat_resident(
-        _ptr(u), _ptr(out), _ptr(scratch), plan.as_ctypes(), cx, cy,
-        _k0(cx, cy), form, steps, _stream(u)), what)
+    call("stencil", "heat_resident", "resident", what, u, out, scratch,
+         plan.as_ctypes(), cx, cy, _k0(cx, cy), form, steps)
     raise_if_gave_up(scratch, what, plan)
     return out
 

@@ -27,8 +27,9 @@ refilled from exchange g - 1, which it could only do after every
 neighbour had published g - 1, which each of them did after refilling
 from g - 2: the plane of g's parity has no reader left.
 
-``plan_resident`` is pure Python and gates a CPU batch against the H100's
-limits, so the CPU runs plan what the card would. ``emulate_resident`` is
+``plan_resident`` is pure Python and plans against ``_build.device_caps``,
+so a CPU batch is gated against the H100's limits and the CPU runs plan
+what the card would. ``emulate_resident`` is
 the executable statement of the schedule, for the tests; no path calls it.
 """
 
@@ -42,10 +43,8 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from heat2d_tpu_torch.ops import cuda_stencil as cs
+from heat2d_tpu_torch.ops._build import device_caps, round_up, smem_limit
 
-#: The H100's SMs: one resident block each (grids on the CPU plan for it).
-H100_SM_COUNT = 132
 #: Deepest chunk (steps between two exchanges) the planner considers.
 MAX_CHUNK = 8
 #: Cost of one exchange in cell updates, the planner's weight of chunk
@@ -67,7 +66,7 @@ WARP_COLS = 32 * GROUP
 def _smem_bytes(ey: int, ex: int) -> int:
     """Two ext planes at a row pitch of whole 4-column groups, and a
     4-float pad at either end."""
-    return (2 * ey * cs._round_up(ex, GROUP) + 2 * GROUP) * 4
+    return (2 * ey * round_up(ex, GROUP) + 2 * GROUP) * 4
 
 
 class ResidentPlan(NamedTuple):
@@ -147,7 +146,7 @@ def plan_for_limits(nb: int, nx: int, ny: int, ring_w: int, smem: int,
                 if _smem_bytes(ey, ex) > smem:
                     continue
                 members = min(nb, blocks // (gx * gy))
-                area = ey * cs._round_up(ex, WARP_COLS)
+                area = ey * round_up(ex, WARP_COLS)
                 exchange = _EXCHANGE_COST if gx * gy > 1 else 0
                 cost = -(-nb // members) * (area + exchange / kk)
                 if best is None or cost < best[0]:
@@ -162,24 +161,19 @@ def plan_resident(nb: int, nx: int, ny: int, ring_w: int, device,
     of radius ``ring_w`` on ``device`` (at chunk depth ``k`` when given),
     or None when a member is too large to stay on the chip (its tiles
     exceed the co-resident blocks' shared memory): the wrappers then
-    advance it by tile sweeps. A batch on the CPU is gated against the
-    H100's 132 SMs and 232,448 bytes."""
-    dev = torch.device(device)
-    return plan_for_limits(nb, nx, ny, ring_w, cs.smem_limit(dev),
-                           _sm_count(dev), k)
-
-
-def _sm_count(dev) -> int:
-    return (cs.device_caps(dev).sm_count if dev.type == "cuda"
-            else H100_SM_COUNT)
+    advance it by tile sweeps. One block per SM of the card
+    (``_build.device_caps``: a batch on the CPU is gated against the
+    H100's 132 SMs), each within ``_build.smem_limit``."""
+    return plan_for_limits(nb, nx, ny, ring_w, smem_limit(device),
+                           device_caps(device).sm_count, k)
 
 
 def on_chip_bytes(device) -> int:
     """The shared memory the resident sweeps can hold on ``device``: one
-    block's share on every SM (SM count x ``cs.smem_limit``), the largest
-    member the card keeps on chip. A CPU device answers for the H100."""
-    dev = torch.device(device)
-    return _sm_count(dev) * cs.smem_limit(dev)
+    block's share on every SM (SM count x ``_build.smem_limit``), the
+    largest member the card keeps on chip. A CPU device answers for the
+    H100."""
+    return device_caps(device).sm_count * smem_limit(device)
 
 
 def exchange_planes(plan: ResidentPlan, device):

@@ -51,48 +51,34 @@ accuracy, far past the explicit box.
   ``plan_td_lanes``).
 
 On a CPU tensor a kernel wrapper runs its plain version; on a CUDA tensor
-it launches the kernel or raises. Each launch adds one to the kernel's
-entry in ``LAUNCHES`` (a right-hand-side build counts as its solve
-kernel); the plain versions count nothing. The registry's
+it launches the kernel or raises. Each launch counts under the kernel's
+name in ``_build.launch_counts`` (a right-hand-side build counts as its
+solve kernel); the plain versions count nothing. The registry's
 ``adi_halves_total`` counts the ADI halves of every step loop, and
 ``adi_halves_fused_total`` the launches of the right-hand-side builds
-among them (every half on a card, none on the CPU), once per call of
-``adi_sweep_kernel`` or ``batched_adi_kernel``.
+among them (``_build.entry_launches`` of their entry points: every half
+on a card, none on the CPU), once per call of ``adi_sweep_kernel`` or
+``batched_adi_kernel``.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import torch
 
 from heat2d_tpu_torch.obs.metrics import get_registry
-from heat2d_tpu_torch.ops import _build
-from heat2d_tpu_torch.ops import cuda_stencil as cs
-from heat2d_tpu_torch.ops.cuda_stencil import H100_SMEM_OPTIN
-from heat2d_tpu_torch.ops.resident import H100_SM_COUNT
+from heat2d_tpu_torch.ops._build import (call, device_caps, entry_launches,
+                                         round_up)
 from heat2d_tpu_torch.utils.profiling import phase
 
-#: Launches per kernel wrapper since the last ``reset_launch_counts``.
-LAUNCHES = {"td_coeffs": 0, "td_rows": 0, "td_lanes": 0}
-
-#: Launches of the right-hand-side builds in this process, never reset:
-#: each is one ADI half run as one launch. The step loops add the
-#: launches of their call to the registry's ``adi_halves_fused_total``.
-_rhs_launches = 0
+#: The right-hand-side builds' entry points: each launch is one ADI half
+#: run as one launch. The step loops add the launches of their call to
+#: the registry's ``adi_halves_fused_total``.
+RHS_ENTRIES = ("heat_td_rows_rhs", "heat_td_lanes_rhs")
 
 #: The solve kernels put the member on blockIdx.y.
 MAX_MEMBERS = 65535
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def launch_counts() -> dict:
-    return dict(LAUNCHES)
 
 
 # --------------------------------------------------------------------- #
@@ -267,18 +253,6 @@ def batched_adi_scan(u0, cxs, cys, *, steps: int):
 # Kernels H10 / H11 and their plain versions
 # --------------------------------------------------------------------- #
 
-def _lib():
-    return _build.load("tridiag")
-
-
-def _check(rc: int, what: str) -> None:
-    _build.check(_lib(), rc, what)
-
-
-def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _validate(rhs, c, what: str) -> None:
     if rhs.dim() != 3 or rhs.dtype != torch.float32:
         raise ValueError(f"{what}: expected a (B, n, m) float32 batch, "
@@ -364,10 +338,6 @@ def td_lanes_plain(rhs, c, coef=None):
         .contiguous()
 
 
-def _stream(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
 def td_coeffs(c, n: int):
     """The (B, 2, n) float32 elimination scalars (cp then mi) of every
     member's CN matrix of n rows at diffusion number ``c[b]``: what the
@@ -388,9 +358,8 @@ def td_coeffs(c, n: int):
         raise ValueError("td_coeffs: the CUDA kernel takes a contiguous c")
     coef = torch.empty((c.shape[0], 2, n), dtype=torch.float32,
                        device=c.device)
-    LAUNCHES["td_coeffs"] += 1
-    _check(_lib().heat_td_coeffs(_ptr(c), _ptr(coef), c.shape[0], n,
-                                 _stream(c)), "td_coeffs")
+    call("tridiag", "heat_td_coeffs", "td_coeffs", "td_coeffs", c, coef,
+         c.shape[0], n)
     return coef
 
 
@@ -437,28 +406,31 @@ def _plan_panels(nb: int, n: int, systems: int, ring: int, sms: int,
     (rounded up to 16) fit, else read through the read-only cache."""
     panels = -(-systems // 32)
     warps = max(1, min(4, panels, -(-nb * panels // sms)))
-    coef_bytes = -(-8 * n // 16) * 16
+    coef_bytes = round_up(8 * n, 16)
     coef_smem = coef_bytes + warps * ring <= smem
     need = (coef_bytes if coef_smem else 0) + warps * ring
     return RowsPlan(warps, coef_smem, need, nb * -(-panels // warps))
 
 
-def plan_td_rows(nb: int, n: int, m: int, sms: int = H100_SM_COUNT,
-                 smem: int = H100_SMEM_OPTIN, rhs: bool = False) -> RowsPlan:
-    """H10's launch on a (nb, n, m) batch: panels of 32 columns
+def plan_td_rows(nb: int, n: int, m: int, device="cpu",
+                 rhs: bool = False) -> RowsPlan:
+    """H10's launch on a (nb, n, m) batch on ``device`` (a batch on the
+    CPU plans what the H100 would): panels of 32 columns
     (``_plan_panels``); ``rhs``: the right-hand-side build's ring."""
+    caps = device_caps(device)
     return _plan_panels(nb, n, m, TD_RHS_RING_BYTES if rhs
-                        else TD_RING_BYTES, sms, smem)
+                        else TD_RING_BYTES, caps.sm_count, caps.smem_optin)
 
 
-def plan_td_lanes(nb: int, rows: int, n: int, sms: int = H100_SM_COUNT,
-                  smem: int = H100_SMEM_OPTIN,
+def plan_td_lanes(nb: int, rows: int, n: int, device="cpu",
                   rhs: bool = False) -> RowsPlan:
-    """H11's launch on a (nb, rows, n) batch: panels of 32 rows, H10's
-    rule with H11's padded rings (``_plan_panels``); ``rhs``: the
-    right-hand-side build's slots of 34 rows."""
+    """H11's launch on a (nb, rows, n) batch on ``device``: panels of 32
+    rows, H10's rule with H11's padded rings (``_plan_panels``); ``rhs``:
+    the right-hand-side build's slots of 34 rows."""
+    caps = device_caps(device)
     return _plan_panels(nb, n, rows, TD_LANES_RHS_RING_BYTES if rhs
-                        else TD_LANES_RING_BYTES, sms, smem)
+                        else TD_LANES_RING_BYTES, caps.sm_count,
+                        caps.smem_optin)
 
 
 def _launch(kernel: str, x, c, coef, sc=None):
@@ -466,21 +438,14 @@ def _launch(kernel: str, x, c, coef, sc=None):
     (B, n1, n2) batch ``x`` on its card, planned from the card: the solve,
     or with ``sc`` (the stencil's (B,) diffusion numbers) the ADI half's
     right-hand-side build on the step's grid ``x``."""
-    global _rhs_launches
     nb, n1, n2 = x.shape
-    caps = cs.device_caps(x.device)
     plan = (plan_td_lanes if kernel == "td_lanes" else plan_td_rows)(
-        nb, n1, n2, caps.sm_count, caps.smem_optin, sc is not None)
+        nb, n1, n2, x.device, sc is not None)
     out = torch.empty_like(x)
-    LAUNCHES[kernel] += 1
-    args = (_ptr(x), _ptr(out), _ptr(c)) + (
-        (_ptr(sc),) if sc is not None else ()) + (
-        _ptr(coef), nb, n1, n2, plan.warps, int(plan.coef_smem),
-        _stream(x))
     entry = f"heat_{kernel}" + ("_rhs" if sc is not None else "")
-    _check(getattr(_lib(), entry)(*args), kernel)
-    if sc is not None:
-        _rhs_launches += 1
+    call("tridiag", entry, kernel, kernel, x, out, c,
+         *((sc,) if sc is not None else ()), coef, nb, n1, n2, plan.warps,
+         int(plan.coef_smem))
     return out
 
 
@@ -559,11 +524,12 @@ def adi_coeffs(u, cxs, cys):
 
 def _count_halves(halves: int, launches_before: int) -> None:
     """Add a step loop's ``halves`` and the right-hand-side builds it
-    launched (``_rhs_launches`` since ``launches_before``) to the
+    launched (``RHS_ENTRIES``' launches since ``launches_before``) to the
     registry."""
     reg = get_registry()
     reg.counter("adi_halves_total", halves)
-    reg.counter("adi_halves_fused_total", _rhs_launches - launches_before)
+    reg.counter("adi_halves_fused_total",
+                entry_launches(*RHS_ENTRIES) - launches_before)
 
 
 def _sweep(u, cxs, cys, coefs):
@@ -582,7 +548,7 @@ def adi_sweep_kernel(u, cxs, cys, coefs=None):
     spans ``adi.half_x`` and ``adi.half_y`` each cover a half."""
     _validate(u, cxs, "adi_sweep_kernel")
     _validate(u, cys, "adi_sweep_kernel")
-    before = _rhs_launches
+    before = entry_launches(*RHS_ENTRIES)
     out = _sweep(u, cxs, cys,
                  adi_coeffs(u, cxs, cys) if coefs is None else coefs)
     _count_halves(2, before)
@@ -599,7 +565,7 @@ def batched_adi_kernel(u0, cxs, cys, *, steps: int, coefs=None):
         _validate(u0, cxs, "batched_adi_kernel")
         _validate(u0, cys, "batched_adi_kernel")
         coefs = adi_coeffs(u0, cxs, cys)
-    before, u = _rhs_launches, u0
+    before, u = entry_launches(*RHS_ENTRIES), u0
     for _ in range(steps):
         u = _sweep(u, cxs, cys, coefs)
     _count_halves(2 * steps, before)

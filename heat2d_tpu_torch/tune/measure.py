@@ -412,10 +412,8 @@ class SimulatedBackend:
             raise SimulatedCompileError(f"nvcc failed for {cand.label()}")
         nx, ny, itemsize = problem.nx, problem.ny, problem.itemsize
         rate = self.CELL_UPDATES_PER_S
-        smem = cs.H100_SMEM_OPTIN - cs._STATIC_SMEM
         if cand.route == "resident":
-            plan = res.plan_for_limits(1, nx, ny, 1, smem,
-                                       res.H100_SM_COUNT, cand.tsteps)
+            plan = res.plan_resident(1, nx, ny, 1, "cpu", cand.tsteps)
             if plan is None:
                 raise SimulatedOOM(f"no resident plan for {nx}x{ny} at "
                                    f"K={cand.tsteps}")
@@ -428,7 +426,7 @@ class SimulatedBackend:
                 raise SimulatedOOM(f"fused overlap frames exceed the "
                                    f"{nx}x{ny} shard at T={t}")
             try:
-                cs.plan_strip_sweep(nx, ny, t)
+                cs.tile_plan(nx, ny, t, "cpu")
             except ValueError as e:
                 raise SimulatedOOM(str(e)) from None
             compute = problem.cells / rate
@@ -436,7 +434,7 @@ class SimulatedBackend:
             seam = 6 * t * (nx + ny) / problem.cells
             return max(compute, edge) + compute * seam + self.LAUNCH_S / t
         try:
-            plan = cs.plan_strip_sweep(nx, ny, t, ty=cand.bm)
+            plan = cs.tile_plan(nx, ny, t, "cpu", cand.bm)
         except ValueError as e:
             raise SimulatedOOM(str(e)) from None
         if plan.ty != cand.bm:

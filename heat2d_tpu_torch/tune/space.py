@@ -7,7 +7,7 @@ A (shape, dtype) problem maps to ``Candidate`` configs over three routes:
   knob is the chunk depth K, steps between two ring exchanges, carried
   in ``tsteps`` with ``bm = 0``; the ladder is 1..``resident.MAX_CHUNK``.
   Viable only where the grid stays on the chip (``fits_resident``), and
-  each K only where ``resident.plan_for_limits(..., k=K)`` has a plan.
+  each K only where ``resident.plan_resident(..., k=K)`` has a plan.
 - ``tile`` (H2/H3, the counterpart of "C"/"C2"): the knobs are the sweep
   depth T, carried in ``tsteps`` (the JAX package's ladder 4, 8, 12, 16),
   and the tile's centre rows ``ty``, carried in ``bm`` (16, 32, 64:
@@ -164,13 +164,12 @@ def candidate_space(problem: Problem, routes=None, ty_grid=None,
 
     if "resident" in routes:
         gate = cs.fits_resident((nx, ny), dev)
-        blocks, smem = res._sm_count(dev), cs.smem_limit(dev)
         for k in range(1, res.MAX_CHUNK + 1):
             reason = None
             if not gate:
                 reason = ("the grid does not stay on the chip "
                           "(fits_resident)")
-            elif res.plan_for_limits(1, nx, ny, 1, smem, blocks, k) is None:
+            elif res.plan_resident(1, nx, ny, 1, dev, k) is None:
                 reason = f"no resident plan at K={k}"
             keep(Candidate("resident", 0, k), reason)
 

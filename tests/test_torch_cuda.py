@@ -16,6 +16,7 @@ from heat2d_tpu_torch.config import HeatConfig
 from heat2d_tpu_torch.models import ensemble
 from heat2d_tpu_torch.models.solver import Heat2DSolver
 from heat2d_tpu_torch.obs.metrics import get_registry
+from heat2d_tpu_torch.ops import _build
 from heat2d_tpu_torch.ops import cuda_ensemble as ce
 from heat2d_tpu_torch.ops import cuda_stencil as cs
 from heat2d_tpu_torch.ops.init import inidat
@@ -45,7 +46,7 @@ def test_kernels_match_plain(card, shape, form):
     g = torch.Generator(device=card)
     g.manual_seed(7)
     u = torch.rand(shape, generator=g, device=card)
-    cs.reset_launch_counts()
+    _build.reset_launch_counts()
     _close(cs.step(u, 0.1, 0.1, form), cs.step_plain(u, 0.1, 0.1, form),
            1, form)
     for t, nsub in [(1, 1), (3, 2), (8, 8), (8, 5)]:
@@ -58,8 +59,8 @@ def test_kernels_match_plain(card, shape, form):
     for n in (1, 2, 9):
         _close(cs.resident(u, n, 0.1, 0.1, form),
                cs.multi_step_plain(u, n, 0.1, 0.1, form), n, form)
-    assert set(cs.launch_counts().values()) != {0}
-    assert min(cs.launch_counts().values()) > 0
+    assert set(_build.launch_counts("stencil").values()) != {0}
+    assert min(_build.launch_counts("stencil").values()) > 0
 
 
 @pytest.mark.parametrize("form", FORMS)
@@ -73,10 +74,10 @@ def test_resident_equals_the_h2_route_bitwise(card, shape, form):
     g.manual_seed(8)
     u = torch.rand(shape, generator=g, device=card)
     for n in (1, 8, 9, 27):
-        cs.reset_launch_counts()
+        _build.reset_launch_counts()
         got = cs.resident(u, n, 0.1, 0.1, form)
-        assert cs.launch_counts()["resident"] == 1
-        assert cs.launch_counts()["tile_multi"] == 0
+        assert _build.launch_counts("stencil")["resident"] == 1
+        assert _build.launch_counts("stencil")["tile_multi"] == 0
         assert torch.equal(got, cs.tiled_chunk(u, n, 0.1, 0.1, form))
         _close(got, cs.multi_step_plain(u, n, 0.1, 0.1, form), n, form)
 
@@ -87,10 +88,10 @@ def test_resident_refuses_a_grid_without_a_plan(card):
     u = torch.zeros((4096, 4096), device=card)
     assert cs.resident_plan(4096, 4096, card) is None
     assert not cs.fits_resident((4096, 4096), card)
-    cs.reset_launch_counts()
+    _build.reset_launch_counts()
     with pytest.raises(ValueError, match="shared memory"):
         cs.resident(u, 3, 0.1, 0.1)
-    assert cs.launch_counts()["resident"] == 0
+    assert _build.launch_counts("stencil")["resident"] == 0
 
 
 def test_resident_gives_up_and_raises(card):
@@ -207,11 +208,11 @@ def _batch(card, b, shape, seed=11):
 @pytest.mark.parametrize("shape", [(37, 53), (130, 257)])
 def test_ens_resident_matches_plain(card, shape, b):
     u, cxs, cys = _batch(card, b, shape)
-    ce.reset_launch_counts()
+    _build.reset_launch_counts()
     for n in (1, 2, 9):
         _close(ce.ens_resident(u, n, cxs, cys),
                ce.ens_multi_step_plain(u, n, cxs, cys), n, cs.FORM_FMA)
-    assert ce.launch_counts()["ens_resident"] == 3
+    assert _build.launch_counts("ensemble")["ens_resident"] == 3
 
 
 @pytest.mark.parametrize("b", [1, 3, 40])
@@ -222,10 +223,10 @@ def test_ens_resident_equals_the_tile_sweeps_bitwise(card, shape, b):
     arithmetic, so the same bits."""
     u, cxs, cys = _batch(card, b, shape)
     for n in (1, 8, 9, 27):
-        ce.reset_launch_counts()
+        _build.reset_launch_counts()
         got = ce.ens_resident(u, n, cxs, cys)
-        assert ce.launch_counts() == {"ens_resident": 1, "ens_tile_multi": 0,
-                                      "ens_tile_multi_conv": 0}
+        assert _build.launch_counts("ensemble") == {
+            "ens_resident": 1, "ens_tile_multi": 0, "ens_tile_multi_conv": 0}
         assert torch.equal(got, ce.ens_tiled_chunk(u, n, cxs, cys))
 
 
@@ -236,15 +237,15 @@ def test_oversize_members_take_the_tile_sweeps(card):
     from heat2d_tpu_torch.ops.resident import plan_resident
     u, cxs, cys = _batch(card, 2, (2100, 2050))
     assert plan_resident(2, 2100, 2050, 1, card) is None
-    ce.reset_launch_counts()
+    _build.reset_launch_counts()
     got = ce.ens_resident(u, 11, cxs, cys)
-    assert ce.launch_counts() == {"ens_resident": 0, "ens_tile_multi": 2,
-                                  "ens_tile_multi_conv": 0}
+    assert _build.launch_counts("ensemble") == {
+        "ens_resident": 0, "ens_tile_multi": 2, "ens_tile_multi_conv": 0}
     _close(got, ce.ens_multi_step_plain(u, 11, cxs, cys), 11, cs.FORM_FMA)
     scal = cf.scalar_block("heat9", cxs * 0.6, cys * 0.6)
-    cf.reset_launch_counts()
+    _build.reset_launch_counts()
     got = cf.fam_resident(u, 11, scal, "heat9")
-    assert cf.launch_counts() == {
+    assert _build.launch_counts("family") == {
         "fam_resident": 0,
         "fam_tile_multi": len(cf.sweep_schedule(11, "heat9"))}
     assert torch.equal(got, cf.fam_tiled_chunk(u, 11, scal, "heat9"))
@@ -344,12 +345,12 @@ def test_ensemble_convergence_on_the_card(card):
     """The H7 route against the pair-tracked loop over H5 on the card:
     the same steps_done, grids within tolerance."""
     args = (36, 128, 200, 10, 2e8, [0.03125, 0.25], [0.03125, 0.25])
-    ce.reset_launch_counts()
+    _build.reset_launch_counts()
     a, ka = ensemble.run_ensemble_convergence(*args, method="band")
     b, kb = ensemble.run_ensemble_convergence(*args, method="pallas")
     assert ka.tolist() == kb.tolist() and len(set(ka.tolist())) == 2
     _close(a, b, 200, cs.FORM_FMA)
-    counts = ce.launch_counts()
+    counts = _build.launch_counts("ensemble")
     assert counts["ens_tile_multi_conv"] > 0 and counts["ens_resident"] > 0
 
 
@@ -360,12 +361,12 @@ def test_serving_on_the_card(card):
 
     reqs = [SolveRequest(nx=64, ny=96, steps=19, cx=0.05 * (i + 1),
                          cy=0.1) for i in range(3)]
-    ce.reset_launch_counts()
+    _build.reset_launch_counts()
     with SolveServer(registry=MetricsRegistry(), max_delay=0.2) as srv:
         futs = [srv.submit(r) for r in reqs]
         got = [f.result(timeout=120) for f in futs]
     assert srv.engine.launches == 1
-    assert ce.launch_counts()["ens_resident"] == 1
+    assert _build.launch_counts("ensemble")["ens_resident"] == 1
     want = ensemble.run_ensemble(64, 96, 19, [r.cx for r in reqs],
                                  [r.cy for r in reqs], method="jnp")
     for m, r in enumerate(got):
@@ -385,7 +386,7 @@ def test_family_kernels_match_plain(card, problem, b):
     from heat2d_tpu_torch.ops import cuda_family as cf
     u, cxs, cys = _batch(card, b, (37, 53))
     scal = cf.scalar_block(problem, cxs * 0.6, cys * 0.6)
-    cf.reset_launch_counts()
+    _build.reset_launch_counts()
     for n in (1, 5, 8):
         ref = cf.fam_multi_step_plain(u, n, scal, problem)
         tol = n * cf.rounding_factor(problem) * 2.0 ** -24 * float(
@@ -394,7 +395,8 @@ def test_family_kernels_match_plain(card, problem, b):
             err = float((fn(u, n, scal, problem).double()
                          - ref.double()).abs().max())
             assert err <= tol, (fn.__name__, n, err, tol)
-    assert cf.launch_counts() == {"fam_resident": 3, "fam_tile_multi": 3}
+    assert _build.launch_counts("family") == {"fam_resident": 3,
+                                              "fam_tile_multi": 3}
 
 
 @pytest.mark.parametrize("b", [1, 8])
@@ -405,9 +407,10 @@ def test_fam_resident_equals_the_tile_sweeps_bitwise(card, problem, b):
     u, cxs, cys = _batch(card, b, (641, 1023))
     scal = cf.scalar_block(problem, cxs * 0.6, cys * 0.6)
     for n in (1, 9, 27):
-        cf.reset_launch_counts()
+        _build.reset_launch_counts()
         got = cf.fam_resident(u, n, scal, problem)
-        assert cf.launch_counts() == {"fam_resident": 1, "fam_tile_multi": 0}
+        assert _build.launch_counts("family") == {"fam_resident": 1,
+                                                  "fam_tile_multi": 0}
         assert torch.equal(got, cf.fam_tiled_chunk(u, n, scal, problem))
 
 
@@ -420,14 +423,14 @@ def test_tridiag_kernels_match_plain(card, shape):
     g.manual_seed(12)
     rhs = torch.rand((3,) + shape, generator=g, device=card)
     c = torch.tensor([51.2, 0.3, 7.0], device=card)
-    td.reset_launch_counts()
+    _build.reset_launch_counts()
     for fn, plain in ((td.td_rows, td.td_rows_plain),
                       (td.td_lanes, td.td_lanes_plain)):
         ref = plain(rhs, c)
         err = float((fn(rhs, c).double() - ref.double()).abs().max())
         assert err <= 52.2 * 2.0 ** -20 * float(ref.abs().max())
-    assert td.launch_counts() == {"td_coeffs": 2, "td_rows": 1,
-                                  "td_lanes": 1}
+    assert _build.launch_counts("tridiag") == {
+        "td_coeffs": 2, "td_rows": 1, "td_lanes": 1}
 
 
 @pytest.mark.parametrize("c", [0.1, 3.2, 51.2])
@@ -515,11 +518,11 @@ def test_adi_halves_one_launch_bitwise(card, n, m, b):
     cx = torch.tensor([25.0, 51.2, 0.3, 12.5][:b], device=card)
     cy = torch.tensor([51.2, 0.3, 25.0, 3.2][:b], device=card)
     kx, ky = td.adi_coeffs(u, cx, cy)
-    td.reset_launch_counts()
+    _build.reset_launch_counts()
     ustar = td.td_rows_rhs(u, cx, cy, kx)
     y = td.td_lanes_rhs(ustar, cy, cx, ky)
-    assert td.launch_counts() == {"td_coeffs": 0, "td_rows": 1,
-                                  "td_lanes": 1}
+    assert _build.launch_counts("tridiag") == {
+        "td_coeffs": 0, "td_rows": 1, "td_lanes": 1}
     want = td._hold_edges(td.td_rows(td._rhs_half(
         u, cy.reshape(-1, 1, 1), 1), cx, kx), u)
     assert torch.equal(ustar, want)
@@ -542,10 +545,10 @@ def test_adi_solve_fused_equals_the_composed_loop(card):
         return [sum(reg.find_counters(k).values()) for k in
                 ("adi_halves_total", "adi_halves_fused_total")]
     before = halves()
-    td.reset_launch_counts()
+    _build.reset_launch_counts()
     got = Heat2DSolver(cfg).run(timed=False)
-    assert td.launch_counts() == {"td_coeffs": 2, "td_rows": 40,
-                                  "td_lanes": 40}
+    assert _build.launch_counts("tridiag") == {
+        "td_coeffs": 2, "td_rows": 40, "td_lanes": 40}
     assert [a - b for a, b in zip(halves(), before)] == [80, 80]
     u = inidat(2560, 2048, device=card)[None].contiguous()
     cx = torch.tensor([25.0], device=card)
@@ -595,11 +598,10 @@ def test_fam_tile_build_and_occupancy(card):
 def test_adi_solver_on_the_card(card):
     """Mode pallas (H10/H11) against mode serial (the plain scan) on the card:
     the same steps_done, within steps * (1 + cx + cy) * 2**-22 * max|u|."""
-    from heat2d_tpu_torch.ops import tridiag as td
     cfg = HeatConfig(nxprob=96, nyprob=160, steps=40, cx=30.0, cy=20.0,
                      method="adi", mode="pallas", convergence=True,
                      interval=10, sensitivity=1e30)
-    td.reset_launch_counts()
+    _build.reset_launch_counts()
     got = Heat2DSolver(cfg).run(timed=False)
     want = Heat2DSolver(cfg.replace(mode="serial")).run(timed=False)
     assert got.steps_done == want.steps_done == 10
@@ -607,26 +609,25 @@ def test_adi_solver_on_the_card(card):
     # first check's ten steps, and the next chunk's ten, issued before
     # that check's residual was read (models/engine.py reads one chunk
     # late) and dropped when it stopped the run
-    assert td.launch_counts() == {"td_coeffs": 2, "td_rows": 20,
-                                  "td_lanes": 20}
+    assert _build.launch_counts("tridiag") == {
+        "td_coeffs": 2, "td_rows": 20, "td_lanes": 20}
     err = float(abs(got.u.astype("float64") - want.u).max())
     assert err <= 10 * 51 * 2.0 ** -22 * float(abs(want.u).max())
 
 
 def test_served_family_on_the_card(card):
     from heat2d_tpu_torch.obs.metrics import MetricsRegistry
-    from heat2d_tpu_torch.ops import cuda_family as cf
     from heat2d_tpu_torch.serve.schema import SolveRequest
     from heat2d_tpu_torch.serve.server import SolveServer
 
     reqs = [SolveRequest(nx=64, ny=96, steps=19, cx=0.05 * (i + 1),
                          cy=0.1, problem="heat9") for i in range(3)]
-    cf.reset_launch_counts()
+    _build.reset_launch_counts()
     with SolveServer(registry=MetricsRegistry(), max_delay=0.2) as srv:
         futs = [srv.submit(r) for r in reqs]
         got = [f.result(timeout=120) for f in futs]
     assert srv.engine.launches == 1
-    assert cf.launch_counts()["fam_resident"] == 1
+    assert _build.launch_counts("family")["fam_resident"] == 1
     want = ensemble.run_ensemble(64, 96, 19, [r.cx for r in reqs],
                                  [r.cy for r in reqs], method="jnp",
                                  problem="heat9")
@@ -660,7 +661,7 @@ def test_shard_kernels_match_plain(card, mesh, form):
     bm, bn = 37, 53
     nx, ny = gx * bm - 2, gy * bn - 1          # ragged: pad cells too
     blocks = _shards(card, gx, gy, bm, bn)
-    csh.reset_launch_counts()
+    _build.reset_launch_counts()
     strips = exchange_halo_strips(blocks, 8)
     for i in range(gx):
         for j in range(gy):
@@ -686,7 +687,7 @@ def test_shard_kernels_match_plain(card, mesh, form):
             h12 = csh.shard_tile_multi(blocks[i][j], s3[i][j], 3, i * bm,
                                        j * bn, nx, ny, 0.1, 0.1, form)
             assert torch.equal(fused[i][j], h12)
-    counts = csh.launch_counts()
+    counts = _build.launch_counts("shard")
     assert counts["shard_fused"] == 1
     assert counts["shard_tile_multi"] == 3 * gx * gy + gx * gy
 
@@ -713,7 +714,7 @@ def test_shard_sweep_fast_and_edge_tiles(card, nx, ny, gx, gy, form):
     blocks = [[full[i * bm:(i + 1) * bm, j * bn:(j + 1) * bn].contiguous()
                for j in range(gy)] for i in range(gx)]
     strips = exchange_halo_strips(blocks, 8)
-    plan = cs.plan_strip_sweep(bm, bn, 8)
+    plan = cs.tile_plan(bm, bn, 8, card)
     kinds = [csh.tile_paths(plan, i * bm, j * bn, bm, bn, nx, ny)
              for i in range(gx) for j in range(gy)]
     assert any(k["fast"] for k in kinds) == (nx != 74)
@@ -803,19 +804,18 @@ def test_sharded_solver_across_cards(card, parity):
     exchange copies between cards, H14 reads its neighbours through peer
     access. Fused equals collective bit for bit; the literal form equals
     serial bit for bit."""
-    from heat2d_tpu_torch.ops import cuda_shard as csh
     from heat2d_tpu_torch.parallel.mesh import host_devices
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two or more CUDA cards")
     devs = host_devices(4)
     cfg = HeatConfig(nxprob=512, nyprob=384, steps=61, mode="hybrid",
                      gridx=2, gridy=2, bitwise_parity=parity)
-    csh.reset_launch_counts()
+    _build.reset_launch_counts()
     col = Heat2DSolver(cfg, devices=devs).run(timed=False)
     fused = Heat2DSolver(cfg.replace(halo="fused"),
                          devices=devs).run(timed=False)
     assert fused.halo["tier"] == "ici"
-    assert csh.launch_counts()["shard_fused"] > 0
+    assert _build.launch_counts("shard")["shard_fused"] > 0
     assert (col.u == fused.u).all()
     want = Heat2DSolver(cfg.replace(mode="serial")).run(timed=False)
     if parity:
@@ -855,9 +855,9 @@ def test_diff_auto_takes_band_and_launches_h6(card):
     assert f.spec.method == "band" and f.spec.schedule == (6, 6, 6, 2)
     u0 = inidat(n, n, device=card)
     u0 = u0 / u0.max()
-    ce.reset_launch_counts()
+    _build.reset_launch_counts()
     out, g = _diff_grads(f, u0, u0)
-    assert ce.launch_counts()["ens_tile_multi"] == 4
+    assert _build.launch_counts("ensemble")["ens_tile_multi"] == 4
     ref, g_ref = _diff_grads(make_diff_solve(n, n, steps, method="jnp",
                                              segment=6), u0, u0)
     _close(out, ref, steps, cs.FORM_FMA)
@@ -889,8 +889,7 @@ def test_diff_leaves_the_forward_paths_unchanged(card):
     from heat2d_tpu_torch.diff import make_diff_solve
 
     def forward():
-        cs.reset_launch_counts()
-        ce.reset_launch_counts()
+        _build.reset_launch_counts()
         u = Heat2DSolver(HeatConfig(nxprob=640, nyprob=1024, steps=24,
                                     mode="pallas")).run(timed=False).u
         run = ensemble.batch_runner(4099, 4097, 16, "band")
@@ -898,7 +897,8 @@ def test_diff_leaves_the_forward_paths_unchanged(card):
         ens = run(b, torch.tensor([0.1, 0.2], device=card),
                   torch.tensor([0.1, 0.05], device=card))
         return (u.tobytes(), ens.cpu().numpy().tobytes(),
-                cs.launch_counts(), ce.launch_counts())
+                _build.launch_counts("stencil"),
+                _build.launch_counts("ensemble"))
 
     before = forward()
     f = make_diff_solve(2048, 2048, 8)
@@ -1001,19 +1001,18 @@ def test_mesh_serving_across_cards(card):
 def test_hybrid_scaling_across_cards(card, halo):
     """Strong scaling in hybrid mode over every visible card (needs two
     or more): H12 for collective, H14 for fused, both launched."""
-    from heat2d_tpu_torch.ops import cuda_shard as csh
     from heat2d_tpu_torch.parallel.mesh import visible_devices
     from heat2d_tpu_torch.parallel.scaling import measure_strong_scaling
     n = torch.cuda.device_count()
     if n < 2:
         pytest.skip("needs two or more CUDA cards")
-    csh.reset_launch_counts()
+    _build.reset_launch_counts()
     rec = measure_strong_scaling(n, 1024, 1024, 64, halo=halo,
                                  mode="hybrid", devices=visible_devices())
     assert rec["halo_tier"] == ("ici" if halo == "fused" else "collective")
     assert rec["mcells_per_s_nchip"] > 0
     name = "shard_fused" if halo == "fused" else "shard_tile_multi"
-    assert csh.launch_counts()[name] > 0
+    assert _build.launch_counts("shard")[name] > 0
 
 
 @pytest.mark.parametrize("convergence", [False, True])
@@ -1107,15 +1106,15 @@ def test_profiled_run_counts_and_bits_equal_untraced(card, tmp_path, shape,
     from heat2d_tpu_torch.utils.profiling import profile_span
     cfg = HeatConfig(nxprob=shape[0], nyprob=shape[1], steps=steps,
                      mode="pallas")
-    cs.reset_launch_counts()
+    _build.reset_launch_counts()
     want = Heat2DSolver(cfg).run()
-    plain = cs.launch_counts()
+    plain = _build.launch_counts("stencil")
     tracing.install(tracing.Tracer(str(tmp_path / "trace"), service="t"))
     try:
-        cs.reset_launch_counts()
+        _build.reset_launch_counts()
         with profile_span(str(tmp_path / "prof"), device=card):
             got = Heat2DSolver(cfg).run()
-        traced = cs.launch_counts()
+        traced = _build.launch_counts("stencil")
     finally:
         tracing.uninstall()
     assert (got.u.tobytes() == want.u.tobytes()) and traced == plain
@@ -1268,13 +1267,13 @@ def test_load_replay_through_a_serve_target_on_the_card(card, tmp_path):
     sched = Schedule.from_jsonl(str(path))
     target = ServeTarget(registry=MetricsRegistry(), device="cuda")
     try:
-        ce.reset_launch_counts()
+        _build.reset_launch_counts()
         row = run_schedule(sched, target, MetricsRegistry())
     finally:
         target.close()
     assert row["arrivals"] == len(sched) > 0
     assert row["completed"] == row["arrivals"] and row["unanswered"] == 0
-    assert ce.launch_counts()["ens_resident"] > 0
+    assert _build.launch_counts("ensemble")["ens_resident"] > 0
 
 
 def test_rollout_on_the_card_takes_the_candidate_k(card, tmp_path):
@@ -1344,9 +1343,9 @@ def test_migrated_inverse_job_is_bitwise_on_the_card(card):
     prob = InverseProblem(nx=n, ny=n, steps=steps, target="init",
                           obs_mask=observation_mask(n, n, every=1),
                           obs_values=u_true, method="band", device="cuda")
-    ce.reset_launch_counts()
+    _build.reset_launch_counts()
     oracle = migrate.run_unmigrated(prob, iterations=20, lr=0.05)
-    assert ce.launch_counts()["ens_tile_multi"] > 0
+    assert _build.launch_counts("ensemble")["ens_tile_multi"] > 0
     half = prob.solve(iterations=20, lr=0.05, pause=lambda it: it >= 5)
     ticket = json.dumps(migrate.encode_ticket(prob, half.state,
                                               iterations=20, lr=0.05))

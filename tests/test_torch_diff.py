@@ -30,6 +30,7 @@ from heat2d_tpu_torch import vocab as tvocab
 from heat2d_tpu_torch.diff import adjoint as tadj
 from heat2d_tpu_torch.diff import vocab as tdvocab
 from heat2d_tpu_torch.models import engine
+from heat2d_tpu_torch.ops import _build
 from heat2d_tpu_torch.ops import cuda_stencil as cs
 from heat2d_tpu_torch.ops import stability as tstab
 from heat2d_tpu_torch.ops.init import inidat
@@ -385,11 +386,9 @@ def test_solver_and_batch_runner_unchanged_by_diff():
     from heat2d_tpu_torch.config import HeatConfig
     from heat2d_tpu_torch.models.ensemble import batch_runner
     from heat2d_tpu_torch.models.solver import Heat2DSolver
-    from heat2d_tpu_torch.ops import cuda_ensemble as ce
 
     def forward():
-        cs.reset_launch_counts()
-        ce.reset_launch_counts()
+        _build.reset_launch_counts()
         u = Heat2DSolver(HeatConfig(nxprob=12, nyprob=12, steps=8,
                                     mode="pallas"),
                          device="cpu").run(timed=False).u
@@ -397,7 +396,8 @@ def test_solver_and_batch_runner_unchanged_by_diff():
         batch = torch.tensor(np.stack([_u0(16, 16)] * 2))
         ens = run(batch, torch.tensor([0.1, 0.2]), torch.tensor([0.1, 0.05]))
         return (np.asarray(u).tobytes(), ens.numpy().tobytes(),
-                cs.launch_counts(), ce.launch_counts())
+                _build.launch_counts("stencil"),
+                _build.launch_counts("ensemble"))
 
     before = forward()
     f = tadj.make_diff_solve(12, 12, 8, method="band", device="cpu")

@@ -15,7 +15,6 @@ rounds every operation, XLA's CPU backend may contract multiply-adds).
 ``steps_done`` must be equal.
 """
 
-import ctypes
 
 import jax
 import jax.numpy as jnp
@@ -28,8 +27,10 @@ from heat2d_tpu.models import ensemble as jens
 from heat2d_tpu.ops.init import inidat as jinidat
 from heat2d_tpu.ops.stencil import residual_sq as jres
 from heat2d_tpu_torch.models import ensemble as tens
+from heat2d_tpu_torch.ops import _build
 from heat2d_tpu_torch.ops import cuda_ensemble as ce
 from heat2d_tpu_torch.ops import cuda_stencil as cs
+from tests._torch_recording import record_launches
 
 SHAPES = [(16, 128), (36, 128), (24, 32)]
 MEMBERS = [1, 3, 8]
@@ -169,13 +170,13 @@ def test_k0_is_float32_arithmetic():
 
 
 def test_plain_versions_count_no_launches(rng):
-    ce.reset_launch_counts()
+    _build.reset_launch_counts()
     cxs, cys, u = (torch.from_numpy(a) for a in _inputs(rng, 2, (12, 12)))
     ce.ens_resident(u, 3, cxs, cys)
     ce.ens_tiled_chunk(u, 11, cxs, cys)
     ce.ens_tile_multi_conv(u, 2, cxs, cys, torch.ones(2, dtype=torch.int32),
                            resid=True)
-    assert set(ce.launch_counts().values()) == {0}
+    assert set(_build.launch_counts("ensemble").values()) == {0}
 
 
 # ------------------------------------------------------------------ #
@@ -185,10 +186,9 @@ def test_plain_versions_count_no_launches(rng):
 @pytest.mark.parametrize("shape", [(36, 128), (24, 32), (4096, 4096),
                                    (4099, 4097)])
 def test_tile_plan_is_the_strip_sweeps(shape):
-    """H6/H7 tile a member as H2 tiles a grid: ``plan_strip_sweep`` at
+    """H6/H7 tile a member as H2 tiles a grid: ``cs.tile_plan`` at
     depth T within the H100's limits (two blocks of 16 warps an SM)."""
     plan = ce.tile_plan(*shape, "cpu")
-    assert plan == cs.plan_strip_sweep(*shape, cs.DEFAULT_TSTEPS)
     assert plan == cs.tile_plan(*shape, cs.DEFAULT_TSTEPS, "cpu")
     assert plan.tsteps == cs.DEFAULT_TSTEPS and ce.STRIP == 8
 
@@ -215,34 +215,28 @@ def test_tile_launch_passes_the_strip_plan(monkeypatch, resid):
     plan's ring, depth and tile, a (B, tiles) buffer of partials with
     ``resid``, and the ``paths`` count (the kernel's C entry point stubbed
     out: the CPU has no card)."""
-    calls = []
-
-    class Lib:
-        def heat_ens_tile(self, *args):
-            calls.append(args)
-            return 0
-    monkeypatch.setattr(ce, "_lib", Lib)
-    monkeypatch.setattr(ce, "_stream", lambda u: ctypes.c_void_p(0))
+    calls = record_launches(monkeypatch)
     b, nx, ny = 3, 300, 520
     u = torch.zeros(b, nx, ny)
     cxs = cys = torch.full((b,), 0.1)
     active = torch.ones(b, dtype=torch.int32)
     counted = cs.path_counter("cpu")
-    ce.reset_launch_counts()
+    _build.reset_launch_counts()
     name = "ens_tile_multi_conv" if resid else "ens_tile_multi"
     _, parts = ce._tile_launch(u, 5, cxs, cys, active if resid else None,
                                resid, name, counted)
     plan = ce.tile_plan(nx, ny, "cpu")
-    (args,) = calls
+    [(entry, args)] = calls
+    assert entry == "heat_ens_tile"
     assert args[7:14] == (b, nx, ny, plan.tsteps, 5, plan.ty, plan.tx)
-    assert args[3].value == counted.data_ptr()
-    assert (args[6].value is not None) == resid
+    assert args[3] == counted.data_ptr()
+    assert (args[6] is not None) == resid
     if resid:
         assert tuple(parts.shape) == (b, plan.ntiles)
-        assert args[2].value == parts.data_ptr()
+        assert args[2] == parts.data_ptr()
     else:
-        assert parts is None and args[2].value is None
-    assert ce.launch_counts()[name] == 1
+        assert parts is None and args[2] is None
+    assert _build.launch_counts("ensemble")[name] == 1
 
 
 def test_paths_count_nothing_on_the_cpu(rng):

@@ -32,12 +32,14 @@ from heat2d_tpu_torch.models import ensemble as tens
 from heat2d_tpu_torch.models import solution as tsol
 from heat2d_tpu_torch.models.solver import Heat2DSolver
 from heat2d_tpu_torch.obs.metrics import get_registry
+from heat2d_tpu_torch.ops import _build
 from heat2d_tpu_torch.ops import analytic as tan
 from heat2d_tpu_torch.ops import multigrid as tmg
 from heat2d_tpu_torch.ops import tridiag as ttd
 from heat2d_tpu_torch.serve.engine import EnsembleEngine
 from heat2d_tpu_torch.serve.schema import SolveRequest
 from heat2d_tpu_torch.serve.server import Client, SolveServer
+from tests._torch_recording import record_launches
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -276,10 +278,10 @@ def test_td_coefficients_and_validation(rng):
     assert a.shape == cp.shape == mi.shape == (6, 2, 1)
     assert float(cp[0, 0]) == 0.0 and float(mi[0, 0]) == 1.0
     assert float(mi[-1, 0]) == 1.0 and float(a[-1, 0]) == 0.0
-    ttd.reset_launch_counts()
+    _build.reset_launch_counts()
     ttd.td_rows(torch.zeros(2, 6, 5), c)
-    assert ttd.launch_counts() == {"td_coeffs": 0, "td_rows": 0,
-                                   "td_lanes": 0}
+    assert _build.launch_counts("tridiag") == {
+        "td_coeffs": 0, "td_rows": 0, "td_lanes": 0}
     for bad in (torch.zeros(2, 6, 5, dtype=torch.float64),
                 torch.zeros(6, 5)):
         with pytest.raises(ValueError):
@@ -458,7 +460,7 @@ def test_adi_half_builds_equal_the_composition(shape, b, c, rng):
     cxs = torch.tensor([c, c / 2, c * 2][:b])
     cys = torch.tensor([c * 2, c, c / 2][:b])
     kx, ky = ttd.adi_coeffs(u, cxs, cys)
-    ttd.reset_launch_counts()
+    _build.reset_launch_counts()
     ustar = ttd.td_rows_rhs(u, cxs, cys, kx)
     assert torch.equal(ustar, _half_x(u, cxs, cys, kx))
     assert torch.equal(ttd.td_rows_rhs_plain(u, cxs, cys, kx), ustar)
@@ -470,8 +472,8 @@ def test_adi_half_builds_equal_the_composition(shape, b, c, rng):
     for v in (ustar, y):
         assert torch.equal(v[:, [0, -1]], u[:, [0, -1]])
         assert torch.equal(v[:, :, [0, -1]], u[:, :, [0, -1]])
-    assert ttd.launch_counts() == {"td_coeffs": 0, "td_rows": 0,
-                                   "td_lanes": 0}
+    assert _build.launch_counts("tridiag") == {
+        "td_coeffs": 0, "td_rows": 0, "td_lanes": 0}
 
 
 def test_batched_adi_kernel_is_the_composed_loop_and_counts_halves(rng):
@@ -501,24 +503,6 @@ def test_batched_adi_kernel_is_the_composed_loop_and_counts_halves(rng):
     assert _halves() == before
 
 
-def _record_launches(monkeypatch) -> list:
-    """Send ``_launch``'s calls to a library that records them and
-    returns 0, on an H100's SMs and shared memory; the list of (entry,
-    args)."""
-    import ctypes
-    from types import SimpleNamespace
-    calls = []
-
-    class Lib:
-        def __getattr__(self, name):
-            return lambda *args: calls.append((name, args)) or 0
-    monkeypatch.setattr(ttd, "_lib", Lib)
-    monkeypatch.setattr(ttd, "_stream", lambda t: ctypes.c_void_p(7))
-    monkeypatch.setattr(ttd.cs, "device_caps", lambda d: SimpleNamespace(
-        sm_count=132, smem_optin=232448))
-    return calls
-
-
 @pytest.mark.parametrize("rhs", [False, True])
 @pytest.mark.parametrize("kernel", ["td_rows", "td_lanes"])
 def test_launch_passes_each_build_its_entry_and_plan(kernel, rhs,
@@ -527,24 +511,22 @@ def test_launch_passes_each_build_its_entry_and_plan(kernel, rhs,
     library that records its calls): a right-hand-side build goes to its
     own entry point with the stencil's diffusion numbers after c, on the
     plan of its wider ring, and counts as its solve kernel's launch."""
-    from heat2d_tpu_torch.ops import _build
-    calls = _record_launches(monkeypatch)
+    calls = record_launches(monkeypatch)
     x = torch.zeros(2, 70, 37)
     c, s = torch.ones(2), torch.full((2,), 2.0)
     coef = ttd.td_coeffs(c, 70 if kernel == "td_rows" else 37)
-    ttd.reset_launch_counts()
+    _build.reset_launch_counts()
     out = ttd._launch(kernel, x, c, coef, s if rhs else None)
     [(name, args)] = calls
     assert name == f"heat_{kernel}" + ("_rhs" if rhs else "")
     assert len(args) == len(_build.SIGNATURES["tridiag"][name][1])
     ptrs = [x, out, c] + ([s] if rhs else []) + [coef]
-    assert [a.value for a in args[:len(ptrs)]] == [t.data_ptr()
-                                                   for t in ptrs]
+    assert list(args[:len(ptrs)]) == [t.data_ptr() for t in ptrs]
     planner = ttd.plan_td_rows if kernel == "td_rows" else ttd.plan_td_lanes
     plan = planner(2, 70, 37, rhs=rhs)
     assert args[len(ptrs):-1] == (2, 70, 37, plan.warps,
                                   int(plan.coef_smem))
-    assert ttd.launch_counts()[kernel] == 1
+    assert _build.launch_counts("tridiag")[kernel] == 1
 
 
 @pytest.mark.parametrize("steps", [1, 3])
@@ -554,7 +536,7 @@ def test_fused_halves_are_counted_at_the_launch(steps, monkeypatch):
     recording library, as a card's wrappers send it, a call of
     ``batched_adi_kernel`` counts 2 x steps halves and as many launches,
     one entry point a half in turn; ``adi_sweep_kernel`` counts its 2."""
-    calls = _record_launches(monkeypatch)
+    calls = record_launches(monkeypatch)
     monkeypatch.setattr(ttd, "td_rows_rhs", lambda u, c, s, coef:
                         ttd._launch("td_rows", u, c, coef, s))
     monkeypatch.setattr(ttd, "td_lanes_rhs", lambda u, c, s, coef:
@@ -705,11 +687,11 @@ def test_time_to_solution_explicit_leg_validates_stability():
 
 
 def test_bench_tts_uses_the_kernels_on_the_cpu_plain():
-    ttd.reset_launch_counts()
+    _build.reset_launch_counts()
     out = tsol.bench_tts(quick=True, device="cpu")
     assert [r["method"] for r in out["rows"]] == ["explicit", "adi"]
     assert out["summary"]["adi_matched_accuracy"]
-    assert set(ttd.launch_counts().values()) == {0}
+    assert set(_build.launch_counts("tridiag").values()) == {0}
 
 
 # ------------------------------------------------------------------ #

@@ -188,15 +188,15 @@ def test_cli_device_info_prints_the_summary_and_runs_nothing(tmp_path,
     the summary as ``key: value`` lines, the keys the JAX CLI prints for
     the platform, the device kind and the count, exit 0, no kernel
     launched and no file written."""
-    from heat2d_tpu_torch.ops import cuda_stencil as cs
+    from heat2d_tpu_torch.ops import _build
     monkeypatch.chdir(tmp_path)
-    cs.reset_launch_counts()
+    _build.reset_launch_counts()
     assert tcli.main(["--device-info", "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.splitlines()
     got = dict(line.split(": ", 1) for line in lines)
     assert got["platform"] == "cpu" and got["device_kind"] == "cpu"
     assert got["n_devices"] == "1"
-    assert set(cs.launch_counts().values()) == {0}
+    assert set(_build.launch_counts("stencil").values()) == {0}
     assert list(tmp_path.iterdir()) == []
     from heat2d_tpu.utils.device import device_summary
     assert {"platform", "device_kind", "n_devices"} <= set(device_summary())

@@ -266,9 +266,9 @@ def test_implicit_and_family_entry_points_raise_without_a_card(no_card,
                                    (10, 10)])
 @pytest.mark.parametrize("tsteps", [1, 3, 8])
 def test_tile_plan_fits_shared_memory(shape, tsteps):
-    plan = cs.plan_tiles(*shape, tsteps)
+    plan = cs.plan_tiles(*shape, tsteps, _build.smem_limit("cpu"))
     # 227 KB: the H100's opt-in shared memory per block.
-    assert plan.smem_bytes + cs._STATIC_SMEM <= 227 * 1024
+    assert plan.smem_bytes + _build.STATIC_SMEM <= 227 * 1024
     assert plan.grid[0] * plan.ty >= shape[0]
     assert plan.grid[1] * plan.tx >= shape[1]
     assert plan.ty % cs.BLOCK[1] == 0 and plan.tx % cs.BLOCK[0] == 0

@@ -27,8 +27,10 @@ from heat2d_tpu.ops import inidat as jinidat
 from heat2d_tpu.ops import pallas_stencil as ps
 from heat2d_tpu.ops.stencil import residual_sq, stencil_step
 from heat2d_tpu_torch.config import HeatConfig
+from heat2d_tpu_torch.ops import _build
 from heat2d_tpu_torch.ops import cuda_stencil as cs
 from heat2d_tpu_torch.ops import resident as rs
+from tests._torch_recording import record_launches
 
 FORMS = {"fma": (cs.FORM_FMA, ps._step_value),
          "literal": (cs.FORM_LITERAL, ps._step_value_literal)}
@@ -122,13 +124,13 @@ def test_wrappers_reject_bad_depth_and_dtype():
 
 
 def test_plain_versions_count_no_launches():
-    cs.reset_launch_counts()
+    _build.reset_launch_counts()
     u = torch.zeros(12, 12)
     cs.step(u, 0.1, 0.1)
     cs.tiled_chunk(u, 9, 0.1, 0.1)
     cs.tile_multi_resid(u, 2, 0.1, 0.1)
     cs.resident(u, 3, 0.1, 0.1)
-    assert set(cs.launch_counts().values()) == {0}
+    assert set(_build.launch_counts("stencil").values()) == {0}
 
 
 def _h4_plan(shape):
@@ -178,8 +180,8 @@ def test_resident_gate_follows_the_plan(shape):
     assert cs.fits_resident(shape, "cpu") == (plan is not None)
     if plan is not None:
         assert (plan.nb, plan.nx, plan.ny, plan.ring_w) == (1, *shape, 1)
-        assert plan.smem_bytes <= cs.smem_limit("cpu")
-        assert plan.blocks <= rs.H100_SM_COUNT
+        assert plan.smem_bytes <= _build.smem_limit("cpu")
+        assert plan.blocks <= _build.H100_SM_COUNT
     cfg = HeatConfig(nxprob=shape[0], nyprob=shape[1], steps=1,
                      mode="pallas")
     runner = cs.make_single_chip_runner(cfg, "cpu")
@@ -200,10 +202,9 @@ def test_strip_sweep_plan(shape, tsteps, fast, edge):
     assert plan.tsteps == tsteps and plan.ty <= 64 and plan.tx <= 128
     assert (plan.grid[0] - 1) * plan.ty < shape[0] <= plan.grid[0] * plan.ty
     assert (plan.grid[1] - 1) * plan.tx < shape[1] <= plan.grid[1] * plan.tx
-    per_block = (plan.smem_bytes + cs.BLOCK_RESERVED_SMEM
+    per_block = (plan.smem_bytes + _build.BLOCK_RESERVED_SMEM
                  + 4 * cs.STRIP_WARPS)
-    assert 2 * per_block <= cs.SM_SMEM_BYTES
-    assert plan == cs.plan_strip_sweep(*shape, tsteps)
+    assert 2 * per_block <= _build.SM_SMEM_BYTES
     paths = cs.tile_paths(plan, *shape)
     assert paths == {"fast": fast, "edge": edge}
     # the kernel's test, tile by tile (ext_inside of csrc/tile.cuh)
@@ -223,10 +224,169 @@ def test_path_counter_and_paths_on_the_cpu():
     assert buf.dtype == torch.int32 and tuple(buf.shape) == (2,)
     assert not bool(buf.any())
     u = torch.rand(20, 24)
-    cs.reset_launch_counts()
+    _build.reset_launch_counts()
     assert torch.equal(cs.tile_multi(u, 3, 0.1, 0.1, paths=buf),
                        cs.multi_step_plain(u, 3, 0.1, 0.1))
     cs.tile_multi_resid(u, 3, 0.1, 0.1, paths=buf)
-    assert not bool(buf.any()) and set(cs.launch_counts().values()) == {0}
+    assert not bool(buf.any())
+    assert set(_build.launch_counts("stencil").values()) == {0}
     with pytest.raises(ValueError, match="path_counter"):
         cs._check_paths(torch.zeros(3, dtype=torch.int32), 2, u.device)
+
+
+# ------------------------------------------------------------------ #
+# The calling seam (ops/_build.py): launches, their counts, the caps
+# ------------------------------------------------------------------ #
+
+def test_device_caps_answer_the_h100_for_the_cpu():
+    """A tensor on the CPU plans against the H100's limits: 232,448 bytes
+    of opt-in shared memory a block (less the tile kernel's static 32),
+    132 SMs, cooperative launches."""
+    caps = _build.device_caps("cpu")
+    assert caps == _build.DeviceCaps(_build.H100_L2_BYTES,
+                                     _build.H100_SMEM_OPTIN,
+                                     _build.H100_SM_COUNT, True)
+    assert (caps.smem_optin, caps.sm_count) == (232448, 132)
+    assert _build.device_caps(torch.device("cpu")) == caps
+    assert _build.smem_limit("cpu") == 232448 - _build.STATIC_SMEM == 232416
+
+
+#: Plans at the benchmark's and the tests' shapes, as the planners gave
+#: them before the caps moved to ``_build``: (planner, arguments, plan).
+PINNED_PLANS = [
+    ("tile", (2560, 2048, 8), (64, 128, 8, (40, 16))),
+    ("tile", (640, 1024, 8), (64, 128, 8, (10, 8))),
+    ("tile", (4099, 4097, 8), (64, 128, 8, (65, 33))),
+    ("tile", (37, 53, 4), (40, 64, 4, (1, 1))),
+    ("tile", (4096, 4096, 8, 16), (16, 128, 8, (256, 32))),
+    ("resident", (640, 1024), (1, 640, 1024, 1, 7, 46, 114, 14, 9, 1)),
+    ("resident", (640, 1024, 4), (1, 640, 1024, 1, 4, 46, 114, 14, 9, 1)),
+    ("resident", (96, 80), (1, 96, 80, 1, 6, 6, 80, 16, 1, 1)),
+    ("resident", (2560, 2048), None),
+    ("ensemble", (8, 640, 1024, 1), (8, 640, 1024, 1, 4, 59, 342, 11, 3, 4)),
+    ("ensemble", (3, 96, 80, 2), (3, 96, 80, 2, 4, 8, 80, 12, 1, 3)),
+    ("td_rows", (1, 2560, 2048), (1, True, 53248, 64)),
+    ("td_rows_rhs", (1, 2560, 2048), (1, True, 61952, 64)),
+    ("td_lanes", (1, 2560, 2048), (1, True, 50176, 80)),
+    ("td_lanes_rhs", (1, 2560, 2048), (1, True, 52288, 80)),
+    ("td_rows_rhs", (8, 640, 1024), (2, True, 88064, 128)),
+    ("td_lanes_rhs", (8, 640, 1024), (2, True, 80000, 80)),
+    ("td_rows", (200, 4096, 4096), (4, True, 163840, 6400)),
+]
+
+
+@pytest.mark.parametrize("planner,args,want", PINNED_PLANS)
+def test_plans_are_pinned_on_the_cpu(planner, args, want):
+    """``tile_plan``, ``resident_plan``, ``plan_resident``,
+    ``plan_td_rows`` and ``plan_td_lanes`` on the CPU: the plans the card
+    would launch at these shapes, unchanged."""
+    from heat2d_tpu_torch.ops import tridiag as td
+    if planner == "tile":
+        nx, ny, t, *ty = args
+        got = cs.tile_plan(nx, ny, t, "cpu", *ty)
+    elif planner == "resident":
+        nx, ny, *k = args
+        got = cs.resident_plan(nx, ny, "cpu", *k)
+    elif planner == "ensemble":
+        nb, nx, ny, w = args
+        got = rs.plan_resident(nb, nx, ny, w, "cpu")
+    else:
+        fn = td.plan_td_rows if planner.startswith("td_rows") \
+            else td.plan_td_lanes
+        got = fn(*args, rhs=planner.endswith("_rhs"))
+    assert got == want
+
+
+#: The wrapper names the counts were kept under before they moved to
+#: ``_build``: the union of the five kernel modules' counters, in order.
+LAUNCH_KEYS = ["step", "tile_multi", "tile_multi_resid", "resident",
+               "ens_resident", "ens_tile_multi", "ens_tile_multi_conv",
+               "fam_resident", "fam_tile_multi", "shard_tile_multi",
+               "shard_tile_multi_resid", "shard_fused", "td_coeffs",
+               "td_rows", "td_lanes"]
+
+
+def _launch_stencil(monkeypatch):
+    u = torch.zeros(40, 56)
+    cs._tile_launch(u, 3, 0.1, 0.1, cs.FORM_FMA, 8, False)
+    cs._tile_launch(u, 3, 0.1, 0.1, cs.FORM_FMA, 8, True)
+    cs._resident_launch(u, 5, 0.1, 0.1, cs.FORM_FMA,
+                        cs.resident_plan(40, 56, "cpu"))
+    return {"step": 0, "tile_multi": 1, "tile_multi_resid": 1,
+            "resident": 1}
+
+
+def _launch_ensemble(monkeypatch):
+    from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    u, c = torch.zeros(2, 40, 56), torch.full((2,), 0.1)
+    ce._tile_launch(u, 3, c, c, None, False, "ens_tile_multi")
+    ce._tile_launch(u, 3, c, c, torch.ones(2, dtype=torch.int32), True,
+                    "ens_tile_multi_conv")
+    ce._resident_launch(u, 5, c, c, rs.plan_resident(2, 40, 56, 1, "cpu"))
+    return {"ens_resident": 1, "ens_tile_multi": 1,
+            "ens_tile_multi_conv": 1}
+
+
+def _launch_family(monkeypatch):
+    from heat2d_tpu_torch.ops import cuda_family as cf
+    u, c = torch.zeros(2, 40, 56), torch.full((2,), 0.05)
+    scal = cf.scalar_block("heat9", c, c)
+    cf._resident_launch(u, 5, scal, "heat9",
+                        rs.plan_resident(2, 40, 56, 2, "cpu"))
+    cf._tile_launch(u, 3, scal, "heat9",
+                    cf.tile_plan(40, 56, "heat9", "cpu", 3))
+    return {"fam_resident": 1, "fam_tile_multi": 1}
+
+
+def _launch_shard(monkeypatch):
+    import contextlib
+
+    from heat2d_tpu_torch.ops import cuda_shard as csh
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    u, t = torch.zeros(40, 56), 8
+    strips = [torch.zeros(t, 56), torch.zeros(t, 56), torch.zeros(56, t),
+              torch.zeros(56, t)]
+    for resid in (False, True):
+        csh._shard_launch(u, strips, 3, 0, 0, 80, 112, 0.1, 0.1,
+                          csh.FORM_FMA, resid)
+    return {"shard_tile_multi": 1, "shard_tile_multi_resid": 1,
+            "shard_fused": 0}
+
+
+def _launch_tridiag(monkeypatch):
+    from heat2d_tpu_torch.ops import tridiag as td
+    x, c = torch.zeros(2, 70, 37), torch.ones(2)
+    td._launch("td_rows", x, c, td.td_coeffs(c, 70))
+    td._launch("td_lanes", x, c, td.td_coeffs(c, 37), c)
+    return {"td_coeffs": 0, "td_rows": 1, "td_lanes": 1}
+
+
+@pytest.mark.parametrize("library,drive", [
+    ("stencil", _launch_stencil), ("ensemble", _launch_ensemble),
+    ("family", _launch_family), ("shard", _launch_shard),
+    ("tridiag", _launch_tridiag)])
+def test_each_wrapper_launch_counts_under_its_name(library, drive,
+                                                   monkeypatch):
+    """Each kernel module's card side, its launches sent to a recording
+    library: every launch reaches its library's entry point with the
+    entry's full C signature, the current stream last, and counts once
+    under its wrapper's name (``_build.launch_counts``) and its entry's
+    (``_build.entry_launches``); the registry's keys are the kernel
+    modules' former counters, which ``analysis.launch_pin`` reads."""
+    from heat2d_tpu_torch.analysis import launch_pin
+    recorded = record_launches(monkeypatch)
+    _build.reset_launch_counts()
+    entries = list(_build.SIGNATURES[library])
+    before = [_build.entry_launches(e) for e in entries]
+    want = drive(monkeypatch)
+    assert _build.launch_counts(library) == want
+    assert sum(_build.launch_counts().values()) == sum(want.values())
+    assert list(launch_pin.launch_counts()) == LAUNCH_KEYS
+    assert len(recorded) == sum(want.values())
+    for entry, args in recorded:
+        assert len(args) == len(_build.SIGNATURES[library][entry][1])
+        assert args[-1] == 7
+    made = [e for e, _ in recorded]
+    assert [_build.entry_launches(e) - b for e, b in
+            zip(entries, before)] == [made.count(e) for e in entries]

@@ -264,11 +264,10 @@ def test_scheduler_default_threshold_is_the_cards_on_chip_total():
     """The split threshold defaults to the card's shared memory across
     its SMs (the H100's figures answer for a CPU slot): a 640x1024
     member fits, a 4096^2 one does not."""
-    from heat2d_tpu_torch.ops import cuda_stencil as cs
-    from heat2d_tpu_torch.ops.resident import H100_SM_COUNT
+    from heat2d_tpu_torch.ops import _build
     s = MeshScheduler(devices=SLOTS[:4])
     assert s.spatial_bytes_threshold == \
-        H100_SM_COUNT * cs.smem_limit("cpu")
+        _build.H100_SM_COUNT * _build.smem_limit("cpu")
     assert s.decide(req(nx=640, ny=1024))["route"] == "batch"
     assert s.decide(req(nx=4096, ny=4096))["route"] == "spatial"
 

@@ -29,6 +29,7 @@ from heat2d_tpu.problems import runners as jrun
 from heat2d_tpu.serve.schema import SolveRequest as JRequest
 from heat2d_tpu_torch import config as tcfg
 from heat2d_tpu_torch.models import ensemble as tens
+from heat2d_tpu_torch.ops import _build
 from heat2d_tpu_torch.ops import cuda_family as cf
 from heat2d_tpu_torch.ops import stability as tstab
 from heat2d_tpu_torch.ops.stencil import stencil_step, stencil_step_var
@@ -216,13 +217,13 @@ def test_fam_tile_multi_plain_vs_family_band_kernel(fam, nsub, rng):
 
 
 def test_plain_versions_count_no_launches(rng):
-    cf.reset_launch_counts()
+    _build.reset_launch_counts()
     u = torch.from_numpy(np.stack([_state(rng, (12, 12))] * 2))
     scal = cf.scalar_block("heat9", torch.tensor([0.1, 0.1]),
                            torch.tensor([0.1, 0.2]))
     cf.fam_resident(u, 3, scal, "heat9")
     cf.fam_tiled_chunk(u, 11, scal, "heat9")
-    assert set(cf.launch_counts().values()) == {0}
+    assert set(_build.launch_counts("family").values()) == {0}
 
 
 @pytest.mark.parametrize("bad", [

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from heat2d_tpu_torch.ops import _build
 from heat2d_tpu_torch.ops import cuda_ensemble as ce
 from heat2d_tpu_torch.ops import cuda_family as cf
 from heat2d_tpu_torch.ops import cuda_stencil as cs
@@ -109,8 +110,8 @@ PLAN_TABLE = [(nb, nx, ny) for nx, ny in [(37, 53), (640, 1024)]
 def test_plan_covers_members_and_fits_the_card(nb, nx, ny, w):
     plan = rs.plan_resident(nb, nx, ny, w, "cpu")
     assert plan is not None
-    _check_plan(plan, nb, nx, ny, w, cs.smem_limit("cpu"), SMS)
-    assert cs.smem_limit("cpu") <= SMEM
+    _check_plan(plan, nb, nx, ny, w, _build.smem_limit("cpu"), SMS)
+    assert _build.smem_limit("cpu") <= SMEM
     assert list(plan.as_ctypes()) == [nb, nx, ny, plan.k, plan.ty, plan.tx,
                                       plan.gx, plan.gy, plan.members]
 
@@ -285,15 +286,14 @@ def test_wrappers_run_their_plain_versions_on_the_cpu():
     rng = np.random.default_rng(6)
     cxs = torch.from_numpy(rng.uniform(0.01, 0.24, 2).astype(np.float32))
     cys = torch.from_numpy(rng.uniform(0.01, 0.24, 2).astype(np.float32))
-    ce.reset_launch_counts()
-    cf.reset_launch_counts()
+    _build.reset_launch_counts()
     assert torch.equal(ce.ens_resident(u, 5, cxs, cys),
                        ce.ens_multi_step_plain(u, 5, cxs, cys))
     scal = cf.scalar_block("heat9", cxs * 0.5, cys * 0.5)
     assert torch.equal(cf.fam_resident(u, 5, scal, "heat9"),
                        cf.fam_multi_step_plain(u, 5, scal, "heat9"))
-    assert set(ce.launch_counts().values()) == {0}
-    assert set(cf.launch_counts().values()) == {0}
+    assert set(_build.launch_counts("ensemble").values()) == {0}
+    assert set(_build.launch_counts("family").values()) == {0}
     with pytest.raises(ValueError):
         ce.ens_resident(u, -1, cxs, cys)
     with pytest.raises(ValueError):

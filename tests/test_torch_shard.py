@@ -27,6 +27,7 @@ from heat2d_tpu.ops import pallas_stencil as ps
 from heat2d_tpu.ops.stencil import residual_sq as jresidual_sq
 from heat2d_tpu.ops.stencil import stencil_step_padded
 from heat2d_tpu.parallel.sharded import _keep_mask
+from heat2d_tpu_torch.ops import _build
 from heat2d_tpu_torch.ops import cuda_shard as csh
 from heat2d_tpu_torch.ops import cuda_stencil as cs
 from heat2d_tpu_torch.parallel import halo
@@ -217,7 +218,7 @@ def test_wrappers_reject_bad_strips():
 
 
 def test_plain_versions_count_no_launches(rng):
-    csh.reset_launch_counts()
+    _build.reset_launch_counts()
     blocks = [[torch.zeros(6, 6) for _ in range(2)] for _ in range(2)]
     strips = halo.exchange_halo_strips(blocks, 2)
     csh.shard_tile_multi(blocks[0][0], strips[0][0], 2, 0, 0, 12, 12, 0.1,
@@ -225,7 +226,7 @@ def test_plain_versions_count_no_launches(rng):
     csh.shard_tile_multi_resid(blocks[0][1], strips[0][1], 1, 0, 6, 12, 12,
                                0.1, 0.1)
     csh.shard_fused(blocks, 2, 12, 12, 0.1, 0.1)
-    assert set(csh.launch_counts().values()) == {0}
+    assert set(_build.launch_counts("shard").values()) == {0}
 
 
 SWEEP_SHARDS = {"74x106 on 2x2": (74, 106, 2, 2),
@@ -242,7 +243,7 @@ def test_plan_shard_sweep(case, t):
     shard of the mesh, none of them wholly past its block."""
     nx, ny, gx, gy = SWEEP_SHARDS[case]
     bm, bn = -(-nx // gx), -(-ny // gy)
-    plan = cs.plan_strip_sweep(bm, bn, t)
+    plan = cs.tile_plan(bm, bn, t, "cpu")
     assert plan.tsteps == t and cs.STRIP_WARPS == 16
     assert plan.smem_bytes + 4 * cs.STRIP_WARPS <= 232448
     assert 2 * (plan.smem_bytes + 1024 + 4 * cs.STRIP_WARPS) <= 233472
@@ -270,7 +271,7 @@ def test_shard_sweep_tile_paths(nx, ny, gx, gy, t, shard, fast, edge, held):
     the domain (no held cell). A tile inside the block can still cross
     the domain's edge on pad rows, and is swept with the held rule."""
     bm, bn = -(-nx // gx), -(-ny // gy)
-    plan = cs.plan_strip_sweep(bm, bn, t)
+    plan = cs.tile_plan(bm, bn, t, "cpu")
     got = csh.tile_paths(plan, shard[0] * bm, shard[1] * bn, bm, bn, nx, ny)
     assert got == {"fast": fast, "edge": edge, "in_block_held": held}
 

@@ -150,6 +150,22 @@ def test_suspect_rows_equal(case):
         == SUSPECT_WANT[case]
 
 
+def test_sanity_pass_keeps_the_row_labels(monkeypatch, capsys):
+    """A re-measured row replaces a suspect one with the same suite,
+    platform and card, flagged ``rechecked``: the report's header and its
+    readers find every row labelled alike."""
+    recs = [dict(r, suite="chip", platform="cpu x1", card="cpu", steps=10)
+            for r in SUSPECT_CASES["bogus_row"]]
+    points = [dict(mode=r["mode"], nx=80, ny=64, steps=10) for r in recs]
+    monkeypatch.setattr(tsweep, "run_point", lambda **kw: {
+        "mode": kw["mode"], "grid": "80x64", "steps": kw["min_hi"]})
+    out = tsweep.sanity_pass(recs, points, max_hi=1000)
+    assert out[0]["card"] == "cpu" and "rechecked" not in out[0]
+    assert out[1] == {"mode": out[1]["mode"], "grid": "80x64", "steps": 100,
+                      "suite": "chip", "platform": "cpu x1", "card": "cpu",
+                      "rechecked": True}
+
+
 def test_redesign_payoff_pairs_equal():
     recs = [
         {"mode": "dist1d", "grid": "2560x2048", "mesh": "8x1",

@@ -49,10 +49,15 @@ ENV = ("HEAT2D_TRACE_DIR", "HEAT2D_FLIGHT_DIR", "HEAT2D_PERF_DIR",
 @pytest.fixture(autouse=True)
 def _isolated(monkeypatch):
     """No campaign from the environment, and no tracer, recorder or
-    observer of either package left behind."""
+    observer of either package left behind. A CLI run with
+    ``--trace-dir`` sets ``HEAT2D_TRACE_DIR`` for its workers; it goes
+    too (``delenv`` restores only a variable that was set before), or the
+    next test in the process, in any file, traces."""
     for k in ENV:
         monkeypatch.delenv(k, raising=False)
     yield
+    for k in ENV:
+        os.environ.pop(k, None)
     for mod in (tracing, jtracing):
         mod.set_ambient(None)
         mod.uninstall()
@@ -299,7 +304,7 @@ def test_tracing_and_streaming_leave_results_alone(tmp_path, mode,
     """The CLI with --trace-dir, --metrics-out and --profile against the
     CLI without: the same final.dat bytes, the same steps, launch counts
     and residual reads; only the traced record has trace_id."""
-    from heat2d_tpu_torch.ops import cuda_stencil as cs
+    from heat2d_tpu_torch.ops import _build
     base = ["--mode", mode, "--nxprob", "24", "--nyprob", "32", "--steps",
             "60", "--convergence", "--interval", "10", "--sensitivity",
             "1e-30"]
@@ -309,12 +314,12 @@ def test_tracing_and_streaming_leave_results_alone(tmp_path, mode,
                                     "--metrics-out", str(tmp_path / "m"),
                                     "--profile", str(tmp_path / "p")])):
         out = tmp_path / name
-        cs.reset_launch_counts()
+        _build.reset_launch_counts()
         assert _port_cli(base + ["--outdir", str(out), "--run-record",
                                  str(out / "rec.json")] + extra) == 0
         runs[name] = (open(out / "final.dat", "rb").read(),
                       json.load(open(out / "rec.json")),
-                      cs.launch_counts())
+                      _build.launch_counts("stencil"))
         tracing.set_ambient(None)
         tracing.uninstall()
         os.environ.pop("HEAT2D_TRACE_DIR", None)

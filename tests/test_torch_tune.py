@@ -54,6 +54,7 @@ from heat2d_tpu.tune import db as jdb
 from heat2d_tpu_torch.config import ConfigError, HeatConfig
 from heat2d_tpu_torch.models import ensemble as tens
 from heat2d_tpu_torch.models.solver import Heat2DSolver
+from heat2d_tpu_torch.ops import _build
 from heat2d_tpu_torch.ops import cuda_stencil as cs
 from heat2d_tpu_torch.ops import resident as rs
 from heat2d_tpu_torch.parallel import sharded as sh
@@ -431,12 +432,12 @@ def test_no_db_leaves_plans_and_results_alone(monkeypatch):
 
     streamed = HeatConfig(nxprob=2000, nyprob=2000, steps=9, mode="pallas")
     runner = cs.make_single_chip_runner(streamed, "cpu")
-    assert runner.plan == cs.plan_strip_sweep(2000, 2000, cs.DEFAULT_TSTEPS)
+    assert runner.plan == cs.tile_plan(2000, 2000, cs.DEFAULT_TSTEPS, "cpu")
     assert runner.plan.tsteps == 8 and runner.plan.ty == 64
     res = HeatConfig(nxprob=40, nyprob=56, steps=9, mode="pallas")
     runner = cs.make_single_chip_runner(res, "cpu")
     assert runner.plan == rs.plan_for_limits(
-        1, 40, 56, 1, cs.smem_limit("cpu"), rs.H100_SM_COUNT)
+        1, 40, 56, 1, _build.smem_limit("cpu"), _build.H100_SM_COUNT)
     assert cs.resident_plan(40, 56, "cpu") == runner.plan
     u = torch.from_numpy(_inputs(40, 56))
     out, n = runner(u)
@@ -587,8 +588,8 @@ def test_h6_takes_the_depth_at_run_time():
     assert torch.equal(ce.ens_tile_multi(u, 12, cxs, cys, tsteps=12), want)
     with pytest.raises(ValueError, match="T=8"):
         ce.ens_tile_multi(u, 12, cxs, cys)
-    assert ce.tile_plan(24, 40, "cpu", 12, 16) == cs.plan_strip_sweep(
-        24, 40, 12, ty=16)
+    assert ce.tile_plan(24, 40, "cpu", 12, 16) == cs.tile_plan(
+        24, 40, 12, "cpu", 16)
     assert torch.equal(
         ce.ens_tiled_chunk(u, 30, cxs, cys, tsteps=16, ty=16),
         ce.ens_multi_step_plain(u, 30, cxs, cys))

@@ -258,7 +258,7 @@ def sanity_pass(records, points, max_hi, device=None):
         rec = run_point(**points[i], max_hi=max_hi, min_hi=min_hi,
                         device=device)
         rec.update(suite=old.get("suite"), platform=old.get("platform"),
-                   rechecked=True)
+                   card=old.get("card"), rechecked=True)
         records[i] = rec
         print(json.dumps(rec))
     return records
