@@ -28,7 +28,10 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    itself bitwise against its plain version) at 1 and 4 members of
    4096^2, and so are their right-hand-side builds (an ADI half each,
    as the step loop launches them) against the builds' plain versions
-   at 2560x2048 and 4096^2, B in {1, 4};
+   at 2560x2048 and 4096^2, B in {1, 4}; H10's split there (one member:
+   P 4 and 2 segments a system) bit for bit on ``inidat`` at the plan's
+   warm-up and forced to 0 rows, printing P and the share of speculative
+   segments that joined without a replay (100 and 0);
 4. main path: ``Heat2DSolver`` in mode ``pallas`` against mode ``serial``
    on the card: 4096^2 x 240 steps fixed, the same with convergence
    (interval 20) in both step forms, and 640x1024x10000 on the resident
@@ -111,7 +114,8 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    gate's edge; H9 with its plan, its build on the card and the
    plan sweep over depths that chose it; H10/H11 solve only, beside
    the call with its coefficient pass; H10's two builds, coefficients in
-   shared memory or through the read-only cache; ``td_coeffs`` bound by
+   shared memory or through the read-only cache, and its right-hand-side
+   build unsplit beside the plan's split; ``td_coeffs`` bound by
    the latency of its chain of rows, ``td_chain_bound``);
 18. headline: Mcells/s at 4096^2 by bench.py's two-point protocol
    (``models.solver.two_point_headline`` at 4800/24000 steps with the
@@ -986,11 +990,56 @@ def phase_tridiag_kernels(torch) -> dict:
                 f"plain")
             checks += 2
             del u, ustar
+    split, n_split = tridiag_split_checks(torch)
     torch.cuda.synchronize()
-    info = {"phase": "tridiag_kernels", "checks": checks,
-            "max_abs_err": worst}
+    info = {"phase": "tridiag_kernels", "checks": checks + n_split,
+            "max_abs_err": worst, "split": split}
     emit(info)
     return info
+
+
+def tridiag_split_checks(torch) -> tuple:
+    """H10's split at the ADI shapes: the plan's P at 2560x2048 and
+    4096^2, the x half bit for bit its plain version on the solver's grid
+    (``inidat``) at the plan's warm-up and with it forced to 0 rows (every
+    speculative segment replays), and the share of the speculative
+    segments that joined without a replay at the plan's warm-up."""
+    from heat2d_tpu_torch.obs.metrics import get_registry
+    from heat2d_tpu_torch.ops import tridiag as td
+    from heat2d_tpu_torch.ops.init import inidat
+    reg = get_registry()
+
+    def counts():
+        td.collect_split_replays()
+        return [sum(reg.find_counters(k).values()) for k in
+                ("td_split_segments_total", "td_split_replays_total")]
+    out, checks = {}, 0
+    for nx, ny in ((2560, 2048), (4096, 4096)):
+        u = inidat(nx, ny, device="cuda")[None].contiguous()
+        cx = torch.tensor([25.0], device="cuda")
+        cy = torch.tensor([12.5], device="cuda")
+        kx = td.td_coeffs(cx, nx)
+        plan = td.plan_td_rows(1, nx, ny, "cuda", True)
+        want = td.td_rows_rhs_plain(u, cx, cy, kx)
+        row = {"P": plan.segments, "seg_rows": plan.seg_rows,
+               "warm_bits": plan.warm_bits}
+        for key, p in (("plan", plan), ("forced", plan._replace(
+                warm_bits=0))):
+            before = counts()
+            got = td.td_rows_rhs(u, cx, cy, kx, plan=p)
+            segs, reps = (a - b for a, b in zip(counts(), before))
+            fail_unless(torch.equal(got, want), f"td_rows_rhs {nx}x{ny} "
+                        f"split {key}: not bitwise equal to plain")
+            row[f"{key}_hit_share"] = 100.0 * (1 - reps / segs) if segs \
+                else None
+            checks += 1
+        fail_unless(plan.segments == 1 or row["forced_hit_share"] == 0.0,
+                    f"H10 split {nx}x{ny}: forced warm-up 0 did not replay "
+                    f"every segment: {row}")
+        out[f"{nx}x{ny}"] = row
+        del u, got, want
+    print(f"H10 split: {out}", flush=True)
+    return out, checks
 
 
 def pick_sensitivity(torch, nx, ny, cxs, cys, interval):
@@ -1605,6 +1654,16 @@ def td_rows_variants(torch, rhs, c, coef, plan) -> dict:
         out[key] = time_ms(run, 20)
         fail_unless(torch.equal(got, want),
                     f"H10 {key} differs from td_rows_plain")
+    # the right-hand-side build unsplit (P = 1) beside the plan's split
+    whole = td.plan_td_rows(nb, n, m, "cuda", True)._replace(
+        segments=1, seg_rows=0, warm_bits=0)
+    for key, p in (("rhs_unsplit", whole),
+                   ("rhs_split", td.plan_td_rows(nb, n, m, "cuda", True))):
+        out[key] = time_ms(lambda: td.td_rows_rhs(rhs, c, c, coef, plan=p),
+                           20)
+        fail_unless(torch.equal(td.td_rows_rhs(rhs, c, c, coef, plan=p),
+                                td.td_rows_rhs_plain(rhs, c, c, coef)),
+                    f"H10 {key} differs from td_rows_rhs_plain")
     return out
 
 

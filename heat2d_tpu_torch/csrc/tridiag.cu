@@ -22,7 +22,9 @@
 //   H10 k_td_rows  <- _tridiag_rows_kernel (TD, tridiag.py:324): solve
 //                     along axis 1 of a (B, n, m) batch.  One warp takes
 //                     a panel of 32 adjacent columns of one member (one
-//                     system a lane, 128-byte coalesced rows).
+//                     system a lane, 128-byte coalesced rows); where the
+//                     batch has fewer panels than SMs, a segment of its
+//                     rows (the split, below).
 //   H11 k_td_lanes <- _tridiag_lanes_kernel (TD, tridiag.py:349): solve
 //                     along axis 2 of a (B, rows, n) batch.  One warp takes
 //                     a panel of 32 adjacent rows of one member (one system
@@ -96,9 +98,9 @@
 // of a panel are neither copied nor stored; their lanes run the chain on
 // whatever the slot holds, and nothing reads it.
 //
-// The RHS builds.  H10's solving warp is alone on its SM at the ADI
-// path's sizes (2048 columns are 64 panels on 132 SMs) and waits on its
-// own chain, so whatever else it issues lengthens the sweep: forming the
+// The RHS builds.  H10's solving warp waits on its own chain (unsplit, at
+// the ADI path's sizes, alone on its SM: 2048 columns are 64 panels on
+// 132 SMs), so whatever else it issues lengthens the sweep: forming the
 // right-hand side in that warp cost a third of H10's time again (its
 // neighbours read from ring rows of 34 columns; more with shuffles and
 // two halo columns), handing it to a producer warp a sixth, with the
@@ -107,6 +109,41 @@
 // the solving warp's ring in the forward sweep, which stages nothing
 // itself; the back sweep is the plain build's.  H11 forms the right-hand
 // side in its own warp: its rows lie across the tile it stages anyway.
+//
+// The split (H10's SPLIT builds, a template argument as RHS is).  A batch of
+// fewer panels than the card has SMs leaves most SMs empty, and each busy
+// one runs one latency-bound chain of n rows.  So the planner may cut each
+// panel's systems into segments of seg_rows rows, a block each (one solving
+// warp, and in the RHS build its producer), every block resident at once (a
+// cooperative launch).  Both sweeps are first-order recurrences that
+// contract by |cp| (0.67-0.82 a row at c = 12.5-50) once (cp, mi) have
+// reached their fixed point, so a chain started from a guess lands, W rows
+// on, on the sequential chain's bits, and from there computes exactly its
+// values.  A segment therefore starts its forward sweep W rows early from 0,
+// stores only its own rows, and then checks its value at the row before its
+// first against the verified last d that the segment before publishes; its
+// back sweep starts W rows past its last row (from 0, or from d[n-1] where
+// that row is nearer) over the next segment's verified d, and checks its
+// value at the next segment's first row against the x that segment
+// publishes.  A lane whose check fails replays its rows from the verified
+// value (the back sweep by running its forward again: the back sweep has
+// stored over its d), so every stored bit is the unsplit sweep's, whatever
+// W is; W sets only how often that happens.  W is the least multiple of 32
+// rows with |cp|^W <= 2^-warm_bits (the member's fixed-point cp, products
+// rounded as float32), at most WARM_MAX_STAGES stages and one segment.
+//
+// The joins: lane l of a segment publishes each value as one 64-bit word
+// (the launch's epoch in the high half, the float's bits in the low half),
+// stored with release semantics after the lane's own stores of column l;
+// lane l of the neighbour spins on that word with acquire loads.  Every
+// lane reads and writes only its own column, so the lanes pair up and no
+// warp-wide fence is needed.  Per segment: F, its last d (its rows' d are
+// final); R, it has staged what it reads of the next segment's rows, which
+// that segment then may overwrite; B, its first x.  The waits run one way
+// in each sweep (F up, B down; R after F), so with every block resident
+// none can wait on itself.  The epoch grows with every launch on a join
+// buffer, so the buffer is zeroed once, not before each launch.  A warp in
+// which a live lane replayed adds 1 to the buffer's replay word.
 //
 // Every entry point returns a cudaError_t (0 on success); the Python
 // wrapper raises on anything else.
@@ -136,6 +173,15 @@ constexpr int RAW_STAGES = 2;
 constexpr int RAW_ROW = PANEL + 2;
 constexpr int RAW_RING = RAW_STAGES * STAGE_ROWS * RAW_ROW;
 constexpr int SLOT_RHS = (PANEL + 2) * SLOT_STRIDE;
+
+// The split's join buffer (unsigned 64-bit words): SYNC_HEAD words, the
+// first the replay count, then JOIN words a segment (F, R and B, a word a
+// lane), segments of a panel in order, panels of a member in order.
+constexpr int SYNC_HEAD = 32;
+constexpr int JOIN = 3 * PANEL;
+// The warm-up's longest: 8 stages of 32 rows.
+constexpr int WARM_MAX_STAGES = 8;
+constexpr unsigned FULL = 0xffffffffu;
 
 __host__ __device__ constexpr int rows_ring(bool rhs) {
   return RING + (rhs ? RAW_RING : 0);
@@ -237,6 +283,52 @@ __device__ __forceinline__ void stage_in(float* slot, int w,
   cp_async_commit();
 }
 
+// A join word: the epoch over a float's bits, stored with release
+// semantics (the lane's earlier stores are visible before it).
+__device__ __forceinline__ void join_put(unsigned long long* w,
+                                         unsigned epoch, float v) {
+  const unsigned long long x =
+      ((unsigned long long)epoch << 32) | __float_as_uint(v);
+  asm volatile("st.release.gpu.global.b64 [%0], %1;" ::"l"(w), "l"(x)
+               : "memory");
+}
+
+// The float of join word `w` once it carries this launch's epoch.  A wait
+// that has not ended after ~2^26 polls (seconds; a launch takes a
+// millisecond) traps, so that a fault in the joins fails the launch instead
+// of hanging the card.
+__device__ __forceinline__ float join_get(const unsigned long long* w,
+                                          unsigned epoch) {
+  unsigned long long x;
+  for (unsigned polls = 0;; ++polls) {
+    asm volatile("ld.acquire.gpu.global.b64 %0, [%1];"
+                 : "=l"(x)
+                 : "l"(w)
+                 : "memory");
+    if ((unsigned)(x >> 32) == epoch) break;
+    if (polls >= (1u << 26)) __trap();
+    __nanosleep(64);
+  }
+  return __uint_as_float((unsigned)x);
+}
+
+// The warm-up W: the least multiple of 32 rows with |cp|^W <= 2^-bits, by
+// float32 products (|cp|^32 by five squarings), at most WARM_MAX_STAGES
+// stages; 0 rows at bits <= 0.  ops/tridiag.py's warm_rows repeats it.
+__device__ __forceinline__ int warm_rows(float cp, int bits) {
+  if (bits <= 0) return 0;
+  float q = fabsf(cp);
+  for (int i = 0; i < 5; ++i) q = __fmul_rn(q, q);
+  const float goal = ldexpf(1.0f, -bits);
+  float pw = 1.0f;
+  int k = 0;
+  while (k < WARM_MAX_STAGES && pw > goal) {
+    pw = __fmul_rn(pw, q);
+    ++k;
+  }
+  return k * STAGE_ROWS;
+}
+
 // The two warps of an RHS panel meet at named barrier 1 + panel.
 __device__ __forceinline__ void pair_sync(int panel) {
   asm volatile("bar.sync %0, 64;" ::"r"(1 + panel) : "memory");
@@ -264,11 +356,16 @@ __device__ __forceinline__ void pair_sync(int panel) {
 // the two meet at a named barrier once a stage.  An unknown on an edge of
 // the grid keeps u's value, and so does its store in both sweeps, while
 // its lane's chain runs on as in the plain build.
-template <bool COEF_SMEM, bool RHS>
+// SPLIT: one panel a block (warps = 1), block x = panel * nseg + segment;
+// the segment's rows and its joins as the header says, through `sync`
+// (the join buffer) at this launch's `epoch`.
+template <bool COEF_SMEM, bool RHS, bool SPLIT>
 __global__ void __launch_bounds__(RHS ? 256 : 128) k_td_rows(
     const float* __restrict__ rhs, float* __restrict__ out,
     const float* __restrict__ c, const float* __restrict__ sc,
-    const float* __restrict__ coef, int n, int m) {
+    const float* __restrict__ coef, int n, int m,
+    unsigned long long* __restrict__ sync, int seg_rows, int warm_bits,
+    unsigned epoch) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.y;
   const int lane = threadIdx.x % PANEL;
@@ -297,23 +394,35 @@ __global__ void __launch_bounds__(RHS ? 256 : 128) k_td_rows(
       __syncthreads();
     }
   }
-  const int j0 = (blockIdx.x * warps + warp) * PANEL;
+  // SPLIT: segment `seg` of nseg owns rows [own_lo, own_hi) and runs its
+  // forward sweep from lo, W rows earlier (its warm-up)
+  const int nseg = SPLIT ? (n + seg_rows - 1) / seg_rows : 1;
+  const int seg = SPLIT ? (int)blockIdx.x % nseg : 0;
+  const int group = SPLIT ? (int)blockIdx.x / nseg : (int)blockIdx.x;
+  const int W = SPLIT ? min(seg_rows, warm_rows(__ldg(gcp + max(n - 2, 0)),
+                                                warm_bits))
+                      : 0;
+  const int own_lo = seg * seg_rows;
+  const int own_hi = SPLIT ? min(n, own_lo + seg_rows) : n;
+  const int lo = max(0, own_lo - W);
+  const int j0 = (group * warps + warp) * PANEL;
   const int cols = min(PANEL, m - j0);  // the panel's columns in the batch
   const bool valid = lane < cols;
   const size_t mm = (size_t)m;
   const float* src = rhs + (size_t)b * n * m + j0;
   float* dst = out + (size_t)b * n * m + j0;
   const float a = __fmul_rn(-0.5f, c[b]);
+  const float h = RHS ? __fmul_rn(0.5f, sc[b]) : 0.0f;
   // RHS: the lane's column is inside the grid's edges
   const bool inner_col = (unsigned)(j0 + lane - 1) < (unsigned)(m - 2);
   auto cp_at = [&](int i) { return COEF_SMEM ? scp[i] : __ldg(gcp + i); };
   auto mi_at = [&](int i) { return COEF_SMEM ? smi[i] : __ldg(gmi + i); };
   auto inner_row = [&](int i) { return (unsigned)(i - 1) < (unsigned)(n - 2); };
 
-  // Forward sweep: stage s holds rows [s*R, s*R + R).
-  const int nf = (n + STAGE_ROWS - 1) / STAGE_ROWS;
+  // Forward sweep: stage s holds rows [lo + s*R, lo + s*R + R).
+  const int nf = (own_hi - lo + STAGE_ROWS - 1) / STAGE_ROWS;
   auto fwd_cnt = [&](int s) {
-    return s < nf ? min(STAGE_ROWS, n - s * STAGE_ROWS) : 0;
+    return s < nf ? min(STAGE_ROWS, own_hi - lo - s * STAGE_ROWS) : 0;
   };
 
   if (producer) {
@@ -324,10 +433,9 @@ __global__ void __launch_bounds__(RHS ? 256 : 128) k_td_rows(
     // the halo columns the panel has (left of column 0, right of 31)
     const int side = (j0 > 0) | ((j0 + PANEL < m) << 1);
     auto raw_stage = [&](int s) {
-      stage_in(raw_of(s), RAW_ROW, src, s * STAGE_ROWS, 1, fwd_cnt(s), mm,
-               lane, cols, side);
+      stage_in(raw_of(s), RAW_ROW, src, lo + s * STAGE_ROWS, 1, fwd_cnt(s),
+               mm, lane, cols, side);
     };
-    const float h = __fmul_rn(0.5f, sc[b]);
     for (int s = 0; s < RAW_STAGES - 1; ++s) raw_stage(s);
     for (int s = 0; s < nf; ++s) {
       // slot s-1 refills: every lane read it before the last pair_sync
@@ -336,7 +444,7 @@ __global__ void __launch_bounds__(RHS ? 256 : 128) k_td_rows(
       __syncwarp();  // every lane's copies of stage s have landed
       const float* from = raw_of(s) + lane;
       float* to = slot_of(s % 2) + lane;
-      const int row0 = s * STAGE_ROWS;
+      const int row0 = lo + s * STAGE_ROWS;
       // straight-line over the whole slot (rows past the stage's count
       // compute on stale values that nothing reads)
 #pragma unroll
@@ -352,11 +460,53 @@ __global__ void __launch_bounds__(RHS ? 256 : 128) k_td_rows(
     return;
   }
 
+  // SPLIT's replays, lane by lane from device memory: the right-hand side
+  // of row i as the stages form it; the forward sweep over the segment's
+  // rows from the d before them (returns the last d); the back sweep over
+  // them from the x after them, on the d just stored (returns the first x).
+  auto rhs_at = [&](int i) {
+    const float* p = src + lane + (size_t)i * mm;
+    const float ctr = p[0];
+    return RHS && inner_col && inner_row(i) ? half_rhs(ctr, p[1], p[-1], h)
+                                            : ctr;
+  };
+  auto replay_fwd = [&](float d) {
+    for (int i = own_lo; i < own_hi; ++i) {
+      const float xi = rhs_at(i);
+      d = __fmul_rn(__fsub_rn(xi, __fmul_rn(inner_row(i) ? a : 0.0f, d)),
+                    mi_at(i));
+      dst[lane + (size_t)i * mm] =
+          RHS && !(inner_col && inner_row(i)) ? xi : d;
+    }
+    return d;
+  };
+  auto replay_back = [&](float x) {
+    for (int i = own_hi - 1; i >= own_lo; --i) {
+      float* p = dst + lane + (size_t)i * mm;
+      const float d = *p;
+      x = __fsub_rn(d, __fmul_rn(cp_at(i), x));
+      *p = RHS && !(inner_col && i >= 1) ? d : x;
+    }
+    return x;
+  };
+  // this segment's joins (F, R, B words: + 0, + PANEL, + 2 * PANEL)
+  unsigned long long* join =
+      SPLIT ? sync + SYNC_HEAD +
+                  ((size_t)(b * (gridDim.x / nseg) + group) * nseg + seg) *
+                      JOIN
+            : nullptr;
+  // a live lane's value is checked (an edge lane of the RHS build stores
+  // u's values, whatever its chain holds)
+  const bool live = valid && (!RHS || inner_col);
+  auto count_replay = [&](bool miss) {
+    if (__any_sync(FULL, miss) && lane == 0) atomicAdd(sync, 1ull);
+  };
+
   float x[STAGE_ROWS], y[STAGE_ROWS];
   if (!RHS) {
     for (int s = 0; s < STAGES - 1; ++s)
-      stage_in(slot_of(s), PANEL, src, s * STAGE_ROWS, 1, fwd_cnt(s), mm,
-               lane, cols);
+      stage_in(slot_of(s), PANEL, src, lo + s * STAGE_ROWS, 1, fwd_cnt(s),
+               mm, lane, cols);
     if (COEF_SMEM) {
       // The coefficient group is older than the STAGES-1 stage groups.
       cp_async_wait<STAGES - 1>();
@@ -364,6 +514,7 @@ __global__ void __launch_bounds__(RHS ? 256 : 128) k_td_rows(
     }
   }
   float prev = 0.0f;
+  float spec = 0.0f;  // SPLIT: the chain's d at row own_lo - 1
   for (int s = 0; s < nf; ++s) {
     const float* slot;
     if (RHS) {
@@ -371,12 +522,15 @@ __global__ void __launch_bounds__(RHS ? 256 : 128) k_td_rows(
       slot = slot_of(s % 2) + lane;
     } else {
       const int t = s + STAGES - 1;
-      stage_in(slot_of(t), PANEL, src, t * STAGE_ROWS, 1, fwd_cnt(t), mm,
-               lane, cols);
+      stage_in(slot_of(t), PANEL, src, lo + t * STAGE_ROWS, 1, fwd_cnt(t),
+               mm, lane, cols);
       cp_async_wait<STAGES - 1>();
       slot = slot_of(s) + lane;
     }
-    const int row0 = s * STAGE_ROWS, cnt = fwd_cnt(s);
+    const int row0 = lo + s * STAGE_ROWS, cnt = fwd_cnt(s);
+    if (SPLIT && row0 == own_lo) spec = prev;
+    // a warm-up stage (rows before own_lo) stores nothing
+    const bool keep = valid && (!SPLIT || row0 >= own_lo);
 #pragma unroll
     for (int k = 0; k < STAGE_ROWS; ++k)
       if (k < cnt) {
@@ -388,7 +542,7 @@ __global__ void __launch_bounds__(RHS ? 256 : 128) k_td_rows(
 #pragma unroll
       for (int k = 0; k < STAGE_ROWS; ++k) {
         prev = __fmul_rn(__fsub_rn(x[k], __fmul_rn(a, prev)), y[k]);
-        if (valid) o[k * mm] = RHS && !inner_col ? x[k] : prev;
+        if (keep) o[k * mm] = RHS && !inner_col ? x[k] : prev;
       }
     } else {
 #pragma unroll
@@ -397,30 +551,72 @@ __global__ void __launch_bounds__(RHS ? 256 : 128) k_td_rows(
           const int i = row0 + k;
           const float ai = inner_row(i) ? a : 0.0f;
           prev = __fmul_rn(__fsub_rn(x[k], __fmul_rn(ai, prev)), y[k]);
-          if (valid)
+          if (keep)
             o[k * mm] = RHS && !(inner_col && inner_row(i)) ? x[k] : prev;
         }
     }
   }
 
-  // Back substitution: stage s holds rows n-2 - s*R down to n-1 - (s+1)*R.
+  // SPLIT: the forward join.  carry is the verified d at row own_lo - 1.
+  float carry = 0.0f;
+  if (SPLIT) {
+    if (seg > 0) {
+      if (valid) carry = join_get(join - JOIN + lane, epoch);
+      const bool miss =
+          live && __float_as_uint(carry) != __float_as_uint(spec);
+      count_replay(miss);
+      if (miss) prev = replay_fwd(carry);
+    }
+    if (valid) join_put(join + lane, epoch, prev);
+  }
+
+  // Back substitution: stage s holds rows top - s*R down to top - (s+1)*R
+  // + 1 (top = n-2 unsplit; a segment's chain runs down to own_lo).
   // It reads what the warp stored above: order those stores first.
   __threadfence();
-  const int nbk = (n - 1 + STAGE_ROWS - 1) / STAGE_ROWS;
-  auto back_cnt = [&](int s) {
-    return s < nbk ? min(STAGE_ROWS, n - 1 - s * STAGE_ROWS) : 0;
-  };
-  for (int s = 0; s < STAGES - 1; ++s)
-    stage_in(slot_of(s), PANEL, dst, n - 2 - s * STAGE_ROWS, -1,
-             back_cnt(s), mm, lane, cols);
+  const bool last = !SPLIT || seg == nseg - 1;
+  // SPLIT: the chain starts from d[n-1] (exactly) where its warm-up
+  // reaches row n-1, else from 0 at row own_hi + W
+  const bool exact = !SPLIT || own_hi + W >= n;
+  const int top = SPLIT ? min(own_hi + W, n - 1) - 1 : n - 2;
   float next = prev;
+  if (SPLIT && !last) {
+    next = 0.0f;
+    if (valid) {
+      (void)join_get(join + JOIN + lane, epoch);  // the next rows' d is final
+      if (exact) next = __ldcg(dst + lane + (size_t)(n - 1) * mm);
+    }
+  }
+  const int nbk = (top - own_lo + 1 + STAGE_ROWS - 1) / STAGE_ROWS;
+  auto back_cnt = [&](int s) {
+    return s < nbk ? min(STAGE_ROWS, top - own_lo + 1 - s * STAGE_ROWS) : 0;
+  };
+  // SPLIT: R goes out once the stage holding row own_hi has landed (before
+  // the loop when the warm-up reads no row)
+  const int s_read =
+      SPLIT && !last && top >= own_hi ? (top - own_hi) / STAGE_ROWS : -1;
+  if (SPLIT && !last && s_read < 0 && valid)
+    join_put(join + PANEL + lane, epoch, 0.0f);
+  // SPLIT: the segment before has staged its warm-up's rows of this one
+  bool freed = !SPLIT || seg == 0;
+  // SPLIT: the chain's x at row own_hi (its start where no row precedes)
+  float xs = next;
+  for (int s = 0; s < STAGES - 1; ++s)
+    stage_in(slot_of(s), PANEL, dst, top - s * STAGE_ROWS, -1, back_cnt(s),
+             mm, lane, cols);
   for (int s = 0; s < nbk; ++s) {
     const int t = s + STAGES - 1;
-    stage_in(slot_of(t), PANEL, dst, n - 2 - t * STAGE_ROWS, -1,
-             back_cnt(t), mm, lane, cols);
+    stage_in(slot_of(t), PANEL, dst, top - t * STAGE_ROWS, -1, back_cnt(t),
+             mm, lane, cols);
     cp_async_wait<STAGES - 1>();
+    if (SPLIT && s == s_read && valid)
+      join_put(join + PANEL + lane, epoch, 0.0f);
     const float* slot = slot_of(s) + lane;
-    const int hi = n - 2 - s * STAGE_ROWS, cnt = back_cnt(s);
+    const int hi = top - s * STAGE_ROWS, cnt = back_cnt(s);
+    if (SPLIT && !freed && hi - cnt + 1 < own_lo + W) {
+      if (valid) (void)join_get(join - JOIN + PANEL + lane, epoch);
+      freed = true;
+    }
 #pragma unroll
     for (int k = 0; k < STAGE_ROWS; ++k)
       if (k < cnt) {
@@ -432,12 +628,26 @@ __global__ void __launch_bounds__(RHS ? 256 : 128) k_td_rows(
     for (int k = 0; k < STAGE_ROWS; ++k)
       if (k < cnt) {
         next = __fsub_rn(x[k], __fmul_rn(y[k], next));
+        if (SPLIT && hi - k == own_hi) xs = next;
         // RHS: an edge unknown keeps what the forward sweep stored (u's)
-        if (valid)
+        if (valid && (!SPLIT || hi - k < own_hi))
           o[-(ptrdiff_t)(k * mm)] =
               RHS && !(inner_col && hi - k >= 1) ? x[k] : next;
       }
   }
+  // SPLIT: the back join against the next segment's first x
+  if (SPLIT && !last) {
+    float xt = 0.0f;
+    if (valid) xt = join_get(join + JOIN + 2 * PANEL + lane, epoch);
+    const bool miss = live && __float_as_uint(xt) != __float_as_uint(xs);
+    count_replay(miss);
+    if (miss) {
+      replay_fwd(seg > 0 ? carry : 0.0f);
+      next = replay_back(xt);
+    }
+  }
+  if (SPLIT && seg > 0 && valid)
+    join_put(join + 2 * PANEL + lane, epoch, next);
   cp_async_wait<0>();
 }
 
@@ -643,13 +853,42 @@ cudaError_t launch_rows(const float* rhs, float* out, const float* c,
       ((COEF_SMEM ? coef_floats(n) : 0) + (size_t)warps * rows_ring(RHS)) *
       sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      k_td_rows<COEF_SMEM, RHS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      k_td_rows<COEF_SMEM, RHS, false>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const int panels = (m + PANEL - 1) / PANEL;
   const dim3 grid((panels + warps - 1) / warps, nb);
-  k_td_rows<COEF_SMEM, RHS><<<grid, warps * PANEL * (RHS ? 2 : 1), smem, s>>>(
-      rhs, out, c, sc, coef, n, m);
+  k_td_rows<COEF_SMEM, RHS, false>
+      <<<grid, warps * PANEL * (RHS ? 2 : 1), smem, s>>>(
+          rhs, out, c, sc, coef, n, m, nullptr, 0, 0, 0u);
+  return cudaGetLastError();
+}
+
+// H10's split launch: a block (one panel, one segment of seg_rows rows) per
+// grid x index panel * nseg + segment, every block resident at once.
+template <bool COEF_SMEM, bool RHS>
+cudaError_t launch_rows_split(const float* rhs, float* out, const float* c,
+                              const float* sc, const float* coef,
+                              unsigned long long* sync, int nb, int n, int m,
+                              int seg_rows, int warm_bits, unsigned epoch,
+                              cudaStream_t s) {
+  const auto kernel = k_td_rows<COEF_SMEM, RHS, true>;
+  const size_t smem =
+      ((COEF_SMEM ? coef_floats(n) : 0) + (size_t)rows_ring(RHS)) *
+      sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  const int panels = (m + PANEL - 1) / PANEL;
+  const int nseg = (n + seg_rows - 1) / seg_rows;
+  void* args[] = {&rhs, &out,  &c,        &sc,        &coef, &n,
+                  &m,   &sync, &seg_rows, &warm_bits, &epoch};
+  // Refused with cudaErrorCooperativeLaunchTooLarge unless every block is
+  // co-resident, so that no join can wait on a block that never runs.
+  e = cudaLaunchCooperativeKernel((const void*)kernel,
+                                  dim3(panels * nseg, nb),
+                                  dim3(PANEL * (RHS ? 2 : 1)), args, smem, s);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -726,6 +965,67 @@ int heat_td_lanes(const float* rhs, float* out, const float* c,
                   int coef_smem, void* stream) {
   return launch<true>(rhs, out, c, nullptr, coef, nb, rows, n, warps,
                       coef_smem, stream);
+}
+
+// H10 split (above), the solve and the RHS build (sc != NULL): each
+// panel's systems in segments of seg_rows rows, the warm-up from
+// warm_bits, the joins in `sync` (SYNC_HEAD + nb * panels * segments * JOIN
+// zeroed 64-bit words at first use; word 0 counts replays) at `epoch`, a
+// number no earlier launch on this buffer used.
+int heat_td_rows_split(const float* rhs, float* out, const float* c,
+                       const float* coef, unsigned long long* sync, int nb,
+                       int n, int m, int seg_rows, int warm_bits,
+                       int coef_smem, int epoch, void* stream) {
+  if (seg_rows < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return coef_smem ? launch_rows_split<true, false>(
+                         rhs, out, c, nullptr, coef, sync, nb, n, m,
+                         seg_rows, warm_bits, (unsigned)epoch, s)
+                   : launch_rows_split<false, false>(
+                         rhs, out, c, nullptr, coef, sync, nb, n, m,
+                         seg_rows, warm_bits, (unsigned)epoch, s);
+}
+
+int heat_td_rows_rhs_split(const float* u, float* out, const float* c,
+                           const float* sc, const float* coef,
+                           unsigned long long* sync, int nb, int n, int m,
+                           int seg_rows, int warm_bits, int coef_smem,
+                           int epoch, void* stream) {
+  if (seg_rows < 1) return cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  return coef_smem ? launch_rows_split<true, true>(
+                         u, out, c, sc, coef, sync, nb, n, m, seg_rows,
+                         warm_bits, (unsigned)epoch, s)
+                   : launch_rows_split<false, true>(
+                         u, out, c, sc, coef, sync, nb, n, m, seg_rows,
+                         warm_bits, (unsigned)epoch, s);
+}
+
+// A split build (rhs: the RHS build; coef_smem as the launch) at `smem`
+// bytes a block: out[0..2] = registers a thread, local (spill) bytes a
+// thread, blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor):
+// what the planner proves residency with.
+int heat_td_rows_split_info(int rhs, int coef_smem, int smem, int* out) {
+  const void* fns[2][2] = {
+      {(const void*)k_td_rows<false, false, true>,
+       (const void*)k_td_rows<true, false, true>},
+      {(const void*)k_td_rows<false, true, true>,
+       (const void*)k_td_rows<true, true, true>}};
+  const void* fn = fns[rhs != 0][coef_smem != 0];
+  cudaFuncAttributes a;
+  cudaError_t e = cudaFuncGetAttributes(&a, fn);
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem);
+  if (e != cudaSuccess) return e;
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, fn, PANEL * (rhs ? 2 : 1), (size_t)smem);
+  if (e != cudaSuccess) return e;
+  out[0] = a.numRegs;
+  out[1] = (int)a.localSizeBytes;
+  out[2] = blocks;
+  return cudaSuccess;
 }
 
 // The ADI halves, one launch each: heat_td_rows (the x half) and

@@ -82,6 +82,11 @@ SIGNATURES = {
                                   _P]),
         "heat_td_lanes_rhs": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                    _P]),
+        "heat_td_rows_split": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                    _I, _I, _P]),
+        "heat_td_rows_rhs_split": (_I, [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                                        _I, _I, _I, _I, _P]),
+        "heat_td_rows_split_info": (_I, [_I, _I, _I, _P]),
     },
     "shard": {
         "heat_error_string": (ctypes.c_char_p, [_I]),
@@ -217,6 +222,7 @@ def _stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+
 def call(library: str, entry: str, name, what: str, *args,
          device=None) -> None:
     """Call C entry point ``entry`` of ``csrc/<library>.cu`` on ``args``,
@@ -291,6 +297,10 @@ H100_L2_BYTES = 50 * 2 ** 20
 #: takes 1 KB for the system: what bounds blocks per SM besides threads.
 SM_SMEM_BYTES = 233472
 BLOCK_RESERVED_SMEM = 1024
+#: Registers, threads and blocks an SM of the H100 holds at most.
+SM_REGISTERS = 65536
+SM_THREADS = 2048
+SM_BLOCKS = 32
 #: Static shared memory of the tile kernel (H3's warp sums: 4 bytes for
 #: each of its 8 warps), left out of the dynamic shared memory a plan
 #: may use (``smem_limit``).

@@ -25,7 +25,9 @@ accuracy, far past the explicit box.
                        in every program of the TPU kernel
   H10   ``td_rows``    along axis 1 of (B, n, m): a warp per panel of 32
                        columns, coefficients and rhs staged in shared
-                       memory; replaces ``_tridiag_rows_kernel`` (:324)
+                       memory, or per segment of its rows where the batch
+                       has fewer panels than SMs (the split, below);
+                       replaces ``_tridiag_rows_kernel`` (:324)
   H11   ``td_lanes``   along axis 2 of (B, rows, n): a warp per panel of 32
                        rows, 32 x 32 tiles staged and transposed in shared
                        memory so that every access is a coalesced row
@@ -50,6 +52,17 @@ accuracy, far past the explicit box.
   panels of H10 and H11 are planned from the card's SMs (``plan_td_rows``,
   ``plan_td_lanes``).
 
+H10 splits where a batch has fewer panels than the card has SMs
+(``plan_td_rows``): each panel's systems run as segments of rows, a block
+each, all resident at once; each segment starts its sweeps W rows early
+from a guess, checks the value where it meets its neighbour's verified one
+and replays its rows where the bits differ, so every stored bit is the
+unsplit sweep's (``csrc/tridiag.cu``). The registry's
+``td_split_segments_total`` counts, at each split launch, the segments it
+runs past the first of each sweep (the speculative ones);
+``td_split_replays_total`` the replays, a word on the card that
+``collect_split_replays`` reads in once the work is done.
+
 On a CPU tensor a kernel wrapper runs its plain version; on a CUDA tensor
 it launches the kernel or raises. Each launch counts under the kernel's
 name in ``_build.launch_counts`` (a right-hand-side build counts as its
@@ -63,11 +76,16 @@ on a card, none on the CPU), once per call of ``adi_sweep_kernel`` or
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import threading
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from heat2d_tpu_torch.obs.metrics import get_registry
+from heat2d_tpu_torch.ops import _build
 from heat2d_tpu_torch.ops._build import (call, device_caps, entry_launches,
                                          round_up)
 from heat2d_tpu_torch.utils.profiling import phase
@@ -75,7 +93,8 @@ from heat2d_tpu_torch.utils.profiling import phase
 #: The right-hand-side builds' entry points: each launch is one ADI half
 #: run as one launch. The step loops add the launches of their call to
 #: the registry's ``adi_halves_fused_total``.
-RHS_ENTRIES = ("heat_td_rows_rhs", "heat_td_lanes_rhs")
+RHS_ENTRIES = ("heat_td_rows_rhs", "heat_td_lanes_rhs",
+               "heat_td_rows_rhs_split")
 
 #: The solve kernels put the member on blockIdx.y.
 MAX_MEMBERS = 65535
@@ -382,6 +401,9 @@ class RowsPlan(NamedTuple):
     coef_smem: bool   # (cp, mi) staged in shared memory
     smem_bytes: int   # dynamic shared memory of a block
     blocks: int
+    segments: int = 1   # H10: segments of rows a system runs in (split)
+    seg_rows: int = 0   # H10 split: rows a segment owns (0: unsplit)
+    warm_bits: int = 0  # H10 split: the warm-up's rule (below)
 
 
 #: H10's ring per warp (csrc/tridiag.cu: STAGES x STAGE_ROWS x 32 floats).
@@ -412,14 +434,116 @@ def _plan_panels(nb: int, n: int, systems: int, ring: int, sms: int,
     return RowsPlan(warps, coef_smem, need, nb * -(-panels // warps))
 
 
+#: H10's split: a segment owns at least this many rows, so that its
+#: warm-ups (at most ``WARM_MAX_ROWS`` a sweep) stay a small share.
+SPLIT_MIN_ROWS = 256
+#: The warm-up W of a split segment: the least multiple of 32 rows with
+#: |cp|^W <= 2^-WARM_BITS at the member's fixed-point cp (96 rows at c =
+#: 12.5 and 25, 160 at c = 50), at most ``WARM_MAX_ROWS`` and a segment.
+#: A chain's error falls to an ulp after ~24 bits; two chains an ulp
+#: apart then merge at random, and the rest is that margin.
+WARM_BITS = 44
+WARM_MAX_ROWS = 256
+#: The join buffer of the split (``csrc/tridiag.cu``): 64-bit words, a
+#: head of 32 (word 0 counts replays), then 96 a segment.
+SYNC_HEAD = 32
+JOIN_WORDS = 96
+
+
+def warm_rows(cp: float, bits: int) -> int:
+    """The kernel's warm-up at a member's fixed-point ``cp``
+    (``csrc/tridiag.cu``, ``warm_rows``): the least multiple of 32 rows
+    with |cp|^W <= 2^-bits by float32 products (|cp|^32 by five
+    squarings), at most ``WARM_MAX_ROWS``; 0 at bits <= 0. A launch takes
+    at most a segment of it."""
+    if bits <= 0:
+        return 0
+    f = np.float32
+    q = f(abs(f(cp)))
+    for _ in range(5):
+        q = f(q * q)
+    goal, pw, rows = f(2.0 ** -bits), f(1.0), 0
+    while rows < WARM_MAX_ROWS and pw > goal:
+        pw = f(pw * q)
+        rows += 32
+    return rows
+
+
+def rows_per_sm(device, rhs: bool, coef_smem: bool, smem: int) -> int:
+    """Blocks of H10's split build (one panel a block) one SM of
+    ``device`` holds at ``smem`` bytes: the card's occupancy
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``, ``split_info``);
+    for the CPU the H100's by shared memory, threads and blocks, and by
+    registers at the 255 a thread may take, so never more than the card
+    holds."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        with torch.cuda.device(dev):
+            return split_info(rhs, coef_smem, smem)["blocks_per_sm"]
+    threads = 32 * (2 if rhs else 1)
+    return min(_build.SM_SMEM_BYTES // (smem + _build.BLOCK_RESERVED_SMEM),
+               _build.SM_THREADS // threads, _build.SM_BLOCKS,
+               _build.SM_REGISTERS // (256 * threads))
+
+
+def split_info(rhs: bool, coef_smem: bool, smem: int) -> dict:
+    """H10's split build on the current card at ``smem`` bytes a block:
+    registers and local (spill) bytes a thread, blocks an SM."""
+    buf = (ctypes.c_int * 3)()
+    call("tridiag", "heat_td_rows_split_info", None, "H10 split_info",
+         int(rhs), int(coef_smem), smem, buf)
+    return {"registers": buf[0], "local_bytes": buf[1],
+            "blocks_per_sm": buf[2]}
+
+
+def split_rows(plan: RowsPlan, nb: int, n: int, m: int, p: int,
+               warm_bits: int) -> RowsPlan:
+    """``plan`` (one panel a block) with each system cut into ``p``
+    segments of whole 32-row stages: the last may own fewer rows, and
+    fewer segments than ``p`` remain where the rounding leaves nothing for
+    the last."""
+    seg_rows = round_up(-(-n // p), 32)
+    segments = -(-n // seg_rows)
+    return plan._replace(blocks=nb * -(-m // 32) * segments,
+                         segments=segments, seg_rows=seg_rows,
+                         warm_bits=warm_bits)
+
+
 def plan_td_rows(nb: int, n: int, m: int, device="cpu",
                  rhs: bool = False) -> RowsPlan:
     """H10's launch on a (nb, n, m) batch on ``device`` (a batch on the
     CPU plans what the H100 would): panels of 32 columns
-    (``_plan_panels``); ``rhs``: the right-hand-side build's ring."""
+    (``_plan_panels``); ``rhs``: the right-hand-side build's ring.
+
+    Where the batch has fewer panels than the card has SMs, the split
+    (``split_rows``): P segments a system, P the least power of two with
+    ``nb * panels * P >= sm_count``, halved while a segment would own
+    fewer than ``SPLIT_MIN_ROWS`` rows; taken only where the card launches
+    cooperative grids and holds every block at once (``rows_per_sm``), so
+    that no join waits on a block that has not started. Elsewhere the
+    unsplit plan: the same grid, blocks and entry point as before the
+    split existed. Each launch plans, so the plan is kept per shape, card
+    and rule."""
+    return _plan_rows(nb, n, m, device, rhs, WARM_BITS, SPLIT_MIN_ROWS)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan_rows(nb: int, n: int, m: int, device, rhs: bool, warm_bits: int,
+               min_rows: int) -> RowsPlan:
     caps = device_caps(device)
-    return _plan_panels(nb, n, m, TD_RHS_RING_BYTES if rhs
+    plan = _plan_panels(nb, n, m, TD_RHS_RING_BYTES if rhs
                         else TD_RING_BYTES, caps.sm_count, caps.smem_optin)
+    panels = -(-m // 32)
+    p = 1
+    while nb * panels * p < caps.sm_count and n // (2 * p) >= min_rows:
+        p *= 2
+    if p == 1 or not caps.cooperative:
+        return plan
+    split = split_rows(plan, nb, n, m, p, warm_bits)
+    if split.blocks > caps.sm_count * rows_per_sm(
+            device, rhs, plan.coef_smem, plan.smem_bytes):
+        return plan
+    return split
 
 
 def plan_td_lanes(nb: int, rows: int, n: int, device="cpu",
@@ -433,32 +557,94 @@ def plan_td_lanes(nb: int, rows: int, n: int, device="cpu",
                         caps.smem_optin)
 
 
-def _launch(kernel: str, x, c, coef, sc=None):
+#: The split's join buffers: (device, stream) -> [words, epoch], an int64
+#: tensor zeroed once, room for ``2 * sm_count`` segments (a split plan
+#: has fewer: it doubles P only while the blocks stay below the SMs), and
+#: the epoch its last launch used; and the replays already read from them.
+_joins: dict = {}
+_replays_read = 0
+#: Two threads launching on one stream never share an epoch.
+_joins_lock = threading.Lock()
+
+
+def _join_buffer(device, segments: int) -> tuple:
+    """The join buffer of the stream a launch on ``device`` goes to and
+    the next epoch on it (after 2**31 - 2 launches its joins are zeroed
+    again, in stream order)."""
+    room = 2 * device_caps(device).sm_count
+    if segments > room:
+        raise ValueError(f"H10 split: {segments} segments exceed the join "
+                         f"buffer's {room}")
+    words = SYNC_HEAD + room * JOIN_WORDS
+    key = (device, _build._stream(device))
+    with _joins_lock:
+        got = _joins.get(key)
+        if got is None:
+            got = _joins[key] = [torch.zeros(words, dtype=torch.int64,
+                                             device=device), 0]
+        got[1] += 1
+        if got[1] >= 2 ** 31 - 1:
+            got[0][SYNC_HEAD:].zero_()
+            got[1] = 1
+        return got[0], got[1]
+
+
+def collect_split_replays(reg=None) -> None:
+    """Add the replays the cards counted since the last call to the
+    registry's (``reg``'s) ``td_split_replays_total``: a read of each join
+    buffer's replay word, which waits for the card, so a reader calls it
+    once the work it reads is done. Adds nothing before a split launch."""
+    global _replays_read
+    if not _joins:
+        return
+    total = sum(int(w[0]) for w, _ in _joins.values())
+    (reg or get_registry()).counter("td_split_replays_total",
+                                    total - _replays_read)
+    _replays_read = total
+
+
+def _launch(kernel: str, x, c, coef, sc=None, plan=None):
     """One launch of H10 (``kernel`` "td_rows") or H11 ("td_lanes") on the
-    (B, n1, n2) batch ``x`` on its card, planned from the card: the solve,
-    or with ``sc`` (the stencil's (B,) diffusion numbers) the ADI half's
-    right-hand-side build on the step's grid ``x``."""
+    (B, n1, n2) batch ``x`` on its card, planned from the card unless
+    ``plan`` is given: the solve, or with ``sc`` (the stencil's (B,)
+    diffusion numbers) the ADI half's right-hand-side build on the step's
+    grid ``x``. A split plan (H10 only) goes to the split entry point with
+    its join buffer and counts its speculative segments."""
     nb, n1, n2 = x.shape
-    plan = (plan_td_lanes if kernel == "td_lanes" else plan_td_rows)(
-        nb, n1, n2, x.device, sc is not None)
+    if plan is None:
+        plan = (plan_td_lanes if kernel == "td_lanes" else plan_td_rows)(
+            nb, n1, n2, x.device, sc is not None)
     out = torch.empty_like(x)
     entry = f"heat_{kernel}" + ("_rhs" if sc is not None else "")
-    call("tridiag", entry, kernel, kernel, x, out, c,
-         *((sc,) if sc is not None else ()), coef, nb, n1, n2, plan.warps,
-         int(plan.coef_smem))
+    stencil = (sc,) if sc is not None else ()
+    if plan.segments > 1:
+        if kernel != "td_rows" or plan.warps != 1:
+            raise ValueError(f"{kernel}: a split plan is H10's, one panel a "
+                             f"block, got {plan}")
+        words, epoch = _join_buffer(x.device, plan.blocks)
+        call("tridiag", entry + "_split", kernel, kernel, x, out, c,
+             *stencil, coef, words, nb, n1, n2, plan.seg_rows,
+             plan.warm_bits, plan.coef_smem, epoch)
+        panels = plan.blocks // plan.segments
+        get_registry().counter("td_split_segments_total",
+                               2 * panels * (plan.segments - 1))
+        return out
+    call("tridiag", entry, kernel, kernel, x, out, c, *stencil, coef, nb,
+         n1, n2, plan.warps, plan.coef_smem)
     return out
 
 
-def td_rows(rhs, c, coef=None):
+def td_rows(rhs, c, coef=None, *, plan=None):
     """H10: solve every member's CN systems (diffusion number ``c[b]``)
     along axis 1 of the (B, n, m) batch: a warp per panel of 32 columns
-    (``plan_td_rows``). ``coef``: the (B, 2, n) ``td_coeffs(c, n)``,
-    computed here when absent."""
+    (``plan_td_rows``; ``plan``, a ``RowsPlan`` to launch instead, is the
+    tests' way to force a split or its warm-up). ``coef``: the (B, 2, n)
+    ``td_coeffs(c, n)``, computed here when absent."""
     _validate(rhs, c, "td_rows")
     coef = _checked_coef(coef, c, rhs.shape[1], "td_rows")
     if rhs.device.type == "cpu":
         return td_rows_plain(rhs, c, coef)
-    return _launch("td_rows", rhs, c, coef)
+    return _launch("td_rows", rhs, c, coef, plan=plan)
 
 
 def td_lanes(rhs, c, coef=None):
@@ -488,18 +674,19 @@ def td_lanes_rhs_plain(u, c, s, coef=None):
         _rhs_half(u, s.reshape(-1, 1, 1), 0), c, coef), u)
 
 
-def td_rows_rhs(u, c, s, coef=None):
+def td_rows_rhs(u, c, s, coef=None, *, plan=None):
     """The x half of an ADI step of the (B, n, m) batch ``u`` in one H10
     launch (its right-hand-side build): each row's right-hand side at
     the stencil's ``s[b]`` formed as the kernel stages u, the solve at
     ``c[b]`` with the (B, 2, n) ``coef`` (computed when absent), u's edges
-    held in its stores; bit for bit ``td_rows_rhs_plain``."""
+    held in its stores; bit for bit ``td_rows_rhs_plain``. ``plan`` as in
+    ``td_rows``."""
     _validate(u, c, "td_rows_rhs")
     _validate(u, s, "td_rows_rhs")
     coef = _checked_coef(coef, c, u.shape[1], "td_rows_rhs")
     if u.device.type == "cpu":
         return td_rows_rhs_plain(u, c, s, coef)
-    return _launch("td_rows", u, c, coef, s)
+    return _launch("td_rows", u, c, coef, s, plan=plan)
 
 
 def td_lanes_rhs(u, c, s, coef=None):

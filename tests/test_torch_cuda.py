@@ -503,6 +503,86 @@ def test_td_rows_reads_large_systems_through_the_cache(card):
     assert torch.equal(td.td_rows(rhs, c), td.td_rows_plain(rhs, c))
 
 
+def _split_replays():
+    """``td_split_replays_total`` once the cards' replay words are read."""
+    from heat2d_tpu_torch.ops import tridiag as td
+    td.collect_split_replays()
+    return sum(get_registry().find_counters(
+        "td_split_replays_total").values())
+
+
+@pytest.mark.parametrize("build", ["solve", "rhs"])
+@pytest.mark.parametrize("nb, n, m", [(1, 2560, 2048), (1, 4097, 1000),
+                                      (2, 1031, 2053), (1, 777, 33),
+                                      (1, 30000, 36)])
+def test_td_rows_split_bitwise_and_counts_its_replays(card, nb, n, m,
+                                                      build):
+    """H10's split builds (the planner splits each of these: fewer panels
+    than SMs) against their plain versions, bit for bit, on noise: at the
+    planner's warm-up and with it forced to 0 rows, where every
+    speculative segment with a checked lane replays; the replays the card
+    counts are those of the CPU's emulation of the schedule
+    (``tests/_td_split.emulate_split``), which gives the same bits."""
+    from heat2d_tpu_torch.ops import tridiag as td
+    from _td_split import emulate_split
+    g = torch.Generator(device=card)
+    g.manual_seed(n * 7919 + m * 31 + nb)
+    x = torch.rand((nb, n, m), generator=g, device=card) * 1e3 - 500
+    c = torch.tensor([25.0, 12.5][:nb], device=card)
+    s = (torch.tensor([50.0, 30.0][:nb], device=card) if build == "rhs"
+         else None)
+    coef = td.td_coeffs(c, n)
+    plan = td.plan_td_rows(nb, n, m, card, s is not None)
+    assert plan.segments > 1, plan
+    want = (td.td_rows_plain(x, c, coef) if s is None
+            else td.td_rows_rhs_plain(x, c, s, coef))
+    cols = range(1, m - 1) if s is not None else range(m)
+    joins = 2 * nb * len({j // 32 for j in cols}) * (plan.segments - 1)
+    _build.reset_launch_counts()
+    for p in (plan, plan._replace(warm_bits=0)):
+        before = _split_replays()
+        got = (td.td_rows(x, c, coef, plan=p) if s is None
+               else td.td_rows_rhs(x, c, s, coef, plan=p))
+        assert torch.equal(got, want)
+        emu, replays = emulate_split(x.cpu(), c.cpu(), coef.cpu(), p,
+                                     None if s is None else s.cpu())
+        assert torch.equal(emu, want.cpu())
+        assert _split_replays() - before == replays
+    assert replays == joins
+    assert _build.launch_counts("tridiag")["td_rows"] == 2
+
+
+@pytest.mark.parametrize("c", [12.5, 25.0, 50.0])
+def test_td_rows_split_joins_hit_on_the_adi_grid(card, c):
+    """The ADI cell's x half (``inidat`` at 2560x2048, the planner's 4
+    segments of 640 rows) joins with no replay at c = 12.5, 25 and 50,
+    and stays bit for bit its plain version."""
+    from heat2d_tpu_torch.ops import tridiag as td
+    u = inidat(2560, 2048, device=card)[None].contiguous()
+    cc = torch.tensor([c], device=card)
+    s = torch.tensor([75.0 - c], device=card)
+    coef = td.td_coeffs(cc, 2560)
+    assert td.plan_td_rows(1, 2560, 2048, card, True).segments == 4
+    before = _split_replays()
+    got = td.td_rows_rhs(u, cc, s, coef)
+    assert _split_replays() == before
+    assert torch.equal(got, td.td_rows_rhs_plain(u, cc, s, coef))
+
+
+def test_td_rows_split_build_and_occupancy(card):
+    """The split builds spill nothing, and an SM holds at least the blocks
+    the CPU's plan counts on (its residency proof for the H100)."""
+    from heat2d_tpu_torch.ops import tridiag as td
+    for rhs in (False, True):
+        for n, m in ((2560, 2048), (4096, 4096), (30000, 36)):
+            plan = td.plan_td_rows(1, n, m, "cpu", rhs)
+            info = td.split_info(rhs, plan.coef_smem, plan.smem_bytes)
+            assert info["local_bytes"] == 0, info
+            assert info["blocks_per_sm"] >= td.rows_per_sm(
+                "cpu", rhs, plan.coef_smem, plan.smem_bytes), info
+            assert td.plan_td_rows(1, n, m, card, rhs) == plan
+
+
 @pytest.mark.parametrize("b", [1, 4])
 @pytest.mark.parametrize("m", [3, 31, 33, 4097])
 @pytest.mark.parametrize("n", [3, 31, 33, 4097])

@@ -39,6 +39,7 @@ from heat2d_tpu_torch.ops import tridiag as ttd
 from heat2d_tpu_torch.serve.engine import EnsembleEngine
 from heat2d_tpu_torch.serve.schema import SolveRequest
 from heat2d_tpu_torch.serve.server import Client, SolveServer
+from tests._td_split import emulate_split, split_plan
 from tests._torch_recording import record_launches
 
 
@@ -381,17 +382,18 @@ def test_solver_adi_kernel_route_hoists_coefficients(monkeypatch):
 
 
 @pytest.mark.parametrize("nb, n, m, warps, coef_smem, blocks", [
-    (1, 4096, 4096, 1, True, 128),   # the ADI path: one wave
+    (1, 4096, 4096, 1, True, 256),   # the ADI path: 2 segments a system
     (4, 4096, 4096, 4, True, 128),   # leg (f): 4 warps a block
     (3, 4099, 4097, 3, True, 129),
     (1, 37, 1, 1, True, 1),
-    (1, 30000, 36, 1, False, 2),     # 8n too large: cached reads
+    (1, 30000, 36, 1, False, 126),   # 8n too large: cached reads; split
 ])
 def test_plan_td_rows(nb, n, m, warps, coef_smem, blocks):
     """H10's launch on the H100's 132 SMs and 232,448 bytes: panels of 32
     columns, up to 4 a block so that every panel runs in one wave, (cp,
     mi) in shared memory where their 8n bytes (rounded up to 16) fit
-    beside the rings."""
+    beside the rings; a batch of fewer panels than SMs split into
+    segments of rows, a block each."""
     plan = ttd.plan_td_rows(nb, n, m)
     assert (plan.warps, plan.coef_smem, plan.blocks) == (
         warps, coef_smem, blocks)
@@ -571,6 +573,122 @@ def test_plan_rhs_builds_count_their_wider_rings(nb, n1, n2):
         assert plan.coef_smem == (coef + plan.warps * ring <= 232448)
         assert plan.smem_bytes == (coef if plan.coef_smem else 0) \
             + plan.warps * ring <= 232448
+
+
+# ------------------------------------------------------------------ #
+# H10's split: segments of rows, speculative warm-ups, verified joins
+# ------------------------------------------------------------------ #
+
+def _live_panels(m: int, rhs: bool) -> int:
+    """Panels of 32 columns with a lane the split checks: any column,
+    or in the right-hand-side build an inner one."""
+    cols = range(1, m - 1) if rhs else range(m)
+    return len({j // 32 for j in cols})
+
+
+@pytest.mark.parametrize("build", ["solve", "rhs"])
+@pytest.mark.parametrize("p", [1, 2, 4])
+@pytest.mark.parametrize("nb, n, m", [(1, 700, 37), (2, 660, 64),
+                                      (3, 650, 33)])
+def test_split_schedule_is_the_unsplit_sweep(nb, n, m, p, build, rng):
+    """The split schedule (``tests/_td_split.emulate_split``, what the
+    SPLIT builds of H10 run on the card) equals ``td_rows_plain`` /
+    ``td_rows_rhs_plain`` bit for bit, at c in [12.5, 50] on ragged
+    panels: at the planner's warm-up on noise and on the solver's smooth
+    grid (``inidat``), replaying at most every speculative segment; and
+    with the warm-up forced to 0 rows on noise, where every speculative
+    segment with a checked lane replays."""
+    from heat2d_tpu_torch.ops.init import inidat
+    c = torch.tensor([12.5, 50.0, 31.0][:nb])
+    s = torch.tensor([50.0, 12.5, 20.0][:nb]) if build == "rhs" else None
+    coef = ttd.td_coeffs_plain(c, n)
+
+    def plain(x):
+        return (ttd.td_rows_plain(x, c, coef) if s is None
+                else ttd.td_rows_rhs_plain(x, c, s, coef))
+    joins = 2 * nb * _live_panels(m, s is not None) * (p - 1)
+    noise = torch.from_numpy((rng.normal(size=(nb, n, m)) * 500)
+                             .astype(np.float32))
+    smooth = torch.stack([inidat(n, m)] * nb).contiguous()
+    plan = split_plan(nb, n, m, p, rhs=s is not None)
+    assert plan.segments == p
+    for x in (noise, smooth):
+        got, replays = emulate_split(x, c, coef, plan, s)
+        assert torch.equal(got, plain(x)) and replays <= joins
+    forced = split_plan(nb, n, m, p, warm_bits=0, rhs=s is not None)
+    got, replays = emulate_split(noise, c, coef, forced, s)
+    assert torch.equal(got, plain(noise)) and replays == joins
+
+
+@pytest.mark.parametrize("c", [12.5, 25.0, 50.0])
+def test_split_joins_hit_on_the_adi_cells_grid(c):
+    """At the planner's warm-up, the x half of an ADI step on the solver's
+    grid (``inidat``, here 1280 x 256, 4 segments of 320 rows) joins
+    without a replay at c = 12.5, 25 and 50: the rule's margin past the
+    ulp, on the grid the ADI cell solves."""
+    from heat2d_tpu_torch.ops.init import inidat
+    n, m = 1280, 256
+    u = inidat(n, m)[None].contiguous()
+    cc, s = torch.tensor([c]), torch.tensor([75.0 - c])
+    coef = ttd.td_coeffs_plain(cc, n)
+    plan = split_plan(1, n, m, 4, rhs=True)
+    got, replays = emulate_split(u, cc, coef, plan, s)
+    assert torch.equal(got, ttd.td_rows_rhs_plain(u, cc, s, coef))
+    assert replays == 0
+
+
+@pytest.mark.parametrize("bits, c, rows", [
+    (0, 25.0, 0), (ttd.WARM_BITS, 0.3, 32), (ttd.WARM_BITS, 12.5, 96),
+    (ttd.WARM_BITS, 25.0, 128), (ttd.WARM_BITS, 50.0, 160),
+    (80, 51.2, ttd.WARM_MAX_ROWS)])
+def test_split_warm_up_follows_the_members_cp(bits, c, rows):
+    """W from the member's fixed-point cp (``warm_rows``, the kernel's
+    rule in float32): longer where the recurrence contracts slower, 0
+    rows at 0 bits, at most ``WARM_MAX_ROWS``."""
+    cp = float(ttd.td_coeffs_plain(torch.tensor([c]), 2560)[0, 0, 2558])
+    assert ttd.warm_rows(cp, bits) == rows
+
+
+@pytest.mark.parametrize("rhs", [False, True])
+def test_split_launch_takes_its_entry_joins_and_counts(rhs, monkeypatch):
+    """A split plan (here the planner's: 2 segments of 320 rows for a
+    600-row member of two panels) goes to the split entry point with the
+    stream's join buffer and a new epoch each launch; the registry counts
+    2 x panels x (segments - 1) speculative segments a launch, and
+    ``collect_split_replays`` reads the buffer's replay word in (0: no
+    card ran)."""
+    calls = record_launches(monkeypatch)
+    monkeypatch.setattr(ttd, "_joins", {})
+    monkeypatch.setattr(ttd, "_replays_read", 0)
+    x = torch.zeros(1, 600, 37)
+    c, s = torch.ones(1), torch.full((1,), 2.0)
+    coef = ttd.td_coeffs(c, 600)
+    plan = ttd.plan_td_rows(1, 600, 37, rhs=rhs)
+    assert (plan.segments, plan.seg_rows, plan.blocks) == (2, 320, 4)
+    reg = get_registry()
+
+    def segments():
+        return sum(reg.find_counters("td_split_segments_total").values())
+    before = segments()
+    _build.reset_launch_counts()
+    for _ in range(2):
+        ttd._launch("td_rows", x, c, coef, s if rhs else None)
+    assert segments() - before == 2 * 4
+    assert _build.launch_counts("tridiag")["td_rows"] == 2
+    name = "heat_td_rows" + ("_rhs" if rhs else "") + "_split"
+    assert [n for n, _ in calls] == [name, name]
+    [words] = [w for w, _ in ttd._joins.values()]
+    assert words.dtype == torch.int64
+    assert words.numel() == ttd.SYNC_HEAD + 2 * 132 * ttd.JOIN_WORDS
+    for epoch, (_, args) in enumerate(calls, 1):
+        ptrs = 6 if rhs else 5
+        assert args[ptrs - 1] == words.data_ptr()
+        assert args[ptrs:-1] == (1, 600, 37, 320, ttd.WARM_BITS, 1, epoch)
+    replays = reg.find_counters("td_split_replays_total")
+    ttd.collect_split_replays()
+    got = reg.find_counters("td_split_replays_total")
+    assert sum(got.values()) == sum(replays.values())
+    assert got
 
 
 # ------------------------------------------------------------------ #

@@ -265,13 +265,15 @@ PINNED_PLANS = [
     ("resident", (2560, 2048), None),
     ("ensemble", (8, 640, 1024, 1), (8, 640, 1024, 1, 4, 59, 342, 11, 3, 4)),
     ("ensemble", (3, 96, 80, 2), (3, 96, 80, 2, 4, 8, 80, 12, 1, 3)),
-    ("td_rows", (1, 2560, 2048), (1, True, 53248, 64)),
-    ("td_rows_rhs", (1, 2560, 2048), (1, True, 61952, 64)),
-    ("td_lanes", (1, 2560, 2048), (1, True, 50176, 80)),
-    ("td_lanes_rhs", (1, 2560, 2048), (1, True, 52288, 80)),
-    ("td_rows_rhs", (8, 640, 1024), (2, True, 88064, 128)),
-    ("td_lanes_rhs", (8, 640, 1024), (2, True, 80000, 80)),
-    ("td_rows", (200, 4096, 4096), (4, True, 163840, 6400)),
+    ("td_rows", (1, 2560, 2048), (1, True, 53248, 256, 4, 640, 44)),
+    ("td_rows_rhs", (1, 2560, 2048), (1, True, 61952, 256, 4, 640, 44)),
+    ("td_lanes", (1, 2560, 2048), (1, True, 50176, 80, 1, 0, 0)),
+    ("td_lanes_rhs", (1, 2560, 2048), (1, True, 52288, 80, 1, 0, 0)),
+    ("td_rows_rhs", (8, 640, 1024), (2, True, 88064, 128, 1, 0, 0)),
+    ("td_lanes_rhs", (8, 640, 1024), (2, True, 80000, 80, 1, 0, 0)),
+    ("td_rows", (200, 4096, 4096), (4, True, 163840, 6400, 1, 0, 0)),
+    ("td_rows_rhs", (1, 4096, 4096), (1, True, 74240, 256, 2, 2048, 44)),
+    ("td_rows_rhs", (4, 2560, 2048), (2, True, 103424, 128, 1, 0, 0)),
 ]
 
 
@@ -279,7 +281,10 @@ PINNED_PLANS = [
 def test_plans_are_pinned_on_the_cpu(planner, args, want):
     """``tile_plan``, ``resident_plan``, ``plan_resident``,
     ``plan_td_rows`` and ``plan_td_lanes`` on the CPU: the plans the card
-    would launch at these shapes, unchanged."""
+    would launch at these shapes, unchanged but for H10's split where a
+    batch has fewer panels than SMs (P = 4 at 1 x 2560 x 2048, 2 at 1 x
+    4096^2; at 4 x 2560 x 2048 the unsplit plan). A split plan proves
+    that the H100 holds all its blocks at once."""
     from heat2d_tpu_torch.ops import tridiag as td
     if planner == "tile":
         nx, ny, t, *ty = args
@@ -293,7 +298,12 @@ def test_plans_are_pinned_on_the_cpu(planner, args, want):
     else:
         fn = td.plan_td_rows if planner.startswith("td_rows") \
             else td.plan_td_lanes
-        got = fn(*args, rhs=planner.endswith("_rhs"))
+        rhs = planner.endswith("_rhs")
+        got = fn(*args, rhs=rhs)
+        if got.segments > 1:
+            per_sm = td.rows_per_sm("cpu", rhs, got.coef_smem,
+                                    got.smem_bytes)
+            assert per_sm in (3, 4) and got.blocks <= 132 * per_sm
     assert got == want
 
 
