@@ -105,6 +105,9 @@ Phases, each of which stops the run with a non-zero exit when it fails:
    requests through a ``SolveServer`` (16^2 diffusivity, 2048^2 init
    through H6) and their cache-hit repeats; FD parity in float64 at
    64^2; H6's launches, zeroed just before, equal the band sweeps;
+   one gradient of the initial-field recovery at 2560x2048 x 1000
+   steps through ``InverseProblem.value_and_grad`` (band, H6's
+   launches equal its 125 sweeps), twice;
 17. the ``kernels`` line: the shape timed, time, bound, plain and library
    times of each kernel H1-H14 and the coefficient pass at its path's
    shapes (H2 per 8 steps with its plan sweep over depths and its tiles
@@ -2229,6 +2232,67 @@ def diff_inverse_requests(torch) -> dict:
     return rows
 
 
+#: The inverse leg's gradient: the Report's plate at Table 10's 1000
+#: iterations, the benchmark's inverse cell.
+INVERSE_GRID, INVERSE_STEPS = (2560, 2048), 1000
+
+
+def diff_inverse_gradient(torch) -> dict:
+    """One gradient of the initial-field recovery at 2560x2048 x 1000
+    steps (every 3rd interior cell observed, the port's own forward of
+    the unit-peak ``inidat`` at cx = cy = 0.1 as the observations)
+    through the runner ``InverseProblem.solve`` uses
+    (``value_and_grad()``, method auto: band), twice (the first builds
+    and warms the allocator): each time H6's launches, zeroed just
+    before, equal the band sweeps of the 32 forward segments; the
+    seconds (host clock to a synchronize) and the peak memory above the
+    inputs of each."""
+    from heat2d_tpu_torch.diff.adjoint import make_diff_solve, segment_schedule
+    from heat2d_tpu_torch.diff.inverse import (InverseProblem,
+                                               observation_mask,
+                                               unit_reference_init)
+    from heat2d_tpu_torch.ops import _build
+    from heat2d_tpu_torch.ops import cuda_ensemble as ce
+    (nx, ny), steps = INVERSE_GRID, INVERSE_STEPS
+    f = make_diff_solve(nx, ny, steps, device="cuda")
+    fail_unless(f.spec.method == "band",
+                f"{nx}x{ny} auto resolved to {f.spec.method}, not band")
+    truth = torch.from_numpy(unit_reference_init(nx, ny)).cuda()
+    mask = observation_mask(nx, ny)
+    obs = f(truth, 0.1, 0.1).cpu().numpy()
+    prob = InverseProblem(nx, ny, steps, "init", mask, obs, device="cuda")
+    vg = prob.value_and_grad()
+    p0 = torch.as_tensor(prob.initial_params(), device="cuda")
+    sweeps = sum(-(-k // ce.DEFAULT_TSTEPS) for k in f.spec.schedule)
+    runs = []
+    for _ in range(2):
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        loss, g = vg(p0)
+        torch.cuda.synchronize()
+        h6 = _build.launch_counts("ensemble")["ens_tile_multi"]
+        runs.append({"seconds": time.perf_counter() - t0,
+                     "loss": float(loss),
+                     "grad_norm": float(torch.linalg.vector_norm(g)),
+                     "h6_launches": h6,
+                     "peak_gib": (torch.cuda.max_memory_allocated()
+                                  - base) / 2**30})
+        fail_unless(h6 == sweeps,
+                    f"inverse gradient at {nx}x{ny} x {steps}: H6 launched "
+                    f"{h6} times, not the {sweeps} band sweeps of its "
+                    f"forward segments")
+        fail_unless(math.isfinite(runs[-1]["loss"])
+                    and bool(torch.isfinite(g).all()),
+                    "inverse gradient: non-finite loss or gradient")
+    return {"grid": [nx, ny], "steps": steps,
+            "schedule": list(segment_schedule(steps)),
+            "band_sweeps": sweeps, "runs": runs,
+            "h6_launches": sum(r["h6_launches"] for r in runs)}
+
+
 def phase_diff_path(torch, name: str, power: str) -> dict:
     """The differentiable solves on the card (``heat2d_tpu_torch/diff``).
     The gradient of ``sum(w * u_T)`` at 4096^2 x 240 steps, const, method
@@ -2317,6 +2381,10 @@ def phase_diff_path(torch, name: str, power: str) -> dict:
                     "non-finite gradient")
     info["fd"] = diff_fd_check(torch)
     emit({"phase": "diff_path_fd", **info["fd"]})
+    info["inverse_gradient"] = diff_inverse_gradient(torch)
+    emit({"phase": "diff_path_inverse", **info["inverse_gradient"]})
+    info["launches"]["ens_tile_multi"] += \
+        info["inverse_gradient"]["h6_launches"]
     return info
 
 

@@ -46,6 +46,13 @@ counterpart of the JAX package's jnp code, not a plain version standing
 in for a hand kernel; a hand adjoint-step kernel would be a feature the
 JAX package lacks.
 
+Spans (``utils/profiling.phase``: entered only while a profiler records
+or tracing is armed, nothing otherwise): ``diff.forward`` once a
+segment of the checkpointed forward (once for the full-storage
+forward), ``diff.recompute`` and ``diff.pullback`` once a segment of
+the backward (docs/PORT_DIFF.md). They move no bit of the primal or the
+gradient.
+
 The band route consults the tuning db (``tune.runtime.adjoint_config``)
 for H6's sweep depth and tile height on the grid's shape, where a db is
 active: ``make_diff_solve`` pre-resolves it, as the JAX package does, so
@@ -64,6 +71,7 @@ from heat2d_tpu_torch.diff.vocab import ADJOINTS, COEFFS, METHODS
 from heat2d_tpu_torch.models.engine import run_fixed_stacked
 from heat2d_tpu_torch.ops.stencil import stencil_step, stencil_step_var
 from heat2d_tpu_torch.utils.device import resolve_device
+from heat2d_tpu_torch.utils.profiling import phase
 
 
 def segment_schedule(steps: int, segment=None) -> tuple:
@@ -159,14 +167,17 @@ class _DiffSolve(torch.autograd.Function):
             # The primal alone: the fused forward, no stored state.
             return _multi(spec, u0, a, b, spec.steps)
         if spec.adjoint == "full":
-            u_final, stored = _segment_states(spec, u0, a, b, spec.steps)
+            with phase("diff.forward"):
+                u_final, stored = _segment_states(spec, u0, a, b,
+                                                  spec.steps)
         else:
             # Each segment's first state, filled in place.
             stored = u0.new_empty((len(spec.schedule),) + tuple(u0.shape))
             u_final = u0
             for i, k in enumerate(spec.schedule):
-                stored[i] = u_final
-                u_final = _multi(spec, u_final, a, b, k)
+                with phase("diff.forward"):
+                    stored[i] = u_final
+                    u_final = _multi(spec, u_final, a, b, k)
         ctx.save_for_backward(stored, a, b)
         return u_final
 
@@ -183,11 +194,13 @@ class _DiffSolve(torch.autograd.Function):
             else:
                 # The stored start's segment, recomputed by the same
                 # per-step step the full route stored its states with.
-                _, seg = _segment_states(spec, stored[i], a, b, n)
-            for t in reversed(range(n)):
-                w, da, db = _step_vjp(spec, seg[t], a, b, w)
-                ga = ga + da
-                gb = gb + db
+                with phase("diff.recompute"):
+                    _, seg = _segment_states(spec, stored[i], a, b, n)
+            with phase("diff.pullback"):
+                for t in reversed(range(n)):
+                    w, da, db = _step_vjp(spec, seg[t], a, b, w)
+                    ga = ga + da
+                    gb = gb + db
             # free this segment's states before the next one is
             # recomputed: one segment's states live at a time
             del seg

@@ -19,7 +19,10 @@ iteration. The best iterate so far is kept as a host copy
 (``resil.snapshot_state``, its dtype kept), so a diverging tail never
 loses it. Every iteration streams ``inverse_loss`` and
 ``inverse_grad_norm`` series points and the ``inverse_iterations_total``
-counter into the metrics registry it is given.
+counter into the metrics registry it is given. The hook
+``utils/profiling.phase`` marks each iteration (``inverse.iteration``)
+and each best-iterate copy (``inverse.snapshot``) while a profiler
+records or tracing is armed (docs/PORT_DIFF.md).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ from heat2d_tpu_torch.diff.vocab import TARGETS
 from heat2d_tpu_torch.ops.stability import project_stable
 from heat2d_tpu_torch.resil.snapshot import snapshot_state
 from heat2d_tpu_torch.utils.device import resolve_device
+from heat2d_tpu_torch.utils.profiling import phase
 
 
 def synthetic_diffusivity(nx: int, ny: int, base: float = 0.08,
@@ -187,30 +191,32 @@ def adam_minimize(value_and_grad: Callable, params0, *,
             paused = True
             break
         it += 1
-        loss, g = value_and_grad(params)
-        loss = float(loss)
-        gn = float(torch.sqrt(torch.sum(g * g)))
-        loss_hist.append(loss)
-        gn_hist.append(gn)
-        if registry is not None:
-            registry.series("inverse_loss", it, loss, **labels)
-            registry.series("inverse_grad_norm", it, gn, **labels)
-            registry.counter("inverse_iterations_total")
-        if progress is not None:
-            progress(it, loss, gn)
-        if loss < best_loss:
-            best_loss = loss
-            best = snapshot_state(params, dtype=None)
-        if tol is not None and loss <= tol:
-            converged = True
-            break
-        m = beta1 * m + (1.0 - beta1) * g
-        v = beta2 * v + (1.0 - beta2) * g * g
-        mhat = m / (1.0 - beta1 ** it)
-        vhat = v / (1.0 - beta2 ** it)
-        params = params - lr * mhat / (torch.sqrt(vhat) + eps)
-        if project is not None:
-            params = project(params)
+        with phase("inverse.iteration"):
+            loss, g = value_and_grad(params)
+            loss = float(loss)
+            gn = float(torch.sqrt(torch.sum(g * g)))
+            loss_hist.append(loss)
+            gn_hist.append(gn)
+            if registry is not None:
+                registry.series("inverse_loss", it, loss, **labels)
+                registry.series("inverse_grad_norm", it, gn, **labels)
+                registry.counter("inverse_iterations_total")
+            if progress is not None:
+                progress(it, loss, gn)
+            if loss < best_loss:
+                best_loss = loss
+                with phase("inverse.snapshot"):
+                    best = snapshot_state(params, dtype=None)
+            if tol is not None and loss <= tol:
+                converged = True
+                break
+            m = beta1 * m + (1.0 - beta1) * g
+            v = beta2 * v + (1.0 - beta2) * g * g
+            mhat = m / (1.0 - beta1 ** it)
+            vhat = v / (1.0 - beta2 ** it)
+            params = params - lr * mhat / (torch.sqrt(vhat) + eps)
+            if project is not None:
+                params = project(params)
     out_state = None
     if paused:
         out_state = AdamState(

@@ -429,3 +429,65 @@ def test_bench_torch_quick_on_the_cpu():
     assert rec["device"]["platform"] == "cpu"
     assert rec["time_to_solution"]["summary"]["adi_matched_accuracy"]
     assert "pct_of_calibrated_bound" not in rec
+
+
+# --------------------------------------------------------------------- #
+# spans and their counts (utils/profiling.phase)
+# --------------------------------------------------------------------- #
+
+DIFF_SPANS = ("diff.forward", "diff.recompute", "diff.pullback")
+
+
+def _diff_counts():
+    from heat2d_tpu_torch.obs import get_registry
+    spans = {dict(k).get("span"): v for k, v in get_registry()
+             .find_counters("trace_spans_total").items()}
+    return {n: spans.get(n, 0.0) for n in DIFF_SPANS}
+
+
+def _grads_counted(f, armed: bool):
+    """(grads, counts added) of one gradient of ``sum(u_T)``, under a
+    CPU profiler (the hook armed) or not."""
+    from torch.profiler import ProfilerActivity, profile
+    before = _diff_counts()
+    ins = [torch.tensor(_u0(12, 10), requires_grad=True),
+           torch.tensor(0.1, requires_grad=True),
+           torch.tensor(0.12, requires_grad=True)]
+
+    def run():
+        return torch.autograd.grad(torch.sum(f(*ins)), ins)
+    if armed:
+        with profile(activities=[ProfilerActivity.CPU]):
+            grads = run()
+    else:
+        grads = run()
+    after = _diff_counts()
+    return grads, {k: after[k] - before[k] for k in after}
+
+
+@pytest.mark.parametrize("method,adjoint,segment", [
+    ("jnp", "checkpoint", None), ("band", "checkpoint", 4),
+    ("jnp", "full", 5)])
+def test_spans_and_counters_count_segments_and_steps_when_armed(
+        method, adjoint, segment):
+    f = tadj.make_diff_solve(12, 10, 23, adjoint=adjoint, segment=segment,
+                             method=method, device="cpu")
+    sched = f.spec.schedule
+    _, off = _grads_counted(f, armed=False)
+    assert all(v == 0 for v in off.values()), off
+    _, on = _grads_counted(f, armed=True)
+    ck = adjoint == "checkpoint"
+    # one pullback entry a segment, and the segments cover the steps
+    assert sum(sched) == 23
+    assert on == {"diff.forward": len(sched) if ck else 1,
+                  "diff.recompute": len(sched) if ck else 0,
+                  "diff.pullback": len(sched)}
+
+
+@pytest.mark.parametrize("method", ["jnp", "band"])
+def test_gradient_bitwise_the_same_armed_and_not(method):
+    f = tadj.make_diff_solve(12, 10, 23, method=method, device="cpu")
+    off, _ = _grads_counted(f, armed=False)
+    on, _ = _grads_counted(f, armed=True)
+    assert all(torch.equal(a, b) for a, b in zip(off, on))
+

@@ -246,6 +246,49 @@ def test_adam_pause_and_resume_bitwise():
     assert rest.loss_history == whole.loss_history
 
 
+def _inverse_counts():
+    from heat2d_tpu_torch.obs import get_registry
+    spans = {dict(k).get("span"): v for k, v in get_registry()
+             .find_counters("trace_spans_total").items()}
+    return {n: spans.get(n, 0.0) for n in ("inverse.iteration",
+                                           "inverse.snapshot",
+                                           "diff.pullback")}
+
+
+@pytest.mark.parametrize("target", ["init", "diffusivity"])
+def test_iteration_spans_when_armed_and_iterates_bitwise(target):
+    """Under a profiler (the hook armed) each Adam iteration enters
+    ``inverse.iteration`` once and each improving one ``inverse.snapshot``
+    once, nothing when off; the iterates are bit for bit the same."""
+    from torch.profiler import ProfilerActivity, profile
+    true_k, u0, mask, values = _observed(every=2)
+    prob = InverseProblem(12, 12, 16, target, mask, values, u0=u0,
+                          device="cpu")
+
+    def solve(armed):
+        before = _inverse_counts()
+        if armed:
+            with profile(activities=[ProfilerActivity.CPU]):
+                sol = prob.solve(iterations=5, lr=0.05)
+        else:
+            sol = prob.solve(iterations=5, lr=0.05)
+        after = _inverse_counts()
+        return sol, {k: after[k] - before[k] for k in after}
+
+    off, n_off = solve(False)
+    on, n_on = solve(True)
+    assert all(v == 0 for v in n_off.values()), n_off
+    improving = sum(1 for i, x in enumerate(on.loss_history)
+                    if x < min(on.loss_history[:i], default=float("inf")))
+    assert n_on["inverse.iteration"] == 5
+    assert n_on["inverse.snapshot"] == improving >= 1
+    assert n_on["diff.pullback"] == 5 * len(
+        make_diff_solve(12, 12, 16, device="cpu").spec.schedule)
+    assert on.params.tobytes() == off.params.tobytes()
+    assert on.loss_history == off.loss_history
+    assert on.grad_norm_history == off.grad_norm_history
+
+
 def test_inverse_problem_validation():
     _, _, mask, values = _observed()
     for kw in ({"target": "nope"}, {"nx": 10, "ny": 10},
